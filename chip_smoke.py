@@ -1,0 +1,448 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port on one NVIDIA GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py`` (no
+arguments; one card). It builds the CUDA kernels of
+``rri_nmf_tpu_torch/csrc`` and drives the port's main path at the sizes
+its users run, one line per phase:
+
+1. the card, its power limit, the torch and CUDA versions;
+2. the kernel build;
+3. kernel B1 (Gauss-Seidel topic loop) against its plain twin at the
+   shapes of the fit and the transform, in float64 (logic, 1e-10) and
+   float32, with CUDA-event times of kernel and twin;
+4. kernel B2 (projected T-phase) the same way, plus the simplex checks;
+5. ``nmf()`` with the phase recipe at 16384×8192 k=128 float32 (launch
+   counts, a non-increasing objective, ms/sweep), and a 2048×1024 k=32
+   fit on the card against the same fit on the CPU in float64;
+6. ``NMF_TM_Estimator`` with the fast-TM recipe at the 20 Newsgroups
+   train-split shape 11,314×26,214 k=50 on a synthetic Zipf/Dirichlet
+   corpus (tf-idf and normalization on the card): fit, transform and
+   score of 512 held-out documents, and a 600×1500 k=10 fit on the card
+   against the same fit on the CPU in float64.
+
+Then one JSON line of the kernels (launches on the main path, error
+against the twin, kernel and twin ms), and as the last line
+``{"ok": true, "device": {...}}``. Any failure raises before that line
+and exits non-zero; without a CUDA device the script exits non-zero
+before doing anything. Data come from numpy seeds.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# float64 logic check: the kernel and its twin differ only in summation
+# order, so they agree to ~1e-14 relative; 1e-10 leaves margin yet
+# catches any indexing or branch fault.
+TOL_F64 = 1e-10
+# float32: the numerators N - G·F sum k products in another order than
+# the twin (a cuBLAS GEMV), and the Gauss-Seidel chain over k topics
+# carries that rounding (float32 eps 6e-8) forward: ~1e-6 of the row
+# scale at these shapes on an H100; 1e-4 keeps margin for cancellation
+# in N - G·F. Logic errors are caught by the float64 check above.
+TOL_F32 = 1e-4
+# float32 row sums of a simplex-projected row over d <= 26214 columns,
+# re-summed by torch in another order: |sum - s| <= d·eps·s ≈ 2e-3 in
+# the worst case, ~1e-6 in practice; 1e-4 is stated.
+TOL_SIMPLEX_F32 = 1e-4
+# float32 objective slack: 0.5||X - WT||² is a sum of n·d squares in
+# float32; successive values may tick up by rounding, not by descent.
+OBJ_SLACK_F32 = 1e-5
+# card float32 vs CPU float64 fit of the same problem from the same init:
+# final objectives after 20 sweeps differ by float32 rounding of the
+# trajectory (~1e-6 relative); 1e-3 is stated.
+TOL_CPU_GPU_OBJ = 1e-3
+
+B1 = {'name': 'gs', 'route': 'cuda',
+      'source': 'rri_nmf_tpu_torch/csrc/gs.cu',
+      'replaces': 'rri_nmf_tpu/ops/dense_pallas.py:151'}
+B2 = {'name': 'tm_proj', 'route': 'cuda',
+      'source': 'rri_nmf_tpu_torch/csrc/tm_proj.cu',
+      'replaces': 'rri_nmf_tpu/ops/dense_pallas.py:248'}
+FAST_TM = dict(update_order='phase', reset_topic_method=None)
+
+# (n, d, k): bench.py's headline fit; the small card-vs-CPU fit
+NMF_SHAPE = (16384, 8192, 128)
+SMALL_SHAPE = (2048, 1024, 32)
+# (train docs, held-out docs, words, topics): the 20 Newsgroups
+# train-split shape of BASELINE #2
+TM_SHAPE = (11314, 512, 26214, 50)
+# (docs, words, topics) of the small card-vs-CPU estimator fit
+TM_SMALL = (600, 1500, 10)
+# B2 shapes: the TM fit's T-phase and bench.py's (k, d)
+TM_PROJ_SHAPES = [(50, 26214), (128, 8192)]
+SWEEPS = 20
+
+
+def log(phase, **fields):
+    print(json.dumps({'phase': phase, **fields}), flush=True)
+
+
+def sync(dev):
+    if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+
+
+def time_ms(fn, dev, runs=5):
+    """Median milliseconds of ``fn()`` over ``runs`` runs after one
+    warm-up: CUDA events on a card, the host clock otherwise."""
+    fn()
+    sync(dev)
+    out = []
+    for _ in range(runs):
+        if dev.type == 'cuda':
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b))
+        else:
+            t = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(out))
+
+
+def rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+# --------------------------------------------------------------------------
+# data (numpy seeds)
+# --------------------------------------------------------------------------
+
+def lowrank(n, d, k, dev, seed=0, noise=0.01):
+    """Low-rank plus noise X (benchmarks/run_baselines.py _synth_lowrank),
+    float32 on ``dev``; the rank-k product is formed on the device."""
+    rng = np.random.RandomState(seed)
+    W = torch.as_tensor(rng.rand(n, k), dtype=torch.float32, device=dev)
+    T = torch.as_tensor(rng.rand(k, d), dtype=torch.float32, device=dev)
+    E = torch.as_tensor(rng.rand(n, d).astype(np.float32), device=dev)
+    return (W @ T).add_(E, alpha=noise)
+
+
+def zipf_corpus(n_docs, n_words, n_topics, seed=0, doc_len=120):
+    """Synthetic topic-model counts (benchmarks/run_baselines.py
+    _synth_text): permuted-Zipf topics, Dirichlet(0.1) mixtures,
+    multinomial documents of ``doc_len`` words. Returns float32 numpy."""
+    rng = np.random.RandomState(seed)
+    rank = 1.0 / np.arange(1, n_words + 1, dtype=float)
+    topics = np.zeros((n_topics, n_words))
+    for t in range(n_topics):
+        topics[t, rng.permutation(n_words)] = rank
+        topics[t] /= topics[t].sum()
+    probs = rng.dirichlet(np.full(n_topics, 0.1), size=n_docs) @ topics
+    probs /= probs.sum(axis=1, keepdims=True)
+    X = np.zeros((n_docs, n_words), dtype=np.float32)
+    for i in range(n_docs):
+        X[i] = rng.multinomial(doc_len, probs[i])
+    return X
+
+
+# --------------------------------------------------------------------------
+# phases
+# --------------------------------------------------------------------------
+
+def gs_cases(X, Xt_new, T_new, k, dev, seed=1):
+    """B1 inputs at the fit's shapes (X (n, d), k topics) and the
+    transform's (the learned T_new (k', d) against Xt_new (d, m)):
+    ``(label, G, N, F, kwargs)`` in float64."""
+    rng = np.random.RandomState(seed)
+    n, d = X.shape
+    X = X.double()
+    W = torch.as_tensor(rng.rand(n, k), device=dev)
+    T = torch.as_tensor(rng.rand(k, d), device=dev)
+    Wd = W.clone()
+    Wd[:, 5] = 0                                   # a dead topic
+    Td = T.clone()
+    Td[5] = 0
+    ub = torch.as_tensor(rng.rand(n) + 0.5, device=dev)
+    Tn = T_new.double()
+    k_new, m_new = Tn.shape[0], Xt_new.shape[1]
+    Wn = torch.as_tensor(rng.rand(k_new, m_new), device=dev)
+    Wn = Wn / Wn.sum(0, keepdim=True)
+    inf = float('inf')
+    return [
+        ('T-phase k=%d m=%d' % (k, d), W.T @ W, W.T @ X, T,
+         dict(l1=0.0, l2=0.0, bound=inf)),
+        ('T-phase neg-l1', W.T @ W, W.T @ X, T,
+         dict(l1=-0.05, l2=0.1, bound=inf)),
+        ('T-phase dead topic', Wd.T @ Wd, Wd.T @ X, T,
+         dict(l1=-0.01, l2=0.0, bound=1.0)),
+        ('T-phase reps=3', W.T @ W, W.T @ X, T,
+         dict(l1=0.0, l2=0.0, bound=inf, reps=3)),
+        ('W-phase k=%d m=%d' % (k, n), T @ T.T, T @ X.T, W.T.contiguous(),
+         dict(l1=0.0, l2=0.0, bound=inf)),
+        ('W-phase dead topic, vector ub', Td @ Td.T, Td @ X.T,
+         W.T.contiguous(), dict(l1=-0.05, l2=0.0, bound=inf, ub=ub)),
+        ('transform W-phase k=%d m=%d' % (k_new, m_new), Tn @ Tn.T,
+         Tn @ Xt_new.double(), Wn, dict(l1=0.0, l2=0.0, bound=1.0)),
+    ]
+
+
+def check_kernel(name, update, ref, cases, dev, timed):
+    """Kernel vs twin on every case in float64 and float32; times the
+    cases named in ``timed``. Returns (max float32 error, ms, plain_ms)."""
+    worst32, ms, plain_ms = 0.0, None, None
+    for label, *args, kw in cases:
+        for dtype, tol in ((torch.float64, TOL_F64),
+                           (torch.float32, TOL_F32)):
+            a = [x.to(dtype).contiguous() for x in args]
+            kwd = {key: (v.to(dtype) if isinstance(v, torch.Tensor) else v)
+                   for key, v in kw.items()}
+            got = update(*a, **kwd)
+            want = ref(*a, **kwd)
+            sync(dev)
+            err = rel_err(got, want)
+            if not (err <= tol and bool(torch.isfinite(got).all())):
+                raise AssertionError('%s %s %s: error %.3g > %g'
+                                     % (name, label, dtype, err, tol))
+            line = {'case': label, 'dtype': str(dtype), 'rel_err': err}
+            if dtype == torch.float32:
+                worst32 = max(worst32, float((got - want).abs().max()))
+                if label in timed:
+                    line['ms'] = time_ms(lambda: update(*a, **kwd), dev)
+                    line['plain_ms'] = time_ms(lambda: ref(*a, **kwd), dev)
+                    if ms is None:
+                        ms, plain_ms = line['ms'], line['plain_ms']
+            log('kernel %s' % name, **line)
+    return worst32, ms, plain_ms
+
+
+def tm_cases(k_d_list, dev, seed=2):
+    """B2 inputs: (label, G, N, F, kwargs) in float64, F on the simplex."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for k, d in k_d_list:
+        n = 2048
+        W = torch.as_tensor(rng.rand(n, k), device=dev)
+        Xs = torch.as_tensor(rng.rand(n, d) ** 8, device=dev)
+        F = torch.as_tensor(rng.rand(k, d), device=dev)
+        F = F / F.sum(1, keepdim=True)
+        out.append(('k=%d d=%d' % (k, d), W.T @ W, W.T @ Xs, F,
+                    dict(l1=0.0, l2=0.0, s=1.0)))
+        if len(out) == 1:
+            Wd = W.clone()
+            Wd[:, 3] = 0                           # concave branch
+            out.append(('k=%d d=%d dead topic' % (k, d), Wd.T @ Wd,
+                        Wd.T @ Xs, F, dict(l1=0.0, l2=0.0, s=1.0)))
+            out.append(('k=%d d=%d reps=3 l2' % (k, d), W.T @ W, W.T @ Xs,
+                        F, dict(l1=0.0, l2=0.5, s=1.0, reps=3)))
+    return out
+
+
+def check_simplex(T, s, what):
+    T = T.float()
+    dev_sum = float((T.sum(1) - s).abs().max())
+    if dev_sum > TOL_SIMPLEX_F32 or float(T.min()) < 0:
+        raise AssertionError('%s off the simplex: |sum-s| %.3g, min %.3g'
+                             % (what, dev_sum, float(T.min())))
+    return dev_sum
+
+
+def run_nmf_phase(dev, dk, nmf, frob):
+    n, d, k = NMF_SHAPE
+    X = lowrank(n, d, k, dev, seed=0)
+    before = dict(dk.LAUNCHES)
+    t0 = time.perf_counter()
+    res = nmf(X, k, max_iter=SWEEPS, compute_obj_each_iter=True,
+              random_state=0, **FAST_TM)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    gs = dk.LAUNCHES['gs'] - before['gs']
+    obj = res['obj_history']
+    sweeps = len(obj)
+    if gs != 2 * sweeps or dk.LAUNCHES['tm_proj'] != before['tm_proj']:
+        raise AssertionError('nmf(): %d B1 launches for %d sweeps' %
+                             (gs, sweeps))
+    for a, b in zip(obj, obj[1:]):
+        if b > a + OBJ_SLACK_F32 * abs(a):
+            raise AssertionError('objective rose: %r -> %r' % (a, b))
+    W, T = res['W'], res['T']
+    if not (bool(torch.isfinite(W).all()) and bool(torch.isfinite(T).all())
+            and np.all(np.isfinite(obj))):
+        raise AssertionError('non-finite factors or objective')
+    stamps = np.diff([0.0] + list(res['iter_cputime']))
+    # sweep-only time: the same fit continued, no objective per sweep
+    res2 = nmf(X, k, max_iter=10, W_in=W, T_in=T, random_state=0,
+               **FAST_TM)
+    sync(dev)
+    sweep_ms = float(np.median(np.diff(res2['iter_cputime']))) * 1e3
+    log('nmf %dx%d k=%d float32' % (n, d, k), sweeps=sweeps,
+        gs_launches=gs, obj_first=obj[0], obj_last=obj[-1],
+        rel_frobenius_error=frob(X, W, T), wall_s=wall,
+        ms_per_sweep_with_objective=float(np.median(stamps[1:])) * 1e3,
+        ms_per_sweep=sweep_ms)
+
+    # the same fit on the card (float32) and on the CPU (float64, twins)
+    n, d, k = SMALL_SHAPE
+    kw = dict(max_iter=SWEEPS, compute_obj_each_iter=True, init='random',
+              random_state=3, **FAST_TM)
+    Xs = lowrank(n, d, k, torch.device('cpu'), seed=4).double()
+    o_gpu = nmf(Xs.to(dev).float(), k, **kw)['obj_history']
+    o_cpu = nmf(Xs, k, **kw)['obj_history']
+    diff = abs(o_gpu[-1] - o_cpu[-1]) / abs(o_cpu[-1])
+    if len(o_gpu) != len(o_cpu) or not diff <= TOL_CPU_GPU_OBJ:
+        raise AssertionError('card vs CPU objective: %r vs %r'
+                             % (o_gpu[-1], o_cpu[-1]))
+    log('nmf %dx%d k=%d card float32 vs cpu float64' % (n, d, k),
+        sweeps=len(o_gpu), obj_card=o_gpu[-1], obj_cpu=o_cpu[-1],
+        rel_diff=diff)
+
+
+def _tm_fit(Est, X, k, iters, **nmf_kwargs):
+    n, d = X.shape
+    return Est(n, d, k, random_state=0, max_iter=iters,
+               nmf_kwargs=dict(FAST_TM, **nmf_kwargs)).fit(X)
+
+
+def run_tm_phase(dev, dk, Est, counts):
+    from rri_nmf_tpu_torch.matrixops import normalize, tfidf
+    n_train, _, _, k = TM_SHAPE
+    X = torch.as_tensor(counts, device=dev)
+    # tf-idf and row normalization on the card, the train split's idf
+    # applied to the held-out documents
+    Xtr, idf = tfidf(X[:n_train], return_idf=True)
+    Xtr = normalize(Xtr)
+    Xte = normalize(X[n_train:] * idf)
+    del X
+    n, d = Xtr.shape
+    b0 = dict(dk.LAUNCHES)
+    t0 = time.perf_counter()
+    est = _tm_fit(Est, Xtr, k, SWEEPS)
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    b1 = dict(dk.LAUNCHES)
+    sweeps = len(est.nmf_outputs['iter_cputime'])
+    if (b1['tm_proj'] - b0['tm_proj'] != sweeps
+            or b1['gs'] - b0['gs'] != sweeps):
+        raise AssertionError('fit: B2 %d, B1 %d launches for %d sweeps' % (
+            b1['tm_proj'] - b0['tm_proj'], b1['gs'] - b0['gs'], sweeps))
+    t_dev = check_simplex(est.T, 1.0, 'T rows')
+    Wn = est.transform(Xte)
+    sync(dev)
+    b2 = dict(dk.LAUNCHES)
+    if b2['gs'] - b1['gs'] != 4 or b2['tm_proj'] != b1['tm_proj']:
+        raise AssertionError('transform: %d B1 launches for 4 sweeps'
+                             % (b2['gs'] - b1['gs']))
+    w_dev = check_simplex(Wn, 1.0, 'transform rows')
+    r2 = est.score(Xte)
+    scores = est.score_all(Xte)
+    sync(dev)
+    if not (np.isfinite(r2) and all(np.isfinite(v)
+                                    for v in scores.values())):
+        raise AssertionError('non-finite score: %r %r' % (r2, scores))
+    stamps = np.diff([0.0] + list(est.nmf_outputs['iter_cputime']))
+    log('NMF_TM_Estimator %dx%d k=%d float32' % (n, d, k), sweeps=sweeps,
+        fit_s=fit_s, s_per_sweep=float(np.median(stamps[1:])),
+        T_row_sum_err=t_dev, transform_rows=list(Wn.shape),
+        transform_row_sum_err=w_dev, score_r2=r2, **scores)
+
+    # the same small fit on the card (float32) and on the CPU (float64)
+    small = normalize(tfidf(torch.as_tensor(zipf_corpus(*TM_SMALL, seed=1),
+                                            dtype=torch.float64)))
+    kw = dict(init='random', compute_obj_each_iter=True)
+    o_gpu = _tm_fit(Est, small.to(dev).float(), TM_SMALL[2], SWEEPS,
+                    **kw).nmf_outputs['obj_history']
+    o_cpu = _tm_fit(Est, small, TM_SMALL[2], SWEEPS,
+                    **kw).nmf_outputs['obj_history']
+    diff = abs(o_gpu[-1] - o_cpu[-1]) / abs(o_cpu[-1])
+    if len(o_gpu) != len(o_cpu) or not diff <= TOL_CPU_GPU_OBJ:
+        raise AssertionError('TM card vs CPU objective: %r vs %r'
+                             % (o_gpu[-1], o_cpu[-1]))
+    log('NMF_TM_Estimator %dx%d k=%d card float32 vs cpu float64'
+        % TM_SMALL, sweeps=len(o_gpu), obj_card=o_gpu[-1],
+        obj_cpu=o_cpu[-1], rel_diff=diff)
+
+
+def run(dev):
+    """Phases 3-6 on ``dev``; returns the kernels' JSON entries."""
+    from rri_nmf_tpu_torch.metrics import frobenius_relative_error
+    from rri_nmf_tpu_torch.nmf import nmf
+    from rri_nmf_tpu_torch.ops import dense_kernels as dk
+    from rri_nmf_tpu_torch.sklearn_interface import NMF_TM_Estimator
+
+    # data for phases 3-6 (numpy seeds)
+    t0 = time.perf_counter()
+    n_train, n_test, n_words, k_tm = TM_SHAPE
+    counts = zipf_corpus(n_train + n_test, n_words, k_tm, seed=0)
+    log('data', corpus_seconds=time.perf_counter() - t0)
+    X = lowrank(*NMF_SHAPE, dev, seed=0)
+    Xte = torch.as_tensor(counts[n_train:], device=dev)
+    rng = np.random.RandomState(5)
+    T_new = torch.as_tensor(rng.rand(k_tm, n_words), device=dev)
+    T_new = T_new / T_new.sum(1, keepdim=True)
+
+    # 3. B1 against its twin
+    cases = gs_cases(X, Xte.T, T_new, NMF_SHAPE[2], dev)
+    del X
+    err1, ms1, pms1 = check_kernel(
+        'gs', dk.gs_update, dk.gs_update_ref, cases, dev,
+        timed={cases[0][0], cases[4][0], cases[6][0]})
+    del cases
+    sync(dev)
+
+    # 4. B2 against its twin, plus simplex checks on the kernel output
+    cases = tm_cases(TM_PROJ_SHAPES, dev)
+    err2, ms2, pms2 = check_kernel(
+        'tm_proj', dk.tm_proj_update, dk.tm_proj_update_ref, cases, dev,
+        timed={cases[0][0], cases[3][0]})
+    for label, G, N, F, kw in cases:
+        check_simplex(dk.tm_proj_update(*(x.float() for x in (G, N, F)),
+                                        **kw), 1.0, 'B2 ' + label)
+    del cases
+    sync(dev)
+
+    # 5-6. the main path, counted from zero
+    dk.reset_launches()
+    run_nmf_phase(dev, dk, nmf, frobenius_relative_error)
+    sync(dev)
+    run_tm_phase(dev, dk, NMF_TM_Estimator, counts)
+    sync(dev)
+    launches = dict(dk.LAUNCHES)
+    if launches['gs'] == 0 or launches['tm_proj'] == 0:
+        raise AssertionError('a kernel of the path never ran: %r' % launches)
+    return [dict(B1, launches=launches['gs'], max_abs_err=err1, ms=ms1,
+                 plain_ms=pms1),
+            dict(B2, launches=launches['tm_proj'], max_abs_err=err2, ms=ms2,
+                 plain_ms=pms2)]
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit('chip_smoke.py: no CUDA device; it runs on the card only')
+    from rri_nmf_tpu_torch.ops import _build
+    dev = torch.device('cuda', 0)
+
+    # 1. the card
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    log('card', nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+        torch=torch.__version__, cuda=torch.version.cuda,
+        python=sys.version.split()[0])
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.load()
+    log('build', seconds=time.perf_counter() - t0,
+        library=str(_build.library_path().name))
+
+    kernels = run(dev)
+    print(json.dumps({'kernels': kernels}), flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == '__main__':
+    main()

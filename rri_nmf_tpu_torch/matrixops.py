@@ -1,0 +1,142 @@
+"""Leaf-layer tensor math: simplex projections, normalization, tfidf.
+
+Counterpart of :mod:`rri_nmf_tpu.matrixops`. The JAX package projects one
+row with ``_proj_simplex_core`` and ``vmap``s it over a matrix; here the
+Duchi projection is written batched over rows (the last axis is the
+projected vector). Functions take numpy arrays or tensors and return
+tensors: numpy input lands on the CPU, a tensor stays on its device.
+SciPy-sparse inputs wait for the sparse slice.
+"""
+
+import numpy as np
+import torch
+
+# Added to denominators to avoid division by zero; the reference's constant
+# (np.spacing(10)), added in the working dtype like the JAX package does.
+EPS_DIV_BY_ZERO = float(np.spacing(10))
+
+
+def default_float(device):
+    """The default working float for ``device``: float64 on the CPU (the
+    parity tests hold the port against JAX with x64 there), float32 on
+    CUDA — the JAX package's ``nmf._default_float`` policy."""
+    return torch.float64 if torch.device(device).type == 'cpu' \
+        else torch.float32
+
+
+def as_tensor(X, device=None, dtype=None):
+    """``X`` (numpy array, list or tensor) as a float tensor.
+
+    A tensor keeps its device unless ``device`` is given; anything else
+    lands on the CPU. Integer and bool data become the device's default
+    float; ``dtype`` overrides."""
+    if hasattr(X, 'toarray'):
+        raise NotImplementedError(
+            'scipy-sparse input arrives with the sparse slice (ROADMAP A.10)')
+    if not isinstance(X, torch.Tensor):
+        X = np.asarray(X)
+        # a read-only array (e.g. np.asarray of a JAX array) is copied:
+        # torch does not support non-writable tensors
+        X = torch.as_tensor(X if X.flags.writeable else X.copy())
+    if device is not None:
+        X = X.to(device)
+    if dtype is None and not X.dtype.is_floating_point:
+        dtype = default_float(X.device)
+    return X if dtype is None else X.to(dtype)
+
+
+def _proj_simplex_core(V, s):
+    """Duchi et al. (ICML'08) projection of every row of ``V`` (last axis)
+    onto ``{x : x >= 0, sum(x) = s}``; ``s`` a scalar or one per row.
+
+    Matches :func:`rri_nmf_tpu.matrixops._proj_simplex_core` including the
+    exact already-on-simplex shortcut: a feasible row is returned bit for
+    bit unchanged."""
+    n = V.shape[-1]
+    s = torch.as_tensor(s, dtype=V.dtype, device=V.device).expand(
+        V.shape[:-1])
+    on_simplex = (V.sum(-1) == s) & (V >= 0).all(-1)
+    u = torch.sort(V, dim=-1, descending=True).values
+    cssv = torch.cumsum(u, dim=-1)
+    ar = torch.arange(1, n + 1, dtype=V.dtype, device=V.device)
+    cond = u * ar > (cssv - s[..., None])
+    # last index where cond holds; cond[0] always holds since s > 0
+    idx = torch.arange(n, device=V.device)
+    rho = torch.where(cond, idx, -1).max(dim=-1).values
+    theta = ((cssv.gather(-1, rho[..., None])[..., 0] - s)
+             / (rho.to(V.dtype) + 1.0))
+    w = (V - theta[..., None]).clamp_min(0.0)
+    return torch.where(on_simplex[..., None], V, w)
+
+
+def reproject_row_if_drifted(row, target_sum, extra_pred=None):
+    """Rows of ``row`` projected onto the ``target_sum`` simplex where
+    their sum drifted by more than 1e-15, unchanged elsewhere (reference
+    ``nmf.py:758-761``). ``extra_pred`` (one bool per row) conjoins a
+    further guard."""
+    pred = (row.sum(-1) - target_sum).abs() > 1e-15
+    if extra_pred is not None:
+        pred = pred & extra_pred
+    return torch.where(pred[..., None], _proj_simplex_core(row, target_sum),
+                       row)
+
+
+def proj_mat_to_simplex(W, s=1.0, axis=1):
+    """Project the vectors of ``W`` along ``axis`` onto simplices of radius
+    ``s`` (a scalar or one per vector)."""
+    W = as_tensor(W)
+    if axis == 0:
+        return proj_mat_to_simplex(W.T, s, axis=1).T
+    if axis != 1:
+        raise ValueError('axis must be 0 or 1')
+    n = W.shape[0]
+    if not (np.isscalar(s) or np.ndim(s) == 0):
+        s = as_tensor(s, device=W.device, dtype=W.dtype).reshape(-1)
+        if s.numel() != n:
+            raise ValueError('proj_mat_to_simplex: expected s to have size '
+                             '%d but s has size %d' % (n, s.numel()))
+    elif isinstance(s, torch.Tensor):
+        s = s.to(W.dtype)
+    else:
+        s = float(s)
+    return _proj_simplex_core(W, s)
+
+
+def normalize(X, dim=1, zero_sum_fix=True):
+    """Normalize ``X`` so vectors along ``dim`` sum to 1; with
+    ``zero_sum_fix`` vectors summing below 1e-10 become uniform
+    (reference ``matrixops.py:124-163``)."""
+    X = as_tensor(X)
+    if dim not in (0, 1):
+        raise ValueError('Unknown dim=%r' % (dim,))
+    xs = X.sum(dim=dim, keepdim=True) + np.spacing(1)
+    Xn = X / xs
+    if zero_sum_fix:
+        Xn = torch.where(xs < 1e-10, 1.0 / X.shape[dim], Xn)
+    return Xn
+
+
+def normalize_l2(X, dim=1):
+    """Normalize vectors of ``X`` along ``dim`` to unit l2 norm
+    (reference ``matrixops.py:103-121``)."""
+    X = as_tensor(X)
+    if dim == 0:
+        return normalize_l2(X.T, 1).T
+    if dim != 1:
+        raise ValueError('dim must be 0 or 1')
+    return X * (1.0 / torch.sqrt((X ** 2).sum(dim=1) + 1e-10))[:, None]
+
+
+def tfidf(X, return_idf=False):
+    """Dense n-docs × d-features count matrix to TF-IDF:
+    ``idf = log(n / df)`` with the reference's epsilon
+    (``matrixops.py:166-179``); ``df`` counts the documents holding each
+    feature."""
+    X = as_tensor(X)
+    n = X.shape[0]
+    df = (X > 0).sum(dim=0).to(X.dtype)
+    idf = torch.log(n / (df + np.spacing(1)))
+    rtvx = X * idf
+    if return_idf:
+        return rtvx, idf
+    return rtvx

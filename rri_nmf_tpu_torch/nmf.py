@@ -1,0 +1,449 @@
+"""The ``nmf()`` entry point, dense phase-order slice.
+
+Counterpart of :mod:`rri_nmf_tpu.nmf`, with the same signature so one
+kwargs dict drives both packages. This slice runs the production
+"fast-TM recipe" (``update_order='phase'``, ``reset_topic_method=None``)
+on a dense X: initialization, the outer loop over
+:func:`rri_nmf_tpu_torch.ops.dense_kernels.make_dense_phase_sweep`
+(torch GEMMs plus the two CUDA kernels), objective tracking and the
+relative-progress stop, early-stop rollback, ``max_time``, diagnostics,
+``debug_checks``, the final W projection and the result dict.
+
+Every option outside the slice raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.
+"""
+
+import logging
+import numbers
+import time
+
+import numpy as np
+import torch
+
+from rri_nmf_tpu_torch.initialization import initialize_nmf
+from rri_nmf_tpu_torch.matrixops import (as_tensor, normalize,
+                                         proj_mat_to_simplex)
+from rri_nmf_tpu_torch.optimization import universal_stopping_condition
+from rri_nmf_tpu_torch.ops.dense_kernels import (make_dense_phase_sweep,
+                                                 supports_dense_kernels)
+from rri_nmf_tpu_torch.ops.sweep import SweepConfig, make_objective
+
+# logger levels follow the reference convention (nmf.py:36-48):
+# INFO — per-iteration summaries; DEBUG — objective deltas (forces
+# compute_obj_each_iter)
+logger = logging.getLogger(__name__)
+
+
+def _size(a):
+    return a.numel() if isinstance(a, torch.Tensor) else int(np.size(a))
+
+
+def _not_yet(what, item):
+    raise NotImplementedError(
+        '%s is not ported to rri_nmf_tpu_torch yet; it arrives with '
+        'ROADMAP %s' % (what, item))
+
+
+def _sync(device):
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+class TrueObjComputer(object):
+    """Full-objective calculator returned as ``rtv['obj_calculator']``
+    (unmasked, unweighted): holds X and the current W/T and computes
+    ``0.5||X - WT||^2`` + regularizers.
+
+    The residual is summed over 8192-row blocks when the whole ``W @ T``
+    temporary would pass ~2 GB in the accumulator dtype (the JAX
+    package's rule)."""
+
+    def __init__(self, X, W, T, reg_w_l2, reg_t_l2, reg_w_l1, reg_t_l1,
+                 matmul_precision=None):
+        self.X = X
+        self.W = W
+        self.T = T
+        self.reg_w_l2 = reg_w_l2
+        self.reg_t_l2 = reg_t_l2
+        self.reg_w_l1 = reg_w_l1
+        self.reg_t_l1 = reg_t_l1
+        self.obj = np.inf
+        n, d = X.shape
+        big = n * d * X.element_size() > 2e9 and n > 8192
+        self._fn = make_objective(
+            reg_w_l2=reg_w_l2, reg_t_l2=reg_t_l2, reg_w_l1=reg_w_l1,
+            reg_t_l1=reg_t_l1, block_rows=8192 if big else None,
+            matmul_precision=matmul_precision)
+
+    def true_objective(self):
+        self.obj = float(self._fn(self.X, self.W, self.T))
+        return self.obj
+
+
+def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
+        random_state=None, init='nndsvd', T_in=[], W_in=[], max_iter=200,
+        max_time=600, eps_stop=1e-4, compute_obj_each_iter=False,
+        project_W_each_iter=False, w_row_sum=None,
+        do_final_project_W=True, project_T_each_iter=False,
+        t_row_sum=None, early_stop=None,
+        reset_topic_method='max_resid_document', fix_reset_seed=False,
+        n_resets=23,
+        reg_w_l2=0, reg_t_l2=0, reg_w_l1=0, reg_t_l1=0,
+        diagnostics=[], store_gradients=False,
+        ind_rows_to_store=None, eps_gauss_t=None, delta_gauss_t=None,
+        dtype=None, x_dtype=None, use_pallas=None, checkpoint=None,
+        checkpoint_every=10,
+        debug_checks=False, mesh=None, sweeps_per_dispatch=1,
+        update_order='interleaved', sparse='auto', matmul_precision=None,
+        inner_reps=1, accel=None, accel_opts=None):
+    """Factorize the non-negative (n, d) ``X`` as non-negative ``W @ T``
+    by rank-one residue iterations in phase order.
+
+    Minimizes ``0.5 ||X - WT||_F^2`` + L1/L2 regularizers on both
+    factors. Parameter names, defaults and meanings are those of
+    :func:`rri_nmf_tpu.nmf.nmf`; what differs:
+
+    - **Where it runs.** The fit runs where ``X`` lives: a numpy array or
+      a CPU tensor on the CPU (float64 by default), a CUDA tensor on its
+      card (float32 by default); ``dtype`` overrides. ``W_in``/``T_in``
+      and ``w_row_sum`` vectors may be numpy arrays or tensors.
+    - **What it covers.** ``update_order='phase'`` with
+      ``reset_topic_method=None``: each sweep updates all T rows, then all
+      W columns, every update an exact coordinate minimization. A fixed-T
+      call (``fix_T=True``, the estimators' transform) takes the phase
+      order itself, as in the JAX ``nmf()``. Not ported yet, each raising
+      ``NotImplementedError``: the interleaved order and topic resets (the
+      JAX defaults — ROADMAP A.2), ``W_mat`` (A.7), ``w_row`` (A.4),
+      scipy-sparse X and ``sparse`` modes (A.10), ``x_dtype`` and 16-bit
+      factors (A.8), ``mesh`` (A.12), ``checkpoint`` and ``accel`` (A.9),
+      ``store_gradients``, ``eps_gauss_t``/``delta_gauss_t`` and
+      ``sweeps_per_dispatch > 1`` (A.2), ``init='nndsvd_lrc'`` and
+      ``'coherence_pmi'`` (A.3).
+    - **use_pallas** keeps its name and means the hand-written kernels
+      (:mod:`rri_nmf_tpu_torch.ops.dense_kernels`): ``None``, ``True`` and
+      ``'interpret'`` all take them — on a CUDA X the CUDA kernels, on a
+      CPU X their plain PyTorch twins. ``False`` (the plain sweep) waits
+      for ROADMAP A.2.
+    - **Initialization** of the NNDSVD family runs its randomized SVD
+      with sklearn on the host for a CPU X (the reference's goldens) and
+      with ``torch.linalg`` on the card for a CUDA X.
+    - **matmul_precision** takes the JAX names; ``None`` keeps exact
+      float32 products on the card (TF32 off).
+    - **Callbacks** (``diagnostics``, a callable ``early_stop``) receive
+      ``(X, W, T)`` as tensors on the fit's device.
+
+    Returns the dict of the JAX ``nmf()``, with ``'W'`` (n, k) and ``'T'`` (k, d)
+    as tensors on the fit's device; ``'obj_history'`` and
+    ``'obj_calculator'`` with ``compute_obj_each_iter``, ``'diagnostics'``
+    when given, ``'iter_cputime'``, ``'random_state'`` and
+    ``'n_resets_remaining'``.
+    """
+    rtv = {}
+    if not (isinstance(k, numbers.Integral)
+            or (isinstance(k, numbers.Real) and float(k).is_integer())) \
+            or k < 1:
+        raise ValueError('k must be a positive integer number of topics, '
+                         'got %r' % (k,))
+    k = int(k)
+    if update_order not in ('interleaved', 'phase'):
+        raise ValueError("update_order must be 'interleaved' or 'phase', "
+                         'got %r' % (update_order,))
+    if isinstance(sparse, np.bool_):
+        sparse = bool(sparse)
+    if not (sparse is True or sparse is False or sparse is None
+            or sparse in ('auto', 'mxu', 'dma')):
+        raise ValueError("sparse must be one of True, False, 'auto', "
+                         "'mxu', 'dma'; got %r" % (sparse,))
+    # With T fixed only the W-phase runs, so both orders are the same
+    # computation (the JAX nmf()'s rule) — take the phase path.
+    if fix_T and not fix_W and W_mat is None and \
+            update_order == 'interleaved':
+        update_order = 'phase'
+
+    # ---- options outside this slice --------------------------------------
+    if update_order != 'phase':
+        _not_yet("update_order='interleaved' (the nmf() default; pass "
+                 "update_order='phase')", 'A.2')
+    if reset_topic_method is not None:
+        _not_yet('topic resets (reset_topic_method=%r; pass None)'
+                 % (reset_topic_method,), 'A.2')
+    if W_mat is not None:
+        _not_yet('W_mat (masked WRRI)', 'A.7')
+    if w_row is not None:
+        _not_yet('w_row (row weights and the W refit)', 'A.4')
+    if hasattr(X, 'tocoo') or sparse not in ('auto', False, None):
+        _not_yet('sparse X (%r)' % (sparse,), 'A.10')
+    if x_dtype is not None:
+        _not_yet('x_dtype (mixed or quantized X storage)', 'A.8')
+    if mesh is not None:
+        _not_yet('mesh (distributed fits)', 'A.12')
+    if checkpoint is not None:
+        _not_yet('checkpoint', 'A.9')
+    if accel is not None or accel_opts:
+        _not_yet("accel='her'", 'A.9')
+    if store_gradients:
+        _not_yet('store_gradients', 'A.2')
+    if eps_gauss_t is not None or delta_gauss_t is not None:
+        _not_yet('eps_gauss_t/delta_gauss_t (DP noise)', 'A.2')
+    if int(sweeps_per_dispatch) > 1:
+        _not_yet('sweeps_per_dispatch > 1', 'A.2')
+    if use_pallas is False:
+        _not_yet('use_pallas=False (the plain make_sweep)', 'A.2')
+
+    # ---- X on its device, in the working dtype ---------------------------
+    X = as_tensor(X)
+    device = X.device
+    n, d = X.shape
+    if dtype is None:
+        dtype = X.dtype
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if not isinstance(dtype, torch.dtype):
+        dtype = as_tensor(np.zeros(0, dtype=dtype)).dtype
+    if dtype not in (torch.float32, torch.float64):
+        _not_yet('%s factors (16-bit storage)' % dtype, 'A.8')
+    X = X.to(dtype)
+
+    # ---- configuration validation (reference nmf.py:280-315) -------------
+    if project_T_each_iter and np.any([reg_w_l1, reg_t_l1]):
+        logger.warning(
+            'This implementation can not solve project_T_each_iter=True '
+            'with regularization, because WT is no longer scale invariant. '
+            'Setting project_T_each_iter to False.')
+        project_T_each_iter = False
+    if project_W_each_iter and reg_w_l2 < 0:
+        logger.warning(
+            'project_W_each_iter=%s and reg_w_l2=%s<0 doesnt converge with '
+            'the current implementation.', project_W_each_iter, reg_w_l2)
+
+    w_row_sum_is_vector = w_row_sum is not None and np.ndim(w_row_sum) > 0
+    _w_sum_unset = (w_row_sum is None
+                    or (not w_row_sum_is_vector and not float(w_row_sum)))
+    _sentinel_extra = {'random_state': random_state,
+                       'n_resets_remaining': n_resets}
+    if (not project_T_each_iter and not t_row_sum) and (reg_t_l1 < 0 or
+                                                        reg_t_l2 < 0):
+        logger.error(
+            'Unbounded objective. reg_t_l1=%s, reg_t_l2=%s but '
+            'project_T_each_iter=%s and t_row_sum=%s.',
+            reg_t_l1, reg_t_l2, project_T_each_iter, t_row_sum)
+        return {'W': torch.ones(n, k, dtype=dtype, device=device),
+                'T': torch.ones(k, d, dtype=dtype, device=device) * 1e6,
+                'obj_history': [-np.inf], 'iter_cputime': [0],
+                **_sentinel_extra}
+    if (not project_W_each_iter and _w_sum_unset) and (reg_w_l1 < 0 or
+                                                       reg_w_l2 < 0):
+        logger.error(
+            'Unbounded objective. reg_w_l1=%s, reg_w_l2=%s but '
+            'project_W_each_iter=%s and w_row_sum=%s.',
+            reg_w_l1, reg_w_l2, project_W_each_iter, w_row_sum)
+        return {'W': torch.ones(n, k, dtype=dtype, device=device) * 1e6,
+                'T': torch.ones(k, d, dtype=dtype, device=device),
+                'obj_history': [-np.inf], 'iter_cputime': [0],
+                **_sentinel_extra}
+
+    if type(diagnostics) is not list:
+        diagnostics = [diagnostics]
+    if len(diagnostics) > 0:
+        rtv['diagnostics'] = {f.__name__: [] for f in diagnostics}
+
+    if random_state is None:
+        random_state = int(time.time()) % 4294967296
+
+    t_global_start = time.time()
+    max_time = max_time - 10  # reserve time for the final W projection
+
+    if w_row_sum_is_vector:
+        w_row_sum = as_tensor(w_row_sum, device=device,
+                              dtype=dtype).reshape(-1, 1)
+    elif w_row_sum is not None:
+        w_row_sum = float(w_row_sum)
+
+    if n <= k:
+        init = 'random'
+
+    start_time = time.perf_counter()
+    W, T = _initialize_and_validate(
+        W_in=W_in, T_in=T_in, X=X, k=k, init=init,
+        random_state=random_state, project_T_each_iter=project_T_each_iter,
+        project_W_each_iter=project_W_each_iter, w_row_sum=w_row_sum,
+        t_row_sum=t_row_sum, fix_W=fix_W, fix_T=fix_T, n=n, d=d)
+
+    inner_reps = int(inner_reps)
+    if inner_reps < 1:
+        raise ValueError('inner_reps must be >= 1')
+    cfg = SweepConfig(
+        k=k, fix_W=fix_W, fix_T=fix_T,
+        project_T_each_iter=project_T_each_iter,
+        project_W_each_iter=project_W_each_iter,
+        t_row_sum=float(t_row_sum) if t_row_sum is not None else None,
+        w_row_sum=(w_row_sum if not w_row_sum_is_vector else None),
+        w_row_sum_is_vector=w_row_sum_is_vector,
+        reg_w_l2=float(reg_w_l2), reg_t_l2=float(reg_t_l2),
+        reg_w_l1=float(reg_w_l1), reg_t_l1=float(reg_t_l1),
+        reset_topic_method=None, update_order='phase',
+        matmul_precision=matmul_precision, inner_reps=inner_reps)
+    if device.type == 'cuda' and not supports_dense_kernels(cfg, d, dtype):
+        raise ValueError(
+            'the CUDA kernels do not fit this problem (k=%d, d=%d, %s): see '
+            'dense_kernels.gs_fits / tm_proj_fits' % (k, d, dtype))
+    sweep_fn = make_dense_phase_sweep(cfg)
+    wrs = w_row_sum if w_row_sum_is_vector else None
+
+    # ---- early stopping state (reference nmf.py:360-363) ------------------
+    _es_active = bool(early_stop) and (callable(early_stop)
+                                       or compute_obj_each_iter)
+    if early_stop and not _es_active:
+        logger.warning(
+            'early_stop=%r scores from the tracked objective, but '
+            'compute_obj_each_iter=False — no score is ever computed, so '
+            'early stopping will never trigger. Pass '
+            'compute_obj_each_iter=True (or a callable early_stop).',
+            early_stop)
+    if _es_active:
+        last_score = np.inf
+        W_prev, T_prev = W, T
+
+    obj_history = []
+    iter_cputime = []
+    if logger.getEffectiveLevel() <= logging.DEBUG:
+        compute_obj_each_iter = True
+    OBJ = None
+    if compute_obj_each_iter:
+        OBJ = TrueObjComputer(X, W, T, reg_w_l1=reg_w_l1, reg_t_l2=reg_t_l2,
+                              reg_w_l2=reg_w_l2, reg_t_l1=reg_t_l1,
+                              matmul_precision=matmul_precision)
+
+    for func in diagnostics:
+        rtv['diagnostics'][func.__name__].append(func(X, W, T))
+
+    # ---- outer iteration loop (reference nmf.py:377-514) ------------------
+    for iter_no in range(max_iter):
+        logger.info('Iteration %d', iter_no)
+
+        if _es_active:
+            if callable(early_stop):
+                this_score = float(early_stop(X, W, T))
+            elif compute_obj_each_iter and len(obj_history) > 0:
+                this_score = obj_history[-1]
+            else:
+                this_score = np.inf
+            logger.info('Iter %d stopping score %.3f', iter_no, this_score)
+            if this_score > last_score:  # STOP EARLY (nmf.py:391-403)
+                logger.info('Stopping early at iter %d', iter_no)
+                W, T = W_prev, T_prev
+                obj_history = obj_history[:-1]
+                iter_cputime = iter_cputime[:-1]
+                for func in diagnostics:
+                    rtv['diagnostics'][func.__name__] = \
+                        rtv['diagnostics'][func.__name__][:-1]
+                break
+            last_score = this_score
+            W_prev, T_prev = W, T
+
+        it_start_time = time.time()
+        _md = None
+        if OBJ is not None and logger.getEffectiveLevel() <= logging.DEBUG:
+            from rri_nmf_tpu_torch.utils.debug import MeasureDelta
+            OBJ.W, OBJ.T = W, T
+            _md = MeasureDelta(OBJ.true_objective,
+                               'iter %d sweep' % iter_no, log=logger)
+            _md.__enter__()
+
+        W, T = sweep_fn(X, W, T, wrs)
+
+        if _md is not None:
+            OBJ.W, OBJ.T = W, T
+            _md.__exit__(None, None, None)
+
+        if debug_checks:
+            from rri_nmf_tpu_torch.utils.debug import validate_factors
+            validate_factors(W, T, w_row_sum=w_row_sum, t_row_sum=t_row_sum,
+                             project_W_each_iter=project_W_each_iter,
+                             project_T_each_iter=project_T_each_iter)
+
+        if compute_obj_each_iter:
+            OBJ.W, OBJ.T = W, T
+            obj_history.append(OBJ.true_objective())
+            logger.info('\tObj: %3.3e', obj_history[-1])
+        else:
+            _sync(device)   # keep the host clock honest
+        iter_cputime.append(time.perf_counter())
+
+        for func in diagnostics:
+            dval = func(X, W, T)
+            rtv['diagnostics'][func.__name__].append(dval)
+            logger.info('\t%s: %s', func.__name__, dval)
+
+        logger.info('\tTime: %.3fsec', time.time() - it_start_time)
+
+        if time.time() - t_global_start >= max_time:
+            logger.info('STOPPING because max_time after iter %d', iter_no)
+            break
+        if compute_obj_each_iter and universal_stopping_condition(
+                obj_history, eps_stop=eps_stop):
+            logger.info('STOPPING because obj_history after iter %d', iter_no)
+            break
+
+    iter_cputime = [x - start_time for x in iter_cputime]
+
+    # ---- final W projection (reference nmf.py:519-529) --------------------
+    if (not project_W_each_iter and w_row_sum is not None and not fix_W
+            and do_final_project_W):
+        logger.info('Post completion W row projection')
+        W = proj_mat_to_simplex(W, w_row_sum if not w_row_sum_is_vector
+                                else w_row_sum.reshape(-1))
+
+    rtv['W'] = W.contiguous()
+    rtv['T'] = T.contiguous()
+    rtv['n_resets_remaining'] = int(n_resets)
+    if compute_obj_each_iter:
+        rtv['obj_history'] = obj_history
+        OBJ.W, OBJ.T = rtv['W'], rtv['T']
+        rtv['obj_calculator'] = OBJ
+    rtv['iter_cputime'] = iter_cputime
+    rtv['random_state'] = random_state
+    return rtv
+
+
+def _initialize_and_validate(W_in, T_in, X, k, init, random_state,
+                             project_T_each_iter, project_W_each_iter,
+                             w_row_sum, t_row_sum, fix_W, fix_T, n, d):
+    """Initialize W, T or validate warm starts (reference
+    ``_initialize_and_validate``, ``nmf.py:819-880``): fresh factors get
+    their row sums scaled to ``t_row_sum``/``w_row_sum``, warm starts are
+    shape-checked, negatives clipped, and the initial simplex projections
+    applied when per-iteration projection is on. Returns tensors on X's
+    device in X's dtype."""
+    device, dtype = X.device, X.dtype
+    W = T = None
+    if _size(W_in) == 0 or _size(T_in) == 0:
+        # the SVD backend follows X: sklearn on the host for a CPU X (the
+        # reference's goldens), torch.linalg on the card for a CUDA X
+        backend = 'torch' if device.type == 'cuda' else 'sklearn'
+        W, T = initialize_nmf(X, k, init, random_state=random_state,
+                              row_normalize=False, svd_backend=backend)
+        if t_row_sum is not None:
+            T = normalize(T) * t_row_sum
+        if w_row_sum is not None:
+            W = normalize(W) * w_row_sum
+    if _size(W_in) > 0:
+        if tuple(np.shape(W_in)) != (n, k):
+            raise ValueError('W_in has wrong dimensions, must be n*k')
+        W = W_in
+    if _size(T_in) > 0:
+        if tuple(np.shape(T_in)) != (k, d):
+            raise ValueError('T_in has wrong dimensions, must be k*d')
+        T = T_in
+
+    W = as_tensor(W, device=device, dtype=dtype).clamp_min(0)
+    T = as_tensor(T, device=device, dtype=dtype).clamp_min(0)
+
+    if project_W_each_iter and not fix_W and w_row_sum is not None:
+        logger.debug('Projecting W rows after initialization')
+        W = proj_mat_to_simplex(W, w_row_sum if isinstance(w_row_sum, float)
+                                else w_row_sum.reshape(-1))
+    if project_T_each_iter and not fix_T and t_row_sum is not None:
+        logger.debug('Projecting T rows after initialization')
+        T = proj_mat_to_simplex(T, t_row_sum)
+    return W, T
+

@@ -1,0 +1,286 @@
+"""Dense phase sweep: torch GEMMs around two hand-written CUDA kernels.
+
+Counterpart of :mod:`rri_nmf_tpu.ops.dense_pallas`. A phase-order sweep
+updates all k rows of T, then all k columns of W; within a phase the
+other factor is frozen, so its Gram (``WᵀW`` / ``TTᵀ``) and the numerator
+panel (``WᵀX`` / ``TXᵀ``) are computed once with ``torch.matmul`` and the
+sequential topic loop runs in one kernel launch:
+
+- **B1, the Gauss-Seidel kernel** (``csrc/gs.cu``, wrapper
+  :func:`gs_update`): both phases of a plain fit and the W-phase of a
+  fixed-T transform. Columns are independent.
+- **B2, the projected T-phase kernel** (``csrc/tm_proj.cu``, wrapper
+  :func:`tm_proj_update`): the T-phase when every T row is projected onto
+  the ``t_row_sum`` simplex (the topic-model recipe). The simplex
+  threshold couples all d columns of a row.
+
+Each wrapper takes a CPU tensor to its plain PyTorch twin
+(:func:`gs_update_ref`, :func:`tm_proj_update_ref`: a Python loop over
+topics with the same arithmetic) and a CUDA tensor to its kernel — or
+raises; nothing routes a CUDA tensor to a twin. ``LAUNCHES`` counts the
+kernel launches of each wrapper.
+
+Unlike the TPU kernels nothing is padded: the (8, 128) tiles and the
+BN/BD pad quanta were Mosaic's needs; the CUDA kernels mask their ragged
+edge. The VMEM gates become each kernel's own shared-memory gate
+(:func:`gs_fits`, :func:`tm_proj_fits`).
+"""
+
+import ctypes
+
+import torch
+
+from rri_nmf_tpu_torch.matrixops import EPS_DIV_BY_ZERO, _proj_simplex_core
+from rri_nmf_tpu_torch.ops.sweep import precision_scope
+
+# Kernel launches per wrapper since the last reset_launches(). A wrapper
+# adds one right after its kernel launched, and nowhere else.
+LAUNCHES = {'gs': 0, 'tm_proj': 0}
+
+# Shared memory one block may use on Hopper (227 KB, opt-in).
+SMEM_PER_BLOCK = 232448
+# Columns (threads) per block of the B1 kernel: csrc/gs.cu GS_COLS.
+GS_COLS = 64
+# Static shared memory of the B2 kernel's reductions (csrc/tm_proj.cu).
+_TM_RED_BYTES = 33 * (8 + 4)
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def gs_fits(k, dtype):
+    """B1 holds a block's (k, GS_COLS) factor strip in shared memory (the
+    Gram joins it when both fit, else it is read from device memory)."""
+    return k * GS_COLS * dtype.itemsize <= SMEM_PER_BLOCK
+
+
+def tm_proj_fits(k, d, dtype):
+    """B2 holds one whole (d,) row and one Gram row in shared memory:
+    d up to ~58k columns in float32, ~29k in float64."""
+    return (d + k) * dtype.itemsize + _TM_RED_BYTES <= SMEM_PER_BLOCK
+
+
+def _supports_base(cfg):
+    return (not cfg.masked
+            and cfg.update_order == 'phase'
+            and cfg.reset_topic_method is None
+            and not cfg.store_gradients
+            and cfg.dp_sigma is None)
+
+
+def _tm_proj_active(cfg):
+    """Whether the T-phase needs the whole-row projected kernel."""
+    return bool(cfg.project_T_each_iter and cfg.t_row_sum
+                and not cfg.fix_T)
+
+
+def supports_dense_kernels(cfg, d, dtype):
+    """Whether the kernels cover ``cfg`` at ``d`` columns in ``dtype``."""
+    if not _supports_base(cfg) or not gs_fits(cfg.k, dtype):
+        return False
+    if _tm_proj_active(cfg):
+        return tm_proj_fits(cfg.k, d, dtype)
+    return True
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twins
+# ---------------------------------------------------------------------------
+
+def gs_update_ref(G, N, F, l1, l2, bound, ub=None, reps=1):
+    """Plain version of B1: the Gauss-Seidel topic loop over the rows of
+    ``F`` (k, m) with Gram ``G`` (k, k) and numerators ``N`` (k, m).
+    ``ub`` (m,) overrides the scalar ``bound`` of the concave branch.
+    Returns the updated copy of ``F``."""
+    F = F.clone()
+    ubv = ub if ub is not None else torch.tensor(bound, dtype=F.dtype,
+                                                 device=F.device)
+    for _ in range(reps):
+        for t in range(F.shape[0]):
+            gtt = G[t, t]
+            numer = N[t] - G[t] @ F + gtt * F[t] - l1
+            denom = gtt + l2
+            pos = numer.clamp_min(0.0) / (denom + EPS_DIV_BY_ZERO)
+            neg = torch.where(denom - numer < 0, ubv, 0.0)
+            F[t] = torch.where(denom > 0, pos, neg)
+    return F
+
+
+def _michelot(v, s):
+    """Michelot's exact simplex projection of the nonnegative row ``v``
+    (the TPU kernel's fixpoint, iteration cap and feasible shortcut)."""
+    d = v.numel()
+    sv = v.sum()
+    if bool(sv == s) and bool(v.min() >= 0):
+        return v
+    tau = (sv - s) / d
+    m_prev, it, changed = d + 1, 0, True
+    while changed and it < d + 2:
+        active = v > tau
+        m = int(active.sum())
+        tau = (torch.where(active, v, 0.0).sum() - s) / max(m, 1)
+        changed, m_prev, it = m != m_prev, m, it + 1
+    return torch.where(v > tau, v - tau, 0.0)
+
+
+def tm_proj_update_ref(G, N, F, l1, l2, s, reps=1):
+    """Plain version of B2: the projected T-phase over the whole (k, d)
+    panel. Returns the updated copy of ``F``."""
+    F = F.clone()
+    d = F.shape[1]
+    col = torch.arange(d, device=F.device)
+    for _ in range(reps):
+        for t in range(F.shape[0]):
+            gtt = G[t, t]
+            numer = N[t] - G[t] @ F + gtt * F[t] - l1
+            denom = gtt + l2
+            if bool(denom > 0):
+                row = _michelot(numer.clamp_min(0.0)
+                                / (denom + EPS_DIV_BY_ZERO), s)
+            else:
+                # all mass on the first least-cost coordinate
+                wneg = -numer
+                idx = torch.where(wneg == wneg.min(), col, d).min()
+                row = torch.zeros_like(F[t])
+                row[idx] = s
+            if bool((row.sum() - s).abs() > 1e-15):
+                row = _michelot(row, s)
+            F[t] = row
+    return F
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_CT = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
+_SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
+
+
+def _check(F, shapes):
+    """Device/dtype/shape/contiguity checks shared by the wrappers;
+    ``shapes`` maps names to (tensor, expected shape)."""
+    if F.device.type != 'cuda':
+        raise ValueError('the dense kernels run on CUDA or (plain twin) CPU '
+                         'tensors, got %s' % F.device)
+    if F.dtype not in _CT:
+        raise ValueError('the dense kernels take float32/float64, got %s'
+                         % F.dtype)
+    for name, (a, shape) in shapes.items():
+        if a.device != F.device or a.dtype != F.dtype:
+            raise ValueError('%s must be %s on %s, got %s on %s' % (
+                name, F.dtype, F.device, a.dtype, a.device))
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError('%s must have shape %s, got %s'
+                             % (name, tuple(shape), tuple(a.shape)))
+        if not a.is_contiguous():
+            raise ValueError('%s must be contiguous' % name)
+
+
+def _launch(fn, F, *args):
+    from rri_nmf_tpu_torch.ops import _build
+    lib = _build.load()
+    stream = torch.cuda.current_stream(F.device).cuda_stream
+    err = getattr(lib, '%s_%s' % (fn, _SUFFIX[F.dtype]))(
+        *args, F.device.index, stream)
+    if err != 0:
+        raise RuntimeError('%s kernel launch failed: CUDA error %d'
+                           % (fn, err))
+
+
+def gs_update(G, N, F, l1, l2, bound, ub=None, reps=1):
+    """B1: the Gauss-Seidel topic loop (see :func:`gs_update_ref`).
+
+    A CPU ``F`` runs the plain twin; a CUDA ``F`` launches
+    ``csrc/gs.cu``, with every operand a contiguous tensor of ``F``'s
+    dtype on its device."""
+    if F.device.type == 'cpu':
+        return gs_update_ref(G, N, F, l1, l2, bound, ub=ub, reps=reps)
+    k, m = F.shape
+    shapes = {'G': (G, (k, k)), 'N': (N, (k, m)), 'F': (F, (k, m))}
+    if ub is not None:
+        shapes['ub'] = (ub, (m,))
+    _check(F, shapes)
+    if not gs_fits(k, F.dtype):
+        raise ValueError('k=%d exceeds the GS kernel\'s shared memory '
+                         '(%d-column %s strip)' % (k, GS_COLS, F.dtype))
+    out = torch.empty_like(F)
+    ct = _CT[F.dtype]
+    _launch('rri_gs', F, G.data_ptr(), N.data_ptr(), F.data_ptr(),
+            ub.data_ptr() if ub is not None else None, out.data_ptr(),
+            k, m, ct(l1), ct(l2), ct(bound), int(reps))
+    LAUNCHES['gs'] += 1
+    return out
+
+
+def tm_proj_update(G, N, F, l1, l2, s, reps=1):
+    """B2: the projected T-phase (see :func:`tm_proj_update_ref`).
+
+    A CPU ``F`` runs the plain twin; a CUDA ``F`` launches
+    ``csrc/tm_proj.cu``."""
+    if F.device.type == 'cpu':
+        return tm_proj_update_ref(G, N, F, l1, l2, s, reps=reps)
+    k, d = F.shape
+    _check(F, {'G': (G, (k, k)), 'N': (N, (k, d)), 'F': (F, (k, d))})
+    if not tm_proj_fits(k, d, F.dtype):
+        raise ValueError('d=%d exceeds the projected T-phase kernel\'s '
+                         'shared memory (one %s row)' % (d, F.dtype))
+    out = torch.empty_like(F)
+    ct = _CT[F.dtype]
+    _launch('rri_tm_proj', F, G.data_ptr(), N.data_ptr(), F.data_ptr(),
+            out.data_ptr(), k, d, ct(l1), ct(l2), ct(s), int(reps))
+    LAUNCHES['tm_proj'] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the sweep
+# ---------------------------------------------------------------------------
+
+def make_dense_phase_sweep(cfg):
+    """Build ``sweep(X, W, T, w_row_sum_vec=None) -> (W, T)``: one
+    phase-order sweep (torch GEMMs + the kernels) for a config that
+    :func:`_supports_base` accepts. ``w_row_sum_vec`` (n,) is the per-row
+    W bound when ``cfg.w_row_sum_is_vector``."""
+    if not _supports_base(cfg):
+        raise ValueError('config not supported by the dense kernels')
+    # upper bounds of the concave qf branch (reference semantics: the
+    # positive branch does not enforce ub)
+    t_bound = float(cfg.t_row_sum) if cfg.t_row_sum else float('inf')
+    w_bound = (float(cfg.w_row_sum)
+               if (cfg.w_row_sum is not None
+                   and not cfg.w_row_sum_is_vector) else float('inf'))
+
+    def sweep(X, W, T, w_row_sum_vec=None):
+        with precision_scope(cfg.matmul_precision):
+            if not cfg.fix_T:
+                G = W.T @ W
+                WX = W.T @ X                                   # (k, d)
+                if _tm_proj_active(cfg):
+                    T = tm_proj_update(G, WX, T.contiguous(), cfg.reg_t_l1,
+                                       cfg.reg_t_l2, float(cfg.t_row_sum),
+                                       reps=cfg.inner_reps)
+                else:
+                    T = gs_update(G, WX, T.contiguous(), cfg.reg_t_l1,
+                                  cfg.reg_t_l2, t_bound,
+                                  reps=cfg.inner_reps)
+            if not cfg.fix_W:
+                G2 = T @ T.T
+                XTt = T @ X.T                                  # (k, n)
+                ub = None
+                if cfg.w_row_sum_is_vector:
+                    ub = w_row_sum_vec.reshape(-1).to(W.dtype).contiguous()
+                W = gs_update(G2, XTt, W.T.contiguous(), cfg.reg_w_l1,
+                              cfg.reg_w_l2, w_bound, ub=ub,
+                              reps=cfg.inner_reps).T
+        # per-iteration W row projection (reference nmf.py:481-484)
+        if (cfg.project_W_each_iter and not cfg.fix_W
+                and (cfg.w_row_sum is not None or cfg.w_row_sum_is_vector)):
+            s = (w_row_sum_vec.reshape(-1).to(W.dtype)
+                 if cfg.w_row_sum_is_vector else float(cfg.w_row_sum))
+            W = _proj_simplex_core(W, s)
+        return W, T
+
+    return sweep
