@@ -19,10 +19,23 @@ its users run, one line per phase:
    train-split shape 11,314×26,214 k=50 on a synthetic Zipf/Dirichlet
    corpus (tf-idf and normalization on the card): fit, transform and
    score of 512 held-out documents, and a 600×1500 k=10 fit on the card
-   against the same fit on the CPU in float64.
+   against the same fit on the CPU in float64;
+7. kernels B3 and B4 (the masked WRRI streaming passes) against their
+   twins at the MovieLens-1M shape 6040×3952, a ragged 517×1030 and B4's
+   fixed-T form, in float64 and float32, the updated residual included,
+   with CUDA-event times of kernel and twin;
+8. ``NMF_RS_Estimator`` at MovieLens-1M class (6040×3952, 1M synthetic
+   ratings, a 90/10 split, k=40, float32 on the card): a default fit
+   with validation early stopping; a fit of 30 sweeps (B3 and B4 k times
+   per sweep, the masked objective not rising, ms/sweep with and without
+   the objective, train and test RMSE); the transform of 512 users' test
+   ratings (B4 only) with predict and score; and a 600×400 k=8 fit on
+   the card against the same fit on the CPU in float64.
 
-Then one JSON line of the kernels (launches on the main path, error
-against the twin, kernel and twin ms), and as the last line
+Phases 5-6 and phase 8 each drive a main path with the launch counts set
+to 0 just before and read just after. Then one JSON line of the kernels
+(those launches, error against the twin, kernel and twin ms), and as the
+last line
 ``{"ok": true, "device": {...}}``. Any failure raises before that line
 and exits non-zero; without a CUDA device the script exits non-zero
 before doing anything. Data come from numpy seeds.
@@ -45,6 +58,12 @@ TOL_F64 = 1e-10
 # carries that rounding (float32 eps 6e-8) forward: ~1e-6 of the row
 # scale at these shapes on an H100; 1e-4 keeps margin for cancellation
 # in N - G·F. Logic errors are caught by the float64 check above.
+# The same 1e-4 holds B3/B4 in float32 (phase 7): the kernels fuse each
+# rank-one update into one FMA where the twin rounds twice (one rounding
+# of R, relative to its largest entry), and each column (B3) or row (B4)
+# sum adds up to 6040 or 3952 products in another order than the twin's
+# GEMV: about sqrt(terms)·eps ≈ 5e-6 of the sum of absolute terms, the
+# scale phase 7 divides by (n·eps ≈ 4e-4 only in the worst case).
 TOL_F32 = 1e-4
 # float32 row sums of a simplex-projected row over d <= 26214 columns,
 # re-summed by torch in another order: |sum - s| <= d·eps·s ≈ 2e-3 in
@@ -64,6 +83,12 @@ B1 = {'name': 'gs', 'route': 'cuda',
 B2 = {'name': 'tm_proj', 'route': 'cuda',
       'source': 'rri_nmf_tpu_torch/csrc/tm_proj.cu',
       'replaces': 'rri_nmf_tpu/ops/dense_pallas.py:248'}
+B3 = {'name': 'masked_phase_a', 'route': 'cuda',
+      'source': 'rri_nmf_tpu_torch/csrc/masked.cu',
+      'replaces': 'rri_nmf_tpu/ops/sweep_pallas.py:94'}
+B4 = {'name': 'masked_phase_b', 'route': 'cuda',
+      'source': 'rri_nmf_tpu_torch/csrc/masked.cu',
+      'replaces': 'rri_nmf_tpu/ops/sweep_pallas.py:133'}
 FAST_TM = dict(update_order='phase', reset_topic_method=None)
 
 # (n, d, k): bench.py's headline fit; the small card-vs-CPU fit
@@ -77,6 +102,15 @@ TM_SMALL = (600, 1500, 10)
 # B2 shapes: the TM fit's T-phase and bench.py's (k, d)
 TM_PROJ_SHAPES = [(50, 26214), (128, 8192)]
 SWEEPS = 20
+# (users, items, observations, topics): MovieLens-1M class, BASELINE #3
+RS_SHAPE = (6040, 3952, 1_000_000, 40)
+# a ragged B3/B4 shape (no dimension a multiple of a warp or a block)
+RS_RAGGED = (517, 1030)
+# (users, items, observations, topics) of the small card-vs-CPU RS fit
+RS_SMALL = (600, 400, 24000, 8)
+RS_SWEEPS = 30
+# users whose test ratings the RS transform takes
+RS_TRANSFORM_ROWS = 512
 
 
 def log(phase, **fields):
@@ -114,6 +148,12 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
 
+def scaled_err(a, b, scale):
+    """max |a - b| / scale, entry by entry: ``scale`` is each sum's sum of
+    absolute terms, the size its rounding error is proportional to."""
+    return float(((a - b).abs() / scale.clamp_min(1e-300)).max())
+
+
 # --------------------------------------------------------------------------
 # data (numpy seeds)
 # --------------------------------------------------------------------------
@@ -126,6 +166,33 @@ def lowrank(n, d, k, dev, seed=0, noise=0.01):
     T = torch.as_tensor(rng.rand(k, d), dtype=torch.float32, device=dev)
     E = torch.as_tensor(rng.rand(n, d).astype(np.float32), device=dev)
     return (W @ T).add_(E, alpha=noise)
+
+
+def synth_ratings(n_users, n_items, n_obs, k, seed=0):
+    """MovieLens-like ratings (benchmarks/run_baselines.py
+    _synth_ratings): a low-rank preference structure, ``n_obs`` random
+    (user, item) draws, integer ratings 1-5. Returns float64 numpy."""
+    rng = np.random.RandomState(seed)
+    U = rng.rand(n_users, k)
+    V = rng.rand(k, n_items)
+    scores = U @ V
+    scores = 1 + 4 * (scores - scores.min()) / (scores.max() - scores.min())
+    I = rng.randint(0, n_users, n_obs)
+    J = rng.randint(0, n_items, n_obs)
+    X = np.zeros((n_users, n_items))
+    X[I, J] = np.clip(np.round(scores[I, J] + 0.5 * rng.randn(n_obs)), 1, 5)
+    return X
+
+
+def rs_split(X, seed=1):
+    """(pairs, ratings) of the nonzeros of ``X``, split 90/10 over the
+    observations with ``RandomState(seed)`` (benchmarks/exp_rs_target.py
+    :32-40): ``(train pairs, train ratings, test pairs, test ratings)``."""
+    I, J = X.nonzero()
+    R = X[I, J]
+    pairs = np.stack([I, J], axis=1)
+    test = np.random.RandomState(seed).rand(len(R)) < 0.1
+    return pairs[~test], R[~test], pairs[test], R[test]
 
 
 def zipf_corpus(n_docs, n_words, n_topics, seed=0, doc_len=120):
@@ -362,12 +429,193 @@ def run_tm_phase(dev, dk, Est, counts):
         obj_cpu=o_cpu[-1], rel_diff=diff)
 
 
+def masked_cases(dev, X, M, seed=6):
+    """B3/B4 inputs at the RS shape (the ratings ``X`` and their mask
+    ``M``, a residual of random factors) and at the ragged shape:
+    ``(label, kernel, args)`` in float64, ``args`` without R and M."""
+    rng = np.random.RandomState(seed)
+    out = []
+    n_r, d_r = RS_RAGGED
+    for tag, X, M in (('rs', X, M),
+                      ('ragged', torch.as_tensor(rng.rand(n_r, d_r) * 5,
+                                                 device=dev),
+                       torch.as_tensor((rng.rand(n_r, d_r) < 0.3) * 1.0,
+                                       device=dev))):
+        n, d = X.shape
+        W = torch.as_tensor(rng.rand(n, 4), device=dev)
+        T = torch.as_tensor(rng.rand(4, d), device=dev)
+        R = X.double() - W @ T
+        M = M.double()
+        dw = torch.as_tensor(rng.rand(n) - 0.5, device=dev)
+        t_new = torch.as_tensor(rng.rand(d), device=dev)
+        label = '%s %dx%d' % (tag, n, d)
+        out.append(('B3 ' + label, 'phase_a', R, M,
+                    (dw, T[1], W[:, 0].contiguous())))
+        out.append(('B4 ' + label, 'phase_b', R, M,
+                    (W[:, 0].contiguous(), 1.3 * W[:, 0], T[0], t_new)))
+        out.append(('B4 fixed-T ' + label, 'phase_b', R, M,
+                    (dw, torch.zeros_like(dw), T[0], t_new)))
+    return out
+
+
+def check_masked(mk, cases, dev):
+    """B3/B4 against their twins on every case in float64 and float32:
+    the updated residual relative to its largest entry, each reduction
+    relative to its own sum of absolute terms. Times the RS-shape cases in
+    float32. Returns {kernel: (max float32 abs error, ms, plain_ms)}."""
+    out = {'phase_a': [0.0, None, None], 'phase_b': [0.0, None, None]}
+    for label, kind, R, M, args in cases:
+        kernel = getattr(mk, kind)
+        ref = getattr(mk, kind + '_ref')
+        for dtype, tol in ((torch.float64, TOL_F64),
+                           (torch.float32, TOL_F32)):
+            R0, Mc = R.to(dtype).contiguous(), M.to(dtype).contiguous()
+            a = [x.to(dtype).contiguous() for x in args]
+            Rk, Rt = R0.clone(), R0.clone()
+            got = kernel(Rk, Mc, *a)
+            want = ref(Rt, Mc, *a)
+            # each sum's scale: the same sum over absolute terms
+            if kind == 'phase_a':
+                scales = ((Mc * Rt.abs()).T @ a[2].abs(), (a[2] ** 2) @ Mc)
+            else:
+                scales = ((Mc * Rt.abs()) @ a[3].abs(), Mc @ (a[3] ** 2))
+            sync(dev)
+            errs = [rel_err(Rk, Rt)] + [scaled_err(g, h, sc) for g, h, sc
+                                        in zip(got, want, scales)]
+            finite = all(bool(torch.isfinite(g).all()) for g in (Rk, *got))
+            if not (max(errs) <= tol and finite):
+                raise AssertionError('%s %s: errors %r > %g'
+                                     % (label, dtype, errs, tol))
+            line = {'case': label, 'dtype': str(dtype), 'rel_err_R': errs[0],
+                    'rel_err_sums': errs[1:]}
+            if dtype == torch.float32:
+                stats = out[kind]
+                stats[0] = max(stats[0], *(float((g - h).abs().max())
+                                           for g, h in zip((Rk, *got),
+                                                           (Rt, *want))))
+                if label.startswith(('B3 rs', 'B4 rs')):
+                    line['ms'] = time_ms(lambda: kernel(Rk, Mc, *a), dev)
+                    line['plain_ms'] = time_ms(lambda: ref(Rt, Mc, *a), dev)
+                    line['GB_per_s'] = 12 * R0.numel() / line['ms'] / 1e6
+                    stats[1], stats[2] = line['ms'], line['plain_ms']
+            log('kernel masked', **line)
+    return {key: tuple(v) for key, v in out.items()}
+
+
+def _rs_fit(Est, pairs, ratings, shape, **kw):
+    n, d, _, k = shape
+    return Est(n, d, k, random_state=0, **kw).fit(pairs, ratings)
+
+
+def run_rs_phase(dev, mk, Est, X):
+    """Phase 8 on the ratings ``X`` (numpy): returns the launches of the
+    main path (everything up to and with predict and score)."""
+    n, d, _, k = RS_SHAPE
+    p_tr, r_tr, p_te, r_te = (torch.as_tensor(a, device=dev) for a in
+                              rs_split(X))
+    r_tr, r_te = r_tr.float(), r_te.float()
+
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    est = _rs_fit(Est, p_tr, r_tr, RS_SHAPE)
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    a, b = mk.LAUNCHES['phase_a'], mk.LAUNCHES['phase_b']
+    if a == 0 or a != b or a % k:
+        raise AssertionError('default fit: B3 %d, B4 %d launches' % (a, b))
+    log('NMF_RS_Estimator %dx%d k=%d float32, validation early stopping'
+        % (n, d, k), fit_s=fit_s, sweeps_run=a // k,
+        sweeps_kept=len(est.nmf_outputs['iter_cputime']),
+        test_rmse=est.score(p_te, r_te))
+
+    b0 = dict(mk.LAUNCHES)
+    est = _rs_fit(Est, p_tr, r_tr, RS_SHAPE, max_iter=RS_SWEEPS,
+                  use_validation_early_stopping=False,
+                  nmf_kwargs=dict(eps_stop=0.0))
+    sync(dev)
+    obj = est.nmf_outputs['obj_history']
+    sweeps = len(obj)
+    for key in ('phase_a', 'phase_b'):
+        if mk.LAUNCHES[key] - b0[key] != k * sweeps:
+            raise AssertionError('%s: %d launches for %d sweeps of k=%d' % (
+                key, mk.LAUNCHES[key] - b0[key], sweeps, k))
+    for o1, o2 in zip(obj, obj[1:]):
+        if o2 > o1 + OBJ_SLACK_F32 * abs(o1):
+            raise AssertionError('masked objective rose: %r -> %r' % (o1, o2))
+    if not (np.all(np.isfinite(obj)) and bool(torch.isfinite(est.W).all())
+            and bool(torch.isfinite(est.T).all())):
+        raise AssertionError('non-finite RS factors or objective')
+    stamps = np.diff([0.0] + list(est.nmf_outputs['iter_cputime']))
+    # sweep-only time: the same fit continued, no objective per sweep
+    est2 = _rs_fit(Est, p_tr, r_tr, RS_SHAPE, max_iter=10, W=est.W, T=est.T,
+                   use_validation_early_stopping=False,
+                   nmf_kwargs=dict(compute_obj_each_iter=False))
+    sync(dev)
+    sweep_ms = float(np.median(np.diff(est2.nmf_outputs['iter_cputime'])))
+    train_rmse = est.score(p_tr, r_tr)
+    mean_rmse = float(torch.sqrt(((r_tr - r_tr.mean()) ** 2).mean()))
+    if not train_rmse < mean_rmse:
+        raise AssertionError('train RMSE %.4f not below the global mean\'s '
+                             '%.4f' % (train_rmse, mean_rmse))
+    log('NMF_RS_Estimator %dx%d k=%d float32, %d sweeps' % (n, d, k, sweeps),
+        obj_first=obj[0], obj_last=obj[-1], train_rmse=train_rmse,
+        global_mean_rmse=mean_rmse, test_rmse=est.score(p_te, r_te),
+        ms_per_sweep_with_objective=float(np.median(stamps[1:])) * 1e3,
+        ms_per_sweep=sweep_ms * 1e3)
+
+    # transform: the test ratings of the first users, as a dense matrix
+    rows = RS_TRANSFORM_ROWS
+    sel = p_te[:, 0] < rows
+    Xnew = torch.zeros(rows, d, device=dev)
+    Xnew[p_te[sel, 0], p_te[sel, 1]] = r_te[sel]
+    b1 = dict(mk.LAUNCHES)
+    Wn = est.transform(Xnew)
+    sync(dev)
+    da = mk.LAUNCHES['phase_a'] - b1['phase_a']
+    db = mk.LAUNCHES['phase_b'] - b1['phase_b']
+    if da != 0 or db != 4 * k:
+        raise AssertionError('transform: B3 %d, B4 %d launches (want 0, %d)'
+                             % (da, db, 4 * k))
+    if tuple(Wn.shape) != (rows, k) or not bool(torch.isfinite(Wn).all()):
+        raise AssertionError('transform output %s' % (tuple(Wn.shape),))
+    pred = est.predict(p_te)
+    rmse = est.score(p_te, r_te)
+    if not (np.all(np.isfinite(pred)) and np.isfinite(rmse)
+            and pred.min() >= est.min_rating
+            and pred.max() <= est.max_rating):
+        raise AssertionError('predict/score: %r' % (rmse,))
+    launches = dict(mk.LAUNCHES)
+    log('NMF_RS_Estimator transform, predict, score', transform_rows=rows,
+        transform_ratings=int(sel.sum()), B4_launches=db,
+        predicted=len(pred), test_rmse=rmse)
+
+    # the same small fit on the card (float32) and on the CPU (float64)
+    n_s, d_s, q_s, k_s = RS_SMALL
+    p_s, r_s, _, _ = rs_split(synth_ratings(n_s, d_s, q_s, 4, seed=2))
+    kw = dict(max_iter=SWEEPS, use_validation_early_stopping=False,
+              nmf_kwargs=dict(init='random', eps_stop=0.0))
+    o_gpu = _rs_fit(Est, torch.as_tensor(p_s, device=dev),
+                    torch.as_tensor(r_s, device=dev).float(), RS_SMALL,
+                    **kw).nmf_outputs['obj_history']
+    o_cpu = _rs_fit(Est, p_s, r_s, RS_SMALL, **kw).nmf_outputs['obj_history']
+    diff = abs(o_gpu[-1] - o_cpu[-1]) / abs(o_cpu[-1])
+    if len(o_gpu) != len(o_cpu) or not diff <= TOL_CPU_GPU_OBJ:
+        raise AssertionError('RS card vs CPU objective: %r vs %r'
+                             % (o_gpu[-1], o_cpu[-1]))
+    log('NMF_RS_Estimator %dx%d k=%d card float32 vs cpu float64'
+        % (n_s, d_s, k_s), sweeps=len(o_gpu), obj_card=o_gpu[-1],
+        obj_cpu=o_cpu[-1], rel_diff=diff)
+    return launches
+
+
 def run(dev):
-    """Phases 3-6 on ``dev``; returns the kernels' JSON entries."""
+    """Phases 3-8 on ``dev``; returns the kernels' JSON entries."""
     from rri_nmf_tpu_torch.metrics import frobenius_relative_error
     from rri_nmf_tpu_torch.nmf import nmf
     from rri_nmf_tpu_torch.ops import dense_kernels as dk
-    from rri_nmf_tpu_torch.sklearn_interface import NMF_TM_Estimator
+    from rri_nmf_tpu_torch.ops import masked_kernels as mk
+    from rri_nmf_tpu_torch.sklearn_interface import (NMF_RS_Estimator,
+                                                     NMF_TM_Estimator)
 
     # data for phases 3-6 (numpy seeds)
     t0 = time.perf_counter()
@@ -409,10 +657,29 @@ def run(dev):
     launches = dict(dk.LAUNCHES)
     if launches['gs'] == 0 or launches['tm_proj'] == 0:
         raise AssertionError('a kernel of the path never ran: %r' % launches)
+
+    # 7. B3 and B4 against their twins
+    n, d, q, _ = RS_SHAPE
+    t0 = time.perf_counter()
+    ratings = synth_ratings(n, d, q, 8)
+    log('rs data', seconds=time.perf_counter() - t0,
+        observations=int((ratings != 0).sum()))
+    X = torch.as_tensor(ratings, device=dev)
+    stats = check_masked(mk, masked_cases(dev, X, (X != 0).double()), dev)
+    del X
+    sync(dev)
+
+    # 8. the RS main path, counted from zero
+    masked = run_rs_phase(dev, mk, NMF_RS_Estimator, ratings)
+    if masked['phase_a'] == 0 or masked['phase_b'] == 0:
+        raise AssertionError('a kernel of the path never ran: %r' % masked)
     return [dict(B1, launches=launches['gs'], max_abs_err=err1, ms=ms1,
                  plain_ms=pms1),
             dict(B2, launches=launches['tm_proj'], max_abs_err=err2, ms=ms2,
-                 plain_ms=pms2)]
+                 plain_ms=pms2)] + [
+        dict(entry, launches=masked[key], max_abs_err=stats[key][0],
+             ms=stats[key][1], plain_ms=stats[key][2])
+        for entry, key in ((B3, 'phase_a'), (B4, 'phase_b'))]
 
 
 def main():

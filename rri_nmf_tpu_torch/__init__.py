@@ -7,10 +7,13 @@ so a reader finds each counterpart:
 
 - :mod:`rri_nmf_tpu_torch.matrixops`      — projections / normalization / tfidf
 - :mod:`rri_nmf_tpu_torch.optimization`   — qf_min subproblem + stopping rules
-- :mod:`rri_nmf_tpu_torch.initialization` — NNDSVD family and random inits
-- :mod:`rri_nmf_tpu_torch.nmf`            — the ``nmf()`` entry point (dense slice)
-- :mod:`rri_nmf_tpu_torch.sklearn_interface` — ``NMF_TM_Estimator``
-- :mod:`rri_nmf_tpu_torch.ops`            — the phase sweep and its kernels
+- :mod:`rri_nmf_tpu_torch.initialization` — NNDSVD family, random inits,
+  ``masked_svd_init``
+- :mod:`rri_nmf_tpu_torch.nmf`            — the ``nmf()`` entry point (dense
+  phase order; masked WRRI with a dense ``W_mat``)
+- :mod:`rri_nmf_tpu_torch.sklearn_interface` — ``NMF_TM_Estimator``,
+  ``NMF_RS_Estimator``
+- :mod:`rri_nmf_tpu_torch.ops`            — the sweeps and their kernels
 - :mod:`rri_nmf_tpu_torch.convert`        — carry fitted numpy state over
 
 Device and dtype policy (the JAX package's ``nmf._default_float``): work

@@ -3,9 +3,12 @@ estimator's ``W``/``T``) into the port's tensors.
 
 The JAX package's results are numpy arrays; these helpers place them on
 a device in the port's dtype policy, so a model fitted with either
-package transforms and scores new data the same way in the other.
-:meth:`rri_nmf_tpu_torch.sklearn_interface.NMF_TM_Estimator.
-from_numpy_state` builds a whole estimator from them.
+package transforms, predicts and scores new data the same way in the
+other. :func:`numpy_state` reads a fitted estimator of either package
+into numpy, and ``from_numpy_state`` of
+:class:`~rri_nmf_tpu_torch.sklearn_interface.NMF_TM_Estimator` and
+:class:`~rri_nmf_tpu_torch.sklearn_interface.NMF_RS_Estimator` builds a
+whole estimator from that.
 """
 
 import numpy as np
@@ -22,3 +25,24 @@ def factors_from_numpy(W, T, device=None, dtype=None):
     dtype = dtype if dtype is not None else default_float(device)
     return (as_tensor(np.asarray(W), device=device, dtype=dtype),
             as_tensor(np.asarray(T), device=device, dtype=dtype))
+
+
+# the fitted attributes an estimator carries besides its constructor
+# arguments: the factors, the TM estimator's idf, the RS estimator's
+# rating range
+STATE_KEYS = ('W', 'T', 'idf', 'min_rating', 'max_rating')
+
+
+def numpy_state(est):
+    """The fitted state of an estimator of either package — ``W``, ``T``
+    and, where set, ``idf``, ``min_rating``, ``max_rating`` — as numpy
+    values, ready for ``from_numpy_state``. Reads attributes only, so
+    it needs neither package's imports."""
+    out = {}
+    for key in STATE_KEYS:
+        v = getattr(est, key, None)
+        if v is None:
+            continue
+        out[key] = v.cpu().numpy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
+    return out

@@ -14,7 +14,9 @@ backends:
 
 ``random``/``smart_random`` and ``nndsvdar``'s fill keep the reference's
 ``np.random.RandomState`` streams, so they stay bit-exact with the JAX
-package. ``nndsvd_lrc`` and ``coherence_pmi`` arrive later (ROADMAP A.3).
+package. :func:`masked_svd_init`, the recommender's init, runs its
+host (numpy) backend. ``nndsvd_lrc``, ``coherence_pmi`` and the device
+backend of ``masked_svd_init`` arrive later (ROADMAP A.3).
 """
 
 import numpy as np
@@ -132,6 +134,54 @@ def _nndsvd_from_svd(U, S, Vt, eps):
     W[W < eps] = 0
     H[H < eps] = 0
     return W, H
+
+
+def _randomized_svd_numpy(X, k, rng, n_oversamples=10, n_iter=4):
+    """Host randomized SVD (Halko et al.); NumPy/BLAS QR and panel SVD
+    (:func:`rri_nmf_tpu.initialization._randomized_svd_numpy`)."""
+    n, d = X.shape
+    p = min(k + n_oversamples, min(n, d))
+    Q, _ = np.linalg.qr(X @ rng.standard_normal((d, p)))
+    for _ in range(n_iter):
+        Z, _ = np.linalg.qr(X.T @ Q)
+        Q, _ = np.linalg.qr(X @ Z)
+    Ub, S, Vt = np.linalg.svd(Q.T @ X, full_matrices=False)
+    return (Q @ Ub)[:, :k], S[:k], Vt[:k, :]
+
+
+def _host(a):
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+
+def masked_svd_init(X, W_mat, n_components, random_state=None, n_iter=10,
+                    eps=1e-6, backend='numpy'):
+    """Elementwise-weighted (masked) SVD initialization for WRRI
+    (:func:`rri_nmf_tpu.initialization.masked_svd_init`): fill the
+    unobserved entries (``W_mat == 0``) with the observed mean, then
+    ``n_iter`` times take a rank-``n_components`` randomized SVD and refill
+    them from its reconstruction; the NNDSVD section split of the last
+    factorization gives ``(W, H)``.
+
+    ``X`` and ``W_mat`` are numpy arrays or tensors (on any device). Only
+    ``backend='numpy'`` is ported: it runs on the host in float64, with
+    the JAX package's numpy random stream, so the result is bit for bit
+    the JAX package's. Returns float64 tensors on the CPU."""
+    if backend != 'numpy':
+        raise NotImplementedError(
+            "masked_svd_init(backend=%r) is not ported yet; the device "
+            "backend arrives with ROADMAP A.3 (use backend='numpy')"
+            % (backend,))
+    X = np.asarray(_host(X), dtype=np.float64)
+    M = np.asarray(_host(W_mat), dtype=np.float64)
+    rng = np.random.RandomState(0 if random_state is None else random_state)
+    obs_mean = (M * X).sum() / max(M.sum(), 1.0)
+    Xf = M * X + (1 - M) * obs_mean
+    U = S = Vt = None
+    for _ in range(n_iter):
+        U, S, Vt = _randomized_svd_numpy(Xf, n_components, rng)
+        Xf = M * X + (1 - M) * ((U * S) @ Vt)
+    W, H = _nndsvd_from_svd(U, S, Vt, eps)
+    return torch.as_tensor(W), torch.as_tensor(H)
 
 
 def _seed_int(random_state):

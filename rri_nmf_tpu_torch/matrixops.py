@@ -53,8 +53,13 @@ def _proj_simplex_core(V, s):
     exact already-on-simplex shortcut: a feasible row is returned bit for
     bit unchanged."""
     n = V.shape[-1]
-    s = torch.as_tensor(s, dtype=V.dtype, device=V.device).expand(
-        V.shape[:-1])
+    if isinstance(s, torch.Tensor):
+        s = s.to(dtype=V.dtype, device=V.device).expand(V.shape[:-1])
+    else:
+        # filled on the device: no host-to-device copy, which would wait
+        # for the stream
+        s = torch.full(V.shape[:-1], float(s), dtype=V.dtype,
+                       device=V.device)
     on_simplex = (V.sum(-1) == s) & (V >= 0).all(-1)
     u = torch.sort(V, dim=-1, descending=True).values
     cssv = torch.cumsum(u, dim=-1)

@@ -1,11 +1,17 @@
-"""The ``nmf()`` entry point, dense phase-order slice.
+"""The ``nmf()`` entry point: the dense phase-order and masked slices.
 
 Counterpart of :mod:`rri_nmf_tpu.nmf`, with the same signature so one
-kwargs dict drives both packages. This slice runs the production
-"fast-TM recipe" (``update_order='phase'``, ``reset_topic_method=None``)
-on a dense X: initialization, the outer loop over
-:func:`rri_nmf_tpu_torch.ops.dense_kernels.make_dense_phase_sweep`
-(torch GEMMs plus the two CUDA kernels), objective tracking and the
+kwargs dict drives both packages. Two paths run on a dense X:
+
+- the production "fast-TM recipe" (``update_order='phase'``,
+  ``reset_topic_method=None``) through
+  :func:`rri_nmf_tpu_torch.ops.dense_kernels.make_dense_phase_sweep`
+  (torch GEMMs plus kernels B1 and B2);
+- masked WRRI with a dense ``W_mat`` (the recommender path) through
+  :func:`rri_nmf_tpu_torch.ops.masked_kernels.make_masked_sweep`
+  (kernels B3 and B4), in the interleaved order.
+
+Around them: initialization, objective tracking and the
 relative-progress stop, early-stop rollback, ``max_time``, diagnostics,
 ``debug_checks``, the final W projection and the result dict.
 
@@ -26,6 +32,7 @@ from rri_nmf_tpu_torch.matrixops import (as_tensor, normalize,
 from rri_nmf_tpu_torch.optimization import universal_stopping_condition
 from rri_nmf_tpu_torch.ops.dense_kernels import (make_dense_phase_sweep,
                                                  supports_dense_kernels)
+from rri_nmf_tpu_torch.ops.masked_kernels import make_masked_sweep
 from rri_nmf_tpu_torch.ops.sweep import SweepConfig, make_objective
 
 # logger levels follow the reference convention (nmf.py:36-48):
@@ -50,33 +57,44 @@ def _sync(device):
 
 
 class TrueObjComputer(object):
-    """Full-objective calculator returned as ``rtv['obj_calculator']``
-    (unmasked, unweighted): holds X and the current W/T and computes
-    ``0.5||X - WT||^2`` + regularizers.
+    """Full-objective calculator returned as ``rtv['obj_calculator']``:
+    holds X, the mask ``Wm`` (None for an unmasked fit) and the current
+    W/T and computes ``0.5 Σ Wm ⊙ (X - WT)²`` + regularizers.
 
     The residual is summed over 8192-row blocks when the whole ``W @ T``
     temporary would pass ~2 GB in the accumulator dtype (the JAX
-    package's rule)."""
+    package's rule). It pickles (the estimators carry it in their fitted
+    state): the objective function is rebuilt after a load."""
 
     def __init__(self, X, W, T, reg_w_l2, reg_t_l2, reg_w_l1, reg_t_l1,
-                 matmul_precision=None):
+                 Wm=None, matmul_precision=None):
         self.X = X
         self.W = W
         self.T = T
+        self.Wm = Wm
         self.reg_w_l2 = reg_w_l2
         self.reg_t_l2 = reg_t_l2
         self.reg_w_l1 = reg_w_l1
         self.reg_t_l1 = reg_t_l1
+        self.matmul_precision = matmul_precision
         self.obj = np.inf
-        n, d = X.shape
-        big = n * d * X.element_size() > 2e9 and n > 8192
-        self._fn = make_objective(
-            reg_w_l2=reg_w_l2, reg_t_l2=reg_t_l2, reg_w_l1=reg_w_l1,
-            reg_t_l1=reg_t_l1, block_rows=8192 if big else None,
-            matmul_precision=matmul_precision)
+        self._fn = None
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state['_fn'] = None      # a closure; rebuilt on the next use
+        return state
 
     def true_objective(self):
-        self.obj = float(self._fn(self.X, self.W, self.T))
+        if self._fn is None:
+            n, d = self.X.shape
+            big = n * d * self.X.element_size() > 2e9 and n > 8192
+            self._fn = make_objective(
+                masked=self.Wm is not None, reg_w_l2=self.reg_w_l2,
+                reg_t_l2=self.reg_t_l2, reg_w_l1=self.reg_w_l1,
+                reg_t_l1=self.reg_t_l1, block_rows=8192 if big else None,
+                matmul_precision=self.matmul_precision)
+        self.obj = float(self._fn(self.X, self.W, self.T, self.Wm))
         return self.obj
 
 
@@ -97,33 +115,43 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         update_order='interleaved', sparse='auto', matmul_precision=None,
         inner_reps=1, accel=None, accel_opts=None):
     """Factorize the non-negative (n, d) ``X`` as non-negative ``W @ T``
-    by rank-one residue iterations in phase order.
+    by rank-one residue iterations.
 
-    Minimizes ``0.5 ||X - WT||_F^2`` + L1/L2 regularizers on both
-    factors. Parameter names, defaults and meanings are those of
-    :func:`rri_nmf_tpu.nmf.nmf`; what differs:
+    Minimizes ``0.5 ||X - WT||_F^2`` (entrywise-weighted by ``W_mat``) +
+    L1/L2 regularizers on both factors. Parameter names, defaults and
+    meanings are those of :func:`rri_nmf_tpu.nmf.nmf`; what differs:
 
     - **Where it runs.** The fit runs where ``X`` lives: a numpy array or
       a CPU tensor on the CPU (float64 by default), a CUDA tensor on its
       card (float32 by default); ``dtype`` overrides. ``W_in``/``T_in``
       and ``w_row_sum`` vectors may be numpy arrays or tensors.
-    - **What it covers.** ``update_order='phase'`` with
+    - **What it covers.** Unmasked: ``update_order='phase'`` with
       ``reset_topic_method=None``: each sweep updates all T rows, then all
       W columns, every update an exact coordinate minimization. A fixed-T
-      call (``fix_T=True``, the estimators' transform) takes the phase
-      order itself, as in the JAX ``nmf()``. Not ported yet, each raising
-      ``NotImplementedError``: the interleaved order and topic resets (the
-      JAX defaults — ROADMAP A.2), ``W_mat`` (A.7), ``w_row`` (A.4),
+      call (``fix_T=True``, the TM estimator's transform) takes the phase
+      order itself, as in the JAX ``nmf()``. Masked, with a dense
+      ``W_mat`` (a numpy array or tensor of X's shape): the interleaved
+      order, whichever ``update_order`` is asked for (the JAX rule);
+      ``reset_topic_method=None``, or ``'random'`` with ``fix_T`` (the RS
+      estimator's transform); W initialized on ``W_mat * X``. Not ported
+      yet, each raising ``NotImplementedError``: the unmasked interleaved
+      order and topic resets (the JAX defaults — ROADMAP A.2), the XLA
+      masked sweep (``use_pallas=False`` or ``fix_W`` with ``W_mat`` —
+      A.2), a scipy-sparse ``W_mat`` (A.11), ``w_row`` (A.4),
       scipy-sparse X and ``sparse`` modes (A.10), ``x_dtype`` and 16-bit
       factors (A.8), ``mesh`` (A.12), ``checkpoint`` and ``accel`` (A.9),
       ``store_gradients``, ``eps_gauss_t``/``delta_gauss_t`` and
       ``sweeps_per_dispatch > 1`` (A.2), ``init='nndsvd_lrc'`` and
       ``'coherence_pmi'`` (A.3).
     - **use_pallas** keeps its name and means the hand-written kernels
-      (:mod:`rri_nmf_tpu_torch.ops.dense_kernels`): ``None``, ``True`` and
+      (:mod:`rri_nmf_tpu_torch.ops.dense_kernels`,
+      :mod:`rri_nmf_tpu_torch.ops.masked_kernels`): ``None``, ``True`` and
       ``'interpret'`` all take them — on a CUDA X the CUDA kernels, on a
       CPU X their plain PyTorch twins. ``False`` (the plain sweep) waits
       for ROADMAP A.2.
+    - **Resets** draw from a ``torch.Generator`` on the fit's device
+      seeded with ``random_state``: the same budget is spent as in the
+      JAX package, with other random values.
     - **Initialization** of the NNDSVD family runs its randomized SVD
       with sklearn on the host for a CPU X (the reference's goldens) and
       with ``torch.linalg`` on the card for a CUDA X.
@@ -154,21 +182,32 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             or sparse in ('auto', 'mxu', 'dma')):
         raise ValueError("sparse must be one of True, False, 'auto', "
                          "'mxu', 'dma'; got %r" % (sparse,))
+    masked = W_mat is not None
     # With T fixed only the W-phase runs, so both orders are the same
     # computation (the JAX nmf()'s rule) — take the phase path.
-    if fix_T and not fix_W and W_mat is None and \
-            update_order == 'interleaved':
+    if fix_T and not fix_W and not masked and update_order == 'interleaved':
         update_order = 'phase'
 
     # ---- options outside this slice --------------------------------------
-    if update_order != 'phase':
-        _not_yet("update_order='interleaved' (the nmf() default; pass "
-                 "update_order='phase')", 'A.2')
-    if reset_topic_method is not None:
-        _not_yet('topic resets (reset_topic_method=%r; pass None)'
-                 % (reset_topic_method,), 'A.2')
-    if W_mat is not None:
-        _not_yet('W_mat (masked WRRI)', 'A.7')
+    if masked:
+        if hasattr(W_mat, 'tocoo'):
+            _not_yet('a scipy-sparse W_mat (the sparse-mask WRRI sweeps)',
+                     'A.11')
+        if use_pallas is False or fix_W:
+            _not_yet('the XLA masked sweep (use_pallas=False or fix_W with '
+                     'W_mat)', 'A.2')
+        if reset_topic_method is not None and not (
+                fix_T and reset_topic_method == 'random'):
+            _not_yet("topic resets on a masked fit (reset_topic_method=%r; "
+                     "pass None, or 'random' with fix_T)"
+                     % (reset_topic_method,), 'A.2')
+    else:
+        if update_order != 'phase':
+            _not_yet("update_order='interleaved' (the nmf() default; pass "
+                     "update_order='phase')", 'A.2')
+        if reset_topic_method is not None:
+            _not_yet('topic resets (reset_topic_method=%r; pass None)'
+                     % (reset_topic_method,), 'A.2')
     if w_row is not None:
         _not_yet('w_row (row weights and the W refit)', 'A.4')
     if hasattr(X, 'tocoo') or sparse not in ('auto', False, None):
@@ -201,7 +240,14 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         dtype = as_tensor(np.zeros(0, dtype=dtype)).dtype
     if dtype not in (torch.float32, torch.float64):
         _not_yet('%s factors (16-bit storage)' % dtype, 'A.8')
-    X = X.to(dtype)
+    X = X.to(dtype).contiguous()
+    Wm = None
+    if masked:
+        # the mask on the fit's device in the fit's dtype
+        Wm = as_tensor(W_mat, device=device, dtype=dtype).contiguous()
+        if tuple(Wm.shape) != (n, d):
+            raise ValueError('W_mat must have the shape of X, %s; got %s'
+                             % ((n, d), tuple(Wm.shape)))
 
     # ---- configuration validation (reference nmf.py:280-315) -------------
     if project_T_each_iter and np.any([reg_w_l1, reg_t_l1]):
@@ -241,6 +287,13 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                 'obj_history': [-np.inf], 'iter_cputime': [0],
                 **_sentinel_extra}
 
+    # The dense masked sweep is interleaved by construction (the JAX
+    # rule, nmf.py:1162): the order that runs decides the scale transfer
+    if masked and update_order == 'phase':
+        logger.info('masked path ignores the phase update order; running '
+                    'the interleaved (reference) order')
+        update_order = 'interleaved'
+
     if type(diagnostics) is not list:
         diagnostics = [diagnostics]
     if len(diagnostics) > 0:
@@ -263,7 +316,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
 
     start_time = time.perf_counter()
     W, T = _initialize_and_validate(
-        W_in=W_in, T_in=T_in, X=X, k=k, init=init,
+        W_in=W_in, T_in=T_in, W_mat=Wm, X=X, k=k, init=init,
         random_state=random_state, project_T_each_iter=project_T_each_iter,
         project_W_each_iter=project_W_each_iter, w_row_sum=w_row_sum,
         t_row_sum=t_row_sum, fix_W=fix_W, fix_T=fix_T, n=n, d=d)
@@ -271,8 +324,13 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     inner_reps = int(inner_reps)
     if inner_reps < 1:
         raise ValueError('inner_reps must be >= 1')
+    if inner_reps > 1 and masked:
+        raise ValueError(
+            'inner_reps > 1 requires no dense W_mat: the extra Gauss-Seidel '
+            'passes reuse the per-phase numerators, which the masked sweep '
+            'does not have')
     cfg = SweepConfig(
-        k=k, fix_W=fix_W, fix_T=fix_T,
+        k=k, fix_W=fix_W, fix_T=fix_T, masked=masked,
         project_T_each_iter=project_T_each_iter,
         project_W_each_iter=project_W_each_iter,
         t_row_sum=float(t_row_sum) if t_row_sum is not None else None,
@@ -280,14 +338,27 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         w_row_sum_is_vector=w_row_sum_is_vector,
         reg_w_l2=float(reg_w_l2), reg_t_l2=float(reg_t_l2),
         reg_w_l1=float(reg_w_l1), reg_t_l1=float(reg_t_l1),
-        reset_topic_method=None, update_order='phase',
+        reset_topic_method=reset_topic_method,
+        fix_reset_seed=bool(fix_reset_seed), update_order=update_order,
         matmul_precision=matmul_precision, inner_reps=inner_reps)
-    if device.type == 'cuda' and not supports_dense_kernels(cfg, d, dtype):
-        raise ValueError(
-            'the CUDA kernels do not fit this problem (k=%d, d=%d, %s): see '
-            'dense_kernels.gs_fits / tm_proj_fits' % (k, d, dtype))
-    sweep_fn = make_dense_phase_sweep(cfg)
     wrs = w_row_sum if w_row_sum_is_vector else None
+    resets_left = int(n_resets)
+    if masked:
+        masked_sweep = make_masked_sweep(cfg)
+        gen = torch.Generator(device=device).manual_seed(int(random_state))
+
+        def sweep_fn(X, W, T, wrs):
+            nonlocal resets_left
+            W, T, resets_left = masked_sweep(X, W, T, Wm, gen, resets_left,
+                                             wrs)
+            return W, T
+    else:
+        if device.type == 'cuda' and not supports_dense_kernels(cfg, d,
+                                                                dtype):
+            raise ValueError(
+                'the CUDA kernels do not fit this problem (k=%d, d=%d, %s): '
+                'see dense_kernels.gs_fits / tm_proj_fits' % (k, d, dtype))
+        sweep_fn = make_dense_phase_sweep(cfg)
 
     # ---- early stopping state (reference nmf.py:360-363) ------------------
     _es_active = bool(early_stop) and (callable(early_stop)
@@ -310,7 +381,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     OBJ = None
     if compute_obj_each_iter:
         OBJ = TrueObjComputer(X, W, T, reg_w_l1=reg_w_l1, reg_t_l2=reg_t_l2,
-                              reg_w_l2=reg_w_l2, reg_t_l1=reg_t_l1,
+                              reg_w_l2=reg_w_l2, reg_t_l1=reg_t_l1, Wm=Wm,
                               matmul_precision=matmul_precision)
 
     for func in diagnostics:
@@ -395,7 +466,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
 
     rtv['W'] = W.contiguous()
     rtv['T'] = T.contiguous()
-    rtv['n_resets_remaining'] = int(n_resets)
+    rtv['n_resets_remaining'] = resets_left
     if compute_obj_each_iter:
         rtv['obj_history'] = obj_history
         OBJ.W, OBJ.T = rtv['W'], rtv['T']
@@ -405,11 +476,12 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     return rtv
 
 
-def _initialize_and_validate(W_in, T_in, X, k, init, random_state,
+def _initialize_and_validate(W_in, T_in, W_mat, X, k, init, random_state,
                              project_T_each_iter, project_W_each_iter,
                              w_row_sum, t_row_sum, fix_W, fix_T, n, d):
     """Initialize W, T or validate warm starts (reference
-    ``_initialize_and_validate``, ``nmf.py:819-880``): fresh factors get
+    ``_initialize_and_validate``, ``nmf.py:819-880``): a fresh init runs
+    on the masked matrix ``W_mat * X`` when masked, fresh factors get
     their row sums scaled to ``t_row_sum``/``w_row_sum``, warm starts are
     shape-checked, negatives clipped, and the initial simplex projections
     applied when per-iteration projection is on. Returns tensors on X's
@@ -420,7 +492,8 @@ def _initialize_and_validate(W_in, T_in, X, k, init, random_state,
         # the SVD backend follows X: sklearn on the host for a CPU X (the
         # reference's goldens), torch.linalg on the card for a CUDA X
         backend = 'torch' if device.type == 'cuda' else 'sklearn'
-        W, T = initialize_nmf(X, k, init, random_state=random_state,
+        W, T = initialize_nmf(X if W_mat is None else W_mat * X, k, init,
+                              random_state=random_state,
                               row_normalize=False, svd_backend=backend)
         if t_row_sum is not None:
             T = normalize(T) * t_row_sum

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``rri_nmf_tpu_torch/csrc``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), for
+``nvcc`` compiles each ``csrc/*.cu`` into an object, one process per
+source, all started together, and links them into one shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds), for
 Hopper only: ``-gencode arch=compute_90a,code=sm_90a``. The library goes
 to ``build/rri_nmf_tpu_torch/`` beside the package, named by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one
@@ -10,8 +11,9 @@ never at import.
 
 The C functions take raw device pointers and the CUDA stream as
 ``c_void_p`` and the device index as an int, and return
-``cudaGetLastError()`` after their launch; the wrappers in
-:mod:`rri_nmf_tpu_torch.ops.dense_kernels` raise when it is not 0.
+``cudaGetLastError()`` after their launch; :func:`launch` raises when it
+is not 0. :func:`check_operands` is the wrappers' common check of device,
+dtype, shape and contiguity.
 """
 
 import ctypes
@@ -23,11 +25,13 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR.parent / 'build' / 'rri_nmf_tpu_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC']
+              '-O3', '-Xcompiler', '-fPIC']
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,7 +44,16 @@ SIGNATURES = {
     'rri_gs_f64': [_P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _I, _I, _P],
     'rri_tm_proj_f32': [_P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P],
     'rri_tm_proj_f64': [_P, _P, _P, _P, _I, _I, _D, _D, _D, _I, _I, _P],
+    # R, M, dw, t_prev, w, partials, wR0, nw; n, d, chunks
+    'rri_masked_phase_a_f32': [_P] * 8 + [_I, _I, _I, _I, _P],
+    'rri_masked_phase_a_f64': [_P] * 8 + [_I, _I, _I, _I, _P],
+    # R, M, w, w_eff, t_old, t_new, Rt, mt2; n, d
+    'rri_masked_phase_b_f32': [_P] * 8 + [_I, _I, _I, _P],
+    'rri_masked_phase_b_f64': [_P] * 8 + [_I, _I, _I, _P],
 }
+# the kernels' dtypes: ctypes scalar and C-function suffix
+CTYPES = {torch.float32: _F, torch.float64: _D}
+_SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
 
 
 def find_nvcc():
@@ -77,29 +90,42 @@ def library_path():
 def build(verbose=False):
     """Compile the library if it is not built yet; returns its path.
 
-    Writes to a temporary file and renames it into place, so processes
-    building at the same time never load a half-written library."""
+    One ``nvcc -c`` per source runs at the same time; the objects are
+    linked in a temporary directory and the library renamed into place,
+    so processes building at the same time never load a half-written
+    file."""
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp,
-           *(str(s) for s in sources())]
-    if verbose:
-        cmd.insert(1, '-Xptxas=-v')
-    try:
+    nvcc = find_nvcc()
+    flags = NVCC_FLAGS + (['-Xptxas=-v'] if verbose else [])
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sources():
+            obj = os.path.join(tmp, src.stem + '.o')
+            cmd = [nvcc, *flags, '-c', '-o', obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append('nvcc failed (%d):\n%s\n%s' % (
+                    proc.returncode, ' '.join(cmd), err))
+            elif verbose:
+                print(err, end='')
+        if failed:
+            raise RuntimeError('\n'.join(failed))
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, '-shared', '-Xcompiler', '-fPIC', '-o', lib,
+               *(obj for _, obj, _ in jobs)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError('nvcc failed (%d):\n%s\n%s' % (
+            raise RuntimeError('nvcc link failed (%d):\n%s\n%s' % (
                 res.returncode, ' '.join(cmd), res.stderr))
-        if verbose:
-            print(res.stderr, end='')
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(lib, out)
     return out
 
 
@@ -113,3 +139,37 @@ def load():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def check_operands(ref, operands):
+    """Device/dtype/shape/contiguity checks shared by the kernel wrappers:
+    ``ref`` is a CUDA tensor of the kernel's dtype, ``operands`` maps
+    names to (tensor, expected shape); each must be a contiguous tensor of
+    ``ref``'s dtype on its device."""
+    if ref.device.type != 'cuda':
+        raise ValueError('the kernels run on CUDA or (plain twin) CPU '
+                         'tensors, got %s' % ref.device)
+    if ref.dtype not in CTYPES:
+        raise ValueError('the kernels take float32/float64, got %s'
+                         % ref.dtype)
+    for name, (a, shape) in operands.items():
+        if a.device != ref.device or a.dtype != ref.dtype:
+            raise ValueError('%s must be %s on %s, got %s on %s' % (
+                name, ref.dtype, ref.device, a.dtype, a.device))
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError('%s must have shape %s, got %s'
+                             % (name, tuple(shape), tuple(a.shape)))
+        if not a.is_contiguous():
+            raise ValueError('%s must be contiguous' % name)
+
+
+def launch(fn, ref, *args):
+    """Call the C function ``<fn>_<f32|f64>`` (by ``ref``'s dtype) with
+    ``args``, then ``ref``'s device index and PyTorch's current stream on
+    it; raise if it reports a CUDA error."""
+    stream = torch.cuda.current_stream(ref.device).cuda_stream
+    err = getattr(load(), '%s_%s' % (fn, _SUFFIX[ref.dtype]))(
+        *args, ref.device.index, stream)
+    if err != 0:
+        raise RuntimeError('%s kernel launch failed: CUDA error %d'
+                           % (fn, err))

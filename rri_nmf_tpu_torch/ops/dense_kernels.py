@@ -26,11 +26,10 @@ edge. The VMEM gates become each kernel's own shared-memory gate
 (:func:`gs_fits`, :func:`tm_proj_fits`).
 """
 
-import ctypes
-
 import torch
 
 from rri_nmf_tpu_torch.matrixops import EPS_DIV_BY_ZERO, _proj_simplex_core
+from rri_nmf_tpu_torch.ops._build import CTYPES, check_operands, launch
 from rri_nmf_tpu_torch.ops.sweep import precision_scope
 
 # Kernel launches per wrapper since the last reset_launches(). A wrapper
@@ -155,41 +154,6 @@ def tm_proj_update_ref(G, N, F, l1, l2, s, reps=1):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-_CT = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
-_SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
-
-
-def _check(F, shapes):
-    """Device/dtype/shape/contiguity checks shared by the wrappers;
-    ``shapes`` maps names to (tensor, expected shape)."""
-    if F.device.type != 'cuda':
-        raise ValueError('the dense kernels run on CUDA or (plain twin) CPU '
-                         'tensors, got %s' % F.device)
-    if F.dtype not in _CT:
-        raise ValueError('the dense kernels take float32/float64, got %s'
-                         % F.dtype)
-    for name, (a, shape) in shapes.items():
-        if a.device != F.device or a.dtype != F.dtype:
-            raise ValueError('%s must be %s on %s, got %s on %s' % (
-                name, F.dtype, F.device, a.dtype, a.device))
-        if tuple(a.shape) != tuple(shape):
-            raise ValueError('%s must have shape %s, got %s'
-                             % (name, tuple(shape), tuple(a.shape)))
-        if not a.is_contiguous():
-            raise ValueError('%s must be contiguous' % name)
-
-
-def _launch(fn, F, *args):
-    from rri_nmf_tpu_torch.ops import _build
-    lib = _build.load()
-    stream = torch.cuda.current_stream(F.device).cuda_stream
-    err = getattr(lib, '%s_%s' % (fn, _SUFFIX[F.dtype]))(
-        *args, F.device.index, stream)
-    if err != 0:
-        raise RuntimeError('%s kernel launch failed: CUDA error %d'
-                           % (fn, err))
-
-
 def gs_update(G, N, F, l1, l2, bound, ub=None, reps=1):
     """B1: the Gauss-Seidel topic loop (see :func:`gs_update_ref`).
 
@@ -202,15 +166,15 @@ def gs_update(G, N, F, l1, l2, bound, ub=None, reps=1):
     shapes = {'G': (G, (k, k)), 'N': (N, (k, m)), 'F': (F, (k, m))}
     if ub is not None:
         shapes['ub'] = (ub, (m,))
-    _check(F, shapes)
+    check_operands(F, shapes)
     if not gs_fits(k, F.dtype):
         raise ValueError('k=%d exceeds the GS kernel\'s shared memory '
                          '(%d-column %s strip)' % (k, GS_COLS, F.dtype))
     out = torch.empty_like(F)
-    ct = _CT[F.dtype]
-    _launch('rri_gs', F, G.data_ptr(), N.data_ptr(), F.data_ptr(),
-            ub.data_ptr() if ub is not None else None, out.data_ptr(),
-            k, m, ct(l1), ct(l2), ct(bound), int(reps))
+    ct = CTYPES[F.dtype]
+    launch('rri_gs', F, G.data_ptr(), N.data_ptr(), F.data_ptr(),
+           ub.data_ptr() if ub is not None else None, out.data_ptr(),
+           k, m, ct(l1), ct(l2), ct(bound), int(reps))
     LAUNCHES['gs'] += 1
     return out
 
@@ -223,14 +187,14 @@ def tm_proj_update(G, N, F, l1, l2, s, reps=1):
     if F.device.type == 'cpu':
         return tm_proj_update_ref(G, N, F, l1, l2, s, reps=reps)
     k, d = F.shape
-    _check(F, {'G': (G, (k, k)), 'N': (N, (k, d)), 'F': (F, (k, d))})
+    check_operands(F, {'G': (G, (k, k)), 'N': (N, (k, d)), 'F': (F, (k, d))})
     if not tm_proj_fits(k, d, F.dtype):
         raise ValueError('d=%d exceeds the projected T-phase kernel\'s '
                          'shared memory (one %s row)' % (d, F.dtype))
     out = torch.empty_like(F)
-    ct = _CT[F.dtype]
-    _launch('rri_tm_proj', F, G.data_ptr(), N.data_ptr(), F.data_ptr(),
-            out.data_ptr(), k, d, ct(l1), ct(l2), ct(s), int(reps))
+    ct = CTYPES[F.dtype]
+    launch('rri_tm_proj', F, G.data_ptr(), N.data_ptr(), F.data_ptr(),
+           out.data_ptr(), k, d, ct(l1), ct(l2), ct(s), int(reps))
     LAUNCHES['tm_proj'] += 1
     return out
 

@@ -1,0 +1,229 @@
+"""Masked dense WRRI sweep: two hand-written CUDA streaming kernels.
+
+Counterpart of :mod:`rri_nmf_tpu.ops.sweep_pallas`. The masked (weighted)
+problem ``min 0.5 ||M ⊙ (X - WT)||²`` has per-coordinate curvatures, so
+each topic's T row and W column come from reductions over the masked
+residual ``M ⊙ R``. The sweep keeps ``R = X - WT`` (rebuilt with one
+GEMM at the start of every sweep, which bounds float drift to one sweep)
+and updates it with rank-one corrections; per topic it makes two fused
+streaming passes over R and M:
+
+- **B3** (``csrc/masked.cu``, wrapper :func:`phase_a`), the T-phase: the
+  pending rank-one update ``R += dw·t_prevᵀ`` left by the previous
+  topic's W-phase, then the column sums ``wR0 = wᵀ(M⊙R)`` and
+  ``nw = (w²)ᵀM``.
+- **B4** (wrapper :func:`phase_b`), the W-phase: ``R += w·t_oldᵀ −
+  w_eff·t_newᵀ``, then the row sums ``(M⊙R)·t_new`` and ``M·t_new²``.
+  The fixed-T sweep (the RS estimator's transform) runs B4 alone, with
+  ``w_eff = 0``.
+
+Each wrapper updates R in place, like the Pallas kernels that alias it.
+A CPU tensor goes to the plain PyTorch twin (:func:`phase_a_ref`,
+:func:`phase_b_ref`, which update their CPU R the same way); a CUDA tensor
+launches the kernel, or the wrapper raises. ``LAUNCHES`` counts kernel
+launches.
+
+Unlike the TPU kernels nothing is padded, so the ``row_ok``/``col_ok``
+masks and ``_pick_tiles`` have no counterpart: no coordinate outside
+(n, d) exists, so a negative L1 regularizer cannot give phantom mass to
+one.
+"""
+
+import torch
+
+from rri_nmf_tpu_torch.matrixops import (_proj_simplex_core,
+                                         reproject_row_if_drifted)
+from rri_nmf_tpu_torch.optimization import qf_min_vector_c
+from rri_nmf_tpu_torch.ops._build import check_operands, launch
+from rri_nmf_tpu_torch.ops.sweep import make_reset_rowcol, precision_scope
+
+# Kernel launches per wrapper since the last reset_launches(). A wrapper
+# adds one right after its kernel launched, and nowhere else.
+LAUNCHES = {'phase_a': 0, 'phase_b': 0}
+
+# Rows per B3 block: B3 splits the rows into chunks of this many (the
+# last one shorter), each a row of blocks over the column stripes —
+# 189 × 31 blocks at 6040×3952, several waves on 132 SMs.
+B3_ROWS = 32
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def phase_a_chunks(n):
+    """Row chunks of one B3 launch: B3_ROWS rows each (more past 2M rows,
+    the grid's limit of 65535 chunks). A function of the shape alone, so
+    the order of every sum is fixed."""
+    return max(1, min(-(-n // B3_ROWS), 65535))
+
+
+def supports_masked_kernels(cfg):
+    """Whether the masked sweep covers ``cfg`` (the gate of
+    :func:`rri_nmf_tpu.ops.sweep_pallas.supports_pallas`): a dense mask,
+    no resets except in a fixed-T sweep, no gradient stores, no DP
+    noise, W free."""
+    return (cfg.masked
+            and not cfg.masked_sparse
+            and (cfg.reset_topic_method is None or cfg.fix_T)
+            and not cfg.store_gradients
+            and cfg.dp_sigma is None
+            and not cfg.fix_W)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twins
+# ---------------------------------------------------------------------------
+
+def phase_a_ref(R, M, dw, t_prev, w):
+    """Plain version of B3: ``R += dw·t_prevᵀ`` in place, then returns
+    ``(wᵀ(M⊙R), (w²)ᵀM)``, each (d,)."""
+    R += dw[:, None] * t_prev[None, :]
+    return w @ (M * R), (w * w) @ M
+
+
+def phase_b_ref(R, M, w, w_eff, t_old, t_new):
+    """Plain version of B4: ``R += w·t_oldᵀ − w_eff·t_newᵀ`` in place,
+    then returns ``((M⊙R)·t_new, M·t_new²)``, each (n,)."""
+    R += w[:, None] * t_old[None, :]
+    R -= w_eff[:, None] * t_new[None, :]
+    return (M * R) @ t_new, M @ (t_new * t_new)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def phase_a(R, M, dw, t_prev, w):
+    """B3 (see :func:`phase_a_ref`): updates ``R`` in place and returns
+    ``(wR0, nw)``. A CPU ``R`` runs the plain twin; a CUDA ``R`` launches
+    ``csrc/masked.cu``, with every operand a contiguous tensor of ``R``'s
+    dtype on its device."""
+    if R.device.type == 'cpu':
+        return phase_a_ref(R, M, dw, t_prev, w)
+    n, d = R.shape
+    check_operands(R, {'R': (R, (n, d)), 'M': (M, (n, d)),
+                       'dw': (dw, (n,)), 't_prev': (t_prev, (d,)),
+                       'w': (w, (n,))})
+    chunks = phase_a_chunks(n)
+    part = torch.empty(2, chunks, d, dtype=R.dtype, device=R.device)
+    wR0 = torch.empty(d, dtype=R.dtype, device=R.device)
+    nw = torch.empty_like(wR0)
+    launch('rri_masked_phase_a', R, R.data_ptr(), M.data_ptr(),
+           dw.data_ptr(), t_prev.data_ptr(), w.data_ptr(), part.data_ptr(),
+           wR0.data_ptr(), nw.data_ptr(), n, d, chunks)
+    LAUNCHES['phase_a'] += 1
+    return wR0, nw
+
+
+def phase_b(R, M, w, w_eff, t_old, t_new):
+    """B4 (see :func:`phase_b_ref`): updates ``R`` in place and returns
+    ``(Rt0, mt2)``. A CPU ``R`` runs the plain twin; a CUDA ``R`` launches
+    ``csrc/masked.cu``."""
+    if R.device.type == 'cpu':
+        return phase_b_ref(R, M, w, w_eff, t_old, t_new)
+    n, d = R.shape
+    check_operands(R, {'R': (R, (n, d)), 'M': (M, (n, d)),
+                       'w': (w, (n,)), 'w_eff': (w_eff, (n,)),
+                       't_old': (t_old, (d,)), 't_new': (t_new, (d,))})
+    Rt = torch.empty(n, dtype=R.dtype, device=R.device)
+    mt2 = torch.empty_like(Rt)
+    launch('rri_masked_phase_b', R, R.data_ptr(), M.data_ptr(),
+           w.data_ptr(), w_eff.data_ptr(), t_old.data_ptr(),
+           t_new.data_ptr(), Rt.data_ptr(), mt2.data_ptr(), n, d)
+    LAUNCHES['phase_b'] += 1
+    return Rt, mt2
+
+
+# ---------------------------------------------------------------------------
+# the sweep
+# ---------------------------------------------------------------------------
+
+def make_masked_sweep(cfg):
+    """Build ``sweep(X, W, T, M, gen, resets_left, w_row_sum_vec=None)
+    -> (W, T, resets_left)``: one masked WRRI sweep in the reference's
+    interleaved topic order (T row, then W column, per topic), for a
+    config :func:`supports_masked_kernels` accepts. The counterpart of
+    :func:`rri_nmf_tpu.ops.sweep_pallas.make_masked_sweep_pallas`.
+
+    ``X``, ``M`` (n, d), ``W`` (n, k) and ``T`` (k, d) are tensors of one
+    dtype on one device; the inputs are not modified. ``gen`` is the
+    ``torch.Generator`` of the ``'random'`` resets of a fixed-T sweep and
+    ``resets_left`` (an int) their remaining budget. ``w_row_sum_vec``
+    (n,) is the per-row W bound when ``cfg.w_row_sum_is_vector``."""
+    if not supports_masked_kernels(cfg):
+        raise ValueError('config not supported by the masked kernels')
+    k = cfg.k
+    reset_fn = (make_reset_rowcol(cfg)
+                if cfg.reset_topic_method is not None else None)
+
+    def sweep(X, W, T, M, gen, resets_left, w_row_sum_vec=None):
+        n, d = X.shape
+        dtype = W.dtype
+        ub_w = (w_row_sum_vec.reshape(-1).to(dtype)
+                if cfg.w_row_sum_is_vector else cfg.w_row_sum)
+        # the factors as lists of contiguous rows: a topic's update binds
+        # a new tensor in its slot, so the inputs are never written
+        cols = list(W.T.contiguous().unbind(0))     # W[:, t], each (n,)
+        rows = list(T.contiguous().unbind(0))       # T[t], each (d,)
+        with precision_scope(cfg.matmul_precision):
+            R = X - W @ T       # fresh residual each sweep bounds drift
+        pend_dw = torch.zeros(n, dtype=dtype, device=X.device)
+        pend_t = torch.zeros(d, dtype=dtype, device=X.device)
+
+        for t in range(k):
+            w = cols[t]
+            if cfg.fix_T:
+                # W-phase only: B4 applies the previous topic's deferred
+                # update (w_eff = 0 leaves the T side alone)
+                Rt0, mt2 = phase_b(R, M, pend_dw, torch.zeros_like(w),
+                                   pend_t, rows[t])
+                w_eff = w
+            else:
+                # ---- T-phase: one pass (pending update + reductions)
+                wR0, nw = phase_a(R, M, pend_dw, pend_t, w)
+                wR = torch.addcmul(wR0, rows[t], nw)   # rank-one restore
+                t_new, nt1 = qf_min_vector_c(
+                    cfg.reg_t_l1 - wR,
+                    nw + cfg.reg_t_l2 if cfg.reg_t_l2 else nw,
+                    s=cfg.t_update_s, ub=cfg.t_row_sum)
+                t_old = rows[t]
+                # scale transfer: the reference's W[:, t] *= nt1 is
+                # overwritten by the W-phase below, so only the residual
+                # sees it, through w_eff
+                w_eff = w * nt1 if cfg.scale_transfer else w
+                if cfg.project_T_each_iter and cfg.t_row_sum:
+                    t_new = reproject_row_if_drifted(t_new, cfg.t_row_sum)
+                rows[t] = t_new
+                # ---- W-phase: one pass (T update + reductions) with the
+                # stored row, so R tracks T exactly
+                Rt0, mt2 = phase_b(R, M, w, w_eff, t_old, t_new)
+            Rt = torch.addcmul(Rt0, w_eff, mt2)         # rank-one restore
+            w_new, _ = qf_min_vector_c(
+                cfg.reg_w_l1 - Rt, mt2 + cfg.reg_w_l2 if cfg.reg_w_l2
+                else mt2, s=None, ub=ub_w)
+            cols[t] = w_new
+            # this topic's W update is deferred into the next topic's pass
+            pend_dw = w_eff - w_new
+            pend_t = rows[t]
+
+            if (reset_fn is not None and resets_left > 0
+                    and not bool(w_new.sum() > 1e-10)):
+                # a dead column (fixed-T sweeps only): reset it, rebuild R
+                # and drop the deferred update, as the JAX sweep does
+                rows[t], cols[t] = reset_fn(X, rows[t], t, gen)
+                resets_left -= 1
+                with precision_scope(cfg.matmul_precision):
+                    R = X - torch.stack(cols, 1) @ torch.stack(rows)
+                pend_dw = torch.zeros_like(pend_dw)
+                pend_t = torch.zeros_like(pend_t)
+
+        W = torch.stack(cols, 1)
+        # per-iteration W row projection (reference nmf.py:481-484)
+        if (cfg.project_W_each_iter
+                and (cfg.w_row_sum is not None or cfg.w_row_sum_is_vector)):
+            W = _proj_simplex_core(W, ub_w)
+        return W, torch.stack(rows), resets_left
+
+    return sweep

@@ -1,11 +1,13 @@
 """Sweep configuration, dtype resolution and the full objective.
 
 Counterpart of the parts of :mod:`rri_nmf_tpu.ops.sweep_xla` that the
-dense phase sweep needs: :class:`SweepConfig` (copied field for field,
-without JAX), :func:`resolve_mixed_dtypes` and :func:`make_objective`
-(unmasked, unweighted, with the row-blocked option). The XLA sweep itself
-(``make_sweep``: interleaved order, topic resets, DP noise) is not ported
-yet; the phase sweep lives in :mod:`rri_nmf_tpu_torch.ops.dense_kernels`.
+ported sweeps need: :class:`SweepConfig` (copied field for field, without
+JAX), :func:`resolve_mixed_dtypes`, :func:`make_objective` (plain or
+masked, with the row-blocked option) and :func:`make_reset_rowcol` (the
+``'random'`` reset). The XLA sweep itself (``make_sweep``: interleaved
+order, ``'max_resid_document'`` resets, DP noise) is not ported yet; the
+sweeps live in :mod:`rri_nmf_tpu_torch.ops.dense_kernels` (phase order)
+and :mod:`rri_nmf_tpu_torch.ops.masked_kernels` (masked WRRI).
 """
 
 import contextlib
@@ -106,30 +108,38 @@ def precision_scope(name):
 def make_objective(masked=False, row_weighted=False, reg_w_l2=0.0,
                    reg_t_l2=0.0, reg_w_l1=0.0, reg_t_l1=0.0,
                    block_rows=None, matmul_precision=None):
-    """Build ``objective(X, W, T) -> 0-d tensor``:
-    ``0.5 ||X - WT||_F^2`` plus the four regularizers (reference
-    ``nmf.py:71-94``), accumulated in the accumulator dtype.
+    """Build ``objective(X, W, T[, M]) -> 0-d tensor``:
+    ``0.5 Σ M ⊙ (X - WT)²`` plus the four regularizers (reference
+    ``nmf.py:71-94``), accumulated in the accumulator dtype. The mask
+    ``M`` (n, d) is passed only when ``masked``; it weights each squared
+    entry, as :func:`rri_nmf_tpu.ops.sweep_xla.make_objective` does.
 
     ``block_rows`` sums the residual over row blocks of that size instead
     of materializing the whole ``W @ T`` product (for X near the device
-    memory budget). The masked and row-weighted forms wait for their
-    slices."""
-    if masked or row_weighted:
+    memory budget). The row-weighted form waits for the ``w_row`` refit
+    (ROADMAP A.4)."""
+    if row_weighted:
         raise NotImplementedError(
-            'the masked and row-weighted objectives arrive with the masked '
-            'slice (ROADMAP A.7) and the w_row refit (ROADMAP A.4)')
+            'the row-weighted objective arrives with the w_row refit '
+            '(ROADMAP A.4)')
 
-    def _res_sq(acc, X, W, T):
-        return ((X.to(acc) - W.to(acc) @ T.to(acc)) ** 2).sum()
+    def _res_sq(acc, X, W, T, M):
+        R = (X.to(acc) - W.to(acc) @ T.to(acc)) ** 2
+        if masked:
+            R = M.to(acc) * R
+        return R.sum()
 
-    def objective(X, W, T):
+    def objective(X, W, T, M=None):
+        if masked and M is None:
+            raise ValueError('the masked objective needs the mask M')
         _, acc, _ = resolve_mixed_dtypes(X.dtype, W.dtype)
         with precision_scope(matmul_precision):
             if block_rows is None:
-                base = _res_sq(acc, X, W, T)
+                base = _res_sq(acc, X, W, T, M)
             else:
                 B = int(block_rows)
-                base = sum(_res_sq(acc, X[i:i + B], W[i:i + B], T)
+                base = sum(_res_sq(acc, X[i:i + B], W[i:i + B], T,
+                                   M[i:i + B] if masked else None)
                            for i in range(0, X.shape[0], B))
         Wa = W.to(acc)
         Ta = T.to(acc)
@@ -141,3 +151,36 @@ def make_objective(masked=False, row_weighted=False, reg_w_l2=0.0,
         return obj
 
     return objective
+
+
+def make_reset_rowcol(cfg):
+    """Topic-reset builder: ``reset(X, t_row, t, gen) -> (t_row, w_col)``,
+    the new T row (d,) and W column (n,) for the dead topic ``t`` whose
+    current T row is ``t_row`` under ``cfg.reset_topic_method``
+    (reference ``nmf.py:770-783, 804-816``).
+
+    Only ``'random'`` is ported: a uniform row normalized to sum 1 and a
+    uniform column, drawn from the ``torch.Generator`` ``gen`` on the fit's
+    device. With ``cfg.fix_reset_seed`` the draw comes instead from a
+    fresh generator seeded with ``gen.initial_seed() + t + argmax(t_row)``,
+    the analog of the reference's ``np.random.seed(t + argmax(T[t]))``:
+    the same on every run. torch draws other numbers than ``jax.random``
+    from the same seed (ROADMAP §C.2), so values differ from the JAX
+    package while the reset budget is spent alike."""
+    method = cfg.reset_topic_method
+    if method != 'random':
+        raise NotImplementedError(
+            'reset_topic_method=%r is not ported to rri_nmf_tpu_torch yet; '
+            'it arrives with ROADMAP A.2' % (method,))
+
+    def reset(X, t_row, t, gen):
+        n, d = X.shape
+        dtype, device = t_row.dtype, t_row.device
+        if cfg.fix_reset_seed:
+            gen = torch.Generator(device=device).manual_seed(
+                gen.initial_seed() + t + int(torch.argmax(t_row)))
+        row = torch.rand(d, generator=gen, dtype=dtype, device=device)
+        col = torch.rand(n, generator=gen, dtype=dtype, device=device)
+        return row / row.sum(), col
+
+    return reset

@@ -75,11 +75,15 @@ def qf_min_vector_c(w, c, s, ub):
     """qf_min for a per-coordinate curvature ``c`` (WRRI path, reference
     ``optimization.py:75-88``)."""
     ub_eff = _ub_eff(s, ub, w)
-    denom_safe = torch.where(c > 0, c, 1.0) + EPS_DIV_BY_ZERO
-    x = torch.where(c > 0, (-w).clamp_min(0.0) / denom_safe, 0.0)
-    if ub_eff is not None:
-        x = torch.minimum(x, torch.as_tensor(ub_eff, dtype=w.dtype,
-                                             device=w.device))
+    pos = c > 0
+    denom_safe = torch.where(pos, c, 1.0) + EPS_DIV_BY_ZERO
+    x = torch.where(pos, (-w).clamp_min(0.0) / denom_safe, 0.0)
+    if isinstance(ub_eff, torch.Tensor):
+        x = torch.minimum(x, ub_eff)
+    elif ub_eff is not None:
+        # a number bounds in place: a scalar tensor made on the card would
+        # be a host-to-device copy, which waits for the stream
+        x = x.clamp_max(ub_eff)
     nx = x.sum()
     if s is not None:
         x = torch.where(nx > 0, s * x / torch.where(nx > 0, nx, 1.0), x)

@@ -1,25 +1,34 @@
-"""The topic-modeling estimator (counterpart of
+"""The topic-modeling and recommender estimators (counterparts of
 :mod:`rri_nmf_tpu.sklearn_interface`).
 
-:class:`NMF_TM_Estimator` keeps the JAX estimator's constructor
-arguments, presets and methods (``fit``, ``fit_transform``, ``one_iter``,
-``transform``, ``score``, ``score_all``) on dense X. It does not subclass
-scikit-learn: ``get_params``/``set_params`` are its own, over the same
-constructor arguments. Fitted ``W``/``T`` are tensors on the device the
-fit ran on (a numpy ``X`` fits on the CPU, a CUDA tensor on its card).
+Both keep the JAX estimators' constructor arguments, presets and methods
+on dense data. They do not subclass scikit-learn, which the card's
+machine does not have: ``get_params``/``set_params`` are their own, over
+the same constructor arguments, and the input checks, the validation
+split and the COO scatter are plain numpy/torch code. Fitted ``W``/``T``
+are tensors on the device the fit ran on (numpy data fits on the CPU, a
+CUDA tensor on its card).
 
-This slice runs the fast-TM recipe only: pass
-``nmf_kwargs=dict(update_order='phase', reset_topic_method=None)``. The
-estimator's default preset (interleaved order with resets) raises
-``NotImplementedError`` until ROADMAP A.2. ``NMF_RS_Estimator`` arrives
-with the masked slice (ROADMAP A.7).
+- :class:`NMF_TM_Estimator` (``fit``, ``fit_transform``, ``one_iter``,
+  ``transform``, ``score``, ``score_all``) runs the fast-TM recipe only:
+  pass ``nmf_kwargs=dict(update_order='phase', reset_topic_method=None)``.
+  Its default preset (interleaved order with resets) raises
+  ``NotImplementedError`` until ROADMAP A.2.
+- :class:`NMF_RS_Estimator` (``fit``, ``fit_from_Xtr``, ``transform``,
+  ``predict``, ``score``, ``make_Xpred``) fits masked WRRI on a dense
+  observation mask with its default preset. The sparse observation modes
+  (``sparse_obs``, a scipy-sparse ``transform`` input, ``sparsify``)
+  raise until ROADMAP A.11.
 """
+
+import math
 
 import numpy as np
 import torch
 
 from rri_nmf_tpu_torch.convert import factors_from_numpy
-from rri_nmf_tpu_torch.matrixops import as_tensor, normalize, tfidf
+from rri_nmf_tpu_torch.matrixops import (as_tensor, default_float,
+                                         normalize, tfidf)
 from rri_nmf_tpu_torch.nmf import nmf
 
 # nmf() kwargs dropped from the TRANSFORM presets (fixed-T sweeps over new
@@ -41,7 +50,51 @@ def _size(a):
     return a.numel() if isinstance(a, torch.Tensor) else int(np.size(a))
 
 
-class NMF_TM_Estimator(object):
+class _Estimator(object):
+    """Constructor-argument plumbing shared by the estimators:
+    ``get_params``/``set_params`` over ``_PARAMS`` and
+    :meth:`from_numpy_state`."""
+
+    _PARAMS = ()
+
+    def get_params(self, deep=True):
+        """The constructor arguments, by name (scikit-learn's contract)."""
+        return {p: getattr(self, p) for p in self._PARAMS}
+
+    def set_params(self, **params):
+        """Set constructor arguments by name; returns the estimator."""
+        unknown = set(params) - set(self._PARAMS)
+        if unknown:
+            raise ValueError('unknown parameters %s (valid: %s)'
+                             % (sorted(unknown), list(self._PARAMS)))
+        for name, value in params.items():
+            setattr(self, name, value)
+        return self
+
+    @classmethod
+    def from_numpy_state(cls, state, device=None, dtype=None, **params):
+        """An estimator holding fitted numpy state (e.g. taken from a
+        fitted :mod:`rri_nmf_tpu` estimator with
+        :func:`rri_nmf_tpu_torch.convert.numpy_state`): ``state['W']``,
+        ``state['T']`` on ``device`` in ``dtype``, and the estimator's own
+        fitted attributes (``idf``; ``min_rating``, ``max_rating``) where
+        present. ``params`` are constructor arguments; ``n``, ``d`` and
+        ``k`` default to the factors' shapes."""
+        W, T = factors_from_numpy(state['W'], state['T'], device, dtype)
+        params = dict(params)
+        params.setdefault('n', W.shape[0])
+        params.setdefault('d', T.shape[1])
+        params.setdefault('k', T.shape[0])
+        params.update(W=W, T=T)
+        est = cls(**params)
+        est._restore(state)
+        return est
+
+    def _restore(self, state):
+        """Take this estimator's fitted attributes from ``state``."""
+
+
+class NMF_TM_Estimator(_Estimator):
     """Topic-modeling NMF estimator (simplex-constrained RRI).
 
     Parameters are those of :class:`rri_nmf_tpu.sklearn_interface.
@@ -77,38 +130,10 @@ class NMF_TM_Estimator(object):
         self.nmf_kwargs = nmf_kwargs
         self.do_final_project_W = do_final_project_W
 
-    def get_params(self, deep=True):
-        """The constructor arguments, by name (scikit-learn's contract)."""
-        return {p: getattr(self, p) for p in self._PARAMS}
-
-    def set_params(self, **params):
-        """Set constructor arguments by name; returns the estimator."""
-        unknown = set(params) - set(self._PARAMS)
-        if unknown:
-            raise ValueError('unknown parameters %s (valid: %s)'
-                             % (sorted(unknown), list(self._PARAMS)))
-        for name, value in params.items():
-            setattr(self, name, value)
-        return self
-
-    @classmethod
-    def from_numpy_state(cls, state, device=None, dtype=None, **params):
-        """An estimator holding fitted numpy state: ``state['W']``,
-        ``state['T']`` and, when present, ``state['idf']`` (e.g. taken
-        from a fitted :mod:`rri_nmf_tpu` estimator), placed on ``device``
-        in ``dtype``. ``params`` are constructor arguments; ``n``, ``d``
-        and ``k`` default to the factors' shapes."""
-        W, T = factors_from_numpy(state['W'], state['T'], device, dtype)
-        params = dict(params)
-        params.setdefault('n', W.shape[0])
-        params.setdefault('d', T.shape[1])
-        params.setdefault('k', T.shape[0])
-        params.update(W=W, T=T)
-        est = cls(**params)
+    def _restore(self, state):
         if state.get('idf') is not None:
-            est.idf = as_tensor(np.asarray(state['idf']), device=W.device,
-                                dtype=W.dtype)
-        return est
+            self.idf = as_tensor(np.asarray(state['idf']),
+                                 device=self.W.device, dtype=self.W.dtype)
 
     def _preprocess(self, X):
         X = as_tensor(X)
@@ -207,3 +232,268 @@ class NMF_TM_Estimator(object):
             out['umass_coherence'] = umass_coherence(X_counts, T,
                                                      top_n=top_n)
         return out
+
+
+# ---------------------------------------------------------------------------
+# the recommender estimator
+# ---------------------------------------------------------------------------
+
+def train_test_split_indices(q, test_size=0.05, seed=0):
+    """``(train, test)`` row indices of ``q`` samples, exactly those of
+    ``sklearn.model_selection.train_test_split(..., test_size,
+    random_state=seed)``: ``ceil(test_size·q)`` test rows, the first ones
+    of ``RandomState(seed).permutation(q)``, the rest for training."""
+    n_test = int(math.ceil(test_size * q))
+    perm = np.random.RandomState(seed).permutation(q)
+    return perm[n_test:], perm[:n_test]
+
+
+def coo_to_dense_mask(rows, cols, vals, n, d):
+    """COO triples (tensors or numpy arrays) as ``(X, M)``, both float32
+    (n, d) on the device of ``rows``: X accumulates duplicate pairs, as
+    ``np.add.at`` in float32 does, and M is ``X != 0`` — the semantics of
+    :func:`rri_nmf_tpu.native.coo_to_dense_mask`."""
+    rows = torch.as_tensor(rows).long()
+    cols = torch.as_tensor(cols, device=rows.device).long()
+    vals = torch.as_tensor(vals, device=rows.device).to(torch.float32)
+    if rows.numel() and (bool(rows.min() < 0) or bool(rows.max() >= n) or
+                         bool(cols.min() < 0) or bool(cols.max() >= d)):
+        raise ValueError('COO indices out of range for shape (%d, %d)'
+                         % (n, d))
+    X = torch.zeros(n, d, dtype=torch.float32, device=rows.device)
+    X.index_put_((rows, cols), vals, accumulate=True)
+    return X, (X != 0).to(torch.float32)
+
+
+def _check_pairs(X, y):
+    """Plain counterpart of sklearn's ``check_X_y`` for (n_obs, 2) index
+    pairs and their ratings: both as tensors on the device of ``X``."""
+    X = X if isinstance(X, torch.Tensor) else torch.as_tensor(np.asarray(X))
+    if y is None:
+        raise ValueError('y (the ratings) is required')
+    y = torch.as_tensor(y if isinstance(y, torch.Tensor) else np.asarray(y),
+                        device=X.device)
+    if X.ndim != 2 or X.shape[1] < 2 or X.shape[0] == 0:
+        raise ValueError('X must be a non-empty (n_obs, 2) array of index '
+                         'pairs, got shape %s' % (tuple(X.shape),))
+    if y.ndim != 1 or y.shape[0] != X.shape[0]:
+        raise ValueError('y must be 1-D with one rating per pair: %s vs %s'
+                         % (tuple(y.shape), tuple(X.shape)))
+    if X.is_floating_point() and not bool(torch.isfinite(X).all()):
+        raise ValueError('X contains NaN or infinity')
+    if y.is_floating_point() and not bool(torch.isfinite(y).all()):
+        raise ValueError('y contains NaN or infinity')
+    return X, y
+
+
+def _sparse_not_yet(what):
+    raise NotImplementedError(
+        '%s is not ported to rri_nmf_tpu_torch yet; it arrives with the '
+        'sparse-mask WRRI sweeps (ROADMAP A.11)' % what)
+
+
+class NMF_RS_Estimator(_Estimator):
+    """Recommender-system NMF estimator (masked WRRI).
+
+    Parameters are those of :class:`rri_nmf_tpu.sklearn_interface.
+    NMF_RS_Estimator`: ``n, d, k`` (users × items, topics), ``wr1, tr1``
+    (L1 regularization of W and T), ``W``/``T`` (warm starts),
+    ``max_iter``, ``nmf_kwargs`` (forwarded to
+    :func:`rri_nmf_tpu_torch.nmf.nmf`, overriding the presets),
+    ``use_validation_early_stopping`` (hold out 5% of the observations
+    and stop when their RMSE rises) and ``sparse_obs`` (only the dense
+    mask is ported: True, or ``'auto'`` above ~2 GB of float64 mask,
+    raises until ROADMAP A.11).
+    """
+
+    _PARAMS = ('n', 'd', 'k', 'wr1', 'tr1', 'random_state', 'W', 'T',
+               'max_iter', 'nmf_kwargs', 'use_validation_early_stopping',
+               'sparse_obs')
+
+    def __init__(self, n, d, k, wr1=0, tr1=0, random_state=0,
+                 W=np.array([]), T=np.array([]), max_iter=30, nmf_kwargs={},
+                 use_validation_early_stopping=True, sparse_obs='auto'):
+        self.n = n
+        self.d = d
+        self.k = k
+        self.max_iter = max_iter
+        self.wr1 = wr1
+        self.tr1 = tr1
+        self.random_state = random_state
+        self.min_rating = None
+        self.max_rating = None
+        self.Xpred = np.array([])
+        self.use_validation_early_stopping = use_validation_early_stopping
+        self.W = W
+        self.T = T
+        self.nmf_kwargs = nmf_kwargs
+        self.sparse_obs = sparse_obs
+
+    def _restore(self, state):
+        for key in ('min_rating', 'max_rating'):
+            if state.get(key) is not None:
+                setattr(self, key, float(state[key]))
+
+    def __getstate__(self):
+        """Pickle support: the validation scorer :meth:`fit` makes is a
+        closure over the held-out split and is dropped (``None`` after a
+        load), as in the JAX estimator."""
+        state = dict(self.__dict__)
+        if callable(state.get('early_stop')):
+            state['early_stop'] = None
+        return state
+
+    def sparsify(self):
+        _sparse_not_yet('NMF_RS_Estimator.sparsify (scipy-sparse factors)')
+
+    def densify(self):
+        _sparse_not_yet('NMF_RS_Estimator.densify (scipy-sparse factors)')
+
+    def _use_sparse_obs(self):
+        if isinstance(self.sparse_obs, (bool, np.bool_)):
+            return bool(self.sparse_obs)
+        return self.n * self.d * 8 > 2e9
+
+    def fit(self, X, y=None):
+        """Fit from ``X`` = (n_obs, 2) index pairs and ``y`` = ratings
+        (reference ``sklearn_interface.py:59-128``), on the device of
+        ``X`` (numpy: the CPU). With ``use_validation_early_stopping`` a
+        5% split (scikit-learn's ``train_test_split(test_size=0.05,
+        random_state=0)``) is held out and its RMSE, gathered on the
+        fit's device, stops the fit when it rises."""
+        X, y = _check_pairs(X, y)
+        if self._use_sparse_obs():
+            _sparse_not_yet('sparse_obs (the O(nnz) observed-set fit)')
+        device = X.device
+        dtype = default_float(device)
+        self.min_rating = float(y.min())
+        self.max_rating = float(y.max())
+
+        if self.use_validation_early_stopping:
+            tr, te = (torch.as_tensor(i, device=device)
+                      for i in train_test_split_indices(X.shape[0]))
+            UItr, UIval, Rtr, Rval = X[tr], X[te], y[tr], y[te]
+            Xtr, W_mat_tr = coo_to_dense_mask(UItr[:, 0], UItr[:, 1], Rtr,
+                                              self.n, self.d)
+            # gather-based validation RMSE, O(q·k) per check; zero ratings
+            # are dropped, as the reference's Xv.nonzero() does
+            vnz = Rval != 0
+            Iv = UIval[vnz, 0].long()
+            Jv = UIval[vnz, 1].long()
+            Rv = Rval[vnz].to(dtype)
+            lo, hi = self.min_rating, self.max_rating
+
+            def RMSE_val(X_ignored, W, T):
+                pred = (W[Iv] * T[:, Jv].T).sum(1).clamp(lo, hi)
+                return float(torch.sqrt(((pred - Rv.to(pred.dtype)) ** 2)
+                                        .mean()))
+
+            self.early_stop = RMSE_val
+        else:
+            self.early_stop = False
+            Xtr, W_mat_tr = coo_to_dense_mask(X[:, 0], X[:, 1], y, self.n,
+                                              self.d)
+
+        soln = nmf(Xtr.to(dtype), self.k, **_merged(
+            dict(max_iter=self.max_iter, max_time=7200,
+                 compute_obj_each_iter=True, reset_topic_method=None,
+                 early_stop=self.early_stop, project_T_each_iter=False,
+                 t_row_sum=1.0, project_W_each_iter=False, w_row_sum=None,
+                 W_mat=W_mat_tr.to(dtype),
+                 W_in=self.W if _size(self.W) > 0 else [],
+                 T_in=self.T if _size(self.T) > 0 else [],
+                 reg_w_l1=self.wr1, reg_t_l1=self.tr1,
+                 random_state=self.random_state),
+            self.nmf_kwargs))
+        self.W = soln.pop('W')
+        self.T = soln.pop('T')
+        self.Xpred = np.array([])
+        self.nmf_outputs = soln
+        return self
+
+    def fit_from_Xtr(self, Xtr):
+        """Fit from a ratings matrix: its nonzeros, in row-major order,
+        become the (pair, rating) observations (reference
+        ``sklearn_interface.py:130-142``). A scipy-sparse or numpy
+        ``Xtr`` fits on the CPU, a CUDA tensor on its card."""
+        if hasattr(Xtr, 'tocsr'):
+            Xtr = Xtr.tocsr()
+            I, J = Xtr.nonzero()
+            return self.fit(np.stack([I, J], axis=1),
+                            np.asarray(Xtr[I, J]).ravel())
+        Xtr = as_tensor(Xtr)
+        I, J = torch.nonzero(Xtr, as_tuple=True)
+        return self.fit(torch.stack([I, J], dim=1), Xtr[I, J])
+
+    def transform(self, Xnew):
+        """Express the dense ratings ``Xnew`` in the learned topics: four
+        fixed-T masked sweeps with the JAX estimator's transform preset
+        (``reset_topic_method='random'`` for dead topics), on the device
+        of the learned ``T``. The mask is ``Xnew != 0`` and the sweep is
+        the dense-mask one (kernel B4); the JAX package runs the same
+        W-phase in the same topic order through its O(nnz) sparse-mask
+        sweep, which the port has not yet (ROADMAP A.11, where a
+        scipy-sparse ``Xnew`` waits too)."""
+        if hasattr(Xnew, 'tocsr'):
+            _sparse_not_yet('a scipy-sparse Xnew in transform')
+        T = as_tensor(self.T)
+        Xnew = as_tensor(Xnew, device=T.device)
+        soln = nmf(Xnew, self.k, **_merged(
+            dict(max_iter=4, max_time=7200,
+                 project_W_each_iter=False, project_T_each_iter=False,
+                 W_mat=(Xnew != 0).to(Xnew.dtype), T_in=T, fix_T=True,
+                 reg_w_l1=self.wr1, reg_t_l1=self.tr1, t_row_sum=1.0,
+                 w_row_sum=None, reset_topic_method='random',
+                 random_state=self.random_state),
+            self.nmf_kwargs, drop=_TRANSFORM_DROPPED_KWARGS))
+        return soln['W']
+
+    def _factors(self):
+        if _size(self.W) == 0 or _size(self.T) == 0:
+            raise ValueError('this NMF_RS_Estimator is not fitted yet')
+        T = as_tensor(self.T)
+        return as_tensor(self.W, device=T.device, dtype=T.dtype), T
+
+    def make_Xpred(self):
+        """Materialize and cache the full clipped (n, d) prediction
+        matrix, on the fitted factors' device. Optional: :meth:`predict`
+        gathers per pair and uses this cache only when it exists."""
+        if _size(self.Xpred) == 0:
+            W, T = self._factors()
+            self.Xpred = (W @ T).clamp(self.min_rating, self.max_rating)
+
+    def _predict_pairs(self, I, J):
+        if _size(self.Xpred) > 0:
+            return self.Xpred[I, J]
+        W, T = self._factors()
+        return (W[I] * T[:, J].T).sum(1).clamp(self.min_rating,
+                                               self.max_rating)
+
+    def predict(self, X):
+        """Predicted ratings ``clip((W·T)_ij)`` for the (i, j) index
+        pairs ``X``, as a numpy array: per-pair gathers on the factors'
+        device, O(q·k) for q pairs."""
+        W, _ = self._factors()
+        X = torch.as_tensor(
+            X if isinstance(X, torch.Tensor) else np.asarray(X),
+            device=W.device)
+        return self._predict_pairs(X[:, 0].long(), X[:, 1].long()) \
+            .cpu().numpy()
+
+    def score(self, X, y=np.array([])):
+        """RMSE of the predictions (reference
+        ``sklearn_interface.py:172-182``): of the pairs ``X`` against the
+        ratings ``y`` when given, else of the nonzeros of the ratings
+        matrix ``X``."""
+        W, _ = self._factors()
+        if _size(y) > 0:
+            yh = self.predict(X)
+            y = y.cpu().numpy() if isinstance(y, torch.Tensor) \
+                else np.asarray(y)
+            return float(np.sqrt(np.mean((y - yh) ** 2)))
+        if hasattr(X, 'toarray'):
+            X = X.toarray()
+        X = as_tensor(X, device=W.device)
+        I, J = torch.nonzero(X, as_tuple=True)
+        yh = self._predict_pairs(I, J)
+        return float(torch.sqrt(((X[I, J].to(yh.dtype) - yh) ** 2).mean()))

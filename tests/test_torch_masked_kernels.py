@@ -1,0 +1,344 @@
+"""The port's masked WRRI sweep and its two kernels against the JAX
+package.
+
+- The plain twins (``phase_a_ref``, ``phase_b_ref``) against the Pallas
+  kernels ``_phase_a``/``_phase_b`` run in interpret mode on the CPU, as
+  the JAX suite runs them.
+- The whole port sweep (``make_masked_sweep``) against
+  ``make_masked_sweep_pallas(cfg, interpret=True)`` on the cases of
+  ``tests/test_pallas.py``: ragged shapes, regularizers,
+  ``project_W_each_iter``, T drift re-projection, fixed T, a vector
+  ``w_row_sum`` and negative L1 on a ragged shape.
+- A dead topic in a fixed-T sweep spends the same ``'random'`` reset
+  budget as JAX (the values differ by generator).
+- The wrappers' routing: a CPU tensor takes the twin and launches
+  nothing; any other non-CUDA tensor raises.
+- On a CUDA machine, each kernel against its twin (marked ``cuda``,
+  skipped without a card).
+
+float64 on the CPU; ``atol=1e-9`` as in ``tests/test_pallas.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rri_nmf_tpu.ops.sweep_pallas import (_phase_a, _phase_b,
+                                          make_masked_sweep_pallas)
+from rri_nmf_tpu.ops.sweep_xla import SweepConfig as JaxSweepConfig
+from rri_nmf_tpu_torch.ops import masked_kernels as mk
+from rri_nmf_tpu_torch.ops.sweep import SweepConfig, make_objective
+
+torch.set_num_threads(2)
+ATOL = 1e-9
+
+
+def _problem(n, d, k, seed=0, density=0.5):
+    """The inputs of tests/test_pallas.py::_problem."""
+    rng = np.random.RandomState(seed)
+    X = np.abs(rng.rand(n, k) @ rng.rand(k, d) + 0.01 * rng.rand(n, d))
+    M = (rng.rand(n, d) < density).astype(float)
+    W0 = np.abs(rng.rand(n, k))
+    T0 = np.abs(rng.rand(k, d))
+    return X, M, W0, T0
+
+
+def _t(*arrays):
+    return [torch.as_tensor(np.array(a)) for a in arrays]
+
+
+def _pad(a, shape):
+    out = np.zeros(shape)
+    out[tuple(slice(0, s) for s in a.shape)] = a
+    return out
+
+
+def _kernel_inputs(n, d, seed):
+    rng = np.random.RandomState(seed)
+    R = rng.randn(n, d)
+    M = (rng.rand(n, d) < 0.3).astype(float)
+    return R, M, [rng.rand(n) - 0.5, rng.rand(n), rng.rand(d), rng.rand(d)]
+
+
+# ---------------------------------------------------------------------------
+# the twins against the Pallas kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('n,d', [(30, 20), (517, 130), (64, 1030)])
+def test_phase_a_twin_matches_pallas_interpret(n, d):
+    R, M, (dw, w, tp, _) = _kernel_inputs(n, d, seed=n + d)
+    # the Pallas kernel takes tile-padded operands (pads are zero)
+    npad, dpad = -(-n // 512) * 512, -(-d // 1024) * 1024
+    Rj, wR0j, nwj = _phase_a(
+        jnp.asarray(_pad(R, (npad, dpad))), jnp.asarray(_pad(M, (npad, dpad))),
+        jnp.asarray(_pad(dw, (npad,))), jnp.asarray(_pad(tp, (dpad,))),
+        jnp.asarray(_pad(w, (npad,))), interpret=True)
+    Rt, Mt, dwt, tpt, wt = _t(R, M, dw, tp, w)
+    wR0, nw = mk.phase_a_ref(Rt, Mt, dwt, tpt, wt)
+    assert np.allclose(Rt.numpy(), np.asarray(Rj)[:n, :d], rtol=0, atol=ATOL)
+    assert np.allclose(wR0.numpy(), np.asarray(wR0j)[0, :d], rtol=0,
+                       atol=ATOL)
+    assert np.allclose(nw.numpy(), np.asarray(nwj)[0, :d], rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize('n,d', [(30, 20), (517, 130), (64, 1030)])
+@pytest.mark.parametrize('fixed_t', [False, True])
+def test_phase_b_twin_matches_pallas_interpret(n, d, fixed_t):
+    R, M, (w, weff, told, tnew) = _kernel_inputs(n, d, seed=n * d)
+    if fixed_t:
+        weff = np.zeros(n)
+    npad, dpad = -(-n // 512) * 512, -(-d // 1024) * 1024
+    Rj, Rtj, mt2j = _phase_b(
+        jnp.asarray(_pad(R, (npad, dpad))), jnp.asarray(_pad(M, (npad, dpad))),
+        jnp.asarray(_pad(w, (npad,))), jnp.asarray(_pad(weff, (npad,))),
+        jnp.asarray(_pad(told, (dpad,))), jnp.asarray(_pad(tnew, (dpad,))),
+        interpret=True)
+    Rt, Mt, wt, et, tot, tnt = _t(R, M, w, weff, told, tnew)
+    Rt0, mt2 = mk.phase_b_ref(Rt, Mt, wt, et, tot, tnt)
+    assert np.allclose(Rt.numpy(), np.asarray(Rj)[:n, :d], rtol=0, atol=ATOL)
+    assert np.allclose(Rt0.numpy(), np.asarray(Rtj)[:n, 0], rtol=0,
+                       atol=ATOL)
+    assert np.allclose(mt2.numpy(), np.asarray(mt2j)[:n, 0], rtol=0,
+                       atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the whole sweep
+# ---------------------------------------------------------------------------
+
+def _run_jax(cfg_kw, X, M, W, T, iters, extras=(), resets=0):
+    sweep = make_masked_sweep_pallas(JaxSweepConfig(**cfg_kw),
+                                     interpret=True)
+    key = jax.random.PRNGKey(0)
+    left = jnp.asarray(resets, jnp.int32)
+    W, T = jnp.asarray(W), jnp.asarray(T)
+    for _ in range(iters):
+        W, T, key, left = sweep(jnp.asarray(X), W, T, key, left, key,
+                                jnp.asarray(M), *extras)
+    return np.array(W), np.array(T), int(left)
+
+
+def _run_port(cfg_kw, X, M, W, T, iters, wrs=None, resets=0):
+    sweep = mk.make_masked_sweep(SweepConfig(**cfg_kw))
+    X, M, W, T = _t(X, M, W, T)
+    wrs = torch.as_tensor(wrs) if wrs is not None else None
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(iters):
+        W, T, resets = sweep(X, W, T, M, gen, resets, wrs)
+    return W.numpy(), T.numpy(), resets
+
+
+SWEEP_CASES = {
+    'plain': dict(t_row_sum=1.0),
+    'regularized': dict(t_row_sum=1.0, reg_w_l1=0.1, reg_t_l1=0.05),
+    'project_W': dict(project_W_each_iter=True, w_row_sum=1.0,
+                      t_row_sum=1.0),
+    'T drift reprojection': dict(project_T_each_iter=True, t_row_sum=1.0),
+    'fix_T': dict(fix_T=True, t_row_sum=1.0),
+    'fix_T regs, row bounds': dict(fix_T=True, reg_w_l1=0.05,
+                                   reg_w_l2=0.02, w_row_sum=1.0,
+                                   project_W_each_iter=True),
+    'negative l1': dict(project_T_each_iter=True, t_row_sum=1.0,
+                        reg_t_l1=-0.1, reg_t_l2=0.5, reg_w_l1=-0.05,
+                        reg_w_l2=0.5),
+}
+
+
+@pytest.mark.parametrize('shape', [(30, 20, 3), (300, 600, 5),
+                                   (520, 130, 4)])
+@pytest.mark.parametrize('case', sorted(SWEEP_CASES))
+def test_sweep_matches_pallas(shape, case):
+    n, d, k = shape
+    X, M, W0, T0 = _problem(n, d, k, seed=n + k)
+    kw = dict(k=k, masked=True, reset_topic_method=None, **SWEEP_CASES[case])
+    Wj, Tj, _ = _run_jax(kw, X, M, W0, T0, 3)
+    Wt, Tt, _ = _run_port(kw, X, M, W0, T0, 3)
+    assert np.allclose(Wt, Wj, rtol=0, atol=ATOL), np.abs(Wt - Wj).max()
+    assert np.allclose(Tt, Tj, rtol=0, atol=ATOL), np.abs(Tt - Tj).max()
+    if kw.get('fix_T'):
+        assert np.array_equal(Tt, T0)
+    if kw.get('project_W_each_iter'):
+        assert np.abs(Wt.sum(1) - 1.0).max() < 1e-12
+    if kw.get('project_T_each_iter'):
+        assert np.abs(Tt.sum(1) - 1.0).max() < 1e-12
+
+
+@pytest.mark.parametrize('fix_T', [False, True])
+def test_sweep_vector_w_row_sum_matches_pallas(fix_T):
+    n, d, k = 45, 35, 3
+    X, M, W0, T0 = _problem(n, d, k, seed=5)
+    wrs = np.random.RandomState(6).rand(n) + 0.5
+    kw = dict(k=k, masked=True, reset_topic_method=None, fix_T=fix_T,
+              t_row_sum=1.0, w_row_sum_is_vector=True,
+              project_W_each_iter=True)
+    Wj, Tj, _ = _run_jax(kw, X, M, W0, T0, 3, extras=(jnp.asarray(wrs),))
+    Wt, Tt, _ = _run_port(kw, X, M, W0, T0, 3, wrs=wrs)
+    assert np.allclose(Wt, Wj, rtol=0, atol=ATOL)
+    assert np.allclose(Tt, Tj, rtol=0, atol=ATOL)
+    assert np.allclose(Wt.sum(1), wrs, atol=1e-12)
+
+
+def test_negative_l1_ragged_shape_gives_no_phantom_mass():
+    """tests/test_pallas.py's heavily padded negative-L1 case: nothing is
+    padded here, so every coordinate the solves see is a real one; the
+    factors match JAX and stay on their (n, d) support."""
+    n, d, k = 6, 5, 3
+    X, M, W0, T0 = _problem(n, d, k, seed=3)
+    kw = dict(k=k, masked=True, reset_topic_method=None,
+              project_T_each_iter=True, t_row_sum=1.0, reg_t_l1=-0.1,
+              reg_t_l2=0.5, reg_w_l1=-0.05, reg_w_l2=0.5)
+    Wj, Tj, _ = _run_jax(kw, X, M, W0, T0, 2)
+    Wt, Tt, _ = _run_port(kw, X, M, W0, T0, 2)
+    assert Wt.shape == (n, k) and Tt.shape == (k, d)
+    assert np.allclose(Wt, Wj, rtol=0, atol=ATOL)
+    assert np.allclose(Tt, Tj, rtol=0, atol=ATOL)
+    assert np.abs(Tt.sum(1) - 1.0).max() < 1e-12
+
+
+def test_sweep_descends_the_masked_objective():
+    n, d, k = 80, 60, 4
+    X, M, W0, T0 = _problem(n, d, k, seed=8)
+    sweep = mk.make_masked_sweep(SweepConfig(
+        k=k, masked=True, reset_topic_method=None, t_row_sum=1.0))
+    obj = make_objective(masked=True)
+    X, M, W, T = _t(X, M, W0, T0)
+    hist = [float(obj(X, W, T, M))]
+    for _ in range(5):
+        W, T, _ = sweep(X, W, T, M, None, 0)
+        hist.append(float(obj(X, W, T, M)))
+    assert np.all(np.diff(hist) <= 1e-12 * abs(hist[0]))
+
+
+@pytest.mark.parametrize('fix_reset_seed', [False, True])
+def test_fix_T_dead_topic_resets_spend_the_jax_budget(fix_reset_seed):
+    """A dead topic (zero T row with T fixed) fires the 'random' reset in
+    both packages; the budget left agrees, the drawn values differ by
+    generator."""
+    n, d, k = 70, 50, 3
+    X, M, W0, T0 = _problem(n, d, k, seed=7)
+    T0[1] = 0.0
+    kw = dict(k=k, masked=True, fix_T=True, reset_topic_method='random',
+              t_row_sum=1.0, fix_reset_seed=fix_reset_seed)
+    Wj, Tj, left_j = _run_jax(kw, X, M, W0, T0, 2, resets=23)
+    Wt, Tt, left_t = _run_port(kw, X, M, W0, T0, 2, resets=23)
+    assert left_j < 23 and left_t == left_j
+    assert not np.allclose(Tt[1], 0.0)
+    assert np.allclose(Tt[1].sum(), 1.0)
+    assert np.array_equal(Tt[[0, 2]], T0[[0, 2]])
+    Wt2, Tt2, _ = _run_port(kw, X, M, W0, T0, 2, resets=23)
+    assert np.array_equal(Wt2, Wt) and np.array_equal(Tt2, Tt)
+
+
+def test_reset_budget_zero_leaves_dead_topic():
+    n, d, k = 30, 20, 3
+    X, M, W0, T0 = _problem(n, d, k, seed=9)
+    T0[2] = 0.0
+    kw = dict(k=k, masked=True, fix_T=True, reset_topic_method='random',
+              t_row_sum=1.0)
+    Wj, _, _ = _run_jax(kw, X, M, W0, T0, 2, resets=0)
+    Wt, Tt, left = _run_port(kw, X, M, W0, T0, 2, resets=0)
+    assert left == 0 and np.array_equal(Tt[2], np.zeros(d))
+    assert np.allclose(Wt, Wj, rtol=0, atol=ATOL)
+
+
+def test_supports_masked_kernels_gates():
+    ok = SweepConfig(k=3, masked=True, reset_topic_method=None)
+    assert mk.supports_masked_kernels(ok)
+    assert mk.supports_masked_kernels(SweepConfig(
+        k=3, masked=True, fix_T=True, reset_topic_method='random'))
+    for kw in (dict(masked=False, reset_topic_method=None),
+               dict(masked=True, reset_topic_method='random'),
+               dict(masked=True, reset_topic_method=None, fix_W=True),
+               dict(masked=True, reset_topic_method=None, dp_sigma=1.0),
+               dict(masked=True, reset_topic_method=None,
+                    store_gradients=True),
+               dict(masked=True, masked_sparse=True,
+                    reset_topic_method=None)):
+        cfg = SweepConfig(k=3, **kw)
+        assert not mk.supports_masked_kernels(cfg)
+        with pytest.raises(ValueError):
+            mk.make_masked_sweep(cfg)
+
+
+def test_phase_a_chunks():
+    # 32-row chunks; never more than the grid's 65535
+    assert mk.phase_a_chunks(6040) == 189
+    assert mk.phase_a_chunks(10) == 1
+    assert mk.phase_a_chunks(517) == 17
+    assert mk.phase_a_chunks(10 ** 7) == 65535
+
+
+# ---------------------------------------------------------------------------
+# wrapper routing
+# ---------------------------------------------------------------------------
+
+def test_cpu_tensors_take_the_twin_and_launch_nothing():
+    R, M, (dw, w, tp, tn) = _kernel_inputs(20, 30, seed=11)
+    before = dict(mk.LAUNCHES)
+    R1, R2, Mt, dwt, wt, tpt, tnt = _t(R, R, M, dw, w, tp, tn)
+    a = mk.phase_a(R1, Mt, dwt, tpt, wt)
+    b = mk.phase_a_ref(R2, Mt, dwt, tpt, wt)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(R1, R2) and not np.array_equal(R1.numpy(), R)
+    a = mk.phase_b(R1, Mt, wt, dwt, tpt, tnt)
+    b = mk.phase_b_ref(R2, Mt, wt, dwt, tpt, tnt)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(R1, R2)
+    assert mk.LAUNCHES == before
+
+
+def test_non_cuda_devices_raise_instead_of_falling_back():
+    R, M, (dw, w, tp, tn) = _kernel_inputs(4, 6, seed=12)
+    R, M, dw, w, tp, tn = (a.to('meta') for a in _t(R, M, dw, w, tp, tn))
+    with pytest.raises(ValueError, match='CUDA'):
+        mk.phase_a(R, M, dw, tp, w)
+    with pytest.raises(ValueError, match='CUDA'):
+        mk.phase_b(R, M, w, dw, tp, tn)
+
+
+def test_launch_counter_reset():
+    mk.LAUNCHES['phase_b'] += 2
+    mk.reset_launches()
+    assert mk.LAUNCHES == {'phase_a': 0, 'phase_b': 0}
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize('n,d', [(517, 1030), (2000, 3000)])
+def test_cuda_kernels_match_twins(cuda_device, dtype, tol, n, d):
+    R, M, vecs = _kernel_inputs(n, d, seed=13)
+
+    def on(*arrays):
+        return [torch.as_tensor(a, dtype=dtype, device=cuda_device)
+                for a in arrays]
+    R0, Mt = on(R, M)
+    dw, w, tp, tn = on(*vecs)
+    before = dict(mk.LAUNCHES)
+    for kernel, ref, args in ((mk.phase_a, mk.phase_a_ref, (dw, tp, w)),
+                              (mk.phase_b, mk.phase_b_ref,
+                               (w, dw, tp, tn)),
+                              (mk.phase_b, mk.phase_b_ref,
+                               (w, torch.zeros_like(w), tp, tn))):
+        Ra, Rb = R0.clone(), R0.clone()
+        got = kernel(Ra, Mt, *args)
+        want = ref(Rb, Mt, *args)
+        torch.cuda.synchronize()
+        assert float((Ra - Rb).abs().max() / Rb.abs().max()) <= tol
+        for g, h in zip(got, want):
+            assert float((g - h).abs().max() / h.abs().max()) <= tol
+    assert mk.LAUNCHES['phase_a'] == before['phase_a'] + 1
+    assert mk.LAUNCHES['phase_b'] == before['phase_b'] + 2

@@ -181,7 +181,8 @@ DEFERRED = {
     'interleaved order': dict(update_order='interleaved',
                               reset_topic_method=None),
     'resets': dict(update_order='phase'),
-    'W_mat': dict(W_mat=np.ones((20, 15)), **FAST_TM),
+    'W_mat': dict(W_mat=scipy.sparse.csr_matrix(np.ones((20, 15))),
+                  **FAST_TM),
     'w_row': dict(w_row=np.ones(20), **FAST_TM),
     'sparse mode': dict(sparse=True, **FAST_TM),
     'x_dtype': dict(x_dtype='bfloat16', **FAST_TM),
