@@ -30,10 +30,30 @@ its users run, one line per phase:
    per sweep, the masked objective not rising, ms/sweep with and without
    the objective, train and test RMSE); the transform of 512 users' test
    ratings (B4 only) with predict and score; and a 600×400 k=8 fit on
-   the card against the same fit on the CPU in float64.
+   the card against the same fit on the CPU in float64;
+9. kernels B5 and B6 (the sparse contractions ``WᵀX`` and ``T Xᵀ``)
+   against their twins, both directions: float64 and float32 at a
+   ragged 1000×700 2% case with duplicates and an empty tile band (k=16,
+   and k=128 f64 / k=200 f32, where the factor tiles do not fit shared
+   memory), and float32 at the JAX package's recorded sparse
+   configuration, 50,000×30,000 at 0.5% density (~7.5M nonzeros), k=128,
+   with the host plan-build seconds, CUDA-event times of kernel and twin
+   and ns per chunk;
+10. ``nmf()`` on that matrix as a CUDA CSR tensor, k=128 float32, with
+    ``sparse='mxu'``, ``'dma'``, ``'auto'`` (which densifies on an 80 GB
+    card: 6 GB dense) and ``True`` (``torch.sparse.mm``): exact launch
+    counts, a non-increasing objective, ms/sweep with and without it, the
+    final objectives in agreement; ``'auto'`` taking B5 on a card that
+    reports too little memory; and a 2000×1500 k=16 sparse fit on the
+    card against the same fit on the CPU in float64;
+11. ``NMF_TM_Estimator`` with ``sparse='mxu'`` on the 20 Newsgroups
+    train-split shape as a CUDA CSR tensor (the counts of phase 6, tf-idf
+    and normalization kept sparse on the card): fit, a sparse transform
+    of 512 documents, and score.
 
-Phases 5-6 and phase 8 each drive a main path with the launch counts set
-to 0 just before and read just after. Then one JSON line of the kernels
+Phases 5-6, phase 8 and phases 10-11 each drive a main path with the
+launch counts set to 0 just before and read just after. Then one JSON
+line of the kernels
 (those launches, error against the twin, kernel and twin ms), and as the
 last line
 ``{"ok": true, "device": {...}}``. Any failure raises before that line
@@ -42,6 +62,7 @@ before doing anything. Data come from numpy seeds.
 """
 
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -71,6 +92,11 @@ TOL_F32 = 1e-4
 TOL_SIMPLEX_F32 = 1e-4
 # float32 objective slack: 0.5||X - WT||² is a sum of n·d squares in
 # float32; successive values may tick up by rounding, not by descent.
+# The same 1e-5 holds the sparse objective 0.5(||X||² - 2·cross +
+# tr(WᵀW·TTᵀ)) (phases 10-11): each term is a float32 sum over 7.5M
+# nonzeros or a k×k Gram product, good to ~1e-6 of its size (tree sums on
+# the card), and a rank-k fit of these random sparse matrices keeps the
+# objective near 0.5||X||², so the cancellation costs less than a digit.
 OBJ_SLACK_F32 = 1e-5
 # card float32 vs CPU float64 fit of the same problem from the same init:
 # final objectives after 20 sweeps differ by float32 rounding of the
@@ -89,6 +115,12 @@ B3 = {'name': 'masked_phase_a', 'route': 'cuda',
 B4 = {'name': 'masked_phase_b', 'route': 'cuda',
       'source': 'rri_nmf_tpu_torch/csrc/masked.cu',
       'replaces': 'rri_nmf_tpu/ops/sweep_pallas.py:133'}
+B5 = {'name': 'sparse_mxu', 'route': 'cuda',
+      'source': 'rri_nmf_tpu_torch/csrc/sparse.cu',
+      'replaces': 'rri_nmf_tpu/ops/sparse_mxu.py:298'}
+B6 = {'name': 'sparse_dma', 'route': 'cuda',
+      'source': 'rri_nmf_tpu_torch/csrc/sparse.cu',
+      'replaces': 'rri_nmf_tpu/ops/sparse_dma.py:164'}
 FAST_TM = dict(update_order='phase', reset_topic_method=None)
 
 # (n, d, k): bench.py's headline fit; the small card-vs-CPU fit
@@ -111,6 +143,19 @@ RS_SMALL = (600, 400, 24000, 8)
 RS_SWEEPS = 30
 # users whose test ratings the RS transform takes
 RS_TRANSFORM_ROWS = 512
+# (n, d, density, k): the JAX package's recorded sparse configuration
+# (benchmarks/results_round2_sparse_mxu.json), and B5/B6's ragged float64
+# case (duplicates, an empty 128-column band)
+SPARSE_SHAPE = (50000, 30000, 0.005, 128)
+SPARSE_RAGGED = (1000, 700, 0.02, 16)
+# (n, d, density, k) of the small card-vs-CPU sparse fit
+SPARSE_SMALL = (2000, 1500, 0.02, 16)
+SPARSE_SWEEPS = 10
+# the three sparse modes' final objectives (float32, 10 sweeps from one
+# init): B5 and B6 sum each output in the same plan order, 'auto' runs the
+# dense GEMMs; the trajectories differ by float32 rounding (~1e-6
+# relative); 1e-4 is stated.
+TOL_MODES = 1e-4
 
 
 def log(phase, **fields):
@@ -608,12 +653,297 @@ def run_rs_phase(dev, mk, Est, X):
     return launches
 
 
+# --------------------------------------------------------------------------
+# the sparse slice
+# --------------------------------------------------------------------------
+
+def sparse_coo(n, d, density, dev, seed=0, dup=False, empty_band=None):
+    """A sparse (n, d) float64 COO tensor on ``dev``: int(n·d·density)
+    coordinates drawn with replacement (benchmarks/exp_sparse_mxu.py:
+    35-43), values uniform; optionally a fifth of them repeated and one
+    128-column band left empty. Uncoalesced: duplicates stay entries."""
+    rng = np.random.RandomState(seed)
+    nnz = int(n * d * density)
+    rows = rng.randint(0, n, nnz)
+    cols = rng.randint(0, d, nnz)
+    if dup:
+        rows = np.concatenate([rows, rows[:nnz // 5]])
+        cols = np.concatenate([cols, cols[:nnz // 5]])
+    if empty_band is not None:
+        keep = cols // 128 != empty_band
+        rows, cols = rows[keep], cols[keep]
+    vals = rng.rand(len(rows))
+    return torch.sparse_coo_tensor(
+        torch.as_tensor(np.stack([rows, cols])), torch.as_tensor(vals),
+        (n, d)).to(dev)
+
+
+def sparse_csr(n, d, density, dev, seed=0, dtype=torch.float32):
+    """The coalesced CSR form of :func:`sparse_coo` (duplicates summed),
+    the way a user hands a corpus to the card."""
+    return sparse_coo(n, d, density, dev, seed).coalesce().to(
+        dtype).to_sparse_csr()
+
+
+def row_err(got, want):
+    """max over output rows of max |got - want| / max |want| in the row."""
+    scale = want.abs().amax(1, keepdim=True).clamp_min(1e-300)
+    return float(((got - want).abs() / scale).max())
+
+
+def check_sparse(dev, sk, spl):
+    """Phase 9: B5 and B6 against their twins in both directions. Returns
+    {kernel: (max float32 abs error, ms, plain_ms)} with the times of the
+    full-shape ``WᵀX``."""
+    out = {'mxu': [0.0, None, None], 'dma': [0.0, None, None]}
+    if dev.type == 'cuda':
+        # the launchers' shared-memory gate: k=128 fits in both dtypes;
+        # the accumulator alone of k=512 float32 or k=256 float64 passes
+        # the 227 KB a block may opt into
+        gate = {'k=%d %s' % (kk, dt): sk.sparse_fits(kk, dt, dev)
+                for kk, dt in ((128, torch.float32), (128, torch.float64),
+                               (512, torch.float32), (256, torch.float64))}
+        if list(gate.values()) != [True, True, False, False]:
+            raise AssertionError('sparse shared-memory gate: %s' % gate)
+        log('sparse gate', **gate)
+    n_r, d_r, dens_r, k_r = SPARSE_RAGGED
+    ragged = sparse_coo(n_r, d_r, dens_r, dev, seed=1, dup=True,
+                        empty_band=2)
+    n, d, dens, k = SPARSE_SHAPE
+    # k=128 in float64 and k=200 in float32 leave no room to stage the
+    # factor tiles (B6; B5 too in float64): those cases read F from device
+    # memory, and k=200 gives each thread two output rows
+    cases = [('ragged %dx%d k=%d' % (n_r, d_r, kk), ragged, kk, dtype, tol)
+             for kk, dtype, tol in ((k_r, torch.float64, TOL_F64),
+                                    (k_r, torch.float32, TOL_F32),
+                                    (128, torch.float64, TOL_F64),
+                                    (200, torch.float32, TOL_F32))]
+    cases += [
+        ('%dx%d %.1f%% k=%d' % (n, d, 100 * dens, k),
+         sparse_csr(n, d, dens, dev, seed=0), k, torch.float32, TOL_F32)]
+    for label, X, kk, dtype, tol in cases:
+        rng = np.random.RandomState(2)
+        nn, dd = X.shape
+        W = torch.as_tensor(rng.rand(nn, kk), dtype=dtype, device=dev)
+        T = torch.as_tensor(rng.rand(kk, dd), dtype=dtype, device=dev)
+        t0 = time.perf_counter()
+        pm = spl.plan_sparse_matrix(X, dtype, device=dev)
+        sync(dev)
+        t1 = time.perf_counter()
+        pd = spl.plan_sparse_matrix_dma(X, dtype, device=dev)
+        sync(dev)
+        t2 = time.perf_counter()
+        timed = label.startswith('%dx%d' % (n, d))
+        for kind, plan, plan_s in (('mxu', pm, t1 - t0), ('dma', pd, t2 - t1)):
+            kernel = getattr(sk, kind + '_contract')
+            twin = getattr(sk, kind + '_contract_ref')
+            shape = sk._padded if kind == 'mxu' else sk._tile_cols
+            for dirn, direction, F, m in (
+                    ('WtX', plan.t_phase, W.T, nn),
+                    ('TXt', plan.w_phase, T, dd)):
+                Fk = shape(F, m)
+                got = kernel(direction, Fk)
+                want = twin(direction, Fk)
+                sync(dev)
+                err = row_err(got, want)
+                if not (err <= tol and bool(torch.isfinite(got).all())):
+                    raise AssertionError('%s %s %s %s: error %.3g > %g' % (
+                        kind, dirn, label, dtype, err, tol))
+                nchunks = int(direction.ftile.shape[0])
+                line = {'case': label, 'direction': dirn,
+                        'dtype': str(dtype), 'rel_err': err,
+                        'nnz': int(X._nnz()), 'chunks': nchunks,
+                        'plan_build_s': plan_s}
+                if dtype == torch.float32:
+                    stats = out[kind]
+                    stats[0] = max(stats[0], float((got - want).abs().max()))
+                    if timed:
+                        line['ms'] = time_ms(lambda: kernel(direction, Fk),
+                                             dev)
+                        line['plain_ms'] = time_ms(
+                            lambda: twin(direction, Fk), dev, runs=3)
+                        line['ns_per_chunk'] = line['ms'] * 1e6 / nchunks
+                        if stats[1] is None:
+                            stats[1], stats[2] = line['ms'], line['plain_ms']
+                log('kernel %s' % kind, **line)
+        del pm, pd
+    return {key: tuple(v) for key, v in out.items()}
+
+
+class _Messages(logging.Handler):
+    """Collects the messages of a logger (nmf()'s mode decisions)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def run_sparse_nmf_phase(dev, dk, sk, nmf):
+    """Phase 10: ``nmf()`` on the recorded sparse configuration with each
+    sparse mode; returns the three final objectives."""
+    n, d, dens, k = SPARSE_SHAPE
+    X = sparse_csr(n, d, dens, dev, seed=0)
+    nlog = logging.getLogger('rri_nmf_tpu_torch.nmf')
+    finals = {}
+    for mode in ('mxu', 'dma', 'auto', True):
+        msgs = _Messages()
+        nlog.addHandler(msgs)
+        level = nlog.level
+        nlog.setLevel(logging.INFO)
+        b0 = dict(dk.LAUNCHES), dict(sk.LAUNCHES)
+        t0 = time.perf_counter()
+        try:
+            res = nmf(X, k, max_iter=SPARSE_SWEEPS, compute_obj_each_iter=True,
+                      random_state=0, sparse=mode, **FAST_TM)
+            sync(dev)
+        finally:
+            nlog.removeHandler(msgs)
+            nlog.setLevel(level)
+        wall = time.perf_counter() - t0
+        obj = res['obj_history']
+        sweeps = len(obj)
+        gs = dk.LAUNCHES['gs'] - b0[0]['gs']
+        sparse_l = {key: sk.LAUNCHES[key] - b0[1][key] for key in sk.LAUNCHES}
+        want = {key: (2 * sweeps if key == mode else 0) for key in sparse_l}
+        # sparse=True: torch.sparse.mm (cuSPARSE), no kernel of this repo
+        decisions = [m for m in msgs.messages if m.startswith('sparse')]
+        densified = any('densifying' in m for m in decisions)
+        if (gs != 2 * sweeps or sparse_l != want
+                or dk.LAUNCHES['tm_proj'] != b0[0]['tm_proj']
+                or (mode == 'auto' and dev.type == 'cuda' and not densified)):
+            raise AssertionError('nmf(sparse=%r): B1 %d, B5/B6 %r for %d '
+                                 'sweeps; log %r' % (mode, gs, sparse_l,
+                                                     sweeps, decisions))
+        for a, b in zip(obj, obj[1:]):
+            if b > a + OBJ_SLACK_F32 * abs(a):
+                raise AssertionError('sparse=%r objective rose: %r -> %r'
+                                     % (mode, a, b))
+        W, T = res['W'], res['T']
+        if not (bool(torch.isfinite(W).all()) and bool(torch.isfinite(T).all())
+                and np.all(np.isfinite(obj))):
+            raise AssertionError('non-finite sparse factors or objective')
+        stamps = np.diff([0.0] + list(res['iter_cputime']))
+        # sweep-only time: the same fit continued, no objective per sweep
+        res2 = nmf(X, k, max_iter=5, W_in=W, T_in=T, random_state=0,
+                   sparse=mode, **FAST_TM)
+        sync(dev)
+        finals[mode] = obj[-1]
+        log('nmf %dx%d %.1f%% k=%d float32 sparse=%r' % (n, d, 100 * dens, k,
+                                                           mode),
+            sweeps=sweeps, gs_launches=gs, sparse_launches=sparse_l,
+            auto_densified=densified, mode_log=decisions,
+            obj_first=obj[0], obj_last=obj[-1], wall_s=wall,
+            ms_per_sweep_with_objective=float(np.median(stamps[1:])) * 1e3,
+            ms_per_sweep=float(np.median(np.diff(res2['iter_cputime'])))
+            * 1e3)
+        del res, res2, W, T
+    lo, hi = min(finals.values()), max(finals.values())
+    if not (hi - lo) <= TOL_MODES * abs(lo):
+        raise AssertionError('sparse modes disagree: %r' % finals)
+    log('nmf sparse modes agree', final_objectives={
+        str(key): v for key, v in finals.items()},
+        rel_spread=(hi - lo) / abs(lo))
+    del X
+
+    # 'auto' past the card's budget takes B5: the same decision on a card
+    # that reports 1 MB of memory
+    n, d, dens, k = SPARSE_SMALL
+    Xs = sparse_csr(n, d, dens, dev, seed=5)
+    msgs = _Messages()
+    nlog.addHandler(msgs)
+    level = nlog.level
+    nlog.setLevel(logging.INFO)
+    real = torch.cuda.mem_get_info
+    torch.cuda.mem_get_info = lambda *a: (10 ** 6, 10 ** 6)
+    b0 = sk.LAUNCHES['mxu']
+    try:
+        res = nmf(Xs, k, max_iter=3, random_state=0, **FAST_TM)
+        sync(dev)
+    finally:
+        torch.cuda.mem_get_info = real
+        nlog.removeHandler(msgs)
+        nlog.setLevel(level)
+    decisions = [m for m in msgs.messages if m.startswith('sparse')]
+    got = sk.LAUNCHES['mxu'] - b0
+    if dev.type == 'cuda' and (got != 6 or 'B5' not in ' '.join(decisions)):
+        raise AssertionError("sparse='auto' past the budget: %d B5 launches "
+                             'for 3 sweeps; log %r' % (got, decisions))
+    log("nmf %dx%d sparse='auto' past a 1 MB budget" % (n, d),
+        mxu_launches=got, mode_log=decisions,
+        finite=bool(torch.isfinite(res['W']).all()))
+
+    # the same small sparse fit on the card (float32) and on the CPU
+    # (float64, the twins)
+    n, d, dens, k = SPARSE_SMALL
+    kw = dict(max_iter=SWEEPS, compute_obj_each_iter=True, init='random',
+              random_state=3, sparse='mxu', **FAST_TM)
+    Xs = sparse_coo(n, d, dens, torch.device('cpu'), seed=4).coalesce()
+    o_gpu = nmf(Xs.float().to(dev).to_sparse_csr(), k, **kw)['obj_history']
+    o_cpu = nmf(Xs, k, **kw)['obj_history']
+    diff = abs(o_gpu[-1] - o_cpu[-1]) / abs(o_cpu[-1])
+    if len(o_gpu) != len(o_cpu) or not diff <= TOL_CPU_GPU_OBJ:
+        raise AssertionError('sparse card vs CPU objective: %r vs %r'
+                             % (o_gpu[-1], o_cpu[-1]))
+    log('nmf sparse %dx%d k=%d card float32 vs cpu float64' % (n, d, k),
+        sweeps=len(o_gpu), obj_card=o_gpu[-1], obj_cpu=o_cpu[-1],
+        rel_diff=diff)
+    return finals
+
+
+def run_sparse_tm_phase(dev, dk, sk, Est, counts):
+    """Phase 11: the TM estimator with ``sparse='mxu'`` on the corpus of
+    phase 6 as CUDA CSR tensors."""
+    n_train, _, n_words, k = TM_SHAPE
+    X = torch.as_tensor(counts, device=dev)
+    Xtr = X[:n_train].to_sparse_csr()
+    Xte = X[n_train:].to_sparse_csr()
+    del X
+    b0 = dict(dk.LAUNCHES), dict(sk.LAUNCHES)
+    t0 = time.perf_counter()
+    est = Est(n_train, n_words, k, random_state=0, max_iter=SWEEPS,
+              handle_tfidf=True, handle_normalization=True,
+              nmf_kwargs=dict(FAST_TM, sparse='mxu'))
+    est.fit(Xtr)
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    sweeps = len(est.nmf_outputs['iter_cputime'])
+    got = (sk.LAUNCHES['mxu'] - b0[1]['mxu'],
+           dk.LAUNCHES['tm_proj'] - b0[0]['tm_proj'],
+           dk.LAUNCHES['gs'] - b0[0]['gs'])
+    if got != (2 * sweeps, sweeps, sweeps):
+        raise AssertionError('sparse TM fit: B5, B2, B1 launches %r for %d '
+                             'sweeps' % (got, sweeps))
+    t_dev = check_simplex(est.T, 1.0, 'sparse TM T rows')
+    b1 = dict(dk.LAUNCHES), dict(sk.LAUNCHES)
+    Wn = est.transform(Xte)
+    sync(dev)
+    got = (sk.LAUNCHES['mxu'] - b1[1]['mxu'], dk.LAUNCHES['gs'] - b1[0]['gs'])
+    if got != (4, 4) or tuple(Wn.shape) != (Xte.shape[0], k):
+        raise AssertionError('sparse transform: B5, B1 launches %r, shape %r'
+                             % (got, tuple(Wn.shape)))
+    w_dev = check_simplex(Wn, 1.0, 'sparse transform rows')
+    r2 = est.score(Xte)
+    if not np.isfinite(r2):
+        raise AssertionError('non-finite sparse score %r' % r2)
+    stamps = np.diff([0.0] + list(est.nmf_outputs['iter_cputime']))
+    log('NMF_TM_Estimator sparse=\'mxu\' %dx%d k=%d float32'
+        % (n_train, n_words, k), nnz=int(Xtr.values().numel()),
+        sweeps=sweeps, fit_s=fit_s, s_per_sweep=float(np.median(stamps[1:])),
+        T_row_sum_err=t_dev, transform_rows=list(Wn.shape),
+        transform_row_sum_err=w_dev, score_r2=r2)
+
+
 def run(dev):
-    """Phases 3-8 on ``dev``; returns the kernels' JSON entries."""
+    """Phases 3-11 on ``dev``; returns the kernels' JSON entries."""
     from rri_nmf_tpu_torch.metrics import frobenius_relative_error
     from rri_nmf_tpu_torch.nmf import nmf
     from rri_nmf_tpu_torch.ops import dense_kernels as dk
     from rri_nmf_tpu_torch.ops import masked_kernels as mk
+    from rri_nmf_tpu_torch.ops import sparse_kernels as sk
+    from rri_nmf_tpu_torch.ops import sparse_plan as spl
     from rri_nmf_tpu_torch.sklearn_interface import (NMF_RS_Estimator,
                                                      NMF_TM_Estimator)
 
@@ -673,13 +1003,35 @@ def run(dev):
     masked = run_rs_phase(dev, mk, NMF_RS_Estimator, ratings)
     if masked['phase_a'] == 0 or masked['phase_b'] == 0:
         raise AssertionError('a kernel of the path never ran: %r' % masked)
+    del ratings
+
+    # 9. B5 and B6 against their twins
+    sparse_stats = check_sparse(dev, sk, spl)
+    sync(dev)
+
+    # 10-11. the sparse main path, counted from zero
+    dk.reset_launches()
+    sk.reset_launches()
+    run_sparse_nmf_phase(dev, dk, sk, nmf)
+    sync(dev)
+    run_sparse_tm_phase(dev, dk, sk, NMF_TM_Estimator, counts)
+    sync(dev)
+    for key in ('gs', 'tm_proj'):
+        launches[key] += dk.LAUNCHES[key]
+    sparse = dict(sk.LAUNCHES)
+    if sparse['mxu'] == 0 or sparse['dma'] == 0 or dk.LAUNCHES['gs'] == 0:
+        raise AssertionError('a kernel of the path never ran: %r %r'
+                             % (sparse, dk.LAUNCHES))
     return [dict(B1, launches=launches['gs'], max_abs_err=err1, ms=ms1,
                  plain_ms=pms1),
             dict(B2, launches=launches['tm_proj'], max_abs_err=err2, ms=ms2,
                  plain_ms=pms2)] + [
         dict(entry, launches=masked[key], max_abs_err=stats[key][0],
              ms=stats[key][1], plain_ms=stats[key][2])
-        for entry, key in ((B3, 'phase_a'), (B4, 'phase_b'))]
+        for entry, key in ((B3, 'phase_a'), (B4, 'phase_b'))] + [
+        dict(entry, launches=sparse[key], max_abs_err=sparse_stats[key][0],
+             ms=sparse_stats[key][1], plain_ms=sparse_stats[key][2])
+        for entry, key in ((B5, 'mxu'), (B6, 'dma'))]
 
 
 def main():

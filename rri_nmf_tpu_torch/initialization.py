@@ -12,6 +12,12 @@ backends:
   (p, p) Gram's ``torch.linalg.eigh`` (:func:`_ortho_eigh`), like the JAX
   package's device backend.
 
+A sparse X (scipy, or a torch COO/CSR tensor) is never densified: the
+sklearn backend takes a scipy matrix as it is (bit for bit with the JAX
+package; a torch sparse tensor is copied to one), the torch backend runs
+its range-finder products on the sparse tensor, and the means of
+``smart_random`` and ``nndsvda``/``nndsvdar`` are all-entries means.
+
 ``random``/``smart_random`` and ``nndsvdar``'s fill keep the reference's
 ``np.random.RandomState`` streams, so they stay bit-exact with the JAX
 package. :func:`masked_svd_init`, the recommender's init, runs its
@@ -22,15 +28,31 @@ backend of ``masked_svd_init`` arrive later (ROADMAP A.3).
 import numpy as np
 import torch
 
-from rri_nmf_tpu_torch.matrixops import as_tensor, default_float, normalize
+from rri_nmf_tpu_torch.matrixops import (as_tensor, default_float,
+                                         is_scipy_sparse, is_torch_sparse,
+                                         normalize, to_torch_sparse)
+
+
+def _to_scipy(X):
+    """The torch sparse ``X`` as a scipy CSR matrix on the host
+    (duplicates summed)."""
+    import scipy.sparse as sp
+    from rri_nmf_tpu_torch.ops.sparse_plan import host_coo
+    rows, cols, vals, shape = host_coo(X)
+    return sp.coo_matrix((vals, (rows, cols)), shape=shape).tocsr()
 
 
 def _randomized_svd_sklearn(X, k, random_state):
-    """Exact-parity host backend (the reference calls the same function)."""
+    """Exact-parity host backend (the reference calls the same function).
+    SciPy-sparse input passes through: ``randomized_svd`` takes it."""
     from sklearn.utils.extmath import randomized_svd
-    if isinstance(X, torch.Tensor):
+    if is_torch_sparse(X):
+        X = _to_scipy(X)
+    elif isinstance(X, torch.Tensor):
         X = X.cpu().numpy()
-    return randomized_svd(np.asarray(X), k, random_state=random_state)
+    if not is_scipy_sparse(X):
+        X = np.asarray(X)
+    return randomized_svd(X, k, random_state=random_state)
 
 
 def _ortho_eigh(Y):
@@ -52,16 +74,39 @@ def randomized_svd_torch(X, k, generator=None, n_oversamples=10, n_iter=4,
                          omega=None):
     """Randomized SVD (Halko et al. 2011) of the tensor ``X`` on its
     device, returning ``(U, S, Vt)``. The Gaussian test matrix is drawn
-    from ``generator`` unless ``omega`` (d, k + n_oversamples) is given."""
+    from ``generator`` unless ``omega`` (d, k + n_oversamples) is given.
+    A torch sparse ``X`` stays sparse: every product against it is a
+    ``torch.sparse.mm`` (with a coalesced copy of Xᵀ)."""
     n, d = X.shape
     p = min(k + n_oversamples, min(n, d))
     if omega is None:
         omega = torch.randn(d, p, generator=generator, dtype=X.dtype,
                             device=X.device)
-    Q = _ortho_eigh(X @ omega)
+    if is_torch_sparse(X):
+        Xs = to_torch_sparse(X)
+        Xts = Xs.t().coalesce()
+
+        def mm(A):
+            return torch.sparse.mm(Xs, A)
+
+        def tmm(A):
+            return torch.sparse.mm(Xts, A)
+
+        def qtx(Q):
+            return tmm(Q).T
+    else:
+        def mm(A):
+            return X @ A
+
+        def tmm(A):
+            return X.T @ A
+
+        def qtx(Q):
+            return Q.T @ X
+    Q = _ortho_eigh(mm(omega))
     for _ in range(n_iter):
-        Q = _ortho_eigh(X @ _ortho_eigh(X.T @ Q))
-    B = Q.T @ X                                         # (p, d)
+        Q = _ortho_eigh(mm(_ortho_eigh(tmm(Q))))
+    B = qtx(Q)                                          # (p, d)
     # SVD of the small panel via its Gram: B = Ub S Vt
     lam, Ub = torch.linalg.eigh(B @ B.T)
     order = torch.argsort(lam).flip(0)
@@ -199,6 +244,12 @@ def _rng(random_state):
 
 
 def _mean(X):
+    """The mean of all n·d entries of X (a sparse X is not densified)."""
+    if is_torch_sparse(X):
+        vals = to_torch_sparse(X).values()
+        return float(vals.sum() / (X.shape[0] * X.shape[1]))
+    if is_scipy_sparse(X):
+        return float(X.mean())
     return float(X.mean()) if isinstance(X, torch.Tensor) \
         else float(np.asarray(X).mean())
 
@@ -206,8 +257,8 @@ def _mean(X):
 def initialize_nmf(X, n_components, init=None, eps=1e-6, random_state=None,
                    row_normalize=False, svd_backend='sklearn', dtype=None):
     """Initial ``(W, H)`` for ``X ≈ W H``, as tensors on X's device (the
-    CPU for a numpy ``X``) in ``dtype`` (default: X's float dtype, else
-    the device's default float).
+    CPU for a numpy or scipy-sparse ``X``) in ``dtype`` (default: X's
+    float dtype, else the device's default float).
 
     Mirrors :func:`rri_nmf_tpu.initialization.initialize_nmf`: the
     default rule (``nndsvd`` when ``n_components < n_features``, else

@@ -5,7 +5,12 @@ row with ``_proj_simplex_core`` and ``vmap``s it over a matrix; here the
 Duchi projection is written batched over rows (the last axis is the
 projected vector). Functions take numpy arrays or tensors and return
 tensors: numpy input lands on the CPU, a tensor stays on its device.
-SciPy-sparse inputs wait for the sparse slice.
+
+Sparse input stays sparse in :func:`normalize` and :func:`tfidf` (the
+sparse corpora path): a scipy-sparse matrix comes back scipy-sparse,
+computed as the JAX package computes it, and a torch sparse tensor comes
+back a torch sparse tensor of its layout on its device. The projections
+and :func:`normalize_l2` densify sparse input, as the JAX package does.
 """
 
 import numpy as np
@@ -24,15 +29,62 @@ def default_float(device):
         else torch.float32
 
 
+def is_scipy_sparse(X):
+    return (not isinstance(X, torch.Tensor) and hasattr(X, 'tocoo')
+            and hasattr(X, 'toarray'))
+
+
+def is_torch_sparse(X):
+    return isinstance(X, torch.Tensor) and X.layout in (torch.sparse_coo,
+                                                        torch.sparse_csr)
+
+
+def is_sparse(X):
+    """Whether ``X`` is a scipy-sparse matrix or a torch sparse tensor
+    (COO or CSR)."""
+    return is_scipy_sparse(X) or is_torch_sparse(X)
+
+
+def to_torch_sparse(X, dtype=None, device=None):
+    """``X`` (scipy sparse, a torch COO/CSR tensor, or a dense array or
+    tensor) as a coalesced torch COO tensor: duplicates summed (scipy COO
+    semantics), coordinates in row-major order (the counterpart of
+    :func:`rri_nmf_tpu.ops.sweep_sparse.to_bcoo`). A tensor keeps its
+    device unless ``device`` is given; anything else lands on the CPU.
+    ``dtype`` defaults to X's float dtype, else the device's default
+    float."""
+    if isinstance(X, torch.Tensor):
+        if X.layout == torch.sparse_csr:
+            X = X.to_sparse_coo()
+        elif X.layout == torch.strided:
+            X = X.to_sparse()
+    elif is_scipy_sparse(X):
+        coo = X.tocoo()
+        idx = torch.as_tensor(np.stack([coo.row, coo.col]).astype(np.int64))
+        X = torch.sparse_coo_tensor(idx, torch.as_tensor(coo.data),
+                                    coo.shape)
+    else:
+        X = torch.as_tensor(np.asarray(X)).to_sparse()
+    if device is not None:
+        X = X.to(device)
+    if dtype is None and not X.dtype.is_floating_point:
+        dtype = default_float(X.device)
+    if dtype is not None:
+        X = X.to(dtype)
+    return X.coalesce()
+
+
 def as_tensor(X, device=None, dtype=None):
-    """``X`` (numpy array, list or tensor) as a float tensor.
+    """``X`` (numpy array, list, scipy-sparse matrix or tensor) as a float
+    tensor.
 
     A tensor keeps its device unless ``device`` is given; anything else
-    lands on the CPU. Integer and bool data become the device's default
-    float; ``dtype`` overrides."""
-    if hasattr(X, 'toarray'):
-        raise NotImplementedError(
-            'scipy-sparse input arrives with the sparse slice (ROADMAP A.10)')
+    lands on the CPU. A scipy-sparse matrix becomes a coalesced torch
+    sparse COO tensor (duplicates summed), a torch sparse tensor keeps its
+    layout. Integer and bool data become the device's default float;
+    ``dtype`` overrides."""
+    if is_scipy_sparse(X):
+        return to_torch_sparse(X, dtype=dtype, device=device)
     if not isinstance(X, torch.Tensor):
         X = np.asarray(X)
         # a read-only array (e.g. np.asarray of a JAX array) is copied:
@@ -86,10 +138,16 @@ def reproject_row_if_drifted(row, target_sum, extra_pred=None):
                        row)
 
 
+def dense(X):
+    """``X`` as a dense tensor (sparse input densified on its device)."""
+    X = as_tensor(X)
+    return X.to_dense() if is_torch_sparse(X) else X
+
+
 def proj_mat_to_simplex(W, s=1.0, axis=1):
     """Project the vectors of ``W`` along ``axis`` onto simplices of radius
     ``s`` (a scalar or one per vector)."""
-    W = as_tensor(W)
+    W = dense(W)
     if axis == 0:
         return proj_mat_to_simplex(W.T, s, axis=1).T
     if axis != 1:
@@ -110,10 +168,25 @@ def proj_mat_to_simplex(W, s=1.0, axis=1):
 def normalize(X, dim=1, zero_sum_fix=True):
     """Normalize ``X`` so vectors along ``dim`` sum to 1; with
     ``zero_sum_fix`` vectors summing below 1e-10 become uniform
-    (reference ``matrixops.py:124-163``)."""
-    X = as_tensor(X)
+    (reference ``matrixops.py:124-163``).
+
+    Sparse input stays sparse and skips the zero-sum fix (a uniform row
+    would fill it): all-zero vectors stay zero, as in the JAX package."""
     if dim not in (0, 1):
         raise ValueError('Unknown dim=%r' % (dim,))
+    if is_scipy_sparse(X):
+        import scipy.sparse as sp
+        X = X.tocsr() if dim == 1 else X.tocsc()
+        inv = 1.0 / (np.asarray(X.sum(axis=dim)).ravel() + np.spacing(1))
+        return sp.diags(inv) @ X if dim == 1 else X @ sp.diags(inv)
+    if is_torch_sparse(X):
+        coo = to_torch_sparse(X)
+        idx, vals = coo.indices()[1 - dim], coo.values()
+        sums = torch.zeros(X.shape[1 - dim], dtype=vals.dtype,
+                           device=vals.device).index_add_(0, idx, vals)
+        return _with_values(coo, vals * (1.0 / (sums + np.spacing(1)))[idx],
+                            X.layout)
+    X = as_tensor(X)
     xs = X.sum(dim=dim, keepdim=True) + np.spacing(1)
     Xn = X / xs
     if zero_sum_fix:
@@ -124,7 +197,7 @@ def normalize(X, dim=1, zero_sum_fix=True):
 def normalize_l2(X, dim=1):
     """Normalize vectors of ``X`` along ``dim`` to unit l2 norm
     (reference ``matrixops.py:103-121``)."""
-    X = as_tensor(X)
+    X = dense(X)
     if dim == 0:
         return normalize_l2(X.T, 1).T
     if dim != 1:
@@ -132,11 +205,46 @@ def normalize_l2(X, dim=1):
     return X * (1.0 / torch.sqrt((X ** 2).sum(dim=1) + 1e-10))[:, None]
 
 
+def _with_values(coo, vals, layout):
+    """The coalesced COO ``coo`` with new values, in ``layout``."""
+    out = torch.sparse_coo_tensor(coo.indices(), vals, coo.shape,
+                                  is_coalesced=True)
+    return out.to_sparse_csr() if layout == torch.sparse_csr else out
+
+
+def scale_columns(X, v):
+    """``X * v`` for the (d,) vector ``v``, column j scaled by ``v[j]``;
+    a torch sparse X stays sparse, in its layout."""
+    if is_torch_sparse(X):
+        coo = to_torch_sparse(X)
+        return _with_values(coo, coo.values() * v[coo.indices()[1]],
+                            X.layout)
+    return X * v
+
+
 def tfidf(X, return_idf=False):
-    """Dense n-docs × d-features count matrix to TF-IDF:
+    """n-docs × d-features count matrix to TF-IDF:
     ``idf = log(n / df)`` with the reference's epsilon
     (``matrixops.py:166-179``); ``df`` counts the documents holding each
-    feature."""
+    feature. Sparse input stays sparse (scipy: the JAX package's
+    computation; torch: its layout, on its device); ``idf`` is a tensor
+    on X's device (the CPU for scipy)."""
+    if is_scipy_sparse(X):
+        Xc = X.tocsc()
+        n = Xc.shape[0]
+        df = np.asarray((Xc > 0).sum(axis=0)).ravel()
+        idf = np.log(n / (df + np.spacing(1)))
+        rtvx = Xc.multiply(idf[None, :]).tocsr()
+        return (rtvx, torch.as_tensor(idf)) if return_idf else rtvx
+    if is_torch_sparse(X):
+        coo = to_torch_sparse(X)
+        n, d = X.shape
+        cols, vals = coo.indices()[1], coo.values()
+        df = torch.zeros(d, dtype=vals.dtype, device=vals.device)
+        df.index_add_(0, cols, (vals > 0).to(vals.dtype))
+        idf = torch.log(n / (df + np.spacing(1)))
+        rtvx = _with_values(coo, vals * idf[cols], X.layout)
+        return (rtvx, idf) if return_idf else rtvx
     X = as_tensor(X)
     n = X.shape[0]
     df = (X > 0).sum(dim=0).to(X.dtype)

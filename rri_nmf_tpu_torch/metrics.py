@@ -1,18 +1,19 @@
 """Evaluation metrics (counterpart of :mod:`rri_nmf_tpu.metrics`).
 
 The four metrics take numpy arrays or tensors and compute in torch on
-the device of ``X`` (a numpy ``X`` on the CPU); each returns a float.
+the device of ``X`` (a numpy ``X`` on the CPU); each returns a float. A
+sparse ``X`` is densified, as the JAX package's metrics do.
 """
 
 import math
 
 import torch
 
-from rri_nmf_tpu_torch.matrixops import as_tensor
+from rri_nmf_tpu_torch.matrixops import as_tensor, dense
 
 
 def _operands(X, W, T):
-    X = as_tensor(X)
+    X = dense(X)
     return (X, as_tensor(W, device=X.device, dtype=X.dtype),
             as_tensor(T, device=X.device, dtype=X.dtype))
 
@@ -47,7 +48,7 @@ def umass_coherence(X_counts, T, top_n=10, eps=1.0):
     the mean over pairs of its ``top_n`` words of
     ``log((D(w_i, w_j) + eps) / D(w_j))``, D counting the documents that
     hold the word(s)."""
-    occ = as_tensor(X_counts) > 0
+    occ = dense(X_counts) > 0
     T = as_tensor(T, device=occ.device)
     scores = []
     for t in range(T.shape[0]):

@@ -1,12 +1,18 @@
-"""The ``nmf()`` entry point: the dense phase-order and masked slices.
+"""The ``nmf()`` entry point: the dense and sparse phase-order slices and
+the masked slice.
 
 Counterpart of :mod:`rri_nmf_tpu.nmf`, with the same signature so one
-kwargs dict drives both packages. Two paths run on a dense X:
+kwargs dict drives both packages. Three paths run:
 
 - the production "fast-TM recipe" (``update_order='phase'``,
-  ``reset_topic_method=None``) through
+  ``reset_topic_method=None``) on a dense X through
   :func:`rri_nmf_tpu_torch.ops.dense_kernels.make_dense_phase_sweep`
   (torch GEMMs plus kernels B1 and B2);
+- the same recipe on a sparse X (scipy, or a torch COO/CSR tensor),
+  never densified, through
+  :func:`rri_nmf_tpu_torch.ops.sweep_sparse.make_sparse_sweep`: the
+  two numerator products by ``torch.sparse.mm`` (``sparse=True``), kernel
+  B5 (``'mxu'``) or kernel B6 (``'dma'``), around B1 and B2;
 - masked WRRI with a dense ``W_mat`` (the recommender path) through
   :func:`rri_nmf_tpu_torch.ops.masked_kernels.make_masked_sweep`
   (kernels B3 and B4), in the interleaved order.
@@ -27,13 +33,20 @@ import numpy as np
 import torch
 
 from rri_nmf_tpu_torch.initialization import initialize_nmf
-from rri_nmf_tpu_torch.matrixops import (as_tensor, normalize,
-                                         proj_mat_to_simplex)
+from rri_nmf_tpu_torch.matrixops import (as_tensor, default_float,
+                                         is_sparse, normalize,
+                                         proj_mat_to_simplex, to_torch_sparse)
 from rri_nmf_tpu_torch.optimization import universal_stopping_condition
 from rri_nmf_tpu_torch.ops.dense_kernels import (make_dense_phase_sweep,
                                                  supports_dense_kernels)
 from rri_nmf_tpu_torch.ops.masked_kernels import make_masked_sweep
+from rri_nmf_tpu_torch.ops.sparse_kernels import sparse_fits
+from rri_nmf_tpu_torch.ops.sparse_plan import (plan_sparse_matrix,
+                                               plan_sparse_matrix_dma)
 from rri_nmf_tpu_torch.ops.sweep import SweepConfig, make_objective
+from rri_nmf_tpu_torch.ops.sweep_sparse import (TorchSparseX,
+                                                make_sparse_objective,
+                                                make_sparse_sweep)
 
 # logger levels follow the reference convention (nmf.py:36-48):
 # INFO — per-iteration summaries; DEBUG — objective deltas (forces
@@ -63,12 +76,16 @@ class TrueObjComputer(object):
 
     The residual is summed over 8192-row blocks when the whole ``W @ T``
     temporary would pass ~2 GB in the accumulator dtype (the JAX
-    package's rule). It pickles (the estimators carry it in their fitted
-    state): the objective function is rebuilt after a load."""
+    package's rule). With ``sparse``, X is a coalesced torch sparse COO
+    tensor and the objective never forms ``W @ T``
+    (:func:`rri_nmf_tpu_torch.ops.sweep_sparse.make_sparse_objective`).
+    It pickles (the estimators carry it in their fitted state): the
+    objective function is rebuilt after a load."""
 
     def __init__(self, X, W, T, reg_w_l2, reg_t_l2, reg_w_l1, reg_t_l1,
-                 Wm=None, matmul_precision=None):
+                 Wm=None, matmul_precision=None, sparse=False):
         self.X = X
+        self.sparse = sparse
         self.W = W
         self.T = T
         self.Wm = Wm
@@ -86,6 +103,10 @@ class TrueObjComputer(object):
         return state
 
     def true_objective(self):
+        if self._fn is None and self.sparse:
+            self._fn = make_sparse_objective(
+                reg_w_l2=self.reg_w_l2, reg_t_l2=self.reg_t_l2,
+                reg_w_l1=self.reg_w_l1, reg_t_l1=self.reg_t_l1)
         if self._fn is None:
             n, d = self.X.shape
             big = n * d * self.X.element_size() > 2e9 and n > 8192
@@ -94,7 +115,8 @@ class TrueObjComputer(object):
                 reg_t_l2=self.reg_t_l2, reg_w_l1=self.reg_w_l1,
                 reg_t_l1=self.reg_t_l1, block_rows=8192 if big else None,
                 matmul_precision=self.matmul_precision)
-        self.obj = float(self._fn(self.X, self.W, self.T, self.Wm))
+        args = (self.X, self.W, self.T) + (() if self.sparse else (self.Wm,))
+        self.obj = float(self._fn(*args))
         return self.obj
 
 
@@ -121,10 +143,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     L1/L2 regularizers on both factors. Parameter names, defaults and
     meanings are those of :func:`rri_nmf_tpu.nmf.nmf`; what differs:
 
-    - **Where it runs.** The fit runs where ``X`` lives: a numpy array or
-      a CPU tensor on the CPU (float64 by default), a CUDA tensor on its
-      card (float32 by default); ``dtype`` overrides. ``W_in``/``T_in``
-      and ``w_row_sum`` vectors may be numpy arrays or tensors.
+    - **Where it runs.** The fit runs where ``X`` lives: a numpy array, a
+      scipy-sparse matrix or a CPU tensor on the CPU (float64 by
+      default), a CUDA tensor (dense, or sparse COO/CSR) on its card
+      (float32 by default); ``dtype`` overrides. ``W_in``/``T_in`` and
+      ``w_row_sum`` vectors may be numpy arrays or tensors.
     - **What it covers.** Unmasked: ``update_order='phase'`` with
       ``reset_topic_method=None``: each sweep updates all T rows, then all
       W columns, every update an exact coordinate minimization. A fixed-T
@@ -138,11 +161,22 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
       order and topic resets (the JAX defaults — ROADMAP A.2), the XLA
       masked sweep (``use_pallas=False`` or ``fix_W`` with ``W_mat`` —
       A.2), a scipy-sparse ``W_mat`` (A.11), ``w_row`` (A.4),
-      scipy-sparse X and ``sparse`` modes (A.10), ``x_dtype`` and 16-bit
-      factors (A.8), ``mesh`` (A.12), ``checkpoint`` and ``accel`` (A.9),
+      ``x_dtype`` and 16-bit factors (A.8), ``mesh`` (A.12, sparse fits
+      on a mesh included), ``checkpoint`` and ``accel`` (A.9),
       ``store_gradients``, ``eps_gauss_t``/``delta_gauss_t`` and
       ``sweeps_per_dispatch > 1`` (A.2), ``init='nndsvd_lrc'`` and
       ``'coherence_pmi'`` (A.3).
+    - **Sparse X** (scipy, or a torch sparse tensor) with the phase
+      recipe is never densified: ``sparse=True`` runs the two numerator
+      products with ``torch.sparse.mm``, ``'mxu'`` with kernel B5 and
+      ``'dma'`` with kernel B6 on a host plan of the nonzeros. The
+      default ``'auto'`` engages under the JAX conditions (phase order,
+      no resets, no mask, ``w_row``, DP or ``x_dtype``): on the CPU the
+      ``torch.sparse`` form; on a card it densifies on the device when
+      the dense form fits 45% of the card's memory, else B5. Otherwise,
+      and with ``sparse=False``, X is densified on its device.
+      ``sparse=True`` also takes a dense X, and forces the phase order
+      without resets, as in the JAX package.
     - **use_pallas** keeps its name and means the hand-written kernels
       (:mod:`rri_nmf_tpu_torch.ops.dense_kernels`,
       :mod:`rri_nmf_tpu_torch.ops.masked_kernels`): ``None``, ``True`` and
@@ -158,7 +192,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     - **matmul_precision** takes the JAX names; ``None`` keeps exact
       float32 products on the card (TF32 off).
     - **Callbacks** (``diagnostics``, a callable ``early_stop``) receive
-      ``(X, W, T)`` as tensors on the fit's device.
+      ``(X, W, T)``: W and T as tensors on the fit's device, a sparse X
+      as the user passed it, a dense X as a tensor on the fit's device.
 
     Returns the dict of the JAX ``nmf()``, with ``'W'`` (n, k) and ``'T'`` (k, d)
     as tensors on the fit's device; ``'obj_history'`` and
@@ -188,6 +223,36 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     if fix_T and not fix_W and not masked and update_order == 'interleaved':
         update_order = 'phase'
 
+    # ---- the sparse mode (reference nmf.py:963-1042) ---------------------
+    X_is_sparse = is_sparse(X)
+    _viable = (W_mat is None and w_row is None and not store_gradients
+               and not (eps_gauss_t and delta_gauss_t))
+    sparse_mode = False
+    backend = None
+    if sparse in ('mxu', 'dma'):
+        if not X_is_sparse:
+            raise ValueError('sparse=%r requires a scipy-sparse or torch '
+                             'sparse X' % (sparse,))
+        backend = sparse
+    if sparse is True or backend is not None:
+        if not _viable:
+            raise ValueError(
+                'sparse=True requires: no W_mat, no w_row, no '
+                'store_gradients, no DP noise')
+        sparse_mode = True
+        if update_order != 'phase':
+            logger.info('sparse mode uses the phase update order')
+            update_order = 'phase'
+        if reset_topic_method is not None:
+            logger.info('sparse mode disables topic resets (they scan '
+                        'residual rows)')
+            reset_topic_method = None
+    elif sparse == 'auto' and X_is_sparse:
+        # only when the settings already match the sparse sweep: no silent
+        # change of semantics against densify-and-proceed
+        sparse_mode = (_viable and update_order == 'phase'
+                       and reset_topic_method is None and x_dtype is None)
+
     # ---- options outside this slice --------------------------------------
     if masked:
         if hasattr(W_mat, 'tocoo'):
@@ -210,12 +275,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                      % (reset_topic_method,), 'A.2')
     if w_row is not None:
         _not_yet('w_row (row weights and the W refit)', 'A.4')
-    if hasattr(X, 'tocoo') or sparse not in ('auto', False, None):
-        _not_yet('sparse X (%r)' % (sparse,), 'A.10')
     if x_dtype is not None:
         _not_yet('x_dtype (mixed or quantized X storage)', 'A.8')
     if mesh is not None:
-        _not_yet('mesh (distributed fits)', 'A.12')
+        _not_yet('a sparse fit on a mesh' if sparse in (True, 'mxu', 'dma')
+                 else 'mesh (distributed fits)', 'A.12')
     if checkpoint is not None:
         _not_yet('checkpoint', 'A.9')
     if accel is not None or accel_opts:
@@ -230,17 +294,53 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         _not_yet('use_pallas=False (the plain make_sweep)', 'A.2')
 
     # ---- X on its device, in the working dtype ---------------------------
-    X = as_tensor(X)
-    device = X.device
+    # callbacks receive a sparse X as the user passed it
+    X_user = X
+    if X_is_sparse and not sparse_mode:
+        # densified on its device (a scipy matrix on the host)
+        X = X.to_dense() if isinstance(X, torch.Tensor) else X.toarray()
+    if not X_is_sparse or not sparse_mode:
+        X = as_tensor(X)
+    device = X.device if isinstance(X, torch.Tensor) else torch.device('cpu')
     n, d = X.shape
     if dtype is None:
-        dtype = X.dtype
+        dtype = X.dtype if isinstance(X, torch.Tensor) \
+            else torch.from_numpy(np.zeros(0, X.dtype)).dtype
+        if not dtype.is_floating_point:
+            dtype = default_float(device)
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     if not isinstance(dtype, torch.dtype):
         dtype = as_tensor(np.zeros(0, dtype=dtype)).dtype
     if dtype not in (torch.float32, torch.float64):
         _not_yet('%s factors (16-bit storage)' % dtype, 'A.8')
-    X = X.to(dtype).contiguous()
+    if sparse_mode and backend is None:
+        backend = 'torch'
+        if sparse == 'auto' and device.type == 'cuda':
+            # the JAX package's policy (reference nmf.py:1343-1374):
+            # densify on the card when the dense form fits, else the B5
+            # chunk-plan contractions
+            budget = 0.45 * torch.cuda.mem_get_info(device)[1]
+            dense_bytes = n * d * dtype.itemsize
+            if dense_bytes <= budget:
+                logger.info('sparse auto: the dense form (%.2f GB) fits '
+                            'the card; densifying on the device',
+                            dense_bytes / 1e9)
+                X = to_torch_sparse(X, dtype).to_dense()
+                sparse_mode = False
+            else:
+                logger.info('sparse auto: the dense form (%.2f GB) exceeds '
+                            'the card\'s budget; B5 chunk-plan '
+                            'contractions', dense_bytes / 1e9)
+                backend = 'mxu'
+    if sparse_mode:
+        X_dev = (plan_sparse_matrix_dma(X, dtype, device=device)
+                 if backend == 'dma' else
+                 plan_sparse_matrix(X, dtype, device=device)
+                 if backend == 'mxu' else
+                 TorchSparseX(to_torch_sparse(X, dtype, device)))
+    else:
+        X = X.to(dtype).contiguous()
+        X_dev = X
     Wm = None
     if masked:
         # the mask on the fit's device in the fit's dtype
@@ -319,7 +419,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         W_in=W_in, T_in=T_in, W_mat=Wm, X=X, k=k, init=init,
         random_state=random_state, project_T_each_iter=project_T_each_iter,
         project_W_each_iter=project_W_each_iter, w_row_sum=w_row_sum,
-        t_row_sum=t_row_sum, fix_W=fix_W, fix_T=fix_T, n=n, d=d)
+        t_row_sum=t_row_sum, fix_W=fix_W, fix_T=fix_T, n=n, d=d,
+        device=device, dtype=dtype)
 
     inner_reps = int(inner_reps)
     if inner_reps < 1:
@@ -353,12 +454,16 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                                              wrs)
             return W, T
     else:
-        if device.type == 'cuda' and not supports_dense_kernels(cfg, d,
-                                                                dtype):
+        if device.type == 'cuda' and not (
+                supports_dense_kernels(cfg, d, dtype)
+                and (backend not in ('mxu', 'dma')
+                     or sparse_fits(k, dtype, device))):
             raise ValueError(
                 'the CUDA kernels do not fit this problem (k=%d, d=%d, %s): '
-                'see dense_kernels.gs_fits / tm_proj_fits' % (k, d, dtype))
-        sweep_fn = make_dense_phase_sweep(cfg)
+                'see dense_kernels.gs_fits / tm_proj_fits and '
+                'sparse_kernels.sparse_fits' % (k, d, dtype))
+        sweep_fn = (make_sparse_sweep(cfg, backend) if sparse_mode
+                    else make_dense_phase_sweep(cfg))
 
     # ---- early stopping state (reference nmf.py:360-363) ------------------
     _es_active = bool(early_stop) and (callable(early_stop)
@@ -380,12 +485,21 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         compute_obj_each_iter = True
     OBJ = None
     if compute_obj_each_iter:
-        OBJ = TrueObjComputer(X, W, T, reg_w_l1=reg_w_l1, reg_t_l2=reg_t_l2,
-                              reg_w_l2=reg_w_l2, reg_t_l1=reg_t_l1, Wm=Wm,
-                              matmul_precision=matmul_precision)
+        # the plan modes' X is a chunk plan: the sparse objective's cross
+        # term wants the plain coordinate list (reference nmf.py:1762-1790)
+        X_obj = X
+        if sparse_mode:
+            X_obj = (X_dev.coo if backend == 'torch'
+                     else to_torch_sparse(X, dtype, device))
+        OBJ = TrueObjComputer(X_obj, W, T, reg_w_l1=reg_w_l1,
+                              reg_t_l2=reg_t_l2, reg_w_l2=reg_w_l2,
+                              reg_t_l1=reg_t_l1, Wm=Wm,
+                              matmul_precision=matmul_precision,
+                              sparse=sparse_mode)
 
+    X_cb = X_user if X_is_sparse else X
     for func in diagnostics:
-        rtv['diagnostics'][func.__name__].append(func(X, W, T))
+        rtv['diagnostics'][func.__name__].append(func(X_cb, W, T))
 
     # ---- outer iteration loop (reference nmf.py:377-514) ------------------
     for iter_no in range(max_iter):
@@ -393,7 +507,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
 
         if _es_active:
             if callable(early_stop):
-                this_score = float(early_stop(X, W, T))
+                this_score = float(early_stop(X_cb, W, T))
             elif compute_obj_each_iter and len(obj_history) > 0:
                 this_score = obj_history[-1]
             else:
@@ -420,7 +534,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                                'iter %d sweep' % iter_no, log=logger)
             _md.__enter__()
 
-        W, T = sweep_fn(X, W, T, wrs)
+        W, T = sweep_fn(X_dev, W, T, wrs)
 
         if _md is not None:
             OBJ.W, OBJ.T = W, T
@@ -441,7 +555,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         iter_cputime.append(time.perf_counter())
 
         for func in diagnostics:
-            dval = func(X, W, T)
+            dval = func(X_cb, W, T)
             rtv['diagnostics'][func.__name__].append(dval)
             logger.info('\t%s: %s', func.__name__, dval)
 
@@ -478,15 +592,16 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
 
 def _initialize_and_validate(W_in, T_in, W_mat, X, k, init, random_state,
                              project_T_each_iter, project_W_each_iter,
-                             w_row_sum, t_row_sum, fix_W, fix_T, n, d):
+                             w_row_sum, t_row_sum, fix_W, fix_T, n, d, device,
+                             dtype):
     """Initialize W, T or validate warm starts (reference
     ``_initialize_and_validate``, ``nmf.py:819-880``): a fresh init runs
     on the masked matrix ``W_mat * X`` when masked, fresh factors get
     their row sums scaled to ``t_row_sum``/``w_row_sum``, warm starts are
     shape-checked, negatives clipped, and the initial simplex projections
-    applied when per-iteration projection is on. Returns tensors on X's
-    device in X's dtype."""
-    device, dtype = X.device, X.dtype
+    applied when per-iteration projection is on. A sparse X (scipy or a
+    torch sparse tensor) initializes as it is, never densified. Returns
+    tensors on ``device`` in ``dtype``."""
     W = T = None
     if _size(W_in) == 0 or _size(T_in) == 0:
         # the SVD backend follows X: sklearn on the host for a CPU X (the

@@ -6,6 +6,13 @@
   wrappers of kernels B1 and B2 and their plain twins;
 - :mod:`rri_nmf_tpu_torch.ops.masked_kernels` — the masked WRRI sweep,
   the wrappers of kernels B3 and B4 and their plain twins;
+- :mod:`rri_nmf_tpu_torch.ops.sweep_sparse` — the sparse-X phase sweep
+  (the dense phase sweep with sparse numerator products) and its
+  objective;
+- :mod:`rri_nmf_tpu_torch.ops.sparse_plan` — the host plans of a sparse
+  X for kernels B5 and B6;
+- :mod:`rri_nmf_tpu_torch.ops.sparse_kernels` — the wrappers of kernels
+  B5 and B6 and their plain twins;
 - :mod:`rri_nmf_tpu_torch.ops._build` — builds ``csrc/*.cu`` at first use
   and launches its C functions.
 """

@@ -12,8 +12,9 @@ never at import.
 The C functions take raw device pointers and the CUDA stream as
 ``c_void_p`` and the device index as an int, and return
 ``cudaGetLastError()`` after their launch; :func:`launch` raises when it
-is not 0. :func:`check_operands` is the wrappers' common check of device,
-dtype, shape and contiguity.
+is not 0. (``rri_sparse_fits_*`` launches nothing: it answers whether the
+sparse kernels fit the device's shared memory.) :func:`check_operands` is
+the wrappers' common check of device, dtype, shape and contiguity.
 """
 
 import ctypes
@@ -50,10 +51,20 @@ SIGNATURES = {
     # R, M, w, w_eff, t_old, t_new, Rt, mt2; n, d
     'rri_masked_phase_b_f32': [_P] * 8 + [_I, _I, _I, _P],
     'rri_masked_phase_b_f64': [_P] * 8 + [_I, _I, _I, _P],
+    # F, vals, gloc, sloc, ftile, tstart, out; k, gpad, n_otiles, C
+    'rri_sparse_mxu_f32': [_P] * 7 + [_I] * 4 + [_I, _P],
+    'rri_sparse_mxu_f64': [_P] * 7 + [_I] * 4 + [_I, _P],
+    # F3, vals, idx, ftile, uotile, ostart, out; k, n_used, spad, C,
+    # idx_stride
+    'rri_sparse_dma_f32': [_P] * 7 + [_I] * 5 + [_I, _P],
+    'rri_sparse_dma_f64': [_P] * 7 + [_I] * 5 + [_I, _P],
+    # k, C, device: whether B5 and B6 fit the device's shared memory
+    'rri_sparse_fits_f32': [_I, _I, _I],
+    'rri_sparse_fits_f64': [_I, _I, _I],
 }
 # the kernels' dtypes: ctypes scalar and C-function suffix
 CTYPES = {torch.float32: _F, torch.float64: _D}
-_SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
+SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
 
 
 def find_nvcc():
@@ -168,7 +179,7 @@ def launch(fn, ref, *args):
     ``args``, then ``ref``'s device index and PyTorch's current stream on
     it; raise if it reports a CUDA error."""
     stream = torch.cuda.current_stream(ref.device).cuda_stream
-    err = getattr(load(), '%s_%s' % (fn, _SUFFIX[ref.dtype]))(
+    err = getattr(load(), '%s_%s' % (fn, SUFFIX[ref.dtype]))(
         *args, ref.device.index, stream)
     if err != 0:
         raise RuntimeError('%s kernel launch failed: CUDA error %d'

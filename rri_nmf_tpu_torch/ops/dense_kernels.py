@@ -20,6 +20,11 @@ topics with the same arithmetic) and a CUDA tensor to its kernel — or
 raises; nothing routes a CUDA tensor to a twin. ``LAUNCHES`` counts the
 kernel launches of each wrapper.
 
+The sweep reaches X only through its two numerator products, which
+:func:`make_dense_phase_sweep` takes as arguments: the sparse sweep
+(:mod:`rri_nmf_tpu_torch.ops.sweep_sparse`) is this sweep with sparse
+contractions.
+
 Unlike the TPU kernels nothing is padded: the (8, 128) tiles and the
 BN/BD pad quanta were Mosaic's needs; the CUDA kernels mask their ragged
 edge. The VMEM gates become each kernel's own shared-memory gate
@@ -203,11 +208,25 @@ def tm_proj_update(G, N, F, l1, l2, s, reps=1):
 # the sweep
 # ---------------------------------------------------------------------------
 
-def make_dense_phase_sweep(cfg):
+def _dense_wtx(X, W):
+    return W.T @ X
+
+
+def _dense_xtt(X, T):
+    return T @ X.T
+
+
+def make_dense_phase_sweep(cfg, wtx=_dense_wtx, xtt=_dense_xtt):
     """Build ``sweep(X, W, T, w_row_sum_vec=None) -> (W, T)``: one
     phase-order sweep (torch GEMMs + the kernels) for a config that
     :func:`_supports_base` accepts. ``w_row_sum_vec`` (n,) is the per-row
-    W bound when ``cfg.w_row_sum_is_vector``."""
+    W bound when ``cfg.w_row_sum_is_vector``.
+
+    ``wtx(X, W)`` and ``xtt(X, T)`` are the two numerator products
+    ``WᵀX`` (k, d) and ``T Xᵀ`` (k, n), the only places the sweep touches
+    X: dense GEMMs by default; the sparse sweep
+    (:func:`rri_nmf_tpu_torch.ops.sweep_sparse.make_sparse_sweep`) passes
+    its sparse contractions."""
     if not _supports_base(cfg):
         raise ValueError('config not supported by the dense kernels')
     # upper bounds of the concave qf branch (reference semantics: the
@@ -221,7 +240,7 @@ def make_dense_phase_sweep(cfg):
         with precision_scope(cfg.matmul_precision):
             if not cfg.fix_T:
                 G = W.T @ W
-                WX = W.T @ X                                   # (k, d)
+                WX = wtx(X, W)                                 # (k, d)
                 if _tm_proj_active(cfg):
                     T = tm_proj_update(G, WX, T.contiguous(), cfg.reg_t_l1,
                                        cfg.reg_t_l2, float(cfg.t_row_sum),
@@ -232,7 +251,7 @@ def make_dense_phase_sweep(cfg):
                                   reps=cfg.inner_reps)
             if not cfg.fix_W:
                 G2 = T @ T.T
-                XTt = T @ X.T                                  # (k, n)
+                XTt = xtt(X, T)                                # (k, n)
                 ub = None
                 if cfg.w_row_sum_is_vector:
                     ub = w_row_sum_vec.reshape(-1).to(W.dtype).contiguous()

@@ -1,19 +1,22 @@
 """The topic-modeling and recommender estimators (counterparts of
 :mod:`rri_nmf_tpu.sklearn_interface`).
 
-Both keep the JAX estimators' constructor arguments, presets and methods
-on dense data. They do not subclass scikit-learn, which the card's
-machine does not have: ``get_params``/``set_params`` are their own, over
-the same constructor arguments, and the input checks, the validation
-split and the COO scatter are plain numpy/torch code. Fitted ``W``/``T``
-are tensors on the device the fit ran on (numpy data fits on the CPU, a
-CUDA tensor on its card).
+Both keep the JAX estimators' constructor arguments, presets and
+methods. They do not subclass scikit-learn, which the card's machine
+does not have: ``get_params``/``set_params`` are their own, over the
+same constructor arguments, and the input checks, the validation split
+and the COO scatter are plain numpy/torch code. Fitted ``W``/``T`` are
+tensors on the device the fit ran on (numpy data fits on the CPU, a CUDA
+tensor on its card).
 
 - :class:`NMF_TM_Estimator` (``fit``, ``fit_transform``, ``one_iter``,
   ``transform``, ``score``, ``score_all``) runs the fast-TM recipe only:
   pass ``nmf_kwargs=dict(update_order='phase', reset_topic_method=None)``.
   Its default preset (interleaved order with resets) raises
-  ``NotImplementedError`` until ROADMAP A.2.
+  ``NotImplementedError`` until ROADMAP A.2. A sparse X (scipy, or a
+  torch COO/CSR tensor, which fits on its device) stays sparse through
+  tf-idf, normalization, the fit (``nmf_kwargs['sparse']`` picks the
+  contractions), ``transform`` and the scorers.
 - :class:`NMF_RS_Estimator` (``fit``, ``fit_from_Xtr``, ``transform``,
   ``predict``, ``score``, ``make_Xpred``) fits masked WRRI on a dense
   observation mask with its default preset. The sparse observation modes
@@ -28,8 +31,10 @@ import torch
 
 from rri_nmf_tpu_torch.convert import factors_from_numpy
 from rri_nmf_tpu_torch.matrixops import (as_tensor, default_float,
-                                         normalize, tfidf)
+                                         is_sparse, normalize, scale_columns,
+                                         tfidf, to_torch_sparse)
 from rri_nmf_tpu_torch.nmf import nmf
+from rri_nmf_tpu_torch.ops.sweep_sparse import sparse_cross_term
 
 # nmf() kwargs dropped from the TRANSFORM presets (fixed-T sweeps over new
 # data) so one nmf_kwargs dict serves fit and transform; see
@@ -136,7 +141,7 @@ class NMF_TM_Estimator(_Estimator):
                                  device=self.W.device, dtype=self.W.dtype)
 
     def _preprocess(self, X):
-        X = as_tensor(X)
+        X = X if is_sparse(X) else as_tensor(X)
         if self.handle_tfidf:
             X, self.idf = tfidf(X, return_idf=True)
         if self.handle_normalization:
@@ -156,9 +161,16 @@ class NMF_TM_Estimator(_Estimator):
 
     def fit_transform(self, X, y=None):
         """Fit on an (n, d) matrix; returns W (reference
-        ``sklearn_interface.py:247-282``)."""
-        X = as_tensor(X)
-        if bool((X < 0).any()):
+        ``sklearn_interface.py:247-282``). A sparse X stays sparse."""
+        if is_sparse(X):
+            vals = (X.data if not isinstance(X, torch.Tensor) else
+                    X.values() if X.layout == torch.sparse_csr
+                    else X._values())
+            negative = bool((vals < 0).any())
+        else:
+            X = as_tensor(X)
+            negative = bool((X < 0).any())
+        if negative:
             raise ValueError('X must be non-negative')
         preset = self._fit_preset(self.max_iter, 7200)
         soln = nmf(self._preprocess(X), self.k,
@@ -187,11 +199,12 @@ class NMF_TM_Estimator(_Estimator):
     def transform(self, Xnew):
         """Express ``Xnew`` in the learned topics: a few fixed-T sweeps
         (reference ``sklearn_interface.py:320-334``), on the device of the
-        learned ``T``."""
+        learned ``T``. A sparse ``Xnew`` stays sparse (a torch sparse
+        tensor on T's device) through the idf and the normalization."""
         T = as_tensor(self.T)
         Xnew = as_tensor(Xnew, device=T.device)
         if self.handle_tfidf:
-            Xnew = Xnew * self.idf
+            Xnew = scale_columns(Xnew, self.idf.to(Xnew.device))
         if self.handle_normalization:
             Xnew = normalize(Xnew)
         soln = nmf(Xnew, self.k, **_merged(
@@ -208,9 +221,31 @@ class NMF_TM_Estimator(_Estimator):
     def constrained_transform(self, X):
         return self.transform(X)
 
+    def _sparse_sse(self, X):
+        """``(SSE, Σx², SST)`` of the sparse ``X`` on T's device, never
+        densified: ``||X - WT||² = Σx² − 2·Σ_nnz X_ij(W_i·T_j) +
+        tr((WᵀW)(TTᵀ))`` and ``SST = Σx² − n·Σ_j μ_j²`` (reference
+        ``sklearn_interface.py:405-416``)."""
+        T = as_tensor(self.T)
+        W = self.transform(X)
+        T = T.to(W.dtype)
+        Xs = to_torch_sparse(X, dtype=W.dtype, device=W.device)
+        n, d = Xs.shape
+        vals, cols = Xs.values(), Xs.indices()[1]
+        mu = torch.zeros(d, dtype=vals.dtype, device=vals.device)
+        mu = mu.index_add_(0, cols, vals) / n
+        sumsq = (vals ** 2).sum()
+        SSE = (sumsq - 2 * sparse_cross_term(Xs, W, T)
+               + ((W.T @ W) * (T @ T.T)).sum())
+        return float(SSE), float(sumsq), float(sumsq - n * (mu ** 2).sum())
+
     def score(self, X, y=None):
         """R² of reconstructing new X (reference
-        ``sklearn_interface.py:339-345``)."""
+        ``sklearn_interface.py:339-345``). A sparse X is scored without
+        densifying it."""
+        if is_sparse(X):
+            SSE, _, SST = self._sparse_sse(X)
+            return 1 - SSE / SST
         T = as_tensor(self.T)
         X = as_tensor(X, device=T.device)
         SST = ((X - X.mean(dim=0)) ** 2).sum()
@@ -220,14 +255,22 @@ class NMF_TM_Estimator(_Estimator):
 
     def score_all(self, X, X_counts=None, top_n=10):
         """R², relative Frobenius error and (with raw term counts
-        ``X_counts``) the mean UMass coherence of the learned topics."""
+        ``X_counts``) the mean UMass coherence of the learned topics. A
+        sparse X stays sparse (reference ``sklearn_interface.py:
+        502-527``)."""
         from rri_nmf_tpu_torch.metrics import (
             frobenius_relative_error, r2_reconstruction, umass_coherence)
         T = as_tensor(self.T)
-        X = as_tensor(X, device=T.device)
-        W = self.transform(X)
-        out = {'r2': r2_reconstruction(X, W, T),
-               'rel_frobenius_error': frobenius_relative_error(X, W, T)}
+        if is_sparse(X):
+            SSE, sumsq, SST = self._sparse_sse(X)
+            out = {'r2': 1 - SSE / SST,
+                   'rel_frobenius_error': math.sqrt(max(SSE, 0.0) / sumsq)}
+        else:
+            X = as_tensor(X, device=T.device)
+            W = self.transform(X)
+            out = {'r2': r2_reconstruction(X, W, T),
+                   'rel_frobenius_error': frobenius_relative_error(X, W,
+                                                                   T)}
         if X_counts is not None:
             out['umass_coherence'] = umass_coherence(X_counts, T,
                                                      top_n=top_n)

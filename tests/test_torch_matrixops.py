@@ -113,9 +113,16 @@ def test_tfidf_dense_matches_jax():
 
 
 def test_as_tensor_rejects_sparse_and_casts_ints():
+    """A scipy-sparse X becomes a coalesced torch sparse COO tensor (the
+    sparse slice); integer data casts to the default float."""
     import scipy.sparse as sp
-    with pytest.raises(NotImplementedError):
-        tm.as_tensor(sp.csr_matrix(np.eye(3)))
+    X = sp.coo_matrix((np.array([1, 2, 3]), (np.array([0, 0, 2]),
+                                             np.array([1, 1, 2]))),
+                      shape=(3, 3))
+    t = tm.as_tensor(X)
+    assert t.layout == torch.sparse_coo and t.is_coalesced()
+    assert t.dtype == torch.float64
+    assert np.array_equal(t.to_dense().numpy(), X.toarray())
     assert tm.as_tensor(np.arange(4)).dtype == torch.float64
     assert tm.default_float('cpu') == torch.float64
 
