@@ -8,18 +8,27 @@ its users run, one line per phase:
 
 1. the card, its power limit, the torch and CUDA versions;
 2. the kernel build;
-3. kernel B1 (Gauss-Seidel topic loop) against its plain twin at the
-   shapes of the fit and the transform, in float64 (logic, 1e-10) and
-   float32, with CUDA-event times of kernel and twin;
-4. kernel B2 (projected T-phase) the same way, plus the simplex checks;
+3. B1's and B2's shared-memory gates at the shapes below; kernel B1
+   (Gauss-Seidel topic loop) against its plain twin at the shapes of the
+   fit and the transform, at the W-phases of the TM fit (k=50, 11,314
+   columns) and the sparse fit (k=128, 50,000 columns), and at k=256
+   (the Gram staged per topic block), the concave branch included, in
+   float64 (logic, 1e-10) and float32, each launch repeated on the same
+   input and matched bit for bit, with CUDA-event times of kernel and
+   twin;
+4. kernel B2 (projected T-phase) the same way, the concave branch, the
+   feasible shortcut and k=256 (a Gram row per topic) included, plus the
+   simplex checks and the Michelot round counts of its projections at
+   the TM fit's shape;
 5. ``nmf()`` with the phase recipe at 16384×8192 k=128 float32 (launch
    counts, a non-increasing objective, ms/sweep), and a 2048×1024 k=32
    fit on the card against the same fit on the CPU in float64;
 6. ``NMF_TM_Estimator`` with the fast-TM recipe at the 20 Newsgroups
    train-split shape 11,314×26,214 k=50 on a synthetic Zipf/Dirichlet
    corpus (tf-idf and normalization on the card): fit, transform and
-   score of 512 held-out documents, and a 600×1500 k=10 fit on the card
-   against the same fit on the CPU in float64;
+   score of 512 held-out documents, the Michelot round counts of the
+   fitted state's T-phase, and a 600×1500 k=10 fit on the card against
+   the same fit on the CPU in float64;
 7. kernels B3 and B4 (the masked WRRI streaming passes) against their
    twins at the MovieLens-1M shape 6040×3952, a ragged 517×1030 and B4's
    fixed-T form, in float64 and float32, the updated residual included,
@@ -37,8 +46,9 @@ its users run, one line per phase:
    and k=128 f64 / k=200 f32, where the factor tiles do not fit shared
    memory), and float32 at the JAX package's recorded sparse
    configuration, 50,000×30,000 at 0.5% density (~7.5M nonzeros), k=128,
-   with the host plan-build seconds, CUDA-event times of kernel and twin
-   and ns per chunk;
+   with the host plan-build seconds, CUDA-event times of kernel and twin,
+   ns per chunk, and ``torch.sparse.mm`` of the CSR X (and Xᵀ) by the
+   factor, the library call for the same product;
 10. ``nmf()`` on that matrix as a CUDA CSR tensor, k=128 float32, with
     ``sparse='mxu'``, ``'dma'``, ``'auto'`` (which densifies on an 80 GB
     card: 6 GB dense) and ``True`` (``torch.sparse.mm``): exact launch
@@ -53,9 +63,10 @@ its users run, one line per phase:
 
 Phases 5-6, phase 8 and phases 10-11 each drive a main path with the
 launch counts set to 0 just before and read just after. Then one JSON
-line of the kernels
-(those launches, error against the twin, kernel and twin ms), and as the
-last line
+line of the kernels (those launches, error against the twin, kernel and
+twin ms, the least time the card could take for the same work with what
+binds it, and the library call's ms where one computes the same
+function), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises before that line
 and exits non-zero; without a CUDA device the script exits non-zero
 before doing anything. Data come from numpy seeds.
@@ -98,6 +109,12 @@ TOL_SIMPLEX_F32 = 1e-4
 # the card), and a rank-k fit of these random sparse matrices keeps the
 # objective near 0.5||X||², so the cancellation costs less than a digit.
 OBJ_SLACK_F32 = 1e-5
+# The published peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the
+# bound of a kernel's timed call is the larger of its flop over the rate
+# of its type outside the tensor cores and its bytes (each input read
+# once, each output written once) over the memory rate.
+PEAK_FLOPS = {'float32': 67e12, 'float64': 34e12}
+PEAK_BYTES_PER_S = 3.35e12
 # card float32 vs CPU float64 fit of the same problem from the same init:
 # final objectives after 20 sweeps differ by float32 rounding of the
 # trajectory (~1e-6 relative); 1e-3 is stated.
@@ -131,8 +148,17 @@ SMALL_SHAPE = (2048, 1024, 32)
 TM_SHAPE = (11314, 512, 26214, 50)
 # (docs, words, topics) of the small card-vs-CPU estimator fit
 TM_SMALL = (600, 1500, 10)
-# B2 shapes: the TM fit's T-phase and bench.py's (k, d)
-TM_PROJ_SHAPES = [(50, 26214), (128, 8192)]
+# B2 shapes: the TM fit's T-phase, bench.py's (k, d), and a k whose Gram
+# (256 KB in float32) does not fit shared memory beside the slice, so a
+# block loads one Gram row per topic (in float64 the slice does not fit
+# either and is worked in place in the output)
+TM_PROJ_SHAPES = [(50, 26214), (128, 8192), (256, 4000)]
+# B1 at two more W-phases (k, columns): the TM fit's, and the sparse
+# fit's at SPARSE_SHAPE
+GS_W_SHAPES = [(50, 11314), (128, 50000)]
+# B1 where the whole Gram does not fit beside the strip (k=256: 299 KB in
+# float32, 594 KB in float64), so each topic block stages its 16 Gram rows
+GS_STAGED = (256, 3000)
 SWEEPS = 20
 # (users, items, observations, topics): MovieLens-1M class, BASELINE #3
 RS_SHAPE = (6040, 3952, 1_000_000, 40)
@@ -187,6 +213,16 @@ def time_ms(fn, dev, runs=5):
             fn()
             out.append((time.perf_counter() - t) * 1e3)
     return float(np.median(out))
+
+
+def bound(flop, nbytes, dtype='float32'):
+    """``(bound_ms, bound_by)``: the least time the card could take for
+    ``flop`` operations in ``dtype`` moving ``nbytes``, and which of the
+    two binds."""
+    t_ops = flop / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ('operations' if t_ops > t_bytes
+                                 else 'bytes')
 
 
 def rel_err(a, b):
@@ -281,6 +317,15 @@ def gs_cases(X, Xt_new, T_new, k, dev, seed=1):
     Wn = torch.as_tensor(rng.rand(k_new, m_new), device=dev)
     Wn = Wn / Wn.sum(0, keepdim=True)
     inf = float('inf')
+    extra = []
+    for label, (kk, mm) in ([('W-phase', s) for s in GS_W_SHAPES]
+                            + [('staged Gram', GS_STAGED)]):
+        A = torch.as_tensor(rng.rand(kk, 256), device=dev)
+        G = A @ A.T
+        extra.append(('%s k=%d m=%d' % (label, kk, mm), G,
+                      G @ torch.as_tensor(rng.rand(kk, mm), device=dev),
+                      torch.as_tensor(rng.rand(kk, mm), device=dev),
+                      dict(l1=0.0, l2=0.0, bound=inf)))
     return [
         ('T-phase k=%d m=%d' % (k, d), W.T @ W, W.T @ X, T,
          dict(l1=0.0, l2=0.0, bound=inf)),
@@ -296,12 +341,38 @@ def gs_cases(X, Xt_new, T_new, k, dev, seed=1):
          W.T.contiguous(), dict(l1=-0.05, l2=0.0, bound=inf, ub=ub)),
         ('transform W-phase k=%d m=%d' % (k_new, m_new), Tn @ Tn.T,
          Tn @ Xt_new.double(), Wn, dict(l1=0.0, l2=0.0, bound=1.0)),
-    ]
+    ] + extra
+
+
+def check_dense_gates(dk, dev):
+    """B1's and B2's gates on the card (the launchers' own): the main
+    path's shapes and the staged layouts of GS_STAGED and
+    TM_PROJ_SHAPES fit in both dtypes; a float64 k=4096 strip, a Gram row
+    of k=40000 in float64 and d past 2^24 do not."""
+    want = {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split('.')[1]
+        for kk in (50, 128, GS_STAGED[0]):
+            want['gs k=%d %s' % (kk, name)] = (dk.gs_fits(kk, dt, dev), True)
+        for kk, dd in TM_PROJ_SHAPES:
+            want['tm_proj k=%d d=%d %s' % (kk, dd, name)] = (
+                dk.tm_proj_fits(kk, dd, dt, dev), True)
+    want['gs k=4096 float64'] = (dk.gs_fits(4096, torch.float64, dev), False)
+    want['tm_proj k=40000 d=100 float64'] = (
+        dk.tm_proj_fits(40000, 100, torch.float64, dev), False)
+    want['tm_proj k=50 d=2^24+1 float32'] = (
+        dk.tm_proj_fits(50, 2 ** 24 + 1, torch.float32, dev), False)
+    wrong = {key: got for key, (got, exp) in want.items() if got != exp}
+    if wrong:
+        raise AssertionError('dense shared-memory gates: %s' % wrong)
+    log('dense gates', **{key: got for key, (got, _) in want.items()})
 
 
 def check_kernel(name, update, ref, cases, dev, timed):
-    """Kernel vs twin on every case in float64 and float32; times the
-    cases named in ``timed``. Returns (max float32 error, ms, plain_ms)."""
+    """Kernel vs twin on every case in float64 and float32, each launch
+    repeated on the same input and matched bit for bit; times the cases
+    named in ``timed``. Returns (max float32 error, ms, plain_ms) of the
+    first timed case."""
     worst32, ms, plain_ms = 0.0, None, None
     for label, *args, kw in cases:
         for dtype, tol in ((torch.float64, TOL_F64),
@@ -310,13 +381,18 @@ def check_kernel(name, update, ref, cases, dev, timed):
             kwd = {key: (v.to(dtype) if isinstance(v, torch.Tensor) else v)
                    for key, v in kw.items()}
             got = update(*a, **kwd)
+            again = update(*a, **kwd)
             want = ref(*a, **kwd)
             sync(dev)
             err = rel_err(got, want)
             if not (err <= tol and bool(torch.isfinite(got).all())):
                 raise AssertionError('%s %s %s: error %.3g > %g'
                                      % (name, label, dtype, err, tol))
-            line = {'case': label, 'dtype': str(dtype), 'rel_err': err}
+            if not torch.equal(got, again):
+                raise AssertionError('%s %s %s: two launches on the same '
+                                     'input differ' % (name, label, dtype))
+            line = {'case': label, 'dtype': str(dtype), 'rel_err': err,
+                    'bitwise_repeat': True}
             if dtype == torch.float32:
                 worst32 = max(worst32, float((got - want).abs().max()))
                 if label in timed:
@@ -345,9 +421,67 @@ def tm_cases(k_d_list, dev, seed=2):
             Wd[:, 3] = 0                           # concave branch
             out.append(('k=%d d=%d dead topic' % (k, d), Wd.T @ Wd,
                         Wd.T @ Xs, F, dict(l1=0.0, l2=0.0, s=1.0)))
+            # the feasible shortcut: G = I and F = 0, so numer = N, and
+            # the even rows' N / (1 + eps) are powers of two summing to 1
+            Nf = torch.as_tensor(rng.rand(k, d) - 0.5, device=dev)
+            pat = torch.full((d,), -1.0, dtype=torch.float64, device=dev)
+            pat[[0, d // 3, 2 * d // 3, d - 1]] = torch.tensor(
+                [0.5, 0.25, 0.125, 0.125], dtype=torch.float64, device=dev)
+            Nf[::2] = pat * (1 + float(np.spacing(10)))
+            out.append(('k=%d d=%d feasible rows' % (k, d),
+                        torch.eye(k, dtype=torch.float64, device=dev), Nf,
+                        torch.zeros_like(F), dict(l1=0.0, l2=0.0, s=1.0)))
             out.append(('k=%d d=%d reps=3 l2' % (k, d), W.T @ W, W.T @ Xs,
                         F, dict(l1=0.0, l2=0.5, s=1.0, reps=3)))
     return out
+
+
+def michelot_rounds(G, N, F, l1, l2, s):
+    """The Michelot round counts of B2's projections on these inputs:
+    the serial twin's chain (``dense_kernels.tm_proj_update_ref``), its
+    rounds counted, first projections and drift re-projections apart.
+    Each round is one row-wide reduction of the kernel, after the (sum,
+    min) one of each topic."""
+    from rri_nmf_tpu_torch.matrixops import EPS_DIV_BY_ZERO
+
+    def project(v):
+        d = v.numel()
+        sv = v.sum()
+        if bool(sv == s) and bool(v.min() >= 0):
+            return v, 0
+        tau = (sv - s) / d
+        m_prev, it, changed = d + 1, 0, True
+        while changed and it < d + 2:
+            active = v > tau
+            m = int(active.sum())
+            tau = (torch.where(active, v, 0.0).sum() - s) / max(m, 1)
+            changed, m_prev, it = m != m_prev, m, it + 1
+        return torch.where(v > tau, v - tau, 0.0), it
+
+    F = F.clone()
+    first, drift = [], []
+    for t in range(F.shape[0]):
+        gtt = G[t, t]
+        numer = N[t] - G[t] @ F + gtt * F[t] - l1
+        if bool(gtt + l2 > 0):
+            row, r = project(numer.clamp_min(0.0) / (gtt + l2
+                                                     + EPS_DIV_BY_ZERO))
+            first.append(r)
+        else:
+            row = torch.zeros_like(F[t])
+            row[int(torch.argmax(numer))] = s
+        if bool((row.sum() - s).abs() > 1e-15):
+            row, r = project(row)
+            drift.append(r)
+        F[t] = row
+    k = F.shape[0]
+    return {'topics': k,
+            'first_mean': float(np.mean(first)) if first else 0.0,
+            'first_max': max(first, default=0),
+            'drift_reprojections': len(drift),
+            'drift_mean': float(np.mean(drift)) if drift else 0.0,
+            'drift_max': max(drift, default=0),
+            'reductions_per_topic': (k + sum(first) + sum(drift)) / k}
 
 
 def check_simplex(T, s, what):
@@ -438,6 +572,11 @@ def run_tm_phase(dev, dk, Est, counts):
         raise AssertionError('fit: B2 %d, B1 %d launches for %d sweeps' % (
             b1['tm_proj'] - b0['tm_proj'], b1['gs'] - b0['gs'], sweeps))
     t_dev = check_simplex(est.T, 1.0, 'T rows')
+    # the rounds B2's projections take at the fitted state
+    W = est.W
+    log('michelot rounds, fitted TM state %dx%d k=%d float32' % (n, d, k),
+        **michelot_rounds(W.T @ W, W.T @ Xtr, est.T.contiguous(), 0.0, 0.0,
+                          1.0))
     Wn = est.transform(Xte)
     sync(dev)
     b2 = dict(dk.LAUNCHES)
@@ -507,8 +646,11 @@ def check_masked(mk, cases, dev):
     """B3/B4 against their twins on every case in float64 and float32:
     the updated residual relative to its largest entry, each reduction
     relative to its own sum of absolute terms. Times the RS-shape cases in
-    float32. Returns {kernel: (max float32 abs error, ms, plain_ms)}."""
-    out = {'phase_a': [0.0, None, None], 'phase_b': [0.0, None, None]}
+    float32. Returns {kernel: (max float32 abs error, ms, plain_ms,
+    bound_ms, bound_by)}: per element of R, B3 reads R and M and writes R
+    (7 flop), B4 the same (9 flop), besides their vectors."""
+    out = {'phase_a': [0.0, None, None, None, None],
+           'phase_b': [0.0, None, None, None, None]}
     for label, kind, R, M, args in cases:
         kernel = getattr(mk, kind)
         ref = getattr(mk, kind + '_ref')
@@ -542,7 +684,13 @@ def check_masked(mk, cases, dev):
                     line['ms'] = time_ms(lambda: kernel(Rk, Mc, *a), dev)
                     line['plain_ms'] = time_ms(lambda: ref(Rt, Mc, *a), dev)
                     line['GB_per_s'] = 12 * R0.numel() / line['ms'] / 1e6
+                    n, d = R0.shape
+                    vectors = (3 * n + 3 * d) if kind == 'phase_a' \
+                        else (5 * n + 2 * d)
                     stats[1], stats[2] = line['ms'], line['plain_ms']
+                    stats[3], stats[4] = bound(
+                        (7 if kind == 'phase_a' else 9) * n * d,
+                        (3 * n * d + vectors) * R0.element_size())
             log('kernel masked', **line)
     return {key: tuple(v) for key, v in out.items()}
 
@@ -642,7 +790,8 @@ def run_rs_phase(dev, mk, Est, X):
     o_gpu = _rs_fit(Est, torch.as_tensor(p_s, device=dev),
                     torch.as_tensor(r_s, device=dev).float(), RS_SMALL,
                     **kw).nmf_outputs['obj_history']
-    o_cpu = _rs_fit(Est, p_s, r_s, RS_SMALL, **kw).nmf_outputs['obj_history']
+    o_cpu = _rs_fit(Est, p_s, r_s, RS_SMALL, device='cpu',
+                    **kw).nmf_outputs['obj_history']
     diff = abs(o_gpu[-1] - o_cpu[-1]) / abs(o_cpu[-1])
     if len(o_gpu) != len(o_cpu) or not diff <= TOL_CPU_GPU_OBJ:
         raise AssertionError('RS card vs CPU objective: %r vs %r'
@@ -691,11 +840,20 @@ def row_err(got, want):
     return float(((got - want).abs() / scale).max())
 
 
+# the tensors of a plan direction each sparse kernel reads
+PLAN_INPUTS = {'mxu': ('vals', 'gloc', 'sloc', 'ftile', 'tstart'),
+               'dma': ('vals', 'idx', 'ftile', 'uotile', 'ostart')}
+
+
 def check_sparse(dev, sk, spl):
     """Phase 9: B5 and B6 against their twins in both directions. Returns
-    {kernel: (max float32 abs error, ms, plain_ms)} with the times of the
-    full-shape ``WᵀX``."""
-    out = {'mxu': [0.0, None, None], 'dma': [0.0, None, None]}
+    {kernel: (max float32 abs error, ms, plain_ms, bound_ms, bound_by,
+    library_ms)} of the full-shape ``WᵀX``: the bound counts 2·nnz·k
+    flop and the bytes of the factor, the output and the plan arrays the
+    kernel reads; the library call is ``torch.sparse.mm`` of the CSR Xᵀ
+    by W."""
+    out = {'mxu': [0.0, None, None, None, None, None],
+           'dma': [0.0, None, None, None, None, None]}
     if dev.type == 'cuda':
         # the launchers' shared-memory gate: k=128 fits in both dtypes;
         # the accumulator alone of k=512 float32 or k=256 float64 passes
@@ -734,6 +892,20 @@ def check_sparse(dev, sk, spl):
         sync(dev)
         t2 = time.perf_counter()
         timed = label.startswith('%dx%d' % (n, d))
+        library, library_out = {}, {}
+        if timed and dev.type == 'cuda':
+            # the library call for the same products: torch.sparse.mm of
+            # the CSR X (and of Xᵀ) by the dense factor
+            Xc = X.to(dtype).to_sparse_csr()
+            Xtc = X.to(dtype).t().to_sparse_csr()
+            Tt = T.T.contiguous()
+            library = {'WtX': time_ms(lambda: torch.sparse.mm(Xtc, W), dev),
+                       'TXt': time_ms(lambda: torch.sparse.mm(Xc, Tt), dev)}
+            library_out = {'WtX': torch.sparse.mm(Xtc, W).T,
+                           'TXt': torch.sparse.mm(Xc, Tt).T}
+            log('library torch.sparse.mm', case=label, dtype=str(dtype),
+                ms=library)
+            del Xc, Xtc, Tt
         for kind, plan, plan_s in (('mxu', pm, t1 - t0), ('dma', pd, t2 - t1)):
             kernel = getattr(sk, kind + '_contract')
             twin = getattr(sk, kind + '_contract_ref')
@@ -749,9 +921,17 @@ def check_sparse(dev, sk, spl):
                 if not (err <= tol and bool(torch.isfinite(got).all())):
                     raise AssertionError('%s %s %s %s: error %.3g > %g' % (
                         kind, dirn, label, dtype, err, tol))
+                if library:
+                    # the yardstick computes the same product
+                    lib = library_out[dirn]
+                    lib_err = row_err(got[:, :lib.shape[1]], lib)
+                    if not lib_err <= tol:
+                        raise AssertionError('%s %s: torch.sparse.mm differs '
+                                             'by %.3g' % (kind, dirn, lib_err))
                 nchunks = int(direction.ftile.shape[0])
                 line = {'case': label, 'direction': dirn,
                         'dtype': str(dtype), 'rel_err': err,
+                        'library_rel_err': lib_err if library else None,
                         'nnz': int(X._nnz()), 'chunks': nchunks,
                         'plan_build_s': plan_s}
                 if dtype == torch.float32:
@@ -764,9 +944,15 @@ def check_sparse(dev, sk, spl):
                             lambda: twin(direction, Fk), dev, runs=3)
                         line['ns_per_chunk'] = line['ms'] * 1e6 / nchunks
                         if stats[1] is None:
-                            stats[1], stats[2] = line['ms'], line['plain_ms']
+                            nbytes = (Fk.nbytes + got.nbytes + sum(
+                                getattr(direction, f).nbytes
+                                for f in PLAN_INPUTS[kind]))
+                            stats[1:] = [line['ms'], line['plain_ms'],
+                                         *bound(2 * int(X._nnz()) * kk,
+                                                nbytes),
+                                         library.get(dirn)]
                 log('kernel %s' % kind, **line)
-        del pm, pd
+        del pm, pd, library_out
     return {key: tuple(v) for key, v in out.items()}
 
 
@@ -958,12 +1144,18 @@ def run(dev):
     T_new = torch.as_tensor(rng.rand(k_tm, n_words), device=dev)
     T_new = T_new / T_new.sum(1, keepdim=True)
 
-    # 3. B1 against its twin
+    # 3. B1 against its twin (and B1's and B2's gates)
+    if dev.type == 'cuda':
+        check_dense_gates(dk, dev)
     cases = gs_cases(X, Xte.T, T_new, NMF_SHAPE[2], dev)
     del X
     err1, ms1, pms1 = check_kernel(
         'gs', dk.gs_update, dk.gs_update_ref, cases, dev,
-        timed={cases[0][0], cases[4][0], cases[6][0]})
+        timed={cases[0][0], cases[4][0], cases[6][0], cases[7][0],
+               cases[8][0]})
+    # the first timed case: the T-phase of nmf() at NMF_SHAPE
+    k1, m1 = cases[0][3].shape
+    b1 = bound(2 * k1 * k1 * m1, (k1 * k1 + 3 * k1 * m1) * 4)
     del cases
     sync(dev)
 
@@ -971,10 +1163,16 @@ def run(dev):
     cases = tm_cases(TM_PROJ_SHAPES, dev)
     err2, ms2, pms2 = check_kernel(
         'tm_proj', dk.tm_proj_update, dk.tm_proj_update_ref, cases, dev,
-        timed={cases[0][0], cases[3][0]})
+        timed={cases[0][0], cases[4][0]})
     for label, G, N, F, kw in cases:
         check_simplex(dk.tm_proj_update(*(x.float() for x in (G, N, F)),
                                         **kw), 1.0, 'B2 ' + label)
+    # the first timed case: the TM fit's T-phase; its projections' rounds
+    label, G, N, F, kw = cases[0]
+    k2, d2 = F.shape
+    b2 = bound(2 * k2 * k2 * d2, (k2 * k2 + 3 * k2 * d2) * 4)
+    log('michelot rounds, ' + label + ' float32',
+        **michelot_rounds(*(x.float() for x in (G, N, F)), **kw))
     del cases
     sync(dev)
 
@@ -1022,15 +1220,22 @@ def run(dev):
     if sparse['mxu'] == 0 or sparse['dma'] == 0 or dk.LAUNCHES['gs'] == 0:
         raise AssertionError('a kernel of the path never ran: %r %r'
                              % (sparse, dk.LAUNCHES))
+    # no single PyTorch call computes B1-B4 (sequential topic chains with
+    # clamps, a simplex projection, fused in-place rank-one updates)
     return [dict(B1, launches=launches['gs'], max_abs_err=err1, ms=ms1,
-                 plain_ms=pms1),
+                 plain_ms=pms1, bound_ms=b1[0], bound_by=b1[1],
+                 library_ms=None),
             dict(B2, launches=launches['tm_proj'], max_abs_err=err2, ms=ms2,
-                 plain_ms=pms2)] + [
+                 plain_ms=pms2, bound_ms=b2[0], bound_by=b2[1],
+                 library_ms=None)] + [
         dict(entry, launches=masked[key], max_abs_err=stats[key][0],
-             ms=stats[key][1], plain_ms=stats[key][2])
+             ms=stats[key][1], plain_ms=stats[key][2],
+             bound_ms=stats[key][3], bound_by=stats[key][4], library_ms=None)
         for entry, key in ((B3, 'phase_a'), (B4, 'phase_b'))] + [
         dict(entry, launches=sparse[key], max_abs_err=sparse_stats[key][0],
-             ms=sparse_stats[key][1], plain_ms=sparse_stats[key][2])
+             ms=sparse_stats[key][1], plain_ms=sparse_stats[key][2],
+             bound_ms=sparse_stats[key][3], bound_by=sparse_stats[key][4],
+             library_ms=sparse_stats[key][5])
         for entry, key in ((B5, 'mxu'), (B6, 'dma'))]
 
 

@@ -14,14 +14,14 @@ whole estimator from that.
 import numpy as np
 import torch
 
-from rri_nmf_tpu_torch.matrixops import as_tensor, default_float
+from rri_nmf_tpu_torch.matrixops import as_tensor, default_float, fit_device
 
 
 def factors_from_numpy(W, T, device=None, dtype=None):
-    """``(W, T)`` as tensors on ``device`` (default: the CPU) in ``dtype``
-    (default: the device's default float)."""
-    device = torch.device(device) if device is not None \
-        else torch.device('cpu')
+    """``(W, T)`` as tensors on ``device`` (default: the card for numpy
+    factors, a tensor's own device; ``device='cpu'`` for the CPU) in
+    ``dtype`` (default: the device's default float)."""
+    device = fit_device(W, device)
     dtype = dtype if dtype is not None else default_float(device)
     return (as_tensor(np.asarray(W), device=device, dtype=dtype),
             as_tensor(np.asarray(T), device=device, dtype=dtype))

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from rri_nmf_tpu_torch.matrixops import (as_tensor, default_float,
+                                         fit_device,
                                          is_scipy_sparse, is_torch_sparse,
                                          normalize, to_torch_sparse)
 
@@ -255,10 +256,13 @@ def _mean(X):
 
 
 def initialize_nmf(X, n_components, init=None, eps=1e-6, random_state=None,
-                   row_normalize=False, svd_backend='sklearn', dtype=None):
-    """Initial ``(W, H)`` for ``X ≈ W H``, as tensors on X's device (the
-    CPU for a numpy or scipy-sparse ``X``) in ``dtype`` (default: X's
-    float dtype, else the device's default float).
+                   row_normalize=False, svd_backend='sklearn', dtype=None,
+                   device=None):
+    """Initial ``(W, H)`` for ``X ≈ W H``, as tensors on ``device``
+    (default: X's device for a tensor, the card for a numpy or
+    scipy-sparse ``X``; ``device='cpu'`` runs on the CPU) in ``dtype``
+    (default: X's float dtype, else the device's default float). The
+    sklearn SVD backend runs on the host whatever the device.
 
     Mirrors :func:`rri_nmf_tpu.initialization.initialize_nmf`: the
     default rule (``nndsvd`` when ``n_components < n_features``, else
@@ -267,7 +271,7 @@ def initialize_nmf(X, n_components, init=None, eps=1e-6, random_state=None,
     if svd_backend not in ('sklearn', 'torch'):
         raise ValueError("svd_backend must be 'sklearn' or 'torch', got %r"
                          % (svd_backend,))
-    device = X.device if isinstance(X, torch.Tensor) else torch.device('cpu')
+    device = fit_device(X, device)
     if dtype is None:
         dtype = (X.dtype if isinstance(X, torch.Tensor)
                  and X.dtype.is_floating_point else default_float(device))

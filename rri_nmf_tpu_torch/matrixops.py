@@ -29,6 +29,23 @@ def default_float(device):
         else torch.float32
 
 
+def fit_device(X, device=None):
+    """The device an entry point runs on for the input ``X``: ``device``
+    when given; else a tensor's own device (the caller chose it); else,
+    for numpy, scipy or list data, the card. Host data with no
+    ``device`` and no card raises: the port runs on the card unless asked
+    for the CPU with ``device='cpu'``."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(X, torch.Tensor):
+        return X.device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: rri_nmf_tpu_torch runs on the card unless "
+            "asked otherwise; pass device='cpu' to run on the CPU")
+    return torch.device('cuda', torch.cuda.current_device())
+
+
 def is_scipy_sparse(X):
     return (not isinstance(X, torch.Tensor) and hasattr(X, 'tocoo')
             and hasattr(X, 'toarray'))

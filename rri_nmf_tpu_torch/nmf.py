@@ -34,7 +34,7 @@ import torch
 
 from rri_nmf_tpu_torch.initialization import initialize_nmf
 from rri_nmf_tpu_torch.matrixops import (as_tensor, default_float,
-                                         is_sparse, normalize,
+                                         fit_device, is_sparse, normalize,
                                          proj_mat_to_simplex, to_torch_sparse)
 from rri_nmf_tpu_torch.optimization import universal_stopping_condition
 from rri_nmf_tpu_torch.ops.dense_kernels import (make_dense_phase_sweep,
@@ -135,7 +135,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         checkpoint_every=10,
         debug_checks=False, mesh=None, sweeps_per_dispatch=1,
         update_order='interleaved', sparse='auto', matmul_precision=None,
-        inner_reps=1, accel=None, accel_opts=None):
+        inner_reps=1, accel=None, accel_opts=None, device=None):
     """Factorize the non-negative (n, d) ``X`` as non-negative ``W @ T``
     by rank-one residue iterations.
 
@@ -143,11 +143,15 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     L1/L2 regularizers on both factors. Parameter names, defaults and
     meanings are those of :func:`rri_nmf_tpu.nmf.nmf`; what differs:
 
-    - **Where it runs.** The fit runs where ``X`` lives: a numpy array, a
-      scipy-sparse matrix or a CPU tensor on the CPU (float64 by
-      default), a CUDA tensor (dense, or sparse COO/CSR) on its card
-      (float32 by default); ``dtype`` overrides. ``W_in``/``T_in`` and
-      ``w_row_sum`` vectors may be numpy arrays or tensors.
+    - **Where it runs.** On the card unless asked otherwise. ``device``
+      (the port's own argument) picks it; with ``device=None`` a torch
+      tensor X fits on its own device (dense, or sparse COO/CSR) and
+      numpy, scipy-sparse or list data on the card, and without a card
+      that raises, naming ``device='cpu'``, which is how a caller asks
+      for the CPU. float64 by default on the CPU, float32 on the card
+      for host data; a tensor keeps its float dtype; ``dtype`` overrides.
+      ``W_in``/``T_in`` and ``w_row_sum`` vectors may be numpy arrays or
+      tensors.
     - **What it covers.** Unmasked: ``update_order='phase'`` with
       ``reset_topic_method=None``: each sweep updates all T rows, then all
       W columns, every update an exact coordinate minimization. A fixed-T
@@ -296,17 +300,20 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     # ---- X on its device, in the working dtype ---------------------------
     # callbacks receive a sparse X as the user passed it
     X_user = X
+    host = not isinstance(X, torch.Tensor)
+    device = fit_device(X, device)
     if X_is_sparse and not sparse_mode:
         # densified on its device (a scipy matrix on the host)
         X = X.to_dense() if isinstance(X, torch.Tensor) else X.toarray()
     if not X_is_sparse or not sparse_mode:
-        X = as_tensor(X)
-    device = X.device if isinstance(X, torch.Tensor) else torch.device('cpu')
+        X = as_tensor(X, device=device)
     n, d = X.shape
     if dtype is None:
         dtype = X.dtype if isinstance(X, torch.Tensor) \
             else torch.from_numpy(np.zeros(0, X.dtype)).dtype
-        if not dtype.is_floating_point:
+        # host data takes the card's default float there (the JAX rule:
+        # float64 only where x64 is on)
+        if not dtype.is_floating_point or (host and device.type != 'cpu'):
             dtype = default_float(device)
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     if not isinstance(dtype, torch.dtype):
@@ -325,7 +332,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                 logger.info('sparse auto: the dense form (%.2f GB) fits '
                             'the card; densifying on the device',
                             dense_bytes / 1e9)
-                X = to_torch_sparse(X, dtype).to_dense()
+                X = to_torch_sparse(X, dtype, device).to_dense()
                 sparse_mode = False
             else:
                 logger.info('sparse auto: the dense form (%.2f GB) exceeds '
@@ -455,7 +462,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             return W, T
     else:
         if device.type == 'cuda' and not (
-                supports_dense_kernels(cfg, d, dtype)
+                supports_dense_kernels(cfg, d, dtype, device)
                 and (backend not in ('mxu', 'dma')
                      or sparse_fits(k, dtype, device))):
             raise ValueError(
@@ -609,7 +616,8 @@ def _initialize_and_validate(W_in, T_in, W_mat, X, k, init, random_state,
         backend = 'torch' if device.type == 'cuda' else 'sklearn'
         W, T = initialize_nmf(X if W_mat is None else W_mat * X, k, init,
                               random_state=random_state,
-                              row_normalize=False, svd_backend=backend)
+                              row_normalize=False, svd_backend=backend,
+                              device=device)
         if t_row_sum is not None:
             T = normalize(T) * t_row_sum
         if w_row_sum is not None:

@@ -12,9 +12,12 @@ never at import.
 The C functions take raw device pointers and the CUDA stream as
 ``c_void_p`` and the device index as an int, and return
 ``cudaGetLastError()`` after their launch; :func:`launch` raises when it
-is not 0. (``rri_sparse_fits_*`` launches nothing: it answers whether the
-sparse kernels fit the device's shared memory.) :func:`check_operands` is
-the wrappers' common check of device, dtype, shape and contiguity.
+is not 0. (``rri_gs_fits_*``, ``rri_tm_proj_fits_*`` and
+``rri_sparse_fits_*`` launch nothing: each answers, through
+:func:`device_fits`, whether its launcher accepts the shape on the device;
+``rri_tm_proj_scratch_bytes`` says how much scratch B2's grid barrier
+takes.) :func:`check_operands` is the wrappers' common check of device,
+dtype, shape and contiguity.
 """
 
 import ctypes
@@ -43,8 +46,16 @@ _D = ctypes.c_double
 SIGNATURES = {
     'rri_gs_f32': [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P],
     'rri_gs_f64': [_P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _I, _I, _P],
-    'rri_tm_proj_f32': [_P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P],
-    'rri_tm_proj_f64': [_P, _P, _P, _P, _I, _I, _D, _D, _D, _I, _I, _P],
+    # G, N, F, out, scratch; k, d, l1, l2, s, reps
+    'rri_tm_proj_f32': [_P] * 5 + [_I, _I, _F, _F, _F, _I, _I, _P],
+    'rri_tm_proj_f64': [_P] * 5 + [_I, _I, _D, _D, _D, _I, _I, _P],
+    # bytes of scratch rri_tm_proj takes
+    'rri_tm_proj_scratch_bytes': [],
+    # k (, d), device: whether B1 (B2) runs at that shape on the device
+    'rri_gs_fits_f32': [_I, _I],
+    'rri_gs_fits_f64': [_I, _I],
+    'rri_tm_proj_fits_f32': [_I, _I, _I],
+    'rri_tm_proj_fits_f64': [_I, _I, _I],
     # R, M, dw, t_prev, w, partials, wR0, nw; n, d, chunks
     'rri_masked_phase_a_f32': [_P] * 8 + [_I, _I, _I, _I, _P],
     'rri_masked_phase_a_f64': [_P] * 8 + [_I, _I, _I, _I, _P],
@@ -150,6 +161,24 @@ def load():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def device_fits(fn, dtype, device, *args):
+    """Whether the launcher behind ``fn`` accepts ``args`` in ``dtype`` on
+    ``device``: the C function ``<fn>_<f32|f64>(*args, device_index)``,
+    which builds the kernels on the first call. On any device other than
+    CUDA the plain twins run, and they have no such limit: True."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return True
+    if dtype not in SUFFIX:
+        return False
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    fits = getattr(load(), '%s_%s' % (fn, SUFFIX[dtype]))(*args, index)
+    if fits < 0:
+        raise RuntimeError('%s failed: CUDA error %d' % (fn, -fits))
+    return bool(fits)
 
 
 def check_operands(ref, operands):

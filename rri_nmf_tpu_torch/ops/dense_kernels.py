@@ -8,11 +8,15 @@ sequential topic loop runs in one kernel launch:
 
 - **B1, the Gauss-Seidel kernel** (``csrc/gs.cu``, wrapper
   :func:`gs_update`): both phases of a plain fit and the W-phase of a
-  fixed-T transform. Columns are independent.
+  fixed-T transform. Columns are independent; the kernel takes topics in
+  blocks of 16 with 16 lanes per column (the block's Gram corrections as
+  independent dot products, then the short in-block chain).
 - **B2, the projected T-phase kernel** (``csrc/tm_proj.cu``, wrapper
   :func:`tm_proj_update`): the T-phase when every T row is projected onto
   the ``t_row_sum`` simplex (the topic-model recipe). The simplex
-  threshold couples all d columns of a row.
+  threshold couples all d columns of a row, so the kernel is one
+  cooperative grid whose blocks own column slices, and every row-wide
+  reduction is a grid barrier combined in a fixed order.
 
 Each wrapper takes a CPU tensor to its plain PyTorch twin
 (:func:`gs_update_ref`, :func:`tm_proj_update_ref`: a Python loop over
@@ -34,36 +38,38 @@ edge. The VMEM gates become each kernel's own shared-memory gate
 import torch
 
 from rri_nmf_tpu_torch.matrixops import EPS_DIV_BY_ZERO, _proj_simplex_core
-from rri_nmf_tpu_torch.ops._build import CTYPES, check_operands, launch
+from rri_nmf_tpu_torch.ops._build import (CTYPES, check_operands,
+                                          device_fits, launch, load)
 from rri_nmf_tpu_torch.ops.sweep import precision_scope
 
 # Kernel launches per wrapper since the last reset_launches(). A wrapper
 # adds one right after its kernel launched, and nowhere else.
 LAUNCHES = {'gs': 0, 'tm_proj': 0}
 
-# Shared memory one block may use on Hopper (227 KB, opt-in).
-SMEM_PER_BLOCK = 232448
-# Columns (threads) per block of the B1 kernel: csrc/gs.cu GS_COLS.
-GS_COLS = 64
-# Static shared memory of the B2 kernel's reductions (csrc/tm_proj.cu).
-_TM_RED_BYTES = 33 * (8 + 4)
-
-
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
-def gs_fits(k, dtype):
-    """B1 holds a block's (k, GS_COLS) factor strip in shared memory (the
-    Gram joins it when both fit, else it is read from device memory)."""
-    return k * GS_COLS * dtype.itemsize <= SMEM_PER_BLOCK
+def gs_fits(k, dtype, device):
+    """Whether B1 can run at ``k`` on ``device``: a block holds its
+    (32, k) factor strip in shared memory and the Gram beside it, whole
+    when both fit, else 16 rows at a time; on an H100 that is k up to
+    ~1200 in float32, ~600 in float64. The answer is the launcher's own
+    gate (``csrc/gs.cu`` ``rri_gs_fits``). On any other device the twin
+    runs, and it has no such limit."""
+    return device_fits('rri_gs_fits', dtype, device, k)
 
 
-def tm_proj_fits(k, d, dtype):
-    """B2 holds one whole (d,) row and one Gram row in shared memory:
-    d up to ~58k columns in float32, ~29k in float64."""
-    return (d + k) * dtype.itemsize + _TM_RED_BYTES <= SMEM_PER_BLOCK
+def tm_proj_fits(k, d, dtype, device):
+    """Whether B2 can run at (``k``, ``d``) on ``device``: a block holds a
+    Gram row in shared memory (its (k, cols) factor slice joins it when it
+    fits, else the slice is worked in place in the output), the
+    cooperative grid must be co-resident, and the counts need d below
+    2^24. The answer is the launcher's own gate (``csrc/tm_proj.cu``
+    ``rri_tm_proj_fits``). On any other device the twin runs, and it has
+    no such limit."""
+    return device_fits('rri_tm_proj_fits', dtype, device, k, d)
 
 
 def _supports_base(cfg):
@@ -80,12 +86,13 @@ def _tm_proj_active(cfg):
                 and not cfg.fix_T)
 
 
-def supports_dense_kernels(cfg, d, dtype):
-    """Whether the kernels cover ``cfg`` at ``d`` columns in ``dtype``."""
-    if not _supports_base(cfg) or not gs_fits(cfg.k, dtype):
+def supports_dense_kernels(cfg, d, dtype, device):
+    """Whether the kernels cover ``cfg`` at ``d`` columns in ``dtype`` on
+    ``device``."""
+    if not _supports_base(cfg) or not gs_fits(cfg.k, dtype, device):
         return False
     if _tm_proj_active(cfg):
-        return tm_proj_fits(cfg.k, d, dtype)
+        return tm_proj_fits(cfg.k, d, dtype, device)
     return True
 
 
@@ -172,9 +179,10 @@ def gs_update(G, N, F, l1, l2, bound, ub=None, reps=1):
     if ub is not None:
         shapes['ub'] = (ub, (m,))
     check_operands(F, shapes)
-    if not gs_fits(k, F.dtype):
+    if not gs_fits(k, F.dtype, F.device):
         raise ValueError('k=%d exceeds the GS kernel\'s shared memory '
-                         '(%d-column %s strip)' % (k, GS_COLS, F.dtype))
+                         '(a 32-column %s strip and 16 Gram rows)'
+                         % (k, F.dtype))
     out = torch.empty_like(F)
     ct = CTYPES[F.dtype]
     launch('rri_gs', F, G.data_ptr(), N.data_ptr(), F.data_ptr(),
@@ -193,13 +201,19 @@ def tm_proj_update(G, N, F, l1, l2, s, reps=1):
         return tm_proj_update_ref(G, N, F, l1, l2, s, reps=reps)
     k, d = F.shape
     check_operands(F, {'G': (G, (k, k)), 'N': (N, (k, d)), 'F': (F, (k, d))})
-    if not tm_proj_fits(k, d, F.dtype):
-        raise ValueError('d=%d exceeds the projected T-phase kernel\'s '
-                         'shared memory (one %s row)' % (d, F.dtype))
+    if not tm_proj_fits(k, d, F.dtype, F.device):
+        raise ValueError('k=%d, d=%d exceed the projected T-phase kernel '
+                         '(a %s Gram row in shared memory, d <= 2^24)'
+                         % (k, d, F.dtype))
     out = torch.empty_like(F)
+    # two banks of flagged per-block slots for B2's grid reductions
+    # (zeroed by the launcher)
+    scratch = torch.empty(load().rri_tm_proj_scratch_bytes(),
+                          dtype=torch.uint8, device=F.device)
     ct = CTYPES[F.dtype]
     launch('rri_tm_proj', F, G.data_ptr(), N.data_ptr(), F.data_ptr(),
-           out.data_ptr(), k, d, ct(l1), ct(l2), ct(s), int(reps))
+           out.data_ptr(), scratch.data_ptr(), k, d, ct(l1), ct(l2), ct(s),
+           int(reps))
     LAUNCHES['tm_proj'] += 1
     return out
 

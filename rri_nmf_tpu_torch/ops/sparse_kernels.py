@@ -24,7 +24,7 @@ either plan type and cut the padding off the result.
 
 import torch
 
-from rri_nmf_tpu_torch.ops._build import CTYPES, SUFFIX, launch, load
+from rri_nmf_tpu_torch.ops._build import CTYPES, device_fits, launch
 from rri_nmf_tpu_torch.ops.sparse_plan import (TILE, SparseDMAPlan,
                                                SparseMXUPlan)
 
@@ -50,15 +50,7 @@ def sparse_fits(k, dtype, device, C=TILE):
     (``csrc/sparse.cu`` ``rri_sparse_fits``), which builds the kernels on
     the first call. On any other device the twins run, and they have no
     such limit."""
-    device = torch.device(device)
-    if device.type != 'cuda':
-        return True
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    fits = getattr(load(), 'rri_sparse_fits_' + SUFFIX[dtype])(k, C, index)
-    if fits < 0:
-        raise RuntimeError('rri_sparse_fits failed: CUDA error %d' % -fits)
-    return bool(fits)
+    return device_fits('rri_sparse_fits', dtype, device, k, C)
 
 
 def _check_factor(F):

@@ -32,6 +32,8 @@ adds ``tstart``, each output tile's chunk range, derived once from
 import numpy as np
 import torch
 
+from rri_nmf_tpu_torch.matrixops import fit_device
+
 TILE = 128
 # Chunks per metadata block B6 may read ahead (the plan's trailing pad).
 MBLK_MAX = 16
@@ -279,13 +281,13 @@ def _to_device(arrays, device):
 
 def plan_sparse_matrix(X, dtype=None, C=TILE, group=8, device=None):
     """Sparse (n, d) ``X`` (scipy, or a torch COO/CSR tensor) to a
-    :class:`SparseMXUPlan` on ``device`` (default: X's device; the CPU
-    for scipy), values in ``dtype`` (default X's). Host-side and one-off
+    :class:`SparseMXUPlan` on ``device`` (default: X's device; the card
+    for scipy, ``'cpu'`` for the CPU), values in ``dtype`` (default X's).
+    Host-side and one-off
     (:func:`rri_nmf_tpu.ops.sparse_mxu.plan_sparse_matrix`)."""
+    device = fit_device(X, device)
     rows, cols, data, (n, d) = host_coo(X)
     dtype = _host_dtype(dtype, data)
-    if device is None:
-        device = X.device if isinstance(X, torch.Tensor) else 'cpu'
     n_rt = -(-n // TILE)
     n_ct = -(-d // TILE)
     vals = np.asarray(data, dtype=dtype)
@@ -302,10 +304,9 @@ def plan_sparse_matrix(X, dtype=None, C=TILE, group=8, device=None):
 def plan_sparse_matrix_dma(X, dtype=None, C=TILE, device=None):
     """Sparse (n, d) ``X`` to a :class:`SparseDMAPlan` on ``device``
     (:func:`rri_nmf_tpu.ops.sparse_dma.plan_sparse_matrix_dma`)."""
+    device = fit_device(X, device)
     rows, cols, data, (n, d) = host_coo(X)
     dtype = _host_dtype(dtype, data)
-    if device is None:
-        device = X.device if isinstance(X, torch.Tensor) else 'cpu'
     n_rt = -(-n // TILE)
     n_ct = -(-d // TILE)
     vals = np.asarray(data, dtype=dtype)

@@ -5,9 +5,11 @@ Both keep the JAX estimators' constructor arguments, presets and
 methods. They do not subclass scikit-learn, which the card's machine
 does not have: ``get_params``/``set_params`` are their own, over the
 same constructor arguments, and the input checks, the validation split
-and the COO scatter are plain numpy/torch code. Fitted ``W``/``T`` are
-tensors on the device the fit ran on (numpy data fits on the CPU, a CUDA
-tensor on its card).
+and the COO scatter are plain numpy/torch code. Both take a ``device``
+constructor argument: the fit runs there; with ``device=None`` a tensor
+fits on its own device and numpy or scipy data on the card (without a
+card that raises, naming ``device='cpu'``, how the CPU is asked for).
+Fitted ``W``/``T`` are tensors on the device the fit ran on.
 
 - :class:`NMF_TM_Estimator` (``fit``, ``fit_transform``, ``one_iter``,
   ``transform``, ``score``, ``score_all``) runs the fast-TM recipe only:
@@ -31,7 +33,8 @@ import torch
 
 from rri_nmf_tpu_torch.convert import factors_from_numpy
 from rri_nmf_tpu_torch.matrixops import (as_tensor, default_float,
-                                         is_sparse, normalize, scale_columns,
+                                         fit_device, is_sparse, normalize,
+                                         scale_columns,
                                          tfidf, to_torch_sparse)
 from rri_nmf_tpu_torch.nmf import nmf
 from rri_nmf_tpu_torch.ops.sweep_sparse import sparse_cross_term
@@ -81,12 +84,13 @@ class _Estimator(object):
         """An estimator holding fitted numpy state (e.g. taken from a
         fitted :mod:`rri_nmf_tpu` estimator with
         :func:`rri_nmf_tpu_torch.convert.numpy_state`): ``state['W']``,
-        ``state['T']`` on ``device`` in ``dtype``, and the estimator's own
-        fitted attributes (``idf``; ``min_rating``, ``max_rating``) where
-        present. ``params`` are constructor arguments; ``n``, ``d`` and
-        ``k`` default to the factors' shapes."""
+        ``state['T']`` on ``device`` (the constructor argument; default:
+        the card, ``'cpu'`` for the CPU) in ``dtype``, and the estimator's
+        own fitted attributes (``idf``; ``min_rating``, ``max_rating``)
+        where present. ``params`` are constructor arguments; ``n``, ``d``
+        and ``k`` default to the factors' shapes."""
         W, T = factors_from_numpy(state['W'], state['T'], device, dtype)
-        params = dict(params)
+        params = dict(params, device=device)
         params.setdefault('n', W.shape[0])
         params.setdefault('d', T.shape[1])
         params.setdefault('k', T.shape[0])
@@ -108,17 +112,19 @@ class NMF_TM_Estimator(_Estimator):
     ``handle_tfidf``/``handle_normalization`` (preprocessing),
     ``W``/``T`` (warm starts), ``nmf_kwargs`` (forwarded to
     :func:`rri_nmf_tpu_torch.nmf.nmf`, overriding the presets) and
-    ``do_final_project_W``.
+    ``do_final_project_W``; and the port's ``device``, where ``fit``,
+    ``fit_transform`` and ``one_iter`` run (default: a tensor's own
+    device, the card for numpy or scipy data).
     """
 
     _PARAMS = ('n', 'd', 'k', 'wr1', 'wr2', 'tr1', 'tr2', 'random_state',
                'handle_tfidf', 'handle_normalization', 'max_iter', 'W', 'T',
-               'nmf_kwargs', 'do_final_project_W')
+               'nmf_kwargs', 'do_final_project_W', 'device')
 
     def __init__(self, n, d, k, wr1=0, wr2=0, tr1=0, tr2=0, random_state=0,
                  handle_tfidf=False, handle_normalization=False, max_iter=300,
                  W=np.array([]), T=np.array([]), nmf_kwargs={},
-                 do_final_project_W=True):
+                 do_final_project_W=True, device=None):
         self.n = n
         self.d = d
         self.k = k
@@ -134,6 +140,7 @@ class NMF_TM_Estimator(_Estimator):
         self.T = T
         self.nmf_kwargs = nmf_kwargs
         self.do_final_project_W = do_final_project_W
+        self.device = device
 
     def _restore(self, state):
         if state.get('idf') is not None:
@@ -141,7 +148,8 @@ class NMF_TM_Estimator(_Estimator):
                                  device=self.W.device, dtype=self.W.dtype)
 
     def _preprocess(self, X):
-        X = X if is_sparse(X) else as_tensor(X)
+        X = X if is_sparse(X) else as_tensor(
+            X, device=fit_device(X, self.device))
         if self.handle_tfidf:
             X, self.idf = tfidf(X, return_idf=True)
         if self.handle_normalization:
@@ -157,7 +165,8 @@ class NMF_TM_Estimator(_Estimator):
             W_in=self.W if _size(self.W) > 0 else [],
             T_in=self.T if _size(self.T) > 0 else [],
             reg_w_l1=self.wr1, reg_w_l2=self.wr2, reg_t_l1=self.tr1,
-            reg_t_l2=self.tr2, random_state=self.random_state)
+            reg_t_l2=self.tr2, random_state=self.random_state,
+            device=self.device)
 
     def fit_transform(self, X, y=None):
         """Fit on an (n, d) matrix; returns W (reference
@@ -168,7 +177,7 @@ class NMF_TM_Estimator(_Estimator):
                     else X._values())
             negative = bool((vals < 0).any())
         else:
-            X = as_tensor(X)
+            X = as_tensor(X, device=fit_device(X, self.device))
             negative = bool((X < 0).any())
         if negative:
             raise ValueError('X must be non-negative')
@@ -308,14 +317,15 @@ def coo_to_dense_mask(rows, cols, vals, n, d):
     return X, (X != 0).to(torch.float32)
 
 
-def _check_pairs(X, y):
+def _check_pairs(X, y, device):
     """Plain counterpart of sklearn's ``check_X_y`` for (n_obs, 2) index
-    pairs and their ratings: both as tensors on the device of ``X``."""
-    X = X if isinstance(X, torch.Tensor) else torch.as_tensor(np.asarray(X))
+    pairs and their ratings: both as tensors on ``device``."""
+    X = torch.as_tensor(X if isinstance(X, torch.Tensor) else np.asarray(X),
+                        device=device)
     if y is None:
         raise ValueError('y (the ratings) is required')
     y = torch.as_tensor(y if isinstance(y, torch.Tensor) else np.asarray(y),
-                        device=X.device)
+                        device=device)
     if X.ndim != 2 or X.shape[1] < 2 or X.shape[0] == 0:
         raise ValueError('X must be a non-empty (n_obs, 2) array of index '
                          'pairs, got shape %s' % (tuple(X.shape),))
@@ -346,16 +356,19 @@ class NMF_RS_Estimator(_Estimator):
     ``use_validation_early_stopping`` (hold out 5% of the observations
     and stop when their RMSE rises) and ``sparse_obs`` (only the dense
     mask is ported: True, or ``'auto'`` above ~2 GB of float64 mask,
-    raises until ROADMAP A.11).
+    raises until ROADMAP A.11); and the port's ``device``, where ``fit``
+    and ``fit_from_Xtr`` run (default: the device of tensor pairs, the
+    card for numpy data).
     """
 
     _PARAMS = ('n', 'd', 'k', 'wr1', 'tr1', 'random_state', 'W', 'T',
                'max_iter', 'nmf_kwargs', 'use_validation_early_stopping',
-               'sparse_obs')
+               'sparse_obs', 'device')
 
     def __init__(self, n, d, k, wr1=0, tr1=0, random_state=0,
                  W=np.array([]), T=np.array([]), max_iter=30, nmf_kwargs={},
-                 use_validation_early_stopping=True, sparse_obs='auto'):
+                 use_validation_early_stopping=True, sparse_obs='auto',
+                 device=None):
         self.n = n
         self.d = d
         self.k = k
@@ -371,6 +384,7 @@ class NMF_RS_Estimator(_Estimator):
         self.T = T
         self.nmf_kwargs = nmf_kwargs
         self.sparse_obs = sparse_obs
+        self.device = device
 
     def _restore(self, state):
         for key in ('min_rating', 'max_rating'):
@@ -399,12 +413,13 @@ class NMF_RS_Estimator(_Estimator):
 
     def fit(self, X, y=None):
         """Fit from ``X`` = (n_obs, 2) index pairs and ``y`` = ratings
-        (reference ``sklearn_interface.py:59-128``), on the device of
-        ``X`` (numpy: the CPU). With ``use_validation_early_stopping`` a
+        (reference ``sklearn_interface.py:59-128``), on the estimator's
+        ``device`` (default: the device of tensor pairs, the card for
+        numpy pairs). With ``use_validation_early_stopping`` a
         5% split (scikit-learn's ``train_test_split(test_size=0.05,
         random_state=0)``) is held out and its RMSE, gathered on the
         fit's device, stops the fit when it rises."""
-        X, y = _check_pairs(X, y)
+        X, y = _check_pairs(X, y, fit_device(X, self.device))
         if self._use_sparse_obs():
             _sparse_not_yet('sparse_obs (the O(nnz) observed-set fit)')
         device = X.device
@@ -457,14 +472,14 @@ class NMF_RS_Estimator(_Estimator):
     def fit_from_Xtr(self, Xtr):
         """Fit from a ratings matrix: its nonzeros, in row-major order,
         become the (pair, rating) observations (reference
-        ``sklearn_interface.py:130-142``). A scipy-sparse or numpy
-        ``Xtr`` fits on the CPU, a CUDA tensor on its card."""
+        ``sklearn_interface.py:130-142``), on the estimator's ``device``
+        (default: a tensor's own device, the card for numpy or scipy)."""
         if hasattr(Xtr, 'tocsr'):
             Xtr = Xtr.tocsr()
             I, J = Xtr.nonzero()
             return self.fit(np.stack([I, J], axis=1),
                             np.asarray(Xtr[I, J]).ravel())
-        Xtr = as_tensor(Xtr)
+        Xtr = as_tensor(Xtr, device=fit_device(Xtr, self.device))
         I, J = torch.nonzero(Xtr, as_tuple=True)
         return self.fit(torch.stack([I, J], dim=1), Xtr[I, J])
 

@@ -229,21 +229,248 @@ def test_sweep_rejects_unsupported_configs():
                dict(update_order='phase', reset_topic_method=None,
                     masked=True)):
         cfg = SweepConfig(k=3, **kw)
-        assert not dk.supports_dense_kernels(cfg, 10, torch.float32)
+        assert not dk.supports_dense_kernels(cfg, 10, torch.float32, 'cpu')
         with pytest.raises(ValueError):
             dk.make_dense_phase_sweep(cfg)
 
 
-def test_shared_memory_gates():
-    assert dk.gs_fits(128, torch.float64)
-    assert not dk.gs_fits(1024, torch.float64)
-    assert dk.tm_proj_fits(50, 26214, torch.float64)
-    assert dk.tm_proj_fits(128, 55000, torch.float32)
-    assert not dk.tm_proj_fits(50, 60000, torch.float32)
+def test_shared_memory_gates(monkeypatch):
+    """The gates are the launchers' own (csrc/gs.cu ``rri_gs_fits``,
+    csrc/tm_proj.cu ``rri_tm_proj_fits``): on the CPU the twins run and
+    have no limit; a CUDA device asks the library with the device's index
+    and raises on a CUDA error."""
+    from rri_nmf_tpu_torch.ops import _build
+    cpu = torch.device('cpu')
+    for dtype in (torch.float32, torch.float64):
+        assert dk.gs_fits(4096, dtype, cpu)
+        assert dk.tm_proj_fits(40000, 2 ** 24 + 1, dtype, cpu)
     cfg = SweepConfig(k=8, reset_topic_method=None, update_order='phase',
                       project_T_each_iter=True, t_row_sum=1.0)
-    assert dk.supports_dense_kernels(cfg, 20000, torch.float64)
-    assert not dk.supports_dense_kernels(cfg, 40000, torch.float64)
+    assert dk.supports_dense_kernels(cfg, 2 ** 24 + 1, torch.float64, cpu)
+
+    calls = []
+
+    class Library:
+        def rri_gs_fits_f32(self, k, index):
+            calls.append(('gs', k, index))
+            return int(k <= 1200)
+
+        def rri_gs_fits_f64(self, k, index):
+            calls.append(('gs', k, index))
+            return -3 if k == 7 else int(k <= 600)   # k=7: a CUDA error
+
+        def rri_tm_proj_fits_f64(self, k, d, index):
+            calls.append(('tm_proj', k, d, index))
+            return int(d <= 2 ** 24)
+
+    monkeypatch.setattr(_build, 'load', Library)
+    card = torch.device('cuda', 1)
+    assert dk.gs_fits(128, torch.float32, card)
+    assert not dk.gs_fits(4096, torch.float32, card)
+    assert dk.tm_proj_fits(50, 26214, torch.float64, card)
+    assert not dk.tm_proj_fits(50, 2 ** 24 + 1, torch.float64, card)
+    assert dk.supports_dense_kernels(cfg, 20000, torch.float64, card)
+    assert not dk.supports_dense_kernels(cfg, 2 ** 24 + 1, torch.float64,
+                                         card)
+    assert calls == [('gs', 128, 1), ('gs', 4096, 1),
+                     ('tm_proj', 50, 26214, 1),
+                     ('tm_proj', 50, 2 ** 24 + 1, 1),
+                     ('gs', 8, 1), ('tm_proj', 8, 20000, 1),
+                     ('gs', 8, 1), ('tm_proj', 8, 2 ** 24 + 1, 1)]
+    with pytest.raises(RuntimeError, match='CUDA error 3'):
+        dk.gs_fits(7, torch.float64, card)
+    assert not dk.gs_fits(128, torch.bfloat16, card)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' decompositions, mirrored in plain PyTorch
+# ---------------------------------------------------------------------------
+
+EPS = float(np.spacing(10))
+
+
+def _gs_blocked(G, N, F, l1, l2, bound, ub=None, reps=1, b=16):
+    """B1's order (csrc/gs.cu): topics in blocks of ``b``. Each block
+    first takes every topic's correction G[t, :] F against the factor at
+    the block's start, then runs the chain inside the block, folding each
+    finished topic's change D into the corrections of the topics after
+    it."""
+    F = F.clone()
+    k = F.shape[0]
+    ubv = ub if ub is not None else torch.tensor(bound, dtype=F.dtype)
+    for _ in range(reps):
+        for t0 in range(0, k, b):
+            bb = min(b, k - t0)
+            F0 = F[t0:t0 + bb].clone()
+            C = G[t0:t0 + bb] @ F
+            D = []
+            for i in range(bb):
+                t = t0 + i
+                corr = C[i]
+                for j in range(i):
+                    corr = corr + G[t, t0 + j] * D[j]
+                numer = N[t] - corr + G[t, t] * F0[i] - l1
+                denom = G[t, t] + l2
+                pos = numer.clamp_min(0.0) / (denom + EPS)
+                neg = torch.where(denom - numer < 0, ubv, 0.0)
+                v = torch.where(denom > 0, pos, neg)
+                D.append(v - F0[i])
+                F[t] = v
+    return F
+
+
+def _tm_proj_sliced(G, N, F, l1, l2, s, reps=1, nblk=7):
+    """B2's split (csrc/tm_proj.cu): the columns in ``nblk`` contiguous
+    slices; every row-wide reduction is the slices' partials, (sum,
+    min), (sum, count, shifted sum) or (max, first index), combined in
+    slice order; the drift check reads the last Michelot round's shifted
+    sum when the threshold did not move in it."""
+    F = F.clone()
+    k, d = F.shape
+    cols = -(-d // nblk)
+    parts = [slice(j, min(j + cols, d)) for j in range(0, d, cols)]
+
+    def total(values):
+        acc = values[0]
+        for v in values[1:]:
+            acc = acc + v
+        return acc
+
+    def project(v, sv):
+        tau = (sv - s) / d
+        tau_prev, shifted, m_prev, changed, it = tau, None, d + 1, True, 0
+        while changed and it < d + 2:
+            act = [v[p] > tau for p in parts]
+            a = total([torch.where(m, v[p], 0.0).sum()
+                       for m, p in zip(act, parts)])
+            m = int(total([int(m.sum()) for m in act]))
+            c = total([torch.where(m, v[p] - tau, 0.0).sum()
+                       for m, p in zip(act, parts)])
+            tau_prev, shifted = tau, c
+            tau = (a - s) / max(m, 1)
+            changed, m_prev, it = m != m_prev, m, it + 1
+        x = torch.where(v > tau, v - tau, 0.0)
+        if bool(tau == tau_prev):
+            return x, shifted
+        return x, total([x[p].sum() for p in parts])
+
+    for _ in range(reps):
+        for t in range(k):
+            gtt = G[t, t]
+            numer = N[t] - G[t] @ F + gtt * F[t] - l1
+            denom = gtt + l2
+            if bool(denom > 0):
+                v = numer.clamp_min(0.0) / (denom + EPS)
+                sv = total([v[p].sum() for p in parts])
+                mn = min(float(v[p].min()) for p in parts)
+                row, rs = v, sv
+                if not (bool(sv == s) and mn >= 0):
+                    row, rs = project(v, sv)
+                if bool((rs - s).abs() > 1e-15):
+                    row, _ = project(row, rs)
+            else:
+                best, idx = None, None
+                for p in parts:
+                    val = numer[p].max()
+                    j = p.start + int(torch.nonzero(numer[p] == val)[0, 0])
+                    if best is None or bool(val > best):
+                        best, idx = val, j
+                row = torch.zeros_like(F[t])
+                row[idx] = s
+            F[t] = row
+    return F
+
+
+def _gs_pallas(G, N, F, l1, l2, bound, ub=None, reps=1):
+    k, m = F.shape
+    return np.asarray(_gs_call(
+        k, m, 1, l1, l2, bound, jnp.float64, jnp.float64, jnp.asarray(G),
+        jnp.asarray(np.diag(G).reshape(k, 1)), jnp.asarray(N),
+        jnp.asarray(F), ub=None if ub is None else jnp.asarray(
+            ub.reshape(1, m)), interpret=True, reps=reps))
+
+
+GS_MIRROR_VARIANTS = {
+    'plain': dict(l1=0.0, l2=0.0, bound=INF),
+    'negative l1, dead topic': dict(l1=-0.05, l2=0.0, bound=1.0, dead=1),
+    'vector ub, dead topic': dict(l1=-0.02, l2=0.1, bound=1.0, dead=3,
+                                  ub=True),
+    'reps=2': dict(l1=0.01, l2=0.2, bound=INF, reps=2),
+}
+
+
+@pytest.mark.parametrize('k,m,b', [(5, 41, 2), (20, 130, 16), (16, 99, 16),
+                                   (7, 33, 16)])
+@pytest.mark.parametrize('variant', sorted(GS_MIRROR_VARIANTS))
+def test_gs_topic_blocked_order_matches_twin_and_pallas(k, m, b, variant):
+    """B1's topic-blocked order is the Gauss-Seidel loop: against the
+    serial twin and the Pallas kernel (interpret mode), float64, 1e-12;
+    k not a multiple of the block, ragged m."""
+    kw = dict(GS_MIRROR_VARIANTS[variant])
+    G, N, F = _gs_inputs(k, m, seed=k * m + b,
+                         dead=kw.pop('dead', None) if k > 3 else None)
+    ub = np.random.RandomState(m).rand(m) + 0.5 if kw.pop('ub', False) \
+        else None
+    got = _gs_blocked(*_t(G, N, F), b=b, ub=None if ub is None
+                      else torch.as_tensor(ub), **kw).numpy()
+    twin = dk.gs_update_ref(*_t(G, N, F), ub=None if ub is None
+                            else torch.as_tensor(ub), **kw).numpy()
+    want = _gs_pallas(G, N, F, ub=ub, **kw)
+    assert np.isfinite(got).all()
+    assert np.allclose(got, twin, rtol=0, atol=1e-12), \
+        np.abs(got - twin).max()
+    assert np.allclose(got, want, rtol=0, atol=1e-12), \
+        np.abs(got - want).max()
+
+
+def _tm_feasible(k, d):
+    """Rows whose [numer]+ / (denom + eps) lies on the simplex exactly
+    (G = I, F = 0; the even rows powers of two summing to 1) and random
+    rows between them."""
+    G, F = np.eye(k), np.zeros((k, d))
+    N = np.random.RandomState(d).rand(k, d) - 0.5
+    pat = np.full(d, -1.0)
+    pat[[0, d // 3, 2 * d // 3, d - 1]] = [0.5, 0.25, 0.125, 0.125]
+    N[::2] = pat * (1 + EPS)
+    return G, N, F, pat
+
+
+@pytest.mark.parametrize('k,d,nblk', [(8, 60, 7), (5, 37, 4), (6, 301, 9)])
+@pytest.mark.parametrize('variant', ['plain', 'dead topic', 'reps=2 l2',
+                                     'negative l1', 'feasible'])
+def test_tm_proj_column_sliced_reductions_match_twin_and_pallas(k, d, nblk,
+                                                                variant):
+    """B2's column-sliced reductions, combined in the kernel's order:
+    against the serial twin and the Pallas kernel (interpret mode),
+    float64, 1e-12; ragged d, the concave branch (a dead topic), the
+    feasible shortcut, negative l1, reps=2."""
+    l1, l2, reps = 0.0, 0.0, 1
+    if variant == 'feasible':
+        G, N, F, pat = _tm_feasible(k, d)
+    else:
+        G, N, F = _tm_inputs(k, d, seed=k * d + nblk,
+                             dead=1 if variant == 'dead topic' else None)
+        l2, reps = (0.4, 2) if variant == 'reps=2 l2' else (0.0, 1)
+        l1 = -0.02 if variant == 'negative l1' else 0.0
+    got = _tm_proj_sliced(*_t(G, N, F), l1, l2, 1.0, reps=reps,
+                          nblk=nblk).numpy()
+    twin = dk.tm_proj_update_ref(*_t(G, N, F), l1, l2, 1.0,
+                                 reps=reps).numpy()
+    want = np.asarray(_tm_proj_call(
+        k, d, d, l1, l2, 1.0, jnp.float64, jnp.float64, jnp.asarray(G),
+        jnp.asarray(np.diag(G).reshape(k, 1)), jnp.asarray(N),
+        jnp.asarray(F), interpret=True, reps=reps))
+    assert np.allclose(got, twin, rtol=0, atol=1e-12), \
+        np.abs(got - twin).max()
+    assert np.allclose(got, want, rtol=0, atol=1e-12), \
+        np.abs(got - want).max()
+    assert np.allclose(got.sum(1), 1.0, atol=1e-12) and got.min() >= 0
+    if variant == 'feasible':
+        # the shortcut returns those rows as they are
+        assert np.array_equal(got[::2], np.tile(pat.clip(0), (len(got[::2]),
+                                                              1)))
+    if variant == 'dead topic':
+        assert np.count_nonzero(got[1]) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -315,10 +542,21 @@ def test_cuda_kernels_match_twins(cuda_device, dtype, tol):
         a = dk.gs_update(G, N, F, **kw)
         b = dk.gs_update_ref(G, N, F, **kw)
         assert float((a - b).abs().max() / b.abs().max()) <= tol
-    G, N, F = on(*_tm_inputs(8, 3000, seed=12, dead=2))
-    a = dk.tm_proj_update(G, N, F, 0.0, 0.0, 1.0, reps=2)
-    b = dk.tm_proj_update_ref(G, N, F, 0.0, 0.0, 1.0, reps=2)
-    torch.cuda.synchronize()
+    # k=256: B1 stages 16 Gram rows per topic block
+    G, N, F = on(*_gs_inputs(256, 3000, seed=13, dead=5))
+    a = dk.gs_update(G, N, F, -0.02, 0.0, 1.0)
+    assert torch.equal(a, dk.gs_update(G, N, F, -0.02, 0.0, 1.0))
+    b = dk.gs_update_ref(G, N, F, -0.02, 0.0, 1.0)
     assert float((a - b).abs().max() / b.abs().max()) <= tol
-    assert dk.LAUNCHES['gs'] == before['gs'] + 3
-    assert dk.LAUNCHES['tm_proj'] == before['tm_proj'] + 1
+    # k=256: B2 loads a Gram row per topic (in float64 its slice is
+    # worked in place in the output)
+    for k, d, reps in ((8, 3000, 2), (256, 4000, 1)):
+        G, N, F = on(*_tm_inputs(k, d, seed=12 + k, dead=2))
+        a = dk.tm_proj_update(G, N, F, 0.0, 0.0, 1.0, reps=reps)
+        assert torch.equal(a, dk.tm_proj_update(G, N, F, 0.0, 0.0, 1.0,
+                                                reps=reps))
+        b = dk.tm_proj_update_ref(G, N, F, 0.0, 0.0, 1.0, reps=reps)
+        assert float((a - b).abs().max() / b.abs().max()) <= tol
+    assert dk.LAUNCHES['gs'] == before['gs'] + 5
+    assert dk.LAUNCHES['tm_proj'] == before['tm_proj'] + 4
+

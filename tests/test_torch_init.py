@@ -24,6 +24,11 @@ from rri_nmf_tpu_torch import initialization as ti
 torch.set_num_threads(2)
 
 
+def _init(*args, **kw):
+    """The port's ``initialize_nmf`` on the CPU."""
+    return ti.initialize_nmf(*args, device='cpu', **kw)
+
+
 def _lowrank(n, d, k, seed):
     rng = np.random.RandomState(seed)
     return np.abs(rng.rand(n, k) @ rng.rand(k, d) + 0.05 * rng.rand(n, d))
@@ -31,7 +36,7 @@ def _lowrank(n, d, k, seed):
 
 def test_nndsvd_goldens_exact(small_X_W_T):
     X, Wt, Tt = small_X_W_T
-    W, T = ti.initialize_nmf(X, 2, init='nndsvd', random_state=0)
+    W, T = _init(X, 2, init='nndsvd', random_state=0)
     Wj, Tj = ji.initialize_nmf(X, 2, init='nndsvd', random_state=0)
     assert np.array_equal(W.numpy(), np.asarray(Wj))
     assert np.array_equal(T.numpy(), np.asarray(Tj))
@@ -70,7 +75,7 @@ def test_torch_svd_backend_matches_jax_given_omega(shape):
     assert np.allclose(Wt.numpy(), Wj, rtol=0, atol=1e-8)
     assert np.allclose(Ht.numpy(), Hj, rtol=0, atol=1e-8)
     # and the torch backend as a whole reconstructs like the exact SVD
-    W, H = ti.initialize_nmf(X, k, 'nndsvd', random_state=0,
+    W, H = _init(X, k, 'nndsvd', random_state=0,
                              svd_backend='torch')
     We, He = ji.initialize_nmf(X, k, 'nndsvd', random_state=0)
     err = np.linalg.norm(X - W.numpy() @ H.numpy())
@@ -93,7 +98,7 @@ def test_ortho_eigh_is_orthonormal_on_rank_deficient_input():
                                   'nndsvda', 'nndsvdar'])
 def test_initialize_nmf_matches_jax(init):
     X = _lowrank(30, 20, 4, seed=5)
-    W, H = ti.initialize_nmf(X, 4, init, random_state=7)
+    W, H = _init(X, 4, init, random_state=7)
     Wj, Hj = ji.initialize_nmf(X, 4, init, random_state=7)
     assert np.array_equal(W.numpy(), np.asarray(Wj))
     assert np.array_equal(H.numpy(), np.asarray(Hj))
@@ -101,12 +106,12 @@ def test_initialize_nmf_matches_jax(init):
 
 def test_initialize_nmf_row_normalize_and_default_rule():
     X = _lowrank(30, 20, 4, seed=6)
-    W, H = ti.initialize_nmf(X, 4, random_state=0, row_normalize=True)
+    W, H = _init(X, 4, random_state=0, row_normalize=True)
     Wj, Hj = ji.initialize_nmf(X, 4, random_state=0, row_normalize=True)
     assert np.allclose(H.numpy(), np.asarray(Hj), rtol=0, atol=1e-15)
     assert np.allclose(H.numpy().sum(1), 1.0)
     # k >= d: the default rule picks the random init, like the JAX one
-    W, H = ti.initialize_nmf(X[:, :3], 4, random_state=1)
+    W, H = _init(X[:, :3], 4, random_state=1)
     Wj, Hj = ji.initialize_nmf(X[:, :3], 4, random_state=1)
     assert np.array_equal(W.numpy(), Wj) and np.array_equal(H.numpy(), Hj)
 
@@ -123,11 +128,11 @@ def test_initialize_nmf_tensor_input_keeps_device_and_dtype():
 def test_initialize_nmf_errors():
     X = _lowrank(10, 8, 2, seed=9)
     with pytest.raises(ValueError):
-        ti.initialize_nmf(X, 9, 'nndsvd')
+        _init(X, 9, 'nndsvd')
     with pytest.raises(ValueError):
-        ti.initialize_nmf(X, 2, 'bogus')
+        _init(X, 2, 'bogus')
     with pytest.raises(ValueError):
-        ti.initialize_nmf(X, 2, 'nndsvd', svd_backend='jax')
+        _init(X, 2, 'nndsvd', svd_backend='jax')
     for init in ('nndsvd_lrc', 'coherence_pmi'):
         with pytest.raises(NotImplementedError, match='A.3'):
-            ti.initialize_nmf(X, 2, init)
+            _init(X, 2, init)

@@ -46,7 +46,7 @@ def _close(a, b, tol=TOL):
 
 def _same_fit(X, k, **kw):
     a = jax_nmf(X, k, **kw)
-    b = torch_nmf(X, k, **kw)
+    b = torch_nmf(X, k, device='cpu', **kw)
     assert _close(b['W'], a['W']), np.abs(b['W'].numpy() - a['W']).max()
     assert _close(b['T'], a['T']), np.abs(b['T'].numpy() - a['T']).max()
     if 'obj_history' in a:
@@ -138,7 +138,7 @@ def test_nmf_early_stop_rolls_back_like_jax():
     kw = dict(max_iter=10, compute_obj_each_iter=True, random_state=2,
               **FAST_TM)
     a = jax_nmf(X, 3, early_stop=make_score(), **kw)
-    b = torch_nmf(X, 3, early_stop=make_score(), **kw)
+    b = torch_nmf(X, 3, early_stop=make_score(), device='cpu', **kw)
     assert len(b['obj_history']) == len(a['obj_history']) == 2
     assert _close(b['W'], a['W']) and _close(b['T'], a['T'])
 
@@ -148,7 +148,7 @@ def test_nmf_unbounded_sentinels_match_jax(which):
     X = _lowrank(10, 8, 2, seed=7)
     kw = dict(reg_t_l2=-0.1) if which == 't' else dict(reg_w_l1=-0.1)
     a = jax_nmf(X, 2, **FAST_TM, **kw)
-    b = torch_nmf(X, 2, **FAST_TM, **kw)
+    b = torch_nmf(X, 2, device='cpu', **FAST_TM, **kw)
     assert _close(b['W'], a['W'], 0) and _close(b['T'], a['T'], 0)
     assert b['obj_history'] == a['obj_history']
 
@@ -159,21 +159,23 @@ def test_nmf_objective_logging_and_dtype():
     old = logger.level
     logger.setLevel(logging.DEBUG)
     try:
-        b = torch_nmf(X, 3, max_iter=3, random_state=0, **FAST_TM)
+        b = torch_nmf(X, 3, max_iter=3, random_state=0, device='cpu',
+                      **FAST_TM)
     finally:
         logger.setLevel(old)
     assert len(b['obj_history']) == 3          # DEBUG forces tracking
     c = torch_nmf(X.astype(np.float32), 3, max_iter=3, random_state=0,
-                  **FAST_TM)
+                  device='cpu', **FAST_TM)
     assert c['W'].dtype == c['T'].dtype == torch.float32
     d = torch_nmf(X, 3, max_iter=3, random_state=0, dtype='float32',
-                  **FAST_TM)
+                  device='cpu', **FAST_TM)
     assert d['T'].dtype == torch.float32
 
 
 def test_nmf_on_cpu_launches_no_kernel():
     before = dict(dk.LAUNCHES)
-    torch_nmf(_lowrank(20, 15, 2), 2, max_iter=2, random_state=0, **FAST_TM)
+    torch_nmf(_lowrank(20, 15, 2), 2, max_iter=2, random_state=0,
+              device='cpu', **FAST_TM)
     assert dk.LAUNCHES == before
 
 
@@ -205,7 +207,8 @@ def test_options_outside_the_slice_raise(case):
     match = 'sparse fit on a mesh.*ROADMAP A.12' if case == 'sparse mode' \
         else 'ROADMAP A'
     with pytest.raises(NotImplementedError, match=match):
-        torch_nmf(_lowrank(20, 15, 2), 2, max_iter=1, **DEFERRED[case])
+        torch_nmf(_lowrank(20, 15, 2), 2, max_iter=1, device='cpu',
+                  **DEFERRED[case])
 
 
 def test_scipy_sparse_X_raises_and_bad_args_are_value_errors():
@@ -214,15 +217,15 @@ def test_scipy_sparse_X_raises_and_bad_args_are_value_errors():
     dense form; bad arguments are ValueErrors."""
     X = _lowrank(20, 15, 2)
     a = torch_nmf(scipy.sparse.csr_matrix(X), 2, max_iter=3, random_state=0,
-                  **FAST_TM)
-    b = torch_nmf(X, 2, max_iter=3, random_state=0, **FAST_TM)
+                  device='cpu', **FAST_TM)
+    b = torch_nmf(X, 2, max_iter=3, random_state=0, device='cpu', **FAST_TM)
     assert _close(a['W'], b['W'], 1e-11) and _close(a['T'], b['T'], 1e-11)
     for kw in (dict(k=0), dict(k=2.5), dict(k=2, update_order='bogus'),
                dict(k=2, sparse='bogus'), dict(k=2, inner_reps=0, **FAST_TM),
                dict(k=2, W_in=np.ones((3, 3)), T_in=np.ones((2, 15)),
                     **FAST_TM)):
         with pytest.raises(ValueError):
-            torch_nmf(X, **kw)
+            torch_nmf(X, device='cpu', **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +241,7 @@ def test_tm_estimator_matches_jax(text_train, text_test):
     X, Xte = text_train, text_test
     n, d = X.shape
     J = JaxTM(n, d, 5, **_tm_params()).fit(X)
-    P = tsk.NMF_TM_Estimator(n, d, 5, **_tm_params()).fit(X)
+    P = tsk.NMF_TM_Estimator(n, d, 5, device='cpu', **_tm_params()).fit(X)
     assert _close(P.W, J.W) and _close(P.T, J.T)
     assert np.allclose(P.nmf_outputs['obj_history'],
                        J.nmf_outputs['obj_history'], rtol=TOL)
@@ -256,7 +259,7 @@ def test_tm_estimator_preprocessing_matches_jax():
     n, d = raw.shape
     kw = _tm_params(handle_tfidf=True, handle_normalization=True)
     J = JaxTM(n, d, 4, **kw).fit(raw)
-    P = tsk.NMF_TM_Estimator(n, d, 4, **kw).fit(raw)
+    P = tsk.NMF_TM_Estimator(n, d, 4, device='cpu', **kw).fit(raw)
     assert np.allclose(P.idf.numpy(), np.asarray(J.idf), rtol=1e-14)
     assert _close(P.W, J.W) and _close(P.T, J.T)
     assert _close(P.transform(raw[:30]), J.transform(raw[:30]))
@@ -270,11 +273,11 @@ def test_tm_estimator_from_jax_state(text_train, text_test):
     params = {key: v for key, v in J.get_params().items()
               if key not in ('W', 'T')}
     P = tsk.NMF_TM_Estimator.from_numpy_state(
-        {'W': J.W, 'T': J.T}, **params)
+        {'W': J.W, 'T': J.T}, device='cpu', **params)
     assert isinstance(P.T, torch.Tensor) and P.k == 5
     assert _close(P.transform(text_test), J.transform(text_test))
     assert P.score(text_test) == pytest.approx(J.score(text_test), rel=TOL)
-    W, T = factors_from_numpy(J.W, J.T, dtype=torch.float32)
+    W, T = factors_from_numpy(J.W, J.T, device='cpu', dtype=torch.float32)
     assert W.dtype == torch.float32 and T.device.type == 'cpu'
 
 
@@ -285,7 +288,7 @@ def test_tm_estimator_from_jax_state_with_idf():
     kw = _tm_params(handle_tfidf=True, handle_normalization=True)
     J = JaxTM(n, d, 4, **kw).fit(raw)
     P = tsk.NMF_TM_Estimator.from_numpy_state(
-        {'W': J.W, 'T': J.T, 'idf': J.idf}, **kw)
+        {'W': J.W, 'T': J.T, 'idf': J.idf}, device='cpu', **kw)
     assert _close(P.transform(raw[:25]), J.transform(raw[:25]))
 
 
@@ -295,10 +298,10 @@ def test_tm_one_iter_steps_equal_batch_fit(text_train):
     X = text_train
     n, d = X.shape
     M = tsk.NMF_TM_Estimator(n, d, 5, random_state=0, max_iter=10,
-                             nmf_kwargs=FAST_TM).fit(X)
+                             nmf_kwargs=FAST_TM, device='cpu').fit(X)
     M2 = tsk.NMF_TM_Estimator(n, d, 5, random_state=0, max_iter=2,
                               do_final_project_W=False,
-                              nmf_kwargs=FAST_TM).fit(X)
+                              nmf_kwargs=FAST_TM, device='cpu').fit(X)
     for _ in range(8):
         M2 = M2.one_iter(X)
     from rri_nmf_tpu_torch.matrixops import proj_mat_to_simplex
@@ -308,9 +311,10 @@ def test_tm_one_iter_steps_equal_batch_fit(text_train):
 
 def test_tm_estimator_params_and_errors(text_train):
     n, d = text_train.shape
-    P = tsk.NMF_TM_Estimator(n, d, 3, nmf_kwargs=FAST_TM)
+    P = tsk.NMF_TM_Estimator(n, d, 3, nmf_kwargs=FAST_TM, device='cpu')
     params = P.get_params()
-    assert set(params) == set(JaxTM(n, d, 3).get_params())
+    # the JAX constructor arguments, and the port's device
+    assert set(params) == set(JaxTM(n, d, 3).get_params()) | {'device'}
     assert P.set_params(max_iter=2, tr2=0.5) is P and P.tr2 == 0.5
     with pytest.raises(ValueError):
         P.set_params(bogus=1)
@@ -320,7 +324,8 @@ def test_tm_estimator_params_and_errors(text_train):
     assert W.shape == (n, 3) and np.allclose(W.sum(1).numpy(), 1.0)
     # the default preset (interleaved order with resets) is not ported
     with pytest.raises(NotImplementedError, match='A.2'):
-        tsk.NMF_TM_Estimator(n, d, 3, max_iter=1).fit(text_train)
+        tsk.NMF_TM_Estimator(n, d, 3, max_iter=1,
+                             device='cpu').fit(text_train)
 
 
 def test_metrics_match_jax(text_train):

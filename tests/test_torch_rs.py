@@ -51,7 +51,7 @@ def _close(a, b, tol=TOL):
 
 def _same_fit(X, k, **kw):
     a = jax_nmf(X, k, use_pallas='interpret', **kw)
-    b = torch_nmf(X, k, **kw)
+    b = torch_nmf(X, k, device='cpu', **kw)
     assert _close(b['W'], a['W']), np.abs(_np(b['W']) - a['W']).max()
     assert _close(b['T'], a['T']), np.abs(_np(b['T']) - a['T']).max()
     if 'obj_history' in a:
@@ -117,7 +117,7 @@ def test_masked_nmf_early_stop_rolls_back_like_jax():
     kw = dict(W_mat=M, max_iter=10, compute_obj_each_iter=True,
               random_state=2, reset_topic_method=None, t_row_sum=1.0)
     a = jax_nmf(X, 3, early_stop=make_score(), use_pallas='interpret', **kw)
-    b = torch_nmf(X, 3, early_stop=make_score(), **kw)
+    b = torch_nmf(X, 3, early_stop=make_score(), device='cpu', **kw)
     assert len(b['obj_history']) == len(a['obj_history']) == 2
     assert _close(b['W'], a['W']) and _close(b['T'], a['T'])
     _same_fit(X, 3, early_stop=True, **kw)
@@ -132,11 +132,11 @@ def test_fix_T_dead_topic_resets_like_jax():
     kw = dict(W_mat=M, T_in=T0, fix_T=True, max_iter=3, n_resets=5,
               reset_topic_method='random', t_row_sum=1.0, random_state=7)
     a = jax_nmf(X, 3, use_pallas='interpret', **kw)
-    b = torch_nmf(X, 3, **kw)
+    b = torch_nmf(X, 3, device='cpu', **kw)
     assert a['n_resets_remaining'] < 5
     assert b['n_resets_remaining'] == a['n_resets_remaining']
     assert not np.allclose(_np(b['T'])[1], 0.0)
-    c = torch_nmf(X, 3, **kw)                 # seeded: repeats exactly
+    c = torch_nmf(X, 3, device='cpu', **kw)   # seeded: repeats exactly
     assert torch.equal(c['W'], b['W']) and torch.equal(c['T'], b['T'])
 
 
@@ -149,20 +149,23 @@ def test_masked_options_outside_the_slice():
                       (dict(reset_topic_method=None, w_row=np.ones(20)),
                        'A.4')):
         with pytest.raises(NotImplementedError, match=label):
-            torch_nmf(X, 2, W_mat=M, max_iter=1, **kw)
+            torch_nmf(X, 2, W_mat=M, max_iter=1, device='cpu', **kw)
     with pytest.raises(NotImplementedError, match='A.11'):
         torch_nmf(X, 2, W_mat=scipy.sparse.csr_matrix(M), max_iter=1,
-                  reset_topic_method=None)
+                  reset_topic_method=None, device='cpu')
     with pytest.raises(ValueError, match='inner_reps'):
-        torch_nmf(X, 2, W_mat=M, reset_topic_method=None, inner_reps=2)
+        torch_nmf(X, 2, W_mat=M, reset_topic_method=None, inner_reps=2,
+                  device='cpu')
     with pytest.raises(ValueError, match='shape'):
-        torch_nmf(X, 2, W_mat=M[:10], reset_topic_method=None)
+        torch_nmf(X, 2, W_mat=M[:10], reset_topic_method=None,
+                  device='cpu')
 
 
 def test_masked_nmf_on_cpu_launches_no_kernel():
     X, M = _problem(20, 15, 2, seed=9)
     before = dict(mk.LAUNCHES)
-    torch_nmf(X, 2, W_mat=M, max_iter=2, reset_topic_method=None)
+    torch_nmf(X, 2, W_mat=M, max_iter=2, reset_topic_method=None,
+              device='cpu')
     assert mk.LAUNCHES == before
 
 
@@ -181,7 +184,8 @@ def test_rs_estimator_matches_jax(recsys_train, recsys_test, validation):
     kw = dict(random_state=0, max_iter=8 if validation else 5,
               use_validation_early_stopping=validation)
     J = JaxRS(n, d, 4, **kw).fit_from_Xtr(recsys_train)
-    P = tsk.NMF_RS_Estimator(n, d, 4, **kw).fit_from_Xtr(recsys_train)
+    P = tsk.NMF_RS_Estimator(n, d, 4, device='cpu', **kw).fit_from_Xtr(
+        recsys_train)
     assert _close(P.W, J.W) and _close(P.T, J.T)
     assert np.allclose(P.nmf_outputs['obj_history'],
                        J.nmf_outputs['obj_history'], rtol=TOL)
@@ -204,7 +208,7 @@ def test_rs_transform_matches_jax(recsys_train, recsys_test):
     J = JaxRS(n, d, 4, random_state=0, max_iter=6).fit_from_Xtr(
         recsys_train)
     P = tsk.NMF_RS_Estimator.from_numpy_state(
-        numpy_state(J), random_state=0, max_iter=6)
+        numpy_state(J), device='cpu', random_state=0, max_iter=6)
     before = dict(mk.LAUNCHES)
     Wj = np.asarray(J.transform(recsys_test))
     Wp = P.transform(recsys_test)
@@ -220,7 +224,7 @@ def test_rs_estimator_from_jax_state_round_trip(recsys_train, recsys_test):
         recsys_train)
     state = numpy_state(J)
     assert set(state) == {'W', 'T', 'min_rating', 'max_rating'}
-    P = tsk.NMF_RS_Estimator.from_numpy_state(state)
+    P = tsk.NMF_RS_Estimator.from_numpy_state(state, device='cpu')
     assert (P.n, P.d, P.k) == (n, d, 3)
     back = numpy_state(P)
     assert set(back) == set(state)
@@ -230,16 +234,18 @@ def test_rs_estimator_from_jax_state_round_trip(recsys_train, recsys_test):
     assert _close(P.predict(pairs), J.predict(pairs))
     assert P.score(recsys_test) == pytest.approx(J.score(recsys_test),
                                                  rel=TOL)
-    P32 = tsk.NMF_RS_Estimator.from_numpy_state(state, dtype=torch.float32)
+    P32 = tsk.NMF_RS_Estimator.from_numpy_state(state, device='cpu',
+                                                dtype=torch.float32)
     assert P32.W.dtype == torch.float32
 
 
 def test_rs_fit_from_a_tensor_equals_numpy(recsys_train):
     n, d = recsys_train.shape
-    a = tsk.NMF_RS_Estimator(n, d, 3, max_iter=4).fit_from_Xtr(recsys_train)
+    a = tsk.NMF_RS_Estimator(n, d, 3, max_iter=4,
+                             device='cpu').fit_from_Xtr(recsys_train)
     b = tsk.NMF_RS_Estimator(n, d, 3, max_iter=4).fit_from_Xtr(
         torch.as_tensor(recsys_train, dtype=torch.float64))
-    c = tsk.NMF_RS_Estimator(n, d, 3, max_iter=4).fit_from_Xtr(
+    c = tsk.NMF_RS_Estimator(n, d, 3, max_iter=4, device='cpu').fit_from_Xtr(
         scipy.sparse.csr_matrix(recsys_train))
     assert torch.equal(a.W, b.W) and torch.equal(a.T, b.T)
     assert torch.equal(a.W, c.W) and torch.equal(a.T, c.T)
@@ -250,8 +256,9 @@ def test_rs_fit_from_a_tensor_equals_numpy(recsys_train):
 
 def test_rs_estimator_params_and_errors(recsys_train):
     n, d = recsys_train.shape
-    P = tsk.NMF_RS_Estimator(n, d, 3)
-    assert set(P.get_params()) == set(JaxRS(n, d, 3).get_params())
+    P = tsk.NMF_RS_Estimator(n, d, 3, device='cpu')
+    # the JAX constructor arguments, and the port's device
+    assert set(P.get_params()) == set(JaxRS(n, d, 3).get_params()) | {'device'}
     assert P.set_params(max_iter=2, wr1=0.1) is P and P.wr1 == 0.1
     with pytest.raises(ValueError):
         P.set_params(bogus=1)
@@ -263,7 +270,8 @@ def test_rs_estimator_params_and_errors(recsys_train):
     with pytest.raises(ValueError):
         P.fit(pairs[:, :1], y)
     with pytest.raises(NotImplementedError, match='A.11'):
-        tsk.NMF_RS_Estimator(n, d, 3, sparse_obs=True).fit(pairs, y)
+        tsk.NMF_RS_Estimator(n, d, 3, sparse_obs=True,
+                             device='cpu').fit(pairs, y)
     P.fit(pairs, y)
     for call in (P.sparsify, P.densify,
                  lambda: P.transform(scipy.sparse.csr_matrix(recsys_train))):

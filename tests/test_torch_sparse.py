@@ -103,7 +103,7 @@ def _arrays_equal(got, want):
 @pytest.mark.parametrize('case', sorted(MATRICES))
 def test_plan_sparse_matrix_matches_jax(case, group, argsort_plans):
     X = MATRICES[case]()
-    got = spl.plan_sparse_matrix(X, np.float64, group=group)
+    got = spl.plan_sparse_matrix(X, np.float64, group=group, device='cpu')
     want = jmxu.plan_sparse_matrix(X, np.float64, group=group)
     assert (got.n, got.d, got.group) == (want.n, want.d, want.group)
     for g, w in ((got.t_phase, want.t_phase), (got.w_phase, want.w_phase)):
@@ -121,7 +121,7 @@ def test_plan_sparse_matrix_matches_jax(case, group, argsort_plans):
 @pytest.mark.parametrize('case', sorted(MATRICES))
 def test_plan_sparse_matrix_dma_matches_jax(case, argsort_plans):
     X = MATRICES[case]()
-    got = spl.plan_sparse_matrix_dma(X, np.float64)
+    got = spl.plan_sparse_matrix_dma(X, np.float64, device='cpu')
     want = jdma.plan_sparse_matrix_dma(X, np.float64)
     for g, w in ((got.t_phase, want.t_phase), (got.w_phase, want.w_phase)):
         for field in ('vals', 'idx', 'ftile', 'uotile', 'ostart', 'mask'):
@@ -134,7 +134,7 @@ def test_torch_sparse_inputs_plan_like_scipy():
     same order gives the same plan."""
     X = MATRICES['duplicates and empty band']().tocsr()
     X.sum_duplicates()
-    want = spl.plan_sparse_matrix(X, np.float64)
+    want = spl.plan_sparse_matrix(X, np.float64, device='cpu')
     coo = X.tocoo()
     Xc = torch.sparse_coo_tensor(np.stack([coo.row, coo.col]), coo.data,
                                  X.shape)
@@ -162,8 +162,8 @@ def test_twins_match_pallas_interpret_and_dense(case, argsort_plans):
     W, T = rng.rand(n, k), rng.rand(k, d)
     jm = jmxu.plan_sparse_matrix(X, np.float64)
     jd = jdma.plan_sparse_matrix_dma(X, np.float64)
-    pm = spl.plan_sparse_matrix(X, np.float64)
-    pd = spl.plan_sparse_matrix_dma(X, np.float64)
+    pm = spl.plan_sparse_matrix(X, np.float64, device='cpu')
+    pd = spl.plan_sparse_matrix_dma(X, np.float64, device='cpu')
     Wt = sk._padded(torch.as_tensor(W.T.copy()), n)
     # the raw contraction, against the Pallas kernel in interpret mode
     want = np.asarray(jmxu.mxu_contract(jm.t_phase, jnp.asarray(Wt.numpy()),
@@ -176,7 +176,8 @@ def test_twins_match_pallas_interpret_and_dense(case, argsort_plans):
         torch.as_tensor(T), d)).numpy()
     assert np.allclose(got, want, rtol=0, atol=ATOL_TWIN)
     # both directions, both plan types, against dense F @ X
-    for plan in (pm, pd, spl.plan_sparse_matrix(X, np.float64, group=1)):
+    for plan in (pm, pd, spl.plan_sparse_matrix(X, np.float64, group=1,
+                                                device='cpu')):
         wtx = sk.contract_wtx(plan, torch.as_tensor(W)).numpy()
         xtt = sk.contract_xtt(plan, torch.as_tensor(T)).numpy()
         assert wtx.shape == (k, d) and xtt.shape == (k, n)
@@ -189,7 +190,8 @@ def test_twins_duplicates_sum_and_unvisited_tiles_are_zero():
                        (np.array([5, 5, 9]), np.array([7, 7, 130]))),
                       shape=(200, 400))
     W = torch.as_tensor(np.random.RandomState(0).rand(200, 3))
-    for plan in (spl.plan_sparse_matrix(X), spl.plan_sparse_matrix_dma(X)):
+    for plan in (spl.plan_sparse_matrix(X, device='cpu'),
+                 spl.plan_sparse_matrix_dma(X, device='cpu')):
         out = sk.contract_wtx(plan, W).numpy()
         assert np.allclose(out, W.numpy().T @ X.toarray(), rtol=0,
                            atol=ATOL_TWIN)
@@ -202,7 +204,8 @@ def test_twins_chunk_their_gather(monkeypatch):
     W = torch.as_tensor(np.random.RandomState(1).rand(X.shape[0], 4))
     want = W.numpy().T @ X.toarray()
     monkeypatch.setattr(sk, 'GATHER_BUDGET', 1)
-    for plan in (spl.plan_sparse_matrix(X), spl.plan_sparse_matrix_dma(X)):
+    for plan in (spl.plan_sparse_matrix(X, device='cpu'),
+                 spl.plan_sparse_matrix_dma(X, device='cpu')):
         assert np.allclose(sk.contract_wtx(plan, W).numpy(), want, rtol=0,
                            atol=ATOL_TWIN)
 
@@ -226,8 +229,8 @@ def _port_x(X, backend):
     if backend == 'torch':
         return ss.TorchSparseX(ss.to_torch_sparse(X))
     if backend == 'mxu':
-        return spl.plan_sparse_matrix(X, np.float64)
-    return spl.plan_sparse_matrix_dma(X, np.float64)
+        return spl.plan_sparse_matrix(X, np.float64, device='cpu')
+    return spl.plan_sparse_matrix_dma(X, np.float64, device='cpu')
 
 
 @pytest.mark.parametrize('backend', ['torch', 'mxu', 'dma'])
@@ -269,7 +272,7 @@ def test_sparse_sweep_rejects_wrong_inputs():
     W, T = torch.rand(40, 3, dtype=torch.float64), torch.rand(
         3, 30, dtype=torch.float64)
     with pytest.raises(TypeError):
-        sweep(spl.plan_sparse_matrix_dma(X), W, T)
+        sweep(spl.plan_sparse_matrix_dma(X, device='cpu'), W, T)
     assert not ss.supports_sparse(SweepConfig(k=3, masked=True,
                                               update_order='phase',
                                               reset_topic_method=None))
@@ -314,8 +317,8 @@ def test_cpu_tensors_take_the_twins_and_launch_nothing():
     X = MATRICES['ragged']()
     W = torch.as_tensor(np.random.RandomState(9).rand(X.shape[0], 3))
     before = dict(sk.LAUNCHES)
-    pm = spl.plan_sparse_matrix(X)
-    pd = spl.plan_sparse_matrix_dma(X)
+    pm = spl.plan_sparse_matrix(X, device='cpu')
+    pd = spl.plan_sparse_matrix_dma(X, device='cpu')
     Wt = sk._padded(W.T, X.shape[0])
     assert torch.equal(sk.mxu_contract(pm.t_phase, Wt),
                        sk.mxu_contract_ref(pm.t_phase, Wt))
@@ -327,8 +330,8 @@ def test_cpu_tensors_take_the_twins_and_launch_nothing():
 
 def test_non_cuda_devices_raise_and_16_bit_factors_wait_for_A8():
     X = MATRICES['ragged']()
-    pm = spl.plan_sparse_matrix(X).to('meta')
-    pd = spl.plan_sparse_matrix_dma(X).to('meta')
+    pm = spl.plan_sparse_matrix(X, device='cpu').to('meta')
+    pd = spl.plan_sparse_matrix_dma(X, device='cpu').to('meta')
     F = torch.empty(3, 384, dtype=torch.float64, device='meta')
     with pytest.raises(ValueError, match='CUDA'):
         sk.mxu_contract(pm.t_phase, F)
@@ -337,9 +340,9 @@ def test_non_cuda_devices_raise_and_16_bit_factors_wait_for_A8():
     W16 = torch.ones(300, 3, dtype=torch.bfloat16)
     T16 = torch.ones(3, 260, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match='A.8'):
-        sk.contract_wtx(spl.plan_sparse_matrix(X), W16)
+        sk.contract_wtx(spl.plan_sparse_matrix(X, device='cpu'), W16)
     with pytest.raises(NotImplementedError, match='A.8'):
-        sk.contract_xtt(spl.plan_sparse_matrix_dma(X), T16)
+        sk.contract_xtt(spl.plan_sparse_matrix_dma(X, device='cpu'), T16)
 
 
 def test_shared_memory_gate_and_launch_counter_reset():

@@ -70,12 +70,12 @@ def test_sparse_nmf_matches_jax_and_the_dense_fit(mode, config):
     kw = dict(max_iter=6, compute_obj_each_iter=True, random_state=0,
               sparse=mode, **FAST_TM, **CONFIGS[config])
     a = jax_nmf(X, 5, **kw)
-    b = torch_nmf(X, 5, **kw)
+    b = torch_nmf(X, 5, device='cpu', **kw)
     assert _close(b['W'], a['W'], TOL) and _close(b['T'], a['T'], TOL)
     assert np.allclose(b['obj_history'], a['obj_history'], rtol=TOL, atol=0)
     ob = np.asarray(b['obj_history'])
     assert np.all(np.diff(ob) <= 1e-10 * np.abs(ob[:-1]))
-    c = torch_nmf(X.toarray(), 5, **dict(kw, sparse=False))
+    c = torch_nmf(X.toarray(), 5, device='cpu', **dict(kw, sparse=False))
     assert _close(b['W'], c['W'], TOL_DENSE)
     assert _close(b['T'], c['T'], TOL_DENSE)
     assert np.allclose(b['obj_history'], c['obj_history'], rtol=TOL_DENSE,
@@ -86,7 +86,7 @@ def test_sparse_nmf_launches_no_kernel_on_the_cpu():
     before = dict(sk.LAUNCHES), dict(dk.LAUNCHES)
     for mode in ('mxu', 'dma'):
         torch_nmf(_sparse(140, 150, 0.05, 1), 3, max_iter=2, random_state=0,
-                  sparse=mode, **FAST_TM)
+                  sparse=mode, device='cpu', **FAST_TM)
     assert (dict(sk.LAUNCHES), dict(dk.LAUNCHES)) == before
 
 
@@ -107,7 +107,7 @@ def test_torch_sparse_tensor_fits_like_scipy(mode, layout):
 
     kw = dict(max_iter=4, compute_obj_each_iter=True, random_state=1,
               sparse=mode, **FAST_TM)
-    a = torch_nmf(X, 4, **kw)
+    a = torch_nmf(X, 4, device='cpu', **kw)
     b = torch_nmf(Xt, 4, diagnostics=[diag], **kw)
     assert b['W'].device.type == 'cpu' and b['W'].dtype == torch.float64
     assert _close(b['W'], a['W'].numpy(), TOL_DENSE)
@@ -124,7 +124,7 @@ def test_sparse_true_takes_a_dense_X_and_coerces_the_order():
     kw = dict(max_iter=4, compute_obj_each_iter=True, random_state=2,
               sparse=True, update_order='interleaved')
     a = jax_nmf(X, 3, **kw)
-    b = torch_nmf(X, 3, **kw)
+    b = torch_nmf(X, 3, device='cpu', **kw)
     assert _close(b['W'], a['W'], TOL) and _close(b['T'], a['T'], TOL)
     assert b['n_resets_remaining'] == a['n_resets_remaining']
 
@@ -139,7 +139,7 @@ def test_sparse_mode_errors_match_jax():
         with pytest.raises(ValueError):
             jax_nmf(k=2, max_iter=1, **FAST_TM, **kw)
         with pytest.raises(ValueError):
-            torch_nmf(k=2, max_iter=1, **FAST_TM, **kw)
+            torch_nmf(k=2, max_iter=1, device='cpu', **FAST_TM, **kw)
 
 
 def test_auto_declines_when_the_settings_differ():
@@ -147,12 +147,12 @@ def test_auto_declines_when_the_settings_differ():
     others the sparse X is densified (and the dense path decides)."""
     X = _sparse(60, 50, 0.1, 5)
     with pytest.raises(NotImplementedError, match='A.2'):
-        torch_nmf(X, 2, max_iter=1, update_order='phase')
+        torch_nmf(X, 2, max_iter=1, update_order='phase', device='cpu')
     W = np.ones((60, 50))
     a = jax_nmf(X, 2, max_iter=3, W_mat=W, reset_topic_method=None,
                 random_state=0)
     b = torch_nmf(X, 2, max_iter=3, W_mat=W, reset_topic_method=None,
-                  random_state=0)
+                  random_state=0, device='cpu')
     assert _close(b['W'], a['W'], TOL) and _close(b['T'], a['T'], TOL)
 
 
@@ -177,7 +177,8 @@ def test_sparse_tm_estimator_matches_jax(mode):
     X, Xte = _text()
     n, d = X.shape
     J = JaxTM(n, d, 4, **_tm_params(mode)).fit(X)
-    P = tsk.NMF_TM_Estimator(n, d, 4, **_tm_params(mode)).fit(X)
+    P = tsk.NMF_TM_Estimator(n, d, 4, device='cpu',
+                             **_tm_params(mode)).fit(X)
     assert _close(P.W, J.W, TOL) and _close(P.T, J.T, TOL)
     assert np.allclose(P.nmf_outputs['obj_history'],
                        J.nmf_outputs['obj_history'], rtol=TOL)
@@ -193,7 +194,8 @@ def test_sparse_tm_estimator_matches_jax(mode):
 def test_sparse_tm_one_iter_steps_equal_batch_fit():
     X, _ = _text()
     n, d = X.shape
-    kw = dict(random_state=0, nmf_kwargs=dict(FAST_TM, sparse='mxu'))
+    kw = dict(random_state=0, nmf_kwargs=dict(FAST_TM, sparse='mxu'),
+              device='cpu')
     M = tsk.NMF_TM_Estimator(n, d, 5, max_iter=6, **kw).fit(X)
     M2 = tsk.NMF_TM_Estimator(n, d, 5, max_iter=2, do_final_project_W=False,
                               **kw).fit(X)
@@ -206,14 +208,16 @@ def test_sparse_tm_one_iter_steps_equal_batch_fit():
 def test_sparse_tm_estimator_takes_torch_sparse_and_refuses_negatives():
     X, Xte = _text()
     n, d = X.shape
-    P = tsk.NMF_TM_Estimator(n, d, 4, **_tm_params('mxu')).fit(X)
+    P = tsk.NMF_TM_Estimator(n, d, 4, device='cpu',
+                             **_tm_params('mxu')).fit(X)
     Q = tsk.NMF_TM_Estimator(n, d, 4, **_tm_params('mxu')).fit(
         tm.as_tensor(X).to_sparse_csr())
     assert _close(Q.W, P.W.numpy(), TOL_DENSE)
     assert _close(Q.transform(tm.as_tensor(Xte)), P.transform(Xte).numpy(),
                   TOL_DENSE)
     with pytest.raises(ValueError, match='non-negative'):
-        tsk.NMF_TM_Estimator(n, d, 4, **_tm_params('mxu')).fit(-X)
+        tsk.NMF_TM_Estimator(n, d, 4, device='cpu',
+                             **_tm_params('mxu')).fit(-X)
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +253,7 @@ def test_sparse_init_matches_jax():
     X = _sparse(120, 200, 0.08, 7)
     for init in ('nndsvd', 'nndsvda', 'nndsvdar', 'smart_random'):
         Wj, Hj = jax_init(X, 6, init, random_state=3)
-        Wp, Hp = torch_init(X, 6, init, random_state=3)
+        Wp, Hp = torch_init(X, 6, init, random_state=3, device='cpu')
         assert np.array_equal(Wp.numpy(), Wj) and np.array_equal(Hp.numpy(),
                                                                  Hj)
         Wt, Ht = torch_init(tm.as_tensor(X).to_sparse_csr(), 6, init,
