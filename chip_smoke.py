@@ -40,15 +40,19 @@ its users run, one line per phase:
    the objective, train and test RMSE); the transform of 512 users' test
    ratings (B4 only) with predict and score; and a 600×400 k=8 fit on
    the card against the same fit on the CPU in float64;
-9. kernels B5 and B6 (the sparse contractions ``WᵀX`` and ``T Xᵀ``)
-   against their twins, both directions: float64 and float32 at a
-   ragged 1000×700 2% case with duplicates and an empty tile band (k=16,
-   and k=128 f64 / k=200 f32, where the factor tiles do not fit shared
-   memory), and float32 at the JAX package's recorded sparse
-   configuration, 50,000×30,000 at 0.5% density (~7.5M nonzeros), k=128,
-   with the host plan-build seconds, CUDA-event times of kernel and twin,
-   ns per chunk, and ``torch.sparse.mm`` of the CSR X (and Xᵀ) by the
-   factor, the library call for the same product;
+9. the sparse gather kernel, which serves B5 and B6 (the sparse
+   contractions ``WᵀX`` and ``T Xᵀ``), in both directions: the layouts
+   derived from the B5 and B6 plans equal, the kernel through both
+   wrappers and the sweep's products (each launch repeated and matched
+   bit for bit) against its twin and the two plan twins, in float64 and
+   float32, at a ragged 1000×700 2% case with duplicates and an empty
+   tile band (k=16, and k=128 f64 / k=200 f32: two k-slices), at the TM
+   corpus as CSR (k=50, Zipf word columns) and in float32 at the JAX
+   package's recorded sparse configuration, 50,000×30,000 at 0.5%
+   density (~7.5M nonzeros), k=128; the host plan and the layout build
+   seconds, the layout's bytes, CUDA-event times of the kernel and its
+   twin, and ``torch.sparse.mm`` of the CSR X (and Xᵀ) by the factor,
+   the library call for the same product, with the ratio;
 10. ``nmf()`` on that matrix as a CUDA CSR tensor, k=128 float32, with
     ``sparse='mxu'``, ``'dma'``, ``'auto'`` (which densifies on an 80 GB
     card: 6 GB dense) and ``True`` (``torch.sparse.mm``): exact launch
@@ -132,6 +136,7 @@ B3 = {'name': 'masked_phase_a', 'route': 'cuda',
 B4 = {'name': 'masked_phase_b', 'route': 'cuda',
       'source': 'rri_nmf_tpu_torch/csrc/masked.cu',
       'replaces': 'rri_nmf_tpu/ops/sweep_pallas.py:133'}
+# B5 and B6: one kernel, gather_kernel, serves both plans
 B5 = {'name': 'sparse_mxu', 'route': 'cuda',
       'source': 'rri_nmf_tpu_torch/csrc/sparse.cu',
       'replaces': 'rri_nmf_tpu/ops/sparse_mxu.py:298'}
@@ -177,9 +182,9 @@ SPARSE_RAGGED = (1000, 700, 0.02, 16)
 # (n, d, density, k) of the small card-vs-CPU sparse fit
 SPARSE_SMALL = (2000, 1500, 0.02, 16)
 SPARSE_SWEEPS = 10
-# the three sparse modes' final objectives (float32, 10 sweeps from one
-# init): B5 and B6 sum each output in the same plan order, 'auto' runs the
-# dense GEMMs; the trajectories differ by float32 rounding (~1e-6
+# the sparse modes' final objectives (float32, 10 sweeps from one init):
+# B5 and B6 run one kernel on equal layouts, 'auto' the dense GEMMs, True
+# torch.sparse.mm; the trajectories differ by float32 rounding (~1e-6
 # relative); 1e-4 is stated.
 TOL_MODES = 1e-4
 
@@ -840,119 +845,165 @@ def row_err(got, want):
     return float(((got - want).abs() / scale).max())
 
 
-# the tensors of a plan direction each sparse kernel reads
-PLAN_INPUTS = {'mxu': ('vals', 'gloc', 'sloc', 'ftile', 'tstart'),
-               'dma': ('vals', 'idx', 'ftile', 'uotile', 'ostart')}
-
-
-def check_sparse(dev, sk, spl):
-    """Phase 9: B5 and B6 against their twins in both directions. Returns
-    {kernel: (max float32 abs error, ms, plain_ms, bound_ms, bound_by,
-    library_ms)} of the full-shape ``WᵀX``: the bound counts 2·nnz·k
-    flop and the bytes of the factor, the output and the plan arrays the
-    kernel reads; the library call is ``torch.sparse.mm`` of the CSR Xᵀ
-    by W."""
-    out = {'mxu': [0.0, None, None, None, None, None],
-           'dma': [0.0, None, None, None, None, None]}
-    if dev.type == 'cuda':
-        # the launchers' shared-memory gate: k=128 fits in both dtypes;
-        # the accumulator alone of k=512 float32 or k=256 float64 passes
-        # the 227 KB a block may opt into
-        gate = {'k=%d %s' % (kk, dt): sk.sparse_fits(kk, dt, dev)
-                for kk, dt in ((128, torch.float32), (128, torch.float64),
-                               (512, torch.float32), (256, torch.float64))}
-        if list(gate.values()) != [True, True, False, False]:
-            raise AssertionError('sparse shared-memory gate: %s' % gate)
-        log('sparse gate', **gate)
+def sparse_cases(dev, counts):
+    """Phase 9's cases: ``(label, X, k, dtype, tol, timed)``. The ragged
+    case (duplicates, an empty tile band) at k=16 and at k=128 float64 /
+    k=200 float32 (two k-slices of the kernel), the TM corpus as CSR at
+    k=50 (Zipf word columns; 200-byte rows in float32), and the sparse
+    fit's shape at k=128 float32."""
     n_r, d_r, dens_r, k_r = SPARSE_RAGGED
     ragged = sparse_coo(n_r, d_r, dens_r, dev, seed=1, dup=True,
                         empty_band=2)
+    out = [('ragged %dx%d k=%d' % (n_r, d_r, kk), ragged, kk, dtype, tol,
+            False)
+           for kk, dtype, tol in ((k_r, torch.float64, TOL_F64),
+                                  (k_r, torch.float32, TOL_F32),
+                                  (128, torch.float64, TOL_F64),
+                                  (200, torch.float32, TOL_F32))]
+    n_train, _, n_words, k_tm = TM_SHAPE
+    tm = torch.as_tensor(counts[:n_train], device=dev).to_sparse_coo()
+    out += [('TM corpus %dx%d k=%d' % (n_train, n_words, k_tm), tm, k_tm,
+             dtype, tol, dtype == torch.float32)
+            for dtype, tol in ((torch.float64, TOL_F64),
+                               (torch.float32, TOL_F32))]
     n, d, dens, k = SPARSE_SHAPE
-    # k=128 in float64 and k=200 in float32 leave no room to stage the
-    # factor tiles (B6; B5 too in float64): those cases read F from device
-    # memory, and k=200 gives each thread two output rows
-    cases = [('ragged %dx%d k=%d' % (n_r, d_r, kk), ragged, kk, dtype, tol)
-             for kk, dtype, tol in ((k_r, torch.float64, TOL_F64),
-                                    (k_r, torch.float32, TOL_F32),
-                                    (128, torch.float64, TOL_F64),
-                                    (200, torch.float32, TOL_F32))]
-    cases += [
-        ('%dx%d %.1f%% k=%d' % (n, d, 100 * dens, k),
-         sparse_csr(n, d, dens, dev, seed=0), k, torch.float32, TOL_F32)]
-    for label, X, kk, dtype, tol in cases:
+    out.append(('%dx%d %.1f%% k=%d' % (n, d, 100 * dens, k),
+                sparse_csr(n, d, dens, dev, seed=0), k, torch.float32,
+                TOL_F32, True))
+    return out
+
+
+def check_sparse(dev, sk, spl, counts):
+    """Phase 9: the gather kernel (B5 and B6) against its twins in both
+    directions. Per case, the B5 and the B6 plan, their output-column
+    layouts (equal, array for array; build seconds and bytes), and per
+    direction: the kernel through ``mxu_contract`` and ``dma_contract``
+    (B5's padded panel, B6's slabs) and through the sweep's
+    ``contract_wtx``/``contract_xtt``, each launched twice (the same
+    bits; the three paths too), against the gather twin on the layout and
+    the two plan twins; on the timed cases the CUDA-event ms of the
+    sweep's call and of ``torch.sparse.mm`` of the CSR X (or Xᵀ) by the
+    factor, checked equal, their ratio and the L2 gather rate. Returns
+    {kernel: (max float32 abs error, ms, plain_ms, bound_ms, bound_by,
+    library_ms)} of the sparse fit's ``WᵀX``: the bound counts 2·nnz·k
+    flop and the bytes of W, the layout and the output."""
+    out = {'mxu': [0.0, None, None, None, None, None],
+           'dma': [0.0, None, None, None, None, None]}
+    for label, X, kk, dtype, tol, timed in sparse_cases(dev, counts):
         rng = np.random.RandomState(2)
         nn, dd = X.shape
+        nnz = int(X._nnz())
         W = torch.as_tensor(rng.rand(nn, kk), dtype=dtype, device=dev)
         T = torch.as_tensor(rng.rand(kk, dd), dtype=dtype, device=dev)
-        t0 = time.perf_counter()
-        pm = spl.plan_sparse_matrix(X, dtype, device=dev)
-        sync(dev)
-        t1 = time.perf_counter()
-        pd = spl.plan_sparse_matrix_dma(X, dtype, device=dev)
-        sync(dev)
-        t2 = time.perf_counter()
-        timed = label.startswith('%dx%d' % (n, d))
-        library, library_out = {}, {}
+        plans, build_s = {}, {}
+        for kind, make in (('mxu', spl.plan_sparse_matrix),
+                           ('dma', spl.plan_sparse_matrix_dma)):
+            t0 = time.perf_counter()
+            plans[kind] = make(X, dtype, device=dev)
+            sync(dev)
+            build_s[kind] = time.perf_counter() - t0
+        library = {}
         if timed and dev.type == 'cuda':
             # the library call for the same products: torch.sparse.mm of
             # the CSR X (and of Xᵀ) by the dense factor
             Xc = X.to(dtype).to_sparse_csr()
             Xtc = X.to(dtype).t().to_sparse_csr()
             Tt = T.T.contiguous()
-            library = {'WtX': time_ms(lambda: torch.sparse.mm(Xtc, W), dev),
-                       'TXt': time_ms(lambda: torch.sparse.mm(Xc, Tt), dev)}
-            library_out = {'WtX': torch.sparse.mm(Xtc, W).T,
-                           'TXt': torch.sparse.mm(Xc, Tt).T}
-            log('library torch.sparse.mm', case=label, dtype=str(dtype),
-                ms=library)
-            del Xc, Xtc, Tt
-        for kind, plan, plan_s in (('mxu', pm, t1 - t0), ('dma', pd, t2 - t1)):
-            kernel = getattr(sk, kind + '_contract')
-            twin = getattr(sk, kind + '_contract_ref')
-            shape = sk._padded if kind == 'mxu' else sk._tile_cols
-            for dirn, direction, F, m in (
-                    ('WtX', plan.t_phase, W.T, nn),
-                    ('TXt', plan.w_phase, T, dd)):
-                Fk = shape(F, m)
-                got = kernel(direction, Fk)
-                want = twin(direction, Fk)
+            library = {'WtX': (lambda: torch.sparse.mm(Xtc, W).T),
+                       'TXt': (lambda: torch.sparse.mm(Xc, Tt).T)}
+        for dirn, F, m, cols in (('WtX', W.T, nn, dd), ('TXt', T, dd, nn)):
+            dirs = {kind: (p.t_phase if dirn == 'WtX' else p.w_phase)
+                    for kind, p in plans.items()}
+            layouts = {}
+            for kind, direction in dirs.items():
+                t0 = time.perf_counter()
+                layouts[kind] = spl.column_layout(direction)
                 sync(dev)
-                err = row_err(got, want)
-                if not (err <= tol and bool(torch.isfinite(got).all())):
-                    raise AssertionError('%s %s %s %s: error %.3g > %g' % (
-                        kind, dirn, label, dtype, err, tol))
+                build_s['layout ' + kind] = time.perf_counter() - t0
+            lay = layouts['mxu']
+            for f in spl.ColumnLayout._fields:
+                if not torch.equal(getattr(lay, f),
+                                   getattr(layouts['dma'], f)):
+                    raise AssertionError('%s %s: the B5 and B6 plans give '
+                                         'different layouts (%s)'
+                                         % (label, dirn, f))
+            Fm, F3 = sk._padded(F, m), sk._tile_cols(F, m)
+            contract = sk.contract_wtx if dirn == 'WtX' else sk.contract_xtt
+            factor = W if dirn == 'WtX' else T
+            calls = {
+                'mxu': lambda: sk.mxu_contract(dirs['mxu'], Fm),
+                'dma': lambda: sk.dma_contract(dirs['dma'], F3),
+                'mxu sweep': lambda: contract(plans['mxu'], factor),
+                'dma sweep': lambda: contract(plans['dma'], factor)}
+            got = {}
+            for name, fn in calls.items():
+                first, again = fn(), fn()
+                sync(dev)
+                if not torch.equal(first, again):
+                    raise AssertionError('%s %s %s %s: two launches differ'
+                                         % (name, dirn, label, dtype))
+                got[name] = first
+            if not all(torch.equal(got[name][:, :cols], got['mxu'][:, :cols])
+                       for name in got):
+                raise AssertionError('%s %s %s: the wrappers\' launches '
+                                     'differ' % (dirn, label, dtype))
+            twins = {'gather': lambda: sk.gather_contract_ref(
+                         lay, F.T, kk, lay.n_cols),
+                     'mxu plan': lambda: sk.mxu_contract_ref(dirs['mxu'], Fm),
+                     'dma plan': lambda: sk.dma_contract_ref(dirs['dma'], F3)}
+            errs = {}
+            for name, fn in twins.items():
+                want = fn()
+                sync(dev)
+                errs[name] = row_err(got['mxu'], want)
+                if not (errs[name] <= tol
+                        and bool(torch.isfinite(got['mxu']).all())):
+                    raise AssertionError('%s %s %s: error %.3g against the '
+                                         '%s twin > %g' % (dirn, label,
+                                                           dtype, errs[name],
+                                                           name, tol))
+                if name == 'gather':
+                    abs_err = float((got['mxu'] - want).abs().max())
+                del want
+            line = {'case': label, 'direction': dirn, 'dtype': str(dtype),
+                    'rel_err': errs, 'bitwise_repeat': True, 'nnz': nnz,
+                    'layout_MB': lay.nbytes / 1e6,
+                    'layout_build_s': {kind: build_s['layout ' + kind]
+                                       for kind in layouts},
+                    'plan_build_s': {kind: build_s[kind] for kind in plans}}
+            if library:
+                lib_err = row_err(got['mxu'][:, :cols], library[dirn]())
+                if not lib_err <= tol:
+                    raise AssertionError('%s %s: torch.sparse.mm differs by '
+                                         '%.3g' % (dirn, label, lib_err))
+                line['library_rel_err'] = lib_err
+            if dtype == torch.float32:
+                for kind in out:
+                    out[kind][0] = max(out[kind][0], abs_err)
+            if timed:
+                ms = {name: time_ms(fn, dev, runs=7)
+                      for name, fn in calls.items()}
+                line['ms'] = ms
+                line['plain_ms'] = time_ms(twins['gather'], dev, runs=3)
+                line['gather_TB_per_s'] = nnz * kk * 4 / ms['mxu sweep'] / 1e9
                 if library:
-                    # the yardstick computes the same product
-                    lib = library_out[dirn]
-                    lib_err = row_err(got[:, :lib.shape[1]], lib)
-                    if not lib_err <= tol:
-                        raise AssertionError('%s %s: torch.sparse.mm differs '
-                                             'by %.3g' % (kind, dirn, lib_err))
-                nchunks = int(direction.ftile.shape[0])
-                line = {'case': label, 'direction': dirn,
-                        'dtype': str(dtype), 'rel_err': err,
-                        'library_rel_err': lib_err if library else None,
-                        'nnz': int(X._nnz()), 'chunks': nchunks,
-                        'plan_build_s': plan_s}
-                if dtype == torch.float32:
-                    stats = out[kind]
-                    stats[0] = max(stats[0], float((got - want).abs().max()))
-                    if timed:
-                        line['ms'] = time_ms(lambda: kernel(direction, Fk),
-                                             dev)
-                        line['plain_ms'] = time_ms(
-                            lambda: twin(direction, Fk), dev, runs=3)
-                        line['ns_per_chunk'] = line['ms'] * 1e6 / nchunks
-                        if stats[1] is None:
-                            nbytes = (Fk.nbytes + got.nbytes + sum(
-                                getattr(direction, f).nbytes
-                                for f in PLAN_INPUTS[kind]))
-                            stats[1:] = [line['ms'], line['plain_ms'],
-                                         *bound(2 * int(X._nnz()) * kk,
-                                                nbytes),
-                                         library.get(dirn)]
-                log('kernel %s' % kind, **line)
-        del pm, pd, library_out
+                    lib_ms = time_ms(library[dirn], dev, runs=7)
+                    line['library_ms'] = lib_ms
+                    line['ms_over_library_ms'] = {
+                        kind: ms[kind + ' sweep'] / lib_ms
+                        for kind in ('mxu', 'dma')}
+                if dirn == 'WtX' and label.startswith(
+                        '%dx%d' % SPARSE_SHAPE[:2]):
+                    nbytes = (W.nbytes + lay.nbytes + kk * dd
+                              * W.element_size())
+                    for kind in out:
+                        out[kind][1:] = [ms[kind + ' sweep'],
+                                         line['plain_ms'],
+                                         *bound(2 * nnz * kk, nbytes),
+                                         line.get('library_ms')]
+            log('kernel sparse gather', **line)
+            del got, Fm, F3, calls, twins
+        del plans, library
     return {key: tuple(v) for key, v in out.items()}
 
 
@@ -1203,8 +1254,8 @@ def run(dev):
         raise AssertionError('a kernel of the path never ran: %r' % masked)
     del ratings
 
-    # 9. B5 and B6 against their twins
-    sparse_stats = check_sparse(dev, sk, spl)
+    # 9. the gather kernel (B5 and B6) against its twins
+    sparse_stats = check_sparse(dev, sk, spl, counts)
     sync(dev)
 
     # 10-11. the sparse main path, counted from zero

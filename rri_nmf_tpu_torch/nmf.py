@@ -40,7 +40,6 @@ from rri_nmf_tpu_torch.optimization import universal_stopping_condition
 from rri_nmf_tpu_torch.ops.dense_kernels import (make_dense_phase_sweep,
                                                  supports_dense_kernels)
 from rri_nmf_tpu_torch.ops.masked_kernels import make_masked_sweep
-from rri_nmf_tpu_torch.ops.sparse_kernels import sparse_fits
 from rri_nmf_tpu_torch.ops.sparse_plan import (plan_sparse_matrix,
                                                plan_sparse_matrix_dma)
 from rri_nmf_tpu_torch.ops.sweep import SweepConfig, make_objective
@@ -461,14 +460,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                                              wrs)
             return W, T
     else:
-        if device.type == 'cuda' and not (
-                supports_dense_kernels(cfg, d, dtype, device)
-                and (backend not in ('mxu', 'dma')
-                     or sparse_fits(k, dtype, device))):
+        if device.type == 'cuda' and not supports_dense_kernels(
+                cfg, d, dtype, device):
             raise ValueError(
                 'the CUDA kernels do not fit this problem (k=%d, d=%d, %s): '
-                'see dense_kernels.gs_fits / tm_proj_fits and '
-                'sparse_kernels.sparse_fits' % (k, d, dtype))
+                'see dense_kernels.gs_fits / tm_proj_fits' % (k, d, dtype))
         sweep_fn = (make_sparse_sweep(cfg, backend) if sparse_mode
                     else make_dense_phase_sweep(cfg))
 

@@ -12,8 +12,8 @@ never at import.
 The C functions take raw device pointers and the CUDA stream as
 ``c_void_p`` and the device index as an int, and return
 ``cudaGetLastError()`` after their launch; :func:`launch` raises when it
-is not 0. (``rri_gs_fits_*``, ``rri_tm_proj_fits_*`` and
-``rri_sparse_fits_*`` launch nothing: each answers, through
+is not 0. (``rri_gs_fits_*`` and ``rri_tm_proj_fits_*`` launch
+nothing: each answers, through
 :func:`device_fits`, whether its launcher accepts the shape on the device;
 ``rri_tm_proj_scratch_bytes`` says how much scratch B2's grid barrier
 takes.) :func:`check_operands` is the wrappers' common check of device,
@@ -62,16 +62,9 @@ SIGNATURES = {
     # R, M, w, w_eff, t_old, t_new, Rt, mt2; n, d
     'rri_masked_phase_b_f32': [_P] * 8 + [_I, _I, _I, _P],
     'rri_masked_phase_b_f64': [_P] * 8 + [_I, _I, _I, _P],
-    # F, vals, gloc, sloc, ftile, tstart, out; k, gpad, n_otiles, C
-    'rri_sparse_mxu_f32': [_P] * 7 + [_I] * 4 + [_I, _P],
-    'rri_sparse_mxu_f64': [_P] * 7 + [_I] * 4 + [_I, _P],
-    # F3, vals, idx, ftile, uotile, ostart, out; k, n_used, spad, C,
-    # idx_stride
-    'rri_sparse_dma_f32': [_P] * 7 + [_I] * 5 + [_I, _P],
-    'rri_sparse_dma_f64': [_P] * 7 + [_I] * 5 + [_I, _P],
-    # k, C, device: whether B5 and B6 fit the device's shared memory
-    'rri_sparse_fits_f32': [_I, _I, _I],
-    'rri_sparse_fits_f64': [_I, _I, _I],
+    # Ft, colptr, gidx, vals, out; k, ldf, ncols, ldo
+    'rri_sparse_gather_f32': [_P] * 5 + [_I] * 4 + [_I, _P],
+    'rri_sparse_gather_f64': [_P] * 5 + [_I] * 4 + [_I, _P],
 }
 # the kernels' dtypes: ctypes scalar and C-function suffix
 CTYPES = {torch.float32: _F, torch.float64: _D}

@@ -1,35 +1,41 @@
-"""Sparse contractions ``F @ X`` over a chunk plan: kernels B5 and B6.
+"""Sparse contractions ``F @ X``: kernels B5 and B6, one CUDA kernel.
 
 Counterpart of the kernel halves of :mod:`rri_nmf_tpu.ops.sparse_mxu`
 and :mod:`rri_nmf_tpu.ops.sparse_dma`. The sparse sweep needs ``WᵀX``
-(k, d) and ``T Xᵀ`` (k, n) once per phase; X comes as a host plan
-(:mod:`rri_nmf_tpu_torch.ops.sparse_plan`) and the factor ``F`` (``Wᵀ``
-or ``T``) as a (k, 128·n_tiles) panel:
+(k, d) and ``T Xᵀ`` (k, n) once per phase. X comes as a host plan
+(:mod:`rri_nmf_tpu_torch.ops.sparse_plan`): B5's grouped chunk plan
+(:func:`~rri_nmf_tpu_torch.ops.sparse_plan.plan_sparse_matrix`) or B6's
+CSR-offset plan (:func:`~rri_nmf_tpu_torch.ops.sparse_plan.
+plan_sparse_matrix_dma`). Each plan direction derives, once, an
+output-column CSR (:func:`~rri_nmf_tpu_torch.ops.sparse_plan.
+column_layout`); the two plans of one matrix give the same layout.
 
-- **B5** (``csrc/sparse.cu`` ``mxu_kernel``, wrapper :func:`mxu_contract`)
-  takes the grouped plan of :func:`~rri_nmf_tpu_torch.ops.sparse_plan.
-  plan_sparse_matrix` and F as one (k, gpad) panel;
-- **B6** (``csrc/sparse.cu`` ``dma_kernel``, wrapper :func:`dma_contract`)
-  takes the CSR-offset plan of :func:`~rri_nmf_tpu_torch.ops.sparse_plan.
-  plan_sparse_matrix_dma` and F pre-cut into (n_tiles, k, 128) slabs.
+One kernel, ``csrc/sparse.cu`` ``gather_kernel``, computes ``out = F @ X``
+on that layout for both plans, gathering rows of an L2-resident Fᵀ one
+output column at a time. :func:`gather_contract` launches it;
+``LAUNCHES`` counts its launches under the plan's kernel, ``'mxu'`` (B5)
+or ``'dma'`` (B6). The B5 and B6 interfaces stay: :func:`mxu_contract`
+takes F as one (k, gpad) panel, :func:`dma_contract` as (n_tiles, k, 128)
+slabs. :func:`contract_wtx` and :func:`contract_xtt` hand the kernel W
+itself and Tᵀ, and get (k, d) and (k, n).
 
-Each wrapper takes a CPU tensor to its plain PyTorch twin
-(:func:`mxu_contract_ref`, :func:`dma_contract_ref`: a gather of factor
-columns times the values, then ``index_add_`` into the output columns,
-in slices whose gather temporary stays under ~2 GB) and a CUDA tensor to
-its kernel — or raises. ``LAUNCHES`` counts the kernel launches.
-:func:`contract_wtx` and :func:`contract_xtt` pad or tile the factor for
-either plan type and cut the padding off the result.
+Each wrapper takes a CPU tensor to :func:`gather_contract_ref`, the
+kernel's plain PyTorch twin on the layout, and a CUDA tensor to the
+kernel — or raises. :func:`mxu_contract_ref` and :func:`dma_contract_ref`
+walk the plans themselves (a gather of factor columns times the values,
+then ``index_add_`` into the output columns): the oracles the tests hold
+against the Pallas kernels. Every twin works in slices whose gather
+temporary stays under ~2 GB.
 """
 
 import torch
 
-from rri_nmf_tpu_torch.ops._build import CTYPES, device_fits, launch
+from rri_nmf_tpu_torch.ops._build import CTYPES, launch
 from rri_nmf_tpu_torch.ops.sparse_plan import (TILE, SparseDMAPlan,
-                                               SparseMXUPlan)
+                                               SparseMXUPlan, column_layout)
 
-# Kernel launches per wrapper since the last reset_launches(). A wrapper
-# adds one right after its kernel launched, and nowhere else.
+# Kernel launches per plan type since the last reset_launches(). A wrapper
+# adds one right after the kernel launched, and nowhere else.
 LAUNCHES = {'mxu': 0, 'dma': 0}
 
 # Largest gather temporary of a twin, in bytes.
@@ -39,18 +45,6 @@ GATHER_BUDGET = 2 << 30
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def sparse_fits(k, dtype, device, C=TILE):
-    """Whether B5 and B6 can run at ``k`` on ``device``: each holds a
-    (k, 128) accumulator and its chunk metadata in shared memory (the
-    staged factor tiles join them when they fit too; otherwise the kernels
-    read F from device memory). On an H100 that is k up to ~430 in
-    float32, ~200 in float64. The answer is the launchers' own gate
-    (``csrc/sparse.cu`` ``rri_sparse_fits``), which builds the kernels on
-    the first call. On any other device the twins run, and they have no
-    such limit."""
-    return device_fits('rri_sparse_fits', dtype, device, k, C)
 
 
 def _check_factor(F):
@@ -126,94 +120,118 @@ def dma_contract_ref(plan, F3):
                        F3.dtype, F3.device)
 
 
+def gather_contract_ref(layout, Ft, k, ncols):
+    """Plain version of the gather kernel: ``out (k, ncols)``, column c
+    the sum over its nonzeros i of ``v_i · Ft[g_i, :k]``, added in layout
+    order (``index_add_``). ``layout`` is a :class:`~rri_nmf_tpu_torch.
+    ops.sparse_plan.ColumnLayout` whose nonzeros lie in the first
+    ``ncols`` columns; ``Ft`` (m, >= k) holds Fᵀ's rows."""
+    out = torch.zeros(k, ncols, dtype=Ft.dtype, device=Ft.device)
+    nnz = layout.gidx.shape[0]
+    if nnz == 0:
+        return out
+    col = torch.arange(layout.n_cols, device=Ft.device).repeat_interleave(
+        torch.diff(layout.colptr.long()))
+    size = torch.empty(0, dtype=Ft.dtype).element_size()
+    step = max(1, GATHER_BUDGET // (max(k, 1) * size))
+    for a in range(0, nnz, step):
+        b = min(a + step, nnz)
+        rows = Ft[layout.gidx[a:b].long(), :k] \
+            * layout.vals[a:b, None].to(Ft.dtype)
+        out.index_add_(1, col[a:b], rows.T)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_cuda(F, k, n_tiles, C, plan, indices):
-    """The kernels' operand checks: ``F`` a contiguous float32/float64
-    CUDA tensor holding the plan's ``n_tiles`` factor tiles of ``k``
-    rows; the plan's values (chunks of ``C`` slots) in F's dtype and
-    ``indices`` (name -> dtype), all contiguous on F's device."""
-    if F.device.type != 'cuda':
+def _rows(Ft, k):
+    """``Ft`` (m, >= k) as the kernel reads Fᵀ: contiguous rows of k values
+    rounded up to 16 bytes, 16-byte aligned. ``Ft`` itself when it is so
+    (W for ``WᵀX`` at k % 4 == 0 in float32), else a zero-padded copy."""
+    v = 16 // Ft.element_size()
+    kp = -(-k // v) * v
+    if (Ft.is_contiguous() and Ft.shape[1] == kp
+            and Ft.data_ptr() % 16 == 0):
+        return Ft
+    rows = Ft.new_zeros(Ft.shape[0], kp)
+    rows[:, :k] = Ft[:, :k]
+    return rows
+
+
+def gather_contract(plan, Ft, k, ncols, kind):
+    """``out (k, ncols) = F @ X`` for the plan direction ``plan`` (either
+    type), ``F``'s rows given as ``Ft`` (m, >= k); ``ncols`` the output
+    columns wanted (the plan's padded width, or fewer when the rest are
+    empty). A CPU ``Ft`` runs :func:`gather_contract_ref`; a CUDA ``Ft``
+    launches ``csrc/sparse.cu`` and counts it under ``LAUNCHES[kind]``."""
+    _check_factor(Ft)
+    if Ft.device.type == 'cpu':
+        return gather_contract_ref(column_layout(plan), Ft, k, ncols)
+    if Ft.device.type != 'cuda':
         raise ValueError('the kernels run on CUDA or (plain twin) CPU '
-                         'tensors, got %s' % F.device)
-    if F.dtype not in CTYPES:
+                         'tensors, got %s' % Ft.device)
+    if Ft.dtype not in CTYPES:
         raise ValueError('the kernels take float32/float64, got %s'
-                         % F.dtype)
-    if not F.is_contiguous():
-        raise ValueError('the factor must be contiguous')
-    if n_tiles != plan.n_gtiles:
-        raise ValueError('the factor holds %d tiles of %d columns; the plan '
-                         'gathers from %d' % (n_tiles, TILE, plan.n_gtiles))
-    for name, dtype in dict(indices, vals=F.dtype).items():
-        a = getattr(plan, name)
-        if a.device != F.device or a.dtype != dtype:
-            raise ValueError('plan %s must be %s on %s, got %s on %s' % (
-                name, dtype, F.device, a.dtype, a.device))
-        if not a.is_contiguous():
-            raise ValueError('plan %s must be contiguous' % name)
-    if not sparse_fits(k, F.dtype, F.device, C):
-        raise ValueError('k=%d exceeds the sparse kernels\' shared memory '
-                         '(a (k, 128) %s accumulator)' % (k, F.dtype))
+                         % Ft.dtype)
+    layout = column_layout(plan)
+    for name in layout._fields:
+        a = getattr(layout, name)
+        if a.device != Ft.device:
+            raise ValueError('the plan is on %s, the factor on %s'
+                             % (a.device, Ft.device))
+    if layout.vals.dtype != Ft.dtype:
+        raise ValueError('plan values are %s, the factor %s'
+                         % (layout.vals.dtype, Ft.dtype))
+    if Ft.shape[1] < k or Ft.shape[0] < layout.n_rows:
+        raise ValueError('the factor has %d rows of %d values; the plan '
+                         'gathers %d rows of %d' % (*Ft.shape, layout.n_rows,
+                                                    k))
+    if not 0 < ncols <= layout.n_cols or layout.gidx.shape[0] >= 2 ** 31 - 8:
+        raise ValueError('%d output columns of a %d-column plan with %d '
+                         'nonzeros' % (ncols, layout.n_cols,
+                                       layout.gidx.shape[0]))
+    rows = _rows(Ft, k)
+    out = torch.empty(k, ncols, dtype=Ft.dtype, device=Ft.device)
+    launch('rri_sparse_gather', rows, rows.data_ptr(),
+           layout.colptr.data_ptr(), layout.gidx.data_ptr(),
+           layout.vals.data_ptr(), out.data_ptr(), k, rows.shape[1], ncols,
+           ncols)
+    LAUNCHES[kind] += 1
+    return out
 
 
 def mxu_contract(plan, F):
-    """B5: ``out (k, spad) = F @ X`` (see :func:`mxu_contract_ref`).
-
-    A CPU ``F`` runs the plain twin; a CUDA ``F`` launches
-    ``csrc/sparse.cu`` (``mxu_kernel``) with the plan on F's device."""
+    """B5's interface: ``out (k, spad) = F @ X`` for a :class:`~rri_nmf_
+    tpu_torch.ops.sparse_plan.ContractPlan`, F (k, gpad) covering every
+    factor tile (see :func:`mxu_contract_ref`). Runs
+    :func:`gather_contract` on Fᵀ; counts under ``LAUNCHES['mxu']``."""
     _check_factor(F)
     nchunks = plan.ftile.shape[0]
     if nchunks % plan.otile.shape[0]:
         raise ValueError('plan chunk count %d is not a multiple of its %d '
                          'groups' % (nchunks, plan.otile.shape[0]))
-    if F.device.type == 'cpu':
-        return mxu_contract_ref(plan, F)
     k, gpad = F.shape
-    if gpad % TILE:
-        raise ValueError('F must have a multiple of %d columns, got %d'
-                         % (TILE, gpad))
-    C = plan.vals.shape[1] // nchunks
-    _check_cuda(F, k, gpad // TILE, C, plan,
-                {'gloc': torch.uint8, 'sloc': torch.uint8,
-                 'ftile': torch.int32, 'tstart': torch.int32})
-    spad = plan.mask.shape[1]
-    out = torch.empty(k, spad, dtype=F.dtype, device=F.device)
-    launch('rri_sparse_mxu', F, F.data_ptr(), plan.vals.data_ptr(),
-           plan.gloc.data_ptr(), plan.sloc.data_ptr(), plan.ftile.data_ptr(),
-           plan.tstart.data_ptr(), out.data_ptr(), k, gpad, spad // TILE, C)
-    LAUNCHES['mxu'] += 1
-    return out
+    if gpad % TILE or gpad // TILE != plan.n_gtiles:
+        raise ValueError('F must have %d columns (the plan\'s %d tiles of '
+                         '%d), got %d' % (plan.n_gtiles * TILE, plan.n_gtiles,
+                                          TILE, gpad))
+    return gather_contract(plan, F.T, k, plan.mask.shape[1], 'mxu')
 
 
 def dma_contract(plan, F3):
-    """B6: ``out (k, spad) = F @ X`` (see :func:`dma_contract_ref`).
-
-    A CPU ``F3`` runs the plain twin; a CUDA ``F3`` launches
-    ``csrc/sparse.cu`` (``dma_kernel``) with the plan on F3's device."""
+    """B6's interface: ``out (k, spad) = F @ X`` for a :class:`~rri_nmf_
+    tpu_torch.ops.sparse_plan.DMAContractPlan`, ``F3`` (n_tiles, k, 128)
+    holding F's tiles (see :func:`dma_contract_ref`). Runs
+    :func:`gather_contract` on Fᵀ; counts under ``LAUNCHES['dma']``."""
     _check_factor(F3)
-    if F3.device.type == 'cpu':
-        return dma_contract_ref(plan, F3)
     n_tiles, k, width = F3.shape
-    C = plan.vals.shape[1] // plan.ftile.shape[0]
-    _check_cuda(F3, k, n_tiles, C, plan,
-                {'idx': torch.uint8, 'ftile': torch.int32,
-                 'uotile': torch.int32, 'ostart': torch.int32})
-    if width != TILE or C % 16:
-        raise ValueError('F3 must be (n_tiles, k, %d) and the chunk size a '
-                         'multiple of 16; got %s and C=%d'
-                         % (TILE, tuple(F3.shape), C))
-    if plan.idx.shape[1] >= 2 ** 31:
-        raise ValueError('plan too large for 32-bit slot offsets')
-    spad = plan.mask.shape[1]
-    out = torch.zeros(k, spad, dtype=F3.dtype, device=F3.device)
-    launch('rri_sparse_dma', F3, F3.data_ptr(), plan.vals.data_ptr(),
-           plan.idx.data_ptr(), plan.ftile.data_ptr(),
-           plan.uotile.data_ptr(), plan.ostart.data_ptr(), out.data_ptr(), k,
-           plan.uotile.shape[0], spad, C, plan.idx.shape[1])
-    LAUNCHES['dma'] += 1
-    return out
+    if width != TILE or n_tiles != plan.n_gtiles:
+        raise ValueError('F3 must be (%d, k, %d), got %s'
+                         % (plan.n_gtiles, TILE, tuple(F3.shape)))
+    Ft = F3.permute(0, 2, 1).reshape(n_tiles * TILE, k)
+    return gather_contract(plan, Ft, k, plan.mask.shape[1], 'dma')
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +239,8 @@ def dma_contract(plan, F3):
 # ---------------------------------------------------------------------------
 
 def _padded(F, m):
-    """(k, m) -> (k, 128·ceil(m/128)), zero columns after m."""
+    """(k, m) -> (k, 128·ceil(m/128)), zero columns after m: the factor
+    panel of B5's interface."""
     k = F.shape[0]
     Fp = F.new_zeros(k, -(-m // TILE) * TILE)
     Fp[:, :m] = F
@@ -229,30 +248,31 @@ def _padded(F, m):
 
 
 def _tile_cols(F, m):
-    """(k, m) factor -> (n_tiles, k, 128) contiguous tile slabs."""
+    """(k, m) factor -> (n_tiles, k, 128) contiguous tile slabs: the
+    factor of B6's interface."""
     Fp = _padded(F, m)
     k = Fp.shape[0]
     return Fp.reshape(k, -1, TILE).permute(1, 0, 2).contiguous()
 
 
-def _contract(plan, direction, F, m, out_cols):
+def _kind(plan):
     if isinstance(plan, SparseDMAPlan):
-        out = dma_contract(direction, _tile_cols(F, m))
-    elif isinstance(plan, SparseMXUPlan):
-        out = mxu_contract(direction, _padded(F, m))
-    else:
-        raise TypeError('expected a SparseMXUPlan or SparseDMAPlan, got %s'
-                        % type(plan).__name__)
-    return out[:, :out_cols].contiguous()
+        return 'dma'
+    if isinstance(plan, SparseMXUPlan):
+        return 'mxu'
+    raise TypeError('expected a SparseMXUPlan or SparseDMAPlan, got %s'
+                    % type(plan).__name__)
 
 
 def contract_wtx(plan, W):
-    """``WᵀX`` (k, d) for W (n, k): gather W rows, scatter into columns;
-    B5 or B6 by the plan's type."""
-    return _contract(plan, plan.t_phase, W.T, plan.n, plan.d)
+    """``WᵀX`` (k, d) for W (n, k): the kernel gathers W's rows (W itself
+    is Fᵀ), one output column of X at a time; B5 or B6 by the plan's
+    type."""
+    return gather_contract(plan.t_phase, W, W.shape[1], plan.d, _kind(plan))
 
 
 def contract_xtt(plan, T):
-    """``T Xᵀ`` (k, n) for T (k, d): gather T columns, scatter into
-    rows; B5 or B6 by the plan's type."""
-    return _contract(plan, plan.w_phase, T, plan.d, plan.n)
+    """``T Xᵀ`` (k, n) for T (k, d): the kernel gathers Tᵀ's rows, one row
+    of X at a time; B5 or B6 by the plan's type."""
+    return gather_contract(plan.w_phase, T.T, T.shape[0], plan.n,
+                           _kind(plan))

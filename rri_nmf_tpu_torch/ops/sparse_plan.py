@@ -21,12 +21,14 @@ per matrix, on the host:
 The plans come from the JAX package's NumPy argsort form, copied line for
 line so the arrays match bit for bit (its native counting sort is not
 used: importing it would import JAX). Local indices stay uint8 on the
-device too: the CUDA kernels read bytes, where the TPU kernel needed
-int32.
+device too, where the TPU kernel needed int32.
 
-Plans are small classes of tensors on one device; :class:`ContractPlan`
-adds ``tstart``, each output tile's chunk range, derived once from
-``otile``'s runs for the CUDA kernel.
+Plans are small classes of tensors on one device. The CUDA kernel reads
+neither plan as it stands: :func:`column_layout` derives from either, on
+the plan's device and once per plan (cached on it), the output-column
+CSR of :class:`ColumnLayout`: the plan's slots stably sorted by output
+column, zero-valued padding dropped, with int32 global gather indices.
+The B5 and B6 plans of one matrix give equal layouts.
 """
 
 import numpy as np
@@ -162,10 +164,12 @@ def _plan_direction_dma_np(g, s, v, n_gtiles, n_stiles, C, dtype):
 
 class _Tensors(object):
     """A few named tensors on one device, and ``n_gtiles``, the number of
-    128-wide factor tiles the plan gathers from (the kernels' bound on
-    ``ftile``, known on the host)."""
+    128-wide factor tiles the plan gathers from (the bound on ``ftile``,
+    known on the host). ``columns``: the :class:`ColumnLayout` derived
+    from the plan (:func:`column_layout`), None until first asked for."""
 
     _fields = ()
+    columns = None
 
     def __init__(self, n_gtiles, **arrays):
         self.n_gtiles = int(n_gtiles)
@@ -185,11 +189,9 @@ class ContractPlan(_Tensors):
     vals/gloc/sloc: (1, nchunks·C) values (the fit's dtype) and uint8
     local gather / scatter indices; ftile: (nchunks,) int32 factor tile
     per chunk; otile: (nchunks/G,) int32 output tile per group; mask:
-    (1, n_otiles·128), 1 on output tiles that hold a nonzero. tstart:
-    (n_otiles+1,) int32, the chunks of output tile ``o`` are
-    ``tstart[o]:tstart[o+1]`` (empty for an unvisited tile)."""
+    (1, n_otiles·128), 1 on output tiles that hold a nonzero."""
 
-    _fields = ('vals', 'gloc', 'sloc', 'ftile', 'otile', 'mask', 'tstart')
+    _fields = ('vals', 'gloc', 'sloc', 'ftile', 'otile', 'mask')
 
     @property
     def group(self):
@@ -207,6 +209,33 @@ class DMAContractPlan(_Tensors):
     MBLK_MAX``."""
 
     _fields = ('vals', 'idx', 'ftile', 'uotile', 'ostart', 'mask')
+
+
+class ColumnLayout(object):
+    """One contraction direction as an output-column CSR, the gather
+    kernel's input (:func:`column_layout`).
+
+    colptr: (spad+1,) int32, column ``c``'s nonzeros are
+    ``colptr[c]:colptr[c+1]``; gidx: (nnz,) int32, the row of Fᵀ each
+    gathers (``128·ftile + gloc``); vals: (nnz,) their values, in the
+    plan's dtype. ``n_rows``: the rows of Fᵀ the gathers need (1 + the
+    largest ``gidx``; 0 when there is none)."""
+
+    _fields = ('colptr', 'gidx', 'vals')
+
+    def __init__(self, colptr, gidx, vals, n_rows):
+        self.colptr = colptr
+        self.gidx = gidx
+        self.vals = vals
+        self.n_rows = int(n_rows)
+
+    @property
+    def n_cols(self):
+        return self.colptr.shape[0] - 1
+
+    @property
+    def nbytes(self):
+        return sum(getattr(self, f).nbytes for f in self._fields)
 
 
 class SparseMXUPlan(object):
@@ -269,11 +298,6 @@ def _host_dtype(dtype, vals):
     return np.dtype(dtype)
 
 
-def _tstart(otile, group, n_otiles):
-    counts = np.bincount(otile, minlength=n_otiles) * group
-    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-
-
 def _to_device(arrays, device):
     return {k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
             for k, a in arrays.items()}
@@ -296,8 +320,8 @@ def plan_sparse_matrix(X, dtype=None, C=TILE, group=8, device=None):
         v, gl, sl, ft, ot, mask = _plan_direction_np(g, s, vals, n_g, n_s, C,
                                                      group, dtype)
         plans.append(ContractPlan(n_g, **_to_device(dict(
-            vals=v, gloc=gl, sloc=sl, ftile=ft, otile=ot, mask=mask,
-            tstart=_tstart(ot, group, n_s)), device)))
+            vals=v, gloc=gl, sloc=sl, ftile=ft, otile=ot, mask=mask),
+            device)))
     return SparseMXUPlan(plans[0], plans[1], n, d, group)
 
 
@@ -318,3 +342,54 @@ def plan_sparse_matrix_dma(X, dtype=None, C=TILE, device=None):
             vals=v, idx=idx, ftile=ft, uotile=uo, ostart=ostart, mask=mask),
             device)))
     return SparseDMAPlan(plans[0], plans[1], n, d)
+
+
+# ---------------------------------------------------------------------------
+# the output-column layout of a plan direction
+# ---------------------------------------------------------------------------
+
+def _plan_slots(plan):
+    """``(g, s, v)`` of every slot of a plan direction, in plan order:
+    the row of Fᵀ it gathers, its output column and its value (int64,
+    int64, the plan's dtype). B6's trailing pad chunks are left out."""
+    C = plan.vals.shape[1] // plan.ftile.shape[0]
+    if isinstance(plan, ContractPlan):
+        ftile, gl, sl, v = plan.ftile, plan.gloc[0], plan.sloc[0], \
+            plan.vals[0]
+        otile = plan.otile.long().repeat_interleave(plan.group)
+    elif isinstance(plan, DMAContractPlan):
+        nslots = int(plan.ostart[-1]) * C
+        ftile, gl, sl, v = (plan.ftile[:nslots // C], plan.idx[0, :nslots],
+                            plan.idx[1, :nslots], plan.vals[0, :nslots])
+        otile = plan.uotile.long().repeat_interleave(
+            torch.diff(plan.ostart.long()))
+    else:
+        raise TypeError('expected a ContractPlan or DMAContractPlan, got %s'
+                        % type(plan).__name__)
+    g = (ftile.long() * TILE).repeat_interleave(C) + gl.long()
+    s = (otile * TILE).repeat_interleave(C) + sl.long()
+    return g, s, v
+
+
+def column_layout(plan):
+    """The :class:`ColumnLayout` of a plan direction (a
+    :class:`ContractPlan` or :class:`DMAContractPlan`), built with torch
+    ops on the plan's device at the first call and cached on the plan.
+
+    The slots are sorted by output column with a stable sort, so each
+    column keeps its nonzeros in plan order; slots with ``v = 0`` (the
+    plans' padding slots, B5's dummy chunks) add nothing and are dropped.
+    The layouts from the B5 and the B6 plan of one matrix are equal."""
+    if plan.columns is None:
+        g, s, v = _plan_slots(plan)
+        keep = v != 0
+        g, s, v = g[keep], s[keep], v[keep]
+        s, order = torch.sort(s, stable=True)
+        n_cols = plan.mask.shape[1]
+        colptr = torch.searchsorted(
+            s, torch.arange(n_cols + 1, device=s.device)).to(torch.int32)
+        gidx = g[order].to(torch.int32)
+        n_rows = int(gidx.max()) + 1 if gidx.numel() else 0
+        plan.columns = ColumnLayout(colptr, gidx, v[order].contiguous(),
+                                    n_rows)
+    return plan.columns

@@ -110,12 +110,6 @@ def test_plan_sparse_matrix_matches_jax(case, group, argsort_plans):
         for field in ('vals', 'gloc', 'sloc', 'ftile', 'otile', 'mask'):
             assert _arrays_equal(getattr(g, field), getattr(w, field)), field
         assert g.gloc.dtype == g.sloc.dtype == torch.uint8
-        # tstart: output tile o owns chunks tstart[o]:tstart[o+1]
-        ot = np.repeat(np.asarray(w.otile), group)
-        ts = g.tstart.numpy()
-        for o in range(len(ts) - 1):
-            assert np.all(ot[ts[o]:ts[o + 1]] == o)
-        assert ts[-1] == len(ot)
 
 
 @pytest.mark.parametrize('case', sorted(MATRICES))
@@ -346,11 +340,13 @@ def test_non_cuda_devices_raise_and_16_bit_factors_wait_for_A8():
 
 
 def test_shared_memory_gate_and_launch_counter_reset():
-    # the gate is the launchers' own (csrc/sparse.cu rri_sparse_fits) and
-    # binds on the card only: the twins have no shared-memory limit
-    for k, dtype in ((128, torch.float32), (512, torch.float32),
-                     (256, torch.float64)):
-        assert sk.sparse_fits(k, dtype, 'cpu')
+    # the gather kernel has no shared-memory gate (it runs k in slices, in
+    # ~17 KB a block), and neither do the twins: any k, here 512
+    X = MATRICES['ragged']()
+    W = torch.as_tensor(np.random.RandomState(9).rand(X.shape[0], 512))
+    got = sk.contract_wtx(spl.plan_sparse_matrix_dma(X, device='cpu'), W)
+    np.testing.assert_allclose(got.numpy(), (X.T @ W.numpy()).T,
+                               atol=ATOL_TWIN)
     sk.LAUNCHES['mxu'] += 2
     sk.reset_launches()
     assert sk.LAUNCHES == {'mxu': 0, 'dma': 0}
@@ -368,22 +364,47 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('k', [16, 50, 200])
 @pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-10),
                                        (torch.float32, 1e-4)])
-def test_cuda_kernels_match_twins(cuda_device, dtype, tol):
+def test_cuda_kernels_match_twins(cuda_device, dtype, tol, k):
+    """The gather kernel through the sweep's products and through B5's
+    and B6's interfaces, against the CPU twins (the layout's and the
+    plans'); a repeated launch gives the same bits, and so do the two
+    plans' launches."""
     X = _matrix(1000, 700, 0.02, 10, dup=True, empty_band=3)
     rng = np.random.RandomState(11)
-    W = torch.as_tensor(rng.rand(1000, 16), dtype=dtype, device=cuda_device)
-    T = torch.as_tensor(rng.rand(16, 700), dtype=dtype, device=cuda_device)
+    W = torch.as_tensor(rng.rand(1000, k), dtype=dtype, device=cuda_device)
+    T = torch.as_tensor(rng.rand(k, 700), dtype=dtype, device=cuda_device)
+
+    def close(got, want):
+        scale = want.abs().amax(1, keepdim=True).clamp_min(1e-300)
+        return float(((got.cpu() - want).abs() / scale).max()) <= tol
+
     before = dict(sk.LAUNCHES)
-    for plan in (spl.plan_sparse_matrix(X, dtype, device=cuda_device),
-                 spl.plan_sparse_matrix_dma(X, dtype, device=cuda_device)):
+    outs = {}
+    for kind, plan in (
+            ('mxu', spl.plan_sparse_matrix(X, dtype, device=cuda_device)),
+            ('dma', spl.plan_sparse_matrix_dma(X, dtype, device=cuda_device))):
         cpu = plan.to('cpu')
         for fn, F in ((sk.contract_wtx, W), (sk.contract_xtt, T)):
             got = fn(plan, F)
+            again = fn(plan, F)
             want = fn(cpu, F.cpu())
             torch.cuda.synchronize()
-            scale = want.abs().amax(1, keepdim=True).clamp_min(1e-300)
-            assert float(((got.cpu() - want).abs() / scale).max()) <= tol
-    assert sk.LAUNCHES['mxu'] == before['mxu'] + 2
-    assert sk.LAUNCHES['dma'] == before['dma'] + 2
+            assert close(got, want) and torch.equal(got, again)
+            outs.setdefault(fn.__name__, []).append(got)
+        m = X.shape[0]
+        if kind == 'mxu':
+            direct = sk.mxu_contract(plan.t_phase, sk._padded(W.T, m))
+            ref = sk.mxu_contract_ref(cpu.t_phase, sk._padded(W.T.cpu(), m))
+        else:
+            direct = sk.dma_contract(plan.t_phase, sk._tile_cols(W.T, m))
+            ref = sk.dma_contract_ref(cpu.t_phase, sk._tile_cols(W.T.cpu(), m))
+        torch.cuda.synchronize()
+        assert close(direct, ref)
+        assert torch.equal(direct[:, :X.shape[1]], outs['contract_wtx'][-1])
+    for got in outs.values():
+        assert torch.equal(got[0], got[1])          # the two plans' launches
+    assert sk.LAUNCHES['mxu'] == before['mxu'] + 5
+    assert sk.LAUNCHES['dma'] == before['dma'] + 5
