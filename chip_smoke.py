@@ -31,8 +31,12 @@ its users run, one line per phase:
    the same fit on the CPU in float64;
 7. kernels B3 and B4 (the masked WRRI streaming passes) against their
    twins at the MovieLens-1M shape 6040×3952, a ragged 517×1030 and B4's
-   fixed-T form, in float64 and float32, the updated residual included,
-   with CUDA-event times of kernel and twin;
+   fixed-T form, and B3 at its edge shapes (rows fewer than its
+   cluster's row split, fewer columns than one stripe, an odd width), in
+   float64 and float32, the updated residual included, each launch
+   repeated on the same input and matched bit for bit; B3's cluster
+   geometry, CUDA-event times of the wrappers (as the sweep calls them)
+   and twins, and B3's kernel alone;
 8. ``NMF_RS_Estimator`` at MovieLens-1M class (6040×3952, 1M synthetic
    ratings, a 90/10 split, k=40, float32 on the card): a default fit
    with validation early stopping; a fit of 30 sweeps (B3 and B4 k times
@@ -167,8 +171,13 @@ GS_STAGED = (256, 3000)
 SWEEPS = 20
 # (users, items, observations, topics): MovieLens-1M class, BASELINE #3
 RS_SHAPE = (6040, 3952, 1_000_000, 40)
-# a ragged B3/B4 shape (no dimension a multiple of a warp or a block)
+# a ragged B3/B4 shape (no dimension a multiple of a warp or a block;
+# B3's scalar-load form in float32)
 RS_RAGGED = (517, 1030)
+# B3's edge shapes: two row tiles for a cluster of eight (six ranks sum
+# nothing), fewer columns than one stripe, an odd width (the scalar-load
+# form in both dtypes)
+RS_B3_EDGES = [(40, 300), (700, 100), (300, 257)]
 # (users, items, observations, topics) of the small card-vs-CPU RS fit
 RS_SMALL = (600, 400, 24000, 8)
 RS_SWEEPS = 30
@@ -620,8 +629,9 @@ def run_tm_phase(dev, dk, Est, counts):
 
 def masked_cases(dev, X, M, seed=6):
     """B3/B4 inputs at the RS shape (the ratings ``X`` and their mask
-    ``M``, a residual of random factors) and at the ragged shape:
-    ``(label, kernel, args)`` in float64, ``args`` without R and M."""
+    ``M``, a residual of random factors) and at the ragged shape, and B3's
+    at its edge shapes: ``(label, kernel, R, M, args)`` in float64,
+    ``args`` without R and M."""
     rng = np.random.RandomState(seed)
     out = []
     n_r, d_r = RS_RAGGED
@@ -644,7 +654,33 @@ def masked_cases(dev, X, M, seed=6):
                     (W[:, 0].contiguous(), 1.3 * W[:, 0], T[0], t_new)))
         out.append(('B4 fixed-T ' + label, 'phase_b', R, M,
                     (dw, torch.zeros_like(dw), T[0], t_new)))
+    for n, d in RS_B3_EDGES:
+        R = torch.as_tensor(rng.randn(n, d), device=dev)
+        M = torch.as_tensor((rng.rand(n, d) < 0.3) * 1.0, device=dev)
+        out.append(('B3 edge %dx%d' % (n, d), 'phase_a', R, M,
+                    tuple(torch.as_tensor(v, device=dev) for v in (
+                        rng.rand(n) - 0.5, rng.rand(d), rng.rand(n)))))
     return out
+
+
+def b3_alone_ms(mk, R, M, dw, t_prev, w, dev, reps=20):
+    """B3's kernel alone: ``reps`` launches of the C entry straight after
+    each other (outputs allocated once, no checks) between two CUDA
+    events, over ``reps``."""
+    from rri_nmf_tpu_torch.ops import _build
+    n, d = R.shape
+    wR0, nw = torch.empty(d, device=dev), torch.empty(d, device=dev)
+    fn = _build.load().rri_masked_phase_a_f32
+    args = (R.data_ptr(), M.data_ptr(), dw.data_ptr(), t_prev.data_ptr(),
+            w.data_ptr(), wR0.data_ptr(), nw.data_ptr(), n, d,
+            mk.phase_a_layout(n, d, 4)[1], dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def run():
+        for _ in range(reps):
+            if fn(*args):
+                raise AssertionError('B3 launch failed')
+    return time_ms(run, dev) / reps
 
 
 def check_masked(mk, cases, dev):
@@ -663,8 +699,9 @@ def check_masked(mk, cases, dev):
                            (torch.float32, TOL_F32)):
             R0, Mc = R.to(dtype).contiguous(), M.to(dtype).contiguous()
             a = [x.to(dtype).contiguous() for x in args]
-            Rk, Rt = R0.clone(), R0.clone()
+            Rk, Rr, Rt = R0.clone(), R0.clone(), R0.clone()
             got = kernel(Rk, Mc, *a)
+            again = kernel(Rr, Mc, *a)
             want = ref(Rt, Mc, *a)
             # each sum's scale: the same sum over absolute terms
             if kind == 'phase_a':
@@ -678,16 +715,35 @@ def check_masked(mk, cases, dev):
             if not (max(errs) <= tol and finite):
                 raise AssertionError('%s %s: errors %r > %g'
                                      % (label, dtype, errs, tol))
+            if not (torch.equal(Rk, Rr) and all(
+                    torch.equal(g, h) for g, h in zip(got, again))):
+                raise AssertionError('%s %s: two launches on the same input '
+                                     'differ' % (label, dtype))
             line = {'case': label, 'dtype': str(dtype), 'rel_err_R': errs[0],
-                    'rel_err_sums': errs[1:]}
+                    'rel_err_sums': errs[1:], 'bitwise_repeat': True}
+            if kind == 'phase_a':
+                stripes, cluster, ranges = mk.phase_a_layout(
+                    *R0.shape, R0.element_size())
+                line['b3_geometry'] = {
+                    'stripes': stripes, 'cluster': cluster,
+                    'blocks': stripes * cluster,
+                    'rank_rows': [b - a for a, b in ranges],
+                    'form': ('16-byte' if R0.shape[1] % (
+                        16 // R0.element_size()) == 0 else 'scalar')}
             if dtype == torch.float32:
                 stats = out[kind]
                 stats[0] = max(stats[0], *(float((g - h).abs().max())
                                            for g, h in zip((Rk, *got),
                                                            (Rt, *want))))
                 if label.startswith(('B3 rs', 'B4 rs')):
-                    line['ms'] = time_ms(lambda: kernel(Rk, Mc, *a), dev)
+                    # the wrapper as the sweep calls it: outputs given
+                    pre = tuple(torch.empty_like(g) for g in got)
+                    line['ms'] = time_ms(
+                        lambda: kernel(Rk, Mc, *a, out=pre), dev)
                     line['plain_ms'] = time_ms(lambda: ref(Rt, Mc, *a), dev)
+                    if kind == 'phase_a' and dev.type == 'cuda':
+                        line['kernel_alone_ms'] = b3_alone_ms(
+                            mk, Rk, Mc, *a, dev)
                     line['GB_per_s'] = 12 * R0.numel() / line['ms'] / 1e6
                     n, d = R0.shape
                     vectors = (3 * n + 3 * d) if kind == 'phase_a' \

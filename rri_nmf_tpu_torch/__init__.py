@@ -16,11 +16,18 @@ so a reader finds each counterpart:
 - :mod:`rri_nmf_tpu_torch.ops`            — the sweeps and their kernels
 - :mod:`rri_nmf_tpu_torch.convert`        — carry fitted numpy state over
 
-Device and dtype policy (the JAX package's ``nmf._default_float``): work
-runs where ``X`` lives — a numpy array or a CPU tensor on the CPU, a
-CUDA tensor on its card. The default float is float64 on the CPU (the
-parity tests hold the port against JAX with x64 there) and float32 on
-CUDA; every entry point's ``dtype=`` overrides it.
+Device policy (:func:`rri_nmf_tpu_torch.matrixops.fit_device`): the
+entry points (``nmf()``, ``initialize_nmf``, the plan builders, both
+estimators) run on the card unless asked otherwise. Given ``device=``,
+they run there; a tensor keeps its own device; numpy and scipy data go
+to the card, and without a card they raise, naming ``device='cpu'``.
+The leaf functions of :mod:`rri_nmf_tpu_torch.matrixops` still put numpy
+input on the CPU.
+
+Dtype policy (the JAX package's ``nmf._default_float``): the default
+float is float64 on the CPU (the parity tests hold the port against JAX
+with x64 there) and float32 on CUDA; every entry point's ``dtype=``
+overrides it.
 
 float32 matrix products run in full float32 on the card: TF32 is
 switched off here, and ``nmf(matmul_precision=...)`` is the one place

@@ -16,31 +16,54 @@
 // or given mass.
 //
 // What bounds them on the H100: device memory. Each launch reads R and M
-// and writes R, 3 n d words (12 n d bytes in float32: 286 MB at the
-// MovieLens-1M shape 6040 x 3952, against 4 flop per element). R and M
-// together (191 MB) do not fit the 50 MB L2, so every topic streams them
-// from device memory twice (once per kernel). The designs aim at full
-// coalescing and enough loads in flight to cover the memory latency:
-// every thread issues the loads of DEPTH rows (B3) or column steps (B4)
-// before it uses any of them, since a warp issues in order and would
-// otherwise wait out each load's latency alone.
+// and writes R, 3 n d words (12 n d bytes in float32: 286.6 MB at the
+// MovieLens-1M shape 6040 x 3952, 0.0855 ms at 3.35 TB/s, against 4 flop
+// per element). R and M together (191 MB) do not fit the 50 MB L2, so
+// every topic streams them from device memory twice (once per kernel).
+// Both designs aim at full coalescing and enough loads in flight to cover
+// the memory latency: every thread issues the loads of several rows (B3)
+// or column steps (B4) before it uses any of them, since a warp issues in
+// order and would otherwise wait out each load's latency alone.
 //
-// B3 sums over rows. Neighbouring threads take neighbouring columns, so a
-// warp reads 32 consecutive words of one row. A block owns a stripe of
-// A_COLS columns and a fixed chunk of rows; 31 stripes at d = 3952 would
-// leave most of the 132 SMs idle, so the wrapper splits the rows into
-// chunks too (grid.y; 32 rows each, several waves of blocks) and each
-// block writes its partial sums to a (2, chunks, d) scratch. A second
-// small kernel adds the chunks in order.
+// B3 sums over rows: one launch, no scratch in device memory, no second
+// kernel. A stripe of 32 lanes x 16 bytes of columns (128 in float32, 64
+// in float64) is owned by one thread-block cluster of
+// `cluster` blocks (at most 8, the portable size) along the rows. The
+// rows are cut into tiles of A_TILE = 32; cluster rank r takes the tiles
+// [r per, (r + 1) per), per = ceil(tiles / cluster), and deals them to its
+// A_WARPS warps in turn (tile r per + w, + A_WARPS, ... to warp w). A warp
+// stages its tile's dw, w and w*w in shared memory once (one coalesced
+// load, lane l row l), then streams the tile A_DEPTH rows at a time: every
+// lane issues 2 A_DEPTH 16-byte loads (R and M) before it uses them, and
+// writes R back with 16-byte stores. At 6040 x 3952 float32 that is 31
+// stripes x 8 = 248 blocks of 8 warps, 4 KB in flight per warp, in one
+// wave: at 80 registers a thread three blocks fit an SM, and an H100
+// places the clusters on 124 of its 132 SMs, two blocks on most. It runs
+// at ~74% of the byte bound, where one PyTorch elementwise kernel moving
+// the same bytes reaches ~86%; more loads in flight (deeper rows, more
+// warps, a software pipeline, an L2 prefetch) measured slower, and more
+// registers or shared memory a block push part of the grid into a second
+// wave (PERF.md).
+//
+// Each lane keeps its columns' partial sums over its rows; the warps
+// combine theirs in shared memory in warp order, then the cluster's
+// blocks combine theirs through distributed shared memory in rank order,
+// and rank 0 writes wR0 and nw. The cluster size comes from the caller
+// (ops/masked_kernels.py phase_a_layout, a function of the shape alone),
+// so every sum has a fixed order: no atomics, and a repeat launch gives
+// the same bits. Shape rule: 16-byte loads need d % (16 / sizeof(T)) == 0
+// and R, M 16-byte aligned; otherwise (e.g. 517 x 1030 in float32) the
+// launcher takes the scalar-load form of the same kernel, where lane l
+// owns the stripe's columns l, l + 32, ... (coalesced 4- or 8-byte loads)
+// and the sums keep the same order.
 //
 // B4 sums over columns. One warp owns one row and walks its columns
 // (lane j, j + 32, ...), so each step reads 32 consecutive words; a
 // fixed shuffle tree then adds the 32 lane sums. 6040 rows are 1510
 // blocks of 4 warps: one wave, 11-12 blocks on every SM.
 //
-// No atomics: every sum is taken in a fixed order, so a fit repeats bit
-// for bit. Sums are accumulated in the working dtype (float32 or float64),
-// as the TPU kernels' _acc_of does for those dtypes.
+// Sums are accumulated in the working dtype (float32 or float64), as the
+// TPU kernels' _acc_of does for those dtypes.
 //
 // Numerics against the plain PyTorch twins (ops/masked_kernels.py): the
 // kernels compute the rank-one updates as fused multiply-adds,
@@ -48,14 +71,19 @@
 // the sum separately; that is one rounding of difference per update, and
 // the reductions add in another order than the twins' GEMVs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#define A_COLS 128    // columns (threads) per B3 block
-#define SUM_COLS 32   // columns per block of the chunk sum ...
-#define SUM_LANES 8   // ... and threads per column
-#define B_ROWS 4      // rows (warps) per B4 block
+namespace cg = cooperative_groups;
+
+#define A_WARPS 8         // warps per B3 block
+#define A_TILE 32         // rows per B3 tile (one per lane when staged)
+#define A_DEPTH 4         // rows in flight per B3 thread and array
+#define A_MAX_CLUSTER 8   // the portable cluster size
+#define B_ROWS 4          // rows (warps) per B4 block
 #ifndef DEPTH
-#define DEPTH 8       // loads in flight per thread and array
+#define DEPTH 8           // loads in flight per B4 thread and array
 #endif
 
 __device__ __forceinline__ float fma_(float a, float b, float c) {
@@ -65,78 +93,161 @@ __device__ __forceinline__ double fma_(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-template <typename T>
-__global__ void phase_a_kernel(T* __restrict__ R, const T* __restrict__ M,
-                               const T* __restrict__ dw,
-                               const T* __restrict__ tp,
-                               const T* __restrict__ w, T* __restrict__ part,
-                               int n, int d, int chunks, int rows) {
-  const int j = blockIdx.x * A_COLS + threadIdx.x;
-  if (j >= d) return;
-  const int c = blockIdx.y;
-  const int i0 = c * rows;
-  const int i1 = min(n, i0 + rows);
-  const T tpj = tp[j];
-  T s_wr = 0, s_nw = 0;
-  int i = i0;
-  for (; i + DEPTH <= i1; i += DEPTH) {
-    T r[DEPTH], m[DEPTH];
-#pragma unroll
-    for (int u = 0; u < DEPTH; ++u) {
-      const size_t o = (size_t)(i + u) * d + j;
-      r[u] = R[o];
-      m[u] = M[o];
-    }
-#pragma unroll
-    for (int u = 0; u < DEPTH; ++u) {
-      r[u] = fma_(dw[i + u], tpj, r[u]);
-      R[(size_t)(i + u) * d + j] = r[u];
-      const T wi = w[i + u];
-      s_wr = fma_(wi, m[u] * r[u], s_wr);
-      s_nw = fma_(wi * wi, m[u], s_nw);
-    }
-  }
-  for (; i < i1; ++i) {
-    const size_t o = (size_t)i * d + j;
-    const T r = fma_(dw[i], tpj, R[o]);
-    R[o] = r;
-    const T m = M[o];
-    const T wi = w[i];
-    s_wr = fma_(wi, m * r, s_wr);
-    s_nw = fma_(wi * wi, m, s_nw);
-  }
-  part[(size_t)c * d + j] = s_wr;
-  part[((size_t)chunks + c) * d + j] = s_nw;
+// 16-byte loads and stores of a lane's VEC consecutive words
+__device__ __forceinline__ void ld16(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ __forceinline__ void ld16(const double* p, double (&x)[2]) {
+  const double2 v = *reinterpret_cast<const double2*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+}
+__device__ __forceinline__ void st16(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void st16(double* p, const double (&x)[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(x[0], x[1]);
 }
 
-// Adds the B3 partial sums over the chunks: thread (x, y) of a block sums
-// chunks y, y + SUM_LANES, ... of column x, then thread (x, 0) adds the
-// SUM_LANES results in order. The order is fixed by the shape alone.
-template <typename T>
-__global__ void chunk_sum_kernel(const T* __restrict__ part,
-                                 T* __restrict__ wR0, T* __restrict__ nw,
-                                 int d, int chunks) {
-  __shared__ T sa[SUM_LANES][SUM_COLS], sb[SUM_LANES][SUM_COLS];
-  const int x = threadIdx.x, y = threadIdx.y;
-  const int j = blockIdx.x * SUM_COLS + x;
-  T a = 0, b = 0;
-  if (j < d) {
-    for (int c = y; c < chunks; c += SUM_LANES) {
-      a += part[(size_t)c * d + j];
-      b += part[((size_t)chunks + c) * d + j];
+// B3; see the header. Launched as a grid of (stripes, cluster) blocks of
+// A_WARPS warps in clusters of (1, cluster, 1).
+template <typename T, bool VECTOR>
+__global__ void __launch_bounds__(A_WARPS * 32)
+    phase_a_kernel(T* __restrict__ R, const T* __restrict__ M,
+                   const T* __restrict__ dw, const T* __restrict__ tp,
+                   const T* __restrict__ w, T* __restrict__ wR0,
+                   T* __restrict__ nw, int n, int d) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int COLS = 32 * VEC;
+  __shared__ T stage[A_WARPS][3][A_TILE];  // a warp's tile: dw, w, w*w
+  __shared__ T part[A_WARPS][2][COLS];     // the warps' sums
+  __shared__ T sums[2][COLS];              // the block's sums
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j0 = blockIdx.x * COLS;
+
+  // this lane's columns: j0 + VEC lane + v (16-byte form; all VEC in
+  // range or none, as d % VEC == 0) or j0 + lane + 32 v (scalar form)
+  bool ok[VEC];
+  T tpj[VEC], s_wr[VEC], s_nw[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    const int j = VECTOR ? j0 + VEC * lane + v : j0 + lane + 32 * v;
+    ok[v] = j < d;
+    tpj[v] = ok[v] ? tp[j] : T(0);
+    s_wr[v] = T(0);
+    s_nw[v] = T(0);
+  }
+  const int jl = VECTOR ? j0 + VEC * lane : j0 + lane;
+
+  // this rank's tiles, dealt to its warps in turn
+  const int tiles = (n + A_TILE - 1) / A_TILE;
+  const int per = (tiles + csize - 1) / csize;
+  const int t_end = min(tiles, (rank + 1) * per);
+  // lane l holds dw, w of row l of the warp's next tile, loaded a tile
+  // ahead so that staging never waits on memory
+  T a_next = T(0), b_next = T(0);
+  {
+    const int t = rank * per + warp, i = t * A_TILE + lane;
+    if (t < t_end && i < n) {
+      a_next = dw[i];
+      b_next = w[i];
     }
   }
-  sa[y][x] = a;
-  sb[y][x] = b;
+  for (int t = rank * per + warp; t < t_end; t += A_WARPS) {
+    const int i0 = t * A_TILE;
+    const int rows = min(A_TILE, n - i0);
+    __syncwarp();  // the previous tile's stage is read by every lane
+    stage[warp][0][lane] = a_next;
+    stage[warp][1][lane] = b_next;
+    stage[warp][2][lane] = b_next * b_next;
+    __syncwarp();
+    {
+      const int i = (t + A_WARPS) * A_TILE + lane;
+      const bool more = t + A_WARPS < t_end && i < n;
+      a_next = more ? dw[i] : T(0);
+      b_next = more ? w[i] : T(0);
+    }
+    for (int r = 0; r < rows; r += A_DEPTH) {
+      T x[A_DEPTH][VEC], m[A_DEPTH][VEC];
+#pragma unroll
+      for (int u = 0; u < A_DEPTH; ++u) {
+        const bool live = r + u < rows;  // the same for the whole warp
+        const size_t o = (size_t)(i0 + r + u) * d + jl;
+        if constexpr (VECTOR) {
+          if (live && ok[0]) {
+            ld16(R + o, x[u]);
+            ld16(M + o, m[u]);
+          } else {
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) x[u][v] = m[u][v] = T(0);
+          }
+        } else {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            const bool in = live && ok[v];
+            x[u][v] = in ? R[o + 32 * v] : T(0);
+            m[u][v] = in ? M[o + 32 * v] : T(0);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < A_DEPTH; ++u) {
+        if (r + u < rows) {
+          const T dwi = stage[warp][0][r + u];
+          const T wi = stage[warp][1][r + u];
+          const T w2i = stage[warp][2][r + u];
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            x[u][v] = fma_(dwi, tpj[v], x[u][v]);
+            s_wr[v] = fma_(wi, m[u][v] * x[u][v], s_wr[v]);
+            s_nw[v] = fma_(w2i, m[u][v], s_nw[v]);
+          }
+          const size_t o = (size_t)(i0 + r + u) * d + jl;
+          if constexpr (VECTOR) {
+            if (ok[0]) st16(R + o, x[u]);
+          } else {
+#pragma unroll
+            for (int v = 0; v < VEC; ++v)
+              if (ok[v]) R[o + 32 * v] = x[u][v];
+          }
+        }
+      }
+    }
+  }
+
+  // warps in order, then cluster ranks in order
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    const int c = VECTOR ? VEC * lane + v : lane + 32 * v;
+    part[warp][0][c] = s_wr[v];
+    part[warp][1][c] = s_nw[v];
+  }
   __syncthreads();
-  if (y == 0 && j < d) {
-    for (int l = 1; l < SUM_LANES; ++l) {
-      a += sa[l][x];
-      b += sb[l][x];
-    }
-    wR0[j] = a;
-    nw[j] = b;
+  for (int e = threadIdx.x; e < 2 * COLS; e += A_WARPS * 32) {
+    const int kind = e / COLS, c = e % COLS;
+    T s = part[0][kind][c];
+#pragma unroll
+    for (int q = 1; q < A_WARPS; ++q) s += part[q][kind][c];
+    sums[kind][c] = s;
   }
+  cluster.sync();  // every rank's sums are written
+  if (rank == 0) {
+    for (int e = threadIdx.x; e < 2 * COLS; e += A_WARPS * 32) {
+      T s = (&sums[0][0])[e];
+      for (int q = 1; q < csize; ++q)
+        s += cluster.map_shared_rank(&sums[0][0], q)[e];
+      const int kind = e / COLS, j = j0 + e % COLS;
+      if (j < d) (kind ? nw : wR0)[j] = s;
+    }
+  }
+  cluster.sync();  // no rank leaves before rank 0 has read its sums
 }
 
 template <typename T>
@@ -191,24 +302,45 @@ __global__ void phase_b_kernel(T* __restrict__ R, const T* __restrict__ M,
   }
 }
 
+template <typename T, bool VECTOR>
+static cudaError_t launch_a(T* R, const T* M, const T* dw, const T* tp,
+                            const T* w, T* wR0, T* nw, int n, int d,
+                            int cluster, cudaStream_t stream) {
+  constexpr int COLS = 32 * (16 / sizeof(T));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((d + COLS - 1) / COLS, cluster, 1);
+  cfg.blockDim = dim3(A_WARPS * 32, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, phase_a_kernel<T, VECTOR>, R, M, dw, tp,
+                            w, wR0, nw, n, d);
+}
+
+// One B3 launch in clusters of `cluster` blocks (1..8); returns the CUDA
+// error, the launch's own if the cluster launch is refused.
 template <typename T>
 static int launch_phase_a(T* R, const T* M, const T* dw, const T* tp,
-                          const T* w, T* part, T* wR0, T* nw, int n, int d,
-                          int chunks, int device, void* stream) {
-  if (n <= 0 || d <= 0 || chunks <= 0 || chunks > 65535)
+                          const T* w, T* wR0, T* nw, int n, int d,
+                          int cluster, int device, void* stream) {
+  if (n <= 0 || d <= 0 || cluster < 1 || cluster > A_MAX_CLUSTER)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int rows = (n + chunks - 1) / chunks;
-  dim3 grid((d + A_COLS - 1) / A_COLS, chunks);
-  phase_a_kernel<T><<<grid, A_COLS, 0, (cudaStream_t)stream>>>(
-      R, M, dw, tp, w, part, n, d, chunks, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  chunk_sum_kernel<T><<<(d + SUM_COLS - 1) / SUM_COLS,
-                        dim3(SUM_COLS, SUM_LANES), 0,
-                        (cudaStream_t)stream>>>(part, wR0, nw, d, chunks);
-  return (int)cudaGetLastError();
+  const bool vector = d % (16 / sizeof(T)) == 0 &&
+                      ((uintptr_t)R | (uintptr_t)M) % 16 == 0;
+  err = vector ? launch_a<T, true>(R, M, dw, tp, w, wR0, nw, n, d, cluster,
+                                   (cudaStream_t)stream)
+               : launch_a<T, false>(R, M, dw, tp, w, wR0, nw, n, d, cluster,
+                                    (cudaStream_t)stream);
+  const cudaError_t last = cudaGetLastError();  // clears a launch error
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 template <typename T>
@@ -226,25 +358,22 @@ static int launch_phase_b(T* R, const T* M, const T* w, const T* weff,
 
 extern "C" int rri_masked_phase_a_f32(void* R, const void* M, const void* dw,
                                       const void* tp, const void* w,
-                                      void* part, void* wR0, void* nw, int n,
-                                      int d, int chunks, int device,
-                                      void* stream) {
+                                      void* wR0, void* nw, int n, int d,
+                                      int cluster, int device, void* stream) {
   return launch_phase_a<float>((float*)R, (const float*)M, (const float*)dw,
                                (const float*)tp, (const float*)w,
-                               (float*)part, (float*)wR0, (float*)nw, n, d,
-                               chunks, device, stream);
+                               (float*)wR0, (float*)nw, n, d, cluster, device,
+                               stream);
 }
 
 extern "C" int rri_masked_phase_a_f64(void* R, const void* M, const void* dw,
                                       const void* tp, const void* w,
-                                      void* part, void* wR0, void* nw, int n,
-                                      int d, int chunks, int device,
-                                      void* stream) {
+                                      void* wR0, void* nw, int n, int d,
+                                      int cluster, int device, void* stream) {
   return launch_phase_a<double>((double*)R, (const double*)M,
                                 (const double*)dw, (const double*)tp,
-                                (const double*)w, (double*)part,
-                                (double*)wR0, (double*)nw, n, d, chunks,
-                                device, stream);
+                                (const double*)w, (double*)wR0, (double*)nw,
+                                n, d, cluster, device, stream);
 }
 
 extern "C" int rri_masked_phase_b_f32(void* R, const void* M, const void* w,

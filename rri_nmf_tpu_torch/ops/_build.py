@@ -56,9 +56,9 @@ SIGNATURES = {
     'rri_gs_fits_f64': [_I, _I],
     'rri_tm_proj_fits_f32': [_I, _I, _I],
     'rri_tm_proj_fits_f64': [_I, _I, _I],
-    # R, M, dw, t_prev, w, partials, wR0, nw; n, d, chunks
-    'rri_masked_phase_a_f32': [_P] * 8 + [_I, _I, _I, _I, _P],
-    'rri_masked_phase_a_f64': [_P] * 8 + [_I, _I, _I, _I, _P],
+    # R, M, dw, t_prev, w, wR0, nw; n, d, cluster
+    'rri_masked_phase_a_f32': [_P] * 7 + [_I, _I, _I, _I, _P],
+    'rri_masked_phase_a_f64': [_P] * 7 + [_I, _I, _I, _I, _P],
     # R, M, w, w_eff, t_old, t_new, Rt, mt2; n, d
     'rri_masked_phase_b_f32': [_P] * 8 + [_I, _I, _I, _P],
     'rri_masked_phase_b_f64': [_P] * 8 + [_I, _I, _I, _P],
@@ -178,17 +178,19 @@ def check_operands(ref, operands):
     """Device/dtype/shape/contiguity checks shared by the kernel wrappers:
     ``ref`` is a CUDA tensor of the kernel's dtype, ``operands`` maps
     names to (tensor, expected shape); each must be a contiguous tensor of
-    ``ref``'s dtype on its device."""
-    if ref.device.type != 'cuda':
+    ``ref``'s dtype on its device. (Device indices are compared as ints:
+    the wrappers run it on every launch.)"""
+    if not ref.is_cuda:
         raise ValueError('the kernels run on CUDA or (plain twin) CPU '
                          'tensors, got %s' % ref.device)
-    if ref.dtype not in CTYPES:
-        raise ValueError('the kernels take float32/float64, got %s'
-                         % ref.dtype)
+    dtype = ref.dtype
+    if dtype not in CTYPES:
+        raise ValueError('the kernels take float32/float64, got %s' % dtype)
+    index = ref.get_device()
     for name, (a, shape) in operands.items():
-        if a.device != ref.device or a.dtype != ref.dtype:
+        if a.dtype != dtype or not a.is_cuda or a.get_device() != index:
             raise ValueError('%s must be %s on %s, got %s on %s' % (
-                name, ref.dtype, ref.device, a.dtype, a.device))
+                name, dtype, ref.device, a.dtype, a.device))
         if tuple(a.shape) != tuple(shape):
             raise ValueError('%s must have shape %s, got %s'
                              % (name, tuple(shape), tuple(a.shape)))
@@ -196,13 +198,20 @@ def check_operands(ref, operands):
             raise ValueError('%s must be contiguous' % name)
 
 
+# PyTorch's current CUDA stream of a device index as a raw handle, without
+# building a torch.cuda.Stream (what its own generated code calls); the
+# public form where a build lacks it
+_raw_stream = getattr(torch._C, '_cuda_getCurrentRawStream', None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
 def launch(fn, ref, *args):
     """Call the C function ``<fn>_<f32|f64>`` (by ``ref``'s dtype) with
     ``args``, then ``ref``'s device index and PyTorch's current stream on
     it; raise if it reports a CUDA error."""
-    stream = torch.cuda.current_stream(ref.device).cuda_stream
+    index = ref.get_device()
     err = getattr(load(), '%s_%s' % (fn, SUFFIX[ref.dtype]))(
-        *args, ref.device.index, stream)
+        *args, index, _raw_stream(index))
     if err != 0:
         raise RuntimeError('%s kernel launch failed: CUDA error %d'
                            % (fn, err))

@@ -17,7 +17,9 @@ streaming passes over R and M:
   The fixed-T sweep (the RS estimator's transform) runs B4 alone, with
   ``w_eff = 0``.
 
-Each wrapper updates R in place, like the Pallas kernels that alias it.
+Each wrapper updates R in place, like the Pallas kernels that alias it,
+and writes its two sums into ``out`` when given: the sweep allocates
+them once per sweep, so a topic's launch allocates nothing.
 A CPU tensor goes to the plain PyTorch twin (:func:`phase_a_ref`,
 :func:`phase_b_ref`, which update their CPU R the same way); a CUDA tensor
 launches the kernel, or the wrapper raises. ``LAUNCHES`` counts kernel
@@ -28,6 +30,8 @@ masks and ``_pick_tiles`` have no counterpart: no coordinate outside
 (n, d) exists, so a negative L1 regularizer cannot give phantom mass to
 one.
 """
+
+import functools
 
 import torch
 
@@ -41,10 +45,15 @@ from rri_nmf_tpu_torch.ops.sweep import make_reset_rowcol, precision_scope
 # adds one right after its kernel launched, and nowhere else.
 LAUNCHES = {'phase_a': 0, 'phase_b': 0}
 
-# Rows per B3 block: B3 splits the rows into chunks of this many (the
-# last one shorter), each a row of blocks over the column stripes —
-# 189 × 31 blocks at 6040×3952, several waves on 132 SMs.
-B3_ROWS = 32
+# B3's decomposition, as csrc/masked.cu has it (A_TILE, A_WARPS): rows in
+# tiles of B3_TILE, dealt to B3_WARPS warps a block; the cluster of
+# blocks that owns a column stripe has at most B3_MAX_CLUSTER blocks and
+# is sized for about B3_BLOCKS blocks in all, two on each of an H100's
+# 132 SMs.
+B3_TILE = 32
+B3_WARPS = 8
+B3_MAX_CLUSTER = 8
+B3_BLOCKS = 264
 
 
 def reset_launches():
@@ -52,11 +61,22 @@ def reset_launches():
         LAUNCHES[name] = 0
 
 
-def phase_a_chunks(n):
-    """Row chunks of one B3 launch: B3_ROWS rows each (more past 2M rows,
-    the grid's limit of 65535 chunks). A function of the shape alone, so
-    the order of every sum is fixed."""
-    return max(1, min(-(-n // B3_ROWS), 65535))
+@functools.lru_cache(maxsize=None)
+def phase_a_layout(n, d, itemsize):
+    """B3's launch geometry for an (n, d) problem of ``itemsize``-byte
+    words: ``(stripes, cluster, ranges)``. A stripe is 32 lanes × 16
+    bytes of columns (128 float32, 64 float64) and is owned by one
+    cluster of ``cluster`` blocks; ``ranges[r]`` is the ``(start, stop)``
+    of the rows cluster rank r sums (whole tiles of ``B3_TILE`` rows;
+    empty when the rows run out first). A function of the shape alone,
+    so the order of every sum is fixed."""
+    stripes = -(-d // (32 * (16 // itemsize)))
+    cluster = max(1, min(B3_MAX_CLUSTER, -(-B3_BLOCKS // stripes)))
+    tiles = -(-n // B3_TILE)
+    rows = -(-tiles // cluster) * B3_TILE        # rows a rank, whole tiles
+    ranges = tuple((min(n, r * rows), min(n, (r + 1) * rows))
+                   for r in range(cluster))
+    return stripes, cluster, ranges
 
 
 def supports_masked_kernels(cfg):
@@ -95,45 +115,61 @@ def phase_b_ref(R, M, w, w_eff, t_old, t_new):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def phase_a(R, M, dw, t_prev, w):
+def _into(out, sums):
+    """The twin's sums, copied into ``out`` when given (the CPU path of a
+    wrapper called with ``out=``)."""
+    if out is None:
+        return sums
+    for o, s in zip(out, sums):
+        o.copy_(s)
+    return out
+
+
+def phase_a(R, M, dw, t_prev, w, out=None):
     """B3 (see :func:`phase_a_ref`): updates ``R`` in place and returns
-    ``(wR0, nw)``. A CPU ``R`` runs the plain twin; a CUDA ``R`` launches
-    ``csrc/masked.cu``, with every operand a contiguous tensor of ``R``'s
-    dtype on its device."""
+    ``(wR0, nw)``, written into ``out`` (a pair of (d,) tensors) when
+    given, so a caller may allocate them once. A CPU ``R`` runs the plain
+    twin; a CUDA ``R`` launches ``csrc/masked.cu`` once, with every
+    operand a contiguous tensor of ``R``'s dtype on its device."""
     if R.device.type == 'cpu':
-        return phase_a_ref(R, M, dw, t_prev, w)
+        return _into(out, phase_a_ref(R, M, dw, t_prev, w))
     n, d = R.shape
+    if out is None:
+        out = (torch.empty(d, dtype=R.dtype, device=R.device),
+               torch.empty(d, dtype=R.dtype, device=R.device))
+    wR0, nw = out
     check_operands(R, {'R': (R, (n, d)), 'M': (M, (n, d)),
                        'dw': (dw, (n,)), 't_prev': (t_prev, (d,)),
-                       'w': (w, (n,))})
-    chunks = phase_a_chunks(n)
-    part = torch.empty(2, chunks, d, dtype=R.dtype, device=R.device)
-    wR0 = torch.empty(d, dtype=R.dtype, device=R.device)
-    nw = torch.empty_like(wR0)
+                       'w': (w, (n,)), 'wR0': (wR0, (d,)), 'nw': (nw, (d,))})
+    cluster = phase_a_layout(n, d, R.element_size())[1]
     launch('rri_masked_phase_a', R, R.data_ptr(), M.data_ptr(),
-           dw.data_ptr(), t_prev.data_ptr(), w.data_ptr(), part.data_ptr(),
-           wR0.data_ptr(), nw.data_ptr(), n, d, chunks)
+           dw.data_ptr(), t_prev.data_ptr(), w.data_ptr(), wR0.data_ptr(),
+           nw.data_ptr(), n, d, cluster)
     LAUNCHES['phase_a'] += 1
-    return wR0, nw
+    return out
 
 
-def phase_b(R, M, w, w_eff, t_old, t_new):
+def phase_b(R, M, w, w_eff, t_old, t_new, out=None):
     """B4 (see :func:`phase_b_ref`): updates ``R`` in place and returns
-    ``(Rt0, mt2)``. A CPU ``R`` runs the plain twin; a CUDA ``R`` launches
+    ``(Rt0, mt2)``, written into ``out`` (a pair of (n,) tensors) when
+    given. A CPU ``R`` runs the plain twin; a CUDA ``R`` launches
     ``csrc/masked.cu``."""
     if R.device.type == 'cpu':
-        return phase_b_ref(R, M, w, w_eff, t_old, t_new)
+        return _into(out, phase_b_ref(R, M, w, w_eff, t_old, t_new))
     n, d = R.shape
+    if out is None:
+        out = (torch.empty(n, dtype=R.dtype, device=R.device),
+               torch.empty(n, dtype=R.dtype, device=R.device))
+    Rt, mt2 = out
     check_operands(R, {'R': (R, (n, d)), 'M': (M, (n, d)),
                        'w': (w, (n,)), 'w_eff': (w_eff, (n,)),
-                       't_old': (t_old, (d,)), 't_new': (t_new, (d,))})
-    Rt = torch.empty(n, dtype=R.dtype, device=R.device)
-    mt2 = torch.empty_like(Rt)
+                       't_old': (t_old, (d,)), 't_new': (t_new, (d,)),
+                       'Rt': (Rt, (n,)), 'mt2': (mt2, (n,))})
     launch('rri_masked_phase_b', R, R.data_ptr(), M.data_ptr(),
            w.data_ptr(), w_eff.data_ptr(), t_old.data_ptr(),
            t_new.data_ptr(), Rt.data_ptr(), mt2.data_ptr(), n, d)
     LAUNCHES['phase_b'] += 1
-    return Rt, mt2
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +207,12 @@ def make_masked_sweep(cfg):
             R = X - W @ T       # fresh residual each sweep bounds drift
         pend_dw = torch.zeros(n, dtype=dtype, device=X.device)
         pend_t = torch.zeros(d, dtype=dtype, device=X.device)
+        # the kernels' outputs, written anew by every topic (each topic
+        # reads them before the next launch, and keeps nothing of them)
+        a_out = (torch.empty(d, dtype=dtype, device=X.device),
+                 torch.empty(d, dtype=dtype, device=X.device))
+        b_out = (torch.empty(n, dtype=dtype, device=X.device),
+                 torch.empty(n, dtype=dtype, device=X.device))
 
         for t in range(k):
             w = cols[t]
@@ -178,11 +220,11 @@ def make_masked_sweep(cfg):
                 # W-phase only: B4 applies the previous topic's deferred
                 # update (w_eff = 0 leaves the T side alone)
                 Rt0, mt2 = phase_b(R, M, pend_dw, torch.zeros_like(w),
-                                   pend_t, rows[t])
+                                   pend_t, rows[t], out=b_out)
                 w_eff = w
             else:
                 # ---- T-phase: one pass (pending update + reductions)
-                wR0, nw = phase_a(R, M, pend_dw, pend_t, w)
+                wR0, nw = phase_a(R, M, pend_dw, pend_t, w, out=a_out)
                 wR = torch.addcmul(wR0, rows[t], nw)   # rank-one restore
                 t_new, nt1 = qf_min_vector_c(
                     cfg.reg_t_l1 - wR,
@@ -198,7 +240,8 @@ def make_masked_sweep(cfg):
                 rows[t] = t_new
                 # ---- W-phase: one pass (T update + reductions) with the
                 # stored row, so R tracks T exactly
-                Rt0, mt2 = phase_b(R, M, w, w_eff, t_old, t_new)
+                Rt0, mt2 = phase_b(R, M, w, w_eff, t_old, t_new,
+                                   out=b_out)
             Rt = torch.addcmul(Rt0, w_eff, mt2)         # rank-one restore
             w_new, _ = qf_min_vector_c(
                 cfg.reg_w_l1 - Rt, mt2 + cfg.reg_w_l2 if cfg.reg_w_l2

@@ -11,8 +11,11 @@ package.
   ``w_row_sum`` and negative L1 on a ragged shape.
 - A dead topic in a fixed-T sweep spends the same ``'random'`` reset
   budget as JAX (the values differ by generator).
+- B3's launch geometry (``phase_a_layout``), and a NumPy mirror of its
+  summation order (lanes, warps, cluster ranks) against the twin.
 - The wrappers' routing: a CPU tensor takes the twin and launches
-  nothing; any other non-CUDA tensor raises.
+  nothing (and writes into ``out=`` when given); any other non-CUDA
+  tensor raises.
 - On a CUDA machine, each kernel against its twin (marked ``cuda``,
   skipped without a card).
 
@@ -262,12 +265,88 @@ def test_supports_masked_kernels_gates():
             mk.make_masked_sweep(cfg)
 
 
-def test_phase_a_chunks():
-    # 32-row chunks; never more than the grid's 65535
-    assert mk.phase_a_chunks(6040) == 189
-    assert mk.phase_a_chunks(10) == 1
-    assert mk.phase_a_chunks(517) == 17
-    assert mk.phase_a_chunks(10 ** 7) == 65535
+@pytest.mark.parametrize('n,d,itemsize,want', [
+    # the RS shape: 31 stripes of 128 float32 columns, 8 ranks of 24 tiles
+    (6040, 3952, 4, (31, 8, 768)),
+    (6040, 3952, 8, (62, 5, 1216)),   # 64 float64 columns a stripe
+    (40, 300, 4, (3, 8, 32)),          # two tiles for eight ranks
+    (10 ** 6, 40000, 4, (313, 1, 10 ** 6)),
+])
+def test_phase_a_layout(n, d, itemsize, want):
+    stripes, cluster, ranges = mk.phase_a_layout(n, d, itemsize)
+    assert (stripes, cluster, ranges[0][1]) == want
+
+
+@pytest.mark.parametrize('n,d,itemsize', [
+    (6040, 3952, 4), (6040, 3952, 8), (517, 1030, 4), (40, 300, 4),
+    (5, 3, 8), (100, 257, 4), (2 ** 20, 1, 4), (33, 33000, 8)])
+def test_phase_a_layout_covers_every_row_once(n, d, itemsize):
+    """Stripes cover d; the cluster is 1-8 blocks; the ranks' ranges are
+    whole tiles, in order, and cover [0, n) once."""
+    stripes, cluster, ranges = mk.phase_a_layout(n, d, itemsize)
+    cols = 32 * 16 // itemsize
+    assert (stripes - 1) * cols < d <= stripes * cols
+    assert 1 <= cluster <= mk.B3_MAX_CLUSTER and len(ranges) == cluster
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    for (a, b), (c, _) in zip(ranges, ranges[1:]):
+        assert b == c
+    for a, b in ranges:
+        assert a <= b
+        assert a == n or a % mk.B3_TILE == 0
+        assert b == n or b % mk.B3_TILE == 0
+
+
+def _phase_a_mirror(R, M, dw, tp, w, ranges):
+    """NumPy mirror of B3's summation order (``csrc/masked.cu``): cluster
+    rank r sums the rows ``ranges[r]`` in tiles of B3_TILE, dealt to
+    B3_WARPS warps in turn; each warp adds its rows in order, the block
+    adds its warps in order and rank 0 adds the ranks in order. Every
+    column is summed alike (a lane only holds it), so the columns run
+    side by side. Updates ``R`` in place, as the kernel does."""
+    R += dw[:, None] * tp[None, :]
+    total = None
+    for a, b in ranges:
+        starts = list(range(a, b, mk.B3_TILE))
+        block = None
+        for warp in range(mk.B3_WARPS):
+            s_wr, s_nw = np.zeros(R.shape[1]), np.zeros(R.shape[1])
+            for i0 in starts[warp::mk.B3_WARPS]:
+                for i in range(i0, min(b, i0 + mk.B3_TILE)):
+                    s_wr = s_wr + w[i] * (M[i] * R[i])
+                    s_nw = s_nw + (w[i] * w[i]) * M[i]
+            block = (s_wr, s_nw) if block is None else (
+                block[0] + s_wr, block[1] + s_nw)
+        total = block if total is None else (total[0] + block[0],
+                                             total[1] + block[1])
+    return total
+
+
+def _mirror_against_twin(n, d, ranges, seed):
+    R, M, (dw, w, tp, _) = _kernel_inputs(n, d, seed)
+    Rm = R.copy()
+    got = _phase_a_mirror(Rm, M, dw, tp, w, ranges)
+    Rt, Mt, dwt, tpt, wt = _t(R, M, dw, tp, w)
+    want = mk.phase_a_ref(Rt, Mt, dwt, tpt, wt)
+    assert np.array_equal(Rm, Rt.numpy())
+    return [float(np.abs(g - h.numpy()).max() / np.abs(h.numpy()).max())
+            for g, h in zip(got, want)]
+
+
+@pytest.mark.parametrize('itemsize', [4, 8])
+@pytest.mark.parametrize('n,d', [(30, 20), (517, 130), (64, 1030),
+                                 (100, 257), (5, 3), (300, 700)])
+def test_phase_a_summation_order_matches_twin(n, d, itemsize):
+    ranges = mk.phase_a_layout(n, d, itemsize)[2]
+    assert max(_mirror_against_twin(n, d, ranges, seed=n + d)) <= 1e-12
+
+
+@pytest.mark.parametrize('fault', ['a row left out', 'a row twice'])
+def test_phase_a_mirror_fails_on_a_wrong_row_range(fault):
+    n, d = 300, 70
+    ranges = list(mk.phase_a_layout(n, d, 8)[2])
+    a, b = ranges[1]
+    ranges[1] = (a, b - 1) if fault == 'a row left out' else (a - 1, b)
+    assert max(_mirror_against_twin(n, d, ranges, seed=3)) > 1e-6
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +366,20 @@ def test_cpu_tensors_take_the_twin_and_launch_nothing():
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert torch.equal(R1, R2)
     assert mk.LAUNCHES == before
+
+
+def test_cpu_wrappers_write_into_out():
+    R, M, (dw, w, tp, tn) = _kernel_inputs(20, 30, seed=14)
+    R1, R2, Mt, dwt, wt, tpt, tnt = _t(R, R, M, dw, w, tp, tn)
+    out = (torch.empty(30, dtype=R1.dtype), torch.empty(30, dtype=R1.dtype))
+    got = mk.phase_a(R1, Mt, dwt, tpt, wt, out=out)
+    want = mk.phase_a_ref(R2, Mt, dwt, tpt, wt)
+    assert got is out and all(torch.equal(x, y) for x, y in zip(out, want))
+    out = (torch.empty(20, dtype=R1.dtype), torch.empty(20, dtype=R1.dtype))
+    got = mk.phase_b(R1, Mt, wt, dwt, tpt, tnt, out=out)
+    want = mk.phase_b_ref(R2, Mt, wt, dwt, tpt, tnt)
+    assert got is out and all(torch.equal(x, y) for x, y in zip(out, want))
+    assert torch.equal(R1, R2)
 
 
 def test_non_cuda_devices_raise_instead_of_falling_back():
@@ -318,8 +411,12 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-10),
                                        (torch.float32, 1e-4)])
-@pytest.mark.parametrize('n,d', [(517, 1030), (2000, 3000)])
+@pytest.mark.parametrize('n,d', [(517, 1030), (2000, 3000), (40, 300),
+                                 (700, 100), (300, 257), (5, 130)])
 def test_cuda_kernels_match_twins(cuda_device, dtype, tol, n, d):
+    """Each kernel against its twin, and bit for bit on a repeat launch:
+    B3 at ragged d (its scalar-load form in float32 at d % 4 != 0), d
+    below one stripe, and n below the cluster's row split."""
     R, M, vecs = _kernel_inputs(n, d, seed=13)
 
     def on(*arrays):
@@ -333,12 +430,15 @@ def test_cuda_kernels_match_twins(cuda_device, dtype, tol, n, d):
                                (w, dw, tp, tn)),
                               (mk.phase_b, mk.phase_b_ref,
                                (w, torch.zeros_like(w), tp, tn))):
-        Ra, Rb = R0.clone(), R0.clone()
+        Ra, Rc, Rb = R0.clone(), R0.clone(), R0.clone()
         got = kernel(Ra, Mt, *args)
+        again = kernel(Rc, Mt, *args)
         want = ref(Rb, Mt, *args)
         torch.cuda.synchronize()
         assert float((Ra - Rb).abs().max() / Rb.abs().max()) <= tol
         for g, h in zip(got, want):
             assert float((g - h).abs().max() / h.abs().max()) <= tol
-    assert mk.LAUNCHES['phase_a'] == before['phase_a'] + 1
-    assert mk.LAUNCHES['phase_b'] == before['phase_b'] + 2
+        assert torch.equal(Ra, Rc)
+        assert all(torch.equal(g, h) for g, h in zip(got, again))
+    assert mk.LAUNCHES['phase_a'] == before['phase_a'] + 2
+    assert mk.LAUNCHES['phase_b'] == before['phase_b'] + 4
