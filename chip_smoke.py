@@ -67,10 +67,33 @@ its users run, one line per phase:
 11. ``NMF_TM_Estimator`` with ``sparse='mxu'`` on the 20 Newsgroups
     train-split shape as a CUDA CSR tensor (the counts of phase 6, tf-idf
     and normalization kept sparse on the card): fit, a sparse transform
-    of 512 documents, and score.
+    of 512 documents, and score;
+12. ``nmf()`` with every default (the interleaved order with
+    ``'max_resid_document'`` resets, the plain sweep of ``ops/sweep.py``,
+    no kernel of this repo) at 16384×8192 k=128 float32: a non-increasing
+    objective, ms/sweep with and without it beside the byte floor of the
+    W side (X streamed once per topic), the speculative sweep run with
+    every synchronizing CUDA call an error, its kernels and device ms per
+    sweep (``torch.profiler``), and its time as one CUDA graph and as
+    separate launches (the same bits);
+13. the same fit from a warm start with a dead topic: the reset fires,
+    ``n_resets_remaining`` drops, the objective does not rise;
+14. ``use_pallas=False`` in phase order at the same shape (the plain
+    Gram-blocked sweep) beside the kernel sweep of phase 5, and the kernel
+    sweep with resets on (B1, one check a sweep): ms/sweep, and final
+    objectives within 1e-4;
+15. ``NMF_TM_Estimator`` with its default preset on the corpus of phase
+    6: a fit (ms/sweep beside the byte floor), then transform (B1 four
+    times a call, the W-phase with T fixed) and score of the 512 held-out
+    documents, T and transform rows on the simplex;
+16. card (float32) against CPU (float64) from one init, with the same
+    reset count and the same reset documents: the default ``nmf()`` at
+    2048×1024 k=32 with a dead topic, the TM default preset at 600×1500
+    k=10, a masked fit with ``'max_resid_document'`` at 600×400 k=8.
 
-Phases 5-6, phase 8 and phases 10-11 each drive a main path with the
-launch counts set to 0 just before and read just after. Then one JSON
+Phases 5-6, phase 8, phases 10-11 and phases 12-16 each drive a main
+path with the launch counts set to 0 just before and read just after (no
+kernel of this repo runs in phases 12-13; phases 14-15 run B1). Then one JSON
 line of the kernels (those launches, error against the twin, kernel and
 twin ms, the least time the card could take for the same work with what
 binds it, and the library call's ms where one computes the same
@@ -194,8 +217,20 @@ SPARSE_SWEEPS = 10
 # the sparse modes' final objectives (float32, 10 sweeps from one init):
 # B5 and B6 run one kernel on equal layouts, 'auto' the dense GEMMs, True
 # torch.sparse.mm; the trajectories differ by float32 rounding (~1e-6
-# relative); 1e-4 is stated.
+# relative); 1e-4 is stated. The same 1e-4 holds the plain Gram-blocked
+# phase sweep (use_pallas=False) against the kernel sweep (phase 14): the
+# same coordinate updates, summed in another order.
 TOL_MODES = 1e-4
+# sweeps of the interleaved nmf() (phases 12-13) and of the default-preset
+# TM fit (phase 15)
+INTERLEAVED_SWEEPS = 5
+TM_DEFAULT_SWEEPS = 10
+# (n, d, k) of the small card-vs-CPU default nmf() (phase 16), whose row
+# BUMP_ROW carries a large residual, so the reset's document is not a
+# float32 tie; (users, items, observations, k) of the masked one
+DEFAULT_SMALL = (2048, 1024, 32)
+BUMP_ROW = 777
+MASKED_SMALL = (600, 400, 24000, 8)
 
 
 def log(phase, **fields):
@@ -379,7 +414,23 @@ def check_dense_gates(dk, dev):
     wrong = {key: got for key, (got, exp) in want.items() if got != exp}
     if wrong:
         raise AssertionError('dense shared-memory gates: %s' % wrong)
-    log('dense gates', **{key: got for key, (got, _) in want.items()})
+    # a fit the kernels cover by design raises where the gate refuses it,
+    # with resets or without; use_pallas=False takes the plain sweep
+    from rri_nmf_tpu_torch.nmf import nmf
+    X = torch.rand(64, 48, dtype=torch.float64, device=dev)
+    for kw in (dict(reset_topic_method=None), {}):
+        try:
+            nmf(X, 4096, max_iter=1, update_order='phase', **kw)
+        except ValueError as e:
+            if 'do not fit' not in str(e):
+                raise
+        else:
+            raise AssertionError('a refused gate did not raise: %r' % kw)
+    r = nmf(X, 4096, max_iter=1, use_pallas=False, **FAST_TM)
+    if not bool(torch.isfinite(r['T']).all()):
+        raise AssertionError('use_pallas=False at k=4096: non-finite T')
+    log('dense gates', refused_gate_raises=True,
+        **{key: got for key, (got, _) in want.items()})
 
 
 def check_kernel(name, update, ref, cases, dev, timed):
@@ -1229,8 +1280,350 @@ def run_sparse_tm_phase(dev, dk, sk, Est, counts):
         transform_row_sum_err=w_dev, score_r2=r2)
 
 
+# --------------------------------------------------------------------------
+# the plain sweep: the defaults (phases 12-16)
+# --------------------------------------------------------------------------
+
+def stream_floor_ms(n, d, k, itemsize=4):
+    """The byte floor of an interleaved sweep's W side: X (n, d) read once
+    per topic, k times, at the card's memory rate."""
+    return k * n * d * itemsize / PEAK_BYTES_PER_S * 1e3
+
+
+def sync_free(fn, dev):
+    """``fn()`` with every synchronizing CUDA call an error (on a card)."""
+    if dev.type != 'cuda':
+        return fn()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def device_kernels(fn, dev):
+    """``(kernels, device ms, by_name)`` of one call of ``fn``
+    (torch.profiler): ``by_name`` maps each kernel name to its launches
+    and device ms in that call."""
+    from torch.profiler import ProfilerActivity, profile
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(dev)
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in ev:
+        c, ms = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, ms + e.device_time / 1e3)
+    return len(ev), sum(e.device_time for e in ev) / 1e3, by_name
+
+
+# kernel-name fragments of a sweep trace's shares (lower case)
+SHARES = (('gemv', ('gemv',)), ('gemm', ('gemm', 'cutlass', 'xmma')),
+          ('sort', ('sort',)), ('scan', ('scan',)))
+
+
+def trace_shares(fn, dev):
+    """Device time of one call of ``fn`` split by kernel name into
+    SHARES and the rest (``other``), with the ten costliest kernels."""
+    kernels, device_ms, by_name = device_kernels(fn, dev)
+    shares = {key: [0, 0.0] for key, _ in SHARES + (('other', ()),)}
+    for name, (c, ms) in by_name.items():
+        low = name.lower()
+        key = next((key for key, frags in SHARES
+                    if any(f in low for f in frags)), 'other')
+        shares[key][0] += c
+        shares[key][1] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return dict(kernels=kernels, device_ms=device_ms,
+                launches_and_ms_by_share={k: tuple(v)
+                                          for k, v in shares.items()},
+                top_kernels=[(name[:90], c, ms) for name, (c, ms) in top])
+
+
+def non_increasing(obj, what):
+    for a, b in zip(obj, obj[1:]):
+        if b > a + OBJ_SLACK_F32 * abs(a):
+            raise AssertionError('%s: objective rose: %r -> %r' % (what, a, b))
+    if not np.all(np.isfinite(obj)):
+        raise AssertionError('%s: non-finite objective %r' % (what, obj))
+
+
+class _ResetLog(_Messages):
+    """The documents the resets picked: the plain sweep's log lines."""
+
+    def __enter__(self):
+        self.logger = logging.getLogger('rri_nmf_tpu_torch.ops.sweep')
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level)
+
+    def documents(self):
+        return [m for m in self.messages if 'reset to document' in m]
+
+
+def _sweep_ms(res):
+    return float(np.median(np.diff([0.0] + list(res['iter_cputime']))[1:]
+                           )) * 1e3
+
+
+def run_interleaved_phase(dev, dk, nmf):
+    """Phases 12-14: the default ``nmf()`` and ``use_pallas=False`` at
+    NMF_SHAPE; none launches a kernel of this repo."""
+    from rri_nmf_tpu_torch.ops.sweep import (SweepConfig, make_draws,
+                                             make_sweep)
+    n, d, k = NMF_SHAPE
+    X = lowrank(n, d, k, dev, seed=0)
+    floor = stream_floor_ms(n, d, k)
+    b0 = dict(dk.LAUNCHES)
+    t0 = time.perf_counter()
+    res = nmf(X, k, max_iter=INTERLEAVED_SWEEPS, compute_obj_each_iter=True,
+              random_state=0)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    non_increasing(res['obj_history'], 'interleaved nmf()')
+    W, T = res['W'], res['T']
+    # sweep-only time: the same fit continued, no objective per sweep
+    res2 = nmf(X, k, max_iter=INTERLEAVED_SWEEPS, W_in=W, T_in=T,
+               random_state=0)
+    sync(dev)
+    if dk.LAUNCHES != b0:
+        raise AssertionError('the interleaved nmf() launched kernels: %r -> '
+                             '%r' % (b0, dk.LAUNCHES))
+    # the speculative sweep alone: no synchronizing call, its kernels, and
+    # its time as one CUDA graph and as separate launches
+    sw = make_sweep(SweepConfig(k=k))
+    draws = make_draws(0, dev)
+    (_, _, left), dead = sync_free(
+        lambda: sw.speculate(X, W, T, draws, 23), dev)
+    if dead is None or bool(dead) or left != 23:
+        raise AssertionError('speculative sweep: dead %r, budget %r'
+                             % (dead, left))
+    trace = trace_shares(lambda: sw.speculate(X, W, T, draws, 23), dev)
+
+    def launched():
+        out, dead = sw.speculate(X, W, T, draws, 23)
+        bool(dead)
+        return out
+    launch_ms = time_ms(launched, dev, runs=3)
+    Wl, Tl, _ = launched()
+    sw(X, W, T, draws, 23)        # launch by launch; the next call captures
+    graph_ms = time_ms(lambda: sw(X, W, T, draws, 23), dev, runs=3)
+    Wg, Tg, _ = sw(X, W, T, draws, 23)
+    sync(dev)
+    if not (torch.equal(Wg, Wl) and torch.equal(Tg, Tl)):
+        raise AssertionError('the CUDA graph and the launches differ')
+    log('nmf %dx%d k=%d float32, defaults (interleaved, resets)' % (n, d, k),
+        sweeps=len(res['obj_history']), obj_first=res['obj_history'][0],
+        obj_last=res['obj_history'][-1], wall_s=wall,
+        ms_per_sweep_with_objective=_sweep_ms(res),
+        ms_per_sweep=_sweep_ms(res2), byte_floor_ms=floor,
+        n_resets_remaining=res2['n_resets_remaining'],
+        speculative_sweep_sync_free=True, speculative_sweep_trace=trace,
+        graph_ms=graph_ms,
+        launches_ms=launch_ms, graph_equals_launches=True)
+
+    # 13. a dead topic: its reset fires on the first sweep
+    W0 = res2['W'].clone()
+    W0[:, 5] = 0.0
+    with _ResetLog() as resets:
+        res3 = nmf(X, k, max_iter=3, compute_obj_each_iter=True,
+                   random_state=0, W_in=W0, T_in=res2['T'])
+        sync(dev)
+    left = res3['n_resets_remaining']
+    docs = resets.documents()
+    if not (left < 23 and len(docs) == 23 - left
+            and docs[0].startswith('topic 5 ')):
+        raise AssertionError('forced reset: %r left, log %r' % (left, docs))
+    non_increasing(res3['obj_history'], 'nmf() with a reset')
+    # sweep 1 runs speculatively, then again with the reset; sweep 2
+    # captures the CUDA graph; sweep 3 replays it
+    log('nmf %dx%d k=%d float32, a dead topic' % (n, d, k),
+        n_resets_remaining=left, resets=docs,
+        obj=res3['obj_history'],
+        ms_each_sweep_with_objective=list(np.diff(
+            [0.0] + list(res3['iter_cputime'])) * 1e3))
+    del res, res2, res3, W, T, W0, sw
+
+    # 14. use_pallas=False in phase order: the plain Gram-blocked sweep;
+    # beside it the kernel sweep, without resets and with them (the
+    # kernels, then one check of the factors a sweep)
+    finals, ms = {}, {}
+    for label, kw in (('kernels', FAST_TM),
+                      ('plain', dict(FAST_TM, use_pallas=False)),
+                      ('kernels, resets on', dict(update_order='phase'))):
+        b0 = dict(dk.LAUNCHES)
+        r = nmf(X, k, max_iter=SWEEPS // 2, compute_obj_each_iter=True,
+                init='random', random_state=0, **kw)
+        sync(dev)
+        gs = dk.LAUNCHES['gs'] - b0['gs']
+        want = 0 if label == 'plain' else 2 * len(r['obj_history'])
+        if gs != want or r['n_resets_remaining'] != 23:
+            raise AssertionError('%s phase sweep: %d B1 launches, %d resets '
+                                 'left' % (label, gs,
+                                           r['n_resets_remaining']))
+        non_increasing(r['obj_history'], '%s phase sweep' % label)
+        finals[label] = r['obj_history'][-1]
+        r2 = nmf(X, k, max_iter=5, W_in=r['W'], T_in=r['T'], random_state=0,
+                 **kw)
+        sync(dev)
+        ms[label] = (_sweep_ms(r2), _sweep_ms(r))
+    lo, hi = min(finals.values()), max(finals.values())
+    if not (hi - lo) <= TOL_MODES * abs(lo):
+        raise AssertionError('use_pallas=False vs the kernels: %r' % finals)
+    log('nmf %dx%d k=%d float32, phase order, use_pallas=False' % (n, d, k),
+        ms_per_sweep={key: v[0] for key, v in ms.items()},
+        ms_per_sweep_with_objective={key: v[1] for key, v in ms.items()},
+        final_objectives=finals, rel_spread=(hi - lo) / abs(lo))
+
+
+def run_tm_default_phase(dev, dk, Est, counts):
+    """Phase 15: the TM estimator with its default preset."""
+    from rri_nmf_tpu_torch.matrixops import normalize, tfidf
+    n_train, _, _, k = TM_SHAPE
+    X = torch.as_tensor(counts, device=dev)
+    Xtr, idf = tfidf(X[:n_train], return_idf=True)
+    Xtr = normalize(Xtr)
+    Xte = normalize(X[n_train:] * idf)
+    del X
+    n, d = Xtr.shape
+    b0 = dict(dk.LAUNCHES)
+    t0 = time.perf_counter()
+    est = Est(n, d, k, random_state=0, max_iter=TM_DEFAULT_SWEEPS,
+              nmf_kwargs=dict(compute_obj_each_iter=True)).fit(Xtr)
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    if dk.LAUNCHES != b0:
+        raise AssertionError('the default TM fit launched kernels')
+    out = est.nmf_outputs
+    if not np.all(np.isfinite(out['obj_history'])):
+        raise AssertionError('non-finite TM objective')
+    t_dev = check_simplex(est.T, 1.0, 'T rows')
+    # sweep-only time: the same fit continued, no objective per sweep
+    est2 = Est(n, d, k, random_state=0, max_iter=5, W=est.W, T=est.T).fit(Xtr)
+    sync(dev)
+    transforms = []
+    for _ in range(2):
+        b1 = dict(dk.LAUNCHES)
+        Wn = est.transform(Xte)
+        sync(dev)
+        transforms.append(dk.LAUNCHES['gs'] - b1['gs'])
+    if transforms != [4, 4] or dk.LAUNCHES['tm_proj'] != b0['tm_proj']:
+        raise AssertionError('transform: B1 launches %r (want 4 a call)'
+                             % transforms)
+    w_dev = check_simplex(Wn, 1.0, 'transform rows')
+    transform_ms = time_ms(lambda: est.transform(Xte), dev, runs=3)
+    # the fit's speculative sweep, traced: its device time by kernel
+    from rri_nmf_tpu_torch.ops.sweep import (SweepConfig, make_draws,
+                                             make_sweep)
+    sw = make_sweep(SweepConfig(k=k, project_T_each_iter=True, t_row_sum=1.0,
+                                w_row_sum=1.0))
+    draws = make_draws(0, dev)
+    trace = trace_shares(
+        lambda: sw.speculate(Xtr, est.W, est.T, draws, 23), dev)
+    r2 = est.score(Xte)
+    if not np.isfinite(r2):
+        raise AssertionError('non-finite score %r' % r2)
+    log('NMF_TM_Estimator %dx%d k=%d float32, default preset' % (n, d, k),
+        sweeps=len(out['iter_cputime']), fit_s=fit_s,
+        obj_first=out['obj_history'][0], obj_last=out['obj_history'][-1],
+        n_resets_remaining=out['n_resets_remaining'],
+        ms_per_sweep_with_objective=_sweep_ms(out),
+        ms_per_sweep=_sweep_ms(est2.nmf_outputs),
+        byte_floor_ms=stream_floor_ms(n, d, k),
+        speculative_sweep_trace=trace, T_row_sum_err=t_dev,
+        transform_rows=list(Wn.shape), transform_b1_launches=transforms,
+        transform_ms=transform_ms, transform_row_sum_err=w_dev, score_r2=r2)
+
+
+def _card_vs_cpu(label, fit, dev):
+    """``fit(device)`` on the card (float32) and on the CPU (float64): the
+    final objectives within TOL_CPU_GPU_OBJ, the same budget left and the
+    same reset documents."""
+    runs = {}
+    for where in (dev, torch.device('cpu')):
+        with _ResetLog() as resets:
+            out = fit(where)
+            sync(dev)
+        runs[where.type] = (out['obj_history'], out['n_resets_remaining'],
+                            resets.documents())
+    (o_gpu, l_gpu, d_gpu), (o_cpu, l_cpu, d_cpu) = runs[dev.type], runs['cpu']
+    diff = abs(o_gpu[-1] - o_cpu[-1]) / abs(o_cpu[-1])
+    if not (len(o_gpu) == len(o_cpu) and diff <= TOL_CPU_GPU_OBJ
+            and l_gpu == l_cpu and d_gpu == d_cpu):
+        raise AssertionError('%s card vs CPU: objective %r vs %r, budget %r '
+                             'vs %r, resets %r vs %r' % (
+                                 label, o_gpu[-1], o_cpu[-1], l_gpu, l_cpu,
+                                 d_gpu, d_cpu))
+    log('%s card float32 vs cpu float64' % label, sweeps=len(o_gpu),
+        obj_card=o_gpu[-1], obj_cpu=o_cpu[-1], rel_diff=diff,
+        n_resets_remaining=l_gpu, resets=d_gpu)
+
+
+def run_default_small_phase(dev, nmf, Est):
+    """Phase 16: the defaults on the card against the CPU, small."""
+    from rri_nmf_tpu_torch.matrixops import normalize, tfidf
+    cpu = torch.device('cpu')
+    n, d, k = DEFAULT_SMALL
+    X = lowrank(n, d, k, cpu, seed=4).double()
+    X[BUMP_ROW] += 3.0
+    rng = np.random.RandomState(5)
+    W0, T0 = rng.rand(n, k), rng.rand(k, d)
+    W0[:, 3] = 0.0
+
+    def default_fit(where):
+        dt = torch.float32 if where.type == 'cuda' else torch.float64
+        return nmf(X.to(where, dt), k, max_iter=SWEEPS,
+                   compute_obj_each_iter=True, random_state=3,
+                   W_in=torch.as_tensor(W0, device=where, dtype=dt),
+                   T_in=torch.as_tensor(T0, device=where, dtype=dt))
+    _card_vs_cpu('nmf %dx%d k=%d defaults, a dead topic' % (n, d, k),
+                 default_fit, dev)
+
+    docs, words, kt = TM_SMALL
+    small = normalize(tfidf(torch.as_tensor(zipf_corpus(docs, words, kt,
+                                                        seed=1),
+                                            dtype=torch.float64)))
+
+    def tm_fit(where):
+        Xw = small.to(where, torch.float32 if where.type == 'cuda'
+                      else torch.float64)
+        est = Est(docs, words, kt, random_state=0, max_iter=SWEEPS,
+                  nmf_kwargs=dict(init='random',
+                                  compute_obj_each_iter=True)).fit(Xw)
+        return est.nmf_outputs
+    _card_vs_cpu('NMF_TM_Estimator %dx%d k=%d default preset' % TM_SMALL,
+                 tm_fit, dev)
+
+    nu, ni, q, km = MASKED_SMALL
+    R = synth_ratings(nu, ni, q, 4, seed=2)
+    R[BUMP_ROW % nu] = np.where(R[BUMP_ROW % nu] > 0, 5.0, 0.0)
+    M = (R != 0).astype(float)
+    rng = np.random.RandomState(6)
+    Wm0, Tm0 = rng.rand(nu, km), rng.rand(km, ni)
+    Wm0[:, 2] = 0.0
+
+    def masked_fit(where):
+        dt = torch.float32 if where.type == 'cuda' else torch.float64
+
+        def t(a):
+            return torch.as_tensor(a, device=where, dtype=dt)
+        return nmf(t(R), km, W_mat=t(M), max_iter=SWEEPS,
+                   compute_obj_each_iter=True, t_row_sum=1.0,
+                   random_state=0, W_in=t(Wm0), T_in=t(Tm0))
+    _card_vs_cpu('masked nmf %dx%d k=%d max_resid_document' % (nu, ni, km),
+                 masked_fit, dev)
+
+
 def run(dev):
-    """Phases 3-11 on ``dev``; returns the kernels' JSON entries."""
+    """Phases 3-16 on ``dev``; returns the kernels' JSON entries."""
     from rri_nmf_tpu_torch.metrics import frobenius_relative_error
     from rri_nmf_tpu_torch.nmf import nmf
     from rri_nmf_tpu_torch.ops import dense_kernels as dk
@@ -1327,6 +1720,21 @@ def run(dev):
     if sparse['mxu'] == 0 or sparse['dma'] == 0 or dk.LAUNCHES['gs'] == 0:
         raise AssertionError('a kernel of the path never ran: %r %r'
                              % (sparse, dk.LAUNCHES))
+
+    # 12-16. the defaults through the plain sweep, counted from zero: B1
+    # runs in phase 14's kernel sweeps and the default-preset transform
+    dk.reset_launches()
+    run_interleaved_phase(dev, dk, nmf)
+    sync(dev)
+    run_tm_default_phase(dev, dk, NMF_TM_Estimator, counts)
+    sync(dev)
+    run_default_small_phase(dev, nmf, NMF_TM_Estimator)
+    sync(dev)
+    if dk.LAUNCHES['gs'] == 0:
+        raise AssertionError('B1 never ran on the default paths: %r'
+                             % dk.LAUNCHES)
+    for key in ('gs', 'tm_proj'):
+        launches[key] += dk.LAUNCHES[key]
     # no single PyTorch call computes B1-B4 (sequential topic chains with
     # clamps, a simplex projection, fused in-place rank-one updates)
     return [dict(B1, launches=launches['gs'], max_abs_err=err1, ms=ms1,

@@ -9,8 +9,9 @@ so a reader finds each counterpart:
 - :mod:`rri_nmf_tpu_torch.optimization`   — qf_min subproblem + stopping rules
 - :mod:`rri_nmf_tpu_torch.initialization` — NNDSVD family, random inits,
   ``masked_svd_init``
-- :mod:`rri_nmf_tpu_torch.nmf`            — the ``nmf()`` entry point (dense
-  or sparse X in phase order; masked WRRI with a dense ``W_mat``)
+- :mod:`rri_nmf_tpu_torch.nmf`            — the ``nmf()`` entry point (its
+  defaults; dense or sparse X in phase order; masked WRRI with a dense
+  ``W_mat``)
 - :mod:`rri_nmf_tpu_torch.sklearn_interface` — ``NMF_TM_Estimator``,
   ``NMF_RS_Estimator``
 - :mod:`rri_nmf_tpu_torch.ops`            — the sweeps and their kernels

@@ -1,11 +1,11 @@
-"""The ``nmf()`` entry point: the dense and sparse phase-order slices and
-the masked slice.
+"""The ``nmf()`` entry point.
 
-Counterpart of :mod:`rri_nmf_tpu.nmf`, with the same signature so one
-kwargs dict drives both packages. Three paths run:
+Counterpart of :mod:`rri_nmf_tpu.nmf`, with the same signature and
+defaults so one kwargs dict drives both packages. The sweep is routed as
+the JAX ``nmf()`` routes it (``rri_nmf_tpu/nmf.py:1489-1596``):
 
-- the production "fast-TM recipe" (``update_order='phase'``,
-  ``reset_topic_method=None``) on a dense X through
+- the phase order without resets, gradient stores or DP noise (the
+  "fast-TM recipe") on a dense X through
   :func:`rri_nmf_tpu_torch.ops.dense_kernels.make_dense_phase_sweep`
   (torch GEMMs plus kernels B1 and B2);
 - the same recipe on a sparse X (scipy, or a torch COO/CSR tensor),
@@ -13,19 +13,32 @@ kwargs dict drives both packages. Three paths run:
   :func:`rri_nmf_tpu_torch.ops.sweep_sparse.make_sparse_sweep`: the
   two numerator products by ``torch.sparse.mm`` (``sparse=True``), kernel
   B5 (``'mxu'``) or kernel B6 (``'dma'``), around B1 and B2;
-- masked WRRI with a dense ``W_mat`` (the recommender path) through
+- the phase order with resets (a fixed-T call such as the TM estimator's
+  transform included) through
+  :class:`rri_nmf_tpu_torch.ops.dense_kernels.DenseResetSweep`: the
+  kernel sweep, checked once after the sweep, and the plain
+  Gram-blocked sweep only when a topic died with budget left;
+- masked WRRI with a dense ``W_mat`` and no resets (or ``fix_T`` with
+  ``'random'``) through
   :func:`rri_nmf_tpu_torch.ops.masked_kernels.make_masked_sweep`
-  (kernels B3 and B4), in the interleaved order.
+  (kernels B3 and B4), in the interleaved order;
+- everything else — the defaults (the interleaved order with
+  ``'max_resid_document'`` resets), ``use_pallas=False``, masked fits
+  with resets or ``fix_W``, DP noise and gradient stores — through the
+  plain sweep :func:`rri_nmf_tpu_torch.ops.sweep.make_sweep`.
 
 Around them: initialization, objective tracking and the
-relative-progress stop, early-stop rollback, ``max_time``, diagnostics,
-``debug_checks``, the final W projection and the result dict.
+relative-progress stop, early-stop rollback, ``max_time``, grouped
+dispatch, diagnostics, ``debug_checks``, the final W projection and the
+result dict.
 
-Every option outside the slice raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+Every option outside the port so far raises ``NotImplementedError``
+naming the ROADMAP item that brings it.
 """
 
+import dataclasses
 import logging
+import math
 import numbers
 import time
 
@@ -37,12 +50,15 @@ from rri_nmf_tpu_torch.matrixops import (as_tensor, default_float,
                                          fit_device, is_sparse, normalize,
                                          proj_mat_to_simplex, to_torch_sparse)
 from rri_nmf_tpu_torch.optimization import universal_stopping_condition
-from rri_nmf_tpu_torch.ops.dense_kernels import (make_dense_phase_sweep,
+from rri_nmf_tpu_torch.ops.dense_kernels import (DenseResetSweep,
+                                                 make_dense_phase_sweep,
                                                  supports_dense_kernels)
-from rri_nmf_tpu_torch.ops.masked_kernels import make_masked_sweep
+from rri_nmf_tpu_torch.ops.masked_kernels import (make_masked_sweep,
+                                                  supports_masked_kernels)
 from rri_nmf_tpu_torch.ops.sparse_plan import (plan_sparse_matrix,
                                                plan_sparse_matrix_dma)
-from rri_nmf_tpu_torch.ops.sweep import SweepConfig, make_objective
+from rri_nmf_tpu_torch.ops.sweep import (SweepConfig, make_draws,
+                                         make_objective, make_sweep)
 from rri_nmf_tpu_torch.ops.sweep_sparse import (TorchSparseX,
                                                 make_sparse_objective,
                                                 make_sparse_sweep)
@@ -151,24 +167,20 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
       for host data; a tensor keeps its float dtype; ``dtype`` overrides.
       ``W_in``/``T_in`` and ``w_row_sum`` vectors may be numpy arrays or
       tensors.
-    - **What it covers.** Unmasked: ``update_order='phase'`` with
-      ``reset_topic_method=None``: each sweep updates all T rows, then all
-      W columns, every update an exact coordinate minimization. A fixed-T
-      call (``fix_T=True``, the TM estimator's transform) takes the phase
-      order itself, as in the JAX ``nmf()``. Masked, with a dense
-      ``W_mat`` (a numpy array or tensor of X's shape): the interleaved
-      order, whichever ``update_order`` is asked for (the JAX rule);
-      ``reset_topic_method=None``, or ``'random'`` with ``fix_T`` (the RS
-      estimator's transform); W initialized on ``W_mat * X``. Not ported
-      yet, each raising ``NotImplementedError``: the unmasked interleaved
-      order and topic resets (the JAX defaults — ROADMAP A.2), the XLA
-      masked sweep (``use_pallas=False`` or ``fix_W`` with ``W_mat`` —
-      A.2), a scipy-sparse ``W_mat`` (A.11), ``w_row`` (A.4),
-      ``x_dtype`` and 16-bit factors (A.8), ``mesh`` (A.12, sparse fits
-      on a mesh included), ``checkpoint`` and ``accel`` (A.9),
-      ``store_gradients``, ``eps_gauss_t``/``delta_gauss_t`` and
-      ``sweeps_per_dispatch > 1`` (A.2), ``init='nndsvd_lrc'`` and
-      ``'coherence_pmi'`` (A.3).
+    - **What it covers.** Every ``update_order`` and
+      ``reset_topic_method`` (the defaults included), ``fix_W``/``fix_T``,
+      the regularizers and projections, ``inner_reps``, a dense ``W_mat``
+      (a numpy array or tensor of X's shape; the interleaved order,
+      whichever order is asked for, the JAX rule; W initialized on
+      ``W_mat * X``), ``store_gradients`` with ``ind_rows_to_store``
+      (``'numer_W'``/``'denom_W'`` hold tensors), DP noise
+      (``eps_gauss_t``/``delta_gauss_t``) and ``sweeps_per_dispatch``. A
+      fixed-T call takes the phase order itself, as in the JAX ``nmf()``.
+      Not ported yet, each raising ``NotImplementedError``: a
+      scipy-sparse ``W_mat`` (A.11), ``w_row`` (A.4), ``x_dtype`` and
+      16-bit factors (A.8), ``mesh`` (A.12, sparse fits on a mesh
+      included), ``checkpoint`` and ``accel`` (A.9), ``init='nndsvd_lrc'``
+      and ``'coherence_pmi'`` (A.3).
     - **Sparse X** (scipy, or a torch sparse tensor) with the phase
       recipe is never densified: ``sparse=True`` runs the two numerator
       products with ``torch.sparse.mm``, ``'mxu'`` with kernel B5 and
@@ -183,12 +195,20 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     - **use_pallas** keeps its name and means the hand-written kernels
       (:mod:`rri_nmf_tpu_torch.ops.dense_kernels`,
       :mod:`rri_nmf_tpu_torch.ops.masked_kernels`): ``None``, ``True`` and
-      ``'interpret'`` all take them — on a CUDA X the CUDA kernels, on a
-      CPU X their plain PyTorch twins. ``False`` (the plain sweep) waits
-      for ROADMAP A.2.
-    - **Resets** draw from a ``torch.Generator`` on the fit's device
-      seeded with ``random_state``: the same budget is spent as in the
-      JAX package, with other random values.
+      ``'interpret'`` all take them where they cover the config — on a
+      CUDA X the CUDA kernels, on a CPU X their plain PyTorch twins.
+      Where B1's or B2's gate refuses a config they cover (phase order,
+      no DP noise, no gradient stores; a sparse fit whatever
+      ``use_pallas``), the fit raises ``ValueError``. ``False`` takes the
+      plain sweep (in phase order its Gram-blocked form).
+    - **Resets** are decided without a host sync per topic: a sweep runs
+      as if none fired and its factors are checked once after it; only
+      when a topic died with budget left does the sweep run again,
+      resetting as JAX does (:mod:`rri_nmf_tpu_torch.ops.sweep`).
+      ``'max_resid_document'`` picks the same document as JAX. The
+      ``'random'`` reset and the DP noise draw from a ``torch.Generator``
+      on the fit's device seeded with ``random_state``: the same budget
+      is spent as in the JAX package, with other random values.
     - **Initialization** of the NNDSVD family runs its randomized SVD
       with sklearn on the host for a CPU X (the reference's goldens) and
       with ``torch.linalg`` on the card for a CUDA X.
@@ -201,8 +221,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     Returns the dict of the JAX ``nmf()``, with ``'W'`` (n, k) and ``'T'`` (k, d)
     as tensors on the fit's device; ``'obj_history'`` and
     ``'obj_calculator'`` with ``compute_obj_each_iter``, ``'diagnostics'``
-    when given, ``'iter_cputime'``, ``'random_state'`` and
-    ``'n_resets_remaining'``.
+    when given, ``'numer_W'``/``'denom_W'`` with ``store_gradients``,
+    ``'iter_cputime'``, ``'random_state'`` and ``'n_resets_remaining'``.
     """
     rtv = {}
     if not (isinstance(k, numbers.Integral)
@@ -256,26 +276,10 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         sparse_mode = (_viable and update_order == 'phase'
                        and reset_topic_method is None and x_dtype is None)
 
-    # ---- options outside this slice --------------------------------------
-    if masked:
-        if hasattr(W_mat, 'tocoo'):
-            _not_yet('a scipy-sparse W_mat (the sparse-mask WRRI sweeps)',
-                     'A.11')
-        if use_pallas is False or fix_W:
-            _not_yet('the XLA masked sweep (use_pallas=False or fix_W with '
-                     'W_mat)', 'A.2')
-        if reset_topic_method is not None and not (
-                fix_T and reset_topic_method == 'random'):
-            _not_yet("topic resets on a masked fit (reset_topic_method=%r; "
-                     "pass None, or 'random' with fix_T)"
-                     % (reset_topic_method,), 'A.2')
-    else:
-        if update_order != 'phase':
-            _not_yet("update_order='interleaved' (the nmf() default; pass "
-                     "update_order='phase')", 'A.2')
-        if reset_topic_method is not None:
-            _not_yet('topic resets (reset_topic_method=%r; pass None)'
-                     % (reset_topic_method,), 'A.2')
+    # ---- options not ported yet -----------------------------------------
+    if masked and hasattr(W_mat, 'tocoo'):
+        _not_yet('a scipy-sparse W_mat (the sparse-mask WRRI sweeps)',
+                 'A.11')
     if w_row is not None:
         _not_yet('w_row (row weights and the W refit)', 'A.4')
     if x_dtype is not None:
@@ -287,14 +291,6 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         _not_yet('checkpoint', 'A.9')
     if accel is not None or accel_opts:
         _not_yet("accel='her'", 'A.9')
-    if store_gradients:
-        _not_yet('store_gradients', 'A.2')
-    if eps_gauss_t is not None or delta_gauss_t is not None:
-        _not_yet('eps_gauss_t/delta_gauss_t (DP noise)', 'A.2')
-    if int(sweeps_per_dispatch) > 1:
-        _not_yet('sweeps_per_dispatch > 1', 'A.2')
-    if use_pallas is False:
-        _not_yet('use_pallas=False (the plain make_sweep)', 'A.2')
 
     # ---- X on its device, in the working dtype ---------------------------
     # callbacks receive a sparse X as the user passed it
@@ -428,14 +424,24 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         t_row_sum=t_row_sum, fix_W=fix_W, fix_T=fix_T, n=n, d=d,
         device=device, dtype=dtype)
 
+    # ---- differential privacy noise scale (reference nmf.py:422-435) -----
+    dp_sigma = None
+    if eps_gauss_t and delta_gauss_t:
+        c2 = 2 * math.log(1.25 / float(delta_gauss_t)) + 0.001
+        df2 = 1000.0  # upper bound on the l2 sensitivity (nmf.py:428)
+        dp_sigma = math.sqrt(c2 * df2 ** 2 * (1.0 / float(eps_gauss_t)) ** 2)
+
     inner_reps = int(inner_reps)
     if inner_reps < 1:
         raise ValueError('inner_reps must be >= 1')
-    if inner_reps > 1 and masked:
+    if inner_reps > 1 and (update_order != 'phase' or masked
+                           or reset_topic_method is not None
+                           or store_gradients or dp_sigma is not None):
         raise ValueError(
-            'inner_reps > 1 requires no dense W_mat: the extra Gauss-Seidel '
-            'passes reuse the per-phase numerators, which the masked sweep '
-            'does not have')
+            "inner_reps > 1 requires update_order='phase', no dense W_mat, "
+            'reset_topic_method=None, no store_gradients, no DP noise (the '
+            'extra Gauss-Seidel passes reuse the per-phase numerators, '
+            'which those features invalidate)')
     cfg = SweepConfig(
         k=k, fix_W=fix_W, fix_T=fix_T, masked=masked,
         project_T_each_iter=project_T_each_iter,
@@ -446,27 +452,67 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         reg_w_l2=float(reg_w_l2), reg_t_l2=float(reg_t_l2),
         reg_w_l1=float(reg_w_l1), reg_t_l1=float(reg_t_l1),
         reset_topic_method=reset_topic_method,
-        fix_reset_seed=bool(fix_reset_seed), update_order=update_order,
-        matmul_precision=matmul_precision, inner_reps=inner_reps)
+        fix_reset_seed=bool(fix_reset_seed), dp_sigma=dp_sigma,
+        store_gradients=bool(store_gradients),
+        store_rows=(tuple(int(i) for i in ind_rows_to_store)
+                    if (store_gradients and ind_rows_to_store is not None)
+                    else None),
+        update_order=update_order, matmul_precision=matmul_precision,
+        inner_reps=inner_reps)
     wrs = w_row_sum if w_row_sum_is_vector else None
+    extras = [x for x in (Wm, wrs) if x is not None]
+    draws = make_draws(random_state, device)
     resets_left = int(n_resets)
-    if masked:
-        masked_sweep = make_masked_sweep(cfg)
-        gen = torch.Generator(device=device).manual_seed(int(random_state))
+    stored = ()
+    # the kernel sweeps where they cover the config (use_pallas keeps its
+    # JAX meaning), else the plain sweep, as the JAX nmf() routes. A
+    # config the kernels cover by design runs them on the card or raises:
+    # it never falls back to the plain sweep there
+    kernel_cfg = dataclasses.replace(cfg, reset_topic_method=None)
+    kernel_shaped = (sparse_mode or use_pallas is not False) and not masked \
+        and update_order == 'phase' and not store_gradients \
+        and dp_sigma is None
+    dense_ok = kernel_shaped and supports_dense_kernels(kernel_cfg, d, dtype,
+                                                        device)
+    if kernel_shaped and not dense_ok:
+        raise ValueError(
+            'the CUDA kernels do not fit this problem (k=%d, d=%d, %s): see '
+            'dense_kernels.gs_fits / tm_proj_fits; use_pallas=False takes '
+            'the plain sweep' % (k, d, dtype))
+    if use_pallas is True and not sparse_mode and not dense_ok and not (
+            masked and supports_masked_kernels(cfg)):
+        logger.warning('use_pallas requested but config unsupported by the '
+                       'kernels; falling back to the plain sweep.')
+    if sparse_mode:
+        sparse_sweep = make_sparse_sweep(cfg, backend)
 
-        def sweep_fn(X, W, T, wrs):
+        def sweep_fn(X, W, T):
+            return sparse_sweep(X, W, T, wrs)
+    elif (masked and use_pallas is not False and supports_masked_kernels(cfg)
+          and reset_topic_method != 'max_resid_document'):
+        # B3/B4. A fixed-T fit with 'max_resid_document' takes the plain
+        # masked sweep, where the JAX package takes its Pallas sweep: the
+        # same math (ROADMAP §C)
+        masked_sweep = make_masked_sweep(cfg)
+
+        def sweep_fn(X, W, T):
             nonlocal resets_left
-            W, T, resets_left = masked_sweep(X, W, T, Wm, gen, resets_left,
+            W, T, resets_left = masked_sweep(X, W, T, Wm, draws, resets_left,
                                              wrs)
             return W, T
+    elif dense_ok and reset_topic_method is None:
+        dense_sweep = make_dense_phase_sweep(cfg)
+
+        def sweep_fn(X, W, T):
+            return dense_sweep(X, W, T, wrs)
     else:
-        if device.type == 'cuda' and not supports_dense_kernels(
-                cfg, d, dtype, device):
-            raise ValueError(
-                'the CUDA kernels do not fit this problem (k=%d, d=%d, %s): '
-                'see dense_kernels.gs_fits / tm_proj_fits' % (k, d, dtype))
-        sweep_fn = (make_sparse_sweep(cfg, backend) if sparse_mode
-                    else make_dense_phase_sweep(cfg))
+        plain = DenseResetSweep(cfg) if dense_ok else make_sweep(cfg)
+
+        def sweep_fn(X, W, T):
+            nonlocal resets_left, stored
+            W, T, resets_left, *stored = plain(X, W, T, draws, resets_left,
+                                               *extras)
+            return W, T
 
     # ---- early stopping state (reference nmf.py:360-363) ------------------
     _es_active = bool(early_stop) and (callable(early_stop)
@@ -503,6 +549,18 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     X_cb = X_user if X_is_sparse else X
     for func in diagnostics:
         rtv['diagnostics'][func.__name__].append(func(X_cb, W, T))
+    if store_gradients:
+        rtv['numer_W'] = {}
+        rtv['denom_W'] = {}
+
+    # grouped sweeps (the JAX nmf()'s sweeps_per_dispatch,
+    # rri_nmf_tpu/nmf.py:1843-1916): with no per-sweep host work asked
+    # for, the loop syncs, stamps the clock and checks max_time only at
+    # the end of each group of sweeps
+    group = int(sweeps_per_dispatch)
+    if (group < 1 or _es_active or compute_obj_each_iter or diagnostics
+            or store_gradients or debug_checks):
+        group = 1
 
     # ---- outer iteration loop (reference nmf.py:377-514) ------------------
     for iter_no in range(max_iter):
@@ -537,7 +595,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                                'iter %d sweep' % iter_no, log=logger)
             _md.__enter__()
 
-        W, T = sweep_fn(X_dev, W, T, wrs)
+        W, T = sweep_fn(X_dev, W, T)
+        if (iter_no + 1) % group and iter_no + 1 < max_iter:
+            continue                        # inside a group of sweeps
+        if store_gradients:
+            rtv['numer_W'][iter_no], rtv['denom_W'][iter_no] = stored
 
         if _md is not None:
             OBJ.W, OBJ.T = W, T
@@ -555,7 +617,9 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             logger.info('\tObj: %3.3e', obj_history[-1])
         else:
             _sync(device)   # keep the host clock honest
-        iter_cputime.append(time.perf_counter())
+        # one stamp for each sweep of the group just ended
+        iter_cputime.extend([time.perf_counter()]
+                            * (iter_no + 1 - len(iter_cputime)))
 
         for func in diagnostics:
             dval = func(X_cb, W, T)

@@ -1,9 +1,12 @@
 """The sweeps and their kernels (counterpart of :mod:`rri_nmf_tpu.ops`).
 
 - :mod:`rri_nmf_tpu_torch.ops.sweep` — ``SweepConfig``, dtype rules, the
-  full objective (plain or masked), the ``'random'`` topic reset;
-- :mod:`rri_nmf_tpu_torch.ops.dense_kernels` — the dense phase sweep, the
-  wrappers of kernels B1 and B2 and their plain twins;
+  full objective (plain or masked), the topic resets and the plain sweep
+  (``make_sweep``: the interleaved order, the Gram-blocked phase form,
+  DP noise, gradient stores);
+- :mod:`rri_nmf_tpu_torch.ops.dense_kernels` — the dense phase sweep
+  (with resets: ``DenseResetSweep``), the wrappers of kernels B1 and B2
+  and their plain twins;
 - :mod:`rri_nmf_tpu_torch.ops.masked_kernels` — the masked WRRI sweep,
   the wrappers of kernels B3 and B4 and their plain twins;
 - :mod:`rri_nmf_tpu_torch.ops.sweep_sparse` — the sparse-X phase sweep

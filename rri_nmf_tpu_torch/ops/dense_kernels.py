@@ -35,12 +35,14 @@ edge. The VMEM gates become each kernel's own shared-memory gate
 (:func:`gs_fits`, :func:`tm_proj_fits`).
 """
 
+import dataclasses
+
 import torch
 
 from rri_nmf_tpu_torch.matrixops import EPS_DIV_BY_ZERO, _proj_simplex_core
 from rri_nmf_tpu_torch.ops._build import (CTYPES, check_operands,
                                           device_fits, launch, load)
-from rri_nmf_tpu_torch.ops.sweep import precision_scope
+from rri_nmf_tpu_torch.ops.sweep import ALIVE, Sweep, precision_scope
 
 # Kernel launches per wrapper since the last reset_launches(). A wrapper
 # adds one right after its kernel launched, and nowhere else.
@@ -281,3 +283,52 @@ def make_dense_phase_sweep(cfg, wtx=_dense_wtx, xtt=_dense_xtt):
         return W, T
 
     return sweep
+
+
+class DenseResetSweep(Sweep):
+    """The phase-order sweep with topic resets, through the kernels: the
+    plain :class:`~rri_nmf_tpu_torch.ops.sweep.Sweep` interface, whose
+    :meth:`speculate` is the kernel sweep (B1, and B2 for a projected
+    T-phase) with no reset check, and whose :meth:`eager` is the plain
+    sweep's Gram-blocked form.
+
+    With no reset firing, the kernels compute what the Gram-blocked form
+    does: a T row or W column is final once its topic is done in its
+    phase, so its reset check can be made after the phase. After the
+    sweep, one read asks whether a T row or W column came out dead while
+    budget was left; only then does the sweep run again, from its
+    inputs, through :meth:`eager`. B2 re-projects every drifted row, dead
+    or not, where the no-reset branch leaves a dead row as it is, so
+    under B2 any dead T row sends the sweep to :meth:`eager` (a row
+    projected onto the simplex is never dead, so this does not happen in
+    practice)."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        base = dataclasses.replace(cfg, reset_topic_method=None,
+                                   project_W_each_iter=False)
+        if cfg.reset_topic_method is None or not _supports_base(base):
+            raise ValueError('config not supported by the dense kernels '
+                             'with resets')
+        self.kernels = make_dense_phase_sweep(base)
+        # a few launches a sweep, each counted by its wrapper: no graph,
+        # whose replays would launch the kernels uncounted
+        self.graphable = False
+
+    def speculate(self, X, W, T, draws, resets_left, *extras):
+        cfg = self.cfg
+        wrs = extras[0].reshape(-1) if cfg.w_row_sum_is_vector else None
+        W, T = self.kernels(X, W, T, wrs)
+        dead = []
+        if not cfg.fix_T and (resets_left > 0 or _tm_proj_active(cfg)):
+            dead.append(~(T.sum(1) > ALIVE))
+        if not cfg.fix_W and resets_left > 0:
+            dead.append(~(W.sum(0) > ALIVE))
+        # per-iteration W row projection (reference nmf.py:481-484), after
+        # the checks, as in the plain sweep
+        if (cfg.project_W_each_iter and not cfg.fix_W
+                and (cfg.w_row_sum is not None or cfg.w_row_sum_is_vector)):
+            W = _proj_simplex_core(W, wrs.to(W.dtype) if wrs is not None
+                                   else float(cfg.w_row_sum))
+        return (W, T, int(resets_left)), (torch.cat(dead).any() if dead
+                                          else None)

@@ -177,16 +177,17 @@ def phase_b(R, M, w, w_eff, t_old, t_new, out=None):
 # ---------------------------------------------------------------------------
 
 def make_masked_sweep(cfg):
-    """Build ``sweep(X, W, T, M, gen, resets_left, w_row_sum_vec=None)
+    """Build ``sweep(X, W, T, M, draws, resets_left, w_row_sum_vec=None)
     -> (W, T, resets_left)``: one masked WRRI sweep in the reference's
     interleaved topic order (T row, then W column, per topic), for a
     config :func:`supports_masked_kernels` accepts. The counterpart of
     :func:`rri_nmf_tpu.ops.sweep_pallas.make_masked_sweep_pallas`.
 
     ``X``, ``M`` (n, d), ``W`` (n, k) and ``T`` (k, d) are tensors of one
-    dtype on one device; the inputs are not modified. ``gen`` is the
-    ``torch.Generator`` of the ``'random'`` resets of a fixed-T sweep and
-    ``resets_left`` (an int) their remaining budget. ``w_row_sum_vec``
+    dtype on one device; the inputs are not modified. ``draws``
+    (:class:`rri_nmf_tpu_torch.ops.sweep.GeneratorDraws`) gives the
+    random numbers of the resets of a fixed-T sweep and ``resets_left``
+    (an int) their remaining budget. ``w_row_sum_vec``
     (n,) is the per-row W bound when ``cfg.w_row_sum_is_vector``."""
     if not supports_masked_kernels(cfg):
         raise ValueError('config not supported by the masked kernels')
@@ -194,7 +195,7 @@ def make_masked_sweep(cfg):
     reset_fn = (make_reset_rowcol(cfg)
                 if cfg.reset_topic_method is not None else None)
 
-    def sweep(X, W, T, M, gen, resets_left, w_row_sum_vec=None):
+    def sweep(X, W, T, M, draws, resets_left, w_row_sum_vec=None):
         n, d = X.shape
         dtype = W.dtype
         ub_w = (w_row_sum_vec.reshape(-1).to(dtype)
@@ -255,7 +256,8 @@ def make_masked_sweep(cfg):
                     and not bool(w_new.sum() > 1e-10)):
                 # a dead column (fixed-T sweeps only): reset it, rebuild R
                 # and drop the deferred update, as the JAX sweep does
-                rows[t], cols[t] = reset_fn(X, rows[t], t, gen)
+                rows[t], cols[t] = reset_fn(X, torch.stack(cols, 1),
+                                            torch.stack(rows), t, draws)
                 resets_left -= 1
                 with precision_scope(cfg.matmul_precision):
                     R = X - torch.stack(cols, 1) @ torch.stack(rows)

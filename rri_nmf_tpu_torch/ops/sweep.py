@@ -1,20 +1,53 @@
-"""Sweep configuration, dtype resolution and the full objective.
+"""The plain sweep: the interleaved order, topic resets, DP noise and the
+Gram-blocked phase form.
 
-Counterpart of the parts of :mod:`rri_nmf_tpu.ops.sweep_xla` that the
-ported sweeps need: :class:`SweepConfig` (copied field for field, without
-JAX), :func:`resolve_mixed_dtypes`, :func:`make_objective` (plain or
-masked, with the row-blocked option) and :func:`make_reset_rowcol` (the
-``'random'`` reset). The XLA sweep itself (``make_sweep``: interleaved
-order, ``'max_resid_document'`` resets, DP noise) is not ported yet; the
-sweeps live in :mod:`rri_nmf_tpu_torch.ops.dense_kernels` (phase order)
-and :mod:`rri_nmf_tpu_torch.ops.masked_kernels` (masked WRRI).
+Counterpart of :mod:`rri_nmf_tpu.ops.sweep_xla`: :class:`SweepConfig`
+(copied field for field, without JAX), :func:`resolve_mixed_dtypes`,
+:func:`make_objective` (plain or masked, with the row-blocked option),
+:func:`make_reset_rowcol` (``'max_resid_document'``, blockwise or
+whole, and ``'random'``) and :func:`make_sweep`, the sweep the JAX
+package runs when no fused kernel covers a config: the reference's
+interleaved order (the ``nmf()`` default), unmasked or masked, the
+Gram-blocked phase form (``use_pallas=False``, and the fixed-T transform
+when a reset fires), gradient stores and DP noise. The kernel sweeps live
+in :mod:`rri_nmf_tpu_torch.ops.dense_kernels` (phase order) and
+:mod:`rri_nmf_tpu_torch.ops.masked_kernels` (masked WRRI).
+
+**Resets without a host sync per topic.** JAX decides each reset on the
+device (``lax.cond``). Here a sweep first runs *speculatively*: no reset
+fires, and a dead topic is left as the no-reset branch leaves it. One
+read after the sweep asks whether any topic came out dead while budget
+was left (:func:`_dead_topics`). If none did, the speculative result is
+the sweep's result. If one did, the sweep runs again from its inputs
+(which it never writes) with each check read on the host, resetting as
+JAX does; resets are rare. A topic that dies with no budget left changes
+nothing, so with no budget nothing is checked. On the card the
+speculative sweep is one CUDA graph.
+
+Random numbers (the ``'random'`` reset, the DP noise) come from a
+``draws`` object (:class:`GeneratorDraws`: a ``torch.Generator``); the
+tests pass one that draws what ``jax.random`` draws, so a reset that
+fires is held against JAX value for value.
 """
 
 import contextlib
 import dataclasses
+import logging
 from typing import Any, Optional, Tuple
 
 import torch
+
+from rri_nmf_tpu_torch.matrixops import (_proj_simplex_core,
+                                         reproject_row_if_drifted)
+from rri_nmf_tpu_torch.optimization import (qf_min_scalar_c,
+                                            qf_min_scalar_free,
+                                            qf_min_vector_c)
+
+logger = logging.getLogger(__name__)
+
+# a topic is alive while its row (column) sums above this (reference
+# nmf.py:757,790)
+ALIVE = 1e-10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,34 +186,530 @@ def make_objective(masked=False, row_weighted=False, reg_w_l2=0.0,
     return objective
 
 
+# ---------------------------------------------------------------------------
+# random numbers and topic resets
+# ---------------------------------------------------------------------------
+
+class GeneratorDraws(object):
+    """The random numbers of a fit, from the ``torch.Generator`` ``gen``
+    on the fit's device: uniform draws for the ``'random'`` reset and
+    normal draws for the DP noise. torch draws other numbers than
+    ``jax.random`` from the same seed (ROADMAP §C check 2); a test passes
+    an object with the same four methods that draws JAX's."""
+
+    def __init__(self, gen):
+        self.gen = gen
+
+    def reset(self, t, t_row, n, d, seeded):
+        """Uniform ``(row (d,), column (n,))`` for resetting topic ``t``,
+        whose T row is ``t_row``. ``seeded`` draws instead from a fresh
+        generator seeded with ``initial_seed + t + argmax(t_row)``, the
+        analog of the reference's ``np.random.seed(t + argmax(T[t]))``:
+        the same on every run."""
+        gen = self.gen
+        if seeded:
+            gen = torch.Generator(device=t_row.device).manual_seed(
+                self.gen.initial_seed() + t + int(torch.argmax(t_row)))
+        kw = dict(generator=gen, dtype=t_row.dtype, device=t_row.device)
+        return torch.rand(d, **kw), torch.rand(n, **kw)
+
+    def normal(self, like, shape):
+        """Standard normal draws shaped as ``like`` and as ``shape``."""
+        kw = dict(generator=self.gen, dtype=like.dtype, device=like.device)
+        return torch.randn(like.shape, **kw), torch.randn(shape, **kw)
+
+    def get_state(self):
+        return self.gen.get_state()
+
+    def set_state(self, state):
+        self.gen.set_state(state)
+
+
+def make_draws(random_state, device):
+    """The draws of a fit seeded with ``random_state`` on ``device``."""
+    return GeneratorDraws(torch.Generator(device=device).manual_seed(
+        int(random_state)))
+
+
 def make_reset_rowcol(cfg):
-    """Topic-reset builder: ``reset(X, t_row, t, gen) -> (t_row, w_col)``,
-    the new T row (d,) and W column (n,) for the dead topic ``t`` whose
-    current T row is ``t_row`` under ``cfg.reset_topic_method``
-    (reference ``nmf.py:770-783, 804-816``).
+    """The topic reset for ``cfg``: ``reset(X, W, T, t, draws) ->
+    (t_row, w_col)``, the new T row (d,) and W column (n,) for the dead
+    topic ``t``
+    (reference ``nmf.py:770-783, 804-816``; :func:`rri_nmf_tpu.ops.
+    sweep_xla.make_reset_rowcol` without its mesh form, which waits for
+    ROADMAP A.12).
 
-    Only ``'random'`` is ported: a uniform row normalized to sum 1 and a
-    uniform column, drawn from the ``torch.Generator`` ``gen`` on the fit's
-    device. With ``cfg.fix_reset_seed`` the draw comes instead from a
-    fresh generator seeded with ``gen.initial_seed() + t + argmax(t_row)``,
-    the analog of the reference's ``np.random.seed(t + argmax(T[t]))``:
-    the same on every run. torch draws other numbers than ``jax.random``
-    from the same seed (ROADMAP §C.2), so values differ from the JAX
-    package while the reset budget is spent alike."""
+    - ``'max_resid_document'``: the document whose positive residual
+      ``max(X[i] - W[i]·T, 0)`` has the largest squared norm becomes the
+      row, and the column is one-hot on it. With ``cfg.reset_blockwise``
+      the norms are taken over blocks of 4096 rows (the last block
+      clamped to end at n), keeping the first maximum (strict ``>``, as
+      ``argmax``), without an (n, d) temporary; else from the whole
+      residual. The same document as JAX.
+    - ``'random'``: a uniform row normalized to sum 1 and a uniform
+      column, from ``draws.reset`` (seeded per topic with
+      ``cfg.fix_reset_seed``)."""
     method = cfg.reset_topic_method
-    if method != 'random':
-        raise NotImplementedError(
-            'reset_topic_method=%r is not ported to rri_nmf_tpu_torch yet; '
-            'it arrives with ROADMAP A.2' % (method,))
+    if method not in ('max_resid_document', 'random'):
+        raise ValueError('unknown reset_topic_method %r' % (method,))
 
-    def reset(X, t_row, t, gen):
+    def max_resid(X, W, T):
         n, d = X.shape
-        dtype, device = t_row.dtype, t_row.device
-        if cfg.fix_reset_seed:
-            gen = torch.Generator(device=device).manual_seed(
-                gen.initial_seed() + t + int(torch.argmax(t_row)))
-        row = torch.rand(d, generator=gen, dtype=dtype, device=device)
-        col = torch.rand(n, generator=gen, dtype=dtype, device=device)
-        return row / row.sum(), col
+        if not cfg.reset_blockwise:
+            R = (X - W @ T).clamp_min(0.0)
+            return int(torch.argmax((R * R).sum(1)))
+        B = min(n, 4096)
+        best_val, best = float('-inf'), 0
+        for i in range(-(-n // B)):
+            start = min(i * B, n - B)
+            R = (X[start:start + B] - W[start:start + B] @ T).clamp_min(0.0)
+            rts = (R * R).sum(1)
+            j = int(torch.argmax(rts))
+            v = float(rts[j])
+            if v > best_val:
+                best_val, best = v, start + j
+        return best
+
+    def reset(X, W, T, t, draws):
+        n, d = X.shape
+        if method == 'random':
+            row, col = draws.reset(t, T[t], n, d, cfg.fix_reset_seed)
+            return row / row.sum(), col
+        mi = max_resid(X, W, T)
+        logger.info('topic %d reset to document %d', t, mi)
+        row = (X[mi] - W[mi] @ T).clamp_min(0.0).to(T.dtype)
+        col = torch.zeros(n, dtype=W.dtype, device=W.device)
+        col[mi] = 1.0
+        return row, col
 
     return reset
+
+
+class _Resets(object):
+    """A sweep's reset decisions. ``eager``: each check is read on the
+    host, and a dead topic resets while ``budget`` is left. Otherwise
+    (the speculative sweep) no reset fires and no check is made: the
+    factors are checked once after the sweep (:func:`_dead_topics`)."""
+
+    def __init__(self, budget, eager):
+        self.budget = int(budget)
+        self.eager = eager
+
+    def __call__(self, alive):
+        """Whether to reset a topic; ``alive()`` gives its 0-d aliveness
+        (asked only in an eager sweep with budget left)."""
+        if not self.eager or self.budget <= 0 or bool(alive()):
+            return False
+        self.budget -= 1
+        return True
+
+
+def _dead_topics(Wt, T, do_t, do_w):
+    """A 0-d tensor: whether a reset check of the sweep just run found a
+    dead topic. A T row is final once its topic's T-phase is done, a W
+    column once its W-phase is, and neither changes after its check when
+    no reset fires (a re-projected row sums to ``t_row_sum``), so the
+    checks can all be made on the sweep's result: the T rows if the
+    T-phase ran, the W columns (rows of ``Wt``, before the W row
+    projection) if the W-phase did; None if neither phase ran."""
+    dead = []
+    if do_t:
+        dead.append(~(T.sum(1) > ALIVE))
+    if do_w:
+        dead.append(~(Wt.sum(1) > ALIVE))
+    return torch.cat(dead).any() if dead else None
+
+
+def _gram_block_size(k):
+    """Topic-block size of the Gram-blocked phase sweep: the largest
+    divisor of k that is <= 16 (``sweep_xla._gram_block_size``)."""
+    for b in range(min(16, k), 0, -1):
+        if k % b == 0:
+            return b
+    return 1
+
+
+# ---------------------------------------------------------------------------
+# the sweep
+# ---------------------------------------------------------------------------
+
+class Sweep(object):
+    """One sweep over all k topics for a static config (the counterpart
+    of :func:`rri_nmf_tpu.ops.sweep_xla.make_sweep`)::
+
+        sweep(X, W, T, draws, resets_left, *extras)
+            -> (W, T, resets_left [, numer_store, denom_store])
+
+    ``extras`` is ``(W_mat,)`` if ``cfg.masked`` and then
+    ``(w_row_sum_vec,)`` if ``cfg.w_row_sum_is_vector``. ``resets_left``
+    (an int) is the fit's remaining reset budget. ``X``, the extras, ``W``
+    (n, k) and ``T`` (k, d) are tensors of one dtype on one device and
+    are not modified. Which body runs:
+
+    - phase order, unmasked, no gradient stores, no DP noise: the
+      Gram-blocked phase form (topics in blocks of
+      :func:`_gram_block_size`; a reset patches the Gram and the block's
+      cache);
+    - phase order otherwise: the per-topic body, T rows then W columns,
+      the W-phase contractions as one ``X @ Tᵀ``;
+    - else the interleaved per-topic body: T row, then W column, per
+      topic; unmasked, the T side takes one ``WᵀX`` for the sweep and the
+      W side a GEMV ``X @ T[t]`` per topic; masked, the residual
+      ``R = M ⊙ (X − WT)`` is carried with rank-2 and rank-1 updates.
+
+    :meth:`speculate` runs the sweep as if no reset fired (no host
+    sync); calling the sweep reads its checks once and runs :meth:`eager`
+    only when a topic died with budget left. On the card the speculative
+    sweep replays as one CUDA graph (:meth:`replay`)."""
+
+    def __init__(self, cfg):
+        method = cfg.reset_topic_method
+        if cfg.inner_reps > 1 and (
+                cfg.update_order != 'phase' or cfg.masked
+                or method is not None or cfg.store_gradients
+                or cfg.dp_sigma is not None):
+            raise ValueError(
+                "inner_reps > 1 requires update_order='phase', unmasked, "
+                'reset_topic_method=None, no store_gradients, no DP noise')
+        self.cfg = cfg
+        self.reset_rowcol = (make_reset_rowcol(cfg) if method is not None
+                             else None)
+        self.random = method == 'random' or cfg.dp_sigma is not None
+        # a speculative sweep that draws nothing and copies nothing to the
+        # device replays as one CUDA graph
+        self.graphable = cfg.dp_sigma is None and not cfg.store_gradients
+        self._graph = self._seen = None
+
+    def __call__(self, X, W, T, draws, resets_left, *extras):
+        state = draws.get_state() if self.random else None
+        if X.is_cuda and self.graphable:
+            out, dead = self.replay(X, W, T, draws, resets_left, *extras)
+        else:
+            out, dead = self.speculate(X, W, T, draws, resets_left, *extras)
+        if dead is None or not bool(dead):
+            return out
+        if self.random:
+            draws.set_state(state)
+        return self.eager(X, W, T, draws, resets_left, *extras)
+
+    def replay(self, X, W, T, draws, resets_left, *extras):
+        """:meth:`speculate` as one CUDA graph: its thousands of small
+        launches cost one host call. The first sweep on a set of operands
+        runs launch by launch, which also warms up what a capture needs
+        (so a fit of one sweep captures nothing); the second captures the
+        graph, which it and every later sweep replay from static copies
+        of W and T, the results copied out of the graph's memory."""
+        key = (X.data_ptr(), tuple(X.shape), tuple(W.shape), W.dtype,
+               resets_left > 0, tuple(e.data_ptr() for e in extras))
+        if self._graph is None or self._graph[0] != key:
+            self._graph = None
+            if self._seen != key:
+                self._seen = key
+                return self.speculate(X, W, T, draws, resets_left, *extras)
+            W_in = W.clone(memory_format=torch.contiguous_format)
+            T_in = T.clone(memory_format=torch.contiguous_format)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out, dead = self.speculate(X, W_in, T_in, draws,
+                                           resets_left, *extras)
+            self._graph = (key, graph, W_in, T_in, out[0], out[1], dead)
+        _, graph, W_in, T_in, W_out, T_out, dead = self._graph
+        W_in.copy_(W)
+        T_in.copy_(T)
+        graph.replay()
+        return (W_out.clone(), T_out.clone(), int(resets_left)), dead
+
+    def speculate(self, X, W, T, draws, resets_left, *extras):
+        """The sweep with no reset firing, and nothing read on the host:
+        ``(out, dead)``, ``dead`` a 0-d tensor (whether a topic died while
+        budget was left) or None when no check was made."""
+        return self._body(X, W, T, draws, _Resets(resets_left, eager=False),
+                          extras)
+
+    def eager(self, X, W, T, draws, resets_left, *extras):
+        """The sweep with each reset check read on the host."""
+        return self._body(X, W, T, draws, _Resets(resets_left, eager=True),
+                          extras)[0]
+
+    def _body(self, X, W, T, draws, resets, extras):
+        cfg = self.cfg
+        with precision_scope(cfg.matmul_precision):
+            W, T, dead, stores = _sweep_body(cfg, self.reset_rowcol, X, W, T,
+                                             draws, resets, extras)
+        return (W, T, resets.budget) + stores, dead
+
+
+def make_sweep(cfg):
+    """The :class:`Sweep` for ``cfg``."""
+    return Sweep(cfg)
+
+
+def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
+    """One sweep (see :class:`Sweep`): ``(W, T, dead, stores)``; ``dead``
+    is :func:`_dead_topics` for a speculative sweep with budget left,
+    else None, and ``stores`` is empty or ``(numer_store,
+    denom_store)``."""
+    k = cfg.k
+    method = cfg.reset_topic_method
+    proj_t = bool(cfg.t_row_sum and cfg.project_T_each_iter)
+    i = 0
+    W_mat = wrs = None
+    if cfg.masked:
+        W_mat = extras[i]
+        i += 1
+    if cfg.w_row_sum_is_vector:
+        wrs = extras[i].reshape(-1)
+    ub_w = wrs if cfg.w_row_sum_is_vector else cfg.w_row_sum
+    qf = qf_min_vector_c if cfg.masked else qf_min_scalar_c
+    l1t, l2t, l1w, l2w = (cfg.reg_t_l1, cfg.reg_t_l2, cfg.reg_w_l1,
+                          cfg.reg_w_l2)
+    n, d = X.shape
+    dev = X.device
+    # the factors are copied, never written: row t of Wt is W[:, t]
+    Wt = W.T.clone(memory_format=torch.contiguous_format)
+    T = T.clone(memory_format=torch.contiguous_format)
+    dtype = Wt.dtype
+
+    R = WX = Wcoln = zeros_n = zeros_d = None
+    if not cfg.masked:
+        # the concave branch's zeros (qf_min_scalar_free)
+        zeros_n = torch.zeros(n, dtype=dtype, device=dev)
+        zeros_d = torch.zeros(d, dtype=dtype, device=dev)
+    if cfg.masked:
+        # the masked residual carry, fresh every sweep
+        R = W_mat * (X - Wt.T @ T)
+    elif not cfg.fix_T:
+        # one GEMM for the sweep: column t of W is untouched until its own
+        # topic, so row t of WᵀX is still current there
+        WX = Wt @ X                                        # (k, d)
+        Wcoln = (Wt * Wt).sum(1)                           # (k,)
+
+    stores = ()
+    if cfg.store_gradients:
+        numer_store = torch.zeros(k, d, dtype=dtype, device=dev)
+        denom_store = torch.zeros(k, d if cfg.masked else 1, dtype=dtype,
+                                  device=dev)
+        stores = (numer_store, denom_store)
+        rows = None
+        if cfg.store_rows is not None:
+            rows = torch.as_tensor(list(cfg.store_rows), dtype=torch.long,
+                                   device=dev)
+            X_rows = X[rows]
+            M_rows = W_mat[rows] if cfg.masked else None
+
+    def fire(t):
+        """Reset topic t; the masked residual is rebuilt after it."""
+        nonlocal R
+        row, col = reset_rowcol(X, Wt.T, T, t, draws)
+        Wt[t] = col
+        T[t] = row
+        if cfg.masked:
+            R = W_mat * (X - Wt.T @ T)
+
+    def check_t(t):
+        """Reference ``nmf.py:750-783``: an alive row drifted off the
+        simplex is re-projected (unmasked: the masked body re-projects
+        before its residual update); a dead one resets or stays as it is.
+        Returns whether a reset fired."""
+        if method is not None and resets(lambda: T[t].sum() > ALIVE):
+            fire(t)
+            return True
+        if proj_t and not cfg.masked:
+            T[t] = reproject_row_if_drifted(
+                T[t], cfg.t_row_sum,
+                extra_pred=T[t].sum() > ALIVE if method is not None else None)
+        return False
+
+    def check_w(t):
+        """Reference ``nmf.py:786-816``."""
+        if method is None or not resets(lambda: Wt[t].sum() > ALIVE):
+            return False
+        fire(t)
+        return True
+
+    def store(t, w, wR, nw):
+        if rows is None:
+            numer_store[t] = wR
+            denom_store[t] = nw
+            return
+        ws = w[rows]
+        if cfg.masked:
+            Rt_rows = R[rows] + M_rows * torch.outer(ws, T[t])
+            wR_s = ws @ Rt_rows
+            nw_s = (ws * ws) @ M_rows
+        else:
+            wWs = Wt[:, rows] @ ws
+            wWs[t].zero_()
+            wR_s = ws @ X_rows - wWs @ T
+            nw_s = (ws * ws).sum()
+        numer_store[t] = wR_s
+        denom_store[t] = nw_s
+
+    def topic(t, do_t, do_w, XTt=None):
+        """One Gauss-Seidel topic step, restricted to the requested
+        phase(s) (``sweep_xla.make_sweep``'s ``topic_body``). ``XTt``
+        (k, n) supplies the W-phase contraction when the T rows are final
+        for the sweep (phase order)."""
+        nonlocal R
+        if do_t:
+            if cfg.masked:
+                w = Wt[t].clone()
+                nw = (w * w) @ W_mat                               # (d,)
+                wR = w @ R + T[t] * nw
+            else:
+                w = Wt[t]
+                wW = Wt @ w                                        # (k,)
+                wW[t].zero_()
+                wR = torch.addmv(WX[t], T.T, wW, alpha=-1.0)
+                nw = Wcoln[t]
+            if cfg.store_gradients:
+                store(t, w, wR, nw)
+            if cfg.dp_sigma is not None:
+                # Gaussian-mechanism noise (reference nmf.py:422-435)
+                z1, z2 = draws.normal(wR, nw.shape)
+                wR = wR + cfg.dp_sigma * z1
+                nw = (nw + cfg.dp_sigma * z2).clamp_min(0.0)
+            numer = wR - l1t if l1t else wR
+            denom = nw + l2t if l2t else nw
+            if cfg.masked or cfg.t_update_s is not None:
+                t_new, nt1 = qf(-numer, denom, s=cfg.t_update_s,
+                                ub=cfg.t_row_sum)
+            else:
+                t_new, nt1 = qf_min_scalar_free(numer, denom, cfg.t_row_sum,
+                                                zeros_d)
+            t_old = T[t].clone() if cfg.masked else None
+            w_eff = w
+            if cfg.scale_transfer:
+                # diagonal scale-invariance transfer (nmf.py:450-452)
+                Wt[t] *= nt1
+                if cfg.masked:
+                    w_eff = w * nt1
+            if cfg.masked and proj_t:
+                # the drift re-projection hoisted before the rank-2
+                # residual update, so R tracks T exactly
+                t_new = reproject_row_if_drifted(
+                    t_new, cfg.t_row_sum,
+                    extra_pred=(t_new.sum() > ALIVE
+                                if method is not None else None))
+            T[t] = t_new
+            if cfg.masked:
+                # R += M ⊙ (w t_oldᵀ − w_eff t_newᵀ) as one (n,2)×(2,d)
+                U2 = torch.stack([w, -w_eff], 1)
+                V2 = torch.stack([t_old, T[t]], 0)
+                R = R + W_mat * (U2 @ V2)
+            check_t(t)
+        if do_w:
+            trow = T[t]
+            if cfg.masked:
+                w_old = Wt[t].clone()
+                mt2 = W_mat @ (trow * trow)                        # (n,)
+                Rt = R @ trow + w_old * mt2
+                nt = mt2
+            else:
+                Xt = XTt[t] if XTt is not None else X @ trow       # (n,)
+                Tt = T @ trow
+                Tt[t].zero_()
+                Rt = torch.addmv(Xt, Wt.T, Tt, alpha=-1.0)
+                nt = torch.dot(trow, trow)
+            numer = Rt - l1w if l1w else Rt
+            denom = nt + l2w if l2w else nt
+            if cfg.masked:
+                w_new = qf(-numer, denom, s=None, ub=ub_w)[0]
+            else:
+                w_new = qf_min_scalar_free(numer, denom, ub_w, zeros_n,
+                                           norm=False)
+            Wt[t] = w_new
+            if cfg.masked:
+                R = R + W_mat * torch.outer(w_old - w_new, trow)
+            check_w(t)
+
+    def t_phase_blocked():
+        """All T rows, Gauss-Seidel, in topic blocks of B: one (B, k)×(k, d)
+        GEMM against the block-start T, then per topic a correction by
+        the (B, d) in-block delta (``sweep_xla``'s ``t_phase_blocked``)."""
+        B = _gram_block_size(k)
+        G = Wt @ Wt.T                                          # (k, k)
+        for bi in range(cfg.inner_reps * (k // B)):
+            bs = (bi % (k // B)) * B
+            C = G[bs:bs + B] @ T                               # (B, d)
+            T0 = T[bs:bs + B].clone()
+            D = torch.zeros(B, d, dtype=dtype, device=dev)
+            for i in range(B):
+                t = bs + i
+                g = G[t, bs:bs + B]
+                wR = WX[t] - (C[i] + g @ D - g[i] * T0[i])
+                numer = wR - l1t if l1t else wR
+                if cfg.t_update_s is None:
+                    T[t] = qf_min_scalar_free(numer, g[i] + l2t, cfg.t_row_sum,
+                                              zeros_d, norm=False)
+                else:
+                    T[t] = qf_min_scalar_c(-numer, g[i] + l2t,
+                                           s=cfg.t_update_s,
+                                           ub=cfg.t_row_sum)[0]
+                if check_t(t):
+                    # the reset rewrote W[:, t]: patch G's row and column
+                    # and the block cache
+                    g_new = Wt @ Wt[t]
+                    C += torch.outer(g_new[bs:bs + B] - G[bs:bs + B, t],
+                                     T0[i])
+                    G[:, t] = g_new
+                    G[t, :] = g_new
+                D[i] = T[t] - T0[i]
+
+    def w_phase_blocked():
+        """All W columns the same way (``sweep_xla``'s
+        ``w_phase_blocked``), on Wᵀ's rows."""
+        B = _gram_block_size(k)
+        G = T @ T.T                                            # (k, k)
+        XTt = T @ X.T                                          # (k, n)
+        for bi in range(cfg.inner_reps * (k // B)):
+            bs = (bi % (k // B)) * B
+            C = G[:, bs:bs + B].T @ Wt                         # (B, n)
+            W0 = Wt[bs:bs + B].clone()
+            D = torch.zeros(B, n, dtype=dtype, device=dev)
+            for i in range(B):
+                t = bs + i
+                g = G[bs:bs + B, t]
+                Rt = XTt[t] - (C[i] + g @ D - W0[i] * g[i])
+                numer = Rt - l1w if l1w else Rt
+                Wt[t] = qf_min_scalar_free(numer, g[i] + l2w, ub_w, zeros_n,
+                                           norm=False)
+                if check_w(t):
+                    # the reset rewrote T[t]
+                    g_new = T @ T[t]
+                    C += torch.outer(g_new[bs:bs + B] - G[bs:bs + B, t],
+                                     W0[i])
+                    G[:, t] = g_new
+                    G[t, :] = g_new
+                D[i] = Wt[t] - W0[i]
+
+    phase = cfg.update_order == 'phase' and not cfg.masked
+    if phase and not cfg.store_gradients and cfg.dp_sigma is None:
+        if not cfg.fix_T:
+            t_phase_blocked()
+        if not cfg.fix_W:
+            w_phase_blocked()
+    elif phase:
+        # gradient stores / DP noise: the per-topic body, the W-phase
+        # contractions still one GEMM
+        if not cfg.fix_T:
+            for t in range(k):
+                topic(t, True, False)
+        if not cfg.fix_W:
+            XTt = T @ X.T
+            for t in range(k):
+                topic(t, False, True, XTt)
+    else:
+        for t in range(k):
+            topic(t, not cfg.fix_T, not cfg.fix_W)
+
+    dead = None
+    if method is not None and not resets.eager and resets.budget > 0:
+        dead = _dead_topics(Wt, T, not cfg.fix_T, not cfg.fix_W)
+    W = Wt.T.contiguous()
+    # per-iteration W row projection (reference nmf.py:481-484)
+    if (cfg.project_W_each_iter and not cfg.fix_W
+            and (cfg.w_row_sum is not None or cfg.w_row_sum_is_vector)):
+        W = _proj_simplex_core(W, wrs if cfg.w_row_sum_is_vector
+                               else float(cfg.w_row_sum))
+    return W, T, dead, stores

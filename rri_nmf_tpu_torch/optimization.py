@@ -46,6 +46,28 @@ def _ub_eff(s, ub, like):
     return ub.clamp_max(s) if s else ub
 
 
+def qf_min_scalar_free(numer, c, ub, zeros=None, norm=True):
+    """``qf_min_scalar_c(-numer, c, None, ub)``: the scalar-curvature
+    subproblem without a sum constraint, taking the negated linear term
+    ``numer`` (what the sweeps compute) and ``c`` a 0-d tensor.
+
+    ``[numer]₊ / (c + eps)`` where ``c > 0``; else ``ub`` (inf when None)
+    on the coordinates where ``numer > c`` (that is ``w + c < 0``), 0
+    elsewhere. The per-topic sweeps call it twice a topic, so it makes
+    few launches: ``zeros`` (a zero vector shaped as ``numer``) may be
+    passed in, and ``norm=False`` skips the norm. Returns ``(x, nx)``, or
+    ``x`` without ``norm``."""
+    pos = c > 0
+    x_pos = numer.clamp_min(0.0).div_(c + EPS_DIV_BY_ZERO)
+    if zeros is None:
+        zeros = torch.zeros_like(numer)
+    x = torch.where(pos, x_pos, torch.where(
+        numer > c, float('inf') if ub is None else ub, zeros))
+    if not norm:
+        return x
+    return x, torch.where(pos, x_pos.sum(), 1.0)
+
+
 def qf_min_scalar_c(w, c, s, ub):
     """qf_min for a scalar curvature ``c`` (a number or 0-d tensor).
 
@@ -53,22 +75,18 @@ def qf_min_scalar_c(w, c, s, ub):
     vector. Returns ``(x, nx)`` with the reference's norm contract."""
     c = torch.as_tensor(c, dtype=w.dtype, device=w.device)
     ub_eff = _ub_eff(s, ub, w)
+    if s is None:
+        return qf_min_scalar_free(-w, c, ub_eff)
 
     x_pos = (-w).clamp_min(0.0) / (c + EPS_DIV_BY_ZERO)
     nx_pos = x_pos.sum()
-    if s is not None:
-        x_pos = _proj_simplex_core(x_pos, s)
-
-    if s is None:
-        bound = float('inf') if ub_eff is None else ub_eff
-        x_neg = torch.where(w + c < 0, torch.as_tensor(
-            bound, dtype=w.dtype, device=w.device), torch.zeros_like(w))
-    else:
-        x_neg = torch.zeros_like(w)
-        x_neg[torch.argmin(w)] = s
+    x_pos = _proj_simplex_core(x_pos, s)
+    # the vertex is scattered: indexing by a 0-d tensor would read it on
+    # the host
+    x_neg = torch.zeros_like(w).scatter_(
+        0, torch.argmin(w).reshape(1), float(s))
     pos = c > 0
-    return (torch.where(pos, x_pos, x_neg),
-            torch.where(pos, nx_pos, torch.ones_like(nx_pos)))
+    return torch.where(pos, x_pos, x_neg), torch.where(pos, nx_pos, 1.0)
 
 
 def qf_min_vector_c(w, c, s, ub):

@@ -12,13 +12,15 @@ card that raises, naming ``device='cpu'``, how the CPU is asked for).
 Fitted ``W``/``T`` are tensors on the device the fit ran on.
 
 - :class:`NMF_TM_Estimator` (``fit``, ``fit_transform``, ``one_iter``,
-  ``transform``, ``score``, ``score_all``) runs the fast-TM recipe only:
-  pass ``nmf_kwargs=dict(update_order='phase', reset_topic_method=None)``.
-  Its default preset (interleaved order with resets) raises
-  ``NotImplementedError`` until ROADMAP A.2. A sparse X (scipy, or a
-  torch COO/CSR tensor, which fits on its device) stays sparse through
-  tf-idf, normalization, the fit (``nmf_kwargs['sparse']`` picks the
-  contractions), ``transform`` and the scorers.
+  ``transform``, ``score``, ``score_all``) runs its default preset (the
+  interleaved order with ``'max_resid_document'`` resets; the transform,
+  with T fixed, in phase order through kernel B1) and the fast-TM recipe
+  (``nmf_kwargs=dict(update_order='phase', reset_topic_method=None)``).
+  A sparse X (scipy, or a torch COO/CSR tensor, which fits on its device)
+  stays sparse through tf-idf, normalization, the fit
+  (``nmf_kwargs['sparse']`` picks the contractions), ``transform`` and
+  the scorers; with resets on and the default ``sparse='auto'`` the fit
+  and the transform densify it, as in the JAX package.
 - :class:`NMF_RS_Estimator` (``fit``, ``fit_from_Xtr``, ``transform``,
   ``predict``, ``score``, ``make_Xpred``) fits masked WRRI on a dense
   observation mask with its default preset. The sparse observation modes

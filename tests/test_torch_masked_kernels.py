@@ -32,7 +32,8 @@ from rri_nmf_tpu.ops.sweep_pallas import (_phase_a, _phase_b,
                                           make_masked_sweep_pallas)
 from rri_nmf_tpu.ops.sweep_xla import SweepConfig as JaxSweepConfig
 from rri_nmf_tpu_torch.ops import masked_kernels as mk
-from rri_nmf_tpu_torch.ops.sweep import SweepConfig, make_objective
+from rri_nmf_tpu_torch.ops.sweep import (GeneratorDraws, SweepConfig,
+                                         make_objective)
 
 torch.set_num_threads(2)
 ATOL = 1e-9
@@ -127,9 +128,9 @@ def _run_port(cfg_kw, X, M, W, T, iters, wrs=None, resets=0):
     sweep = mk.make_masked_sweep(SweepConfig(**cfg_kw))
     X, M, W, T = _t(X, M, W, T)
     wrs = torch.as_tensor(wrs) if wrs is not None else None
-    gen = torch.Generator().manual_seed(0)
+    draws = GeneratorDraws(torch.Generator().manual_seed(0))
     for _ in range(iters):
-        W, T, resets = sweep(X, W, T, M, gen, resets, wrs)
+        W, T, resets = sweep(X, W, T, M, draws, resets, wrs)
     return W.numpy(), T.numpy(), resets
 
 

@@ -1,10 +1,15 @@
 """The port's ``nmf()`` and ``NMF_TM_Estimator`` against the JAX
 package, end to end on the CPU in float64.
 
-One kwargs dict drives both packages (the phase recipe without resets);
-W, T and ``obj_history`` agree at 1e-8. The JAX ``nmf()`` runs its XLA
-phase sweep on the CPU, the port the plain twins of its kernels — the
-same coordinate updates. Also: the TM estimator on the reference's text
+One kwargs dict drives both packages; W, T, ``obj_history`` and the
+reset budget left agree at 1e-8. The phase recipe without resets: the
+JAX ``nmf()`` runs its XLA phase sweep on the CPU, the port the plain
+twins of its kernels — the same coordinate updates. The defaults (the
+interleaved order with ``'max_resid_document'`` resets, a reset firing
+too) and the options of the plain sweep (``use_pallas=False``, resets in
+phase order, gradient stores, DP noise with the draws injected, grouped
+dispatch): both packages' ``make_sweep``. Also: the TM estimator with the
+fast-TM recipe and with its default preset on the reference's text
 fixtures, carrying a fitted JAX estimator into the port, stepped
 ``one_iter`` ≡ batch fit, the ``NotImplementedError`` of every option
 outside the slice, and that importing the port pulls in neither JAX nor
@@ -23,10 +28,12 @@ import torch
 
 from rri_nmf_tpu.nmf import nmf as jax_nmf
 from rri_nmf_tpu.sklearn_interface import NMF_TM_Estimator as JaxTM
+from rri_nmf_tpu_torch import nmf as tnmf
 from rri_nmf_tpu_torch import sklearn_interface as tsk
 from rri_nmf_tpu_torch.convert import factors_from_numpy
 from rri_nmf_tpu_torch.nmf import nmf as torch_nmf
 from rri_nmf_tpu_torch.ops import dense_kernels as dk
+from test_torch_sweep import jax_draws
 
 torch.set_num_threads(2)
 TOL = 1e-8
@@ -179,10 +186,110 @@ def test_nmf_on_cpu_launches_no_kernel():
     assert dk.LAUNCHES == before
 
 
-DEFERRED = {
+def _dead_column(n, k, col, seed=10):
+    """A warm start whose W column ``col`` is 0: its topic dies in the
+    first T-phase, and a reset fires."""
+    rng = np.random.RandomState(seed)
+    W0 = rng.rand(n, k)
+    W0[:, col] = 0.0
+    return W0
+
+
+def test_nmf_defaults_match_jax():
+    """``nmf(X, k)`` with every default (the interleaved order,
+    ``'max_resid_document'`` resets, 200 sweeps), then from a warm start
+    with a dead topic, whose reset picks the same document as JAX."""
+    X = _lowrank(60, 45, 4, seed=1)
+    _same_fit(X, 4, random_state=0)
+    rng = np.random.RandomState(11)
+    a, b = _same_fit(X, 4, random_state=0, max_iter=8,
+                     compute_obj_each_iter=True, W_in=_dead_column(60, 4, 2),
+                     T_in=rng.rand(4, 45))
+    assert b['n_resets_remaining'] == a['n_resets_remaining'] < 23
+    ob = np.asarray(b['obj_history'])
+    assert np.all(np.isfinite(ob))
+
+
+# options that raised before the plain sweep was ported; each now runs,
+# held against JAX (the DP draws injected: jax_draws)
+FORMERLY_DEFERRED = {
     'interleaved order': dict(update_order='interleaved',
                               reset_topic_method=None),
-    'resets': dict(update_order='phase'),
+    'resets': dict(update_order='phase', W_in=_dead_column(60, 4, 1)),
+    'plain sweep': dict(use_pallas=False, **FAST_TM),
+    'store_gradients': dict(store_gradients=True,
+                            ind_rows_to_store=[0, 3, 5]),
+    'dp noise': dict(eps_gauss_t=1e5, delta_gauss_t=1e-3),
+    'grouped dispatch': dict(sweeps_per_dispatch=4,
+                             compute_obj_each_iter=False),
+}
+
+
+@pytest.mark.parametrize('case', sorted(FORMERLY_DEFERRED))
+def test_formerly_deferred_options_match_jax(case, monkeypatch):
+    monkeypatch.setattr(tnmf, 'make_draws', jax_draws)
+    X = _lowrank(60, 45, 4, seed=1)
+    kw = dict(max_iter=6, compute_obj_each_iter=True, random_state=0)
+    kw.update(FORMERLY_DEFERRED[case])
+    if 'W_in' in kw:
+        kw['T_in'] = np.random.RandomState(12).rand(4, 45)
+    a, b = _same_fit(X, 4, **kw)
+    if case == 'resets':
+        assert a['n_resets_remaining'] < 23
+    if case == 'grouped dispatch':
+        # one clock stamp per sweep, the same for each sweep of a group
+        for r in (a, b):
+            t = r['iter_cputime']
+            assert len(t) == 6 and t[0] == t[3] and t[4] == t[5] != t[3]
+    if case == 'store_gradients':
+        assert sorted(b['numer_W']) == sorted(a['numer_W']) == list(range(6))
+        for key in ('numer_W', 'denom_W'):
+            for it in a[key]:
+                assert _close(b[key][it], np.asarray(a[key][it]))
+
+
+# configs the kernels cover by design: where the kernels' gate refuses
+# the problem, the fit raises and never falls back to the plain sweep
+GATED = {
+    'phase': dict(FAST_TM),
+    'phase with resets': dict(update_order='phase'),
+    'fixed T': dict(fix_T=True, T_in=np.ones((2, 15))),
+    'sparse': dict(sparse=True),
+    'plain sweep': dict(FAST_TM, use_pallas=False),
+    'interleaved': dict(),
+}
+
+
+@pytest.mark.parametrize('case', sorted(GATED))
+def test_refused_kernel_gate_raises(case, monkeypatch):
+    monkeypatch.setattr(tnmf, 'supports_dense_kernels', lambda *a: False)
+
+    def fit():
+        return torch_nmf(_lowrank(20, 15, 2), 2, max_iter=2, random_state=0,
+                         device='cpu', **GATED[case])
+    if case in ('plain sweep', 'interleaved'):
+        # no kernel covers these: the plain sweep runs
+        assert fit()['W'].shape == (20, 2)
+    else:
+        with pytest.raises(ValueError, match='do not fit'):
+            fit()
+
+
+@pytest.mark.cuda
+def test_refused_kernel_gate_raises_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
+    dev = torch.device('cuda')
+    assert not dk.gs_fits(4096, torch.float64, dev)
+    X = torch.as_tensor(_lowrank(64, 48, 2), device=dev)
+    for kw in (FAST_TM, dict(update_order='phase')):
+        with pytest.raises(ValueError, match='do not fit'):
+            torch_nmf(X, 4096, max_iter=1, **kw)
+    r = torch_nmf(X, 4096, max_iter=1, use_pallas=False, **FAST_TM)
+    assert torch.isfinite(r['T']).all()
+
+
+DEFERRED = {
     'W_mat': dict(W_mat=scipy.sparse.csr_matrix(np.ones((20, 15))),
                   **FAST_TM),
     'w_row': dict(w_row=np.ones(20), **FAST_TM),
@@ -194,10 +301,6 @@ DEFERRED = {
     'mesh': dict(mesh=object(), **FAST_TM),
     'checkpoint': dict(checkpoint='/nonexistent', **FAST_TM),
     'accel': dict(accel='her', **FAST_TM),
-    'store_gradients': dict(store_gradients=True, **FAST_TM),
-    'dp noise': dict(eps_gauss_t=1.0, delta_gauss_t=1e-5, **FAST_TM),
-    'grouped dispatch': dict(sweeps_per_dispatch=4, **FAST_TM),
-    'plain sweep': dict(use_pallas=False, **FAST_TM),
     'nndsvd_lrc': dict(init='nndsvd_lrc', **FAST_TM),
 }
 
@@ -322,10 +425,59 @@ def test_tm_estimator_params_and_errors(text_train):
         P.fit(-text_train)
     W = P.fit_transform(text_train)
     assert W.shape == (n, 3) and np.allclose(W.sum(1).numpy(), 1.0)
-    # the default preset (interleaved order with resets) is not ported
-    with pytest.raises(NotImplementedError, match='A.2'):
-        tsk.NMF_TM_Estimator(n, d, 3, max_iter=1,
+    # the default preset (interleaved order with resets) runs, as in JAX
+    P = tsk.NMF_TM_Estimator(n, d, 3, max_iter=1,
                              device='cpu').fit(text_train)
+    J = JaxTM(n, d, 3, max_iter=1).fit(text_train)
+    assert _close(P.W, J.W) and _close(P.T, J.T)
+
+
+def test_tm_estimator_default_preset_matches_jax(text_train, text_test):
+    """The TM estimator with its default preset (the interleaved order,
+    resets, ``nmf_kwargs={}``): fit, fit_transform, transform, score and
+    score_all against JAX at 1e-8; the transform (fixed T, phase order)
+    runs B1's twin, and its Gram-blocked re-run when a topic is dead."""
+    X, Xte = text_train, text_test
+    n, d = X.shape
+    kw = dict(random_state=0, max_iter=10,
+              nmf_kwargs=dict(compute_obj_each_iter=True))
+    J = JaxTM(n, d, 5, **kw).fit(X)
+    P = tsk.NMF_TM_Estimator(n, d, 5, device='cpu', **kw)
+    W = P.fit_transform(X)
+    assert W is P.W and _close(P.W, J.W) and _close(P.T, J.T)
+    assert np.allclose(P.nmf_outputs['obj_history'],
+                       J.nmf_outputs['obj_history'], rtol=TOL)
+    assert (P.nmf_outputs['n_resets_remaining']
+            == J.nmf_outputs['n_resets_remaining'])
+    assert np.allclose(P.T.numpy().sum(1), 1.0, atol=1e-12)
+    assert _close(P.transform(Xte), J.transform(Xte))
+    assert P.score(Xte) == pytest.approx(J.score(Xte), rel=TOL)
+    sj, sp_ = J.score_all(Xte), P.score_all(Xte)
+    for key in ('r2', 'rel_frobenius_error'):
+        assert sp_[key] == pytest.approx(sj[key], rel=TOL)
+    # a dead topic: the transform's W column dies, and a reset fires
+    T = J.T.copy()
+    T[2] = 0.0
+    J.T = T
+    P.T = torch.as_tensor(T)
+    assert _close(P.transform(Xte), J.transform(Xte))
+
+
+def test_tm_one_iter_steps_equal_batch_fit_default_preset(text_train):
+    """Stepped fits compose exactly with batch fits with the default
+    preset too (no reset fires on this fixture)."""
+    X = text_train
+    n, d = X.shape
+    M = tsk.NMF_TM_Estimator(n, d, 5, random_state=0, max_iter=6,
+                             device='cpu').fit(X)
+    M2 = tsk.NMF_TM_Estimator(n, d, 5, random_state=0, max_iter=2,
+                              do_final_project_W=False, device='cpu').fit(X)
+    for _ in range(4):
+        M2 = M2.one_iter(X)
+    from rri_nmf_tpu_torch.matrixops import proj_mat_to_simplex
+    M2.W = proj_mat_to_simplex(M2.W)
+    assert M.nmf_outputs['n_resets_remaining'] == 23
+    assert torch.allclose(M2.T, M.T) and torch.allclose(M2.W, M.W)
 
 
 def test_metrics_match_jax(text_train):

@@ -146,8 +146,13 @@ def test_auto_declines_when_the_settings_differ():
     """'auto' engages only under the sparse sweep's own settings; with
     others the sparse X is densified (and the dense path decides)."""
     X = _sparse(60, 50, 0.1, 5)
-    with pytest.raises(NotImplementedError, match='A.2'):
-        torch_nmf(X, 2, max_iter=1, update_order='phase', device='cpu')
+    # resets on: densified, the phase order with resets (JAX's Gram-blocked
+    # make_sweep, the port's kernel sweep checked after each sweep)
+    a = jax_nmf(X, 2, max_iter=3, update_order='phase', random_state=0)
+    b = torch_nmf(X, 2, max_iter=3, update_order='phase', random_state=0,
+                  device='cpu')
+    assert _close(b['W'], a['W'], TOL) and _close(b['T'], a['T'], TOL)
+    assert b['n_resets_remaining'] == a['n_resets_remaining']
     W = np.ones((60, 50))
     a = jax_nmf(X, 2, max_iter=3, W_mat=W, reset_topic_method=None,
                 random_state=0)
