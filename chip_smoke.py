@@ -42,8 +42,10 @@ its users run, one line per phase:
    with validation early stopping; a fit of 30 sweeps (B3 and B4 k times
    per sweep, the masked objective not rising, ms/sweep with and without
    the objective, train and test RMSE); the transform of 512 users' test
-   ratings (B4 only) with predict and score; and a 600×400 k=8 fit on
-   the card against the same fit on the CPU in float64;
+   ratings (the sparse-mask sweep: no B3 or B4) with predict and score;
+   B4's fixed-T form through ``nmf()`` with the dense mask of those
+   ratings and ``'random'`` resets (B4 4k times a call); and a 600×400
+   k=8 fit on the card against the same fit on the CPU in float64;
 9. the sparse gather kernel, which serves B5 and B6 (the sparse
    contractions ``WᵀX`` and ``T Xᵀ``), in both directions: the layouts
    derived from the B5 and B6 plans equal, the kernel through both
@@ -89,11 +91,34 @@ its users run, one line per phase:
 16. card (float32) against CPU (float64) from one init, with the same
     reset count and the same reset documents: the default ``nmf()`` at
     2048×1024 k=32 with a dead topic, the TM default preset at 600×1500
-    k=10, a masked fit with ``'max_resid_document'`` at 600×400 k=8.
+    k=10, a masked fit with ``'max_resid_document'`` at 600×400 k=8;
+17. the gather kernel as the Gram-phase sparse-mask sweep calls it, on
+    the mask's layouts with M⊙X as a second value set: A = Wᵀ(M⊙X) and
+    C = (M⊙X)Tᵀ (k rows), Γ and Θ (the k(k+1)/2 Khatri-Rao rows) and a
+    p·k-row panel, at the MovieLens shape (k=40, float64 and float32)
+    and at the JAX package's recorded masked shape, 100,000×50,000 with
+    25M observations, k=32 (float32): against the twin, each launch
+    repeated and matched bit for bit, CUDA-event times beside
+    ``torch.sparse.mm`` of the mask's CSR by the same rows, the host plan
+    seconds;
+18. ``nmf()`` on that recorded problem (scipy CSR X and mask, float32 on
+    the card): ``update_order='phase'`` (the Gram-phase sweep, 4 gather
+    launches a sweep and 2 an objective), its Gram objective against the
+    observed-entry one, the defaults (the O(nnz) interleaved sweep, no
+    kernel of this repo, sync-free, one CUDA graph a sweep), and a k=128
+    sweep in Γ/Θ panels: launch counts, non-increasing objectives, ms
+    per sweep, device time by kernel, peak memory;
+19. ``NMF_RS_Estimator(sparse_obs=True)`` on phase 8's ratings: a default
+    fit (the O(nnz) sweep), transform, predict and score, its held-out
+    RMSE beside phase 8's dense-mask fit; the same with
+    ``nmf_kwargs=dict(update_order='phase')`` (the Gram-phase sweep);
+    and a 600×400 k=8 sparse-obs fit of each kind on the card against
+    the CPU in float64.
 
-Phases 5-6, phase 8, phases 10-11 and phases 12-16 each drive a main
-path with the launch counts set to 0 just before and read just after (no
-kernel of this repo runs in phases 12-13; phases 14-15 run B1). Then one JSON
+Phases 5-6, phase 8, phases 10-11, phases 12-16 and phases 18-19 each
+drive a main path with the launch counts set to 0 just before and read
+just after (no kernel of this repo runs in phases 12-13; phases 14-15
+run B1; phases 18-19 the gather kernel). Then one JSON
 line of the kernels (those launches, error against the twin, kernel and
 twin ms, the least time the card could take for the same work with what
 binds it, and the library call's ms where one computes the same
@@ -231,6 +256,25 @@ TM_DEFAULT_SWEEPS = 10
 DEFAULT_SMALL = (2048, 1024, 32)
 BUMP_ROW = 777
 MASKED_SMALL = (600, 400, 24000, 8)
+# (n, d, observations, k): the JAX package's recorded sparse-mask problem
+# (benchmarks/exp_round5_masked.py, the defaults of its main()), the rank
+# of its panel run, and the Gram-phase sweeps of phase 18
+MASKED_RECORD = (100_000, 50_000, 25_000_000, 32)
+MASKED_PANEL_K = 128
+GRAM_SWEEPS = 5
+INTERLEAVED_MASKED_SWEEPS = 3
+# the gate's panel (rows p·k): p at the MovieLens shape
+GRAM_GATE_PANEL = 4
+# The Gram objective 0.5(Σ m x² − 2·cross + quad) against the
+# observed-entry sum 0.5 Σ m (x − (WT))², relative to Σ m x²: each of
+# the three terms is a float32 sum over up to 25M observations or k²n
+# products, summed as trees on the card (~log2(terms)·eps ≈ 2e-6 of its
+# size, and each term is at most ~Σ m x²); 1e-4 is stated.
+TOL_GRAM_OBJ = 1e-4
+# Held-out RMSE of the sparse-mask default fit against the dense-mask
+# one (phase 19 against phase 8): the same interleaved updates in another
+# summation order (float32); 1e-2 relative is stated.
+TOL_RMSE_ROUTES = 1e-2
 
 
 def log(phase, **fields):
@@ -812,9 +856,10 @@ def _rs_fit(Est, pairs, ratings, shape, **kw):
     return Est(n, d, k, random_state=0, **kw).fit(pairs, ratings)
 
 
-def run_rs_phase(dev, mk, Est, X):
+def run_rs_phase(dev, mk, Est, nmf, X):
     """Phase 8 on the ratings ``X`` (numpy): returns the launches of the
-    main path (everything up to and with predict and score)."""
+    main path (everything up to and with predict and score) and the
+    default fit's held-out RMSE."""
     n, d, _, k = RS_SHAPE
     p_tr, r_tr, p_te, r_te = (torch.as_tensor(a, device=dev) for a in
                               rs_split(X))
@@ -828,10 +873,11 @@ def run_rs_phase(dev, mk, Est, X):
     a, b = mk.LAUNCHES['phase_a'], mk.LAUNCHES['phase_b']
     if a == 0 or a != b or a % k:
         raise AssertionError('default fit: B3 %d, B4 %d launches' % (a, b))
+    rmse_default = est.score(p_te, r_te)
     log('NMF_RS_Estimator %dx%d k=%d float32, validation early stopping'
         % (n, d, k), fit_s=fit_s, sweeps_run=a // k,
         sweeps_kept=len(est.nmf_outputs['iter_cputime']),
-        test_rmse=est.score(p_te, r_te))
+        test_rmse=rmse_default)
 
     b0 = dict(mk.LAUNCHES)
     est = _rs_fit(Est, p_tr, r_tr, RS_SHAPE, max_iter=RS_SWEEPS,
@@ -874,15 +920,26 @@ def run_rs_phase(dev, mk, Est, X):
     Xnew = torch.zeros(rows, d, device=dev)
     Xnew[p_te[sel, 0], p_te[sel, 1]] = r_te[sel]
     b1 = dict(mk.LAUNCHES)
+    t0 = time.perf_counter()
     Wn = est.transform(Xnew)
+    sync(dev)
+    transform_s = time.perf_counter() - t0
+    if mk.LAUNCHES != b1:
+        raise AssertionError('transform: B3/B4 launched (%r -> %r); it takes '
+                             'the sparse-mask sweep' % (b1, mk.LAUNCHES))
+    if tuple(Wn.shape) != (rows, k) or not bool(torch.isfinite(Wn).all()):
+        raise AssertionError('transform output %s' % (tuple(Wn.shape),))
+    # B4's fixed-T form: the same W-phase through nmf() with the dense
+    # mask of those ratings
+    Wd = nmf(Xnew, k, W_mat=(Xnew != 0).float(), T_in=est.T, fix_T=True,
+             reset_topic_method='random', max_iter=4, t_row_sum=1.0,
+             random_state=0)['W']
     sync(dev)
     da = mk.LAUNCHES['phase_a'] - b1['phase_a']
     db = mk.LAUNCHES['phase_b'] - b1['phase_b']
-    if da != 0 or db != 4 * k:
-        raise AssertionError('transform: B3 %d, B4 %d launches (want 0, %d)'
-                             % (da, db, 4 * k))
-    if tuple(Wn.shape) != (rows, k) or not bool(torch.isfinite(Wn).all()):
-        raise AssertionError('transform output %s' % (tuple(Wn.shape),))
+    if da != 0 or db != 4 * k or not bool(torch.isfinite(Wd).all()):
+        raise AssertionError('fixed-T dense-mask nmf(): B3 %d, B4 %d '
+                             'launches (want 0, %d)' % (da, db, 4 * k))
     pred = est.predict(p_te)
     rmse = est.score(p_te, r_te)
     if not (np.all(np.isfinite(pred)) and np.isfinite(rmse)
@@ -891,7 +948,9 @@ def run_rs_phase(dev, mk, Est, X):
         raise AssertionError('predict/score: %r' % (rmse,))
     launches = dict(mk.LAUNCHES)
     log('NMF_RS_Estimator transform, predict, score', transform_rows=rows,
-        transform_ratings=int(sel.sum()), B4_launches=db,
+        transform_ratings=int(sel.sum()), transform_s=transform_s,
+        transform_B3_B4_launches=0, fixed_T_nmf_B4_launches=db,
+        transform_vs_fixed_T_rel_diff=rel_err(Wn, Wd),
         predicted=len(pred), test_rmse=rmse)
 
     # the same small fit on the card (float32) and on the CPU (float64)
@@ -911,7 +970,7 @@ def run_rs_phase(dev, mk, Est, X):
     log('NMF_RS_Estimator %dx%d k=%d card float32 vs cpu float64'
         % (n_s, d_s, k_s), sweeps=len(o_gpu), obj_card=o_gpu[-1],
         obj_cpu=o_cpu[-1], rel_diff=diff)
-    return launches
+    return launches, rmse_default
 
 
 # --------------------------------------------------------------------------
@@ -1343,9 +1402,12 @@ def trace_shares(fn, dev):
                 top_kernels=[(name[:90], c, ms) for name, (c, ms) in top])
 
 
-def non_increasing(obj, what):
+def non_increasing(obj, what, scale=None):
+    """No rise past OBJ_SLACK_F32 of ``scale`` (default: the objective
+    itself). The Gram objective 0.5(Σ m x² − 2·cross + quad) rounds
+    relative to its terms, so its scale is Σ m x²."""
     for a, b in zip(obj, obj[1:]):
-        if b > a + OBJ_SLACK_F32 * abs(a):
+        if b > a + OBJ_SLACK_F32 * (abs(a) if scale is None else scale):
             raise AssertionError('%s: objective rose: %r -> %r' % (what, a, b))
     if not np.all(np.isfinite(obj)):
         raise AssertionError('%s: non-finite objective %r' % (what, obj))
@@ -1622,14 +1684,375 @@ def run_default_small_phase(dev, nmf, Est):
                  masked_fit, dev)
 
 
+# --------------------------------------------------------------------------
+# the sparse-mask WRRI sweeps (phases 17-19)
+# --------------------------------------------------------------------------
+
+def masked_record_problem(n, d, nnz, seed=0):
+    """The JAX package's recorded sparse-mask problem
+    (benchmarks/exp_round5_masked.py:build_problem): ``nnz`` (row, column)
+    draws with replacement, values ``rand + 0.5`` (float32), duplicates
+    summed; X and its binary mask as scipy CSR of one pattern."""
+    import scipy.sparse as sp
+    rng = np.random.RandomState(seed)
+    rows = rng.randint(0, n, nnz).astype(np.int64)
+    cols = rng.randint(0, d, nnz).astype(np.int64)
+    vals = rng.rand(nnz).astype(np.float32) + 0.5
+    X = sp.coo_matrix((vals, (rows, cols)), shape=(n, d)).tocsr()
+    M = X.copy()
+    M.data = np.ones_like(M.data)
+    return X, M
+
+
+def masked_cfg(k, **kw):
+    from rri_nmf_tpu_torch.ops.sweep import SweepConfig
+    return SweepConfig(k=k, masked=True, masked_sparse=True,
+                       reset_topic_method=None, **kw)
+
+
+def gram_contractions(mg, plan, W, T, p, names=None):
+    """The gather-kernel calls of the Gram-phase sweep on ``plan`` for the
+    factors W (n, k), T (k, d): {name: (direction, plan direction, Fᵀ's
+    rows, rows, output columns, values or None)}; ``p`` the panel."""
+    n, d = plan.shape
+    k = W.shape[1]
+    p = min(p, k)
+    it, is_, _ = mg._pairs_on(k, W.device)
+    Tt = T.T.contiguous()
+    calls = {
+        'A (k rows, M⊙X)': lambda: ('t', W, k, True),
+        'Gamma (k(k+1)/2 rows)': lambda: ('t', W[:, it] * W[:, is_],
+                                          it.shape[0], False),
+        'Gamma panel (p·k rows)': lambda: (
+            't', (W[:, :p, None] * W[:, None, :]).reshape(n, p * k),
+            p * k, False),
+        'C (k rows, M⊙X)': lambda: ('w', Tt, k, True),
+        'Theta (k(k+1)/2 rows)': lambda: ('w', Tt[:, it] * Tt[:, is_],
+                                          it.shape[0], False),
+        'Theta panel (p·k rows)': lambda: (
+            'w', (Tt[:, :p, None] * Tt[:, None, :]).reshape(d, p * k),
+            p * k, False)}
+    for name in (names or calls):
+        side, Ft, rows, mx = calls[name]()
+        yield name, (side, plan.m_t if side == 't' else plan.m_w, Ft, rows,
+                     d if side == 't' else n,
+                     plan.mx_layout_values(side) if mx else None)
+
+
+def library_masks(plan):
+    """torch.sparse.mm's operands for the same products: the mask (and
+    M⊙X) as CSR, Mᵀ (d, n) for the T side and M (n, d) for the W side."""
+    coo = plan.coo
+    nz = coo.nnz
+    r, c = coo.rows[:nz].long(), coo.cols[:nz].long()
+    m = coo.m_vals[:nz]
+    n, d = plan.shape
+
+    def csr(a, b, v, shape):
+        return torch.sparse_coo_tensor(torch.stack([a, b]), v, shape) \
+            .coalesce().to_sparse_csr()
+    return {('t', False): csr(c, r, m, (d, n)),
+            ('t', True): csr(c, r, m * coo.x_vals[:nz], (d, n)),
+            ('w', False): csr(r, c, m, (n, d)),
+            ('w', True): csr(r, c, m * coo.x_vals[:nz], (n, d))}
+
+
+def check_masked_gram(dev, sk, spl, mg, cases):
+    """Phase 17: the gather kernel with the Gram sweep's operands against
+    its twin. ``cases``: ``(label, X, M, dtype, tol, timed, runs)``, runs
+    a list of ``(k, p, names)``. Returns {label: (plan, build seconds)}
+    of the timed cases."""
+    plans = {}
+    for label, X, M, dtype, tol, timed, runs in cases:
+        t0 = time.perf_counter()
+        plan = mg.plan_masked_gram(X, M, dtype, backend='mxu', device=dev)
+        sync(dev)
+        plan_s = time.perf_counter() - t0
+        n, d = plan.shape
+        lib = library_masks(plan) if timed and dev.type == 'cuda' else {}
+        size = torch.empty(0, dtype=dtype).element_size()
+        for k, p, names in runs:
+            rng = np.random.RandomState(3)
+            W = torch.as_tensor(rng.rand(n, k), dtype=dtype, device=dev)
+            T = torch.as_tensor(rng.rand(k, d), dtype=dtype, device=dev)
+            for name, (side, pl, Ft, rows, ncols, vals) in \
+                    gram_contractions(mg, plan, W, T, p, names):
+                def call():
+                    return sk.gather_contract(pl, Ft, rows, ncols, 'mxu',
+                                              vals)
+                first, again = call(), call()
+                sync(dev)
+                if not torch.equal(first, again):
+                    raise AssertionError('%s %s %s: two launches differ'
+                                         % (label, name, dtype))
+                lay = spl.column_layout(pl)
+
+                def twin():
+                    return sk.gather_contract_ref(lay, Ft, rows, ncols, vals)
+                err = row_err(first, twin())
+                if not (err <= tol and bool(torch.isfinite(first).all())):
+                    raise AssertionError('%s %s %s: error %.3g against the '
+                                         'twin > %g' % (label, name, dtype,
+                                                        err, tol))
+                line = {'case': label, 'contraction': name, 'k': k,
+                        'rows': rows, 'dtype': str(dtype), 'rel_err': err,
+                        'bitwise_repeat': True, 'nnz': plan.nnz,
+                        'plan_build_s': plan_s}
+                if timed:
+                    nnz = lay.gidx.shape[0]
+                    ms = time_ms(call, dev, runs=5)
+                    line.update(
+                        ms=ms, plain_ms=time_ms(twin, dev, runs=1),
+                        gather_TB_per_s=nnz * rows * size / ms / 1e9)
+                    b = bound(2 * nnz * rows,
+                              Ft.numel() * size + lay.nbytes
+                              + rows * ncols * size, str(dtype)[6:])
+                    line.update(bound_ms=b[0], bound_by=b[1])
+                    if lib:
+                        S = lib[(side, vals is not None)]
+                        got = torch.sparse.mm(S, Ft).T
+                        line['library_rel_err'] = row_err(first, got)
+                        if not line['library_rel_err'] <= tol:
+                            raise AssertionError('%s %s: torch.sparse.mm '
+                                                 'differs' % (label, name))
+                        del got
+                        line['library_ms'] = time_ms(
+                            lambda: torch.sparse.mm(S, Ft), dev, runs=5)
+                        line['ms_over_library_ms'] = ms / line['library_ms']
+                log('kernel gather, Gram-phase contractions', **line)
+                del first, again
+        if timed:
+            plans[label] = (plan, plan_s)
+        del lib
+    return plans
+
+
+def run_masked_record_phase(dev, sk, nmf, mg, ms, X, M, plan, plan_s):
+    """Phase 18 on the recorded problem (scipy CSR ``X``, ``M``; ``plan``
+    its Gram plan from phase 17): returns the gather launches of the
+    main path."""
+    from rri_nmf_tpu_torch.ops.sweep import make_draws
+    n, d, _, k = MASKED_RECORD
+    nnz = int(M.nnz)
+    main = 0
+
+    def fit(**kw):
+        """nmf() on the problem: (result, wall s, gather launches, peak
+        GB)."""
+        if dev.type == 'cuda':
+            torch.cuda.reset_peak_memory_stats(dev)
+        b0 = sk.LAUNCHES['mxu']
+        t0 = time.perf_counter()
+        res = nmf(X, kw.pop('k', k), W_mat=M, compute_obj_each_iter=True,
+                  random_state=0, eps_stop=0.0, device=dev, **kw)
+        sync(dev)
+        peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+                if dev.type == 'cuda' else None)
+        return (res, time.perf_counter() - t0, sk.LAUNCHES['mxu'] - b0,
+                peak)
+
+    # 18a. the Gram-phase sweep (4 launches a sweep, 2 an objective)
+    res, wall, got, peak = fit(update_order='phase', reset_topic_method=None,
+                               max_iter=GRAM_SWEEPS)
+    obj = res['obj_history']
+    if got != 6 * len(obj):
+        raise AssertionError('Gram-phase nmf(): %d gather launches for %d '
+                             'sweeps (want 6 a sweep)' % (got, len(obj)))
+    main += got
+    non_increasing(obj, 'Gram-phase nmf()', float(plan.sum_mx2))
+    W, T = res['W'], res['T']
+    o_gram = float(mg.make_masked_gram_objective('mxu')(plan, W, T))
+    o_obs = float(ms.make_masked_sparse_objective()(plan.coo, W, T))
+    gap = abs(o_gram - o_obs) / float(plan.sum_mx2)
+    if not gap <= TOL_GRAM_OBJ:
+        raise AssertionError('Gram objective %r vs observed-entry %r'
+                             % (o_gram, o_obs))
+    sweep = mg.make_masked_gram_sweep(masked_cfg(k, update_order='phase'),
+                                      'mxu')
+    draws = make_draws(0, dev)
+    sweep_ms = time_ms(lambda: sweep(plan, W, T, draws, 0), dev, runs=3)
+    trace = trace_shares(lambda: sweep(plan, W, T, draws, 0), dev)
+    gram_objective = mg.make_masked_gram_objective('mxu')
+    log('nmf %dx%d %d observations k=%d float32, update_order=phase '
+        '(Gram-phase)' % (n, d, nnz, k), sweeps=len(obj),
+        gather_launches=got, obj_first=obj[0], obj_last=obj[-1], wall_s=wall,
+        host_plan_s=plan_s, peak_GB=peak, sum_mx2=float(plan.sum_mx2),
+        gram_vs_observed_objective_rel_sum_mx2=gap,
+        ms_per_sweep_with_objective=_sweep_ms(res), ms_per_sweep=sweep_ms,
+        objective_ms=time_ms(lambda: gram_objective(plan, W, T), dev,
+                             runs=3),
+        sweep_trace=trace)
+    del res, W, T
+
+    # 18b. the defaults: the O(nnz) interleaved sweep, no kernel of ours
+    t0 = time.perf_counter()
+    coo = ms.plan_masked_coo(X, M, torch.float32, device=dev)
+    sync(dev)
+    coo_s = time.perf_counter() - t0
+    before = dict(sk.LAUNCHES)
+    res, wall, _, peak = fit(max_iter=INTERLEAVED_MASKED_SWEEPS)
+    if sk.LAUNCHES != before:
+        raise AssertionError('the O(nnz) sweep launched the gather kernel')
+    obj = res['obj_history']
+    non_increasing(obj, 'interleaved sparse-mask nmf()')
+    W, T = res['W'], res['T']
+    sw = ms.make_masked_sparse_sweep(masked_cfg(k))
+    (_, _, _), dead = sync_free(lambda: sw.speculate(coo, W, T, draws, 0),
+                                dev)
+    trace = trace_shares(lambda: sw.speculate(coo, W, T, draws, 0), dev)
+    launch_ms = time_ms(lambda: sw.speculate(coo, W, T, draws, 0), dev,
+                        runs=2)
+    outs = [sw.speculate(coo, W, T, draws, 0)[0][:2] for _ in range(2)]
+    sw(coo, W, T, draws, 0)       # launch by launch; the next call captures
+    graph_ms = time_ms(lambda: sw(coo, W, T, draws, 0), dev, runs=3)
+    outs += [sw(coo, W, T, draws, 0)[:2] for _ in range(2)]
+    sync(dev)
+    # no atomics: two launched runs and two graph replays, the same bits
+    if not all(torch.equal(Wo, outs[0][0]) and torch.equal(To, outs[0][1])
+               for Wo, To in outs):
+        raise AssertionError('the O(nnz) sweep does not repeat bit for bit '
+                             '(launches, graph): %r' % [
+                                 (rel_err(Wo, outs[0][0]),
+                                  rel_err(To, outs[0][1]))
+                                 for Wo, To in outs])
+    objective = ms.make_masked_sparse_objective()
+    log('nmf %dx%d %d observations k=%d float32, defaults (O(nnz) '
+        'interleaved)' % (n, d, nnz, k), sweeps=len(obj), obj_first=obj[0],
+        obj_last=obj[-1], wall_s=wall, host_plan_s=coo_s, peak_GB=peak,
+        objective_ms=time_ms(lambda: objective(coo, W, T), dev, runs=3),
+        graph_ms=graph_ms, launches_ms=launch_ms, graph_equals_launches=True,
+        speculative_sweep_sync_free=True, speculative_sweep_trace=trace)
+    del res, W, T, outs, sw, coo
+
+    # 18c. k=128: Γ/Θ past the 4 GB budget, in panels
+    kp = MASKED_PANEL_K
+    panel = mg.auto_panel(kp, n, d, 4)
+    npan = -(-kp // panel)
+    rng = np.random.RandomState(7)
+    W0 = torch.as_tensor(rng.rand(n, kp), dtype=torch.float32, device=dev)
+    T0 = torch.as_tensor(rng.rand(kp, d), dtype=torch.float32, device=dev)
+    res, wall, got, peak = fit(k=kp, update_order='phase',
+                               reset_topic_method=None, max_iter=1,
+                               W_in=W0, T_in=T0)
+    if got != (2 + 2 * npan) + (1 + npan):
+        raise AssertionError('k=%d panel sweep: %d gather launches (want %d)'
+                             % (kp, got, 3 + 3 * npan))
+    main += got
+    if not (bool(torch.isfinite(res['W']).all())
+            and np.isfinite(res['obj_history'][-1])):
+        raise AssertionError('non-finite panel sweep')
+    sweep = mg.make_masked_gram_sweep(masked_cfg(kp, update_order='phase'),
+                                      'mxu', panel)
+    log('nmf %dx%d k=%d float32, Gram-phase in %d-topic panels'
+        % (n, d, kp, panel), panels=npan, gather_launches=got,
+        obj=res['obj_history'], wall_s=wall, peak_GB=peak,
+        ms_per_sweep=time_ms(lambda: sweep(plan, W0, T0, draws, 0), dev,
+                             runs=1))
+    return main
+
+
+def run_sparse_obs_phase(dev, mk, sk, Est, X, rmse_dense):
+    """Phase 19 on phase 8's ratings ``X`` (numpy): returns the gather
+    launches of the main path."""
+    n, d, _, k = RS_SHAPE
+    p_tr, r_tr, p_te, r_te = (torch.as_tensor(a, device=dev) for a in
+                              rs_split(X))
+    r_tr, r_te = r_tr.float(), r_te.float()
+    rows = RS_TRANSFORM_ROWS
+    sel = p_te[:, 0] < rows
+    Xnew = torch.zeros(rows, d, device=dev)
+    Xnew[p_te[sel, 0], p_te[sel, 1]] = r_te[sel]
+    main = 0
+    rmse = {}
+    from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg
+    from rri_nmf_tpu_torch.ops import sweep_masked_sparse as ms
+    sweeps = {'interleaved': ms.make_masked_sparse_sweep(masked_cfg(
+        k, t_row_sum=1.0)), 'Gram-phase': mg.make_masked_gram_sweep(
+            masked_cfg(k, t_row_sum=1.0, update_order='phase'), 'mxu')}
+    for label, kw in (('interleaved', {}),
+                      ('Gram-phase', dict(nmf_kwargs=dict(
+                          update_order='phase')))):
+        b0 = dict(mk.LAUNCHES), sk.LAUNCHES['mxu']
+        t0 = time.perf_counter()
+        est = _rs_fit(Est, p_tr, r_tr, RS_SHAPE, sparse_obs=True, **kw)
+        sync(dev)
+        fit_s = time.perf_counter() - t0
+        got = sk.LAUNCHES['mxu'] - b0[1]
+        obj = est.nmf_outputs['obj_history']
+        # an early stop runs one sweep more than it keeps
+        want = {0} if label == 'interleaved' else {6 * len(obj),
+                                                   6 * (len(obj) + 1)}
+        if mk.LAUNCHES != b0[0] or got not in want:
+            raise AssertionError('sparse_obs %s fit: B3/B4 %r, gather %d '
+                                 'launches for %d sweeps kept' % (
+                                     label, mk.LAUNCHES, got, len(obj)))
+        main += got
+        non_increasing(obj, 'sparse_obs %s fit' % label,
+                       float((r_tr ** 2).sum()) if got else None)
+        b1 = dict(mk.LAUNCHES), sk.LAUNCHES['mxu']
+        t0 = time.perf_counter()
+        Wn = est.transform(Xnew)
+        sync(dev)
+        transform_s = time.perf_counter() - t0
+        if mk.LAUNCHES != b1[0] or sk.LAUNCHES['mxu'] != b1[1] or \
+                tuple(Wn.shape) != (rows, k) or \
+                not bool(torch.isfinite(Wn).all()):
+            raise AssertionError('sparse_obs transform: launches or output')
+        pred = est.predict(p_te)
+        rmse[label] = est.score(p_te, r_te)
+        if not (np.all(np.isfinite(pred)) and np.isfinite(rmse[label])):
+            raise AssertionError('sparse_obs predict/score')
+        # the fit's sweep alone on the fit's own plan (the objective's)
+        plan = est.nmf_outputs['obj_calculator'].X
+        sw = sweeps[label]
+        sw(plan, est.W, est.T, None, 0)
+        log('NMF_RS_Estimator(sparse_obs=True) %dx%d k=%d float32, %s'
+            % (n, d, k, label), fit_s=fit_s, sweeps_kept=len(obj),
+            gather_launches=got, obj_first=obj[0], obj_last=obj[-1],
+            ms_per_sweep=time_ms(lambda: sw(plan, est.W, est.T, None, 0),
+                                 dev, runs=5),
+            transform_rows=rows, transform_s=transform_s,
+            test_rmse=rmse[label], dense_mask_test_rmse=rmse_dense)
+    diff = abs(rmse['interleaved'] - rmse_dense) / rmse_dense
+    if not diff <= TOL_RMSE_ROUTES:
+        raise AssertionError('sparse-mask RMSE %r vs dense-mask %r'
+                             % (rmse['interleaved'], rmse_dense))
+
+    # the same small fits on the card (float32) and the CPU (float64)
+    n_s, d_s, q_s, k_s = RS_SMALL
+    p_s, r_s, _, _ = rs_split(synth_ratings(n_s, d_s, q_s, 4, seed=2))
+    for label, extra in (('interleaved', {}),
+                         ('Gram-phase', dict(update_order='phase'))):
+        kw = dict(max_iter=SWEEPS, use_validation_early_stopping=False,
+                  sparse_obs=True, nmf_kwargs=dict(init='random',
+                                                   eps_stop=0.0, **extra))
+        b0 = sk.LAUNCHES['mxu']
+        o_gpu = _rs_fit(Est, torch.as_tensor(p_s, device=dev),
+                        torch.as_tensor(r_s, device=dev).float(), RS_SMALL,
+                        **kw).nmf_outputs['obj_history']
+        main += sk.LAUNCHES['mxu'] - b0
+        o_cpu = _rs_fit(Est, p_s, r_s, RS_SMALL, device='cpu',
+                        **kw).nmf_outputs['obj_history']
+        diff = abs(o_gpu[-1] - o_cpu[-1]) / abs(o_cpu[-1])
+        if len(o_gpu) != len(o_cpu) or not diff <= TOL_CPU_GPU_OBJ:
+            raise AssertionError('sparse_obs %s card vs CPU objective: %r vs '
+                                 '%r' % (label, o_gpu[-1], o_cpu[-1]))
+        log('NMF_RS_Estimator(sparse_obs=True) %dx%d k=%d %s card float32 '
+            'vs cpu float64' % (n_s, d_s, k_s, label), sweeps=len(o_gpu),
+            obj_card=o_gpu[-1], obj_cpu=o_cpu[-1], rel_diff=diff)
+    return main
+
+
 def run(dev):
-    """Phases 3-16 on ``dev``; returns the kernels' JSON entries."""
+    """Phases 3-19 on ``dev``; returns the kernels' JSON entries."""
     from rri_nmf_tpu_torch.metrics import frobenius_relative_error
     from rri_nmf_tpu_torch.nmf import nmf
     from rri_nmf_tpu_torch.ops import dense_kernels as dk
     from rri_nmf_tpu_torch.ops import masked_kernels as mk
     from rri_nmf_tpu_torch.ops import sparse_kernels as sk
     from rri_nmf_tpu_torch.ops import sparse_plan as spl
+    from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg
+    from rri_nmf_tpu_torch.ops import sweep_masked_sparse as msp
     from rri_nmf_tpu_torch.sklearn_interface import (NMF_RS_Estimator,
                                                      NMF_TM_Estimator)
 
@@ -1698,10 +2121,11 @@ def run(dev):
     sync(dev)
 
     # 8. the RS main path, counted from zero
-    masked = run_rs_phase(dev, mk, NMF_RS_Estimator, ratings)
+    masked, rmse_dense = run_rs_phase(dev, mk, NMF_RS_Estimator, nmf,
+                                      ratings)
     if masked['phase_a'] == 0 or masked['phase_b'] == 0:
         raise AssertionError('a kernel of the path never ran: %r' % masked)
-    del ratings
+    sync(dev)
 
     # 9. the gather kernel (B5 and B6) against its twins
     sparse_stats = check_sparse(dev, sk, spl, counts)
@@ -1735,6 +2159,45 @@ def run(dev):
                              % dk.LAUNCHES)
     for key in ('gs', 'tm_proj'):
         launches[key] += dk.LAUNCHES[key]
+
+    # 17. the gather kernel with the Gram-phase sweep's operands
+    import scipy.sparse as sp
+    n, d, q, k = MASKED_RECORD
+    t0 = time.perf_counter()
+    Xr, Mr = masked_record_problem(n, d, q, seed=0)
+    log('masked record data', seconds=time.perf_counter() - t0,
+        observations=int(Mr.nnz))
+    Rs = sp.csr_matrix(ratings)
+    Ms = Rs.copy()
+    Ms.data[:] = 1.0
+    record = '%dx%d %d observations' % (n, d, Mr.nnz)
+    k_rs = RS_SHAPE[3]
+    plans = check_masked_gram(dev, sk, spl, mg, [
+        ('MovieLens %dx%d' % Rs.shape, Rs, Ms, dtype, tol, False,
+         [(k_rs, GRAM_GATE_PANEL, None)])
+        for dtype, tol in ((torch.float64, TOL_F64),
+                           (torch.float32, TOL_F32))] + [
+        (record, Xr, Mr, torch.float32, TOL_F32, True,
+         [(k, 2 * GRAM_GATE_PANEL, None),
+          (MASKED_PANEL_K, mg.auto_panel(MASKED_PANEL_K, n, d, 4),
+           ['Gamma panel (p·k rows)'])])])
+    del Rs, Ms
+    sync(dev)
+
+    # 18-19. the sparse-mask paths, counted from zero
+    sk.reset_launches()
+    gram = run_masked_record_phase(dev, sk, nmf, mg, msp, Xr, Mr,
+                                   *plans[record])
+    del Xr, Mr, plans
+    sync(dev)
+    gram += run_sparse_obs_phase(dev, mk, sk, NMF_RS_Estimator, ratings,
+                                 rmse_dense)
+    sync(dev)
+    if gram == 0:
+        raise AssertionError('the gather kernel never ran on the sparse-mask '
+                             'paths')
+    sparse['mxu'] += gram
+    del ratings
     # no single PyTorch call computes B1-B4 (sequential topic chains with
     # clamps, a simplex projection, fused in-place rank-one updates)
     return [dict(B1, launches=launches['gs'], max_abs_err=err1, ms=ms1,

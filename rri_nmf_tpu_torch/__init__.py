@@ -11,7 +11,7 @@ so a reader finds each counterpart:
   ``masked_svd_init``
 - :mod:`rri_nmf_tpu_torch.nmf`            — the ``nmf()`` entry point (its
   defaults; dense or sparse X in phase order; masked WRRI with a dense
-  ``W_mat``)
+  or a sparse ``W_mat``)
 - :mod:`rri_nmf_tpu_torch.sklearn_interface` — ``NMF_TM_Estimator``,
   ``NMF_RS_Estimator``
 - :mod:`rri_nmf_tpu_torch.ops`            — the sweeps and their kernels

@@ -22,6 +22,14 @@ the JAX ``nmf()`` routes it (``rri_nmf_tpu/nmf.py:1489-1596``):
   ``'random'``) through
   :func:`rri_nmf_tpu_torch.ops.masked_kernels.make_masked_sweep`
   (kernels B3 and B4), in the interleaved order;
+- masked WRRI with a sparse ``W_mat`` (scipy, or a torch sparse tensor)
+  on its observed entries only: in phase order without resets through
+  the Gram-phase sweep
+  :func:`rri_nmf_tpu_torch.ops.sweep_masked_gram.make_masked_gram_sweep`
+  (its contractions on the gather kernel of B5 on a card), else the
+  O(nnz) interleaved sweep
+  :func:`rri_nmf_tpu_torch.ops.sweep_masked_sparse.
+  make_masked_sparse_sweep`;
 - everything else — the defaults (the interleaved order with
   ``'max_resid_document'`` resets), ``use_pallas=False``, masked fits
   with resets or ``fix_W``, DP noise and gradient stores — through the
@@ -41,6 +49,7 @@ import logging
 import math
 import numbers
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -59,6 +68,12 @@ from rri_nmf_tpu_torch.ops.sparse_plan import (plan_sparse_matrix,
                                                plan_sparse_matrix_dma)
 from rri_nmf_tpu_torch.ops.sweep import (SweepConfig, make_draws,
                                          make_objective, make_sweep)
+from rri_nmf_tpu_torch.ops.sweep_masked_gram import (
+    MaskedGramPlan, auto_panel, make_masked_gram_objective,
+    make_masked_gram_sweep, plan_masked_gram)
+from rri_nmf_tpu_torch.ops.sweep_masked_sparse import (
+    coo_plan, host_sparse, make_masked_sparse_objective,
+    make_masked_sparse_sweep, plan_masked_coo)
 from rri_nmf_tpu_torch.ops.sweep_sparse import (TorchSparseX,
                                                 make_sparse_objective,
                                                 make_sparse_sweep)
@@ -94,13 +109,23 @@ class TrueObjComputer(object):
     package's rule). With ``sparse``, X is a coalesced torch sparse COO
     tensor and the objective never forms ``W @ T``
     (:func:`rri_nmf_tpu_torch.ops.sweep_sparse.make_sparse_objective`).
+    With ``masked_sparse``, X is the sparse-mask fit's plan: a
+    ``'mxu'`` Gram plan evaluates through one C and one Θ contraction
+    (:func:`~rri_nmf_tpu_torch.ops.sweep_masked_gram.
+    make_masked_gram_objective`, Θ in panels past the Gram budget), any
+    other through the observed entries (:func:`~rri_nmf_tpu_torch.ops.
+    sweep_masked_sparse.make_masked_sparse_objective`).
     It pickles (the estimators carry it in their fitted state): the
-    objective function is rebuilt after a load."""
+    objective function is rebuilt after a load, and a sparse-mask plan
+    travels as its host COO arrays and comes back as the observed-entry
+    form, on W's device."""
 
     def __init__(self, X, W, T, reg_w_l2, reg_t_l2, reg_w_l1, reg_t_l1,
-                 Wm=None, matmul_precision=None, sparse=False):
+                 Wm=None, matmul_precision=None, sparse=False,
+                 masked_sparse=False):
         self.X = X
         self.sparse = sparse
+        self.masked_sparse = masked_sparse
         self.W = W
         self.T = T
         self.Wm = Wm
@@ -115,9 +140,32 @@ class TrueObjComputer(object):
     def __getstate__(self):
         state = dict(self.__dict__)
         state['_fn'] = None      # a closure; rebuilt on the next use
+        if self.masked_sparse and not isinstance(self.X, tuple):
+            coo = self.X.coo if isinstance(self.X, MaskedGramPlan) \
+                else self.X
+            state['X'] = (('masked_coo',) + coo.host_arrays()
+                          + (coo.shape, coo.nnz))
         return state
 
+    def _masked_sparse_fn(self):
+        regs = dict(reg_w_l2=self.reg_w_l2, reg_t_l2=self.reg_t_l2,
+                    reg_w_l1=self.reg_w_l1, reg_t_l1=self.reg_t_l1)
+        if isinstance(self.X, tuple):            # restored from a pickle
+            self.X = coo_plan(*self.X[1:], device=self.W.device)
+        if isinstance(self.X, MaskedGramPlan) and self.X.backend == 'mxu':
+            n, d = self.X.shape
+            p = auto_panel(self.W.shape[1], n, d, self.W.element_size())
+            return make_masked_gram_objective(
+                'mxu', panel=1 if p == 0 else p, **regs)
+        fn = make_masked_sparse_objective(**regs)
+        if isinstance(self.X, MaskedGramPlan):
+            # a segsum Gram plan: the observed-entry form is the cheaper
+            return lambda plan, W, T: fn(plan.coo, W, T)
+        return fn
+
     def true_objective(self):
+        if self._fn is None and self.masked_sparse:
+            self._fn = self._masked_sparse_fn()
         if self._fn is None and self.sparse:
             self._fn = make_sparse_objective(
                 reg_w_l2=self.reg_w_l2, reg_t_l2=self.reg_t_l2,
@@ -130,7 +178,8 @@ class TrueObjComputer(object):
                 reg_t_l2=self.reg_t_l2, reg_w_l1=self.reg_w_l1,
                 reg_t_l1=self.reg_t_l1, block_rows=8192 if big else None,
                 matmul_precision=self.matmul_precision)
-        args = (self.X, self.W, self.T) + (() if self.sparse else (self.Wm,))
+        args = (self.X, self.W, self.T) + (
+            () if self.sparse or self.masked_sparse else (self.Wm,))
         self.obj = float(self._fn(*args))
         return self.obj
 
@@ -176,11 +225,24 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
       (``'numer_W'``/``'denom_W'`` hold tensors), DP noise
       (``eps_gauss_t``/``delta_gauss_t``) and ``sweeps_per_dispatch``. A
       fixed-T call takes the phase order itself, as in the JAX ``nmf()``.
-      Not ported yet, each raising ``NotImplementedError``: a
-      scipy-sparse ``W_mat`` (A.11), ``w_row`` (A.4), ``x_dtype`` and
-      16-bit factors (A.8), ``mesh`` (A.12, sparse fits on a mesh
-      included), ``checkpoint`` and ``accel`` (A.9), ``init='nndsvd_lrc'``
-      and ``'coherence_pmi'`` (A.3).
+      A sparse ``W_mat`` (scipy, or a torch COO/CSR tensor) as in JAX;
+      see **Sparse masks** below. Not ported yet, each raising
+      ``NotImplementedError``: ``w_row`` (A.4), ``x_dtype`` and
+      16-bit factors (A.8), ``mesh`` (A.12, sparse and sparse-mask fits
+      on a mesh included), ``checkpoint`` and ``accel`` (A.9),
+      ``init='nndsvd_lrc'`` and ``'coherence_pmi'`` (A.3).
+    - **Sparse masks.** A sparse ``W_mat`` keeps the observed set as COO
+      end to end, built on the host once per call (X dense or sparse; X
+      is read only where the mask is nonzero). With
+      ``update_order='phase'`` and no resets the fit runs the Gram-phase
+      sweep (``sparse='mxu'`` or a card: its contractions on the gather
+      kernel; the CPU default: segment sums; Γ/Θ in k-panels past 4 GB),
+      else the O(nnz) interleaved sweep, a ``'phase'`` request it cannot
+      honour falling back with a ``RuntimeWarning``;
+      ``'max_resid_document'`` resets are turned off (``'random'`` ones
+      run), ``store_gradients`` and ``sparse='dma'``/``True`` raise
+      ``ValueError``, and W is initialized on ``W_mat ⊙ X``, dense below
+      2 GB.
     - **Sparse X** (scipy, or a torch sparse tensor) with the phase
       recipe is never densified: ``sparse=True`` runs the two numerator
       products with ``torch.sparse.mm``, ``'mxu'`` with kernel B5 and
@@ -216,7 +278,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
       float32 products on the card (TF32 off).
     - **Callbacks** (``diagnostics``, a callable ``early_stop``) receive
       ``(X, W, T)``: W and T as tensors on the fit's device, a sparse X
-      as the user passed it, a dense X as a tensor on the fit's device.
+      (and any X of a sparse-mask fit) as the user passed it, a dense X
+      as a tensor on the fit's device.
 
     Returns the dict of the JAX ``nmf()``, with ``'W'`` (n, k) and ``'T'`` (k, d)
     as tensors on the fit's device; ``'obj_history'`` and
@@ -241,6 +304,38 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         raise ValueError("sparse must be one of True, False, 'auto', "
                          "'mxu', 'dma'; got %r" % (sparse,))
     masked = W_mat is not None
+    # ---- sparse-mask WRRI mode (reference nmf.py:843-882): the observed
+    # set as COO end to end, O(nnz) memory
+    masked_sparse = masked and is_sparse(W_mat)
+    gram_backend = None
+    if masked_sparse:
+        if w_row is not None:
+            raise NotImplementedError(
+                'w_row with a sparse W_mat is not supported: the row '
+                'weighting pre-scales X on the host and re-fits W against '
+                'the unscaled dense X; scale the observed values by '
+                'sqrt(w_row) yourself or pass a dense W_mat')
+        if store_gradients:
+            raise ValueError(
+                'store_gradients needs the dense masked sweep (the stored '
+                'numerators are dense d-vectors built from the dense '
+                'residual); pass a dense W_mat')
+        if reset_topic_method == 'max_resid_document':
+            logger.info("sparse-mask mode: reset_topic_method="
+                        "'max_resid_document' scans the full unmasked "
+                        "residual, which has no O(nnz) form; disabling "
+                        "resets (pass 'random' to keep budgeted resets)")
+            reset_topic_method = None
+        if mesh is not None:
+            _not_yet('a sparse-mask fit on a mesh', 'A.12')
+        # the sparse kwarg is the Gram-backend hint (reference
+        # nmf.py:988-998): 'mxu' forces the gather-kernel contractions
+        if sparse == 'dma':
+            raise ValueError("sparse='dma' has no masked form; use "
+                             "sparse='mxu' (or the default)")
+        if sparse == 'mxu':
+            gram_backend = 'mxu'
+            sparse = 'auto'
     # With T fixed only the W-phase runs, so both orders are the same
     # computation (the JAX nmf()'s rule) — take the phase path.
     if fix_T and not fix_W and not masked and update_order == 'interleaved':
@@ -277,9 +372,6 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                        and reset_topic_method is None and x_dtype is None)
 
     # ---- options not ported yet -----------------------------------------
-    if masked and hasattr(W_mat, 'tocoo'):
-        _not_yet('a scipy-sparse W_mat (the sparse-mask WRRI sweeps)',
-                 'A.11')
     if w_row is not None:
         _not_yet('w_row (row weights and the W refit)', 'A.4')
     if x_dtype is not None:
@@ -297,10 +389,15 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     X_user = X
     host = not isinstance(X, torch.Tensor)
     device = fit_device(X, device)
-    if X_is_sparse and not sparse_mode:
+    if masked_sparse:
+        # X stays where it is: the plan reads its values at the observed
+        # coordinates on the host
+        if host and not hasattr(X, 'tocsr'):
+            X = np.asarray(X)
+    elif X_is_sparse and not sparse_mode:
         # densified on its device (a scipy matrix on the host)
         X = X.to_dense() if isinstance(X, torch.Tensor) else X.toarray()
-    if not X_is_sparse or not sparse_mode:
+    if not masked_sparse and (not X_is_sparse or not sparse_mode):
         X = as_tensor(X, device=device)
     n, d = X.shape
     if dtype is None:
@@ -334,7 +431,9 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                             'the card\'s budget; B5 chunk-plan '
                             'contractions', dense_bytes / 1e9)
                 backend = 'mxu'
-    if sparse_mode:
+    if masked_sparse:
+        X_dev = None            # planned below, after the initialization
+    elif sparse_mode:
         X_dev = (plan_sparse_matrix_dma(X, dtype, device=device)
                  if backend == 'dma' else
                  plan_sparse_matrix(X, dtype, device=device)
@@ -344,7 +443,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         X = X.to(dtype).contiguous()
         X_dev = X
     Wm = None
-    if masked:
+    if masked_sparse:
+        if tuple(W_mat.shape) != (n, d):
+            raise ValueError('W_mat must have the shape of X, %s; got %s'
+                             % ((n, d), tuple(W_mat.shape)))
+    elif masked:
         # the mask on the fit's device in the fit's dtype
         Wm = as_tensor(W_mat, device=device, dtype=dtype).contiguous()
         if tuple(Wm.shape) != (n, d):
@@ -389,9 +492,33 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                 'obj_history': [-np.inf], 'iter_cputime': [0],
                 **_sentinel_extra}
 
+    # the Gram-phase sweep (reference nmf.py:884-961): phase order, no
+    # resets, and Γ/Θ within the Gram budget in full or in k-panels
+    gram_panel = None
+    masked_gram = False
+    if masked_sparse:
+        gram_panel = auto_panel(k, n, d, dtype.itemsize)
+        gram_fits = gram_panel is None or gram_panel >= 1
+        masked_gram = (update_order == 'phase' and reset_topic_method is None
+                       and gram_fits)
+        if update_order == 'phase' and not masked_gram:
+            why = ('reset_topic_method=%r is set (a mid-phase reset would '
+                   'rewrite the frozen factor)' % (reset_topic_method,)
+                   if reset_topic_method is not None else
+                   'even single-row Γ/Θ panels exceed the Gram budget '
+                   '(sweep_masked_gram.GRAM_BUDGET_BYTES; k=%d, shape %s)'
+                   % (k, (n, d)))
+            warnings.warn(
+                "masked update_order='phase' cannot take the Gram-phase "
+                'sweep because ' + why + '; falling back to the '
+                'interleaved (reference) order, whose O(nnz) gathers and '
+                'segment sums run once per topic', RuntimeWarning,
+                stacklevel=2)
+            update_order = 'interleaved'
+
     # The dense masked sweep is interleaved by construction (the JAX
     # rule, nmf.py:1162): the order that runs decides the scale transfer
-    if masked and update_order == 'phase':
+    if masked and update_order == 'phase' and not masked_gram:
         logger.info('masked path ignores the phase update order; running '
                     'the interleaved (reference) order')
         update_order = 'interleaved'
@@ -417,8 +544,13 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         init = 'random'
 
     start_time = time.perf_counter()
+    X_init, Wm_init = X, Wm
+    if masked_sparse:
+        X_init, Wm_init = None, None
+        if _size(W_in) == 0 or _size(T_in) == 0:
+            X_init = _masked_init_matrix(X, W_mat)
     W, T = _initialize_and_validate(
-        W_in=W_in, T_in=T_in, W_mat=Wm, X=X, k=k, init=init,
+        W_in=W_in, T_in=T_in, W_mat=Wm_init, X=X_init, k=k, init=init,
         random_state=random_state, project_T_each_iter=project_T_each_iter,
         project_W_each_iter=project_W_each_iter, w_row_sum=w_row_sum,
         t_row_sum=t_row_sum, fix_W=fix_W, fix_T=fix_T, n=n, d=d,
@@ -434,16 +566,19 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     inner_reps = int(inner_reps)
     if inner_reps < 1:
         raise ValueError('inner_reps must be >= 1')
-    if inner_reps > 1 and (update_order != 'phase' or masked
+    if inner_reps > 1 and (update_order != 'phase'
+                           or (masked and not masked_gram)
                            or reset_topic_method is not None
                            or store_gradients or dp_sigma is not None):
         raise ValueError(
-            "inner_reps > 1 requires update_order='phase', no dense W_mat, "
-            'reset_topic_method=None, no store_gradients, no DP noise (the '
-            'extra Gauss-Seidel passes reuse the per-phase numerators, '
-            'which those features invalidate)')
+            "inner_reps > 1 requires update_order='phase', no dense W_mat "
+            '(a sparse W_mat rides the Gram-phase sweep, which reuses A/Γ '
+            'exactly), reset_topic_method=None, no store_gradients, no DP '
+            'noise (the extra Gauss-Seidel passes reuse the per-phase '
+            'numerators, which those features invalidate)')
     cfg = SweepConfig(
         k=k, fix_W=fix_W, fix_T=fix_T, masked=masked,
+        masked_sparse=masked_sparse,
         project_T_each_iter=project_T_each_iter,
         project_W_each_iter=project_W_each_iter,
         t_row_sum=float(t_row_sum) if t_row_sum is not None else None,
@@ -483,7 +618,27 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             masked and supports_masked_kernels(cfg)):
         logger.warning('use_pallas requested but config unsupported by the '
                        'kernels; falling back to the plain sweep.')
-    if sparse_mode:
+    if masked_sparse:
+        # the observed set, planned on the host once for this call
+        if masked_gram:
+            X_dev = plan_masked_gram(X, W_mat, dtype, backend=gram_backend,
+                                     device=device)
+            if gram_panel is not None:
+                logger.info('Gram-phase masked sweep: k=%d exceeds the '
+                            'full-tensor budget; tiling Γ/Θ in %d-panel '
+                            'tiles', k, gram_panel)
+            masked_sweep = make_masked_gram_sweep(cfg, X_dev.backend,
+                                                  gram_panel)
+        else:
+            X_dev = plan_masked_coo(X, W_mat, dtype, device=device)
+            masked_sweep = make_masked_sparse_sweep(cfg)
+
+        def sweep_fn(X, W, T):
+            nonlocal resets_left
+            W, T, resets_left = masked_sweep(X, W, T, draws, resets_left,
+                                             *extras)
+            return W, T
+    elif sparse_mode:
         sparse_sweep = make_sparse_sweep(cfg, backend)
 
         def sweep_fn(X, W, T):
@@ -536,7 +691,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     if compute_obj_each_iter:
         # the plan modes' X is a chunk plan: the sparse objective's cross
         # term wants the plain coordinate list (reference nmf.py:1762-1790)
-        X_obj = X
+        X_obj = X_dev if masked_sparse else X
         if sparse_mode:
             X_obj = (X_dev.coo if backend == 'torch'
                      else to_torch_sparse(X, dtype, device))
@@ -544,9 +699,10 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                               reg_t_l2=reg_t_l2, reg_w_l2=reg_w_l2,
                               reg_t_l1=reg_t_l1, Wm=Wm,
                               matmul_precision=matmul_precision,
-                              sparse=sparse_mode)
+                              sparse=sparse_mode,
+                              masked_sparse=masked_sparse)
 
-    X_cb = X_user if X_is_sparse else X
+    X_cb = X_user if X_is_sparse or masked_sparse else X
     for func in diagnostics:
         rtv['diagnostics'][func.__name__].append(func(X_cb, W, T))
     if store_gradients:
@@ -655,6 +811,17 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     rtv['iter_cputime'] = iter_cputime
     rtv['random_state'] = random_state
     return rtv
+
+
+def _masked_init_matrix(X, W_mat):
+    """``W_mat ⊙ X`` on the host for a sparse mask (reference
+    nmf.py:2130-2142): elementwise, as scipy CSR, densified when its
+    dense float64 form is at most 2 GB so a small fit initializes as the
+    dense-mask one does."""
+    X_init = host_sparse(W_mat).tocsr().multiply(host_sparse(X)).tocsr()
+    if X_init.shape[0] * X_init.shape[1] * 8 <= 2e9:
+        return np.asarray(X_init.toarray())
+    return X_init
 
 
 def _initialize_and_validate(W_in, T_in, W_mat, X, k, init, random_state,

@@ -16,6 +16,11 @@
   X for kernels B5 and B6;
 - :mod:`rri_nmf_tpu_torch.ops.sparse_kernels` — the wrappers of kernels
   B5 and B6 and their plain twins;
+- :mod:`rri_nmf_tpu_torch.ops.sweep_masked_sparse` — the sparse-mask
+  (O(nnz)) interleaved sweep, its plan and objective;
+- :mod:`rri_nmf_tpu_torch.ops.sweep_masked_gram` — the sparse-mask
+  Gram-phase sweep (its contractions on the B5 gather kernel), its plan
+  and objective;
 - :mod:`rri_nmf_tpu_torch.ops._build` — builds ``csrc/*.cu`` at first use
   and launches its C functions.
 """

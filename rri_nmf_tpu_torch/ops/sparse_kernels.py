@@ -120,24 +120,26 @@ def dma_contract_ref(plan, F3):
                        F3.dtype, F3.device)
 
 
-def gather_contract_ref(layout, Ft, k, ncols):
+def gather_contract_ref(layout, Ft, k, ncols, vals=None):
     """Plain version of the gather kernel: ``out (k, ncols)``, column c
     the sum over its nonzeros i of ``v_i · Ft[g_i, :k]``, added in layout
     order (``index_add_``). ``layout`` is a :class:`~rri_nmf_tpu_torch.
     ops.sparse_plan.ColumnLayout` whose nonzeros lie in the first
-    ``ncols`` columns; ``Ft`` (m, >= k) holds Fᵀ's rows."""
+    ``ncols`` columns; ``Ft`` (m, >= k) holds Fᵀ's rows. ``vals``: other
+    values for the nonzeros, in layout order, in place of the layout's
+    (:func:`~rri_nmf_tpu_torch.ops.sparse_plan.layout_values`)."""
     out = torch.zeros(k, ncols, dtype=Ft.dtype, device=Ft.device)
     nnz = layout.gidx.shape[0]
     if nnz == 0:
         return out
+    v = layout.vals if vals is None else vals
     col = torch.arange(layout.n_cols, device=Ft.device).repeat_interleave(
         torch.diff(layout.colptr.long()))
     size = torch.empty(0, dtype=Ft.dtype).element_size()
     step = max(1, GATHER_BUDGET // (max(k, 1) * size))
     for a in range(0, nnz, step):
         b = min(a + step, nnz)
-        rows = Ft[layout.gidx[a:b].long(), :k] \
-            * layout.vals[a:b, None].to(Ft.dtype)
+        rows = Ft[layout.gidx[a:b].long(), :k] * v[a:b, None].to(Ft.dtype)
         out.index_add_(1, col[a:b], rows.T)
     return out
 
@@ -160,15 +162,18 @@ def _rows(Ft, k):
     return rows
 
 
-def gather_contract(plan, Ft, k, ncols, kind):
+def gather_contract(plan, Ft, k, ncols, kind, vals=None):
     """``out (k, ncols) = F @ X`` for the plan direction ``plan`` (either
     type), ``F``'s rows given as ``Ft`` (m, >= k); ``ncols`` the output
     columns wanted (the plan's padded width, or fewer when the rest are
-    empty). A CPU ``Ft`` runs :func:`gather_contract_ref`; a CUDA ``Ft``
-    launches ``csrc/sparse.cu`` and counts it under ``LAUNCHES[kind]``."""
+    empty). ``vals``: another matrix on the same nonzeros, its values in
+    the layout's order (:func:`~rri_nmf_tpu_torch.ops.sparse_plan.
+    layout_values`; JAX's ``vals_override``). A CPU ``Ft`` runs
+    :func:`gather_contract_ref`; a CUDA ``Ft`` launches
+    ``csrc/sparse.cu`` and counts it under ``LAUNCHES[kind]``."""
     _check_factor(Ft)
     if Ft.device.type == 'cpu':
-        return gather_contract_ref(column_layout(plan), Ft, k, ncols)
+        return gather_contract_ref(column_layout(plan), Ft, k, ncols, vals)
     if Ft.device.type != 'cuda':
         raise ValueError('the kernels run on CUDA or (plain twin) CPU '
                          'tensors, got %s' % Ft.device)
@@ -181,9 +186,14 @@ def gather_contract(plan, Ft, k, ncols, kind):
         if a.device != Ft.device:
             raise ValueError('the plan is on %s, the factor on %s'
                              % (a.device, Ft.device))
-    if layout.vals.dtype != Ft.dtype:
-        raise ValueError('plan values are %s, the factor %s'
-                         % (layout.vals.dtype, Ft.dtype))
+    v = layout.vals if vals is None else vals
+    if (v.dtype != Ft.dtype or v.device != Ft.device
+            or tuple(v.shape) != tuple(layout.vals.shape)
+            or not v.is_contiguous()):
+        raise ValueError('plan values are %s %s %s, the factor %s on %s; '
+                         'the layout has %d nonzeros'
+                         % (v.dtype, tuple(v.shape), v.device, Ft.dtype,
+                            Ft.device, layout.vals.shape[0]))
     if Ft.shape[1] < k or Ft.shape[0] < layout.n_rows:
         raise ValueError('the factor has %d rows of %d values; the plan '
                          'gathers %d rows of %d' % (*Ft.shape, layout.n_rows,
@@ -195,9 +205,8 @@ def gather_contract(plan, Ft, k, ncols, kind):
     rows = _rows(Ft, k)
     out = torch.empty(k, ncols, dtype=Ft.dtype, device=Ft.device)
     launch('rri_sparse_gather', rows, rows.data_ptr(),
-           layout.colptr.data_ptr(), layout.gidx.data_ptr(),
-           layout.vals.data_ptr(), out.data_ptr(), k, rows.shape[1], ncols,
-           ncols)
+           layout.colptr.data_ptr(), layout.gidx.data_ptr(), v.data_ptr(),
+           out.data_ptr(), k, rows.shape[1], ncols, ncols)
     LAUNCHES[kind] += 1
     return out
 

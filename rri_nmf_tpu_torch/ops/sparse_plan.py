@@ -51,19 +51,27 @@ def _run_starts(a):
     return new
 
 
-def _plan_direction_np(g, s, v, n_gtiles, n_stiles, C, G, dtype):
+def _plan_direction_np(g, s, v, n_gtiles, n_stiles, C, G, dtype,
+                       extra=None):
     """Bucket nonzeros by (scatter tile, gather tile), output-tile-major,
     padded to C-slot chunks; chunks grouped G per output tile (dummy
     chunks, ``v = 0``, pad each output tile's run to a multiple of G).
     ``g`` indexes the contracted axis, ``s`` the output axis. Returns
     host arrays ``(vals, gloc, sloc, ftile, otile, mask)``
-    (:func:`rri_nmf_tpu.ops.sparse_mxu._plan_direction_np`)."""
+    (:func:`rri_nmf_tpu.ops.sparse_mxu._plan_direction_np`).
+
+    ``extra``: a second value per nonzero, placed in the same slots as
+    ``v`` (padding 0) and returned last, as a seventh array shaped like
+    ``vals``: what JAX's ``sweep_masked_gram._vals_like`` gets from a
+    second call, without sorting again."""
     if len(v) == 0:
         # degenerate: one all-padding group, all-zero mask -> zeros out
-        return (np.zeros((1, G * C), dtype), np.zeros((1, G * C), np.uint8),
-                np.zeros((1, G * C), np.uint8),
-                np.zeros((G,), np.int32), np.zeros((1,), np.int32),
-                np.zeros((1, n_stiles * TILE), dtype))
+        out = (np.zeros((1, G * C), dtype), np.zeros((1, G * C), np.uint8),
+               np.zeros((1, G * C), np.uint8),
+               np.zeros((G,), np.int32), np.zeros((1,), np.int32),
+               np.zeros((1, n_stiles * TILE), dtype))
+        return out if extra is None else out + (np.zeros((1, G * C),
+                                                         dtype),)
     # one argsort on the fused (scatter-tile, gather-tile) key; only the
     # per-slot arrays are permuted
     pair = (s // TILE).astype(np.int64) * n_gtiles + g // TILE
@@ -72,6 +80,8 @@ def _plan_direction_np(g, s, v, n_gtiles, n_stiles, C, G, dtype):
     g = g[order]
     s = s[order]
     v = v[order]
+    if extra is not None:
+        extra = extra[order]
     gl = (g % TILE).astype(np.uint8)
     sl = (s % TILE).astype(np.uint8)
     newrun = _run_starts(pair)
@@ -88,6 +98,9 @@ def _plan_direction_np(g, s, v, n_gtiles, n_stiles, C, G, dtype):
 
     vals = np.zeros(nchunks * C, dtype)
     vals[dst] = v
+    if extra is not None:
+        vals2 = np.zeros(nchunks * C, dtype)
+        vals2[dst] = extra
     glo = np.zeros(nchunks * C, np.uint8)
     glo[dst] = gl
     slo = np.zeros(nchunks * C, np.uint8)
@@ -115,6 +128,8 @@ def _plan_direction_np(g, s, v, n_gtiles, n_stiles, C, G, dtype):
             return out
 
         vals = scatter_chunks(vals, C, dtype)
+        if extra is not None:
+            vals2 = scatter_chunks(vals2, C, dtype)
         glo = scatter_chunks(glo, C, np.uint8)
         slo = scatter_chunks(slo, C, np.uint8)
         ft2 = np.zeros(tot, np.int32)
@@ -127,9 +142,10 @@ def _plan_direction_np(g, s, v, n_gtiles, n_stiles, C, G, dtype):
     mask[st_first] = 1.0
     mask = np.broadcast_to(mask, (n_stiles, TILE)).reshape(1, -1)
 
-    return (vals.reshape(1, nchunks * C), glo.reshape(1, nchunks * C),
-            slo.reshape(1, nchunks * C), ftile, otile,
-            np.ascontiguousarray(mask))
+    out = (vals.reshape(1, nchunks * C), glo.reshape(1, nchunks * C),
+           slo.reshape(1, nchunks * C), ftile, otile,
+           np.ascontiguousarray(mask))
+    return out if extra is None else out + (vals2.reshape(1, nchunks * C),)
 
 
 def _plan_direction_dma_np(g, s, v, n_gtiles, n_stiles, C, dtype):
@@ -219,15 +235,20 @@ class ColumnLayout(object):
     ``colptr[c]:colptr[c+1]``; gidx: (nnz,) int32, the row of Fᵀ each
     gathers (``128·ftile + gloc``); vals: (nnz,) their values, in the
     plan's dtype. ``n_rows``: the rows of Fᵀ the gathers need (1 + the
-    largest ``gidx``; 0 when there is none)."""
+    largest ``gidx``; 0 when there is none). ``keep`` (the plan's slots,
+    bool) and ``order`` (int64) are the derivation's selection and sort:
+    slot ``keep.nonzero()[order[i]]`` is nonzero ``i``
+    (:func:`layout_values` maps a second value set through them)."""
 
     _fields = ('colptr', 'gidx', 'vals')
 
-    def __init__(self, colptr, gidx, vals, n_rows):
+    def __init__(self, colptr, gidx, vals, n_rows, keep=None, order=None):
         self.colptr = colptr
         self.gidx = gidx
         self.vals = vals
         self.n_rows = int(n_rows)
+        self.keep = keep
+        self.order = order
 
     @property
     def n_cols(self):
@@ -290,12 +311,15 @@ def host_coo(X):
     return idx[0], idx[1], X._values().cpu().numpy(), (n, d)
 
 
-def _host_dtype(dtype, vals):
-    if dtype is None:
-        return np.dtype(vals.dtype)
+def numpy_dtype(dtype):
+    """A torch or numpy dtype as a numpy dtype."""
     if isinstance(dtype, torch.dtype):
         return np.dtype(torch.empty(0, dtype=dtype).numpy().dtype)
     return np.dtype(dtype)
+
+
+def _host_dtype(dtype, vals):
+    return np.dtype(vals.dtype) if dtype is None else numpy_dtype(dtype)
 
 
 def _to_device(arrays, device):
@@ -391,5 +415,18 @@ def column_layout(plan):
         gidx = g[order].to(torch.int32)
         n_rows = int(gidx.max()) + 1 if gidx.numel() else 0
         plan.columns = ColumnLayout(colptr, gidx, v[order].contiguous(),
-                                    n_rows)
+                                    n_rows, keep, order)
     return plan.columns
+
+
+def layout_values(plan, vals):
+    """A second value set of the plan direction ``plan``, given in the
+    plan's slot order (shaped like ``plan.vals``), in the order of its
+    :class:`ColumnLayout`'s nonzeros: the values ``gather_contract``
+    takes in place of the layout's own. The slots the layout dropped
+    (zero in the plan) are dropped here too, whatever ``vals`` holds
+    there, so the layout is always the plan's (a second set may be 0
+    where the plan is not, and stays in)."""
+    lay = column_layout(plan)
+    v = vals.reshape(-1)[:lay.keep.shape[0]]
+    return v[lay.keep][lay.order].contiguous()

@@ -22,15 +22,17 @@ Fitted ``W``/``T`` are tensors on the device the fit ran on.
   the scorers; with resets on and the default ``sparse='auto'`` the fit
   and the transform densify it, as in the JAX package.
 - :class:`NMF_RS_Estimator` (``fit``, ``fit_from_Xtr``, ``transform``,
-  ``predict``, ``score``, ``make_Xpred``) fits masked WRRI on a dense
-  observation mask with its default preset. The sparse observation modes
-  (``sparse_obs``, a scipy-sparse ``transform`` input, ``sparsify``)
-  raise until ROADMAP A.11.
+  ``predict``, ``score``, ``make_Xpred``, ``sparsify``, ``densify``)
+  fits masked WRRI with its default preset: on a dense observation mask,
+  or with ``sparse_obs`` on the observed set as scipy CSR (the O(nnz)
+  sweeps); its ``transform`` always takes the sparse-mask route, as in
+  the JAX estimator.
 """
 
 import math
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from rri_nmf_tpu_torch.convert import factors_from_numpy
@@ -39,6 +41,7 @@ from rri_nmf_tpu_torch.matrixops import (as_tensor, default_float,
                                          scale_columns,
                                          tfidf, to_torch_sparse)
 from rri_nmf_tpu_torch.nmf import nmf
+from rri_nmf_tpu_torch.ops.sweep_masked_sparse import host_sparse
 from rri_nmf_tpu_torch.ops.sweep_sparse import sparse_cross_term
 
 # nmf() kwargs dropped from the TRANSFORM presets (fixed-T sweeps over new
@@ -341,10 +344,8 @@ def _check_pairs(X, y, device):
     return X, y
 
 
-def _sparse_not_yet(what):
-    raise NotImplementedError(
-        '%s is not ported to rri_nmf_tpu_torch yet; it arrives with the '
-        'sparse-mask WRRI sweeps (ROADMAP A.11)' % what)
+def _host(a):
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 class NMF_RS_Estimator(_Estimator):
@@ -356,11 +357,13 @@ class NMF_RS_Estimator(_Estimator):
     ``max_iter``, ``nmf_kwargs`` (forwarded to
     :func:`rri_nmf_tpu_torch.nmf.nmf`, overriding the presets),
     ``use_validation_early_stopping`` (hold out 5% of the observations
-    and stop when their RMSE rises) and ``sparse_obs`` (only the dense
-    mask is ported: True, or ``'auto'`` above ~2 GB of float64 mask,
-    raises until ROADMAP A.11); and the port's ``device``, where ``fit``
-    and ``fit_from_Xtr`` run (default: the device of tensor pairs, the
-    card for numpy data).
+    and stop when their RMSE rises) and ``sparse_obs`` (True, or
+    ``'auto'`` once the dense float64 mask would pass ~2 GB: the
+    observed set stays scipy CSR and the fit runs the sparse-mask sweeps
+    — the O(nnz) interleaved one by default, the Gram-phase one with
+    ``nmf_kwargs=dict(update_order='phase')``); and the port's
+    ``device``, where ``fit`` and ``fit_from_Xtr`` run (default: the
+    device of tensor pairs, the card for numpy data).
     """
 
     _PARAMS = ('n', 'd', 'k', 'wr1', 'tr1', 'random_state', 'W', 'T',
@@ -403,15 +406,51 @@ class NMF_RS_Estimator(_Estimator):
         return state
 
     def sparsify(self):
-        _sparse_not_yet('NMF_RS_Estimator.sparsify (scipy-sparse factors)')
+        """W and T as scipy CSR matrices on the host (the JAX estimator's
+        sparse factors); :meth:`densify` brings them back as tensors to
+        the device they were on."""
+        for name in ('W', 'T'):
+            A = getattr(self, name)
+            if sp.issparse(A):
+                setattr(self, name, A.tocsr())
+                continue
+            if isinstance(A, torch.Tensor):
+                self.factor_device = A.device
+            setattr(self, name, sp.csr_matrix(_host(A)))
 
     def densify(self):
-        _sparse_not_yet('NMF_RS_Estimator.densify (scipy-sparse factors)')
+        """Sparse W and T as dense tensors again, on the device
+        :meth:`sparsify` took them from (default: the CPU)."""
+        device = getattr(self, 'factor_device', torch.device('cpu'))
+        for name in ('W', 'T'):
+            A = getattr(self, name)
+            if sp.issparse(A):
+                setattr(self, name, as_tensor(A.toarray(), device=device))
 
     def _use_sparse_obs(self):
+        """``sparse_obs`` resolved: a bool as given; ``'auto'`` once the
+        dense (n, d) float64 form passes ~2 GB (the JAX rule)."""
         if isinstance(self.sparse_obs, (bool, np.bool_)):
             return bool(self.sparse_obs)
         return self.n * self.d * 8 > 2e9
+
+    def _coo_matrices(self, I, J, R):
+        """``(ratings, mask)`` as scipy CSR from observation triples
+        (``rri_nmf_tpu.sklearn_interface.NMF_RS_Estimator._coo_matrices``):
+        duplicate pairs sum their ratings, the mask stays binary, and an
+        observed rating of 0 stays observed."""
+        I, J = _host(I), _host(J)
+        ratings = sp.coo_matrix((_host(R).astype(np.float64), (I, J)),
+                                shape=(self.n, self.d)).tocsr()
+        mask = sp.coo_matrix((np.ones(len(I)), (I, J)),
+                             shape=(self.n, self.d)).tocsr()
+        mask.data[:] = 1.0
+        return ratings, mask
+
+    def _dense_mask(self, I, J, R):
+        """``(ratings, mask)`` as dense (n, d) tensors on the pairs'
+        device (:func:`coo_to_dense_mask`)."""
+        return coo_to_dense_mask(I, J, R, self.n, self.d)
 
     def fit(self, X, y=None):
         """Fit from ``X`` = (n_obs, 2) index pairs and ``y`` = ratings
@@ -420,10 +459,12 @@ class NMF_RS_Estimator(_Estimator):
         numpy pairs). With ``use_validation_early_stopping`` a
         5% split (scikit-learn's ``train_test_split(test_size=0.05,
         random_state=0)``) is held out and its RMSE, gathered on the
-        fit's device, stops the fit when it rises."""
+        fit's device, stops the fit when it rises. With ``sparse_obs``
+        resolved True the observed set is scipy CSR (:meth:`_coo_matrices`)
+        and no (n, d) array exists, on the host or the device."""
         X, y = _check_pairs(X, y, fit_device(X, self.device))
-        if self._use_sparse_obs():
-            _sparse_not_yet('sparse_obs (the O(nnz) observed-set fit)')
+        masks = self._coo_matrices if self._use_sparse_obs() \
+            else self._dense_mask
         device = X.device
         dtype = default_float(device)
         self.min_rating = float(y.min())
@@ -433,8 +474,7 @@ class NMF_RS_Estimator(_Estimator):
             tr, te = (torch.as_tensor(i, device=device)
                       for i in train_test_split_indices(X.shape[0]))
             UItr, UIval, Rtr, Rval = X[tr], X[te], y[tr], y[te]
-            Xtr, W_mat_tr = coo_to_dense_mask(UItr[:, 0], UItr[:, 1], Rtr,
-                                              self.n, self.d)
+            Xtr, W_mat_tr = masks(UItr[:, 0], UItr[:, 1], Rtr)
             # gather-based validation RMSE, O(q·k) per check; zero ratings
             # are dropped, as the reference's Xv.nonzero() does
             vnz = Rval != 0
@@ -451,15 +491,14 @@ class NMF_RS_Estimator(_Estimator):
             self.early_stop = RMSE_val
         else:
             self.early_stop = False
-            Xtr, W_mat_tr = coo_to_dense_mask(X[:, 0], X[:, 1], y, self.n,
-                                              self.d)
+            Xtr, W_mat_tr = masks(X[:, 0], X[:, 1], y)
 
-        soln = nmf(Xtr.to(dtype), self.k, **_merged(
+        soln = nmf(Xtr, self.k, **_merged(
             dict(max_iter=self.max_iter, max_time=7200,
                  compute_obj_each_iter=True, reset_topic_method=None,
                  early_stop=self.early_stop, project_T_each_iter=False,
                  t_row_sum=1.0, project_W_each_iter=False, w_row_sum=None,
-                 W_mat=W_mat_tr.to(dtype),
+                 W_mat=W_mat_tr, device=device, dtype=dtype,
                  W_in=self.W if _size(self.W) > 0 else [],
                  T_in=self.T if _size(self.T) > 0 else [],
                  reg_w_l1=self.wr1, reg_t_l1=self.tr1,
@@ -486,22 +525,27 @@ class NMF_RS_Estimator(_Estimator):
         return self.fit(torch.stack([I, J], dim=1), Xtr[I, J])
 
     def transform(self, Xnew):
-        """Express the dense ratings ``Xnew`` in the learned topics: four
-        fixed-T masked sweeps with the JAX estimator's transform preset
-        (``reset_topic_method='random'`` for dead topics), on the device
-        of the learned ``T``. The mask is ``Xnew != 0`` and the sweep is
-        the dense-mask one (kernel B4); the JAX package runs the same
-        W-phase in the same topic order through its O(nnz) sparse-mask
-        sweep, which the port has not yet (ROADMAP A.11, where a
-        scipy-sparse ``Xnew`` waits too)."""
-        if hasattr(Xnew, 'tocsr'):
-            _sparse_not_yet('a scipy-sparse Xnew in transform')
-        T = as_tensor(self.T)
-        Xnew = as_tensor(Xnew, device=T.device)
-        soln = nmf(Xnew, self.k, **_merged(
+        """Express the ratings ``Xnew`` (dense, scipy-sparse or a torch
+        tensor) in the learned topics: four fixed-T masked sweeps with the
+        JAX estimator's transform preset (``reset_topic_method='random'``
+        for dead topics), on the device of the learned ``T``. As in the
+        JAX estimator the indicator mask of ``Xnew``'s nonzeros is always
+        scipy-sparse, so the sweep is the O(nnz) sparse-mask one and only
+        the observed entries reach the device."""
+        T = self._dense_T()
+        X_h = host_sparse(Xnew)
+        if sp.issparse(X_h):
+            W_mat = X_h.tocsr().copy()
+            W_mat.eliminate_zeros()      # the dense nonzero() semantics
+            W_mat.data = np.ones_like(W_mat.data)
+        else:
+            X_h = np.asarray(X_h)
+            W_mat = sp.csr_matrix(X_h != 0).astype(
+                np.result_type(X_h.dtype, np.float32))
+        soln = nmf(X_h, self.k, **_merged(
             dict(max_iter=4, max_time=7200,
                  project_W_each_iter=False, project_T_each_iter=False,
-                 W_mat=(Xnew != 0).to(Xnew.dtype), T_in=T, fix_T=True,
+                 W_mat=W_mat, T_in=T, fix_T=True, device=T.device,
                  reg_w_l1=self.wr1, reg_t_l1=self.tr1, t_row_sum=1.0,
                  w_row_sum=None, reset_topic_method='random',
                  random_state=self.random_state),
@@ -509,10 +553,22 @@ class NMF_RS_Estimator(_Estimator):
         return soln['W']
 
     def _factors(self):
+        """W and T as dense tensors on T's device (scipy factors from
+        :meth:`sparsify` densified on the device they came from)."""
         if _size(self.W) == 0 or _size(self.T) == 0:
             raise ValueError('this NMF_RS_Estimator is not fitted yet')
-        T = as_tensor(self.T)
-        return as_tensor(self.W, device=T.device, dtype=T.dtype), T
+        T = self._dense_T()
+        return as_tensor(self._dense(self.W), device=T.device,
+                         dtype=T.dtype), T
+
+    def _dense(self, A):
+        if sp.issparse(A):
+            return as_tensor(A.toarray(), device=getattr(
+                self, 'factor_device', torch.device('cpu')))
+        return A
+
+    def _dense_T(self):
+        return as_tensor(self._dense(self.T))
 
     def make_Xpred(self):
         """Materialize and cache the full clipped (n, d) prediction

@@ -187,9 +187,12 @@ def test_masked_options_outside_the_slice():
                        'A.4'),):
         with pytest.raises(NotImplementedError, match=label):
             torch_nmf(X, 2, W_mat=M, max_iter=1, device='cpu', **kw)
-    with pytest.raises(NotImplementedError, match='A.11'):
-        torch_nmf(X, 2, W_mat=scipy.sparse.csr_matrix(M), max_iter=1,
-                  reset_topic_method=None, device='cpu')
+    # a scipy-sparse W_mat runs the sparse-mask sweep, as in JAX
+    kw = dict(W_mat=scipy.sparse.csr_matrix(M), max_iter=2, random_state=0,
+              reset_topic_method=None)
+    a = jax_nmf(X, 2, **kw)
+    b = torch_nmf(X, 2, device='cpu', **kw)
+    assert _close(b['W'], a['W']) and _close(b['T'], a['T'])
     with pytest.raises(ValueError, match='inner_reps'):
         torch_nmf(X, 2, W_mat=M, reset_topic_method=None, inner_reps=2,
                   device='cpu')
@@ -238,18 +241,32 @@ def test_rs_estimator_matches_jax(recsys_train, recsys_test, validation):
     assert np.allclose(P.predict(pairs), p1, rtol=0, atol=1e-12)
 
 
-def test_rs_transform_matches_jax(recsys_train, recsys_test):
-    """The dense-mask fixed-T sweep against JAX's sparse-mask one: the
-    same W-phase in the same topic order (no reset fires here)."""
+def test_rs_transform_matches_jax(recsys_train, recsys_test, monkeypatch):
+    """The transform takes JAX's route: the scipy-sparse indicator mask
+    and the O(nnz) sparse-mask sweep, never the dense-mask kernels."""
+    from rri_nmf_tpu_torch.ops import sweep_masked_sparse as ms
     n, d = recsys_train.shape
     J = JaxRS(n, d, 4, random_state=0, max_iter=6).fit_from_Xtr(
         recsys_train)
     P = tsk.NMF_RS_Estimator.from_numpy_state(
         numpy_state(J), device='cpu', random_state=0, max_iter=6)
+
+    def refuse(*args, **kw):
+        raise AssertionError('the transform ran a dense-mask kernel')
+    monkeypatch.setattr(mk, 'phase_a', refuse)
+    monkeypatch.setattr(mk, 'phase_b', refuse)
+    sweeps = []
+    real = ms.MaskedSparseSweep.__call__
+
+    def spy(self, plan, *args):
+        sweeps.append(type(plan).__name__)
+        return real(self, plan, *args)
+    monkeypatch.setattr(ms.MaskedSparseSweep, '__call__', spy)
     before = dict(mk.LAUNCHES)
     Wj = np.asarray(J.transform(recsys_test))
     Wp = P.transform(recsys_test)
     assert Wp.shape == Wj.shape and _close(Wp, Wj)
+    assert sweeps == ['MaskedCOOPlan'] * 4
     assert mk.LAUNCHES == before
     # the transform keeps the learned topics
     assert np.array_equal(P.T.numpy(), J.T)
@@ -306,14 +323,21 @@ def test_rs_estimator_params_and_errors(recsys_train):
         P.fit(pairs, y[:-1])
     with pytest.raises(ValueError):
         P.fit(pairs[:, :1], y)
-    with pytest.raises(NotImplementedError, match='A.11'):
-        tsk.NMF_RS_Estimator(n, d, 3, sparse_obs=True,
-                             device='cpu').fit(pairs, y)
+    # sparse_obs, sparsify/densify and a scipy-sparse transform input run
+    # as in the JAX estimator
+    S = tsk.NMF_RS_Estimator(n, d, 3, sparse_obs=True, device='cpu').fit(
+        pairs, y)
+    JS = JaxRS(n, d, 3, sparse_obs=True).fit(pairs, y)
+    assert _close(S.W, JS.W) and _close(S.T, JS.T)
     P.fit(pairs, y)
-    for call in (P.sparsify, P.densify,
-                 lambda: P.transform(scipy.sparse.csr_matrix(recsys_train))):
-        with pytest.raises(NotImplementedError, match='A.11'):
-            call()
+    W_fit = P.W.clone()
+    Xs = scipy.sparse.csr_matrix(recsys_train)
+    dense_transform = P.transform(recsys_train)
+    P.sparsify()
+    assert scipy.sparse.issparse(P.W) and scipy.sparse.issparse(P.T)
+    assert _close(P.transform(Xs), dense_transform)
+    P.densify()
+    assert torch.equal(P.W, W_fit)
 
 
 # ---------------------------------------------------------------------------
