@@ -11,11 +11,13 @@ so a reader finds each counterpart:
   ``masked_svd_init``
 - :mod:`rri_nmf_tpu_torch.nmf`            — the ``nmf()`` entry point (its
   defaults; dense or sparse X in phase order; masked WRRI with a dense
-  or a sparse ``W_mat``)
+  or a sparse ``W_mat``; row weights, HER extrapolation, checkpoints)
+- :mod:`rri_nmf_tpu_torch.checkpoint`     — checkpoint/resume of a fit
 - :mod:`rri_nmf_tpu_torch.sklearn_interface` — ``NMF_TM_Estimator``,
   ``NMF_RS_Estimator``
 - :mod:`rri_nmf_tpu_torch.ops`            — the sweeps and their kernels
 - :mod:`rri_nmf_tpu_torch.convert`        — carry fitted numpy state over
+- :mod:`rri_nmf_tpu_torch.utils`          — runtime checks, profiling hooks
 
 Device policy (:func:`rri_nmf_tpu_torch.matrixops.fit_device`): the
 entry points (``nmf()``, ``initialize_nmf``, the plan builders, both

@@ -46,3 +46,34 @@ def numpy_state(est):
         out[key] = v.cpu().numpy() if isinstance(v, torch.Tensor) \
             else np.asarray(v)
     return out
+
+
+def state_from_numpy(W, T, iteration, obj_history=(), resets_left=0,
+                     random_state=0, obj_tracked=True, her=None,
+                     es_score=None):
+    """The port's :class:`~rri_nmf_tpu_torch.checkpoint.NMFState` from a
+    JAX package checkpoint read as numpy: the factors, the iteration, the
+    objective history, the reset budget, ``random_state``,
+    ``obj_tracked``, the HER arrays (``Wy``, ``Ty``, ``beta``, ``e`` and,
+    where present, ``Wb``, ``Tb``, ``eb``) and the early-stop score.
+    Tensors stay on the CPU in their numpy dtypes; ``nmf()`` places them
+    on the fit's device in its dtype when it resumes.
+
+    The JAX PRNG key has no counterpart in a ``torch.Generator``, so the
+    state carries no generator state: a fit resumed from it seeds its
+    generator from ``random_state`` (only a ``'random'`` reset or DP noise
+    draws from it). Save the state with
+    :meth:`~rri_nmf_tpu_torch.checkpoint.NMFCheckpointer.save` and pass
+    the directory as ``nmf(checkpoint=...)``."""
+    from rri_nmf_tpu_torch.checkpoint import NMFState
+
+    def tensor(a):
+        return torch.as_tensor(np.array(a))
+    return NMFState(
+        W=tensor(W), T=tensor(T), iteration=int(iteration),
+        obj_history=[float(o) for o in obj_history], generator_state=None,
+        resets_left=int(resets_left), random_state=int(random_state),
+        obj_tracked=bool(obj_tracked),
+        her=(None if her is None
+             else {k: tensor(v) for k, v in her.items()}),
+        es_score=None if es_score is None else float(es_score))

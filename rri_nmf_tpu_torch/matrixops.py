@@ -1,4 +1,5 @@
-"""Leaf-layer tensor math: simplex projections, normalization, tfidf.
+"""Leaf-layer tensor math: simplex projections, normalization, tfidf,
+and the label and stacking helpers.
 
 Counterpart of :mod:`rri_nmf_tpu.matrixops`. The JAX package projects one
 row with ``_proj_simplex_core`` and ``vmap``s it over a matrix; here the
@@ -270,3 +271,88 @@ def tfidf(X, return_idf=False):
     if return_idf:
         return rtvx, idf
     return rtvx
+
+
+def _keep_dtype(x):
+    """``x`` as a tensor of its own dtype (numpy on the CPU)."""
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(
+        np.array(x))
+
+
+def euclidean_proj_simplex(v_in, s=1.0):
+    """Euclidean projection of ``v_in`` (any shape, flattened) onto the
+    positive simplex of radius ``s``: ``min_w 0.5||w - v||²`` s.t.
+    ``sum(w) = s, w >= 0`` by Duchi et al.'s sort-based algorithm
+    (reference ``matrixops.py:5-69``). Sparse input is densified; the
+    result has the input's shape."""
+    assert s > 0, 'Radius s must be strictly positive (%s <= 0)' % s
+    v = dense(v_in)
+    return _proj_simplex_core(v.reshape(-1), float(s)).reshape(v.shape)
+
+
+def labels_to_mat(y):
+    """(n,) label vector → (n, k) one-hot rows; or row-normalize an
+    existing (n, k) soft-label matrix (reference ``matrixops.py:182-200``).
+    Labels are read on the host; the result is a float64 tensor on the
+    CPU, or ``y``'s normalized rows on its device."""
+    y_t = dense(y)
+    y_np = y_t.cpu().numpy()
+    if y_np.size == y_np.shape[0]:
+        # (n,) and (n, 1) alike
+        y_np = y_np.reshape(-1)
+        k = len(np.unique(y_np))
+        W = np.zeros((y_np.size, k))
+        W[np.arange(y_np.size), y_np.astype(int)] = 1
+        return torch.as_tensor(W)
+    if abs(y_np.sum() - y_np.shape[0]) < 1e-5:      # already normalized
+        return y_t
+    k = len(np.unique(y_np))
+    if y_np.shape[1] == k:
+        return normalize(y_t)
+    raise ValueError(
+        'labels_to_mat: number of columns of y = {0} doesnt match number of '
+        'unique elements {1}'.format(y_np.shape[1], k))
+
+
+def harden_distributions(W):
+    """Each row of ``W`` hardened to a one-hot row at its argmax
+    (reference ``matrixops.py:203-209``), in W's dtype on its device."""
+    W = dense(W)
+    return torch.nn.functional.one_hot(
+        torch.argmax(W, dim=1), W.shape[1]).to(W.dtype)
+
+
+def col_vector(x):
+    """Reshape (n,) → (n, 1) (reference ``matrixops.py:212-214``)."""
+    return _keep_dtype(x).reshape(-1, 1)
+
+
+def stack_matrices(L, dict_key=None, transform=None, dim='tall'):
+    """Stack a list of matrices (or of dicts or objects holding them under
+    ``dict_key``) vertically (``'tall'``) or horizontally (``'fat'``),
+    each passed through ``transform`` first (reference
+    ``matrixops.py:217-267``). Returns a tensor."""
+    assert isinstance(L[0], (np.ndarray, torch.Tensor)) or (
+        isinstance(L[0], dict) and dict_key), (
+        'if L is a list of arrays no dict_key is needed; if L is a list of '
+        'dicts, dict_key must be the key of the matrices to stack.')
+    if dim == 'tall':
+        stack_op = torch.vstack
+    elif dim == 'fat':
+        stack_op = torch.hstack
+    else:
+        raise AssertionError('dim must be "tall" or "fat".')
+    mats = []
+    for E in L:
+        if dict_key:
+            try:
+                M = E[dict_key]
+            except TypeError:
+                M = getattr(E, dict_key)
+        else:
+            M = E
+        M = _keep_dtype(M)
+        if transform:
+            M = transform(M)
+        mats.append(M)
+    return stack_op(mats)

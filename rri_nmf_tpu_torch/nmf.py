@@ -35,10 +35,13 @@ the JAX ``nmf()`` routes it (``rri_nmf_tpu/nmf.py:1489-1596``):
   with resets or ``fix_W``, DP noise and gradient stores — through the
   plain sweep :func:`rri_nmf_tpu_torch.ops.sweep.make_sweep`.
 
-Around them: initialization, objective tracking and the
-relative-progress stop, early-stop rollback, ``max_time``, grouped
-dispatch, diagnostics, ``debug_checks``, the final W projection and the
-result dict.
+Around them: initialization, HER extrapolation (``accel='her'``,
+:mod:`rri_nmf_tpu_torch.ops.accel`, wrapping whichever sweep was picked),
+checkpoint/resume (:mod:`rri_nmf_tpu_torch.checkpoint`), row weights
+(``w_row``, with the fixed-T W refit on the unscaled X), objective
+tracking and the relative-progress stop, early-stop rollback,
+``max_time``, grouped dispatch, diagnostics, ``debug_checks``, the final
+W projection and the result dict.
 
 Every option outside the port so far raises ``NotImplementedError``
 naming the ROADMAP item that brings it.
@@ -54,11 +57,14 @@ import warnings
 import numpy as np
 import torch
 
+from rri_nmf_tpu_torch.checkpoint import NMFCheckpointer, NMFState
 from rri_nmf_tpu_torch.initialization import initialize_nmf
 from rri_nmf_tpu_torch.matrixops import (as_tensor, default_float,
                                          fit_device, is_sparse, normalize,
                                          proj_mat_to_simplex, to_torch_sparse)
 from rri_nmf_tpu_torch.optimization import universal_stopping_condition
+from rri_nmf_tpu_torch.ops.accel import (make_her_step, make_residual_obj,
+                                         supports_her)
 from rri_nmf_tpu_torch.ops.dense_kernels import (DenseResetSweep,
                                                  make_dense_phase_sweep,
                                                  supports_dense_kernels)
@@ -101,8 +107,11 @@ def _sync(device):
 
 class TrueObjComputer(object):
     """Full-objective calculator returned as ``rtv['obj_calculator']``:
-    holds X, the mask ``Wm`` (None for an unmasked fit) and the current
-    W/T and computes ``0.5 Σ Wm ⊙ (X - WT)²`` + regularizers.
+    holds X, the mask ``Wm`` (None for an unmasked fit), the row weights
+    ``wr`` (n, 1) of a ``w_row`` fit (else None) and the current W/T and
+    computes ``0.5 Σ wr ⊙ Wm ⊙ (X - WT)²`` + regularizers. As in the JAX
+    package, a ``w_row`` fit's X is already scaled by ``sqrt(w_row)``
+    and ``wr`` weights it once more.
 
     The residual is summed over 8192-row blocks when the whole ``W @ T``
     temporary would pass ~2 GB in the accumulator dtype (the JAX
@@ -122,13 +131,14 @@ class TrueObjComputer(object):
 
     def __init__(self, X, W, T, reg_w_l2, reg_t_l2, reg_w_l1, reg_t_l1,
                  Wm=None, matmul_precision=None, sparse=False,
-                 masked_sparse=False):
+                 masked_sparse=False, wr=None):
         self.X = X
         self.sparse = sparse
         self.masked_sparse = masked_sparse
         self.W = W
         self.T = T
         self.Wm = Wm
+        self.wr = wr
         self.reg_w_l2 = reg_w_l2
         self.reg_t_l2 = reg_t_l2
         self.reg_w_l1 = reg_w_l1
@@ -174,12 +184,15 @@ class TrueObjComputer(object):
             n, d = self.X.shape
             big = n * d * self.X.element_size() > 2e9 and n > 8192
             self._fn = make_objective(
-                masked=self.Wm is not None, reg_w_l2=self.reg_w_l2,
+                masked=self.Wm is not None,
+                row_weighted=self.wr is not None,
+                reg_w_l2=self.reg_w_l2,
                 reg_t_l2=self.reg_t_l2, reg_w_l1=self.reg_w_l1,
                 reg_t_l1=self.reg_t_l1, block_rows=8192 if big else None,
                 matmul_precision=self.matmul_precision)
         args = (self.X, self.W, self.T) + (
-            () if self.sparse or self.masked_sparse else (self.Wm,))
+            () if self.sparse or self.masked_sparse
+            else (self.Wm, self.wr))
         self.obj = float(self._fn(*args))
         return self.obj
 
@@ -226,11 +239,30 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
       (``eps_gauss_t``/``delta_gauss_t``) and ``sweeps_per_dispatch``. A
       fixed-T call takes the phase order itself, as in the JAX ``nmf()``.
       A sparse ``W_mat`` (scipy, or a torch COO/CSR tensor) as in JAX;
-      see **Sparse masks** below. Not ported yet, each raising
-      ``NotImplementedError``: ``w_row`` (A.4), ``x_dtype`` and
-      16-bit factors (A.8), ``mesh`` (A.12, sparse and sparse-mask fits
-      on a mesh included), ``checkpoint`` and ``accel`` (A.9),
+      see **Sparse masks** below. ``w_row`` (numpy or a tensor) scales X
+      by ``sqrt(w_row)`` on the fit's device (a sparse X is densified,
+      a vector ``w_row_sum`` sqrt-scaled) and ends with the JAX
+      package's 10-sweep fixed-T W refit on the unscaled X, whose
+      objectives and stamps extend ``obj_history`` and
+      ``iter_cputime``. ``accel='her'`` with ``accel_opts`` wraps the
+      sweep that runs (see **HER** below). Not ported yet, each raising
+      ``NotImplementedError``: ``x_dtype`` and 16-bit factors (A.8),
+      ``mesh`` (A.12, sparse and sparse-mask fits on a mesh included),
       ``init='nndsvd_lrc'`` and ``'coherence_pmi'`` (A.3).
+    - **HER** (``accel='her'``) refuses what the JAX package refuses
+      (resets, gradient stores, DP noise, a sparse mode or sparse mask,
+      a fixed factor) with its ``ValueError``\\ s. Its step reads nothing
+      on the host, so with ``sweeps_per_dispatch`` a group of HER sweeps
+      syncs once. The fit returns the best accepted iterate unless an
+      early stop rolled back.
+    - **Checkpoints** (``checkpoint``: a directory or an
+      :class:`~rri_nmf_tpu_torch.checkpoint.NMFCheckpointer`) are
+      written with ``torch.save``; a fit resumes from the latest step,
+      its factors placed on the fit's device, and a resumed fit equals
+      the straight one. The generator state rides the checkpoint; one
+      written on another device type cannot be set, so the generator
+      then re-seeds from ``random_state`` (logged as a warning), while
+      the factors, history and budget resume.
     - **Sparse masks.** A sparse ``W_mat`` keeps the observed set as COO
       end to end, built on the host once per call (X dense or sparse; X
       is read only where the mask is nonzero). With
@@ -372,17 +404,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                        and reset_topic_method is None and x_dtype is None)
 
     # ---- options not ported yet -----------------------------------------
-    if w_row is not None:
-        _not_yet('w_row (row weights and the W refit)', 'A.4')
     if x_dtype is not None:
         _not_yet('x_dtype (mixed or quantized X storage)', 'A.8')
     if mesh is not None:
         _not_yet('a sparse fit on a mesh' if sparse in (True, 'mxu', 'dma')
                  else 'mesh (distributed fits)', 'A.12')
-    if checkpoint is not None:
-        _not_yet('checkpoint', 'A.9')
-    if accel is not None or accel_opts:
-        _not_yet("accel='her'", 'A.9')
 
     # ---- X on its device, in the working dtype ---------------------------
     # callbacks receive a sparse X as the user passed it
@@ -453,6 +479,15 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         if tuple(Wm.shape) != (n, d):
             raise ValueError('W_mat must have the shape of X, %s; got %s'
                              % ((n, d), tuple(Wm.shape)))
+
+    # ---- row weighting: X pre-scaled by sqrt(w_row) on the fit's device
+    # (reference nmf.py:335-344); the unscaled X serves the W refit
+    X_orig = wr = None
+    if w_row is not None:
+        X_orig = X
+        wr = as_tensor(w_row, device=device, dtype=dtype).reshape(n, 1)
+        X = torch.sqrt(wr) * X
+        X_dev = X
 
     # ---- configuration validation (reference nmf.py:280-315) -------------
     if project_T_each_iter and np.any([reg_w_l1, reg_t_l1]):
@@ -535,8 +570,12 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     max_time = max_time - 10  # reserve time for the final W projection
 
     if w_row_sum_is_vector:
-        w_row_sum = as_tensor(w_row_sum, device=device,
-                              dtype=dtype).reshape(-1, 1)
+        w_row_sum = as_tensor(w_row_sum, device=device).reshape(-1, 1)
+        if w_row is not None:
+            # rows of X are scaled by sqrt(w_row), so rows of W must sum
+            # to the sqrt as well (reference nmf.py:340-344)
+            w_row_sum = w_row_sum.sqrt()
+        w_row_sum = w_row_sum.to(dtype)
     elif w_row_sum is not None:
         w_row_sum = float(w_row_sum)
 
@@ -669,9 +708,99 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                                                *extras)
             return W, T
 
-    # ---- early stopping state (reference nmf.py:360-363) ------------------
+    # ---- extrapolation (accel='her', reference nmf.py:1598-1656): momentum
+    # and objective-checked restarts around the sweep picked above --------
+    her_state = None
+    if accel is None and accel_opts:
+        raise ValueError("accel_opts requires accel='her'")
+    if accel is not None:
+        if accel != 'her':
+            raise ValueError("accel must be None or 'her'")
+        if not supports_her(cfg) or sparse_mode or fix_W or fix_T:
+            raise ValueError(
+                "accel='her' requires a non-sparse-mode config with "
+                'reset_topic_method=None, no store_gradients, no DP '
+                'noise, and both factors free')
+        her_opts = dict(gamma=1.05, beta0=0.5, beta_max=0.9999)
+        if accel_opts:
+            unknown = set(accel_opts) - set(her_opts)
+            if unknown:
+                raise ValueError('accel_opts: unknown keys %s (valid: %s)'
+                                 % (sorted(unknown), sorted(her_opts)))
+            her_opts.update({k: float(v) for k, v in accel_opts.items()})
+        her_extras = (Wm,) if masked else ()
+        her_step = make_her_step(sweep_fn, make_residual_obj(cfg),
+                                 gamma=her_opts['gamma'],
+                                 beta_max=her_opts['beta_max'])
+        her_state = {}
+
+        def sweep_fn(X, W, T):
+            if not her_state:
+                inf = torch.tensor(float('inf'), dtype=dtype, device=device)
+                her_state.update(
+                    Wy=W, Ty=T, Wb=W, Tb=T, eb=inf,
+                    beta=torch.tensor(her_opts['beta0'], dtype=torch.float32,
+                                      device=device),
+                    e=inf)
+            W1, T1, Wy, Ty, Wb, Tb, eb, b, e = her_step(
+                X, W, T, her_state['Wy'], her_state['Ty'], her_state['Wb'],
+                her_state['Tb'], her_state['eb'], her_state['beta'],
+                her_state['e'], *her_extras)
+            her_state.update(Wy=Wy, Ty=Ty, Wb=Wb, Tb=Tb, eb=eb, beta=b, e=e)
+            return W1, T1
+
+    def _her_ckpt_state():
+        """The momentum state for a checkpoint (None when accel is off)."""
+        if her_state:
+            return {k: her_state[k]
+                    for k in ('Wy', 'Ty', 'beta', 'e', 'Wb', 'Tb', 'eb')}
+        return None
+
+    # ---- checkpoint/resume (reference nmf.py:1662-1726) --------------------
+    ckpt = None
+    start_iter = 0
+    resumed = None
+    if checkpoint is not None:
+        ckpt_owned = not isinstance(checkpoint, NMFCheckpointer)
+        ckpt = NMFCheckpointer(checkpoint) if ckpt_owned else checkpoint
+        resumed = ckpt.restore(device=device)
+        if resumed is not None:
+            logger.info('Resuming from checkpoint step %d',
+                        resumed.iteration)
+            W = resumed.W.to(device=device, dtype=dtype)
+            T = resumed.T.to(device=device, dtype=dtype)
+            _restore_draws(draws, resumed, device, random_state)
+            resets_left = int(resumed.resets_left)
+            start_iter = resumed.iteration
+            if her_state is not None:
+                her = resumed.her
+                if her is not None:
+                    # continue the momentum sequence exactly: resumed HER
+                    # fit ≡ straight HER fit
+                    her_state.update(
+                        Wy=her['Wy'].to(dtype), Ty=her['Ty'].to(dtype),
+                        beta=her['beta'].to(torch.float32),
+                        e=her['e'].to(dtype))
+                    if 'Wb' in her:
+                        her_state.update(Wb=her['Wb'].to(dtype),
+                                         Tb=her['Tb'].to(dtype),
+                                         eb=her['eb'].to(dtype))
+                    else:
+                        # written before best-iterate tracking: the
+                        # checkpointed factors are the last accepted
+                        # iterate, whose objective is her['e']
+                        her_state.update(Wb=W, Tb=T, eb=her['e'].to(dtype))
+                elif resumed.iteration > 0:
+                    logger.warning(
+                        'Checkpoint at step %d carries no extrapolation '
+                        'state (written without accel=\'her\'); the '
+                        'momentum sequence restarts from this point.',
+                        resumed.iteration)
+
+    # ---- early stopping state (reference nmf.py:360-363, 1733-1756) -------
     _es_active = bool(early_stop) and (callable(early_stop)
                                        or compute_obj_each_iter)
+    _es_rolled_back = False
     if early_stop and not _es_active:
         logger.warning(
             'early_stop=%r scores from the tracked objective, but '
@@ -681,6 +810,10 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             early_stop)
     if _es_active:
         last_score = np.inf
+        if resumed is not None and resumed.es_score is not None:
+            # the straight fit's comparison state: without it a resumed
+            # fit misses the stop it makes at the first score increase
+            last_score = float(resumed.es_score)
         W_prev, T_prev = W, T
 
     obj_history = []
@@ -700,7 +833,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                               reg_t_l1=reg_t_l1, Wm=Wm,
                               matmul_precision=matmul_precision,
                               sparse=sparse_mode,
-                              masked_sparse=masked_sparse)
+                              masked_sparse=masked_sparse, wr=wr)
 
     X_cb = X_user if X_is_sparse or masked_sparse else X
     for func in diagnostics:
@@ -709,17 +842,47 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         rtv['numer_W'] = {}
         rtv['denom_W'] = {}
 
-    # grouped sweeps (the JAX nmf()'s sweeps_per_dispatch,
-    # rri_nmf_tpu/nmf.py:1843-1916): with no per-sweep host work asked
-    # for, the loop syncs, stamps the clock and checks max_time only at
-    # the end of each group of sweeps
+    if resumed is not None:
+        # a restored fit: its history, so the stopping rule sees it
+        # (reference nmf.py:1818-1840)
+        obj_history = list(resumed.obj_history)
+        if compute_obj_each_iter and not resumed.obj_tracked and \
+                resumed.iteration > 0:
+            logger.warning(
+                'Checkpoint at step %d was written without objective '
+                'tracking (grouped dispatch); obj_history restarts empty, '
+                'so the universal stopping condition behaves as from a '
+                'fresh start.', resumed.iteration)
+        if compute_obj_each_iter and universal_stopping_condition(
+                obj_history, eps_stop=eps_stop):
+            # the straight fit stopped at the end of this iteration; one
+            # more sweep could hop between tied solutions
+            logger.info('STOPPING on restore: the restored obj_history '
+                        'already meets the stopping condition')
+            start_iter = max_iter
+
+    def _save(step, tracked, history):
+        ckpt.save(step, NMFState(
+            W=W, T=T, iteration=step, obj_history=history,
+            generator_state=draws.get_state(), resets_left=resets_left,
+            random_state=random_state, obj_tracked=tracked,
+            her=_her_ckpt_state(),
+            es_score=(float(last_score) if (_es_active
+                                            and np.isfinite(last_score))
+                      else None),
+            generator_device=device.type))
+
+    # grouped sweeps (reference nmf.py:1842-1916): with no per-sweep host
+    # work asked for, the device is synced, the clock stamped and max_time
+    # checked only at the end of each group of sweeps; a group also ends
+    # at each checkpoint step
     group = int(sweeps_per_dispatch)
-    if (group < 1 or _es_active or compute_obj_each_iter or diagnostics
-            or store_gradients or debug_checks):
-        group = 1
+    grouped = group > 1 and not (_es_active or compute_obj_each_iter
+                                 or diagnostics or store_gradients
+                                 or debug_checks)
 
     # ---- outer iteration loop (reference nmf.py:377-514) ------------------
-    for iter_no in range(max_iter):
+    for iter_no in range(start_iter, max_iter):
         logger.info('Iteration %d', iter_no)
 
         if _es_active:
@@ -732,6 +895,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             logger.info('Iter %d stopping score %.3f', iter_no, this_score)
             if this_score > last_score:  # STOP EARLY (nmf.py:391-403)
                 logger.info('Stopping early at iter %d', iter_no)
+                _es_rolled_back = True
                 W, T = W_prev, T_prev
                 obj_history = obj_history[:-1]
                 iter_cputime = iter_cputime[:-1]
@@ -752,8 +916,6 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             _md.__enter__()
 
         W, T = sweep_fn(X_dev, W, T)
-        if (iter_no + 1) % group and iter_no + 1 < max_iter:
-            continue                        # inside a group of sweeps
         if store_gradients:
             rtv['numer_W'][iter_no], rtv['denom_W'][iter_no] = stored
 
@@ -767,15 +929,22 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                              project_W_each_iter=project_W_each_iter,
                              project_T_each_iter=project_T_each_iter)
 
-        if compute_obj_each_iter:
+        save_now = ckpt is not None and checkpoint_every > 0 and \
+            (iter_no + 1) % checkpoint_every == 0
+        if grouped:
+            pending = iter_no + 1 - start_iter - len(iter_cputime)
+            if pending < group and iter_no + 1 < max_iter and not save_now:
+                continue
+            _sync(device)
+            iter_cputime.extend([time.perf_counter()] * pending)
+        elif compute_obj_each_iter:
             OBJ.W, OBJ.T = W, T
             obj_history.append(OBJ.true_objective())
             logger.info('\tObj: %3.3e', obj_history[-1])
+            iter_cputime.append(time.perf_counter())
         else:
             _sync(device)   # keep the host clock honest
-        # one stamp for each sweep of the group just ended
-        iter_cputime.extend([time.perf_counter()]
-                            * (iter_no + 1 - len(iter_cputime)))
+            iter_cputime.append(time.perf_counter())
 
         for func in diagnostics:
             dval = func(X_cb, W, T)
@@ -783,6 +952,10 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             logger.info('\t%s: %s', func.__name__, dval)
 
         logger.info('\tTime: %.3fsec', time.time() - it_start_time)
+
+        if save_now:
+            _save(iter_no + 1, bool(compute_obj_each_iter),
+                  list(obj_history))
 
         if time.time() - t_global_start >= max_time:
             logger.info('STOPPING because max_time after iter %d', iter_no)
@@ -794,12 +967,34 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
 
     iter_cputime = [x - start_time for x in iter_cputime]
 
+    # ---- HER: the lowest-objective accepted iterate (reference
+    # nmf.py:2038-2050); an early-stop rollback keeps its own iterate ------
+    if her_state and not _es_rolled_back:
+        if bool(her_state['eb'] < her_state['e']):
+            logger.info('HER: returning the best accepted iterate '
+                        '(objective %.6g < final %.6g)',
+                        float(her_state['eb']), float(her_state['e']))
+            W, T = her_state['Wb'], her_state['Tb']
+
     # ---- final W projection (reference nmf.py:519-529) --------------------
     if (not project_W_each_iter and w_row_sum is not None and not fix_W
             and do_final_project_W):
         logger.info('Post completion W row projection')
         W = proj_mat_to_simplex(W, w_row_sum if not w_row_sum_is_vector
                                 else w_row_sum.reshape(-1))
+
+    # ---- row-weighted post-solve: W refit on the unscaled X (reference
+    # nmf.py:531-539, with the run's settings threaded through as the JAX
+    # package does, nmf.py:2063-2078) ------------------------------------
+    if w_row is not None:
+        sub = nmf(X_orig, k, T_in=T, fix_T=True, max_iter=10,
+                  w_row_sum=w_row_sum, project_W_each_iter=True,
+                  compute_obj_each_iter=compute_obj_each_iter,
+                  random_state=random_state, dtype=dtype,
+                  matmul_precision=matmul_precision, device=device)
+        obj_history.extend(sub.get('obj_history', []))
+        iter_cputime.extend(sub['iter_cputime'])
+        W = sub['W']
 
     rtv['W'] = W.contiguous()
     rtv['T'] = T.contiguous()
@@ -810,7 +1005,29 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         rtv['obj_calculator'] = OBJ
     rtv['iter_cputime'] = iter_cputime
     rtv['random_state'] = random_state
+    if ckpt is not None and ckpt_owned:
+        ckpt.close()
     return rtv
+
+
+def _restore_draws(draws, state, device, random_state):
+    """Set the restored generator state on ``draws`` (seeded with
+    ``random_state``). A state written on another device type, or none at
+    all, cannot be set: the generator keeps its seed, and that is
+    logged."""
+    if state.generator_state is None:
+        logger.info('checkpoint at step %d carries no generator state; the '
+                    'generator is seeded from random_state=%d',
+                    state.iteration, random_state)
+    elif state.generator_device != device.type:
+        logger.warning(
+            'checkpoint at step %d holds a %s generator state, which a %s '
+            'fit cannot set; the generator re-seeds from random_state=%d '
+            '(the factors, history and reset budget resume)',
+            state.iteration, state.generator_device, device.type,
+            random_state)
+    else:
+        draws.set_state(state.generator_state)
 
 
 def _masked_init_matrix(X, W_mat):

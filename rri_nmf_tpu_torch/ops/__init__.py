@@ -1,7 +1,8 @@
 """The sweeps and their kernels (counterpart of :mod:`rri_nmf_tpu.ops`).
 
 - :mod:`rri_nmf_tpu_torch.ops.sweep` — ``SweepConfig``, dtype rules, the
-  full objective (plain or masked), the topic resets and the plain sweep
+  full objective (plain, masked or row-weighted), the topic resets and
+  the plain sweep
   (``make_sweep``: the interleaved order, the Gram-blocked phase form,
   DP noise, gradient stores);
 - :mod:`rri_nmf_tpu_torch.ops.dense_kernels` — the dense phase sweep
@@ -21,6 +22,8 @@
 - :mod:`rri_nmf_tpu_torch.ops.sweep_masked_gram` — the sparse-mask
   Gram-phase sweep (its contractions on the B5 gather kernel), its plan
   and objective;
+- :mod:`rri_nmf_tpu_torch.ops.accel` — HER extrapolation around any of
+  the sweeps above, and its blockwise residual objective;
 - :mod:`rri_nmf_tpu_torch.ops._build` — builds ``csrc/*.cu`` at first use
   and launches its C functions.
 """

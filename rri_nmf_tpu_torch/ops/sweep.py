@@ -3,7 +3,8 @@ Gram-blocked phase form.
 
 Counterpart of :mod:`rri_nmf_tpu.ops.sweep_xla`: :class:`SweepConfig`
 (copied field for field, without JAX), :func:`resolve_mixed_dtypes`,
-:func:`make_objective` (plain or masked, with the row-blocked option),
+:func:`make_objective` (plain, masked or row-weighted, with the
+row-blocked option),
 :func:`make_reset_rowcol` (``'max_resid_document'``, blockwise or
 whole, and ``'random'``) and :func:`make_sweep`, the sweep the JAX
 package runs when no fused kernel covers a config: the reference's
@@ -141,38 +142,39 @@ def precision_scope(name):
 def make_objective(masked=False, row_weighted=False, reg_w_l2=0.0,
                    reg_t_l2=0.0, reg_w_l1=0.0, reg_t_l1=0.0,
                    block_rows=None, matmul_precision=None):
-    """Build ``objective(X, W, T[, M]) -> 0-d tensor``:
-    ``0.5 Σ M ⊙ (X - WT)²`` plus the four regularizers (reference
+    """Build ``objective(X, W, T, M=None, wr=None) -> 0-d tensor``:
+    ``0.5 Σ wr ⊙ M ⊙ (X - WT)²`` plus the four regularizers (reference
     ``nmf.py:71-94``), accumulated in the accumulator dtype. The mask
-    ``M`` (n, d) is passed only when ``masked``; it weights each squared
-    entry, as :func:`rri_nmf_tpu.ops.sweep_xla.make_objective` does.
+    ``M`` (n, d) is passed only when ``masked`` and the row weights ``wr``
+    (n, 1) only when ``row_weighted``; each weights the squared entries,
+    as :func:`rri_nmf_tpu.ops.sweep_xla.make_objective` does.
 
     ``block_rows`` sums the residual over row blocks of that size instead
     of materializing the whole ``W @ T`` product (for X near the device
-    memory budget). The row-weighted form waits for the ``w_row`` refit
-    (ROADMAP A.4)."""
-    if row_weighted:
-        raise NotImplementedError(
-            'the row-weighted objective arrives with the w_row refit '
-            '(ROADMAP A.4)')
+    memory budget)."""
 
-    def _res_sq(acc, X, W, T, M):
+    def _res_sq(acc, X, W, T, M, wr):
         R = (X.to(acc) - W.to(acc) @ T.to(acc)) ** 2
         if masked:
             R = M.to(acc) * R
+        if row_weighted:
+            R = wr.to(acc) * R
         return R.sum()
 
-    def objective(X, W, T, M=None):
+    def objective(X, W, T, M=None, wr=None):
         if masked and M is None:
             raise ValueError('the masked objective needs the mask M')
+        if row_weighted and wr is None:
+            raise ValueError('the row-weighted objective needs the weights')
         _, acc, _ = resolve_mixed_dtypes(X.dtype, W.dtype)
         with precision_scope(matmul_precision):
             if block_rows is None:
-                base = _res_sq(acc, X, W, T, M)
+                base = _res_sq(acc, X, W, T, M, wr)
             else:
                 B = int(block_rows)
                 base = sum(_res_sq(acc, X[i:i + B], W[i:i + B], T,
-                                   M[i:i + B] if masked else None)
+                                   M[i:i + B] if masked else None,
+                                   wr[i:i + B] if row_weighted else None)
                            for i in range(0, X.shape[0], B))
         Wa = W.to(acc)
         Ta = T.to(acc)

@@ -20,6 +20,10 @@ The scalar branches are the per-topic update the dense kernels run
 (:mod:`rri_nmf_tpu_torch.ops.dense_kernels`). Both curvature branches are
 computed and selected with ``torch.where``, so a device ``c`` needs no
 host round trip.
+
+Besides: the host-side oracles :func:`kkt_qf_min` and
+:func:`optimize_scipy` (NumPy and SciPy, as in the JAX package),
+:func:`projected_gradient_norm` and the stopping conditions.
 """
 
 import numpy as np
@@ -149,6 +153,119 @@ def qf_min(w, c, s=1.0, ub=1.0, x0=None):
                 .format(w=w, c=c, s=s, ub=ub))
         return qf_min_vector_c(w, c, s, ub)
     raise ValueError('c must be a scalar or have the shape of w')
+
+
+def _host_np(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def kkt_qf_min(w, d, s=1.0, ub=1.0):
+    """Active-set KKT solver for ``min wᵀx + xᵀdiag(d)x`` on
+    ``{0 <= x <= ub, Σx = s}`` with positive per-coordinate curvature
+    ``d`` (a scalar or one per coordinate); returns the optimal x as a
+    float64 tensor on the CPU.
+
+    A host-side oracle, as :func:`rri_nmf_tpu.optimization.kkt_qf_min` is
+    (the reference's exploratory ``kkt_qf_min``,
+    ``optimization.py:110-150``): ``x_i(λ) = clip(-(w_i + λ) / (2 d_i), 0,
+    ub)`` for the multiplier λ of the sum constraint, whose ``Σ x_i(λ)``
+    is piecewise linear and non-increasing in λ, so the KKT system is a
+    1-D root found exactly on the breakpoint grid."""
+    w = _host_np(w).astype(float)
+    d = _host_np(d).astype(float)
+    if np.ndim(d) == 0:
+        d = np.full_like(w, float(d))
+    assert np.all(d > 0), 'kkt_qf_min requires positive curvature'
+    assert w.size * ub >= s - 1e-15, 'infeasible: n*ub < s'
+
+    def x_of(lam):
+        return np.clip(-(w + lam) / (2.0 * d), 0.0, ub)
+
+    # breakpoints where coordinates hit the box faces
+    bps = np.unique(np.concatenate([-w, -w - 2.0 * d * ub]))
+    sums = np.array([x_of(b).sum() for b in bps])  # non-increasing in λ
+    j = int(np.searchsorted(-sums, -s, side='left'))
+    if j == 0:
+        lam = bps[0]
+    elif j >= len(bps):
+        lam = bps[-1]
+    else:
+        lo, hi = bps[j - 1], bps[j]
+        slo, shi = sums[j - 1], sums[j]
+        lam = lo if slo == shi else lo + (slo - s) * (hi - lo) / (slo - shi)
+    x = x_of(lam)
+    # the interpolation is exact; a float residue rescales on the interior
+    interior = (x > 0) & (x < ub)
+    resid = s - x.sum()
+    if abs(resid) > 1e-12 and interior.any():
+        x[interior] += resid / interior.sum()
+        x = np.clip(x, 0.0, ub)
+    return torch.as_tensor(x)
+
+
+def optimize_scipy(w, c, s, ub, x0=None):
+    """SLSQP solver of the ``qf_min`` QP ``min wᵀx + 0.5 xᵀdiag(c)x`` on
+    ``{0 <= x <= ub, Σx = s}`` (no sum constraint when ``s`` is falsy),
+    a test oracle on the host (:func:`rri_nmf_tpu.optimization.
+    optimize_scipy`; the reference's ``optimization.py:232-282`` with its
+    missing return). Returns ``(x, ||x||_1)``, x a float64 tensor on the
+    CPU; raises ``ValueError`` when the solver violates the constraints
+    by more than 1e-8."""
+    from scipy.optimize import minimize
+    w = _host_np(w).astype(float)
+    c = _host_np(c).astype(float)
+    if np.ndim(c) == 0:
+        c = np.full_like(w, float(c))
+    bounds = [(0.0, ub)] * w.size
+
+    def f(x):
+        return float(np.sum(w * x) + 0.5 * np.sum(c * x * x))
+
+    def jac(x):
+        return w + c * x
+
+    constraints = []
+    if s:
+        constraints = [{'type': 'eq', 'fun': lambda x: np.sum(x) - s,
+                        'jac': lambda x: np.ones_like(x)}]
+    if x0 is None:
+        x0 = np.zeros_like(w)
+        pos = c > 0
+        x0[pos] = np.maximum(-w[pos], 0) / (c[pos] + EPS_DIV_BY_ZERO)
+        if s:
+            if x0.sum() > EPS_DIV_BY_ZERO:
+                x0 = s * x0 / x0.sum()
+            else:
+                x0[np.argmin(w + c)] = min(ub, s) if ub else s
+    else:
+        x0 = _host_np(x0).astype(float)
+    res = minimize(f, x0, bounds=bounds, jac=jac, method='SLSQP',
+                   constraints=constraints, options={'maxiter': 200})
+    cv = abs(np.sum(res.x) - s) if s else 0.0
+    cv += float(np.clip(-res.x, 0, None).sum())
+    if cv > 1e-8:
+        raise ValueError('solver violated constraints by %g' % cv)
+    x = np.clip(res.x, 0.0, None)
+    return torch.as_tensor(x), float(np.sum(np.abs(x)))
+
+
+def projected_gradient_norm(grad, vec, lb=0.0, ub=np.inf,
+                            zero=EPS_DIV_BY_ZERO):
+    """Squared Frobenius norm of the projected gradient (C.-J. Lin's
+    stopping criterion for NMF; reference ``nmf.py:882-911``): inside the
+    box a coordinate contributes its gradient, at the lower bound only a
+    negative one, at the upper bound only a positive one. A 0-d tensor on
+    ``grad``'s device."""
+    grad = as_tensor(grad)
+    vec = as_tensor(vec, device=grad.device)
+    lo = lb + zero
+    hi = ub - zero
+    interior = (vec > lo) & (vec < hi)
+    gpe = torch.where(interior, grad,
+                      torch.where(vec <= lo, grad.clamp_max(0.0),
+                                  grad.clamp_min(0.0)))
+    return (gpe * gpe).sum()
 
 
 def universal_stopping_condition(obj_history, eps_stop=1e-4):

@@ -1,1 +1,2 @@
-"""Runtime checks (counterpart of :mod:`rri_nmf_tpu.utils`)."""
+"""Runtime checks and profiling hooks (counterpart of
+:mod:`rri_nmf_tpu.utils`)."""

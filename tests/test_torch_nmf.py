@@ -295,21 +295,48 @@ DEFERRED = {
     # for A.12
     'W_mat': dict(W_mat=scipy.sparse.csr_matrix(np.ones((20, 15))),
                   mesh=object(), **FAST_TM),
-    'w_row': dict(w_row=np.ones(20), **FAST_TM),
+    # w_row, checkpoint and accel run since ROADMAP A.4 and A.9: their
+    # cases hold the fit against JAX's (PORTED_SINCE below)
+    'w_row': dict(w_row=np.linspace(0.5, 2.0, 20), **FAST_TM),
     # sparse fits run on one device; a mesh waits for A.12 (the dense-X
     # sparse=True fit is held against JAX in test_torch_sparse_tm.py)
     'sparse mode': dict(sparse=True, mesh=object(), **FAST_TM),
     'x_dtype': dict(x_dtype='bfloat16', **FAST_TM),
     'bfloat16 factors': dict(dtype=torch.bfloat16, **FAST_TM),
     'mesh': dict(mesh=object(), **FAST_TM),
-    'checkpoint': dict(checkpoint='/nonexistent', **FAST_TM),
+    'checkpoint': dict(checkpoint='ckpt', **FAST_TM),
     'accel': dict(accel='her', **FAST_TM),
     'nndsvd_lrc': dict(init='nndsvd_lrc', **FAST_TM),
 }
 
 
+PORTED_SINCE = {'w_row': 'A.4', 'checkpoint': 'A.9', 'accel': 'A.9'}
+
+
 @pytest.mark.parametrize('case', sorted(DEFERRED))
-def test_options_outside_the_slice_raise(case):
+def test_options_outside_the_slice_raise(case, tmp_path):
+    """Each option still outside the port raises naming its ROADMAP item;
+    one ported since runs and equals the JAX fit."""
+    if case in PORTED_SINCE:
+        X = _lowrank(20, 15, 2)
+        kw = dict(DEFERRED[case], max_iter=4, random_state=0,
+                  compute_obj_each_iter=True)
+        if case == 'checkpoint':
+            # each package writes its own directory; the second call
+            # resumes from the first's step 2
+            for tag, fit in (('jax', jax_nmf), ('torch', torch_nmf)):
+                run = dict(kw, checkpoint=str(tmp_path / tag),
+                           checkpoint_every=2)
+                extra = {} if tag == 'jax' else dict(device='cpu')
+                fit(X, 2, **dict(run, max_iter=2), **extra)
+            a = jax_nmf(X, 2, **dict(kw, checkpoint=str(tmp_path / 'jax')))
+            b = torch_nmf(X, 2, device='cpu',
+                          **dict(kw, checkpoint=str(tmp_path / 'torch')))
+            assert _close(b['W'], a['W']) and _close(b['T'], a['T'])
+            assert np.allclose(b['obj_history'], a['obj_history'], rtol=TOL)
+        else:
+            _same_fit(X, 2, **kw)
+        return
     match = {'sparse mode': 'sparse fit on a mesh.*ROADMAP A.12',
              'W_mat': 'sparse-mask fit on a mesh.*ROADMAP A.12'}.get(
                  case, 'ROADMAP A')

@@ -183,10 +183,11 @@ def test_masked_plain_sweep_matches_jax(case, monkeypatch):
 
 def test_masked_options_outside_the_slice():
     X, M = _problem(20, 15, 2, seed=8)
-    for kw, label in ((dict(reset_topic_method=None, w_row=np.ones(20)),
-                       'A.4'),):
-        with pytest.raises(NotImplementedError, match=label):
-            torch_nmf(X, 2, W_mat=M, max_iter=1, device='cpu', **kw)
+    # w_row with a dense mask runs since ROADMAP A.4, as in JAX: the
+    # masked fit on the scaled X, then the unmasked fixed-T W refit
+    _same_fit(X, 2, W_mat=M, max_iter=4, random_state=0,
+              compute_obj_each_iter=True, reset_topic_method=None,
+              w_row=np.linspace(0.5, 2.0, 20))
     # a scipy-sparse W_mat runs the sparse-mask sweep, as in JAX
     kw = dict(W_mat=scipy.sparse.csr_matrix(M), max_iter=2, random_state=0,
               reset_topic_method=None)
