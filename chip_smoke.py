@@ -139,19 +139,47 @@ its users run, one line per phase:
     ``obj_history`` of 30 entries non-increasing in each part, ms/sweep
     of each), and at 2048×1024 k=32 the card (float32) against the CPU
     (float64) from one init for ``w_row`` and for 20 HER sweeps, with
-    both HER restart sequences: gated on a matrix with sparse factors,
-    logged on the mean-dominated U[0,1]-factor class.
+    both HER restart sequences, gated on a matrix with sparse factors and
+    on the mean-dominated U[0,1]-factor class (the refit's NNDSVD is
+    scikit-learn's algorithm in float64 on both sides);
+24. init at 16384×8192 k=128: the card's float64 randomized SVD against
+    the host copy of scikit-learn's on the same test matrix (U[0,1]
+    factors; S and U·diag(S)·Vt), NNSVD-LRC beside NNDSVD on low-rank
+    data through both SVD backends (B1 in each correction: float64 after
+    the float64 SVD, held against the host form at 1e-9), the masked
+    SVD init's torch backend beside its numpy one at the MovieLens shape,
+    and the PMI beam search on the 20 Newsgroups corpus; seconds of each;
+25. the storage modes at the north-star shape 100,000×50,000 k=256 (X
+    formed on the card): one NNDSVD of the int16 code through the device
+    backend, then 4 sweeps from it with X in float32, in bfloat16 beside
+    float32 factors, and as the int16 code (a ``QuantizedX``; only one
+    form of X on the card during each fit): ms/sweep, peak device memory
+    (the int16 fit at least 8 GB below the float32 fit), B1/B2 launches,
+    relative errors beside the float32 fit's;
+26. every kernel's 16-bit build (bfloat16 and float16 storage, float32
+    work) against its twin at the main path's shapes (B1 k=128 m=8192,
+    B2 k=50 d=26,214, B3/B4 6040×3952, the gather kernel through both
+    plans at 50,000×30,000 0.5% k=128): each entry within one ulp of the
+    storage type plus the float32 build's own difference from the float32
+    twin at that entry, on the same (upcast) inputs (the share of entries
+    within one ulp logged), bits repeating, timed in turns beside the
+    float32 build; then in each 16-bit dtype ``nmf()`` at
+    16384×8192 k=128 (objective non-increasing within 1e-3·obj₀ + 1e-6),
+    the TM estimator, the masked fit with ``use_pallas=True`` and the
+    sparse ``'mxu'``/``'dma'`` fits.
 
-Phases 5-6, phase 8, phases 10-11, phases 12-16, phases 18-19 and
-phases 20-23 each drive a main path with the launch counts set to 0
-just before and read just after (no kernel of this repo runs in phases
-12-13; phases 14-15 run B1; phases 18-19 the gather kernel; phases
-20-23 B1-B4; the HER recursion run by hand and the sync check of phases
-20 and 23 leave the counts as they were). Then one JSON
+Phases 5-6, phase 8, phases 10-11, phases 12-16, phases 18-19, phases
+20-23, phases 24-25 and each dtype's fits of phase 26 drive a main path
+with the launch counts set to 0 just before and read just after (no
+kernel of this repo runs in phases 12-13; phases 14-15 run B1; phases
+18-19 the gather kernel; phases 20-23 B1-B4; phases 24-25 B1; phase 26
+the 16-bit builds of all six; the HER recursion run by hand and the sync
+check of phases 20 and 23 leave the counts as they were). Then one JSON
 line of the kernels (those launches, error against the twin, kernel and
 twin ms, the least time the card could take for the same work with what
 binds it, and the library call's ms where one computes the same
-function), and as the last line
+function; the 16-bit builds as ``<name>_bf16`` and ``<name>_f16``), and
+as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises before that line
 and exits non-zero; without a CUDA device the script exits non-zero
 before doing anything. Data come from numpy seeds.
@@ -324,6 +352,33 @@ CKPT_DP = dict(eps_gauss_t=1e5, delta_gauss_t=1e-5)
 DEAD_TOPIC = 5
 # the density of the factors of phase 23's card-vs-CPU matrix
 SPARSE_FACTOR_DENSITY = 0.1
+# phase 24: the init problems at bench.py's shape (the U[0,1]-factor class
+# for the SVD, low-rank plus noise for NNSVD-LRC), and the float64 card
+# SVD's gates against the host copy of scikit-learn's on the same test
+# matrix: both run the same float64 algorithm in other summation orders,
+# so singular values agree to ~1e-13 relative and the rank-k product to
+# ~1e-12 of its largest entry; 1e-10 and 1e-9 are stated
+INIT_SHAPE = (16384, 8192, 128)
+TOL_SVD_S = 1e-10
+TOL_SVD_R = 1e-9
+# NNSVD-LRC's card factors (float64 SVD, B1's float64 build) against the
+# host form's, relative to each factor's largest entry
+TOL_LRC = 1e-9
+# phase 25: the north-star shape (BASELINE.md, targets row 4) and the
+# sweeps of each storage mode's fit; the int16 fit's peak device memory
+# must sit this far below the float32 fit's (X is 20 GB in float32, its
+# int16 code 10 GB: a hidden n×d float copy would close the gap)
+NORTH_STAR = (100_000, 50_000, 256)
+STORAGE_SWEEPS = 4
+STORAGE_PEAK_GAP = 8e9
+# phase 26: the sweeps of the 16-bit fits (dense and TM; masked, see
+# run_16_bit_fits; sparse); the JAX suite's 16-bit objective slack
+# (tests/test_bfloat16.py: each step may rise by 1e-3·obj₀ + 1e-6)
+SWEEPS_16 = 10
+MASKED_SWEEPS_16 = 4
+SPARSE_SWEEPS_16 = 3
+OBJ_SLACK_16 = (1e-3, 1e-6)
+NARROW = (torch.bfloat16, torch.float16)
 
 
 def log(phase, **fields):
@@ -2346,25 +2401,6 @@ def run_checkpoint_phase(dev, nmf):
     log('checkpoint/resume float32', **out)
 
 
-@contextlib.contextmanager
-def torch_svd_init():
-    """``nmf()``'s NNDSVD init on the torch SVD backend wherever it runs:
-    a CPU fit takes scikit-learn's by default, which the card's machine
-    does not have (the w_row refit of a CPU reference fit initializes W
-    with NNDSVD)."""
-    import rri_nmf_tpu_torch.nmf as driver
-    init = driver.initialize_nmf
-
-    def torch_backend(*args, **kwargs):
-        kwargs['svd_backend'] = 'torch'
-        return init(*args, **kwargs)
-    driver.initialize_nmf = torch_backend
-    try:
-        yield
-    finally:
-        driver.initialize_nmf = init
-
-
 def run_w_row_phase(dev, dk, nmf):
     """Phase 23: ``w_row`` in the phase recipe at NMF_SHAPE (the fit, then
     the 10-sweep fixed-T W refit), and ``w_row`` and HER on the card
@@ -2397,13 +2433,12 @@ def run_w_row_phase(dev, dk, nmf):
             np.diff(stamps[W_ROW_SWEEPS:]))) * 1e3)
     del X, res
 
-    # card (float32) against CPU (float64) from one init. Gated on a matrix
-    # with sparse factors: its k singular values are of one order, so the
-    # refit's NNDSVD init (the torch SVD backend in float32 on the card,
-    # in float64 for the CPU reference) is the same. On the mean-dominated
-    # U[0,1]-factor class the float32 range finder may lose the small
-    # singular directions and the refit start elsewhere: that class's
-    # difference is logged, not gated
+    # card (float32) against CPU (float64) from one init, gated on both
+    # classes: the refit's NNDSVD init is scikit-learn's randomized SVD in
+    # float64 on both sides (on the card in torch.linalg, on the host the
+    # package's copy of it: this machine has no scikit-learn), so the
+    # mean-dominated U[0,1]-factor class starts its refit where the CPU's
+    # does too
     n, d, k = SMALL_SHAPE
     rng = np.random.RandomState(4)
     Wf, mW = rng.rand(n, k), rng.rand(n, k) < SPARSE_FACTOR_DENSITY
@@ -2414,8 +2449,8 @@ def run_w_row_phase(dev, dk, nmf):
     from rri_nmf_tpu_torch.initialization import initialize_nmf
     from rri_nmf_tpu_torch.ops.sweep import SweepConfig
     cfg = SweepConfig(k=k, reset_topic_method=None, update_order='phase')
-    for data, Xs, gated in (('sparse factors', sparse + E, True),
-                            ('mean-dominated', Wf @ Tf + E, False)):
+    for data, Xs in (('sparse factors', sparse + E),
+                     ('mean-dominated', Wf @ Tf + E)):
         Xs = torch.as_tensor(Xs)
         W0, T0 = initialize_nmf(Xs, k, 'random', random_state=3,
                                 device=torch.device('cpu'))
@@ -2425,11 +2460,10 @@ def run_w_row_phase(dev, dk, nmf):
             finals, restarts = {}, {}
             for where in (dev, torch.device('cpu')):
                 Xw = Xs if where.type == 'cpu' else Xs.to(where).float()
-                with torch_svd_init():
-                    r = nmf(Xw, k, W_in=W0, T_in=T0, max_iter=W_ROW_SWEEPS,
-                            random_state=3, eps_stop=0.0,
-                            compute_obj_each_iter=True, device=where,
-                            **FAST_TM, **kw)
+                r = nmf(Xw, k, W_in=W0, T_in=T0, max_iter=W_ROW_SWEEPS,
+                        random_state=3, eps_stop=0.0,
+                        compute_obj_each_iter=True, device=where,
+                        **FAST_TM, **kw)
                 finals[where.type] = r['obj_history'][-1]
                 if label == 'HER':
                     with uncounted(dk):
@@ -2437,7 +2471,7 @@ def run_w_row_phase(dev, dk, nmf):
                             Xw, W0.to(where, Xw.dtype),
                             T0.to(where, Xw.dtype), cfg, W_ROW_SWEEPS)[2]
             diff = abs(finals[dev.type] - finals['cpu']) / abs(finals['cpu'])
-            if gated and not diff <= TOL_CPU_GPU_OBJ:
+            if not diff <= TOL_CPU_GPU_OBJ:
                 raise AssertionError('%s card vs CPU objective: %r'
                                      % (label, finals))
             out[label] = dict(obj_card=finals[dev.type],
@@ -2448,12 +2482,565 @@ def run_w_row_phase(dev, dk, nmf):
                                   same_restarts=restarts[dev.type]
                                   == restarts['cpu'])
         log('w_row and HER %dx%d k=%d card float32 vs cpu float64, %s'
-            % (n, d, k, data), sweeps=W_ROW_SWEEPS,
-            gate=TOL_CPU_GPU_OBJ if gated else None, **out)
+            % (n, d, k, data), sweeps=W_ROW_SWEEPS, gate=TOL_CPU_GPU_OBJ,
+            **out)
+
+
+# --------------------------------------------------------------------------
+# phases 24-26: init, the storage modes, 16-bit factors
+# --------------------------------------------------------------------------
+
+def reset_peak(dev):
+    if dev.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_gb(dev):
+    """Peak device memory allocated since :func:`reset_peak`, in GB (None
+    off the card)."""
+    if dev.type != 'cuda':
+        return None
+    return torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def rel_frob_blocked(X, W, T, rows=8192):
+    """||X - WT|| / ||X|| in float64 sums over row blocks (no n×d
+    temporary beyond a block)."""
+    num = den = 0.0
+    for i in range(0, X.shape[0], rows):
+        Xb = X[i:i + rows].float()
+        num += float(((Xb - W[i:i + rows].float() @ T.float()) ** 2).sum(
+            dtype=torch.float64))
+        den += float((Xb ** 2).sum(dtype=torch.float64))
+    return (num / den) ** 0.5
+
+
+def non_increasing_16(obj, what):
+    """The JAX suite's 16-bit slack: each objective at most 1e-3·obj₀ +
+    1e-6 above the one before it."""
+    rel, ab = OBJ_SLACK_16
+    slack = rel * abs(obj[0]) + ab
+    for a, b in zip(obj, obj[1:]):
+        if not b <= a + slack:
+            raise AssertionError('%s: objective rose %r -> %r' % (what, a, b))
+
+
+def run_init_phase(dev, dk, counts, ratings):
+    """Phase 24: the card's float64 randomized SVD against the host copy
+    of scikit-learn's, NNSVD-LRC through both backends and its host form beside
+    NNDSVD, the masked SVD init's torch backend beside its numpy one, and
+    the PMI beam search on the TM corpus; the seconds of each."""
+    from rri_nmf_tpu_torch import initialization as ti
+    n, d, k = INIT_SHAPE
+    X = uniform_factor(n, d, k, dev, seed=11)
+    t0 = time.perf_counter()
+    U, S, Vt = ti.randomized_svd_f64(X, k, random_state=0)
+    sync(dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = ti.randomized_svd_np(X.double().cpu().numpy(), k, random_state=0)
+    host_s = time.perf_counter() - t0
+    Uh, Sh, Vh = (torch.as_tensor(a, device=dev) for a in host)
+    s_err = float(((S - Sh).abs() / Sh.abs()).max())
+    r_err = rel_err((U * S) @ Vt, (Uh * Sh) @ Vh)
+    del U, Vt, Uh, Vh, host
+    if not (s_err <= TOL_SVD_S and r_err <= TOL_SVD_R):
+        raise AssertionError('float64 card SVD vs the host copy: S %.3g, '
+                             'U S Vt %.3g' % (s_err, r_err))
+    log('init svd %dx%d k=%d U[0,1] factors, card float64 vs host copy'
+        % (n, d, k), card_s=card_s, host_s=host_s, s_rel_err=s_err,
+        usvt_rel_err=r_err, gates=[TOL_SVD_S, TOL_SVD_R],
+        sigma_first_last=[float(S[0]), float(S[-1])])
+    del X
+
+    # NNSVD-LRC on the card beside NNDSVD: the default backend (the
+    # float64 SVD and B1's float64 build in the correction: 2 launches a
+    # pass, 2 passes) held against the host form on the same X (the numpy
+    # SVD copy and correction on the CPU), and the torch backend (the
+    # float32 range finder, B1 in float32)
+    X = lowrank(n, d, k, dev, seed=12)
+    # off the card the default backend is the host form itself, which
+    # reads a float32 X in float32 (scikit-learn's rule): give it float64
+    X64 = X if dev.type == 'cuda' else X.double()
+    out, factors = {}, {}
+    for label, init, Xi, kw in (('nndsvd', 'nndsvd', X, {}),
+                                ('nndsvd_lrc', 'nndsvd_lrc', X64,
+                                 dict(dtype=torch.float64)),
+                                ('nndsvd_lrc torch backend', 'nndsvd_lrc',
+                                 X, dict(svd_backend='torch'))):
+        b0 = dk.LAUNCHES['gs']
+        t0 = time.perf_counter()
+        W, H = ti.initialize_nmf(Xi, k, init, random_state=0, **kw)
+        sync(dev)
+        out[label] = dict(seconds=time.perf_counter() - t0,
+                          rel_frobenius_error=rel_frob_blocked(X, W, H),
+                          b1_launches=dk.LAUNCHES['gs'] - b0)
+        factors[label] = W, H
+    Xh = X.double().cpu().numpy()
+    t0 = time.perf_counter()
+    Wh, Hh = ti.initialize_nmf(Xh, k, 'nndsvd_lrc', random_state=0,
+                               device='cpu')
+    del Xh
+    W, H = factors['nndsvd_lrc']
+    W, H = W.double().cpu(), H.double().cpu()
+    out['nndsvd_lrc host form'] = dict(
+        seconds=time.perf_counter() - t0,
+        card_vs_host_rel_err=[rel_err(W, Wh), rel_err(H, Hh)],
+        gate=TOL_LRC)
+    e0, ec, ed = (out[key]['rel_frobenius_error'] for key in
+                  ('nndsvd', 'nndsvd_lrc', 'nndsvd_lrc torch backend'))
+    if not (ec < e0 and ed < e0 and abs(ec - ed) < 0.05 * ec + 1e-3
+            and max(out['nndsvd_lrc host form']['card_vs_host_rel_err'])
+            <= TOL_LRC
+            and out['nndsvd_lrc']['b1_launches'] == (4 if dev.type == 'cuda'
+                                                     else 0)
+            and out['nndsvd_lrc torch backend']['b1_launches'] == 4):
+        raise AssertionError('NNSVD-LRC: %r' % out)
+    log('init nndsvd_lrc %dx%d k=%d float32' % (n, d, k), **out)
+    del X, X64, W, H, Wh, Hh, factors
+
+    # the recommender's masked SVD init at the MovieLens shape
+    Xr = torch.as_tensor(ratings, dtype=torch.float32, device=dev)
+    M = (Xr != 0).float()
+    k_rs = RS_SHAPE[3]
+    obs = M.sum()
+    base = float((M * (Xr - (M * Xr).sum() / obs)) .pow(2).sum() / obs)
+    out = {}
+    for backend in ('torch', 'numpy'):
+        t0 = time.perf_counter()
+        W, H = ti.masked_svd_init(Xr, M, k_rs, random_state=0,
+                                  backend=backend)
+        sync(dev)
+        W, H = W.to(dev, torch.float32), H.to(dev, torch.float32)
+        out[backend] = dict(
+            seconds=time.perf_counter() - t0,
+            observed_mse=float((M * (Xr - W @ H)).pow(2).sum() / obs),
+            nonnegative=bool((W >= 0).all() and (H >= 0).all()))
+    mt, mn = out['torch']['observed_mse'], out['numpy']['observed_mse']
+    if not (out['torch']['nonnegative'] and mt < base
+            and mt <= 1.05 * mn + 1e-9):
+        raise AssertionError('masked_svd_init: %r, mean baseline %r'
+                             % (out, base))
+    log('init masked_svd_init %dx%d k=%d float32' % (Xr.shape + (k_rs,)),
+        mean_baseline_mse=base, **out)
+    del Xr, M, W, H
+
+    # the PMI beam search on the TM corpus: C = XᵀX is d×d in float64
+    n_train, _, n_words, k_tm = TM_SHAPE
+    C = torch.as_tensor(counts[:n_train], device=dev)
+    sync(dev)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    W, T = ti.initialize_nmf(C, k_tm, 'coherence_pmi')
+    sync(dev)
+    secs = time.perf_counter() - t0
+    words = (T > 0).sum(1)
+    row_err = float((T.double().sum(1) - 1).abs().max())
+    if not (row_err <= 1e-5 and int(words.max()) <= 20
+            and bool(torch.isfinite(W).all()) and bool((W >= 0).all())):
+        raise AssertionError('coherence_pmi: row sums %.3g, words %r'
+                             % (row_err, words.tolist()))
+    log('init coherence_pmi %dx%d k=%d' % (n_train, n_words, k_tm),
+        seconds=secs, T_row_sum_err=row_err,
+        words_per_topic=[int(words.min()), int(words.max())],
+        peak_gb=peak_gb(dev))
+
+
+def run_storage_phase(dev, dk, nmf):
+    """Phase 25: the storage modes at the north-star shape. One NNDSVD
+    init of the int16 code through the device backend, then a few sweeps
+    from it with X in float32, in bfloat16 (float32 factors) and as the
+    int16 code: ms/sweep, peak device memory, B1/B2 launches, and each
+    fit's relative error beside the float32 fit's. Only one form of X
+    lives on the card during each fit."""
+    from rri_nmf_tpu_torch.initialization import initialize_nmf
+    from rri_nmf_tpu_torch.ops.quantized import quantize_x
+    n, d, k = NORTH_STAR
+
+    def data():
+        return uniform_factor(n, d, k, dev, seed=12)
+
+    qx = quantize_x(data())
+    sync(dev)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    W0, T0 = initialize_nmf(qx, k, 'nndsvd', random_state=0,
+                            svd_backend='torch')
+    sync(dev)
+    init = dict(seconds=time.perf_counter() - t0, peak_gb=peak_gb(dev),
+                dead_topics=int(((W0.sum(0) == 0) | (T0.sum(1) == 0)).sum()))
+    del qx
+    fits = {}
+
+    def fit(label, Xin, **kw):
+        sync(dev)
+        reset_peak(dev)
+        b0 = dict(dk.LAUNCHES)
+        t0 = time.perf_counter()
+        res = nmf(Xin, k, W_in=W0, T_in=T0, max_iter=STORAGE_SWEEPS,
+                  random_state=0, eps_stop=0.0, **FAST_TM, **kw)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        got = {key: dk.LAUNCHES[key] - b0[key] for key in ('gs', 'tm_proj')}
+        if got != {'gs': 2 * STORAGE_SWEEPS, 'tm_proj': 0}:
+            raise AssertionError('%s: launches %r' % (label, got))
+        W, T = res['W'], res['T']
+        if not (W.dtype == T.dtype == torch.float32
+                and bool(torch.isfinite(W).all())
+                and bool(torch.isfinite(T).all())):
+            raise AssertionError('%s: factors %s' % (label, W.dtype))
+        fits[label] = (W, T, dict(
+            ms_per_sweep=float(np.median(np.diff(res['iter_cputime']))) * 1e3,
+            peak_gb=peak_gb(dev), wall_s=wall,
+            b1_launches=got['gs'], b2_launches=got['tm_proj']))
+
+    X = data()
+    fit('float32 X', X)
+    Xb = X.to(torch.bfloat16)
+    del X
+    fit("x_dtype='bfloat16'", Xb, dtype=torch.float32, x_dtype='bfloat16')
+    del Xb
+    X = data()
+    qx = quantize_x(X)
+    del X
+    fit("x_dtype='int16' (QuantizedX)", qx)
+    del qx
+    X = data()
+    e_init = rel_frob_blocked(X, W0, T0)
+    for label, (W, T, line) in fits.items():
+        line['rel_frobenius_error'] = rel_frob_blocked(X, W, T)
+    del X
+    e32 = fits['float32 X'][2]['rel_frobenius_error']
+    for label, (_, _, line) in fits.items():
+        line['error_over_float32'] = line['rel_frobenius_error'] / e32
+        if not line['rel_frobenius_error'] < e_init:
+            raise AssertionError('%s did not descend: %r' % (label, line))
+    p32 = fits['float32 X'][2]['peak_gb']
+    p16 = fits["x_dtype='int16' (QuantizedX)"][2]['peak_gb']
+    if dev.type == 'cuda' and not p16 <= p32 - STORAGE_PEAK_GAP / 1e9:
+        raise AssertionError('int16 peak %.2f GB vs float32 %.2f GB'
+                             % (p16, p32))
+    log('storage %dx%d k=%d, %d sweeps from one init' % (n, d, k,
+                                                         STORAGE_SWEEPS),
+        init_nndsvd_on_the_code=dict(init, rel_frobenius_error=e_init),
+        # an int16 product reads the code, writes and reads its float32
+        # blocks; a float32 X is read once
+        upcast_extra_bytes_per_product=n * d * (2 + 4),
+        float32_x_bytes_per_product=4 * n * d,
+        **{label: line for label, (_, _, line) in fits.items()})
+
+
+def err_16(got, want, got32, want32, dtype):
+    """A 16-bit output against its twin: ``(gate, ulps, share, err,
+    rounded)``. ``got32``/``want32`` are the float32 build's and the float32
+    twin's outputs on the same inputs upcast: the 16-bit forms work in
+    float32 as those do, so each 16-bit entry may differ by their own
+    difference at that entry (sums in other orders, cancellation) plus one
+    ulp of the storage type from the final rounding; ``gate`` is the
+    largest |got - want| over that entry's allowance (at most 1 passes).
+    ``ulps`` is the largest difference in ulps alone, ``share`` the share
+    of entries within one ulp, ``err`` the largest absolute difference,
+    ``rounded`` the share of entries equal to the float32 build's output
+    rounded to 16 bits."""
+    g, w = got.double(), want.double()
+    mant, tiny = (7, 2.0 ** -126) if dtype == torch.bfloat16 \
+        else (10, 2.0 ** -14)
+    ulp = torch.pow(2.0, torch.floor(torch.log2(
+        torch.maximum(g.abs(), w.abs()).clamp_min(tiny))) - mant)
+    diff = (g - w).abs()
+    diff32 = (got32.double() - want32.double()).abs()
+    gate = float((diff / (ulp + diff32)).max())
+    return (gate, float((diff / ulp).max()),
+            float((diff <= ulp).double().mean()), float(diff.max()),
+            float((got == got32.to(dtype)).double().mean()))
+
+
+def in_turns(fn16, fn32, dev):
+    """CUDA-event ms of the 16-bit and the float32 builds in turns
+    (16, 32, 32, 16): the mean of each build's two medians."""
+    a, b = time_ms(fn16, dev), time_ms(fn32, dev)
+    c, e = time_ms(fn32, dev), time_ms(fn16, dev)
+    return (a + e) / 2, (b + c) / 2
+
+
+def check_16_bit_kernels(dev, counts, ratings):
+    """Phase 26, the kernels: each 16-bit build (bfloat16, float16 F,
+    R, M or values; float32 work and sums) against its twin at the main
+    path's shapes, each launch repeated and matched bit for bit, timed in
+    turns beside its float32 build. Returns {(kernel, dtype): (max abs
+    error, ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+    from rri_nmf_tpu_torch.ops import dense_kernels as dk
+    from rri_nmf_tpu_torch.ops import masked_kernels as mk
+    from rri_nmf_tpu_torch.ops import sparse_kernels as sk
+    from rri_nmf_tpu_torch.ops import sparse_plan as spl
+    rng = np.random.RandomState(21)
+    f32 = torch.float32
+    inf = float('inf')
+    out = {}
+
+    def same(label, got, again):
+        if not all(torch.equal(g, h) for g, h in zip(got, again)):
+            raise AssertionError('%s: two launches on the same input differ'
+                                 % label)
+
+    def narrow_ok(label, dt, got, want, got32, want32):
+        """The gate of :func:`err_16`: (its log fields, the largest
+        absolute difference)."""
+        gate, ulps, share, err, rounded = err_16(got, want, got32, want32,
+                                                 dt)
+        if not (gate <= 1.0 and bool(torch.isfinite(got).all())):
+            raise AssertionError('%s %s: %.6g of one ulp plus the float32 '
+                                 'builds\' difference (%.6g ulps)'
+                                 % (label, dt, gate, ulps))
+        return dict(gate=gate, ulps=ulps, within_one_ulp=share,
+                    equal_to_rounded_float32_build=rounded), err
+
+    # B1 at the fit's T-phase (k=128, m=8192)
+    k, m = NMF_SHAPE[2], NMF_SHAPE[1]
+    A = torch.as_tensor(rng.rand(k, 256), dtype=f32, device=dev)
+    G = A @ A.T
+    N = G @ torch.as_tensor(rng.rand(k, m), dtype=f32, device=dev)
+    F = torch.as_tensor(rng.rand(k, m), dtype=f32, device=dev)
+    for dt in NARROW:
+        F16, worst = F.to(dt), 0.0
+        for kw in (dict(l1=0.0, l2=0.0, bound=inf),
+                   dict(l1=-0.05, l2=0.1, bound=1.0, reps=3)):
+            got, again = (dk.gs_update(G, N, F16, **kw) for _ in range(2))
+            want = dk.gs_update_ref(G, N, F16, **kw)
+            got32 = dk.gs_update(G, N, F16.float(), **kw)
+            want32 = dk.gs_update_ref(G, N, F16.float(), **kw)
+            sync(dev)
+            same('B1', [got], [again])
+            fields, err = narrow_ok('B1 %r' % kw, dt, got, want, got32,
+                                    want32)
+            worst = max(worst, err)
+            log('kernel gs 16-bit', dtype=str(dt), case=str(kw),
+                max_abs_err=err, bitwise_repeat=True, **fields)
+        ms, ms32 = in_turns(lambda: dk.gs_update(G, N, F16, 0.0, 0.0, inf),
+                            lambda: dk.gs_update(G, N, F, 0.0, 0.0, inf), dev)
+        plain = time_ms(lambda: dk.gs_update_ref(G, N, F16, 0.0, 0.0, inf),
+                        dev)
+        b = bound(2 * k * k * m, (k * k + k * m) * 4 + 2 * k * m * 2)
+        out[('gs', dt)] = (worst, ms, plain, b[0], b[1], None)
+        log('kernel gs 16-bit k=%d m=%d' % (k, m), dtype=str(dt), ms=ms,
+            float32_ms=ms32, plain_ms=plain, bound_ms=b[0], bound_by=b[1])
+
+    # B2 at the TM fit's T-phase (k=50, d=26,214)
+    label, G, N, F, kw = tm_cases(TM_PROJ_SHAPES[:1], dev)[0]
+    G, N, F = G.float(), N.float(), F.float()
+    k, d = F.shape
+    for dt in NARROW:
+        F16 = F.to(dt)
+        got, again = (dk.tm_proj_update(G, N, F16, **kw) for _ in range(2))
+        want = dk.tm_proj_update_ref(G, N, F16, **kw)
+        got32 = dk.tm_proj_update(G, N, F16.float(), **kw)
+        want32 = dk.tm_proj_update_ref(G, N, F16.float(), **kw)
+        sync(dev)
+        same('B2', [got], [again])
+        fields, err = narrow_ok('B2', dt, got, want, got32, want32)
+        row = float((got.double().sum(1) - 1).abs().max())
+        ms, ms32 = in_turns(lambda: dk.tm_proj_update(G, N, F16, **kw),
+                            lambda: dk.tm_proj_update(G, N, F, **kw), dev)
+        plain = time_ms(lambda: dk.tm_proj_update_ref(G, N, F16, **kw), dev)
+        b = bound(2 * k * k * d, (k * k + k * d) * 4 + 2 * k * d * 2)
+        out[('tm_proj', dt)] = (err, ms, plain, b[0], b[1], None)
+        log('kernel tm_proj 16-bit ' + label, dtype=str(dt), max_abs_err=err,
+            row_sum_err=row, bitwise_repeat=True, ms=ms, float32_ms=ms32,
+            plain_ms=plain, bound_ms=b[0], bound_by=b[1], **fields)
+
+    # B3/B4 at the MovieLens shape (6040×3952)
+    X = torch.as_tensor(ratings, device=dev)
+    cases = masked_cases(dev, X, (X != 0).double())[:2]
+    del X
+    for label, kind, R, M, args in cases:
+        kernel, twin = getattr(mk, kind), getattr(mk, kind + '_ref')
+        n, d = R.shape
+        for dt in NARROW:
+            R16, M16 = R.to(dt).contiguous(), M.to(dt).contiguous()
+            a16 = [x.to(dt).contiguous() for x in args]
+            Rk, Rr, Rt = R16.clone(), R16.clone(), R16.clone()
+            got, again = kernel(Rk, M16, *a16), kernel(Rr, M16, *a16)
+            want = twin(Rt, M16, *a16)
+            Rk32, Rt32 = R16.float(), R16.float()
+            kernel(Rk32, M16.float(), *(x.float() for x in a16))
+            twin(Rt32, M16.float(), *(x.float() for x in a16))
+            sync(dev)
+            same(label, [Rk, *got], [Rr, *again])
+            fields, err = narrow_ok(label + ' R', dt, Rk, Rt, Rk32, Rt32)
+            sums = [rel_err(g, h) for g, h in zip(got, want)]
+            if not max(sums) <= TOL_F32:
+                raise AssertionError('%s %s: sums %r' % (label, dt, sums))
+            err = max(err, *(float((g - h).abs().max())
+                             for g, h in zip(got, want)))
+            pre = tuple(torch.empty_like(g) for g in got)
+            R32, M32 = R.float().contiguous(), M.float().contiguous()
+            a32 = [x.float().contiguous() for x in args]
+            pre32 = tuple(torch.empty_like(g) for g in pre)
+            ms, ms32 = in_turns(lambda: kernel(Rk, M16, *a16, out=pre),
+                                lambda: kernel(R32, M32, *a32, out=pre32),
+                                dev)
+            plain = time_ms(lambda: twin(Rt, M16, *a16), dev)
+            vectors = (3 * n + 3 * d) if kind == 'phase_a' else (5 * n + 2 * d)
+            sum_bytes = 2 * (d if kind == 'phase_a' else n) * 4
+            b = bound((7 if kind == 'phase_a' else 9) * n * d,
+                      3 * n * d * 2 + vectors * 2 + sum_bytes)
+            out[(kind, dt)] = (err, ms, plain, b[0], b[1], None)
+            log('kernel masked 16-bit ' + label, dtype=str(dt), R=fields,
+                rel_err_sums=sums, bitwise_repeat=True, ms=ms,
+                float32_ms=ms32, plain_ms=plain, bound_ms=b[0],
+                bound_by=b[1])
+            del Rk, Rr, Rt, R32, M32, Rk32, Rt32
+
+    # the gather kernel (B5, B6) at the recorded sparse shape
+    n, d, dens, k = SPARSE_SHAPE
+    X = sparse_csr(n, d, dens, dev, seed=0)
+    nnz = X.values().numel()
+    W = torch.as_tensor(rng.rand(n, k), dtype=f32, device=dev)
+    Xtc = X.t().to_sparse_csr()
+    for kind, build in (('mxu', spl.plan_sparse_matrix),
+                        ('dma', spl.plan_sparse_matrix_dma)):
+        plan32 = build(X, f32, device=dev)
+        for dt in NARROW:
+            plan, W16 = build(X, dt, device=dev), W.to(dt)
+            got, again = (sk.contract_wtx(plan, W16) for _ in range(2))
+            want = sk.gather_contract_ref(spl.column_layout(plan.t_phase),
+                                          W16, k, d)
+            sync(dev)
+            same('B5/B6 ' + kind, [got], [again])
+            err = rel_err(got, want)
+            if not (got.dtype == f32 and err <= TOL_F32):
+                raise AssertionError('gather %s %s: %.3g' % (kind, dt, err))
+            ms, ms32 = in_turns(lambda: sk.contract_wtx(plan, W16),
+                                lambda: sk.contract_wtx(plan32, W), dev)
+            plain = time_ms(lambda: sk.gather_contract_ref(
+                spl.column_layout(plan.t_phase), W16, k, d), dev, runs=3)
+            lib = None
+            try:
+                Xt16 = Xtc.to(dt)
+                lib = time_ms(lambda: torch.sparse.mm(Xt16, W16), dev)
+            except (RuntimeError, NotImplementedError, TypeError):
+                pass
+            b = bound(2 * nnz * k, n * k * 2 + nnz * (2 + 4) + (d + 1) * 4
+                      + k * d * 4)
+            out[(kind, dt)] = (float((got - want).abs().max()), ms, plain,
+                               b[0], b[1], lib)
+            log('kernel gather 16-bit WtX %dx%d %g k=%d %s' % (n, d, dens, k,
+                                                              kind),
+                dtype=str(dt), rel_err=err, bitwise_repeat=True, ms=ms,
+                float32_ms=ms32, plain_ms=plain, library_ms=lib,
+                bound_ms=b[0], bound_by=b[1])
+            del plan
+        del plan32
+    return out
+
+
+def run_16_bit_fits(dev, dk, mk, sk, nmf, Est, counts, ratings, dt):
+    """Phase 26, the fits in ``dt``: ``nmf()`` in the phase recipe at
+    16384×8192 k=128 (B1 twice a sweep), the TM estimator at the 20
+    Newsgroups shape (B2 and B1 once a sweep), the masked fit with
+    ``use_pallas=True`` at the MovieLens shape (B3 and B4 k times a sweep)
+    and the sparse fits with ``'mxu'`` and ``'dma'`` (the gather kernel
+    twice a sweep); every objective history non-increasing within the
+    JAX suite's 16-bit slack."""
+    from rri_nmf_tpu_torch.matrixops import normalize, tfidf
+    name = str(dt).split('.')[1]
+    line = {}
+    n, d, k = NMF_SHAPE
+    X = lowrank(n, d, k, dev, seed=0)
+    b0 = dk.LAUNCHES['gs']
+    res = nmf(X, k, dtype=dt, max_iter=SWEEPS_16, compute_obj_each_iter=True,
+              random_state=0, eps_stop=0.0, **FAST_TM)
+    sync(dev)
+    obj = res['obj_history']
+    if dk.LAUNCHES['gs'] - b0 != 2 * SWEEPS_16 or res['W'].dtype != dt:
+        raise AssertionError('nmf %s: %d B1 launches, %s factors' % (
+            name, dk.LAUNCHES['gs'] - b0, res['W'].dtype))
+    non_increasing_16(obj, 'nmf ' + name)
+    line['nmf %dx%d k=%d' % (n, d, k)] = dict(
+        obj_first=obj[0], obj_last=obj[-1],
+        rel_frobenius_error=rel_frob_blocked(X, res['W'], res['T']),
+        ms_per_sweep_with_objective=float(np.median(np.diff(
+            res['iter_cputime']))) * 1e3)
+    del X, res
+
+    n_train, _, _, k_tm = TM_SHAPE
+    Xtr = normalize(tfidf(torch.as_tensor(counts[:n_train], device=dev)))
+    b0 = dict(dk.LAUNCHES)
+    est = _tm_fit(Est, Xtr, k_tm, SWEEPS_16, dtype=dt,
+                  compute_obj_each_iter=True)
+    sync(dev)
+    got = [dk.LAUNCHES[key] - b0[key] for key in ('tm_proj', 'gs')]
+    obj = est.nmf_outputs['obj_history']
+    row = float((est.T.double().sum(1) - 1).abs().max())
+    if got != [SWEEPS_16, SWEEPS_16] or est.T.dtype != dt or row > 1e-2:
+        raise AssertionError('TM %s: B2/B1 %r, %s, row sums %.3g'
+                             % (name, got, est.T.dtype, row))
+    non_increasing_16(obj, 'TM ' + name)
+    line['NMF_TM_Estimator %dx%d k=%d' % (Xtr.shape + (k_tm,))] = dict(
+        obj_first=obj[0], obj_last=obj[-1], T_row_sum_err=row,
+        ms_per_sweep_with_objective=float(np.median(np.diff(
+            est.nmf_outputs['iter_cputime']))) * 1e3)
+    del Xtr, est
+
+    # the masked fit, B3 and B4 k times a sweep: the JAX suite's 16-bit
+    # masked problem (tests/test_bfloat16.py: low-rank data under a 60%
+    # mask) at the MovieLens shape, scaled to [0, 1]. 16-bit masked fits
+    # are erratic in the JAX package too (on the synthetic ratings its
+    # bfloat16 fits rise 2-5x before settling), and float16's range ends
+    # at 65504: once a W entry passes 256 its square overflows in B3 and
+    # the fit turns NaN, in the JAX package as here (unscaled, within 2-3
+    # sweeps). So they run MASKED_SWEEPS_16 sweeps and are held, as the JAX
+    # suite holds them, to finite objectives that end below where they
+    # began (test_bf16_masked_runs)
+    n, d, _, k_rs = RS_SHAPE
+    X = lowrank(n, d, k_rs, dev, seed=13)
+    X /= X.max()
+    M = torch.as_tensor((np.random.RandomState(14).rand(n, d) < 0.6)
+                        .astype(np.float32), device=dev)
+    b0 = dict(mk.LAUNCHES)
+    res = nmf(X, k_rs, W_mat=M, dtype=dt, use_pallas=True,
+              max_iter=MASKED_SWEEPS_16, compute_obj_each_iter=True,
+              random_state=0, eps_stop=0.0, reset_topic_method=None)
+    sync(dev)
+    got = [mk.LAUNCHES[key] - b0[key] for key in ('phase_a', 'phase_b')]
+    obj = res['obj_history']
+    if got != [k_rs * MASKED_SWEEPS_16] * 2 or res['W'].dtype != dt or not (
+            np.all(np.isfinite(obj)) and obj[-1] < obj[0]):
+        raise AssertionError('masked %s: B3/B4 %r, objectives %r'
+                             % (name, got, obj))
+    rel, ab = OBJ_SLACK_16
+    line['masked %dx%d 60%% k=%d, use_pallas=True' % (n, d, k_rs)] = dict(
+        obj_history=obj, non_increasing_within_slack=bool(np.all(
+            np.diff(obj) <= rel * abs(obj[0]) + ab)),
+        ms_per_sweep_with_objective=float(np.median(np.diff(
+            res['iter_cputime']))) * 1e3)
+    del X, M, res
+
+    n, d, dens, k = SPARSE_SHAPE
+    Xs = sparse_csr(n, d, dens, dev, seed=0)
+    for mode in ('mxu', 'dma'):
+        b0 = sk.LAUNCHES[mode]
+        res = nmf(Xs, k, sparse=mode, dtype=dt, max_iter=SPARSE_SWEEPS_16,
+                  compute_obj_each_iter=True, random_state=0, eps_stop=0.0,
+                  **FAST_TM)
+        sync(dev)
+        obj = res['obj_history']
+        if sk.LAUNCHES[mode] - b0 != 2 * SPARSE_SWEEPS_16:
+            raise AssertionError('sparse %s %s: %d launches' % (
+                mode, name, sk.LAUNCHES[mode] - b0))
+        non_increasing_16(obj, 'sparse %s %s' % (mode, name))
+        line["sparse='%s' %dx%d %g k=%d" % (mode, n, d, dens, k)] = dict(
+            obj_first=obj[0], obj_last=obj[-1],
+            ms_per_sweep_with_objective=float(np.median(np.diff(
+                res['iter_cputime']))) * 1e3)
+    del Xs
+    log('16-bit fits %s' % name, sweeps=SWEEPS_16,
+        masked_sweeps=MASKED_SWEEPS_16, sparse_sweeps=SPARSE_SWEEPS_16,
+        slack=OBJ_SLACK_16, **line)
 
 
 def run(dev):
-    """Phases 3-23 on ``dev``; returns the kernels' JSON entries."""
+    """Phases 3-26 on ``dev``; returns the kernels' JSON entries."""
     from rri_nmf_tpu_torch.metrics import frobenius_relative_error
     from rri_nmf_tpu_torch.nmf import nmf
     from rri_nmf_tpu_torch.ops import dense_kernels as dk
@@ -2631,10 +3218,41 @@ def run(dev):
         launches[key] += later[key]
     for key in ('phase_a', 'phase_b'):
         masked[key] += later[key]
+
+    # 24-25. init and the storage modes, counted from zero: B1 in both
+    # NNSVD-LRC corrections and in the three storage fits
+    dk.reset_launches()
+    run_init_phase(dev, dk, counts, ratings)
+    sync(dev)
+    run_storage_phase(dev, dk, nmf)
+    sync(dev)
+    if dk.LAUNCHES['gs'] == 0:
+        raise AssertionError('B1 never ran in phases 24-25: %r' % dk.LAUNCHES)
+    log('launches, phases 24-25', **dk.LAUNCHES)
+    for key in ('gs', 'tm_proj'):
+        launches[key] += dk.LAUNCHES[key]
+
+    # 26. the 16-bit builds against their twins, then the 16-bit fits of
+    # each dtype, counted from zero
+    stats16 = check_16_bit_kernels(dev, counts, ratings)
+    sync(dev)
+    counts16 = {}
+    for dt in NARROW:
+        dk.reset_launches()
+        mk.reset_launches()
+        sk.reset_launches()
+        run_16_bit_fits(dev, dk, mk, sk, nmf, NMF_TM_Estimator, counts,
+                        ratings, dt)
+        sync(dev)
+        counts16[dt] = dict(dk.LAUNCHES, **mk.LAUNCHES, **sk.LAUNCHES)
+        if any(v == 0 for v in counts16[dt].values()):
+            raise AssertionError('a 16-bit kernel never ran: %r'
+                                 % counts16[dt])
+        log('launches, phase 26 %s' % dt, **counts16[dt])
     del ratings
     # no single PyTorch call computes B1-B4 (sequential topic chains with
     # clamps, a simplex projection, fused in-place rank-one updates)
-    return [dict(B1, launches=launches['gs'], max_abs_err=err1, ms=ms1,
+    wide = [dict(B1, launches=launches['gs'], max_abs_err=err1, ms=ms1,
                  plain_ms=pms1, bound_ms=b1[0], bound_by=b1[1],
                  library_ms=None),
             dict(B2, launches=launches['tm_proj'], max_abs_err=err2, ms=ms2,
@@ -2649,6 +3267,17 @@ def run(dev):
              bound_ms=sparse_stats[key][3], bound_by=sparse_stats[key][4],
              library_ms=sparse_stats[key][5])
         for entry, key in ((B5, 'mxu'), (B6, 'dma'))]
+    # the 16-bit builds of the same sources (16-bit storage, float32 work)
+    narrow = [
+        dict(entry, name='%s_%s' % (entry['name'], tag),
+             launches=counts16[dt][key], max_abs_err=stats16[key, dt][0],
+             ms=stats16[key, dt][1], plain_ms=stats16[key, dt][2],
+             bound_ms=stats16[key, dt][3], bound_by=stats16[key, dt][4],
+             library_ms=stats16[key, dt][5])
+        for dt, tag in ((torch.bfloat16, 'bf16'), (torch.float16, 'f16'))
+        for entry, key in ((B1, 'gs'), (B2, 'tm_proj'), (B3, 'phase_a'),
+                           (B4, 'phase_b'), (B5, 'mxu'), (B6, 'dma'))]
+    return wide + narrow
 
 
 def main():

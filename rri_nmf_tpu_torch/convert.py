@@ -1,5 +1,6 @@
 """Carry fitted state from numpy (e.g. a fitted :mod:`rri_nmf_tpu`
-estimator's ``W``/``T``) into the port's tensors.
+estimator's ``W``/``T``, or a quantized X's int16 code and scale) into
+the port's tensors.
 
 The JAX package's results are numpy arrays; these helpers place them on
 a device in the port's dtype policy, so a model fitted with either
@@ -15,6 +16,22 @@ import numpy as np
 import torch
 
 from rri_nmf_tpu_torch.matrixops import as_tensor, default_float, fit_device
+
+
+def quantized_from_numpy(q, s, device=None):
+    """A :class:`~rri_nmf_tpu_torch.ops.quantized.QuantizedX` from the
+    int16 code ``q`` (n, d) and the scale ``s`` (d,) as numpy arrays (a
+    JAX package ``QuantizedX`` read with ``np.asarray``), on ``device``
+    (default: the card; ``'cpu'`` for the CPU)."""
+    from rri_nmf_tpu_torch.ops.quantized import QuantizedX
+    device = fit_device(q, device)
+    q = np.asarray(q)
+    if q.dtype != np.int16 or q.ndim != 2 or np.shape(s) != q.shape[1:]:
+        raise ValueError('expected an int16 (n, d) code and a (d,) scale, '
+                         'got %s %s and %s' % (q.dtype, q.shape,
+                                               np.shape(s)))
+    return QuantizedX(torch.from_numpy(np.array(q)).to(device),
+                      as_tensor(np.array(s), device=device))
 
 
 def factors_from_numpy(W, T, device=None, dtype=None):

@@ -50,12 +50,22 @@
 // Ragged edges: columns past m compute on zeros and store nothing; topics
 // past k (k not a multiple of 16) have zero Gram rows and never write.
 // f32 math on the CUDA cores (no TF32), f64 on FMA; no atomics, so a
-// launch repeats bit for bit. ptxas (-Xptxas -v, sm_90a): 64 registers
+// launch repeats bit for bit.
+//
+// 16-bit factors (bfloat16, float16): F and the output are stored in 16
+// bits and the strip is worked in float32 in shared memory, against
+// float32 G, N and ub, as the TPU kernel works a 16-bit tile in a float32
+// VMEM scratch: the strip is widened on the way in and rounded once, on
+// the way out. Its layout is the float32 kernel's (storage.cuh).
+//
+// ptxas (-Xptxas -v, sm_90a): 64 registers
 // (the cap of two 512-thread blocks per SM), no spills in float32, 8
 // bytes of stack in float64; dynamic shared memory (32 + 128) x 132 x 4
 // = 84.5 KB at k=128 in float32, two blocks and 32 warps per SM.
 
 #include <cuda_runtime.h>
+
+#include "storage.cuh"
 
 // lanes per column = topics per block: a half warp, so the chain's
 // shuffles stay inside one warp, and 16 x 32 columns = 512 threads
@@ -108,11 +118,12 @@ __device__ void load_gram_rows(T* Gs, const T* __restrict__ G, int k, int kp,
   }
 }
 
-template <typename T>
+// S: F's storage type; T = Storage<S>::Work, that of G, N, ub and the strip
+template <typename S, typename T>
 __global__ void __launch_bounds__(GS_THREADS, 2)
 gs_kernel(const T* __restrict__ G, const T* __restrict__ N,
-          const T* __restrict__ F, const T* __restrict__ ub,
-          T* __restrict__ out, int k, int m, int grows, T l1, T l2, T bound,
+          const S* __restrict__ F, const T* __restrict__ ub,
+          S* __restrict__ out, int k, int m, int grows, T l1, T l2, T bound,
           int reps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int VEC = 16 / sizeof(T);
@@ -131,8 +142,9 @@ gs_kernel(const T* __restrict__ G, const T* __restrict__ N,
   // the strip, transposed on the way in (coalesced along F's rows)
   for (int i = tid; i < kp * GS_COLS; i += GS_THREADS) {
     const int q = i / GS_COLS, cc = i % GS_COLS;
-    Fs[cc * kp + q] = (q < k && j0 + cc < m) ? F[(long)q * m + j0 + cc]
-                                              : (T)0;
+    Fs[cc * kp + q] = (q < k && j0 + cc < m)
+                          ? Storage<S>::load(F[(long)q * m + j0 + cc])
+                          : (T)0;
   }
   if (whole) load_gram_rows(Gs, G, k, kp, 0, kr);
   __syncthreads();
@@ -185,7 +197,8 @@ gs_kernel(const T* __restrict__ G, const T* __restrict__ N,
   __syncthreads();
   for (int i = tid; i < k * GS_COLS; i += GS_THREADS) {
     const int q = i / GS_COLS, cc = i % GS_COLS;
-    if (j0 + cc < m) out[(long)q * m + j0 + cc] = Fs[cc * kp + q];
+    if (j0 + cc < m)
+      out[(long)q * m + j0 + cc] = Storage<S>::store(Fs[cc * kp + q]);
   }
 }
 
@@ -209,8 +222,8 @@ static cudaError_t gs_layout(int k, int device, int* grows, size_t* smem,
   return cudaSuccess;
 }
 
-template <typename T>
-static int launch_gs(const T* G, const T* N, const T* F, const T* ub, T* out,
+template <typename S, typename T>
+static int launch_gs(const T* G, const T* N, const S* F, const T* ub, S* out,
                      int k, int m, T l1, T l2, T bound, int reps, int device,
                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -221,16 +234,16 @@ static int launch_gs(const T* G, const T* N, const T* F, const T* ub, T* out,
   err = gs_layout<T>(k, device, &grows, &smem, &fits);
   if (err != cudaSuccess) return (int)err;
   if (!fits) return (int)cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(gs_kernel<T>,
+  err = cudaFuncSetAttribute(gs_kernel<S, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(gs_kernel<T>,
+  err = cudaFuncSetAttribute(gs_kernel<S, T>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((m + GS_COLS - 1) / GS_COLS);
-  gs_kernel<T><<<grid, GS_THREADS, smem, (cudaStream_t)stream>>>(
+  gs_kernel<S, T><<<grid, GS_THREADS, smem, (cudaStream_t)stream>>>(
       G, N, F, ub, out, k, m, grows, l1, l2, bound, reps);
   return (int)cudaGetLastError();
 }
@@ -255,20 +268,44 @@ extern "C" int rri_gs_fits_f64(int k, int device) {
   return gs_fits<double>(k, device);
 }
 
+// the 16-bit launchers work their strip in float32: the float32 layout
+extern "C" int rri_gs_fits_bf16(int k, int device) {
+  return gs_fits<float>(k, device);
+}
+
+extern "C" int rri_gs_fits_f16(int k, int device) {
+  return gs_fits<float>(k, device);
+}
+
 extern "C" int rri_gs_f32(const void* G, const void* N, const void* F,
                           const void* ub, void* out, int k, int m, float l1,
                           float l2, float bound, int reps, int device,
                           void* stream) {
-  return launch_gs<float>((const float*)G, (const float*)N, (const float*)F,
-                          (const float*)ub, (float*)out, k, m, l1, l2, bound,
-                          reps, device, stream);
+  return launch_gs<float, float>((const float*)G, (const float*)N,
+                                 (const float*)F, (const float*)ub,
+                                 (float*)out, k, m, l1, l2, bound, reps,
+                                 device, stream);
 }
 
 extern "C" int rri_gs_f64(const void* G, const void* N, const void* F,
                           const void* ub, void* out, int k, int m, double l1,
                           double l2, double bound, int reps, int device,
                           void* stream) {
-  return launch_gs<double>((const double*)G, (const double*)N,
-                           (const double*)F, (const double*)ub, (double*)out,
-                           k, m, l1, l2, bound, reps, device, stream);
+  return launch_gs<double, double>((const double*)G, (const double*)N,
+                                   (const double*)F, (const double*)ub,
+                                   (double*)out, k, m, l1, l2, bound, reps,
+                                   device, stream);
 }
+
+#define GS_API16(SUF, S)                                                     \
+  extern "C" int rri_gs_##SUF(const void* G, const void* N, const void* F,   \
+                              const void* ub, void* out, int k, int m,       \
+                              float l1, float l2, float bound, int reps,     \
+                              int device, void* stream) {                    \
+    return launch_gs<S, float>((const float*)G, (const float*)N,             \
+                               (const S*)F, (const float*)ub, (S*)out, k, m, \
+                               l1, l2, bound, reps, device, stream);         \
+  }
+
+GS_API16(bf16, __nv_bfloat16)
+GS_API16(f16, __half)

@@ -70,10 +70,19 @@
 // R + dw*t_prev = fma(dw, t_prev, R), where torch rounds the product and
 // the sum separately; that is one rounding of difference per update, and
 // the reductions add in another order than the twins' GEMVs.
+//
+// 16-bit storage (bfloat16, float16): R, M and the vectors are stored in
+// 16 bits and the sums are float32 (storage.cuh). The elementwise steps
+// round to 16 bits where the TPU kernels compute in 16 bits: each product
+// and each sum of the rank-one updates, M . R, and w*w (t_new*t_new);
+// each 16-bit product then enters its float32 sum exactly, as the TPU
+// kernels' float32 dots take it. B3 takes the scalar-load form there.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "storage.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -114,14 +123,16 @@ __device__ __forceinline__ void st16(double* p, const double (&x)[2]) {
 }
 
 // B3; see the header. Launched as a grid of (stripes, cluster) blocks of
-// A_WARPS warps in clusters of (1, cluster, 1).
-template <typename T, bool VECTOR>
+// A_WARPS warps in clusters of (1, cluster, 1). S: the storage type of R,
+// M and the vectors; T = Storage<S>::Work, that of the sums.
+template <typename S, typename T, bool VECTOR>
 __global__ void __launch_bounds__(A_WARPS * 32)
-    phase_a_kernel(T* __restrict__ R, const T* __restrict__ M,
-                   const T* __restrict__ dw, const T* __restrict__ tp,
-                   const T* __restrict__ w, T* __restrict__ wR0,
+    phase_a_kernel(S* __restrict__ R, const S* __restrict__ M,
+                   const S* __restrict__ dw, const S* __restrict__ tp,
+                   const S* __restrict__ w, T* __restrict__ wR0,
                    T* __restrict__ nw, int n, int d) {
-  constexpr int VEC = 16 / sizeof(T);
+  typedef Storage<S> St;
+  constexpr int VEC = 16 / sizeof(S);
   constexpr int COLS = 32 * VEC;
   __shared__ T stage[A_WARPS][3][A_TILE];  // a warp's tile: dw, w, w*w
   __shared__ T part[A_WARPS][2][COLS];     // the warps' sums
@@ -140,7 +151,7 @@ __global__ void __launch_bounds__(A_WARPS * 32)
   for (int v = 0; v < VEC; ++v) {
     const int j = VECTOR ? j0 + VEC * lane + v : j0 + lane + 32 * v;
     ok[v] = j < d;
-    tpj[v] = ok[v] ? tp[j] : T(0);
+    tpj[v] = ok[v] ? St::load(tp[j]) : T(0);
     s_wr[v] = T(0);
     s_nw[v] = T(0);
   }
@@ -156,8 +167,8 @@ __global__ void __launch_bounds__(A_WARPS * 32)
   {
     const int t = rank * per + warp, i = t * A_TILE + lane;
     if (t < t_end && i < n) {
-      a_next = dw[i];
-      b_next = w[i];
+      a_next = St::load(dw[i]);
+      b_next = St::load(w[i]);
     }
   }
   for (int t = rank * per + warp; t < t_end; t += A_WARPS) {
@@ -166,13 +177,14 @@ __global__ void __launch_bounds__(A_WARPS * 32)
     __syncwarp();  // the previous tile's stage is read by every lane
     stage[warp][0][lane] = a_next;
     stage[warp][1][lane] = b_next;
-    stage[warp][2][lane] = b_next * b_next;
+    stage[warp][2][lane] =
+        St::narrow ? rnd<S>(b_next * b_next) : b_next * b_next;
     __syncwarp();
     {
       const int i = (t + A_WARPS) * A_TILE + lane;
       const bool more = t + A_WARPS < t_end && i < n;
-      a_next = more ? dw[i] : T(0);
-      b_next = more ? w[i] : T(0);
+      a_next = more ? St::load(dw[i]) : T(0);
+      b_next = more ? St::load(w[i]) : T(0);
     }
     for (int r = 0; r < rows; r += A_DEPTH) {
       T x[A_DEPTH][VEC], m[A_DEPTH][VEC];
@@ -192,8 +204,8 @@ __global__ void __launch_bounds__(A_WARPS * 32)
 #pragma unroll
           for (int v = 0; v < VEC; ++v) {
             const bool in = live && ok[v];
-            x[u][v] = in ? R[o + 32 * v] : T(0);
-            m[u][v] = in ? M[o + 32 * v] : T(0);
+            x[u][v] = in ? St::load(R[o + 32 * v]) : T(0);
+            m[u][v] = in ? St::load(M[o + 32 * v]) : T(0);
           }
         }
       }
@@ -205,8 +217,13 @@ __global__ void __launch_bounds__(A_WARPS * 32)
           const T w2i = stage[warp][2][r + u];
 #pragma unroll
           for (int v = 0; v < VEC; ++v) {
-            x[u][v] = fma_(dwi, tpj[v], x[u][v]);
-            s_wr[v] = fma_(wi, m[u][v] * x[u][v], s_wr[v]);
+            if constexpr (St::narrow) {
+              x[u][v] = rnd<S>(x[u][v] + rnd<S>(dwi * tpj[v]));
+              s_wr[v] = fma_(wi, rnd<S>(m[u][v] * x[u][v]), s_wr[v]);
+            } else {
+              x[u][v] = fma_(dwi, tpj[v], x[u][v]);
+              s_wr[v] = fma_(wi, m[u][v] * x[u][v], s_wr[v]);
+            }
             s_nw[v] = fma_(w2i, m[u][v], s_nw[v]);
           }
           const size_t o = (size_t)(i0 + r + u) * d + jl;
@@ -215,7 +232,7 @@ __global__ void __launch_bounds__(A_WARPS * 32)
           } else {
 #pragma unroll
             for (int v = 0; v < VEC; ++v)
-              if (ok[v]) R[o + 32 * v] = x[u][v];
+              if (ok[v]) R[o + 32 * v] = St::store(x[u][v]);
           }
         }
       }
@@ -250,47 +267,63 @@ __global__ void __launch_bounds__(A_WARPS * 32)
   cluster.sync();  // no rank leaves before rank 0 has read its sums
 }
 
-template <typename T>
-__global__ void phase_b_kernel(T* __restrict__ R, const T* __restrict__ M,
-                               const T* __restrict__ w,
-                               const T* __restrict__ weff,
-                               const T* __restrict__ told,
-                               const T* __restrict__ tnew,
+// B4's element step: the rank-one updates of r (R's element), stored to
+// *out before its terms of the two row sums are added (with the store
+// after the sums, nvcc's schedule ran B4 markedly slower on the card)
+template <typename S, typename T>
+__device__ __forceinline__ void b_step(S* out, T r, T m, T wi, T ei, T to,
+                                       T tn, T& s_rt, T& s_mt2) {
+  if constexpr (Storage<S>::narrow) {
+    // ((R + w t_old) - w_eff t_new), each product and sum in 16 bits
+    r = rnd<S>(rnd<S>(r + rnd<S>(wi * to)) - rnd<S>(-ei * tn));
+    *out = Storage<S>::store(r);
+    s_rt = fma_(rnd<S>(m * r), tn, s_rt);
+    s_mt2 = fma_(m, rnd<S>(tn * tn), s_mt2);
+  } else {
+    r = fma_(ei, tn, fma_(wi, to, r));
+    *out = r;
+    s_rt = fma_(m * r, tn, s_rt);
+    s_mt2 = fma_(m, tn * tn, s_mt2);
+  }
+}
+
+template <typename S, typename T>
+__global__ void phase_b_kernel(S* __restrict__ R, const S* __restrict__ M,
+                               const S* __restrict__ w,
+                               const S* __restrict__ weff,
+                               const S* __restrict__ told,
+                               const S* __restrict__ tnew,
                                T* __restrict__ Rt, T* __restrict__ mt2, int n,
                                int d) {
+  typedef Storage<S> St;
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * B_ROWS + (threadIdx.x >> 5);
   if (i >= n) return;  // the whole warp leaves together
-  const T wi = w[i];
-  const T ei = -weff[i];
-  T* Ri = R + (size_t)i * d;
-  const T* Mi = M + (size_t)i * d;
+  const T wi = St::load(w[i]);
+  const T ei = -St::load(weff[i]);
+  S* Ri = R + (size_t)i * d;
+  const S* Mi = M + (size_t)i * d;
   T s_rt = 0, s_mt2 = 0;
   int j = lane;
   for (; j + 32 * (DEPTH - 1) < d; j += 32 * DEPTH) {
     T r[DEPTH], m[DEPTH];
 #pragma unroll
     for (int u = 0; u < DEPTH; ++u) {
-      r[u] = Ri[j + 32 * u];
-      m[u] = Mi[j + 32 * u];
+      r[u] = St::load(Ri[j + 32 * u]);
+      m[u] = St::load(Mi[j + 32 * u]);
     }
 #pragma unroll
     for (int u = 0; u < DEPTH; ++u) {
       const int jj = j + 32 * u;
-      const T tn = tnew[jj];
-      r[u] = fma_(ei, tn, fma_(wi, told[jj], r[u]));
-      Ri[jj] = r[u];
-      s_rt = fma_(m[u] * r[u], tn, s_rt);
-      s_mt2 = fma_(m[u], tn * tn, s_mt2);
+      const T tn = St::load(tnew[jj]);
+      b_step<S>(Ri + jj, r[u], m[u], wi, ei, St::load(told[jj]), tn, s_rt,
+                s_mt2);
     }
   }
   for (; j < d; j += 32) {
-    const T tn = tnew[j];
-    const T r = fma_(ei, tn, fma_(wi, told[j], Ri[j]));
-    Ri[j] = r;
-    const T m = Mi[j];
-    s_rt = fma_(m * r, tn, s_rt);
-    s_mt2 = fma_(m, tn * tn, s_mt2);
+    const T tn = St::load(tnew[j]);
+    b_step<S>(Ri + j, St::load(Ri[j]), St::load(Mi[j]), wi, ei,
+              St::load(told[j]), tn, s_rt, s_mt2);
   }
   for (int off = 16; off > 0; off >>= 1) {
     s_rt += __shfl_down_sync(0xffffffffu, s_rt, off);
@@ -302,11 +335,11 @@ __global__ void phase_b_kernel(T* __restrict__ R, const T* __restrict__ M,
   }
 }
 
-template <typename T, bool VECTOR>
-static cudaError_t launch_a(T* R, const T* M, const T* dw, const T* tp,
-                            const T* w, T* wR0, T* nw, int n, int d,
+template <typename S, typename T, bool VECTOR>
+static cudaError_t launch_a(S* R, const S* M, const S* dw, const S* tp,
+                            const S* w, T* wR0, T* nw, int n, int d,
                             int cluster, cudaStream_t stream) {
-  constexpr int COLS = 32 * (16 / sizeof(T));
+  constexpr int COLS = 32 * (16 / sizeof(S));
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((d + COLS - 1) / COLS, cluster, 1);
   cfg.blockDim = dim3(A_WARPS * 32, 1, 1);
@@ -319,80 +352,69 @@ static cudaError_t launch_a(T* R, const T* M, const T* dw, const T* tp,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, phase_a_kernel<T, VECTOR>, R, M, dw, tp,
-                            w, wR0, nw, n, d);
+  return cudaLaunchKernelEx(&cfg, phase_a_kernel<S, T, VECTOR>, R, M, dw,
+                            tp, w, wR0, nw, n, d);
 }
 
 // One B3 launch in clusters of `cluster` blocks (1..8); returns the CUDA
-// error, the launch's own if the cluster launch is refused.
-template <typename T>
-static int launch_phase_a(T* R, const T* M, const T* dw, const T* tp,
-                          const T* w, T* wR0, T* nw, int n, int d,
+// error, the launch's own if the cluster launch is refused. 16-bit
+// storage takes the scalar-load form.
+template <typename S, typename T>
+static int launch_phase_a(S* R, const S* M, const S* dw, const S* tp,
+                          const S* w, T* wR0, T* nw, int n, int d,
                           int cluster, int device, void* stream) {
   if (n <= 0 || d <= 0 || cluster < 1 || cluster > A_MAX_CLUSTER)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const bool vector = d % (16 / sizeof(T)) == 0 &&
+  const bool vector = !Storage<S>::narrow && d % (16 / sizeof(S)) == 0 &&
                       ((uintptr_t)R | (uintptr_t)M) % 16 == 0;
-  err = vector ? launch_a<T, true>(R, M, dw, tp, w, wR0, nw, n, d, cluster,
-                                   (cudaStream_t)stream)
-               : launch_a<T, false>(R, M, dw, tp, w, wR0, nw, n, d, cluster,
-                                    (cudaStream_t)stream);
+  if constexpr (Storage<S>::narrow) {
+    err = launch_a<S, T, false>(R, M, dw, tp, w, wR0, nw, n, d, cluster,
+                                (cudaStream_t)stream);
+  } else {
+    err = vector ? launch_a<S, T, true>(R, M, dw, tp, w, wR0, nw, n, d,
+                                        cluster, (cudaStream_t)stream)
+                 : launch_a<S, T, false>(R, M, dw, tp, w, wR0, nw, n, d,
+                                         cluster, (cudaStream_t)stream);
+  }
   const cudaError_t last = cudaGetLastError();  // clears a launch error
   return (int)(err != cudaSuccess ? err : last);
 }
 
-template <typename T>
-static int launch_phase_b(T* R, const T* M, const T* w, const T* weff,
-                          const T* told, const T* tnew, T* Rt, T* mt2, int n,
+template <typename S, typename T>
+static int launch_phase_b(S* R, const S* M, const S* w, const S* weff,
+                          const S* told, const S* tnew, T* Rt, T* mt2, int n,
                           int d, int device, void* stream) {
   if (n <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  phase_b_kernel<T><<<(n + B_ROWS - 1) / B_ROWS, 32 * B_ROWS, 0,
+  phase_b_kernel<S, T><<<(n + B_ROWS - 1) / B_ROWS, 32 * B_ROWS, 0,
                       (cudaStream_t)stream>>>(R, M, w, weff, told, tnew, Rt,
                                               mt2, n, d);
   return (int)cudaGetLastError();
 }
 
-extern "C" int rri_masked_phase_a_f32(void* R, const void* M, const void* dw,
-                                      const void* tp, const void* w,
-                                      void* wR0, void* nw, int n, int d,
-                                      int cluster, int device, void* stream) {
-  return launch_phase_a<float>((float*)R, (const float*)M, (const float*)dw,
-                               (const float*)tp, (const float*)w,
-                               (float*)wR0, (float*)nw, n, d, cluster, device,
-                               stream);
-}
+#define MASKED_API(SUF, S, T)                                                \
+  extern "C" int rri_masked_phase_a_##SUF(                                   \
+      void* R, const void* M, const void* dw, const void* tp, const void* w, \
+      void* wR0, void* nw, int n, int d, int cluster, int device,            \
+      void* stream) {                                                        \
+    return launch_phase_a<S, T>((S*)R, (const S*)M, (const S*)dw,            \
+                                (const S*)tp, (const S*)w, (T*)wR0, (T*)nw,  \
+                                n, d, cluster, device, stream);              \
+  }                                                                          \
+  extern "C" int rri_masked_phase_b_##SUF(                                   \
+      void* R, const void* M, const void* w, const void* weff,               \
+      const void* told, const void* tnew, void* Rt, void* mt2, int n, int d, \
+      int device, void* stream) {                                            \
+    return launch_phase_b<S, T>((S*)R, (const S*)M, (const S*)w,             \
+                                (const S*)weff, (const S*)told,              \
+                                (const S*)tnew, (T*)Rt, (T*)mt2, n, d,       \
+                                device, stream);                             \
+  }
 
-extern "C" int rri_masked_phase_a_f64(void* R, const void* M, const void* dw,
-                                      const void* tp, const void* w,
-                                      void* wR0, void* nw, int n, int d,
-                                      int cluster, int device, void* stream) {
-  return launch_phase_a<double>((double*)R, (const double*)M,
-                                (const double*)dw, (const double*)tp,
-                                (const double*)w, (double*)wR0, (double*)nw,
-                                n, d, cluster, device, stream);
-}
-
-extern "C" int rri_masked_phase_b_f32(void* R, const void* M, const void* w,
-                                      const void* weff, const void* told,
-                                      const void* tnew, void* Rt, void* mt2,
-                                      int n, int d, int device, void* stream) {
-  return launch_phase_b<float>((float*)R, (const float*)M, (const float*)w,
-                               (const float*)weff, (const float*)told,
-                               (const float*)tnew, (float*)Rt, (float*)mt2, n,
-                               d, device, stream);
-}
-
-extern "C" int rri_masked_phase_b_f64(void* R, const void* M, const void* w,
-                                      const void* weff, const void* told,
-                                      const void* tnew, void* Rt, void* mt2,
-                                      int n, int d, int device, void* stream) {
-  return launch_phase_b<double>((double*)R, (const double*)M,
-                                (const double*)w, (const double*)weff,
-                                (const double*)told, (const double*)tnew,
-                                (double*)Rt, (double*)mt2, n, d, device,
-                                stream);
-}
+MASKED_API(f32, float, float)
+MASKED_API(f64, double, double)
+MASKED_API(bf16, __nv_bfloat16, float)
+MASKED_API(f16, __half, float)

@@ -50,6 +50,11 @@
 // 64 by 7-20%, 8 warps beat 4, and 8 loads in flight tie 4 and beat 12 and
 // 16.
 //
+// 16-bit factors (bfloat16, float16; JAX's narrow MXU dots): F^T's rows
+// and the values are stored in 16 bits, read as 16-byte pieces of 8
+// values, widened, multiplied exactly in float32 and summed in float32 in
+// the same order; the output is float32 (storage.cuh).
+//
 // What bounds it on the H100: each nonzero reads one k-row of F^T (512 bytes
 // at k = 128 in float32), nnz k sizeof(T) bytes gathered from L2 (F^T, 25.6
 // MB for W at n = 50,000, stays in the 50 MB L2), plus 8 bytes of (g, v) per
@@ -59,6 +64,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "storage.cuh"
 
 #define SG_NC 16       // output columns per block
 #define SG_WARPS 8     // warps per block
@@ -81,17 +88,42 @@ __device__ __forceinline__ void load16(const double* p, double (&r)[2]) {
   r[1] = v.y;
 }
 
+// eight 16-bit values, widened
+template <typename S>
+__device__ __forceinline__ void load16(const S* p, float (&r)[8]) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned int u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    r[2 * i] = Storage<S>::bits((unsigned short)(u[i] & 0xffffu));
+    r[2 * i + 1] = Storage<S>::bits((unsigned short)(u[i] >> 16));
+  }
+}
+
+// one value of the nonzeros, streamed past the caches
+__device__ __forceinline__ float load_val(const float* p) {
+  return __ldcs(p);
+}
+__device__ __forceinline__ double load_val(const double* p) {
+  return __ldcs(p);
+}
+template <typename S>
+__device__ __forceinline__ float load_val(const S* p) {
+  return Storage<S>::bits(
+      __ldcs(reinterpret_cast<const unsigned short*>(p)));
+}
+
 // acc += sum over nonzeros s..e-1 of v_i * F^T[g_i][col .. col + V) for
 // this lane's group: group grp takes nonzeros j = grp, grp + G, ... of each
 // 32; lanes of a group cover consecutive 16-byte pieces of the row. `on`:
 // whether this lane's piece lies inside the k values.
-template <typename T, int L>
-__device__ __forceinline__ void run_sum(const T* __restrict__ Ft, long ldf,
+template <typename S, typename T, int L>
+__device__ __forceinline__ void run_sum(const S* __restrict__ Ft, long ldf,
                                         const int* __restrict__ gidx,
-                                        const T* __restrict__ vals, int s,
+                                        const S* __restrict__ vals, int s,
                                         int e, int col, bool on,
-                                        T (&acc)[16 / sizeof(T)]) {
-  constexpr int V = 16 / sizeof(T);
+                                        T (&acc)[16 / sizeof(S)]) {
+  constexpr int V = 16 / sizeof(S);
   constexpr int G = 32 / L;
   const int lane = threadIdx.x & 31;
   const int grp = lane / L;
@@ -99,7 +131,7 @@ __device__ __forceinline__ void run_sum(const T* __restrict__ Ft, long ldf,
   T vi = 0;
   if (s + lane < e) {
     gi = __ldcs(gidx + s + lane);
-    vi = __ldcs(vals + s + lane);
+    vi = load_val(vals + s + lane);
   }
   for (int base = s; base < e; base += 32) {
     const int n = min(32, e - base);
@@ -107,7 +139,7 @@ __device__ __forceinline__ void run_sum(const T* __restrict__ Ft, long ldf,
     const T v_cur = vi;
     if (base + 32 + lane < e) {       // the next 32 pairs, in flight
       gi = __ldcs(gidx + base + 32 + lane);
-      vi = __ldcs(vals + base + 32 + lane);
+      vi = load_val(vals + base + 32 + lane);
     }
     for (int j0 = 0; j0 < n; j0 += G * SG_U) {
       T r[SG_U][V];
@@ -134,13 +166,15 @@ __device__ __forceinline__ void run_sum(const T* __restrict__ Ft, long ldf,
   }
 }
 
-template <typename T, int L>
+// S: the storage type of F^T and the values; T = Storage<S>::Work, that of
+// the sums and the output
+template <typename S, typename T, int L>
 __global__ void __launch_bounds__(SG_WARPS * 32)
-    gather_kernel(const T* __restrict__ Ft, long ldf,
+    gather_kernel(const S* __restrict__ Ft, long ldf,
                   const int* __restrict__ colptr,
-                  const int* __restrict__ gidx, const T* __restrict__ vals,
+                  const int* __restrict__ gidx, const S* __restrict__ vals,
                   T* __restrict__ out, long ldo, int ncols, int k) {
-  constexpr int V = 16 / sizeof(T);   // values per 16-byte load
+  constexpr int V = 16 / sizeof(S);   // values per 16-byte load
   constexpr int SW = L * V;           // width of a k-slice
   constexpr int TS = SW + 1;          // tile row stride (odd: no conflicts)
   __shared__ T tile[SG_NC * TS];      // tile[c][r]: column c, slice row r
@@ -170,7 +204,7 @@ __global__ void __launch_bounds__(SG_WARPS * 32)
         T acc[V];
 #pragma unroll
         for (int i = 0; i < V; ++i) acc[i] = (T)0;
-        run_sum<T, L>(Ft, ldf, gidx, vals, s, e, col, on, acc);
+        run_sum<S, T, L>(Ft, ldf, gidx, vals, s, e, col, on, acc);
         // the groups' partial sums, in a fixed tree
 #pragma unroll
         for (int off = L; off < 32; off <<= 1) {
@@ -224,58 +258,62 @@ __global__ void __launch_bounds__(SG_WARPS * 32)
 // ---------------------------------------------------------------------------
 
 // lanes that cover one k-slice of a row: 4, 8, 16 or 32 (k in 16 bytes)
-template <typename T>
+template <typename S>
 static int slice_lanes(int k) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = 16 / sizeof(S);
   const int lanes = (k + V - 1) / V;
   return lanes <= 4 ? 4 : lanes <= 8 ? 8 : lanes <= 16 ? 16 : 32;
 }
 
-template <typename T, int L>
-static void launch_l(const T* Ft, long ldf, const int* colptr,
-                     const int* gidx, const T* vals, T* out, long ldo,
+template <typename S, typename T, int L>
+static void launch_l(const S* Ft, long ldf, const int* colptr,
+                     const int* gidx, const S* vals, T* out, long ldo,
                      int ncols, int k, cudaStream_t stream) {
   const int blocks = (ncols + SG_NC - 1) / SG_NC;
-  gather_kernel<T, L><<<blocks, SG_WARPS * 32, 0, stream>>>(
+  gather_kernel<S, T, L><<<blocks, SG_WARPS * 32, 0, stream>>>(
       Ft, ldf, colptr, gidx, vals, out, ldo, ncols, k);
 }
 
-template <typename T>
-static int launch_gather(const T* Ft, int ldf, const int* colptr,
-                         const int* gidx, const T* vals, T* out, int k,
+template <typename S, typename T>
+static int launch_gather(const S* Ft, int ldf, const int* colptr,
+                         const int* gidx, const S* vals, T* out, int k,
                          int ncols, int ldo, int device, void* stream) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = 16 / sizeof(S);
   if (k < 1 || ncols < 1 || ldf < k || ldf % V || ldo < ncols) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (slice_lanes<T>(k)) {
+  switch (slice_lanes<S>(k)) {
     case 4:
-      launch_l<T, 4>(Ft, ldf, colptr, gidx, vals, out, ldo, ncols, k, s);
+      launch_l<S, T, 4>(Ft, ldf, colptr, gidx, vals, out, ldo, ncols, k, s);
       break;
     case 8:
-      launch_l<T, 8>(Ft, ldf, colptr, gidx, vals, out, ldo, ncols, k, s);
+      launch_l<S, T, 8>(Ft, ldf, colptr, gidx, vals, out, ldo, ncols, k, s);
       break;
     case 16:
-      launch_l<T, 16>(Ft, ldf, colptr, gidx, vals, out, ldo, ncols, k, s);
+      launch_l<S, T, 16>(Ft, ldf, colptr, gidx, vals, out, ldo, ncols, k,
+                         s);
       break;
     default:
-      launch_l<T, 32>(Ft, ldf, colptr, gidx, vals, out, ldo, ncols, k, s);
+      launch_l<S, T, 32>(Ft, ldf, colptr, gidx, vals, out, ldo, ncols, k,
+                         s);
   }
   return (int)cudaGetLastError();
 }
 
-#define SPARSE_API(SUF, T)                                                   \
+#define SPARSE_API(SUF, S, T)                                                \
   extern "C" int rri_sparse_gather_##SUF(                                    \
       const void* Ft, const void* colptr, const void* gidx,                  \
       const void* vals, void* out, int k, int ldf, int ncols, int ldo,       \
       int device, void* stream) {                                            \
-    return launch_gather<T>((const T*)Ft, ldf, (const int*)colptr,           \
-                            (const int*)gidx, (const T*)vals, (T*)out, k,    \
-                            ncols, ldo, device, stream);                     \
+    return launch_gather<S, T>((const S*)Ft, ldf, (const int*)colptr,        \
+                               (const int*)gidx, (const S*)vals, (T*)out, k, \
+                               ncols, ldo, device, stream);                  \
   }
 
-SPARSE_API(f32, float)
-SPARSE_API(f64, double)
+SPARSE_API(f32, float, float)
+SPARSE_API(f64, double, double)
+SPARSE_API(bf16, __nv_bfloat16, float)
+SPARSE_API(f16, __half, float)

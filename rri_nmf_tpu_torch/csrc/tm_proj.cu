@@ -59,9 +59,19 @@
 // ptxas (-Xptxas -v, sm_90a): 115 registers, 6,160 bytes of static shared
 // memory in float32; 128 registers, 128 bytes of stack, 12,320 bytes in
 // float64.
+//
+// 16-bit factors (bfloat16, float16): F and the output are stored in 16
+// bits, G and N are float32, and the panel is worked in float32, as the
+// TPU kernel works a 16-bit panel in a float32 VMEM scratch: the slice is
+// widened into shared memory (or, when it does not fit there, into a
+// float32 work panel in device memory that the wrapper allocates) and
+// rounded once when it is written out. The layout and the co-residency
+// check are computed for the 16-bit kernel itself (storage.cuh).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "storage.cuh"
 
 // most blocks of the grid, and threads per block (32 x 512 measured best
 // at the TM shape, see the note above)
@@ -294,11 +304,15 @@ __device__ T project(T* v, int w, int d, T s, T sv, Grid<T>& gr) {
   return grid_all<Sum3<T>>(x, gr).a;
 }
 
-template <typename T>
+// S: F's storage type; T = Storage<S>::Work, that of G, N and the work
+// panel. `work` is the (k, d) work panel used when the slice does not fit
+// shared memory: `out` itself when S is T.
+template <typename S, typename T>
 __global__ void __launch_bounds__(TM_THREADS, 1)
 tm_proj_kernel(const T* __restrict__ G, const T* __restrict__ N,
-               const T* __restrict__ F, T* __restrict__ out, int k, int d,
-               int cols, int gwhole, int resident, T l1, T l2, T s, int reps,
+               const S* __restrict__ F, S* __restrict__ out,
+               T* __restrict__ work, int k, int d, int cols, int gwhole,
+               int resident, T l1, T l2, T s, int reps,
                unsigned long long* slots) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ Tri<T> part[TM_THREADS + 1];
@@ -308,7 +322,7 @@ tm_proj_kernel(const T* __restrict__ G, const T* __restrict__ N,
   const int tid = threadIdx.x;
   const long j0 = (long)blockIdx.x * cols;
   const int w = (int)(d - j0 < cols ? d - j0 : cols);  // >= 1
-  T* Fw = resident ? Gs + (gwhole ? (size_t)k * k : k) : out + j0;
+  T* Fw = resident ? Gs + (gwhole ? (size_t)k * k : k) : work + j0;
   const long fs = resident ? cols : d;
   Grid<T> gr = {part, slots, 0};
   const T eps = (T)1.7763568394002505e-15;     // np.spacing(10)
@@ -316,7 +330,7 @@ tm_proj_kernel(const T* __restrict__ G, const T* __restrict__ N,
   // each thread copies exactly the columns it owns
   for (int q = 0; q < k; ++q)
     for (int c = tid; c < w; c += TM_THREADS)
-      Fw[q * fs + c] = F[(long)q * d + j0 + c];
+      Fw[q * fs + c] = Storage<S>::load(F[(long)q * d + j0 + c]);
   if (gwhole)
     for (int i = tid; i < k * k; i += TM_THREADS) Gs[i] = G[i];
   __syncthreads();
@@ -383,10 +397,12 @@ tm_proj_kernel(const T* __restrict__ G, const T* __restrict__ N,
       }
     }
   }
-  if (resident)
+  // the panel out of shared memory, or out of a work panel that is not
+  // the output itself
+  if (resident || (const void*)work != (const void*)out)
     for (int q = 0; q < k; ++q)
       for (int c = tid; c < w; c += TM_THREADS)
-        out[(long)q * d + j0 + c] = Fw[q * fs + c];
+        out[(long)q * d + j0 + c] = Storage<S>::store(Fw[q * fs + c]);
 }
 
 // The grid: one block per SM (fewer when d < TM_MIN_COLS per SM), each
@@ -403,7 +419,7 @@ struct TmLayout {
 // set to it and the cooperative grid checked to be co-resident (a larger
 // one is refused). The launcher and rri_tm_proj_fits (which
 // ops/dense_kernels.tm_proj_fits calls) both read it.
-template <typename T>
+template <typename S, typename T>
 static cudaError_t tm_proj_layout(int k, int d, int device, TmLayout* L) {
   int sms = 0, max_smem = 0;
   cudaError_t err = cudaDeviceGetAttribute(
@@ -428,26 +444,26 @@ static cudaError_t tm_proj_layout(int k, int d, int device, TmLayout* L) {
   const size_t fslice = L->resident ? slice : 0;
   L->gwhole = row * k + fslice <= avail;
   L->smem = (L->gwhole ? row * k : row) + fslice;
-  err = cudaFuncSetAttribute(tm_proj_kernel<T>,
+  err = cudaFuncSetAttribute(tm_proj_kernel<S, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)L->smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, tm_proj_kernel<T>, TM_THREADS, L->smem);
+      &per_sm, tm_proj_kernel<S, T>, TM_THREADS, L->smem);
   if (err != cudaSuccess) return err;
   L->fits = per_sm * sms >= L->nblk;
   return cudaSuccess;
 }
 
-template <typename T>
-static int launch_tm_proj(const T* G, const T* N, const T* F, T* out,
-                          void* scratch, int k, int d, T l1, T l2, T s,
-                          int reps, int device, void* stream) {
+template <typename S, typename T>
+static int launch_tm_proj(const T* G, const T* N, const S* F, S* out,
+                          T* work, void* scratch, int k, int d, T l1, T l2,
+                          T s, int reps, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   TmLayout L;
-  err = tm_proj_layout<T>(k, d, device, &L);
+  err = tm_proj_layout<S, T>(k, d, device, &L);
   if (err != cudaSuccess) return (int)err;
   if (!L.fits) return (int)cudaErrorInvalidConfiguration;
   // no slot may carry a reduction number before its block writes it
@@ -455,11 +471,12 @@ static int launch_tm_proj(const T* G, const T* N, const T* F, T* out,
   err = cudaMemsetAsync(slots, 0, TM_SCRATCH_BYTES, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {(void*)&G,          (void*)&N,        (void*)&F,
-                  (void*)&out,        (void*)&k,        (void*)&d,
+                  (void*)&out,        (void*)&work,
+                  (void*)&k,          (void*)&d,
                   (void*)&L.cols,     (void*)&L.gwhole, (void*)&L.resident,
                   (void*)&l1,         (void*)&l2,       (void*)&s,
                   (void*)&reps,       (void*)&slots};
-  err = cudaLaunchCooperativeKernel((const void*)tm_proj_kernel<T>,
+  err = cudaLaunchCooperativeKernel((const void*)tm_proj_kernel<S, T>,
                                     dim3(L.nblk), dim3(TM_THREADS), args,
                                     L.smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
@@ -468,39 +485,46 @@ static int launch_tm_proj(const T* G, const T* N, const T* F, T* out,
 
 // 1 when B2 can run at (k, d) on `device`, 0 when not; a negative CUDA
 // error code when the device cannot be asked.
-template <typename T>
+template <typename S, typename T>
 static int tm_proj_fits(int k, int d, int device) {
   TmLayout L;
-  const cudaError_t err = tm_proj_layout<T>(k, d, device, &L);
+  const cudaError_t err = tm_proj_layout<S, T>(k, d, device, &L);
   if (err != cudaSuccess) return -(int)err;
   return L.fits ? 1 : 0;
 }
 
 extern "C" int rri_tm_proj_fits_f32(int k, int d, int device) {
-  return tm_proj_fits<float>(k, d, device);
+  return tm_proj_fits<float, float>(k, d, device);
 }
 
 extern "C" int rri_tm_proj_fits_f64(int k, int d, int device) {
-  return tm_proj_fits<double>(k, d, device);
+  return tm_proj_fits<double, double>(k, d, device);
+}
+
+extern "C" int rri_tm_proj_fits_bf16(int k, int d, int device) {
+  return tm_proj_fits<__nv_bfloat16, float>(k, d, device);
+}
+
+extern "C" int rri_tm_proj_fits_f16(int k, int d, int device) {
+  return tm_proj_fits<__half, float>(k, d, device);
 }
 
 // bytes of scratch the launcher needs (the wrapper allocates it)
 extern "C" int rri_tm_proj_scratch_bytes(void) { return TM_SCRATCH_BYTES; }
 
-extern "C" int rri_tm_proj_f32(const void* G, const void* N, const void* F,
-                               void* out, void* scratch, int k, int d,
-                               float l1, float l2, float s, int reps,
-                               int device, void* stream) {
-  return launch_tm_proj<float>((const float*)G, (const float*)N,
-                               (const float*)F, (float*)out, scratch, k, d,
-                               l1, l2, s, reps, device, stream);
-}
+#define TM_API(SUF, S, T)                                                    \
+  extern "C" int rri_tm_proj_##SUF(const void* G, const void* N,             \
+                                   const void* F, void* out, void* work,     \
+                                   void* scratch, int k, int d, T l1, T l2,  \
+                                   T s, int reps, int device,                \
+                                   void* stream) {                           \
+    return launch_tm_proj<S, T>((const T*)G, (const T*)N, (const S*)F,       \
+                                (S*)out, (T*)work, scratch, k, d, l1, l2, s, \
+                                reps, device, stream);                       \
+  }
 
-extern "C" int rri_tm_proj_f64(const void* G, const void* N, const void* F,
-                               void* out, void* scratch, int k, int d,
-                               double l1, double l2, double s, int reps,
-                               int device, void* stream) {
-  return launch_tm_proj<double>((const double*)G, (const double*)N,
-                                (const double*)F, (double*)out, scratch, k,
-                                d, l1, l2, s, reps, device, stream);
-}
+// float32 and float64 take `out` as their work panel
+TM_API(f32, float, float)
+TM_API(f64, double, double)
+TM_API(bf16, __nv_bfloat16, float)
+TM_API(f16, __half, float)

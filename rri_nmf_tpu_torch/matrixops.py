@@ -135,9 +135,10 @@ def _proj_simplex_core(V, s):
     cssv = torch.cumsum(u, dim=-1)
     ar = torch.arange(1, n + 1, dtype=V.dtype, device=V.device)
     cond = u * ar > (cssv - s[..., None])
-    # last index where cond holds; cond[0] always holds since s > 0
+    # last index where cond holds; cond[0] holds since s > 0, except where
+    # 16-bit rounding absorbs s into a large u[0] (then 0: the vertex)
     idx = torch.arange(n, device=V.device)
-    rho = torch.where(cond, idx, -1).max(dim=-1).values
+    rho = torch.where(cond, idx, 0).max(dim=-1).values
     theta = ((cssv.gather(-1, rho[..., None])[..., 0] - s)
              / (rho.to(V.dtype) + 1.0))
     w = (V - theta[..., None]).clamp_min(0.0)

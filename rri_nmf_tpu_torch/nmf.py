@@ -35,6 +35,15 @@ the JAX ``nmf()`` routes it (``rri_nmf_tpu/nmf.py:1489-1596``):
   with resets or ``fix_W``, DP noise and gradient stores — through the
   plain sweep :func:`rri_nmf_tpu_torch.ops.sweep.make_sweep`.
 
+X is stored as the JAX package stores it (``x_dtype``): in the factors'
+dtype by default; as bfloat16 beside float32 factors (``x_dtype=
+'bfloat16'``, the products read the 16-bit X and sum in float32); or as
+a column-scaled int16 code (``x_dtype='int16'``, or a
+:class:`~rri_nmf_tpu_torch.ops.quantized.QuantizedX` passed as X), which
+only the dense kernel sweep reads, through scale-folded products. The
+factors may be 16-bit themselves (``dtype=torch.bfloat16`` or
+``float16``): the kernels store them in 16 bits and work them in float32.
+
 Around them: initialization, HER extrapolation (``accel='her'``,
 :mod:`rri_nmf_tpu_torch.ops.accel`, wrapping whichever sweep was picked),
 checkpoint/resume (:mod:`rri_nmf_tpu_torch.checkpoint`), row weights
@@ -70,10 +79,14 @@ from rri_nmf_tpu_torch.ops.dense_kernels import (DenseResetSweep,
                                                  supports_dense_kernels)
 from rri_nmf_tpu_torch.ops.masked_kernels import (make_masked_sweep,
                                                   supports_masked_kernels)
+from rri_nmf_tpu_torch.ops.quantized import (NARROW, QuantizedX,
+                                             dequantize_x, quantize_x,
+                                             work_dtype)
 from rri_nmf_tpu_torch.ops.sparse_plan import (plan_sparse_matrix,
                                                plan_sparse_matrix_dma)
 from rri_nmf_tpu_torch.ops.sweep import (SweepConfig, make_draws,
-                                         make_objective, make_sweep)
+                                         make_objective, make_sweep,
+                                         resolve_mixed_dtypes)
 from rri_nmf_tpu_torch.ops.sweep_masked_gram import (
     MaskedGramPlan, auto_panel, make_masked_gram_objective,
     make_masked_gram_sweep, plan_masked_gram)
@@ -92,6 +105,19 @@ logger = logging.getLogger(__name__)
 
 def _size(a):
     return a.numel() if isinstance(a, torch.Tensor) else int(np.size(a))
+
+
+def _parse_dtype(dtype):
+    """A dtype given as a torch dtype, a name (``'bfloat16'``,
+    ``'int16'``, ...) or a numpy dtype (ml_dtypes' bfloat16 too) as a
+    torch dtype; None stays None."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    out = getattr(torch, name, None)
+    if not isinstance(out, torch.dtype):
+        raise ValueError('unknown dtype %r' % (dtype,))
+    return out
 
 
 def _not_yet(what, item):
@@ -115,8 +141,11 @@ class TrueObjComputer(object):
 
     The residual is summed over 8192-row blocks when the whole ``W @ T``
     temporary would pass ~2 GB in the accumulator dtype (the JAX
-    package's rule). With ``sparse``, X is a coalesced torch sparse COO
-    tensor and the objective never forms ``W @ T``
+    package's rule); a quantized X (a
+    :class:`~rri_nmf_tpu_torch.ops.quantized.QuantizedX`) is read in
+    dequantized blocks, and pickles as its int16 code and scale. With
+    ``sparse``, X is a coalesced torch sparse COO tensor and the
+    objective never forms ``W @ T``
     (:func:`rri_nmf_tpu_torch.ops.sweep_sparse.make_sparse_objective`).
     With ``masked_sparse``, X is the sparse-mask fit's plan: a
     ``'mxu'`` Gram plan evaluates through one C and one Θ contraction
@@ -155,6 +184,9 @@ class TrueObjComputer(object):
                 else self.X
             state['X'] = (('masked_coo',) + coo.host_arrays()
                           + (coo.shape, coo.nnz))
+        elif isinstance(self.X, QuantizedX):
+            # the int16 code and scale; re-wrapped on the next use
+            state['X'] = ('quantized_x', self.X.q.cpu(), self.X.s.cpu())
         return state
 
     def _masked_sparse_fn(self):
@@ -180,9 +212,14 @@ class TrueObjComputer(object):
             self._fn = make_sparse_objective(
                 reg_w_l2=self.reg_w_l2, reg_t_l2=self.reg_t_l2,
                 reg_w_l1=self.reg_w_l1, reg_t_l1=self.reg_t_l1)
+        if isinstance(self.X, tuple) and self.X[0] == 'quantized_x':
+            self.X = QuantizedX(self.X[1].to(self.W.device),
+                                self.X[2].to(self.W.device))
         if self._fn is None:
             n, d = self.X.shape
-            big = n * d * self.X.element_size() > 2e9 and n > 8192
+            # sized by the accumulator dtype, as the residual is widened
+            acc = resolve_mixed_dtypes(self.X.dtype, self.W.dtype)[1]
+            big = n * d * acc.itemsize > 2e9 and n > 8192
             self._fn = make_objective(
                 masked=self.Wm is not None,
                 row_weighted=self.wr is not None,
@@ -245,10 +282,24 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
       package's 10-sweep fixed-T W refit on the unscaled X, whose
       objectives and stamps extend ``obj_history`` and
       ``iter_cputime``. ``accel='her'`` with ``accel_opts`` wraps the
-      sweep that runs (see **HER** below). Not ported yet, each raising
-      ``NotImplementedError``: ``x_dtype`` and 16-bit factors (A.8),
-      ``mesh`` (A.12, sparse and sparse-mask fits on a mesh included),
-      ``init='nndsvd_lrc'`` and ``'coherence_pmi'`` (A.3).
+      sweep that runs (see **HER** below). Not ported yet, raising
+      ``NotImplementedError``: ``mesh`` (A.12, sparse and sparse-mask
+      fits on a mesh included).
+    - **Storage** (``x_dtype``, ``dtype``) as in the JAX package:
+      ``x_dtype='bfloat16'`` stores X in 16 bits beside the factors'
+      dtype; ``x_dtype='int16'`` (or a QuantizedX as X) stores it as the
+      column-scaled int16 code, encoded on the host for host data (only
+      the code crosses to the card) or on a tensor's own device, and runs
+      only on the dense kernel sweep (phase order, no resets, no gradient
+      stores or DP noise, float32/float64 factors), raising JAX's
+      ``ValueError`` otherwise; ``x_dtype`` is ignored on the masked
+      paths and refused in the sparse modes, and ``sparse='auto'``
+      densifies a sparse X when it is set. Host data stored narrower
+      than it came (an ``x_dtype``, 16-bit factors) is converted on the
+      host, and the init reads the host X, as JAX's does. 16-bit factors
+      (``dtype=torch.bfloat16``/``float16``) run every sweep; with a
+      dense mask and ``use_pallas=None`` the plain masked sweep, as in
+      JAX.
     - **HER** (``accel='her'``) refuses what the JAX package refuses
       (resets, gradient stores, DP noise, a sparse mode or sparse mask,
       a fixed factor) with its ``ValueError``\\ s. Its step reads nothing
@@ -303,9 +354,13 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
       ``'random'`` reset and the DP noise draw from a ``torch.Generator``
       on the fit's device seeded with ``random_state``: the same budget
       is spent as in the JAX package, with other random values.
-    - **Initialization** of the NNDSVD family runs its randomized SVD
-      with sklearn on the host for a CPU X (the reference's goldens) and
-      with ``torch.linalg`` on the card for a CUDA X.
+    - **Initialization** of the NNDSVD family runs scikit-learn's
+      randomized SVD in float64: on the host for host data (the
+      reference's goldens; scikit-learn or its copy), with
+      ``torch.linalg`` in float64 on the card for a CUDA X and for a
+      scipy-sparse X fitting on the card (its nonzeros cross); a
+      QuantizedX takes the float32 device backend
+      (``svd_backend='torch'``), as JAX's does.
     - **matmul_precision** takes the JAX names; ``None`` keeps exact
       float32 products on the card (TF32 off).
     - **Callbacks** (``diagnostics``, a callable ``early_stop``) receive
@@ -404,17 +459,21 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                        and reset_topic_method is None and x_dtype is None)
 
     # ---- options not ported yet -----------------------------------------
-    if x_dtype is not None:
-        _not_yet('x_dtype (mixed or quantized X storage)', 'A.8')
     if mesh is not None:
         _not_yet('a sparse fit on a mesh' if sparse in (True, 'mxu', 'dma')
                  else 'mesh (distributed fits)', 'A.12')
 
-    # ---- X on its device, in the working dtype ---------------------------
+    # ---- X and its dtypes -------------------------------------------------
     # callbacks receive a sparse X as the user passed it
     X_user = X
-    host = not isinstance(X, torch.Tensor)
-    device = fit_device(X, device)
+    x_quant_in = isinstance(X, QuantizedX)
+    x_store = _parse_dtype(x_dtype)
+    host = not isinstance(X, torch.Tensor) and not x_quant_in
+    if x_quant_in:
+        X = X if device is None else X.to(device)
+        device = X.device
+    else:
+        device = fit_device(X, device)
     if masked_sparse:
         # X stays where it is: the plan reads its values at the observed
         # coordinates on the host
@@ -423,21 +482,54 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     elif X_is_sparse and not sparse_mode:
         # densified on its device (a scipy matrix on the host)
         X = X.to_dense() if isinstance(X, torch.Tensor) else X.toarray()
-    if not masked_sparse and (not X_is_sparse or not sparse_mode):
-        X = as_tensor(X, device=device)
+    if not masked_sparse and (not X_is_sparse or not sparse_mode) \
+            and not x_quant_in:
+        X = as_tensor(X)            # host data: a CPU tensor, for now
     n, d = X.shape
     if dtype is None:
-        dtype = X.dtype if isinstance(X, torch.Tensor) \
+        dtype = X.dtype if isinstance(X, (torch.Tensor, QuantizedX)) \
             else torch.from_numpy(np.zeros(0, X.dtype)).dtype
         # host data takes the card's default float there (the JAX rule:
         # float64 only where x64 is on)
         if not dtype.is_floating_point or (host and device.type != 'cpu'):
             dtype = default_float(device)
-    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
-    if not isinstance(dtype, torch.dtype):
-        dtype = as_tensor(np.zeros(0, dtype=dtype)).dtype
-    if dtype not in (torch.float32, torch.float64):
-        _not_yet('%s factors (16-bit storage)' % dtype, 'A.8')
+    dtype = _parse_dtype(dtype)
+
+    # ---- X storage (reference nmf.py:1089-1116) ---------------------------
+    x_quant = x_quant_in or x_store == torch.int16
+    if x_quant:
+        x_store = None              # the dequantized dtype is the factors'
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError("x_dtype='int16' requires float32/float64 "
+                             'factors (the dequantized compute dtype)')
+        if sparse_mode or masked_sparse or W_mat is not None:
+            raise ValueError(
+                "x_dtype='int16' (quantized X storage) covers the dense "
+                'unmasked paths only; sparse/masked workloads already '
+                'store O(nnz)')
+        if w_row is not None and x_quant_in:
+            raise ValueError(
+                'w_row pre-scales X on the host; apply sqrt(w_row) row '
+                'scaling before quantize_x, or pass the dense X')
+    elif x_store is not None and x_store != dtype and sparse_mode:
+        raise ValueError('x_dtype (mixed X storage) is not supported with '
+                         'sparse modes: sparse X is stored as nonzeros and '
+                         'the contractions key off that dtype directly')
+    elif x_store is not None and x_store != dtype and W_mat is not None:
+        # the masked sweeps stream a residual built from X once a sweep,
+        # so narrowing X alone saves no memory traffic there
+        logger.info('x_dtype ignored on the masked path (the streamed '
+                    'residual, not X, carries the traffic)')
+        x_store = None
+    if x_store == dtype:
+        x_store = None
+    # host data stored narrower than it came (the int16 code, a bfloat16
+    # X, 16-bit factors) is converted on the host: the init reads the host
+    # X, as the JAX package's does, and only the stored form crosses to
+    # the card
+    staged = host and (x_quant or x_store is not None or dtype in NARROW)
+    if isinstance(X, torch.Tensor) and not staged:
+        X = X.to(device)
     if sparse_mode and backend is None:
         backend = 'torch'
         if sparse == 'auto' and device.type == 'cuda':
@@ -457,15 +549,15 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                             'the card\'s budget; B5 chunk-plan '
                             'contractions', dense_bytes / 1e9)
                 backend = 'mxu'
-    if masked_sparse:
-        X_dev = None            # planned below, after the initialization
-    elif sparse_mode:
+    X_dev = None    # masked_sparse: planned below, after the initialization
+    if sparse_mode:
         X_dev = (plan_sparse_matrix_dma(X, dtype, device=device)
                  if backend == 'dma' else
                  plan_sparse_matrix(X, dtype, device=device)
                  if backend == 'mxu' else
                  TorchSparseX(to_torch_sparse(X, dtype, device)))
-    else:
+    elif not masked_sparse and not staged and not x_quant \
+            and x_store is None:
         X = X.to(dtype).contiguous()
         X_dev = X
     Wm = None
@@ -480,14 +572,22 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             raise ValueError('W_mat must have the shape of X, %s; got %s'
                              % ((n, d), tuple(Wm.shape)))
 
-    # ---- row weighting: X pre-scaled by sqrt(w_row) on the fit's device
+    # ---- row weighting: X pre-scaled by sqrt(w_row) where it lies
     # (reference nmf.py:335-344); the unscaled X serves the W refit
     X_orig = wr = None
     if w_row is not None:
         X_orig = X
         wr = as_tensor(w_row, device=device, dtype=dtype).reshape(n, 1)
-        X = torch.sqrt(wr) * X
+        # (promoted: X's storage may be narrower than the factors)
+        X = torch.sqrt(wr.to(X.device)) * X
         X_dev = X
+    # the stored form: the int16 code or the 16-bit X, on the card
+    if x_quant:
+        X_dev = X if x_quant_in else quantize_x(X, dtype).to(device)
+    elif x_store is not None:
+        X_dev = X.to(x_store).to(device).contiguous()
+    elif staged and not (sparse_mode or masked_sparse):
+        X_dev = X.to(dtype).to(device).contiguous()
 
     # ---- configuration validation (reference nmf.py:280-315) -------------
     if project_T_each_iter and np.any([reg_w_l1, reg_t_l1]):
@@ -643,6 +743,18 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     # config the kernels cover by design runs them on the card or raises:
     # it never falls back to the plain sweep there
     kernel_cfg = dataclasses.replace(cfg, reset_topic_method=None)
+    if x_quant:
+        # the int16 code is read only by the dense kernel sweep's
+        # scale-folded products (reference nmf.py:1504-1519)
+        if not supports_dense_kernels(cfg, d, dtype, device):
+            raise ValueError(
+                "x_dtype='int16' runs on the fused dense phase kernels: "
+                "it requires update_order='phase', "
+                'reset_topic_method=None, no store_gradients, no DP '
+                'noise, and the projected (k, d) T panel within the '
+                "kernels' shared memory; got update_order=%r, "
+                'reset_topic_method=%r' % (update_order, reset_topic_method))
+        use_pallas = True
     kernel_shaped = (sparse_mode or use_pallas is not False) and not masked \
         and update_order == 'phase' and not store_gradients \
         and dp_sigma is None
@@ -683,10 +795,13 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         def sweep_fn(X, W, T):
             return sparse_sweep(X, W, T, wrs)
     elif (masked and use_pallas is not False and supports_masked_kernels(cfg)
-          and reset_topic_method != 'max_resid_document'):
+          and reset_topic_method != 'max_resid_document'
+          and not (use_pallas is None and dtype in NARROW)):
         # B3/B4. A fixed-T fit with 'max_resid_document' takes the plain
         # masked sweep, where the JAX package takes its Pallas sweep: the
-        # same math (ROADMAP §C)
+        # same math (ROADMAP §C). 16-bit factors take the plain masked
+        # sweep unless use_pallas asks for the kernels (the JAX rule,
+        # reference nmf.py:1489-1499)
         masked_sweep = make_masked_sweep(cfg)
 
         def sweep_fn(X, W, T):
@@ -711,6 +826,9 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     # ---- extrapolation (accel='her', reference nmf.py:1598-1656): momentum
     # and objective-checked restarts around the sweep picked above --------
     her_state = None
+    # the objectives' dtype: float32 beside 16-bit factors (reference
+    # nmf.py:1614)
+    acc_dt = work_dtype(dtype)
     if accel is None and accel_opts:
         raise ValueError("accel_opts requires accel='her'")
     if accel is not None:
@@ -736,7 +854,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
 
         def sweep_fn(X, W, T):
             if not her_state:
-                inf = torch.tensor(float('inf'), dtype=dtype, device=device)
+                inf = torch.tensor(float('inf'), dtype=acc_dt, device=device)
                 her_state.update(
                     Wy=W, Ty=T, Wb=W, Tb=T, eb=inf,
                     beta=torch.tensor(her_opts['beta0'], dtype=torch.float32,
@@ -780,16 +898,17 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                     her_state.update(
                         Wy=her['Wy'].to(dtype), Ty=her['Ty'].to(dtype),
                         beta=her['beta'].to(torch.float32),
-                        e=her['e'].to(dtype))
+                        e=her['e'].to(acc_dt))
                     if 'Wb' in her:
                         her_state.update(Wb=her['Wb'].to(dtype),
                                          Tb=her['Tb'].to(dtype),
-                                         eb=her['eb'].to(dtype))
+                                         eb=her['eb'].to(acc_dt))
                     else:
                         # written before best-iterate tracking: the
                         # checkpointed factors are the last accepted
                         # iterate, whose objective is her['e']
-                        her_state.update(Wb=W, Tb=T, eb=her['e'].to(dtype))
+                        her_state.update(Wb=W, Tb=T,
+                                         eb=her['e'].to(acc_dt))
                 elif resumed.iteration > 0:
                     logger.warning(
                         'Checkpoint at step %d carries no extrapolation '
@@ -824,7 +943,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     if compute_obj_each_iter:
         # the plan modes' X is a chunk plan: the sparse objective's cross
         # term wants the plain coordinate list (reference nmf.py:1762-1790)
-        X_obj = X_dev if masked_sparse else X
+        X_obj = X_dev
         if sparse_mode:
             X_obj = (X_dev.coo if backend == 'torch'
                      else to_torch_sparse(X, dtype, device))
@@ -835,9 +954,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                               sparse=sparse_mode,
                               masked_sparse=masked_sparse, wr=wr)
 
-    X_cb = X_user if X_is_sparse or masked_sparse else X
+    # (a QuantizedX given as X reaches the callbacks dequantized)
+    X_cb = (X_user if X_is_sparse or masked_sparse else
+            _Dequantized(X) if x_quant_in else X)
     for func in diagnostics:
-        rtv['diagnostics'][func.__name__].append(func(X_cb, W, T))
+        rtv['diagnostics'][func.__name__].append(func(_x(X_cb), W, T))
     if store_gradients:
         rtv['numer_W'] = {}
         rtv['denom_W'] = {}
@@ -887,7 +1008,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
 
         if _es_active:
             if callable(early_stop):
-                this_score = float(early_stop(X_cb, W, T))
+                this_score = float(early_stop(_x(X_cb), W, T))
             elif compute_obj_each_iter and len(obj_history) > 0:
                 this_score = obj_history[-1]
             else:
@@ -947,7 +1068,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             iter_cputime.append(time.perf_counter())
 
         for func in diagnostics:
-            dval = func(X_cb, W, T)
+            dval = func(_x(X_cb), W, T)
             rtv['diagnostics'][func.__name__].append(dval)
             logger.info('\t%s: %s', func.__name__, dval)
 
@@ -1010,6 +1131,23 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     return rtv
 
 
+class _Dequantized(object):
+    """A QuantizedX for the callbacks, dequantized at its first use."""
+
+    def __init__(self, qx):
+        self.qx = qx
+        self.X = None
+
+
+def _x(X_cb):
+    """The X a callback receives (see :class:`_Dequantized`)."""
+    if isinstance(X_cb, _Dequantized):
+        if X_cb.X is None:
+            X_cb.X = dequantize_x(X_cb.qx)
+        return X_cb.X
+    return X_cb
+
+
 def _restore_draws(draws, state, device, random_state):
     """Set the restored generator state on ``draws`` (seeded with
     ``random_state``). A state written on another device type, or none at
@@ -1055,9 +1193,10 @@ def _initialize_and_validate(W_in, T_in, W_mat, X, k, init, random_state,
     tensors on ``device`` in ``dtype``."""
     W = T = None
     if _size(W_in) == 0 or _size(T_in) == 0:
-        # the SVD backend follows X: sklearn on the host for a CPU X (the
-        # reference's goldens), torch.linalg on the card for a CUDA X
-        backend = 'torch' if device.type == 'cuda' else 'sklearn'
+        # scikit-learn's SVD in float64 (on the host for a CPU X, the
+        # reference's goldens; on the card for a CUDA X); the device
+        # backend for a QuantizedX (reference nmf.py:2145-2166)
+        backend = 'torch' if isinstance(X, QuantizedX) else 'sklearn'
         W, T = initialize_nmf(X if W_mat is None else W_mat * X, k, init,
                               random_state=random_state,
                               row_normalize=False, svd_backend=backend,

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``rri_nmf_tpu_torch/csrc``.
 
-``nvcc`` compiles each ``csrc/*.cu`` into an object, one process per
-source, all started together, and links them into one shared library with
+``nvcc`` compiles each ``csrc/*.cu`` (with the shared header
+``csrc/storage.cuh``) into an object, one process per source, all
+started together, and links them into one shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds), for
 Hopper only: ``-gencode arch=compute_90a,code=sm_90a``. The library goes
 to ``build/rri_nmf_tpu_torch/`` beside the package, named by a hash of
@@ -44,11 +45,12 @@ _D = ctypes.c_double
 # (name, argtypes): pointers and the stream as c_void_p — a bare Python
 # int would be passed as a 32-bit int and cut the pointer
 SIGNATURES = {
+    # G, N, F, ub, out; k, m, l1, l2, bound, reps
     'rri_gs_f32': [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P],
     'rri_gs_f64': [_P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _I, _I, _P],
-    # G, N, F, out, scratch; k, d, l1, l2, s, reps
-    'rri_tm_proj_f32': [_P] * 5 + [_I, _I, _F, _F, _F, _I, _I, _P],
-    'rri_tm_proj_f64': [_P] * 5 + [_I, _I, _D, _D, _D, _I, _I, _P],
+    # G, N, F, out, work, scratch; k, d, l1, l2, s, reps
+    'rri_tm_proj_f32': [_P] * 6 + [_I, _I, _F, _F, _F, _I, _I, _P],
+    'rri_tm_proj_f64': [_P] * 6 + [_I, _I, _D, _D, _D, _I, _I, _P],
     # bytes of scratch rri_tm_proj takes
     'rri_tm_proj_scratch_bytes': [],
     # k (, d), device: whether B1 (B2) runs at that shape on the device
@@ -66,9 +68,16 @@ SIGNATURES = {
     'rri_sparse_gather_f32': [_P] * 5 + [_I] * 4 + [_I, _P],
     'rri_sparse_gather_f64': [_P] * 5 + [_I] * 4 + [_I, _P],
 }
+# the 16-bit forms (bfloat16, float16 storage; float32 scalars and sums)
+# take the float32 form's arguments
+for _name in [n for n in SIGNATURES if n.endswith('_f32')]:
+    for _suffix in ('bf16', 'f16'):
+        SIGNATURES[_name[:-3] + _suffix] = SIGNATURES[_name]
 # the kernels' dtypes: ctypes scalar and C-function suffix
-CTYPES = {torch.float32: _F, torch.float64: _D}
-SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
+CTYPES = {torch.float32: _F, torch.float64: _D, torch.bfloat16: _F,
+          torch.float16: _F}
+SUFFIX = {torch.float32: 'f32', torch.float64: 'f64',
+          torch.bfloat16: 'bf16', torch.float16: 'f16'}
 
 
 def find_nvcc():
@@ -94,9 +103,10 @@ def sources():
 
 
 def library_path():
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC_DIR.glob('*.cu*')):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / ('librri_nmf_kernels_%s.so' % h.hexdigest()[:16])
@@ -158,7 +168,7 @@ def load():
 
 def device_fits(fn, dtype, device, *args):
     """Whether the launcher behind ``fn`` accepts ``args`` in ``dtype`` on
-    ``device``: the C function ``<fn>_<f32|f64>(*args, device_index)``,
+    ``device``: the C function ``<fn>_<suffix>(*args, device_index)``,
     which builds the kernels on the first call. On any device other than
     CUDA the plain twins run, and they have no such limit: True."""
     device = torch.device(device)
@@ -185,7 +195,8 @@ def check_operands(ref, operands):
                          'tensors, got %s' % ref.device)
     dtype = ref.dtype
     if dtype not in CTYPES:
-        raise ValueError('the kernels take float32/float64, got %s' % dtype)
+        raise ValueError('the kernels take float32/float64 or 16-bit '
+                         'bfloat16/float16, got %s' % dtype)
     index = ref.get_device()
     for name, (a, shape) in operands.items():
         if a.dtype != dtype or not a.is_cuda or a.get_device() != index:
@@ -206,9 +217,9 @@ _raw_stream = getattr(torch._C, '_cuda_getCurrentRawStream', None) or (
 
 
 def launch(fn, ref, *args):
-    """Call the C function ``<fn>_<f32|f64>`` (by ``ref``'s dtype) with
-    ``args``, then ``ref``'s device index and PyTorch's current stream on
-    it; raise if it reports a CUDA error."""
+    """Call the C function ``<fn>_<suffix>`` (:data:`SUFFIX` of ``ref``'s
+    dtype) with ``args``, then ``ref``'s device index and PyTorch's
+    current stream on it; raise if it reports a CUDA error."""
     index = ref.get_device()
     err = getattr(load(), '%s_%s' % (fn, SUFFIX[ref.dtype]))(
         *args, index, _raw_stream(index))

@@ -30,12 +30,17 @@ dtype (grown, capped and halved in float32, then cast to W's dtype), and
 the objectives live in the accumulator dtype: the JAX rules, which f64
 parity needs.
 
-The mesh form of the objective waits for ROADMAP A.12, the quantized X
-blocks for A.8.
+The residual blocks are widened to the accumulator dtype one block at a
+time: a bfloat16 X (``x_dtype='bfloat16'``) and a
+:class:`~rri_nmf_tpu_torch.ops.quantized.QuantizedX` (dequantized
+blocks) never become an n x d float copy. The mesh form of the objective
+waits for ROADMAP A.12.
 """
 
 import torch
 
+from rri_nmf_tpu_torch.ops.quantized import (QuantizedX, qx_col_block,
+                                             qx_row_block)
 from rri_nmf_tpu_torch.ops.sweep import precision_scope, resolve_mixed_dtypes
 
 
@@ -67,6 +72,7 @@ def make_residual_obj(cfg, block_rows=4096):
     def obj(X, W, T, M=None):
         n, d = X.shape
         acc = resolve_mixed_dtypes(X.dtype, W.dtype)[1]
+        qx = isinstance(X, QuantizedX)
         s = torch.zeros((), dtype=acc, device=X.device)
         with precision_scope(cfg.matmul_precision):
             if cfg.update_order == 'phase' and not cfg.masked:
@@ -74,16 +80,18 @@ def make_residual_obj(cfg, block_rows=4096):
                 Wa = W.to(acc)
                 for j in range(-(-d // B)):
                     off = min(j * B, d - B)
-                    Rb = X[:, off:off + B].to(acc) - Wa @ T[:, off:off + B].to(
-                        acc)
+                    Xb = qx_col_block(X, off, B, acc) if qx \
+                        else X[:, off:off + B].to(acc)
+                    Rb = Xb - Wa @ T[:, off:off + B].to(acc)
                     cols = (Rb * Rb).sum(0)[j * B - off:]
                     s = s + cols.sum()
             else:
                 B = min(block_rows, n)
                 for i in range(-(-n // B)):
                     off = min(i * B, n - B)
-                    Rb = X[off:off + B].to(acc) - W[off:off + B].to(acc) @ \
-                        T.to(acc)
+                    Xb = qx_row_block(X, off, B, acc) if qx \
+                        else X[off:off + B].to(acc)
+                    Rb = Xb - W[off:off + B].to(acc) @ T.to(acc)
                     Rb = Rb * Rb
                     if cfg.masked:
                         Rb = M[off:off + B].to(acc) * Rb

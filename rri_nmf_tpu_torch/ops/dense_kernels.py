@@ -24,10 +24,21 @@ topics with the same arithmetic) and a CUDA tensor to its kernel — or
 raises; nothing routes a CUDA tensor to a twin. ``LAUNCHES`` counts the
 kernel launches of each wrapper.
 
+**16-bit factors.** A bfloat16 or float16 factor ``F`` is stored in 16
+bits and worked in float32, as the JAX package's kernels do: each kernel
+(and twin) reads F into a float32 work tile, runs the topic loop there
+against float32 ``G`` and ``N``, and rounds once, when it writes the
+tile out (``dense_pallas.py`` ``_make_gs_kernel``'s scratch).
+
 The sweep reaches X only through its two numerator products, which
 :func:`make_dense_phase_sweep` takes as arguments: the sparse sweep
 (:mod:`rri_nmf_tpu_torch.ops.sweep_sparse`) is this sweep with sparse
-contractions.
+contractions. The dense products follow the JAX package's storage
+rules (:func:`~rri_nmf_tpu_torch.ops.sweep.resolve_mixed_dtypes`): the
+numerators and Grams are formed in the accumulator dtype, a bfloat16 X
+under default precision meets its factor cast to bfloat16, and a
+:class:`~rri_nmf_tpu_torch.ops.quantized.QuantizedX` (``x_dtype=
+'int16'``) is read through its scale-folded products.
 
 Unlike the TPU kernels nothing is padded: the (8, 128) tiles and the
 BN/BD pad quanta were Mosaic's needs; the CUDA kernels mask their ragged
@@ -42,7 +53,11 @@ import torch
 from rri_nmf_tpu_torch.matrixops import EPS_DIV_BY_ZERO, _proj_simplex_core
 from rri_nmf_tpu_torch.ops._build import (CTYPES, check_operands,
                                           device_fits, launch, load)
-from rri_nmf_tpu_torch.ops.sweep import ALIVE, Sweep, precision_scope
+from rri_nmf_tpu_torch.ops.quantized import (NARROW, QuantizedX,
+                                             qx_t_numerator, qx_w_numerator,
+                                             xmm)
+from rri_nmf_tpu_torch.ops.sweep import (ALIVE, Sweep, precision_scope,
+                                         resolve_mixed_dtypes)
 
 # Kernel launches per wrapper since the last reset_launches(). A wrapper
 # adds one right after its kernel launched, and nowhere else.
@@ -57,9 +72,10 @@ def gs_fits(k, dtype, device):
     """Whether B1 can run at ``k`` on ``device``: a block holds its
     (32, k) factor strip in shared memory and the Gram beside it, whole
     when both fit, else 16 rows at a time; on an H100 that is k up to
-    ~1200 in float32, ~600 in float64. The answer is the launcher's own
-    gate (``csrc/gs.cu`` ``rri_gs_fits``). On any other device the twin
-    runs, and it has no such limit."""
+    ~1200 in float32 (16-bit factors too: their strip is worked in
+    float32), ~600 in float64. The answer is the launcher's own gate
+    (``csrc/gs.cu`` ``rri_gs_fits``). On any other device the twin runs,
+    and it has no such limit."""
     return device_fits('rri_gs_fits', dtype, device, k)
 
 
@@ -102,12 +118,20 @@ def supports_dense_kernels(cfg, d, dtype, device):
 # plain PyTorch twins
 # ---------------------------------------------------------------------------
 
+def _work(F, G):
+    """The twins' work copy of ``F``: in G's (float32) dtype for a 16-bit
+    ``F``, which is cast back once at the end."""
+    return F.to(G.dtype) if F.dtype in NARROW else F.clone()
+
+
 def gs_update_ref(G, N, F, l1, l2, bound, ub=None, reps=1):
     """Plain version of B1: the Gauss-Seidel topic loop over the rows of
     ``F`` (k, m) with Gram ``G`` (k, k) and numerators ``N`` (k, m).
     ``ub`` (m,) overrides the scalar ``bound`` of the concave branch.
-    Returns the updated copy of ``F``."""
-    F = F.clone()
+    Returns the updated copy of ``F`` (a 16-bit ``F`` worked in G's
+    float32 and rounded once at the end)."""
+    out_dtype = F.dtype
+    F = _work(F, G)
     ubv = ub if ub is not None else torch.tensor(bound, dtype=F.dtype,
                                                  device=F.device)
     for _ in range(reps):
@@ -118,7 +142,7 @@ def gs_update_ref(G, N, F, l1, l2, bound, ub=None, reps=1):
             pos = numer.clamp_min(0.0) / (denom + EPS_DIV_BY_ZERO)
             neg = torch.where(denom - numer < 0, ubv, 0.0)
             F[t] = torch.where(denom > 0, pos, neg)
-    return F
+    return F.to(out_dtype)
 
 
 def _michelot(v, s):
@@ -140,8 +164,10 @@ def _michelot(v, s):
 
 def tm_proj_update_ref(G, N, F, l1, l2, s, reps=1):
     """Plain version of B2: the projected T-phase over the whole (k, d)
-    panel. Returns the updated copy of ``F``."""
-    F = F.clone()
+    panel. Returns the updated copy of ``F`` (16-bit: as
+    :func:`gs_update_ref`)."""
+    out_dtype = F.dtype
+    F = _work(F, G)
     d = F.shape[1]
     col = torch.arange(d, device=F.device)
     for _ in range(reps):
@@ -161,26 +187,42 @@ def tm_proj_update_ref(G, N, F, l1, l2, s, reps=1):
             if bool((row.sum() - s).abs() > 1e-15):
                 row = _michelot(row, s)
             F[t] = row
-    return F
+    return F.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _check(F, operands):
+    """:func:`~rri_nmf_tpu_torch.ops._build.check_operands` for B1/B2:
+    ``F`` itself, and the other operands in F's dtype, or in float32
+    beside a 16-bit ``F``."""
+    check_operands(F, {'F': (F, tuple(F.shape))})
+    if F.dtype in NARROW:
+        ref = next(iter(operands.values()))[0]
+        if ref.dtype != torch.float32:
+            raise ValueError('beside %s factors G, N and ub are float32, '
+                             'got %s' % (F.dtype, ref.dtype))
+        check_operands(ref, operands)
+    else:
+        check_operands(F, operands)
+
+
 def gs_update(G, N, F, l1, l2, bound, ub=None, reps=1):
     """B1: the Gauss-Seidel topic loop (see :func:`gs_update_ref`).
 
     A CPU ``F`` runs the plain twin; a CUDA ``F`` launches
-    ``csrc/gs.cu``, with every operand a contiguous tensor of ``F``'s
-    dtype on its device."""
+    ``csrc/gs.cu``, with every operand a contiguous tensor on F's device,
+    of F's dtype, or float32 beside a 16-bit ``F`` (G, N and ub are then
+    float32; F and the result keep F's 16 bits)."""
     if F.device.type == 'cpu':
         return gs_update_ref(G, N, F, l1, l2, bound, ub=ub, reps=reps)
     k, m = F.shape
-    shapes = {'G': (G, (k, k)), 'N': (N, (k, m)), 'F': (F, (k, m))}
+    shapes = {'G': (G, (k, k)), 'N': (N, (k, m))}
     if ub is not None:
         shapes['ub'] = (ub, (m,))
-    check_operands(F, shapes)
+    _check(F, shapes)
     if not gs_fits(k, F.dtype, F.device):
         raise ValueError('k=%d exceeds the GS kernel\'s shared memory '
                          '(a 32-column %s strip and 16 Gram rows)'
@@ -198,11 +240,11 @@ def tm_proj_update(G, N, F, l1, l2, s, reps=1):
     """B2: the projected T-phase (see :func:`tm_proj_update_ref`).
 
     A CPU ``F`` runs the plain twin; a CUDA ``F`` launches
-    ``csrc/tm_proj.cu``."""
+    ``csrc/tm_proj.cu`` (operands as :func:`gs_update`'s)."""
     if F.device.type == 'cpu':
         return tm_proj_update_ref(G, N, F, l1, l2, s, reps=reps)
     k, d = F.shape
-    check_operands(F, {'G': (G, (k, k)), 'N': (N, (k, d)), 'F': (F, (k, d))})
+    _check(F, {'G': (G, (k, k)), 'N': (N, (k, d))})
     if not tm_proj_fits(k, d, F.dtype, F.device):
         raise ValueError('k=%d, d=%d exceed the projected T-phase kernel '
                          '(a %s Gram row in shared memory, d <= 2^24)'
@@ -212,10 +254,14 @@ def tm_proj_update(G, N, F, l1, l2, s, reps=1):
     # (zeroed by the launcher)
     scratch = torch.empty(load().rri_tm_proj_scratch_bytes(),
                           dtype=torch.uint8, device=F.device)
+    # a 16-bit panel's float32 work slices when they do not fit shared
+    # memory (the launcher reads them only then)
+    work = (torch.empty(k, d, dtype=G.dtype, device=F.device)
+            if F.dtype in NARROW else out)
     ct = CTYPES[F.dtype]
     launch('rri_tm_proj', F, G.data_ptr(), N.data_ptr(), F.data_ptr(),
-           out.data_ptr(), scratch.data_ptr(), k, d, ct(l1), ct(l2), ct(s),
-           int(reps))
+           out.data_ptr(), work.data_ptr(), scratch.data_ptr(), k, d,
+           ct(l1), ct(l2), ct(s), int(reps))
     LAUNCHES['tm_proj'] += 1
     return out
 
@@ -224,23 +270,34 @@ def tm_proj_update(G, N, F, l1, l2, s, reps=1):
 # the sweep
 # ---------------------------------------------------------------------------
 
-def _dense_wtx(X, W):
-    return W.T @ X
+def _dense_wtx(X, W, acc, x_narrow):
+    """``WᵀX`` (k, d) in ``acc``: the scale-folded product of a
+    QuantizedX; else with W cast to a bfloat16 X's dtype under
+    ``x_narrow``, its products summed in ``acc``."""
+    if isinstance(X, QuantizedX):
+        return qx_t_numerator(W, X, acc)
+    return xmm((W.to(X.dtype) if x_narrow else W).T, X, acc)
 
 
-def _dense_xtt(X, T):
-    return T @ X.T
+def _dense_xtt(X, T, acc, x_narrow):
+    """``T Xᵀ`` (k, n) in ``acc``, as :func:`_dense_wtx`."""
+    if isinstance(X, QuantizedX):
+        return qx_w_numerator(T, X, acc)
+    return xmm(T.to(X.dtype) if x_narrow else T, X.T, acc)
 
 
 def make_dense_phase_sweep(cfg, wtx=_dense_wtx, xtt=_dense_xtt):
     """Build ``sweep(X, W, T, w_row_sum_vec=None) -> (W, T)``: one
     phase-order sweep (torch GEMMs + the kernels) for a config that
     :func:`_supports_base` accepts. ``w_row_sum_vec`` (n,) is the per-row
-    W bound when ``cfg.w_row_sum_is_vector``.
+    W bound when ``cfg.w_row_sum_is_vector``. X is dense (of any float
+    dtype) or a QuantizedX; the factors are float32/float64, or 16-bit
+    (worked in float32 inside the kernels).
 
-    ``wtx(X, W)`` and ``xtt(X, T)`` are the two numerator products
-    ``WᵀX`` (k, d) and ``T Xᵀ`` (k, n), the only places the sweep touches
-    X: dense GEMMs by default; the sparse sweep
+    ``wtx(X, W, acc, x_narrow)`` and ``xtt(X, T, acc, x_narrow)`` are the
+    two numerator products ``WᵀX`` (k, d) and ``T Xᵀ`` (k, n) in the
+    accumulator dtype ``acc``, the only places the sweep touches X: dense
+    GEMMs by default; the sparse sweep
     (:func:`rri_nmf_tpu_torch.ops.sweep_sparse.make_sparse_sweep`) passes
     its sparse contractions."""
     if not _supports_base(cfg):
@@ -253,10 +310,13 @@ def make_dense_phase_sweep(cfg, wtx=_dense_wtx, xtt=_dense_xtt):
                    and not cfg.w_row_sum_is_vector) else float('inf'))
 
     def sweep(X, W, T, w_row_sum_vec=None):
+        # a sparse plan stores its values in the factors' dtype
+        _, acc, x_narrow = resolve_mixed_dtypes(
+            getattr(X, 'dtype', W.dtype), W.dtype, cfg.matmul_precision)
         with precision_scope(cfg.matmul_precision):
             if not cfg.fix_T:
-                G = W.T @ W
-                WX = wtx(X, W)                                 # (k, d)
+                G = xmm(W.T, W, acc)
+                WX = wtx(X, W, acc, x_narrow).contiguous()     # (k, d)
                 if _tm_proj_active(cfg):
                     T = tm_proj_update(G, WX, T.contiguous(), cfg.reg_t_l1,
                                        cfg.reg_t_l2, float(cfg.t_row_sum),
@@ -266,11 +326,11 @@ def make_dense_phase_sweep(cfg, wtx=_dense_wtx, xtt=_dense_xtt):
                                   cfg.reg_t_l2, t_bound,
                                   reps=cfg.inner_reps)
             if not cfg.fix_W:
-                G2 = T @ T.T
-                XTt = xtt(X, T)                                # (k, n)
+                G2 = xmm(T, T.T, acc)
+                XTt = xtt(X, T, acc, x_narrow).contiguous()    # (k, n)
                 ub = None
                 if cfg.w_row_sum_is_vector:
-                    ub = w_row_sum_vec.reshape(-1).to(W.dtype).contiguous()
+                    ub = w_row_sum_vec.reshape(-1).to(acc).contiguous()
                 W = gs_update(G2, XTt, W.T.contiguous(), cfg.reg_w_l1,
                               cfg.reg_w_l2, w_bound, ub=ub,
                               reps=cfg.inner_reps).T

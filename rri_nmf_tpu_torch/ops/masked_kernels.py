@@ -25,6 +25,14 @@ A CPU tensor goes to the plain PyTorch twin (:func:`phase_a_ref`,
 launches the kernel, or the wrapper raises. ``LAUNCHES`` counts kernel
 launches.
 
+**16-bit storage** (``dtype=torch.bfloat16`` or ``float16``): R, M, X and
+the factors are stored in 16 bits and the kernels' sums are float32, as
+the JAX package's ``_acc_of`` has them. The elementwise steps round to 16
+bits where JAX computes in 16 bits (each product and sum of the rank-one
+updates, ``M ⊙ R``, ``w²``), and each such product enters its float32 sum
+exactly. The twins do the same: torch's 16-bit elementwise ops round per
+op, and their sums widen the rounded terms.
+
 Unlike the TPU kernels nothing is padded, so the ``row_ok``/``col_ok``
 masks and ``_pick_tiles`` have no counterpart: no coordinate outside
 (n, d) exists, so a negative L1 regularizer cannot give phantom mass to
@@ -39,6 +47,7 @@ from rri_nmf_tpu_torch.matrixops import (_proj_simplex_core,
                                          reproject_row_if_drifted)
 from rri_nmf_tpu_torch.optimization import qf_min_vector_c
 from rri_nmf_tpu_torch.ops._build import check_operands, launch
+from rri_nmf_tpu_torch.ops.quantized import work_dtype
 from rri_nmf_tpu_torch.ops.sweep import make_reset_rowcol, precision_scope
 
 # Kernel launches per wrapper since the last reset_launches(). A wrapper
@@ -98,17 +107,21 @@ def supports_masked_kernels(cfg):
 
 def phase_a_ref(R, M, dw, t_prev, w):
     """Plain version of B3: ``R += dw·t_prevᵀ`` in place, then returns
-    ``(wᵀ(M⊙R), (w²)ᵀM)``, each (d,)."""
+    ``(wᵀ(M⊙R), (w²)ᵀM)``, each (d,), in its work dtype (float32 for 16
+    bits)."""
     R += dw[:, None] * t_prev[None, :]
-    return w @ (M * R), (w * w) @ M
+    a = work_dtype(R.dtype)
+    return w.to(a) @ (M * R).to(a), (w * w).to(a) @ M.to(a)
 
 
 def phase_b_ref(R, M, w, w_eff, t_old, t_new):
     """Plain version of B4: ``R += w·t_oldᵀ − w_eff·t_newᵀ`` in place,
-    then returns ``((M⊙R)·t_new, M·t_new²)``, each (n,)."""
+    then returns ``((M⊙R)·t_new, M·t_new²)``, each (n,), in
+    its work dtype (float32 for 16 bits)."""
     R += w[:, None] * t_old[None, :]
     R -= w_eff[:, None] * t_new[None, :]
-    return (M * R) @ t_new, M @ (t_new * t_new)
+    a = work_dtype(R.dtype)
+    return (M * R).to(a) @ t_new.to(a), M.to(a) @ (t_new * t_new).to(a)
 
 
 # ---------------------------------------------------------------------------
@@ -125,22 +138,35 @@ def _into(out, sums):
     return out
 
 
+def _check_sums(R, sums):
+    """The two sum outputs: contiguous, in the work dtype of R's dtype
+    (:func:`~rri_nmf_tpu_torch.ops.quantized.work_dtype`), on R's
+    device."""
+    first = next(iter(sums.values()))[0]
+    if first.dtype != work_dtype(R.dtype) or first.device != R.device:
+        raise ValueError('the sums must be %s on %s, got %s on %s' % (
+            work_dtype(R.dtype), R.device, first.dtype, first.device))
+    check_operands(first, sums)
+
+
 def phase_a(R, M, dw, t_prev, w, out=None):
     """B3 (see :func:`phase_a_ref`): updates ``R`` in place and returns
     ``(wR0, nw)``, written into ``out`` (a pair of (d,) tensors) when
     given, so a caller may allocate them once. A CPU ``R`` runs the plain
     twin; a CUDA ``R`` launches ``csrc/masked.cu`` once, with every
-    operand a contiguous tensor of ``R``'s dtype on its device."""
+    operand a contiguous tensor of ``R``'s dtype on its device (the sums
+    in its work dtype)."""
     if R.device.type == 'cpu':
         return _into(out, phase_a_ref(R, M, dw, t_prev, w))
     n, d = R.shape
     if out is None:
-        out = (torch.empty(d, dtype=R.dtype, device=R.device),
-               torch.empty(d, dtype=R.dtype, device=R.device))
+        out = (torch.empty(d, dtype=work_dtype(R.dtype), device=R.device),
+               torch.empty(d, dtype=work_dtype(R.dtype), device=R.device))
     wR0, nw = out
     check_operands(R, {'R': (R, (n, d)), 'M': (M, (n, d)),
                        'dw': (dw, (n,)), 't_prev': (t_prev, (d,)),
-                       'w': (w, (n,)), 'wR0': (wR0, (d,)), 'nw': (nw, (d,))})
+                       'w': (w, (n,))})
+    _check_sums(R, {'wR0': (wR0, (d,)), 'nw': (nw, (d,))})
     cluster = phase_a_layout(n, d, R.element_size())[1]
     launch('rri_masked_phase_a', R, R.data_ptr(), M.data_ptr(),
            dw.data_ptr(), t_prev.data_ptr(), w.data_ptr(), wR0.data_ptr(),
@@ -158,13 +184,13 @@ def phase_b(R, M, w, w_eff, t_old, t_new, out=None):
         return _into(out, phase_b_ref(R, M, w, w_eff, t_old, t_new))
     n, d = R.shape
     if out is None:
-        out = (torch.empty(n, dtype=R.dtype, device=R.device),
-               torch.empty(n, dtype=R.dtype, device=R.device))
+        out = (torch.empty(n, dtype=work_dtype(R.dtype), device=R.device),
+               torch.empty(n, dtype=work_dtype(R.dtype), device=R.device))
     Rt, mt2 = out
     check_operands(R, {'R': (R, (n, d)), 'M': (M, (n, d)),
                        'w': (w, (n,)), 'w_eff': (w_eff, (n,)),
-                       't_old': (t_old, (d,)), 't_new': (t_new, (d,)),
-                       'Rt': (Rt, (n,)), 'mt2': (mt2, (n,))})
+                       't_old': (t_old, (d,)), 't_new': (t_new, (d,))})
+    _check_sums(R, {'Rt': (Rt, (n,)), 'mt2': (mt2, (n,))})
     launch('rri_masked_phase_b', R, R.data_ptr(), M.data_ptr(),
            w.data_ptr(), w_eff.data_ptr(), t_old.data_ptr(),
            t_new.data_ptr(), Rt.data_ptr(), mt2.data_ptr(), n, d)
@@ -198,6 +224,7 @@ def make_masked_sweep(cfg):
     def sweep(X, W, T, M, draws, resets_left, w_row_sum_vec=None):
         n, d = X.shape
         dtype = W.dtype
+        acc = work_dtype(dtype)
         ub_w = (w_row_sum_vec.reshape(-1).to(dtype)
                 if cfg.w_row_sum_is_vector else cfg.w_row_sum)
         # the factors as lists of contiguous rows: a topic's update binds
@@ -210,10 +237,10 @@ def make_masked_sweep(cfg):
         pend_t = torch.zeros(d, dtype=dtype, device=X.device)
         # the kernels' outputs, written anew by every topic (each topic
         # reads them before the next launch, and keeps nothing of them)
-        a_out = (torch.empty(d, dtype=dtype, device=X.device),
-                 torch.empty(d, dtype=dtype, device=X.device))
-        b_out = (torch.empty(n, dtype=dtype, device=X.device),
-                 torch.empty(n, dtype=dtype, device=X.device))
+        a_out = (torch.empty(d, dtype=acc, device=X.device),
+                 torch.empty(d, dtype=acc, device=X.device))
+        b_out = (torch.empty(n, dtype=acc, device=X.device),
+                 torch.empty(n, dtype=acc, device=X.device))
 
         for t in range(k):
             w = cols[t]
@@ -226,7 +253,8 @@ def make_masked_sweep(cfg):
             else:
                 # ---- T-phase: one pass (pending update + reductions)
                 wR0, nw = phase_a(R, M, pend_dw, pend_t, w, out=a_out)
-                wR = torch.addcmul(wR0, rows[t], nw)   # rank-one restore
+                wR = torch.addcmul(wR0, rows[t].to(acc), nw)  # rank-one
+                # restore
                 t_new, nt1 = qf_min_vector_c(
                     cfg.reg_t_l1 - wR,
                     nw + cfg.reg_t_l2 if cfg.reg_t_l2 else nw,
@@ -235,7 +263,9 @@ def make_masked_sweep(cfg):
                 # scale transfer: the reference's W[:, t] *= nt1 is
                 # overwritten by the W-phase below, so only the residual
                 # sees it, through w_eff
-                w_eff = w * nt1 if cfg.scale_transfer else w
+                w_eff = w * nt1.to(dtype) if cfg.scale_transfer else w
+                # the stored row (16 bits: rounded once), re-projected
+                t_new = t_new.to(dtype)
                 if cfg.project_T_each_iter and cfg.t_row_sum:
                     t_new = reproject_row_if_drifted(t_new, cfg.t_row_sum)
                 rows[t] = t_new
@@ -243,10 +273,11 @@ def make_masked_sweep(cfg):
                 # stored row, so R tracks T exactly
                 Rt0, mt2 = phase_b(R, M, w, w_eff, t_old, t_new,
                                    out=b_out)
-            Rt = torch.addcmul(Rt0, w_eff, mt2)         # rank-one restore
+            Rt = torch.addcmul(Rt0, w_eff.to(acc), mt2)  # rank-one restore
             w_new, _ = qf_min_vector_c(
                 cfg.reg_w_l1 - Rt, mt2 + cfg.reg_w_l2 if cfg.reg_w_l2
                 else mt2, s=None, ub=ub_w)
+            w_new = w_new.to(dtype)
             cols[t] = w_new
             # this topic's W update is deferred into the next topic's pass
             pend_dw = w_eff - w_new

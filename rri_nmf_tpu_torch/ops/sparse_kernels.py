@@ -21,8 +21,10 @@ itself and Tᵀ, and get (k, d) and (k, n).
 
 Each wrapper takes a CPU tensor to :func:`gather_contract_ref`, the
 kernel's plain PyTorch twin on the layout, and a CUDA tensor to the
-kernel — or raises. :func:`mxu_contract_ref` and :func:`dma_contract_ref`
-walk the plans themselves (a gather of factor columns times the values,
+kernel — or raises. 16-bit factors (bfloat16, float16) meet values of
+their dtype, as the JAX kernels' narrow dots do: the products are exact
+in float32, summed in float32, and the output is float32.
+:func:`mxu_contract_ref` and :func:`dma_contract_ref` walk the plans themselves (a gather of factor columns times the values,
 then ``index_add_`` into the output columns): the oracles the tests hold
 against the Pallas kernels. Every twin works in slices whose gather
 temporary stays under ~2 GB.
@@ -31,6 +33,7 @@ temporary stays under ~2 GB.
 import torch
 
 from rri_nmf_tpu_torch.ops._build import CTYPES, launch
+from rri_nmf_tpu_torch.ops.quantized import work_dtype
 from rri_nmf_tpu_torch.ops.sparse_plan import (TILE, SparseDMAPlan,
                                                SparseMXUPlan, column_layout)
 
@@ -45,13 +48,6 @@ GATHER_BUDGET = 2 << 30
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def _check_factor(F):
-    if F.dtype in (torch.bfloat16, torch.float16):
-        raise NotImplementedError(
-            '%s factors (16-bit storage) are not ported to rri_nmf_tpu_torch '
-            'yet; they arrive with ROADMAP A.8' % F.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -123,23 +119,26 @@ def dma_contract_ref(plan, F3):
 def gather_contract_ref(layout, Ft, k, ncols, vals=None):
     """Plain version of the gather kernel: ``out (k, ncols)``, column c
     the sum over its nonzeros i of ``v_i · Ft[g_i, :k]``, added in layout
-    order (``index_add_``). ``layout`` is a :class:`~rri_nmf_tpu_torch.
+    order (``index_add_``); 16-bit factors and values are widened and
+    summed in float32. ``layout`` is a :class:`~rri_nmf_tpu_torch.
     ops.sparse_plan.ColumnLayout` whose nonzeros lie in the first
     ``ncols`` columns; ``Ft`` (m, >= k) holds Fᵀ's rows. ``vals``: other
     values for the nonzeros, in layout order, in place of the layout's
     (:func:`~rri_nmf_tpu_torch.ops.sparse_plan.layout_values`)."""
-    out = torch.zeros(k, ncols, dtype=Ft.dtype, device=Ft.device)
+    acc = work_dtype(Ft.dtype)
+    out = torch.zeros(k, ncols, dtype=acc, device=Ft.device)
     nnz = layout.gidx.shape[0]
     if nnz == 0:
         return out
     v = layout.vals if vals is None else vals
     col = torch.arange(layout.n_cols, device=Ft.device).repeat_interleave(
         torch.diff(layout.colptr.long()))
-    size = torch.empty(0, dtype=Ft.dtype).element_size()
+    size = torch.empty(0, dtype=acc).element_size()
     step = max(1, GATHER_BUDGET // (max(k, 1) * size))
     for a in range(0, nnz, step):
         b = min(a + step, nnz)
-        rows = Ft[layout.gidx[a:b].long(), :k] * v[a:b, None].to(Ft.dtype)
+        rows = (Ft[layout.gidx[a:b].long(), :k].to(acc)
+                * v[a:b, None].to(acc))
         out.index_add_(1, col[a:b], rows.T)
     return out
 
@@ -168,18 +167,18 @@ def gather_contract(plan, Ft, k, ncols, kind, vals=None):
     columns wanted (the plan's padded width, or fewer when the rest are
     empty). ``vals``: another matrix on the same nonzeros, its values in
     the layout's order (:func:`~rri_nmf_tpu_torch.ops.sparse_plan.
-    layout_values`; JAX's ``vals_override``). A CPU ``Ft`` runs
+    layout_values`; JAX's ``vals_override``). The output is Ft's dtype,
+    float32 for 16-bit factors. A CPU ``Ft`` runs
     :func:`gather_contract_ref`; a CUDA ``Ft`` launches
     ``csrc/sparse.cu`` and counts it under ``LAUNCHES[kind]``."""
-    _check_factor(Ft)
     if Ft.device.type == 'cpu':
         return gather_contract_ref(column_layout(plan), Ft, k, ncols, vals)
     if Ft.device.type != 'cuda':
         raise ValueError('the kernels run on CUDA or (plain twin) CPU '
                          'tensors, got %s' % Ft.device)
     if Ft.dtype not in CTYPES:
-        raise ValueError('the kernels take float32/float64, got %s'
-                         % Ft.dtype)
+        raise ValueError('the kernels take float32/float64 or '
+                         'bfloat16/float16, got %s' % Ft.dtype)
     layout = column_layout(plan)
     for name in layout._fields:
         a = getattr(layout, name)
@@ -203,7 +202,7 @@ def gather_contract(plan, Ft, k, ncols, kind, vals=None):
                          'nonzeros' % (ncols, layout.n_cols,
                                        layout.gidx.shape[0]))
     rows = _rows(Ft, k)
-    out = torch.empty(k, ncols, dtype=Ft.dtype, device=Ft.device)
+    out = torch.empty(k, ncols, dtype=work_dtype(Ft.dtype), device=Ft.device)
     launch('rri_sparse_gather', rows, rows.data_ptr(),
            layout.colptr.data_ptr(), layout.gidx.data_ptr(), v.data_ptr(),
            out.data_ptr(), k, rows.shape[1], ncols, ncols)
@@ -216,7 +215,6 @@ def mxu_contract(plan, F):
     tpu_torch.ops.sparse_plan.ContractPlan`, F (k, gpad) covering every
     factor tile (see :func:`mxu_contract_ref`). Runs
     :func:`gather_contract` on Fᵀ; counts under ``LAUNCHES['mxu']``."""
-    _check_factor(F)
     nchunks = plan.ftile.shape[0]
     if nchunks % plan.otile.shape[0]:
         raise ValueError('plan chunk count %d is not a multiple of its %d '
@@ -234,7 +232,6 @@ def dma_contract(plan, F3):
     tpu_torch.ops.sparse_plan.DMAContractPlan`, ``F3`` (n_tiles, k, 128)
     holding F's tiles (see :func:`dma_contract_ref`). Runs
     :func:`gather_contract` on Fᵀ; counts under ``LAUNCHES['dma']``."""
-    _check_factor(F3)
     n_tiles, k, width = F3.shape
     if width != TILE or n_tiles != plan.n_gtiles:
         raise ValueError('F3 must be (%d, k, %d), got %s'

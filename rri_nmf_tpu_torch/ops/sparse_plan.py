@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from rri_nmf_tpu_torch.matrixops import fit_device
+from rri_nmf_tpu_torch.ops.quantized import NARROW
 
 TILE = 128
 # Chunks per metadata block B6 may read ahead (the plan's trailing pad).
@@ -319,12 +320,23 @@ def numpy_dtype(dtype):
 
 
 def _host_dtype(dtype, vals):
-    return np.dtype(vals.dtype) if dtype is None else numpy_dtype(dtype)
+    """The numpy dtype a plan is built in on the host: the values' own
+    for a 16-bit ``dtype`` (numpy has no bfloat16; the values are
+    rounded once, on the device, by :func:`_to_device`)."""
+    if dtype is None or dtype in NARROW:
+        return np.dtype(vals.dtype) if np.issubdtype(vals.dtype, np.floating) \
+            else np.dtype(np.float64)
+    return numpy_dtype(dtype)
 
 
-def _to_device(arrays, device):
-    return {k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for k, a in arrays.items()}
+def _to_device(arrays, device, dtype=None):
+    """The host arrays as tensors on ``device``, the values (``'vals'``)
+    in the 16-bit ``dtype`` when one is asked for."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+           for k, a in arrays.items()}
+    if dtype in NARROW:
+        out['vals'] = out['vals'].to(dtype)
+    return out
 
 
 def plan_sparse_matrix(X, dtype=None, C=TILE, group=8, device=None):
@@ -335,17 +347,17 @@ def plan_sparse_matrix(X, dtype=None, C=TILE, group=8, device=None):
     (:func:`rri_nmf_tpu.ops.sparse_mxu.plan_sparse_matrix`)."""
     device = fit_device(X, device)
     rows, cols, data, (n, d) = host_coo(X)
-    dtype = _host_dtype(dtype, data)
+    host_dt = _host_dtype(dtype, data)
     n_rt = -(-n // TILE)
     n_ct = -(-d // TILE)
-    vals = np.asarray(data, dtype=dtype)
+    vals = np.asarray(data, dtype=host_dt)
     plans = []
     for g, s, n_g, n_s in ((rows, cols, n_rt, n_ct), (cols, rows, n_ct, n_rt)):
         v, gl, sl, ft, ot, mask = _plan_direction_np(g, s, vals, n_g, n_s, C,
-                                                     group, dtype)
+                                                     group, host_dt)
         plans.append(ContractPlan(n_g, **_to_device(dict(
             vals=v, gloc=gl, sloc=sl, ftile=ft, otile=ot, mask=mask),
-            device)))
+            device, dtype)))
     return SparseMXUPlan(plans[0], plans[1], n, d, group)
 
 
@@ -354,17 +366,17 @@ def plan_sparse_matrix_dma(X, dtype=None, C=TILE, device=None):
     (:func:`rri_nmf_tpu.ops.sparse_dma.plan_sparse_matrix_dma`)."""
     device = fit_device(X, device)
     rows, cols, data, (n, d) = host_coo(X)
-    dtype = _host_dtype(dtype, data)
+    host_dt = _host_dtype(dtype, data)
     n_rt = -(-n // TILE)
     n_ct = -(-d // TILE)
-    vals = np.asarray(data, dtype=dtype)
+    vals = np.asarray(data, dtype=host_dt)
     plans = []
     for g, s, n_g, n_s in ((rows, cols, n_rt, n_ct), (cols, rows, n_ct, n_rt)):
         v, idx, ft, uo, ostart, mask = _plan_direction_dma_np(
-            g, s, vals, n_g, n_s, C, dtype)
+            g, s, vals, n_g, n_s, C, host_dt)
         plans.append(DMAContractPlan(n_g, **_to_device(dict(
             vals=v, idx=idx, ftile=ft, uotile=uo, ostart=ostart, mask=mask),
-            device)))
+            device, dtype)))
     return SparseDMAPlan(plans[0], plans[1], n, d)
 
 

@@ -25,6 +25,16 @@ JAX does; resets are rare. A topic that dies with no budget left changes
 nothing, so with no budget nothing is checked. On the card the
 speculative sweep is one CUDA graph.
 
+**Storage dtypes** follow :func:`resolve_mixed_dtypes`, as in the JAX
+package: a sweep works its factors in the accumulator dtype (float32 for
+16-bit factors) and rounds each stored T row, W column and masked
+residual update to the factors' dtype, and a narrower X (``x_dtype=
+'bfloat16'``, 16-bit factors) enters its products through
+:func:`~rri_nmf_tpu_torch.ops.quantized.xmm`, a block of rows at a time.
+The objectives evaluate in the accumulator dtype, over a
+:class:`~rri_nmf_tpu_torch.ops.quantized.QuantizedX`'s dequantized blocks
+where X is quantized.
+
 Random numbers (the ``'random'`` reset, the DP noise) come from a
 ``draws`` object (:class:`GeneratorDraws`: a ``torch.Generator``); the
 tests pass one that draws what ``jax.random`` draws, so a reset that
@@ -40,6 +50,8 @@ import torch
 
 from rri_nmf_tpu_torch.matrixops import (_proj_simplex_core,
                                          reproject_row_if_drifted)
+from rri_nmf_tpu_torch.ops.quantized import (QuantizedX, dequantize_x,
+                                             qx_row_block, work_dtype, xmm)
 from rri_nmf_tpu_torch.optimization import (qf_min_scalar_c,
                                             qf_min_scalar_free,
                                             qf_min_vector_c)
@@ -98,9 +110,6 @@ class SweepConfig:
         return self.t_row_sum if self.project_T_each_iter else None
 
 
-_NARROW = (torch.bfloat16, torch.float16)
-
-
 def resolve_mixed_dtypes(x_dtype, w_dtype, matmul_precision=None):
     """``(dtype, acc, x_narrow)``: the factor dtype (follows W), the
     accumulator dtype (float32 for a 16-bit promoted pair, else the
@@ -108,7 +117,7 @@ def resolve_mixed_dtypes(x_dtype, w_dtype, matmul_precision=None):
     operand down to a bfloat16 X (only under default precision). The
     rules of :func:`rri_nmf_tpu.ops.sweep_xla.resolve_mixed_dtypes`."""
     wide = torch.promote_types(x_dtype, w_dtype)
-    acc = torch.float32 if wide in _NARROW else wide
+    acc = work_dtype(wide)
     x_narrow = x_dtype == torch.bfloat16 and matmul_precision is None
     return w_dtype, acc, x_narrow
 
@@ -151,7 +160,9 @@ def make_objective(masked=False, row_weighted=False, reg_w_l2=0.0,
 
     ``block_rows`` sums the residual over row blocks of that size instead
     of materializing the whole ``W @ T`` product (for X near the device
-    memory budget)."""
+    memory budget). X may be a :class:`~rri_nmf_tpu_torch.ops.quantized.
+    QuantizedX`: dequantized a row block at a time (whole without
+    ``block_rows``)."""
 
     def _res_sq(acc, X, W, T, M, wr):
         R = (X.to(acc) - W.to(acc) @ T.to(acc)) ** 2
@@ -167,12 +178,15 @@ def make_objective(masked=False, row_weighted=False, reg_w_l2=0.0,
         if row_weighted and wr is None:
             raise ValueError('the row-weighted objective needs the weights')
         _, acc, _ = resolve_mixed_dtypes(X.dtype, W.dtype)
+        qx = isinstance(X, QuantizedX)
         with precision_scope(matmul_precision):
             if block_rows is None:
-                base = _res_sq(acc, X, W, T, M, wr)
+                base = _res_sq(acc, dequantize_x(X) if qx else X, W, T, M,
+                               wr)
             else:
                 B = int(block_rows)
-                base = sum(_res_sq(acc, X[i:i + B], W[i:i + B], T,
+                base = sum(_res_sq(acc, qx_row_block(X, i, B, acc) if qx
+                                   else X[i:i + B], W[i:i + B], T,
                                    M[i:i + B] if masked else None,
                                    wr[i:i + B] if row_weighted else None)
                            for i in range(0, X.shape[0], B))
@@ -467,10 +481,20 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
                           cfg.reg_w_l2)
     n, d = X.shape
     dev = X.device
-    # the factors are copied, never written: row t of Wt is W[:, t]
-    Wt = W.T.clone(memory_format=torch.contiguous_format)
-    T = T.clone(memory_format=torch.contiguous_format)
-    dtype = Wt.dtype
+    # the factors are copied, never written: row t of Wt is W[:, t]. The
+    # copies are in the accumulator dtype; a 16-bit factor's stored rows
+    # are rounded to it (rnd)
+    out_dtype, dtype, _ = resolve_mixed_dtypes(X.dtype, W.dtype)
+    Wt = W.T.to(dtype, memory_format=torch.contiguous_format, copy=True)
+    T = T.to(dtype, memory_format=torch.contiguous_format, copy=True)
+    if out_dtype != dtype:
+        def rnd(v):
+            return v.to(out_dtype).to(dtype)
+    else:
+        def rnd(v):
+            return v
+    if cfg.masked:
+        W_mat = W_mat.to(dtype)
 
     R = WX = Wcoln = zeros_n = zeros_d = None
     if not cfg.masked:
@@ -479,11 +503,11 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
         zeros_d = torch.zeros(d, dtype=dtype, device=dev)
     if cfg.masked:
         # the masked residual carry, fresh every sweep
-        R = W_mat * (X - Wt.T @ T)
+        R = rnd(W_mat * (X - Wt.T @ T))
     elif not cfg.fix_T:
         # one GEMM for the sweep: column t of W is untouched until its own
         # topic, so row t of WᵀX is still current there
-        WX = Wt @ X                                        # (k, d)
+        WX = xmm(Wt, X, dtype)                             # (k, d)
         Wcoln = (Wt * Wt).sum(1)                           # (k,)
 
     stores = ()
@@ -496,17 +520,17 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
         if cfg.store_rows is not None:
             rows = torch.as_tensor(list(cfg.store_rows), dtype=torch.long,
                                    device=dev)
-            X_rows = X[rows]
+            X_rows = X[rows].to(dtype)
             M_rows = W_mat[rows] if cfg.masked else None
 
     def fire(t):
         """Reset topic t; the masked residual is rebuilt after it."""
         nonlocal R
         row, col = reset_rowcol(X, Wt.T, T, t, draws)
-        Wt[t] = col
-        T[t] = row
+        Wt[t] = rnd(col)
+        T[t] = rnd(row)
         if cfg.masked:
-            R = W_mat * (X - Wt.T @ T)
+            R = rnd(W_mat * (X - Wt.T @ T))
 
     def check_t(t):
         """Reference ``nmf.py:750-783``: an alive row drifted off the
@@ -517,9 +541,9 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
             fire(t)
             return True
         if proj_t and not cfg.masked:
-            T[t] = reproject_row_if_drifted(
+            T[t] = rnd(reproject_row_if_drifted(
                 T[t], cfg.t_row_sum,
-                extra_pred=T[t].sum() > ALIVE if method is not None else None)
+                extra_pred=T[t].sum() > ALIVE if method is not None else None))
         return False
 
     def check_w(t):
@@ -583,9 +607,9 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
             w_eff = w
             if cfg.scale_transfer:
                 # diagonal scale-invariance transfer (nmf.py:450-452)
-                Wt[t] *= nt1
+                Wt[t] = rnd(Wt[t] * rnd(nt1))
                 if cfg.masked:
-                    w_eff = w * nt1
+                    w_eff = rnd(w * rnd(nt1))
             if cfg.masked and proj_t:
                 # the drift re-projection hoisted before the rank-2
                 # residual update, so R tracks T exactly
@@ -593,12 +617,12 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
                     t_new, cfg.t_row_sum,
                     extra_pred=(t_new.sum() > ALIVE
                                 if method is not None else None))
-            T[t] = t_new
+            T[t] = rnd(t_new)
             if cfg.masked:
                 # R += M ⊙ (w t_oldᵀ − w_eff t_newᵀ) as one (n,2)×(2,d)
                 U2 = torch.stack([w, -w_eff], 1)
                 V2 = torch.stack([t_old, T[t]], 0)
-                R = R + W_mat * (U2 @ V2)
+                R = rnd(R + rnd(W_mat * (U2 @ V2)))
             check_t(t)
         if do_w:
             trow = T[t]
@@ -608,7 +632,8 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
                 Rt = R @ trow + w_old * mt2
                 nt = mt2
             else:
-                Xt = XTt[t] if XTt is not None else X @ trow       # (n,)
+                Xt = XTt[t] if XTt is not None else \
+                    xmm(X, trow[:, None], dtype)[:, 0]             # (n,)
                 Tt = T @ trow
                 Tt[t].zero_()
                 Rt = torch.addmv(Xt, Wt.T, Tt, alpha=-1.0)
@@ -620,9 +645,9 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
             else:
                 w_new = qf_min_scalar_free(numer, denom, ub_w, zeros_n,
                                            norm=False)
-            Wt[t] = w_new
+            Wt[t] = rnd(w_new)
             if cfg.masked:
-                R = R + W_mat * torch.outer(w_old - w_new, trow)
+                R = rnd(R + rnd(W_mat * torch.outer(w_old - Wt[t], trow)))
             check_w(t)
 
     def t_phase_blocked():
@@ -642,12 +667,13 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
                 wR = WX[t] - (C[i] + g @ D - g[i] * T0[i])
                 numer = wR - l1t if l1t else wR
                 if cfg.t_update_s is None:
-                    T[t] = qf_min_scalar_free(numer, g[i] + l2t, cfg.t_row_sum,
-                                              zeros_d, norm=False)
+                    T[t] = rnd(qf_min_scalar_free(numer, g[i] + l2t,
+                                                  cfg.t_row_sum, zeros_d,
+                                                  norm=False))
                 else:
-                    T[t] = qf_min_scalar_c(-numer, g[i] + l2t,
-                                           s=cfg.t_update_s,
-                                           ub=cfg.t_row_sum)[0]
+                    T[t] = rnd(qf_min_scalar_c(-numer, g[i] + l2t,
+                                               s=cfg.t_update_s,
+                                               ub=cfg.t_row_sum)[0])
                 if check_t(t):
                     # the reset rewrote W[:, t]: patch G's row and column
                     # and the block cache
@@ -663,7 +689,7 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
         ``w_phase_blocked``), on Wᵀ's rows."""
         B = _gram_block_size(k)
         G = T @ T.T                                            # (k, k)
-        XTt = T @ X.T                                          # (k, n)
+        XTt = xmm(T, X.T, dtype)                               # (k, n)
         for bi in range(cfg.inner_reps * (k // B)):
             bs = (bi % (k // B)) * B
             C = G[:, bs:bs + B].T @ Wt                         # (B, n)
@@ -674,8 +700,8 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
                 g = G[bs:bs + B, t]
                 Rt = XTt[t] - (C[i] + g @ D - W0[i] * g[i])
                 numer = Rt - l1w if l1w else Rt
-                Wt[t] = qf_min_scalar_free(numer, g[i] + l2w, ub_w, zeros_n,
-                                           norm=False)
+                Wt[t] = rnd(qf_min_scalar_free(numer, g[i] + l2w, ub_w,
+                                               zeros_n, norm=False))
                 if check_w(t):
                     # the reset rewrote T[t]
                     g_new = T @ T[t]
@@ -698,7 +724,7 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
             for t in range(k):
                 topic(t, True, False)
         if not cfg.fix_W:
-            XTt = T @ X.T
+            XTt = xmm(T, X.T, dtype)
             for t in range(k):
                 topic(t, False, True, XTt)
     else:
@@ -708,10 +734,11 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
     dead = None
     if method is not None and not resets.eager and resets.budget > 0:
         dead = _dead_topics(Wt, T, not cfg.fix_T, not cfg.fix_W)
-    W = Wt.T.contiguous()
+    W = Wt.T.to(out_dtype, memory_format=torch.contiguous_format)
+    T = T.to(out_dtype)
     # per-iteration W row projection (reference nmf.py:481-484)
     if (cfg.project_W_each_iter and not cfg.fix_W
             and (cfg.w_row_sum is not None or cfg.w_row_sum_is_vector)):
-        W = _proj_simplex_core(W, wrs if cfg.w_row_sum_is_vector
+        W = _proj_simplex_core(W, wrs.to(W.dtype) if cfg.w_row_sum_is_vector
                                else float(cfg.w_row_sum))
     return W, T, dead, stores

@@ -39,6 +39,24 @@ class TorchSparseX(object):
     def __init__(self, coo):
         self.coo = coo
         self.coo_t = coo.t().coalesce()
+        self._wide = None
+
+    @property
+    def dtype(self):
+        return self.coo.dtype
+
+    @property
+    def shape(self):
+        return self.coo.shape
+
+    def wide(self, acc):
+        """``(coo, coo_t)`` with values in ``acc`` (the 16-bit values
+        widened once, for the products' float32 sums)."""
+        if self.coo.dtype == acc:
+            return self.coo, self.coo_t
+        if self._wide is None or self._wide[0].dtype != acc:
+            self._wide = (self.coo.to(acc), self.coo_t.to(acc))
+        return self._wide
 
 
 def supports_sparse(cfg):
@@ -47,12 +65,12 @@ def supports_sparse(cfg):
     return _supports_base(cfg)
 
 
-def _torch_wtx(X, W):
-    return torch.sparse.mm(X.coo_t, W).T.contiguous()
+def _torch_wtx(X, W, acc, x_narrow=False):
+    return torch.sparse.mm(X.wide(acc)[1], W.to(acc)).T.contiguous()
 
 
-def _torch_xtt(X, T):
-    return torch.sparse.mm(X.coo, T.T).T.contiguous()
+def _torch_xtt(X, T, acc, x_narrow=False):
+    return torch.sparse.mm(X.wide(acc)[0], T.T.to(acc)).T.contiguous()
 
 
 def _plan_products(plan_type):
@@ -61,11 +79,11 @@ def _plan_products(plan_type):
             raise TypeError('this sweep takes a %s, got %s'
                             % (plan_type.__name__, type(X).__name__))
 
-    def wtx(X, W):
+    def wtx(X, W, acc, x_narrow=False):
         check(X)
         return sparse_kernels.contract_wtx(X, W)
 
-    def xtt(X, T):
+    def xtt(X, T, acc, x_narrow=False):
         check(X)
         return sparse_kernels.contract_xtt(X, T)
 

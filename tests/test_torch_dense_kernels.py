@@ -259,6 +259,10 @@ def test_shared_memory_gates(monkeypatch):
             calls.append(('gs', k, index))
             return -3 if k == 7 else int(k <= 600)   # k=7: a CUDA error
 
+        def rri_gs_fits_bf16(self, k, index):
+            calls.append(('gs16', k, index))
+            return int(k <= 1200)
+
         def rri_tm_proj_fits_f64(self, k, d, index):
             calls.append(('tm_proj', k, d, index))
             return int(d <= 2 ** 24)
@@ -279,7 +283,13 @@ def test_shared_memory_gates(monkeypatch):
                      ('gs', 8, 1), ('tm_proj', 8, 2 ** 24 + 1, 1)]
     with pytest.raises(RuntimeError, match='CUDA error 3'):
         dk.gs_fits(7, torch.float64, card)
-    assert not dk.gs_fits(128, torch.bfloat16, card)
+    # 16-bit factors ask their own launcher (its strip is worked in
+    # float32: the float32 layout)
+    calls.clear()
+    assert dk.gs_fits(128, torch.bfloat16, card)
+    assert not dk.gs_fits(4096, torch.bfloat16, card)
+    assert calls == [('gs16', 128, 1), ('gs16', 4096, 1)]
+    assert not dk.gs_fits(128, torch.int16, card)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,8 @@
 
 import pickle
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse
@@ -391,5 +393,18 @@ def test_masked_svd_init_is_bit_identical_to_jax(recsys_train):
         W, H = masked_svd_init(torch.as_tensor(X), M, 4, **kw)
         assert W.dtype == torch.float64
         assert np.array_equal(W.numpy(), Wj) and np.array_equal(H.numpy(), Hj)
-    with pytest.raises(NotImplementedError, match='A.3'):
+    # the device backend (JAX's 'jax', the port's 'torch'), JAX's draws
+    # injected: the key split once a round, one (d, k + 10) test matrix
+    Wj, Hj = jax_msi(X, M, 4, random_state=3, n_iter=4, backend='jax')
+    key, omegas = jax.random.PRNGKey(3), []
+    for _ in range(4):
+        key, sub = jax.random.split(key)
+        omegas.append(np.asarray(jax.random.normal(
+            sub, (X.shape[1], 14), dtype=jnp.float64)))
+    W, H = masked_svd_init(torch.as_tensor(X), M, 4, n_iter=4,
+                           backend='torch', omegas=omegas)
+    assert W.dtype == torch.float64 and W.device.type == 'cpu'
+    np.testing.assert_allclose(W.numpy(), Wj, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(H.numpy(), Hj, rtol=0, atol=1e-9)
+    with pytest.raises(ValueError, match="'numpy' or 'torch'"):
         masked_svd_init(X, M, 4, backend='jax')

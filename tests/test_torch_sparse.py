@@ -322,7 +322,12 @@ def test_cpu_tensors_take_the_twins_and_launch_nothing():
     assert sk.LAUNCHES == before
 
 
-def test_non_cuda_devices_raise_and_16_bit_factors_wait_for_A8():
+def test_non_cuda_devices_raise_and_16_bit_factors_wait_for_A8(
+        argsort_plans):
+    """Non-CUDA devices raise; 16-bit factors (ROADMAP A.8, ported) meet
+    values of their dtype, their exact products summed in float32, as
+    JAX's narrow kernels take them (interpret mode): the same float32
+    output up to summation order."""
     X = MATRICES['ragged']()
     pm = spl.plan_sparse_matrix(X, device='cpu').to('meta')
     pd = spl.plan_sparse_matrix_dma(X, device='cpu').to('meta')
@@ -331,12 +336,37 @@ def test_non_cuda_devices_raise_and_16_bit_factors_wait_for_A8():
         sk.mxu_contract(pm.t_phase, F)
     with pytest.raises(ValueError, match='CUDA'):
         sk.dma_contract(pd.t_phase, F.reshape(3, 3, 128).permute(1, 0, 2))
-    W16 = torch.ones(300, 3, dtype=torch.bfloat16)
-    T16 = torch.ones(3, 260, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match='A.8'):
-        sk.contract_wtx(spl.plan_sparse_matrix(X, device='cpu'), W16)
-    with pytest.raises(NotImplementedError, match='A.8'):
-        sk.contract_xtt(spl.plan_sparse_matrix_dma(X, device='cpu'), T16)
+    # duplicate coordinates summed first: JAX rounds the sum of a
+    # chunk's duplicates to 16 bits inside its one-hot tile, a rounding
+    # that depends on its chunking
+    X = X.tocsr().tocoo()
+    rng = np.random.RandomState(9)
+    W, T = rng.rand(X.shape[0], 3), rng.rand(3, X.shape[1])
+    for dt, jdt in ((torch.bfloat16, jnp.bfloat16),
+                    (torch.float16, jnp.float16)):
+        W16, T16 = torch.as_tensor(W).to(dt), torch.as_tensor(T).to(dt)
+        Xq = sp.coo_matrix((torch.as_tensor(X.data).to(dt).double().numpy(),
+                            (X.row, X.col)), shape=X.shape).tocsr()
+        wtx = (Xq.T @ W16.double().numpy()).T
+        xtt = T16.double().numpy() @ Xq.T
+        got = (sk.contract_wtx(spl.plan_sparse_matrix(X, dt, device='cpu'),
+                               W16),
+               sk.contract_xtt(spl.plan_sparse_matrix_dma(X, dt,
+                                                          device='cpu'),
+                               T16))
+        want = (jmxu.contract_wtx(jmxu.plan_sparse_matrix(X, np.dtype(jdt)),
+                                  jnp.asarray(W16.float().numpy(), jdt),
+                                  interpret=True),
+                jdma.contract_xtt(jdma.plan_sparse_matrix_dma(
+                    X, np.dtype(jdt)), jnp.asarray(T16.float().numpy(), jdt),
+                    interpret=True))
+        for g, w, exact in zip(got, want, (wtx, xtt)):
+            assert g.dtype == torch.float32 and w.dtype == jnp.float32
+            scale = np.abs(exact).max()
+            np.testing.assert_allclose(g.numpy(), exact, rtol=0,
+                                       atol=1e-6 * scale)
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                       atol=1e-6 * scale)
 
 
 def test_shared_memory_gate_and_launch_counter_reset():
