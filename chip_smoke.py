@@ -166,15 +166,28 @@ its users run, one line per phase:
     float32 build; then in each 16-bit dtype ``nmf()`` at
     16384×8192 k=128 (objective non-increasing within 1e-3·obj₀ + 1e-6),
     the TM estimator, the masked fit with ``use_pallas=True`` and the
-    sparse ``'mxu'``/``'dma'`` fits.
+    sparse ``'mxu'``/``'dma'`` fits;
+27. the mesh (``rri_nmf_tpu_torch.parallel``): (a) a one-rank NCCL world
+    and a (1, 1) mesh, ``nmf(mesh=...)`` at 16384×8192 k=128 float32 in
+    the phase recipe bit for bit the single-device fit with the same B1
+    launches, ms/sweep of both in turns and the mesh sweeps' collective
+    kernels (``torch.profiler``); (b) 4 rank processes sharing the card
+    in a gloo world on a (2, 2) mesh (this script run with
+    ``--mesh-rank``), each fitting its block of ``nmf()`` at that shape
+    (B1) and of the TM preset at 11,314×26,214 k=50 (B2 on the panels
+    gathered over tp), in float64 and float32 from numpy-seeded warm
+    starts, against the single-device card fits: float64 within 1e-10,
+    float32 within 1e-4 relative objective, B1/B2 launches per rank.
+    These ranks share one card: the times are no scaling reading.
 
 Phases 5-6, phase 8, phases 10-11, phases 12-16, phases 18-19, phases
-20-23, phases 24-25 and each dtype's fits of phase 26 drive a main path
-with the launch counts set to 0 just before and read just after (no
-kernel of this repo runs in phases 12-13; phases 14-15 run B1; phases
-18-19 the gather kernel; phases 20-23 B1-B4; phases 24-25 B1; phase 26
-the 16-bit builds of all six; the HER recursion run by hand and the sync
-check of phases 20 and 23 leave the counts as they were). Then one JSON
+20-23, phases 24-25, each dtype's fits of phase 26 and phase 27 drive a
+main path with the launch counts set to 0 just before and read just
+after (no kernel of this repo runs in phases 12-13; phases 14-15 run B1;
+phases 18-19 the gather kernel; phases 20-23 B1-B4; phases 24-25 B1;
+phase 26 the 16-bit builds of all six; phase 27 B1 in this process and
+B1/B2 in each rank, counted there; the HER recursion run by hand and the
+sync check of phases 20 and 23 leave the counts as they were). Then one JSON
 line of the kernels (those launches, error against the twin, kernel and
 twin ms, the least time the card could take for the same work with what
 binds it, and the library call's ms where one computes the same
@@ -379,6 +392,22 @@ MASKED_SWEEPS_16 = 4
 SPARSE_SWEEPS_16 = 3
 OBJ_SLACK_16 = (1e-3, 1e-6)
 NARROW = (torch.bfloat16, torch.float16)
+# phase 27: the mesh. (a) a one-rank NCCL world at NMF_SHAPE, bit for bit
+# the single-device fit; (b) MESH_RANKS processes sharing the card in a
+# gloo world of MESH_SHAPE, MESH_SWEEPS sweeps of nmf() at NMF_SHAPE (B1)
+# and of the TM preset at TM_SHAPE (B2 on tp-gathered panels), each in
+# float64 and float32, against the single-device card fit from the same
+# warm start (numpy seed MESH_SEED): float64 at 1e-10 of the largest
+# entry and relative objective (the all-reduces sum in another order:
+# ~1e-15 a sweep), float32 at 1e-4 relative final objective (float32
+# sums in another order: no tighter bound is honest).
+MESH_RANKS = 4
+MESH_SHAPE = (2, 2)
+MESH_SWEEPS = 10
+MESH_SEED = 11
+TOL_MESH_F64 = 1e-10
+TOL_MESH_F32_OBJ = 1e-4
+MESH_SECONDS = 600
 
 
 def log(phase, **fields):
@@ -3040,7 +3069,7 @@ def run_16_bit_fits(dev, dk, mk, sk, nmf, Est, counts, ratings, dt):
 
 
 def run(dev):
-    """Phases 3-26 on ``dev``; returns the kernels' JSON entries."""
+    """Phases 3-27 on ``dev``; returns the kernels' JSON entries."""
     from rri_nmf_tpu_torch.metrics import frobenius_relative_error
     from rri_nmf_tpu_torch.nmf import nmf
     from rri_nmf_tpu_torch.ops import dense_kernels as dk
@@ -3250,6 +3279,18 @@ def run(dev):
                                  % counts16[dt])
         log('launches, phase 26 %s' % dt, **counts16[dt])
     del ratings
+
+    # 27. the mesh, counted from zero: B1 in the one-rank world's fit
+    # (this process), B1 and B2 in the ranks' fits (each rank's counts)
+    dk.reset_launches()
+    mesh_gs = run_mesh_one_rank_phase(dev, dk, nmf)
+    sync(dev)
+    ranks = run_mesh_ranks_phase(dev, dk, nmf)
+    if mesh_gs == 0 or ranks['gs'] == 0 or ranks['tm_proj'] == 0:
+        raise AssertionError('a kernel of the mesh phase never ran: %d %r'
+                             % (mesh_gs, ranks))
+    launches['gs'] += mesh_gs + ranks['gs']
+    launches['tm_proj'] += ranks['tm_proj']
     # no single PyTorch call computes B1-B4 (sequential topic chains with
     # clamps, a simplex projection, fused in-place rank-one updates)
     wide = [dict(B1, launches=launches['gs'], max_abs_err=err1, ms=ms1,
@@ -3280,7 +3321,250 @@ def run(dev):
     return wide + narrow
 
 
+# --------------------------------------------------------------------------
+# phase 27: the mesh
+# --------------------------------------------------------------------------
+
+def mesh_problems(spec, dev):
+    """The fits of phase 27 (b), as ``(name, X, nmf kwargs)`` built from
+    numpy seeds on ``dev`` (the same in the parent and in every rank):
+    ``nmf()`` in the phase recipe at ``spec['nmf']`` (n, d, k) and the TM
+    preset at ``spec['tm']`` (train docs, test docs, words, k), each in
+    float64 and float32, from warm starts drawn with MESH_SEED."""
+    from rri_nmf_tpu_torch.matrixops import normalize, tfidf
+    n, d, k = spec['nmf']
+    rng = np.random.RandomState(MESH_SEED)
+    W0, T0 = rng.rand(n, k), rng.rand(k, d)
+    X = lowrank(n, d, k, dev, seed=0)
+    base = dict(max_iter=spec['sweeps'], compute_obj_each_iter=True,
+                random_state=0, W_in=W0, T_in=T0, **FAST_TM)
+    for dt in (torch.float64, torch.float32):
+        yield 'nmf %s' % str(dt)[6:], X.to(dt), dict(base, k=k)
+    del X
+    n_train, n_test, n_words, k = spec['tm']
+    counts = zipf_corpus(n_train + n_test, n_words, k, seed=0)[:n_train]
+    # unit rows, as the preset's init scales them: every topic stays alive
+    # (a dead topic's T row is the simplex projection of rounding noise,
+    # on which no two summation orders agree; from unscaled U[0,1] rows a
+    # topic dies in the second sweep)
+    W0, T0 = rng.rand(n_train, k), rng.rand(k, n_words)
+    W0 /= W0.sum(1, keepdims=True)
+    T0 /= T0.sum(1, keepdims=True)
+    tm = dict(max_iter=spec['sweeps'], compute_obj_each_iter=True,
+              random_state=0, k=k, W_in=W0, T_in=T0,
+              project_W_each_iter=False, w_row_sum=1.0,
+              project_T_each_iter=True, t_row_sum=1.0, **FAST_TM)
+    for dt in (torch.float64, torch.float32):
+        Xt = normalize(tfidf(torch.as_tensor(counts, dtype=dt, device=dev)))
+        yield 'tm %s' % str(dt)[6:], Xt, tm
+        del Xt
+
+
+def mesh_rank(rank, world, store, out, spec):
+    """One rank of phase 27 (b): joins the gloo world on ``spec['device']``
+    (every rank on the one card), fits each of :func:`mesh_problems` on
+    its block of a ``spec['mesh']`` mesh, and saves its kernel launches
+    (counted from zero around each fit) and, on the first rank, the whole
+    factors, histories and seconds to ``out``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from rri_nmf_tpu_torch.nmf import nmf
+    from rri_nmf_tpu_torch.ops import dense_kernels as dk
+    from rri_nmf_tpu_torch.parallel import make_mesh
+    dev = torch.device(spec['device'])
+    if dev.type == 'cuda':
+        torch.cuda.set_device(dev)
+    # the host's cores shared among the ranks
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group(
+        'gloo', store=dist.FileStore(store, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_SECONDS))
+    try:
+        mesh = make_mesh(world, tuple(spec['mesh']))
+        launches, fits = {}, {}
+        for name, X, kw in mesh_problems(spec, dev):
+            sync(dev)
+            dk.reset_launches()
+            t0 = time.perf_counter()
+            res = nmf(X, mesh=mesh, **kw)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            launches[name] = dict(dk.LAUNCHES)
+            if rank == 0:
+                fits[name] = dict(W=res['W'].cpu(), T=res['T'].cpu(),
+                                  obj=res['obj_history'], wall_s=wall,
+                                  stamps=res['iter_cputime'])
+        torch.save({'launches': launches, 'fits': fits},
+                   os.path.join(out, 'rank%d.pt' % rank))
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_gap(got, want):
+    """max |got - want| over the largest |want|."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+def run_mesh_one_rank_phase(dev, dk, nmf):
+    """Phase 27 (a): a one-rank world (NCCL on a card) and a (1, 1) mesh:
+    ``nmf(mesh=...)`` at NMF_SHAPE in the phase recipe equals the
+    single-device fit bit for bit with the same B1 launches; ms/sweep of
+    both in turns, and the mesh sweeps' collective kernels by
+    ``torch.profiler``. Returns the phase's B1 launches (its fits with
+    and without the mesh)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rri_nmf_tpu_torch.parallel import make_mesh
+    n, d, k = NMF_SHAPE
+    X = lowrank(n, d, k, dev, seed=0)
+    kw = dict(max_iter=SWEEPS, compute_obj_each_iter=True, random_state=0,
+              **FAST_TM)
+    backend = 'nccl' if dev.type == 'cuda' else 'gloo'
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            backend, store=dist.FileStore(os.path.join(tmp, 'store'), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1, (1, 1))
+            gs0 = dk.LAUNCHES['gs']
+            single = nmf(X, k, **kw)
+            sync(dev)
+            gs1 = dk.LAUNCHES['gs']
+            meshed = nmf(X, k, mesh=mesh, **kw)
+            sync(dev)
+            gs_single, gs_mesh = gs1 - gs0, dk.LAUNCHES['gs'] - gs1
+            same = (torch.equal(single['W'], meshed['W'])
+                    and torch.equal(single['T'], meshed['T'])
+                    and single['obj_history'] == meshed['obj_history'])
+            if not same or gs_mesh != gs_single or \
+                    gs_mesh != 2 * len(meshed['obj_history']):
+                raise AssertionError(
+                    'one-rank mesh fit: bit for bit %s, B1 %d against %d'
+                    % (same, gs_mesh, gs_single))
+            # ms/sweep without the objective, in turns (single, mesh, mesh,
+            # single), continuing from the fit
+            cont = dict(max_iter=10, W_in=single['W'], T_in=single['T'],
+                        random_state=0, **FAST_TM)
+            ms = {'single': [], 'mesh': []}
+            for which in ('single', 'mesh', 'mesh', 'single'):
+                extra = dict(mesh=mesh) if which == 'mesh' else {}
+                r = nmf(X, k, **cont, **extra)
+                sync(dev)
+                ms[which].append(float(np.median(np.diff(
+                    r['iter_cputime']))) * 1e3)
+            kernels, device_ms, by_name = device_kernels(
+                lambda: nmf(X, k, mesh=mesh, **dict(cont, max_iter=5)), dev)
+            coll = [(c, t) for name, (c, t) in by_name.items()
+                    if 'nccl' in name.lower()]
+            gs_total = dk.LAUNCHES['gs'] - gs0
+        finally:
+            dist.destroy_process_group()
+    log('mesh one-rank %s world (1, 1) nmf %dx%d k=%d float32' % (
+        backend, n, d, k), sweeps=len(meshed['obj_history']),
+        bit_for_bit=same, gs_launches=gs_mesh,
+        gs_launches_single=gs_single,
+        ms_per_sweep_single=ms['single'], ms_per_sweep_mesh=ms['mesh'],
+        device_ms_per_sweep=device_ms / 5, kernels_per_sweep=kernels / 5,
+        collective_kernels_per_sweep=sum(c for c, _ in coll) / 5,
+        collective_device_ms_per_sweep=sum(t for _, t in coll) / 5)
+    return gs_total
+
+
+def run_mesh_ranks_phase(dev, dk, nmf):
+    """Phase 27 (b): MESH_RANKS rank processes on the one card in a gloo
+    world (:func:`mesh_rank`), held against the single-device card fits
+    of :func:`mesh_problems`; any rank that fails fails the phase.
+    Returns the ranks' B1 and B2 launches."""
+    import tempfile
+    spec = dict(device=str(dev), mesh=list(MESH_SHAPE), nmf=list(NMF_SHAPE),
+                tm=list(TM_SHAPE), sweeps=MESH_SWEEPS)
+    want = {}
+    for name, X, kw in mesh_problems(spec, dev):
+        res = nmf(X, **kw)
+        sync(dev)
+        want[name] = dict(W=res['W'].cpu(), T=res['T'].cpu(),
+                          obj=res['obj_history'],
+                          stamps=res['iter_cputime'])
+        del X, res
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [open(os.path.join(tmp, 'rank%d.log' % r), 'w+')
+                for r in range(MESH_RANKS)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--mesh-rank',
+             str(r), str(MESH_RANKS), os.path.join(tmp, 'store'), tmp,
+             json.dumps(spec)], stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(MESH_RANKS)]
+        try:
+            rcs = [p.wait(timeout=MESH_SECONDS) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        if any(rcs):
+            tails = []
+            for r, f in enumerate(logs):
+                f.seek(0)
+                tails.append('rank %d (rc %s): %s' % (r, rcs[r],
+                                                      f.read()[-3000:]))
+            raise AssertionError('a mesh rank failed:\n' + '\n'.join(tails))
+        ranks = [torch.load(os.path.join(tmp, 'rank%d.pt' % r))
+                 for r in range(MESH_RANKS)]
+        for f in logs:
+            f.close()
+    total = {'gs': 0, 'tm_proj': 0}
+    for name, ref in want.items():
+        got = ranks[0]['fits'][name]
+        sweeps = len(got['obj'])
+        per_rank = [r['launches'][name] for r in ranks]
+        for c in per_rank:
+            for key in total:
+                total[key] += c[key]
+        gap_w, gap_t = _mesh_gap(got['W'], ref['W']), _mesh_gap(got['T'],
+                                                                 ref['T'])
+        obj_gap = max(abs(a - b) / abs(b) for a, b in zip(got['obj'],
+                                                           ref['obj']))
+        log('mesh %d ranks sharing one card, gloo %r: %s' % (
+            MESH_RANKS, tuple(MESH_SHAPE), name), sweeps=sweeps,
+            launches_per_rank=per_rank, rel_gap_W=gap_w, rel_gap_T=gap_t,
+            max_rel_gap_obj=obj_gap, obj_last=got['obj'][-1],
+            fit_wall_s=got['wall_s'],
+            ms_per_sweep_with_objective=float(np.median(np.diff(
+                got['stamps']))) * 1e3,
+            ms_per_sweep_one_device=float(np.median(np.diff(
+                ref['stamps']))) * 1e3)
+        expect = ({'gs': sweeps, 'tm_proj': sweeps} if name.startswith('tm')
+                  else {'gs': 2 * sweeps, 'tm_proj': 0})
+        if any(c != expect for c in per_rank) or sweeps != len(ref['obj']):
+            raise AssertionError('%s on the mesh: launches per rank %r for '
+                                 '%d sweeps' % (name, per_rank, sweeps))
+        if name.endswith('float64'):
+            ok = max(gap_w, gap_t, obj_gap) <= TOL_MESH_F64
+        else:
+            ok = abs(got['obj'][-1] - ref['obj'][-1]) / abs(
+                ref['obj'][-1]) <= TOL_MESH_F32_OBJ
+        if not ok:
+            raise AssertionError('%s on the mesh against one device: W %.3g, '
+                                 'T %.3g, objective %.3g' % (name, gap_w,
+                                                             gap_t, obj_gap))
+    log('mesh ranks phase', ranks=MESH_RANKS, wall_s=wall, **total)
+    return total
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == '--mesh-rank':
+        rank, world, store, out, spec = sys.argv[2:7]
+        mesh_rank(int(rank), int(world), store, out, json.loads(spec))
+        return
     if not torch.cuda.is_available():
         sys.exit('chip_smoke.py: no CUDA device; it runs on the card only')
     from rri_nmf_tpu_torch.ops import _build

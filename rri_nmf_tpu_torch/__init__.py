@@ -16,6 +16,8 @@ so a reader finds each counterpart:
 - :mod:`rri_nmf_tpu_torch.sklearn_interface` — ``NMF_TM_Estimator``,
   ``NMF_RS_Estimator``
 - :mod:`rri_nmf_tpu_torch.ops`            — the sweeps and their kernels
+- :mod:`rri_nmf_tpu_torch.parallel`       — the sweeps on a
+  ``torch.distributed`` mesh (``make_mesh``, ``nmf(mesh=...)``)
 - :mod:`rri_nmf_tpu_torch.convert`        — carry fitted numpy state over
 - :mod:`rri_nmf_tpu_torch.utils`          — runtime checks, profiling hooks
 

@@ -44,6 +44,14 @@ only the dense kernel sweep reads, through scale-folded products. The
 factors may be 16-bit themselves (``dtype=torch.bfloat16`` or
 ``float16``): the kernels store them in 16 bits and work them in float32.
 
+On a mesh (``mesh=``, :mod:`rri_nmf_tpu_torch.parallel`) every rank of a
+``torch.distributed`` world passes the whole X and fits its own block: the
+phase recipe through
+:func:`rri_nmf_tpu_torch.parallel.sharded_dense.make_sharded_dense_sweep`
+(B1 and B2 on each rank's block), the rest through the plain sweep and
+:class:`~rri_nmf_tpu_torch.ops.dense_kernels.DenseResetSweep` with their
+collectives.
+
 Around them: initialization, HER extrapolation (``accel='her'``,
 :mod:`rri_nmf_tpu_torch.ops.accel`, wrapping whichever sweep was picked),
 checkpoint/resume (:mod:`rri_nmf_tpu_torch.checkpoint`), row weights
@@ -96,6 +104,8 @@ from rri_nmf_tpu_torch.ops.sweep_masked_sparse import (
 from rri_nmf_tpu_torch.ops.sweep_sparse import (TorchSparseX,
                                                 make_sparse_objective,
                                                 make_sparse_sweep)
+from rri_nmf_tpu_torch.parallel.mesh import Mesh
+from rri_nmf_tpu_torch.parallel.sharded_dense import make_sharded_dense_sweep
 
 # logger levels follow the reference convention (nmf.py:36-48):
 # INFO — per-iteration summaries; DEBUG — objective deltas (forces
@@ -156,12 +166,18 @@ class TrueObjComputer(object):
     It pickles (the estimators carry it in their fitted state): the
     objective function is rebuilt after a load, and a sparse-mask plan
     travels as its host COO arrays and comes back as the observed-entry
-    form, on W's device."""
+    form, on W's device.
+
+    On a ``mesh`` X, W, T and ``wr`` are this rank's blocks, the objective
+    is summed over the mesh (every rank calls it together and gets the
+    same value), and the calculator does not pickle (it holds the mesh's
+    process groups)."""
 
     def __init__(self, X, W, T, reg_w_l2, reg_t_l2, reg_w_l1, reg_t_l1,
                  Wm=None, matmul_precision=None, sparse=False,
-                 masked_sparse=False, wr=None):
+                 masked_sparse=False, wr=None, mesh=None):
         self.X = X
+        self.mesh = mesh
         self.sparse = sparse
         self.masked_sparse = masked_sparse
         self.W = W
@@ -177,6 +193,10 @@ class TrueObjComputer(object):
         self._fn = None
 
     def __getstate__(self):
+        if self.mesh is not None:
+            raise TypeError('the objective calculator of a mesh fit holds '
+                            "this rank's blocks and the mesh; it does not "
+                            'pickle')
         state = dict(self.__dict__)
         state['_fn'] = None      # a closure; rebuilt on the next use
         if self.masked_sparse and not isinstance(self.X, tuple):
@@ -226,7 +246,7 @@ class TrueObjComputer(object):
                 reg_w_l2=self.reg_w_l2,
                 reg_t_l2=self.reg_t_l2, reg_w_l1=self.reg_w_l1,
                 reg_t_l1=self.reg_t_l1, block_rows=8192 if big else None,
-                matmul_precision=self.matmul_precision)
+                matmul_precision=self.matmul_precision, mesh=self.mesh)
         args = (self.X, self.W, self.T) + (
             () if self.sparse or self.masked_sparse
             else (self.Wm, self.wr))
@@ -282,9 +302,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
       package's 10-sweep fixed-T W refit on the unscaled X, whose
       objectives and stamps extend ``obj_history`` and
       ``iter_cputime``. ``accel='her'`` with ``accel_opts`` wraps the
-      sweep that runs (see **HER** below). Not ported yet, raising
-      ``NotImplementedError``: ``mesh`` (A.12, sparse and sparse-mask
-      fits on a mesh included).
+      sweep that runs (see **HER** below). ``mesh`` takes a dense fit
+      onto a ``torch.distributed`` mesh (see **Meshes** below).
     - **Storage** (``x_dtype``, ``dtype``) as in the JAX package:
       ``x_dtype='bfloat16'`` stores X in 16 bits beside the factors'
       dtype; ``x_dtype='int16'`` (or a QuantizedX as X) stores it as the
@@ -363,10 +382,25 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
       (``svd_backend='torch'``), as JAX's does.
     - **matmul_precision** takes the JAX names; ``None`` keeps exact
       float32 products on the card (TF32 off).
+    - **Meshes** (``mesh``: a :class:`rri_nmf_tpu_torch.parallel.Mesh`
+      from :func:`~rri_nmf_tpu_torch.parallel.make_mesh`, after
+      ``torch.distributed.init_process_group``): every rank of the mesh
+      calls ``nmf()`` with the same arguments and the whole X, and fits
+      its block (X's rows over ``dp``, columns over ``tp``; uneven where
+      a shape does not divide the mesh, with JAX's warning). A fresh init
+      runs on the first rank and is shared; the draws come from one seed
+      on every rank. The fit returns the whole W and T and the same
+      ``obj_history`` on every rank. A checkpoint holds the whole factors,
+      written by the first rank once every rank has gathered them, so a
+      single-device checkpoint resumes on a mesh and the other way round.
+      Not ported yet, raising ``NotImplementedError``: a masked fit (dense
+      ``W_mat``, A.12c), a sparse fit (A.12d), a sparse mask (A.12e) and
+      ``store_gradients`` (A.12g) on a mesh.
     - **Callbacks** (``diagnostics``, a callable ``early_stop``) receive
       ``(X, W, T)``: W and T as tensors on the fit's device, a sparse X
       (and any X of a sparse-mask fit) as the user passed it, a dense X
-      as a tensor on the fit's device.
+      as a tensor on the fit's device (on a mesh: the whole W and
+      T).
 
     Returns the dict of the JAX ``nmf()``, with ``'W'`` (n, k) and ``'T'`` (k, d)
     as tensors on the fit's device; ``'obj_history'`` and
@@ -414,7 +448,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                         "resets (pass 'random' to keep budgeted resets)")
             reset_topic_method = None
         if mesh is not None:
-            _not_yet('a sparse-mask fit on a mesh', 'A.12')
+            _not_yet('a sparse-mask fit on a mesh', 'A.12e')
         # the sparse kwarg is the Gram-backend hint (reference
         # nmf.py:988-998): 'mxu' forces the gather-kernel contractions
         if sparse == 'dma':
@@ -460,8 +494,16 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
 
     # ---- options not ported yet -----------------------------------------
     if mesh is not None:
-        _not_yet('a sparse fit on a mesh' if sparse in (True, 'mxu', 'dma')
-                 else 'mesh (distributed fits)', 'A.12')
+        if sparse_mode:
+            _not_yet('a sparse fit on a mesh', 'A.12d')
+        if masked:
+            _not_yet('a masked fit on a mesh', 'A.12c')
+        if store_gradients:
+            _not_yet('store_gradients on a mesh', 'A.12g')
+        if not isinstance(mesh, Mesh):
+            raise TypeError('mesh must be a rri_nmf_tpu_torch.parallel.Mesh '
+                            '(parallel.make_mesh), got %r' % (mesh,))
+        mesh.member()
 
     # ---- X and its dtypes -------------------------------------------------
     # callbacks receive a sparse X as the user passed it
@@ -665,6 +707,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
 
     if random_state is None:
         random_state = int(time.time()) % 4294967296
+        if mesh is not None:
+            # every rank of a mesh draws from the first rank's seed
+            random_state = int(mesh.from_first(torch.tensor(
+                [random_state], dtype=torch.int64,
+                device=mesh.control_device(device)))[0])
 
     t_global_start = time.time()
     max_time = max_time - 10  # reserve time for the final W projection
@@ -684,16 +731,45 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
 
     start_time = time.perf_counter()
     X_init, Wm_init = X, Wm
+    fresh = _size(W_in) == 0 or _size(T_in) == 0
     if masked_sparse:
         X_init, Wm_init = None, None
-        if _size(W_in) == 0 or _size(T_in) == 0:
+        if fresh:
             X_init = _masked_init_matrix(X, W_mat)
-    W, T = _initialize_and_validate(
-        W_in=W_in, T_in=T_in, W_mat=Wm_init, X=X_init, k=k, init=init,
-        random_state=random_state, project_T_each_iter=project_T_each_iter,
-        project_W_each_iter=project_W_each_iter, w_row_sum=w_row_sum,
-        t_row_sum=t_row_sum, fix_W=fix_W, fix_T=fix_T, n=n, d=d,
-        device=device, dtype=dtype)
+    if mesh is not None and fresh and mesh.member() != (0, 0):
+        # a fresh init runs on the first rank and is shared with the rest
+        W = torch.zeros(n, k, dtype=dtype, device=device)
+        T = torch.zeros(k, d, dtype=dtype, device=device)
+    else:
+        W, T = _initialize_and_validate(
+            W_in=W_in, T_in=T_in, W_mat=Wm_init, X=X_init, k=k, init=init,
+            random_state=random_state,
+            project_T_each_iter=project_T_each_iter,
+            project_W_each_iter=project_W_each_iter, w_row_sum=w_row_sum,
+            t_row_sum=t_row_sum, fix_W=fix_W, fix_T=fix_T, n=n, d=d,
+            device=device, dtype=dtype)
+
+    # ---- the mesh: this rank's blocks (parallel/mesh.py); the whole
+    # factors come back at the end of the fit
+    split = None
+    w_row_sum_all = w_row_sum
+    if mesh is not None:
+        if fresh:
+            W, T = mesh.from_first(W), mesh.from_first(T)
+        split = mesh.split(n, d)
+        if n % mesh.shape[0] or d % mesh.shape[1]:
+            logger.warning(
+                'X shape (%d, %d) does not sit on the (%d, %d) mesh quanta; '
+                'splitting it in uneven blocks (the first n %% dp rows and '
+                'd %% tp columns one longer): the numbers of an aligned '
+                'split', n, d, *mesh.shape)
+        X_dev = mesh.block(X_dev, split)
+        W = mesh.block(W, split, cols=False)
+        T = mesh.block(T, split, rows=False)
+        if w_row_sum_is_vector:
+            w_row_sum = mesh.block(w_row_sum, split, cols=False)
+        if wr is not None:
+            wr = mesh.block(wr, split, cols=False)
 
     # ---- differential privacy noise scale (reference nmf.py:422-435) -----
     dp_sigma = None
@@ -731,8 +807,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         store_rows=(tuple(int(i) for i in ind_rows_to_store)
                     if (store_gradients and ind_rows_to_store is not None)
                     else None),
-        update_order=update_order, matmul_precision=matmul_precision,
-        inner_reps=inner_reps)
+        update_order=update_order, mesh=mesh,
+        matmul_precision=matmul_precision, inner_reps=inner_reps)
     wrs = w_row_sum if w_row_sum_is_vector else None
     extras = [x for x in (Wm, wrs) if x is not None]
     draws = make_draws(random_state, device)
@@ -810,7 +886,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                                              wrs)
             return W, T
     elif dense_ok and reset_topic_method is None:
-        dense_sweep = make_dense_phase_sweep(cfg)
+        dense_sweep = (make_sharded_dense_sweep(cfg, mesh)
+                       if mesh is not None else make_dense_phase_sweep(cfg))
 
         def sweep_fn(X, W, T):
             return dense_sweep(X, W, T, wrs)
@@ -874,6 +951,20 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                     for k in ('Wy', 'Ty', 'beta', 'e', 'Wb', 'Tb', 'eb')}
         return None
 
+    # factors between the whole and this rank's blocks on a mesh (the
+    # identity without one): checkpoints and callbacks see whole factors
+    def _block_w(A):
+        return A if mesh is None else mesh.block(A, split, cols=False)
+
+    def _block_t(A):
+        return A if mesh is None else mesh.block(A, split, rows=False)
+
+    def _whole_w(A):
+        return A if mesh is None else mesh.gather_rows(A, split)
+
+    def _whole_t(A):
+        return A if mesh is None else mesh.gather_cols(A, split)
+
     # ---- checkpoint/resume (reference nmf.py:1662-1726) --------------------
     ckpt = None
     start_iter = 0
@@ -885,8 +976,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         if resumed is not None:
             logger.info('Resuming from checkpoint step %d',
                         resumed.iteration)
-            W = resumed.W.to(device=device, dtype=dtype)
-            T = resumed.T.to(device=device, dtype=dtype)
+            W = _block_w(resumed.W.to(device=device, dtype=dtype))
+            T = _block_t(resumed.T.to(device=device, dtype=dtype))
             _restore_draws(draws, resumed, device, random_state)
             resets_left = int(resumed.resets_left)
             start_iter = resumed.iteration
@@ -896,12 +987,13 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                     # continue the momentum sequence exactly: resumed HER
                     # fit ≡ straight HER fit
                     her_state.update(
-                        Wy=her['Wy'].to(dtype), Ty=her['Ty'].to(dtype),
+                        Wy=_block_w(her['Wy'].to(dtype)),
+                        Ty=_block_t(her['Ty'].to(dtype)),
                         beta=her['beta'].to(torch.float32),
                         e=her['e'].to(acc_dt))
                     if 'Wb' in her:
-                        her_state.update(Wb=her['Wb'].to(dtype),
-                                         Tb=her['Tb'].to(dtype),
+                        her_state.update(Wb=_block_w(her['Wb'].to(dtype)),
+                                         Tb=_block_t(her['Tb'].to(dtype)),
                                          eb=her['eb'].to(acc_dt))
                     else:
                         # written before best-iterate tracking: the
@@ -952,13 +1044,14 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                               reg_t_l1=reg_t_l1, Wm=Wm,
                               matmul_precision=matmul_precision,
                               sparse=sparse_mode,
-                              masked_sparse=masked_sparse, wr=wr)
+                              masked_sparse=masked_sparse, wr=wr, mesh=mesh)
 
     # (a QuantizedX given as X reaches the callbacks dequantized)
     X_cb = (X_user if X_is_sparse or masked_sparse else
             _Dequantized(X) if x_quant_in else X)
     for func in diagnostics:
-        rtv['diagnostics'][func.__name__].append(func(_x(X_cb), W, T))
+        rtv['diagnostics'][func.__name__].append(
+            func(_x(X_cb), _whole_w(W), _whole_t(T)))
     if store_gradients:
         rtv['numer_W'] = {}
         rtv['denom_W'] = {}
@@ -983,15 +1076,25 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             start_iter = max_iter
 
     def _save(step, tracked, history):
-        ckpt.save(step, NMFState(
-            W=W, T=T, iteration=step, obj_history=history,
-            generator_state=draws.get_state(), resets_left=resets_left,
-            random_state=random_state, obj_tracked=tracked,
-            her=_her_ckpt_state(),
+        # on a mesh the first rank writes the whole factors, gathered from
+        # every rank, and the others wait until it has
+        her = _her_ckpt_state()
+        if her is not None and mesh is not None:
+            her = dict(her, Wy=_whole_w(her['Wy']), Ty=_whole_t(her['Ty']),
+                       Wb=_whole_w(her['Wb']), Tb=_whole_t(her['Tb']))
+        state = NMFState(
+            W=_whole_w(W), T=_whole_t(T), iteration=step,
+            obj_history=history, generator_state=draws.get_state(),
+            resets_left=resets_left, random_state=random_state,
+            obj_tracked=tracked, her=her,
             es_score=(float(last_score) if (_es_active
                                             and np.isfinite(last_score))
                       else None),
-            generator_device=device.type))
+            generator_device=device.type)
+        if mesh is None or mesh.member() == (0, 0):
+            ckpt.save(step, state)
+        if mesh is not None:
+            mesh.barrier(device)
 
     # grouped sweeps (reference nmf.py:1842-1916): with no per-sweep host
     # work asked for, the device is synced, the clock stamped and max_time
@@ -1008,7 +1111,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
 
         if _es_active:
             if callable(early_stop):
-                this_score = float(early_stop(_x(X_cb), W, T))
+                this_score = float(early_stop(_x(X_cb), _whole_w(W),
+                                              _whole_t(T)))
             elif compute_obj_each_iter and len(obj_history) > 0:
                 this_score = obj_history[-1]
             else:
@@ -1046,7 +1150,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
 
         if debug_checks:
             from rri_nmf_tpu_torch.utils.debug import validate_factors
-            validate_factors(W, T, w_row_sum=w_row_sum, t_row_sum=t_row_sum,
+            validate_factors(_whole_w(W), _whole_t(T), w_row_sum=w_row_sum_all,
+                             t_row_sum=t_row_sum,
                              project_W_each_iter=project_W_each_iter,
                              project_T_each_iter=project_T_each_iter)
 
@@ -1068,7 +1173,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             iter_cputime.append(time.perf_counter())
 
         for func in diagnostics:
-            dval = func(_x(X_cb), W, T)
+            dval = func(_x(X_cb), _whole_w(W), _whole_t(T))
             rtv['diagnostics'][func.__name__].append(dval)
             logger.info('\t%s: %s', func.__name__, dval)
 
@@ -1078,7 +1183,12 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             _save(iter_no + 1, bool(compute_obj_each_iter),
                   list(obj_history))
 
-        if time.time() - t_global_start >= max_time:
+        out_of_time = time.time() - t_global_start >= max_time
+        if mesh is not None and mesh.size > 1:
+            # the ranks stop together
+            out_of_time = bool(mesh.any_all(torch.tensor(
+                out_of_time, device=mesh.control_device(device))))
+        if out_of_time:
             logger.info('STOPPING because max_time after iter %d', iter_no)
             break
         if compute_obj_each_iter and universal_stopping_condition(
@@ -1104,14 +1214,17 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         W = proj_mat_to_simplex(W, w_row_sum if not w_row_sum_is_vector
                                 else w_row_sum.reshape(-1))
 
+    # the whole factors, the same on every rank of a mesh
+    W, T = _whole_w(W), _whole_t(T)
+
     # ---- row-weighted post-solve: W refit on the unscaled X (reference
     # nmf.py:531-539, with the run's settings threaded through as the JAX
     # package does, nmf.py:2063-2078) ------------------------------------
     if w_row is not None:
         sub = nmf(X_orig, k, T_in=T, fix_T=True, max_iter=10,
-                  w_row_sum=w_row_sum, project_W_each_iter=True,
+                  w_row_sum=w_row_sum_all, project_W_each_iter=True,
                   compute_obj_each_iter=compute_obj_each_iter,
-                  random_state=random_state, dtype=dtype,
+                  random_state=random_state, dtype=dtype, mesh=mesh,
                   matmul_precision=matmul_precision, device=device)
         obj_history.extend(sub.get('obj_history', []))
         iter_cputime.extend(sub['iter_cputime'])
@@ -1122,7 +1235,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     rtv['n_resets_remaining'] = resets_left
     if compute_obj_each_iter:
         rtv['obj_history'] = obj_history
-        OBJ.W, OBJ.T = rtv['W'], rtv['T']
+        OBJ.W, OBJ.T = _block_w(rtv['W']), _block_t(rtv['T'])
         rtv['obj_calculator'] = OBJ
     rtv['iter_cputime'] = iter_cputime
     rtv['random_state'] = random_state

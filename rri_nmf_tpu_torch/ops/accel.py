@@ -33,15 +33,18 @@ parity needs.
 The residual blocks are widened to the accumulator dtype one block at a
 time: a bfloat16 X (``x_dtype='bfloat16'``) and a
 :class:`~rri_nmf_tpu_torch.ops.quantized.QuantizedX` (dequantized
-blocks) never become an n x d float copy. The mesh form of the objective
-waits for ROADMAP A.12.
+blocks) never become an n x d float copy. On a mesh the objective sums
+each rank's block and all-reduces (``make_residual_obj(cfg,
+distributed=True)``), so every rank takes the same restart decisions; the
+extrapolation is elementwise on each rank's blocks.
 """
 
 import torch
 
 from rri_nmf_tpu_torch.ops.quantized import (QuantizedX, qx_col_block,
                                              qx_row_block)
-from rri_nmf_tpu_torch.ops.sweep import precision_scope, resolve_mixed_dtypes
+from rri_nmf_tpu_torch.ops.sweep import (mesh_sums, precision_scope,
+                                         resolve_mixed_dtypes)
 
 
 def supports_her(cfg):
@@ -56,7 +59,7 @@ def supports_her(cfg):
             and cfg.dp_sigma is None)
 
 
-def make_residual_obj(cfg, block_rows=4096):
+def make_residual_obj(cfg, block_rows=4096, distributed=None):
     """``obj(X, W, T, M=None) -> 0-d tensor``: ``0.5 Σ M ⊙ (X - WT)²`` (M
     only when ``cfg.masked``) plus the four regularizers, the residual
     summed blockwise in the accumulator dtype (the single-device forms of
@@ -67,7 +70,22 @@ def make_residual_obj(cfg, block_rows=4096):
     - otherwise over blocks of ``block_rows`` rows.
 
     The last block ends at the matrix's edge and skips what the block
-    before it covered."""
+    before it covered.
+
+    ``distributed`` (default: whether ``cfg.mesh`` is set) is the mesh
+    form: X, W and T are this rank's blocks, each summed blockwise as
+    above, and the sums are all-reduced over the mesh
+    (:func:`~rri_nmf_tpu_torch.ops.sweep.mesh_sums`), so every rank gets
+    the same value; nothing larger than a block is formed."""
+    if distributed is None:
+        distributed = cfg.mesh is not None
+    if distributed and cfg.mesh is None:
+        raise ValueError('the distributed objective needs cfg.mesh')
+    if distributed and cfg.masked:
+        raise NotImplementedError(
+            'a masked fit on a mesh is not ported to rri_nmf_tpu_torch yet; '
+            'it arrives with ROADMAP A.12c')
+    mesh = cfg.mesh if distributed else None
 
     def obj(X, W, T, M=None):
         n, d = X.shape
@@ -97,17 +115,22 @@ def make_residual_obj(cfg, block_rows=4096):
                         Rb = M[off:off + B].to(acc) * Rb
                     rows = Rb.sum(1)[i * B - off:]
                     s = s + rows.sum()
-        o = 0.5 * s
         Wa = W.to(acc)
         Ta = T.to(acc)
+        s, (w2, w1), (t2, t1) = mesh_sums(
+            mesh, s, ((Wa * Wa).sum() if cfg.reg_w_l2 else None,
+                      Wa.abs().sum() if cfg.reg_w_l1 else None),
+            ((Ta * Ta).sum() if cfg.reg_t_l2 else None,
+             Ta.abs().sum() if cfg.reg_t_l1 else None))
+        o = 0.5 * s
         if cfg.reg_w_l2:
-            o = o + 0.5 * cfg.reg_w_l2 * (Wa * Wa).sum()
+            o = o + 0.5 * cfg.reg_w_l2 * w2
         if cfg.reg_t_l2:
-            o = o + 0.5 * cfg.reg_t_l2 * (Ta * Ta).sum()
+            o = o + 0.5 * cfg.reg_t_l2 * t2
         if cfg.reg_w_l1:
-            o = o + cfg.reg_w_l1 * Wa.abs().sum()
+            o = o + cfg.reg_w_l1 * w1
         if cfg.reg_t_l1:
-            o = o + cfg.reg_t_l1 * Ta.abs().sum()
+            o = o + cfg.reg_t_l1 * t1
         return o
 
     return obj

@@ -44,6 +44,15 @@ Unlike the TPU kernels nothing is padded: the (8, 128) tiles and the
 BN/BD pad quanta were Mosaic's needs; the CUDA kernels mask their ragged
 edge. The VMEM gates become each kernel's own shared-memory gate
 (:func:`gs_fits`, :func:`tm_proj_fits`).
+
+**On a mesh** (``cfg.mesh``; :mod:`rri_nmf_tpu_torch.parallel.
+sharded_dense`) the sweep runs on this rank's blocks with four
+all-reduces of small operands: ``WᵀW`` and ``WᵀX`` over ``dp``, ``TTᵀ``
+and ``TXᵀ`` over ``tp``. T's columns are independent within the T-phase
+and W's rows within the W-phase, so B1 on a rank's tile is the global
+update restricted to it. B2's simplex threshold couples a whole row, so
+its numerator and factor panels are gathered over ``tp``, B2 runs on the
+whole (k, d) panel on every ``tp`` rank, and each keeps its columns.
 """
 
 import dataclasses
@@ -299,9 +308,22 @@ def make_dense_phase_sweep(cfg, wtx=_dense_wtx, xtt=_dense_xtt):
     accumulator dtype ``acc``, the only places the sweep touches X: dense
     GEMMs by default; the sparse sweep
     (:func:`rri_nmf_tpu_torch.ops.sweep_sparse.make_sparse_sweep`) passes
-    its sparse contractions."""
+    its sparse contractions.
+
+    With ``cfg.mesh`` X, W, T and ``w_row_sum_vec`` are this rank's blocks
+    (see the module docstring)."""
     if not _supports_base(cfg):
         raise ValueError('config not supported by the dense kernels')
+    mesh = cfg.mesh
+    where = []      # the Split of the X the sweep last ran on (a mesh)
+
+    def split_of(X):
+        key = ((X.q if isinstance(X, QuantizedX) else X).data_ptr(),
+               tuple(X.shape))
+        if not where or where[0] != key:
+            where[:] = [key, mesh.locate(*X.shape, X.device)]
+        return where[1]
+
     # upper bounds of the concave qf branch (reference semantics: the
     # positive branch does not enforce ub)
     t_bound = float(cfg.t_row_sum) if cfg.t_row_sum else float('inf')
@@ -317,7 +339,19 @@ def make_dense_phase_sweep(cfg, wtx=_dense_wtx, xtt=_dense_xtt):
             if not cfg.fix_T:
                 G = xmm(W.T, W, acc)
                 WX = wtx(X, W, acc, x_narrow).contiguous()     # (k, d)
-                if _tm_proj_active(cfg):
+                if mesh is not None:
+                    G = mesh.sum_dp(G)
+                    WX = mesh.sum_dp(WX)
+                if _tm_proj_active(cfg) and mesh is not None:
+                    # B2 on the whole panel, gathered over tp (exactly:
+                    # a 16-bit T through its float32 work dtype)
+                    split = split_of(X)
+                    Tg = mesh.gather_cols(T.to(acc), split).to(T.dtype)
+                    T = mesh.own_cols(tm_proj_update(
+                        G, mesh.gather_cols(WX, split), Tg.contiguous(),
+                        cfg.reg_t_l1, cfg.reg_t_l2, float(cfg.t_row_sum),
+                        reps=cfg.inner_reps), split).contiguous()
+                elif _tm_proj_active(cfg):
                     T = tm_proj_update(G, WX, T.contiguous(), cfg.reg_t_l1,
                                        cfg.reg_t_l2, float(cfg.t_row_sum),
                                        reps=cfg.inner_reps)
@@ -328,6 +362,9 @@ def make_dense_phase_sweep(cfg, wtx=_dense_wtx, xtt=_dense_xtt):
             if not cfg.fix_W:
                 G2 = xmm(T, T.T, acc)
                 XTt = xtt(X, T, acc, x_narrow).contiguous()    # (k, n)
+                if mesh is not None:
+                    G2 = mesh.sum_tp(G2)
+                    XTt = mesh.sum_tp(XTt)
                 ub = None
                 if cfg.w_row_sum_is_vector:
                     ub = w_row_sum_vec.reshape(-1).to(acc).contiguous()
@@ -379,16 +416,25 @@ class DenseResetSweep(Sweep):
         cfg = self.cfg
         wrs = extras[0].reshape(-1) if cfg.w_row_sum_is_vector else None
         W, T = self.kernels(X, W, T, wrs)
+        mesh = cfg.mesh
         dead = []
         if not cfg.fix_T and (resets_left > 0 or _tm_proj_active(cfg)):
-            dead.append(~(T.sum(1) > ALIVE))
+            s = T.sum(1)
+            if mesh is not None:
+                s = mesh.sum_tp(s)
+            dead.append(~(s > ALIVE))
         if not cfg.fix_W and resets_left > 0:
-            dead.append(~(W.sum(0) > ALIVE))
+            s = W.sum(0)
+            if mesh is not None:
+                s = mesh.sum_dp(s)
+            dead.append(~(s > ALIVE))
         # per-iteration W row projection (reference nmf.py:481-484), after
         # the checks, as in the plain sweep
         if (cfg.project_W_each_iter and not cfg.fix_W
                 and (cfg.w_row_sum is not None or cfg.w_row_sum_is_vector)):
             W = _proj_simplex_core(W, wrs.to(W.dtype) if wrs is not None
                                    else float(cfg.w_row_sum))
-        return (W, T, int(resets_left)), (torch.cat(dead).any() if dead
-                                          else None)
+        dead = torch.cat(dead).any() if dead else None
+        if dead is not None and mesh is not None:
+            dead = mesh.any_all(dead)
+        return (W, T, int(resets_left)), dead

@@ -39,6 +39,19 @@ Random numbers (the ``'random'`` reset, the DP noise) come from a
 ``draws`` object (:class:`GeneratorDraws`: a ``torch.Generator``); the
 tests pass one that draws what ``jax.random`` draws, so a reset that
 fires is held against JAX value for value.
+
+**On a mesh** (``cfg.mesh``, a :class:`rri_nmf_tpu_torch.parallel.mesh.
+Mesh`) the sweep runs on this rank's blocks of X, W and T and all-reduces
+where JAX's GSPMD sweep does: the sums over rows (``WᵀX``, ``WᵀW``,
+``||W[:, t]||²``, a W column's sum) over ``dp``, the sums over columns
+(``X @ T[t]``, ``TTᵀ``, ``||T[t]||²``, a T row's sum) over ``tp``; a T row
+that is projected onto the simplex is gathered whole over ``tp`` first.
+Every rank draws from one seed, so the random draws agree; each takes its
+block of a drawn row or column. The dead-topic check is agreed over the
+mesh before any rank picks the speculative result or the eager re-run.
+The speculative sweep is one CUDA graph only where the mesh's collectives
+can be captured (:attr:`~rri_nmf_tpu_torch.parallel.mesh.Mesh.graphable`:
+NCCL, or a one-rank mesh).
 """
 
 import contextlib
@@ -148,9 +161,33 @@ def precision_scope(name):
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
 
 
+def mesh_sums(mesh, total, w_terms=(), t_terms=()):
+    """``(total, w_terms, t_terms)`` of this rank's 0-d partial sums
+    summed over ``mesh``: ``total`` (a sum over this rank's block of X)
+    over the whole mesh, ``w_terms`` (sums over its W rows) over ``dp``
+    and ``t_terms`` (sums over its T columns) over ``tp``, in one
+    all-reduce per axis: a W term counts only on the first ``tp`` rank
+    and a T term on the first ``dp`` rank, the others adding zeros. A
+    None term stays None. With no mesh, or one rank, the sums come back
+    as they are."""
+    w_terms, t_terms = list(w_terms), list(t_terms)
+    if mesh is None or mesh.size == 1:
+        return total, w_terms, t_terms
+    i, j = mesh.member()
+    zero = total.new_zeros(())
+    parts = ([total]
+             + [w if w is None or j == 0 else zero for w in w_terms]
+             + [t if t is None or i == 0 else zero for t in t_terms])
+    live = [p is not None for p in parts]
+    v = iter(mesh.sum_all(torch.stack([p for p in parts if p is not None])))
+    out = [next(v) if ok else None for ok in live]
+    nw = len(w_terms)
+    return out[0], out[1:1 + nw], out[1 + nw:]
+
+
 def make_objective(masked=False, row_weighted=False, reg_w_l2=0.0,
                    reg_t_l2=0.0, reg_w_l1=0.0, reg_t_l1=0.0,
-                   block_rows=None, matmul_precision=None):
+                   block_rows=None, matmul_precision=None, mesh=None):
     """Build ``objective(X, W, T, M=None, wr=None) -> 0-d tensor``:
     ``0.5 Σ wr ⊙ M ⊙ (X - WT)²`` plus the four regularizers (reference
     ``nmf.py:71-94``), accumulated in the accumulator dtype. The mask
@@ -162,7 +199,15 @@ def make_objective(masked=False, row_weighted=False, reg_w_l2=0.0,
     of materializing the whole ``W @ T`` product (for X near the device
     memory budget). X may be a :class:`~rri_nmf_tpu_torch.ops.quantized.
     QuantizedX`: dequantized a row block at a time (whole without
-    ``block_rows``)."""
+    ``block_rows``).
+
+    With ``mesh`` (unmasked) X, W, T and ``wr`` are this rank's blocks,
+    and the sums are taken over the mesh (:func:`mesh_sums`); every rank
+    of the mesh calls the objective and gets the same value."""
+    if mesh is not None and masked:
+        raise NotImplementedError(
+            'a masked fit on a mesh is not ported to rri_nmf_tpu_torch yet; '
+            'it arrives with ROADMAP A.12c')
 
     def _res_sq(acc, X, W, T, M, wr):
         R = (X.to(acc) - W.to(acc) @ T.to(acc)) ** 2
@@ -192,11 +237,14 @@ def make_objective(masked=False, row_weighted=False, reg_w_l2=0.0,
                            for i in range(0, X.shape[0], B))
         Wa = W.to(acc)
         Ta = T.to(acc)
+        base, (w2, w1), (t2, t1) = mesh_sums(
+            mesh, base, ((Wa ** 2).sum(), Wa.abs().sum()),
+            ((Ta ** 2).sum(), Ta.abs().sum()))
         obj = 0.5 * base
-        obj = obj + 0.5 * reg_w_l2 * (Wa ** 2).sum()
-        obj = obj + 0.5 * reg_t_l2 * (Ta ** 2).sum()
-        obj = obj + reg_t_l1 * Ta.abs().sum()
-        obj = obj + reg_w_l1 * Wa.abs().sum()
+        obj = obj + 0.5 * reg_w_l2 * w2
+        obj = obj + 0.5 * reg_t_l2 * t2
+        obj = obj + reg_t_l1 * t1
+        obj = obj + reg_w_l1 * w1
         return obj
 
     return objective
@@ -248,12 +296,10 @@ def make_draws(random_state, device):
 
 
 def make_reset_rowcol(cfg):
-    """The topic reset for ``cfg``: ``reset(X, W, T, t, draws) ->
-    (t_row, w_col)``, the new T row (d,) and W column (n,) for the dead
-    topic ``t``
-    (reference ``nmf.py:770-783, 804-816``; :func:`rri_nmf_tpu.ops.
-    sweep_xla.make_reset_rowcol` without its mesh form, which waits for
-    ROADMAP A.12).
+    """The topic reset for ``cfg``: ``reset(X, W, T, t, draws, split=None)
+    -> (t_row, w_col)``, the new T row (d,) and W column (n,) for the dead
+    topic ``t`` (reference ``nmf.py:770-783, 804-816``;
+    :func:`rri_nmf_tpu.ops.sweep_xla.make_reset_rowcol`).
 
     - ``'max_resid_document'``: the document whose positive residual
       ``max(X[i] - W[i]·T, 0)`` has the largest squared norm becomes the
@@ -264,33 +310,79 @@ def make_reset_rowcol(cfg):
       residual. The same document as JAX.
     - ``'random'``: a uniform row normalized to sum 1 and a uniform
       column, from ``draws.reset`` (seeded per topic with
-      ``cfg.fix_reset_seed``)."""
+      ``cfg.fix_reset_seed``).
+
+    On a mesh (``cfg.mesh``) X, W and T are this rank's blocks, ``split``
+    their :class:`~rri_nmf_tpu_torch.parallel.mesh.Split`, and the row and
+    column come back as this rank's blocks, the same on every rank. The
+    residual norms are taken blockwise over each rank's rows, summed over
+    ``tp``, and the first maximum is kept over ``dp`` (JAX's mesh form,
+    ``sweep_xla.py:323-386``); the owner of the document builds the row.
+    A random reset draws the whole row and column on every rank (one
+    seed) and each keeps its block."""
     method = cfg.reset_topic_method
+    mesh = cfg.mesh
     if method not in ('max_resid_document', 'random'):
         raise ValueError('unknown reset_topic_method %r' % (method,))
 
-    def max_resid(X, W, T):
-        n, d = X.shape
-        if not cfg.reset_blockwise:
-            R = (X - W @ T).clamp_min(0.0)
-            return int(torch.argmax((R * R).sum(1)))
+    def scan(X, W, T, rts_of):
+        """The first maximum of the residual norms over blocks of 4096
+        rows: ``(value, row)``."""
+        n = X.shape[0]
         B = min(n, 4096)
         best_val, best = float('-inf'), 0
         for i in range(-(-n // B)):
             start = min(i * B, n - B)
             R = (X[start:start + B] - W[start:start + B] @ T).clamp_min(0.0)
-            rts = (R * R).sum(1)
+            rts = rts_of((R * R).sum(1))
             j = int(torch.argmax(rts))
             v = float(rts[j])
             if v > best_val:
                 best_val, best = v, start + j
-        return best
+        return best_val, best
 
-    def reset(X, W, T, t, draws):
+    def max_resid(X, W, T):
+        if not cfg.reset_blockwise:
+            R = (X - W @ T).clamp_min(0.0)
+            return int(torch.argmax((R * R).sum(1)))
+        return scan(X, W, T, lambda rts: rts)[1]
+
+    def max_resid_mesh(X, W, T, split):
+        """The reset's row and column blocks on a mesh."""
+        val, li = scan(X, W, T, mesh.sum_tp)
+        i = mesh.member()[0]
+        # every dp rank's (value, global row), combined in rank order
+        cand = torch.zeros(mesh.shape[0], 2, dtype=torch.float64,
+                           device=X.device)
+        cand[i, 0] = val
+        cand[i, 1] = split.r0 + li
+        best_val, mi = float('-inf'), 0
+        for v, r in mesh.sum_dp(cand).tolist():
+            if v > best_val:
+                best_val, mi = v, int(r)
+        mine = split.r0 <= mi < split.r1
+        row = torch.zeros(X.shape[1], dtype=T.dtype, device=T.device)
+        col = torch.zeros(X.shape[0], dtype=W.dtype, device=W.device)
+        if mine:
+            lmi = mi - split.r0
+            row += (X[lmi] - W[lmi] @ T).clamp_min(0.0).to(T.dtype)
+            col[lmi] = 1.0
+        return mi, mesh.sum_dp(row), col
+
+    def reset(X, W, T, t, draws, split=None):
         n, d = X.shape
         if method == 'random':
-            row, col = draws.reset(t, T[t], n, d, cfg.fix_reset_seed)
-            return row / row.sum(), col
+            if mesh is None:
+                row, col = draws.reset(t, T[t], n, d, cfg.fix_reset_seed)
+                return row / row.sum(), col
+            row, col = draws.reset(t, mesh.gather_cols(T[t], split),
+                                   split.n, split.d, cfg.fix_reset_seed)
+            return (mesh.own_cols(row / row.sum(), split),
+                    col[split.r0:split.r1])
+        if mesh is not None:
+            mi, row, col = max_resid_mesh(X, W, T, split)
+            logger.info('topic %d reset to document %d', t, mi)
+            return row, col
         mi = max_resid(X, W, T)
         logger.info('topic %d reset to document %d', t, mi)
         row = (X[mi] - W[mi] @ T).clamp_min(0.0).to(T.dtype)
@@ -299,6 +391,26 @@ def make_reset_rowcol(cfg):
         return row, col
 
     return reset
+
+
+def make_reset_factors(cfg):
+    """The whole-matrix form of :func:`make_reset_rowcol`: ``reset(X, W,
+    T, t, draws, split=None) -> (W, T)``, copies of W and T with column
+    ``t`` of W and row ``t`` of T replaced by the reset's
+    (:func:`rri_nmf_tpu.ops.sweep_xla.make_reset_factors`, with the
+    port's ``draws`` in place of JAX's keys). The sweeps use the row and
+    column form."""
+    rowcol = make_reset_rowcol(cfg)
+
+    def reset_factors(X, W, T, t, draws, split=None):
+        row, col = rowcol(X, W, T, t, draws, split)
+        W = W.clone()
+        T = T.clone()
+        W[:, t] = col
+        T[t] = row
+        return W, T
+
+    return reset_factors
 
 
 class _Resets(object):
@@ -320,20 +432,27 @@ class _Resets(object):
         return True
 
 
-def _dead_topics(Wt, T, do_t, do_w):
+def _dead_topics(Wt, T, do_t, do_w, mesh=None):
     """A 0-d tensor: whether a reset check of the sweep just run found a
     dead topic. A T row is final once its topic's T-phase is done, a W
     column once its W-phase is, and neither changes after its check when
     no reset fires (a re-projected row sums to ``t_row_sum``), so the
     checks can all be made on the sweep's result: the T rows if the
     T-phase ran, the W columns (rows of ``Wt``, before the W row
-    projection) if the W-phase did; None if neither phase ran."""
+    projection) if the W-phase did; None if neither phase ran. On a
+    ``mesh`` the sums are taken over the mesh and the answer agreed by
+    every rank."""
     dead = []
     if do_t:
-        dead.append(~(T.sum(1) > ALIVE))
+        s = T.sum(1)
+        dead.append(~((mesh.sum_tp(s) if mesh is not None else s) > ALIVE))
     if do_w:
-        dead.append(~(Wt.sum(1) > ALIVE))
-    return torch.cat(dead).any() if dead else None
+        s = Wt.sum(1)
+        dead.append(~((mesh.sum_dp(s) if mesh is not None else s) > ALIVE))
+    if not dead:
+        return None
+    dead = torch.cat(dead).any()
+    return mesh.any_all(dead) if mesh is not None else dead
 
 
 def _gram_block_size(k):
@@ -376,7 +495,12 @@ class Sweep(object):
     :meth:`speculate` runs the sweep as if no reset fired (no host
     sync); calling the sweep reads its checks once and runs :meth:`eager`
     only when a topic died with budget left. On the card the speculative
-    sweep replays as one CUDA graph (:meth:`replay`)."""
+    sweep replays as one CUDA graph (:meth:`replay`).
+
+    On a mesh (``cfg.mesh``) the arrays are this rank's blocks (and the
+    ``w_row_sum`` vector its rows); every rank of the mesh calls the sweep
+    with the same ``draws`` and budget. Gradient stores do not run on a
+    mesh yet."""
 
     def __init__(self, cfg):
         method = cfg.reset_topic_method
@@ -390,11 +514,31 @@ class Sweep(object):
         self.cfg = cfg
         self.reset_rowcol = (make_reset_rowcol(cfg) if method is not None
                              else None)
+        if cfg.mesh is not None and (cfg.masked or cfg.store_gradients):
+            raise NotImplementedError(
+                '%s on a mesh is not ported to rri_nmf_tpu_torch yet; it '
+                'arrives with ROADMAP %s'
+                % (('a masked fit', 'A.12c') if cfg.masked else
+                   ('store_gradients', 'A.12g')))
         self.random = method == 'random' or cfg.dp_sigma is not None
-        # a speculative sweep that draws nothing and copies nothing to the
-        # device replays as one CUDA graph
-        self.graphable = cfg.dp_sigma is None and not cfg.store_gradients
-        self._graph = self._seen = None
+        # a speculative sweep that draws nothing, copies nothing to the
+        # device and makes no collective a graph cannot capture replays as
+        # one CUDA graph
+        self.graphable = (cfg.dp_sigma is None and not cfg.store_gradients
+                          and (cfg.mesh is None or cfg.mesh.graphable))
+        self._graph = self._seen = self._where = None
+
+    def split(self, X):
+        """Where this rank's block ``X`` lies on the mesh (None without
+        one), found once per X (:meth:`~rri_nmf_tpu_torch.parallel.mesh.
+        Mesh.locate`)."""
+        mesh = self.cfg.mesh
+        if mesh is None:
+            return None
+        key = (X.data_ptr(), tuple(X.shape))
+        if self._where is None or self._where[0] != key:
+            self._where = (key, mesh.locate(*X.shape, X.device))
+        return self._where[1]
 
     def __call__(self, X, W, T, draws, resets_left, *extras):
         state = draws.get_state() if self.random else None
@@ -449,9 +593,10 @@ class Sweep(object):
 
     def _body(self, X, W, T, draws, resets, extras):
         cfg = self.cfg
+        split = self.split(X)
         with precision_scope(cfg.matmul_precision):
             W, T, dead, stores = _sweep_body(cfg, self.reset_rowcol, X, W, T,
-                                             draws, resets, extras)
+                                             draws, resets, extras, split)
         return (W, T, resets.budget) + stores, dead
 
 
@@ -460,12 +605,30 @@ def make_sweep(cfg):
     return Sweep(cfg)
 
 
-def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
+def _same(x):
+    return x
+
+
+def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras,
+                split=None):
     """One sweep (see :class:`Sweep`): ``(W, T, dead, stores)``; ``dead``
     is :func:`_dead_topics` for a speculative sweep with budget left,
     else None, and ``stores`` is empty or ``(numer_store,
-    denom_store)``."""
+    denom_store)``. On a mesh ``split`` locates this rank's blocks."""
     k = cfg.k
+    mesh = cfg.mesh
+    # the collectives of a mesh sweep (module docstring); without a mesh
+    # they are the identity
+    if mesh is None:
+        sum_dp = sum_tp = whole = own = _same
+    else:
+        sum_dp, sum_tp = mesh.sum_dp, mesh.sum_tp
+
+        def whole(x):
+            return mesh.gather_cols(x, split)
+
+        def own(x):
+            return mesh.own_cols(x, split)
     method = cfg.reset_topic_method
     proj_t = bool(cfg.t_row_sum and cfg.project_T_each_iter)
     i = 0
@@ -507,8 +670,8 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
     elif not cfg.fix_T:
         # one GEMM for the sweep: column t of W is untouched until its own
         # topic, so row t of WᵀX is still current there
-        WX = xmm(Wt, X, dtype)                             # (k, d)
-        Wcoln = (Wt * Wt).sum(1)                           # (k,)
+        WX = sum_dp(xmm(Wt, X, dtype))                     # (k, d)
+        Wcoln = sum_dp((Wt * Wt).sum(1))                   # (k,)
 
     stores = ()
     if cfg.store_gradients:
@@ -526,7 +689,7 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
     def fire(t):
         """Reset topic t; the masked residual is rebuilt after it."""
         nonlocal R
-        row, col = reset_rowcol(X, Wt.T, T, t, draws)
+        row, col = reset_rowcol(X, Wt.T, T, t, draws, split)
         Wt[t] = rnd(col)
         T[t] = rnd(row)
         if cfg.masked:
@@ -537,18 +700,19 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
         simplex is re-projected (unmasked: the masked body re-projects
         before its residual update); a dead one resets or stays as it is.
         Returns whether a reset fired."""
-        if method is not None and resets(lambda: T[t].sum() > ALIVE):
+        if method is not None and resets(lambda: sum_tp(T[t].sum()) > ALIVE):
             fire(t)
             return True
         if proj_t and not cfg.masked:
-            T[t] = rnd(reproject_row_if_drifted(
-                T[t], cfg.t_row_sum,
-                extra_pred=T[t].sum() > ALIVE if method is not None else None))
+            row = whole(T[t])
+            T[t] = rnd(own(reproject_row_if_drifted(
+                row, cfg.t_row_sum,
+                extra_pred=row.sum() > ALIVE if method is not None else None)))
         return False
 
     def check_w(t):
         """Reference ``nmf.py:786-816``."""
-        if method is None or not resets(lambda: Wt[t].sum() > ALIVE):
+        if method is None or not resets(lambda: sum_dp(Wt[t].sum()) > ALIVE):
             return False
         fire(t)
         return True
@@ -584,25 +748,34 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
                 wR = w @ R + T[t] * nw
             else:
                 w = Wt[t]
-                wW = Wt @ w                                        # (k,)
+                wW = sum_dp(Wt @ w)                                # (k,)
                 wW[t].zero_()
                 wR = torch.addmv(WX[t], T.T, wW, alpha=-1.0)
                 nw = Wcoln[t]
             if cfg.store_gradients:
                 store(t, w, wR, nw)
             if cfg.dp_sigma is not None:
-                # Gaussian-mechanism noise (reference nmf.py:422-435)
-                z1, z2 = draws.normal(wR, nw.shape)
-                wR = wR + cfg.dp_sigma * z1
+                # Gaussian-mechanism noise (reference nmf.py:422-435), the
+                # whole row's draws on a mesh
+                z1, z2 = draws.normal(whole(wR), nw.shape)
+                wR = wR + cfg.dp_sigma * own(z1)
                 nw = (nw + cfg.dp_sigma * z2).clamp_min(0.0)
             numer = wR - l1t if l1t else wR
             denom = nw + l2t if l2t else nw
             if cfg.masked or cfg.t_update_s is not None:
-                t_new, nt1 = qf(-numer, denom, s=cfg.t_update_s,
+                # the simplex projection takes the whole row
+                t_new, nt1 = qf(-whole(numer), denom, s=cfg.t_update_s,
                                 ub=cfg.t_row_sum)
-            else:
+                t_new = own(t_new)
+            elif mesh is None:
                 t_new, nt1 = qf_min_scalar_free(numer, denom, cfg.t_row_sum,
                                                 zeros_d)
+            else:
+                t_new = qf_min_scalar_free(numer, denom, cfg.t_row_sum,
+                                           zeros_d, norm=False)
+                # the norm of the whole row (the scale transfer's)
+                nt1 = (torch.where(denom > 0, sum_tp(t_new.sum()), 1.0)
+                       if cfg.scale_transfer else None)
             t_old = T[t].clone() if cfg.masked else None
             w_eff = w
             if cfg.scale_transfer:
@@ -633,11 +806,11 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
                 nt = mt2
             else:
                 Xt = XTt[t] if XTt is not None else \
-                    xmm(X, trow[:, None], dtype)[:, 0]             # (n,)
-                Tt = T @ trow
+                    sum_tp(xmm(X, trow[:, None], dtype)[:, 0])     # (n,)
+                Tt = sum_tp(T @ trow)
                 Tt[t].zero_()
                 Rt = torch.addmv(Xt, Wt.T, Tt, alpha=-1.0)
-                nt = torch.dot(trow, trow)
+                nt = sum_tp(torch.dot(trow, trow))
             numer = Rt - l1w if l1w else Rt
             denom = nt + l2w if l2w else nt
             if cfg.masked:
@@ -655,7 +828,7 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
         GEMM against the block-start T, then per topic a correction by
         the (B, d) in-block delta (``sweep_xla``'s ``t_phase_blocked``)."""
         B = _gram_block_size(k)
-        G = Wt @ Wt.T                                          # (k, k)
+        G = sum_dp(Wt @ Wt.T)                                  # (k, k)
         for bi in range(cfg.inner_reps * (k // B)):
             bs = (bi % (k // B)) * B
             C = G[bs:bs + B] @ T                               # (B, d)
@@ -671,13 +844,13 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
                                                   cfg.t_row_sum, zeros_d,
                                                   norm=False))
                 else:
-                    T[t] = rnd(qf_min_scalar_c(-numer, g[i] + l2t,
-                                               s=cfg.t_update_s,
-                                               ub=cfg.t_row_sum)[0])
+                    T[t] = rnd(own(qf_min_scalar_c(-whole(numer), g[i] + l2t,
+                                                   s=cfg.t_update_s,
+                                                   ub=cfg.t_row_sum)[0]))
                 if check_t(t):
                     # the reset rewrote W[:, t]: patch G's row and column
                     # and the block cache
-                    g_new = Wt @ Wt[t]
+                    g_new = sum_dp(Wt @ Wt[t])
                     C += torch.outer(g_new[bs:bs + B] - G[bs:bs + B, t],
                                      T0[i])
                     G[:, t] = g_new
@@ -688,8 +861,8 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
         """All W columns the same way (``sweep_xla``'s
         ``w_phase_blocked``), on Wᵀ's rows."""
         B = _gram_block_size(k)
-        G = T @ T.T                                            # (k, k)
-        XTt = xmm(T, X.T, dtype)                               # (k, n)
+        G = sum_tp(T @ T.T)                                    # (k, k)
+        XTt = sum_tp(xmm(T, X.T, dtype))                       # (k, n)
         for bi in range(cfg.inner_reps * (k // B)):
             bs = (bi % (k // B)) * B
             C = G[:, bs:bs + B].T @ Wt                         # (B, n)
@@ -704,7 +877,7 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
                                                zeros_n, norm=False))
                 if check_w(t):
                     # the reset rewrote T[t]
-                    g_new = T @ T[t]
+                    g_new = sum_tp(T @ T[t])
                     C += torch.outer(g_new[bs:bs + B] - G[bs:bs + B, t],
                                      W0[i])
                     G[:, t] = g_new
@@ -724,7 +897,7 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
             for t in range(k):
                 topic(t, True, False)
         if not cfg.fix_W:
-            XTt = xmm(T, X.T, dtype)
+            XTt = sum_tp(xmm(T, X.T, dtype))
             for t in range(k):
                 topic(t, False, True, XTt)
     else:
@@ -733,7 +906,7 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras):
 
     dead = None
     if method is not None and not resets.eager and resets.budget > 0:
-        dead = _dead_topics(Wt, T, not cfg.fix_T, not cfg.fix_W)
+        dead = _dead_topics(Wt, T, not cfg.fix_T, not cfg.fix_W, mesh)
     W = Wt.T.to(out_dtype, memory_format=torch.contiguous_format)
     T = T.to(out_dtype)
     # per-iteration W row projection (reference nmf.py:481-484)

@@ -12,7 +12,8 @@ card that raises, naming ``device='cpu'``, how the CPU is asked for).
 Fitted ``W``/``T`` are tensors on the device the fit ran on.
 
 - :class:`NMF_TM_Estimator` (``fit``, ``fit_transform``, ``one_iter``,
-  ``transform``, ``score``, ``score_all``) runs its default preset (the
+  ``transform``, ``score``, ``score_all``, ``sparsify``, ``densify``)
+  runs its default preset (the
   interleaved order with ``'max_resid_document'`` resets; the transform,
   with T fixed, in phase order through kernel B1) and the fast-TM recipe
   (``nmf_kwargs=dict(update_order='phase', reset_topic_method=None)``).
@@ -63,6 +64,10 @@ def _size(a):
     return a.numel() if isinstance(a, torch.Tensor) else int(np.size(a))
 
 
+def _host(a):
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
 class _Estimator(object):
     """Constructor-argument plumbing shared by the estimators:
     ``get_params``/``set_params`` over ``_PARAMS`` and
@@ -106,6 +111,38 @@ class _Estimator(object):
 
     def _restore(self, state):
         """Take this estimator's fitted attributes from ``state``."""
+
+    def sparsify(self):
+        """W and T as scipy CSR matrices on the host (the JAX estimators'
+        sparse factors); :meth:`densify` brings them back as tensors to
+        the device they were on. A sparsified estimator still transforms,
+        predicts and scores: those read its factors densified on that
+        device."""
+        for name in ('W', 'T'):
+            A = getattr(self, name)
+            if sp.issparse(A):
+                setattr(self, name, A.tocsr())
+                continue
+            if isinstance(A, torch.Tensor):
+                self.factor_device = A.device
+            setattr(self, name, sp.csr_matrix(_host(A)))
+
+    def densify(self):
+        """Sparse W and T as dense tensors again, on the device
+        :meth:`sparsify` took them from (default: the CPU)."""
+        for name in ('W', 'T'):
+            setattr(self, name, self._dense(getattr(self, name)))
+
+    def _dense(self, A):
+        """A factor as it is, or a sparse one as a dense tensor on the
+        device :meth:`sparsify` took it from (default: the CPU)."""
+        if sp.issparse(A):
+            return as_tensor(A.toarray(), device=getattr(
+                self, 'factor_device', torch.device('cpu')))
+        return A
+
+    def _dense_T(self):
+        return as_tensor(self._dense(self.T))
 
 
 class NMF_TM_Estimator(_Estimator):
@@ -174,8 +211,8 @@ class NMF_TM_Estimator(_Estimator):
             project_W_each_iter=False, w_row_sum=1.0,
             project_T_each_iter=True, t_row_sum=1.0,
             do_final_project_W=self.do_final_project_W,
-            W_in=self.W if _size(self.W) > 0 else [],
-            T_in=self.T if _size(self.T) > 0 else [],
+            W_in=self._dense(self.W) if _size(self.W) > 0 else [],
+            T_in=self._dense(self.T) if _size(self.T) > 0 else [],
             reg_w_l1=self.wr1, reg_w_l2=self.wr2, reg_t_l1=self.tr1,
             reg_t_l2=self.tr2, random_state=self.random_state,
             device=self.device)
@@ -221,8 +258,9 @@ class NMF_TM_Estimator(_Estimator):
         """Express ``Xnew`` in the learned topics: a few fixed-T sweeps
         (reference ``sklearn_interface.py:320-334``), on the device of the
         learned ``T``. A sparse ``Xnew`` stays sparse (a torch sparse
-        tensor on T's device) through the idf and the normalization."""
-        T = as_tensor(self.T)
+        tensor on T's device) through the idf and the normalization. A
+        sparsified estimator reads its T densified (:meth:`sparsify`)."""
+        T = self._dense_T()
         Xnew = as_tensor(Xnew, device=T.device)
         if self.handle_tfidf:
             Xnew = scale_columns(Xnew, self.idf.to(Xnew.device))
@@ -247,7 +285,7 @@ class NMF_TM_Estimator(_Estimator):
         densified: ``||X - WT||² = Σx² − 2·Σ_nnz X_ij(W_i·T_j) +
         tr((WᵀW)(TTᵀ))`` and ``SST = Σx² − n·Σ_j μ_j²`` (reference
         ``sklearn_interface.py:405-416``)."""
-        T = as_tensor(self.T)
+        T = self._dense_T()
         W = self.transform(X)
         T = T.to(W.dtype)
         Xs = to_torch_sparse(X, dtype=W.dtype, device=W.device)
@@ -267,7 +305,7 @@ class NMF_TM_Estimator(_Estimator):
         if is_sparse(X):
             SSE, _, SST = self._sparse_sse(X)
             return 1 - SSE / SST
-        T = as_tensor(self.T)
+        T = self._dense_T()
         X = as_tensor(X, device=T.device)
         SST = ((X - X.mean(dim=0)) ** 2).sum()
         W = self.transform(X)
@@ -281,7 +319,7 @@ class NMF_TM_Estimator(_Estimator):
         502-527``)."""
         from rri_nmf_tpu_torch.metrics import (
             frobenius_relative_error, r2_reconstruction, umass_coherence)
-        T = as_tensor(self.T)
+        T = self._dense_T()
         if is_sparse(X):
             SSE, sumsq, SST = self._sparse_sse(X)
             out = {'r2': 1 - SSE / SST,
@@ -351,10 +389,6 @@ def _check_pairs(X, y, device):
     return X, y
 
 
-def _host(a):
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
 class NMF_RS_Estimator(_Estimator):
     """Recommender-system NMF estimator (masked WRRI).
 
@@ -413,28 +447,6 @@ class NMF_RS_Estimator(_Estimator):
         if callable(state.get('early_stop')):
             state['early_stop'] = None
         return state
-
-    def sparsify(self):
-        """W and T as scipy CSR matrices on the host (the JAX estimator's
-        sparse factors); :meth:`densify` brings them back as tensors to
-        the device they were on."""
-        for name in ('W', 'T'):
-            A = getattr(self, name)
-            if sp.issparse(A):
-                setattr(self, name, A.tocsr())
-                continue
-            if isinstance(A, torch.Tensor):
-                self.factor_device = A.device
-            setattr(self, name, sp.csr_matrix(_host(A)))
-
-    def densify(self):
-        """Sparse W and T as dense tensors again, on the device
-        :meth:`sparsify` took them from (default: the CPU)."""
-        device = getattr(self, 'factor_device', torch.device('cpu'))
-        for name in ('W', 'T'):
-            A = getattr(self, name)
-            if sp.issparse(A):
-                setattr(self, name, as_tensor(A.toarray(), device=device))
 
     def _use_sparse_obs(self):
         """``sparse_obs`` resolved: a bool as given; ``'auto'`` once the
@@ -569,15 +581,6 @@ class NMF_RS_Estimator(_Estimator):
         T = self._dense_T()
         return as_tensor(self._dense(self.W), device=T.device,
                          dtype=T.dtype), T
-
-    def _dense(self, A):
-        if sp.issparse(A):
-            return as_tensor(A.toarray(), device=getattr(
-                self, 'factor_device', torch.device('cpu')))
-        return A
-
-    def _dense_T(self):
-        return as_tensor(self._dense(self.T))
 
     def make_Xpred(self):
         """Materialize and cache the full clipped (n, d) prediction

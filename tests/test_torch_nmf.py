@@ -298,12 +298,15 @@ DEFERRED = {
     # w_row, checkpoint and accel run since ROADMAP A.4 and A.9: their
     # cases hold the fit against JAX's (PORTED_SINCE below)
     'w_row': dict(w_row=np.linspace(0.5, 2.0, 20), **FAST_TM),
-    # sparse fits run on one device; a mesh waits for A.12 (the dense-X
+    # sparse fits run on one device; a mesh waits for A.12d (the dense-X
     # sparse=True fit is held against JAX in test_torch_sparse_tm.py)
     'sparse mode': dict(sparse=True, mesh=object(), **FAST_TM),
     'x_dtype': dict(x_dtype='bfloat16', **FAST_TM),
     'bfloat16 factors': dict(dtype=torch.bfloat16, **FAST_TM),
-    'mesh': dict(mesh=object(), **FAST_TM),
+    # a dense fit runs on a mesh since A.12a-b (tests/test_torch_mesh.py,
+    # test_torch_sharded_dense.py hold it against JAX); its masked form
+    # waits for A.12c
+    'mesh': dict(W_mat=np.ones((20, 15)), mesh=object(), **FAST_TM),
     'checkpoint': dict(checkpoint='ckpt', **FAST_TM),
     'accel': dict(accel='her', **FAST_TM),
     'nndsvd_lrc': dict(init='nndsvd_lrc', **FAST_TM),
@@ -355,8 +358,9 @@ def test_options_outside_the_slice_raise(case, tmp_path):
         else:
             _same_fit(X, 2, **kw)
         return
-    match = {'sparse mode': 'sparse fit on a mesh.*ROADMAP A.12',
-             'W_mat': 'sparse-mask fit on a mesh.*ROADMAP A.12'}.get(
+    match = {'sparse mode': 'sparse fit on a mesh.*ROADMAP A.12d',
+             'W_mat': 'sparse-mask fit on a mesh.*ROADMAP A.12e',
+             'mesh': 'masked fit on a mesh.*ROADMAP A.12c'}.get(
                  case, 'ROADMAP A')
     with pytest.raises(NotImplementedError, match=match):
         torch_nmf(_lowrank(20, 15, 2), 2, max_iter=1, device='cpu',
@@ -403,6 +407,39 @@ def test_tm_estimator_matches_jax(text_train, text_test):
     for key in ('r2', 'rel_frobenius_error'):
         assert sp_[key] == pytest.approx(sj[key], rel=TOL)
     assert np.allclose(P.T.numpy().sum(1), 1.0, atol=1e-12)
+
+
+@pytest.mark.parametrize('corpus', ['dense', 'sparse'])
+def test_tm_estimator_sparsify_densify_match_jax(text_train, text_test,
+                                                 corpus):
+    """``sparsify`` turns the fitted W and T into scipy CSR on the host, as
+    JAX's does; transform and score still run (T densified on the device
+    it came from) and equal JAX's at 1e-8 on a dense and on a sparse
+    corpus; ``densify`` brings the same tensors back. JAX's own score
+    reads its sparse T with numpy and raises, so its scores are taken
+    after its densify (the same factors)."""
+    X, Xte = text_train, text_test
+    if corpus == 'sparse':
+        X, Xte = scipy.sparse.csr_matrix(X), scipy.sparse.csr_matrix(Xte)
+    n, d = X.shape
+    J = JaxTM(n, d, 5, **_tm_params()).fit(X)
+    P = tsk.NMF_TM_Estimator(n, d, 5, device='cpu', **_tm_params()).fit(X)
+    W_fit, T_fit = P.W.clone(), P.T.clone()
+    J.sparsify()
+    P.sparsify()
+    assert scipy.sparse.isspmatrix_csr(P.W) and scipy.sparse.isspmatrix_csr(
+        P.T)
+    assert _close(P.T.toarray(), J.T.toarray())
+    got = P.transform(Xte)
+    assert isinstance(got, torch.Tensor) and got.device.type == 'cpu'
+    assert _close(got, J.transform(Xte))
+    score = P.score(Xte)
+    J.densify()
+    assert score == pytest.approx(J.score(Xte), rel=TOL)
+    P.densify()
+    assert torch.equal(P.W, W_fit) and torch.equal(P.T, T_fit)
+    assert _close(P.transform(Xte), J.transform(Xte))
+    assert P.score(Xte) == pytest.approx(J.score(Xte), rel=TOL)
 
 
 def test_tm_estimator_preprocessing_matches_jax():
@@ -549,7 +586,10 @@ def test_metrics_match_jax(text_train):
 
 
 def test_import_pulls_in_neither_jax_nor_sklearn():
-    code = ('import sys, rri_nmf_tpu_torch; '
+    # the package and its mesh modules, in a fresh interpreter
+    code = ('import sys, rri_nmf_tpu_torch, rri_nmf_tpu_torch.parallel, '
+            'rri_nmf_tpu_torch.parallel.mesh, '
+            'rri_nmf_tpu_torch.parallel.sharded_dense; '
             'bad = [m for m in ("jax", "sklearn", "rri_nmf_tpu", "triton") '
             'if m in sys.modules]; '
             'assert not bad, bad')

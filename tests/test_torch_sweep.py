@@ -31,11 +31,14 @@ import pytest
 import torch
 
 from rri_nmf_tpu.ops.sweep_xla import SweepConfig as JaxSweepConfig
+from rri_nmf_tpu.ops.sweep_xla import make_reset_factors as \
+    make_reset_factors_jax
 from rri_nmf_tpu.ops.sweep_xla import make_reset_rowcol as \
     make_reset_rowcol_jax
 from rri_nmf_tpu.ops.sweep_xla import make_sweep as jax_make_sweep
 from rri_nmf_tpu_torch.ops import dense_kernels as dk
 from rri_nmf_tpu_torch.ops.sweep import (SweepConfig, _gram_block_size,
+                                         make_reset_factors,
                                          make_reset_rowcol, make_sweep)
 
 torch.set_num_threads(2)
@@ -284,6 +287,42 @@ def test_reset_rowcol_matches_jax(form, where):
         assert int(torch.argmax(ct)) == where
     W0[:, 1] = 0.0
     _same(kw, X, W0, T0, 2, resets=3)
+
+
+@pytest.mark.parametrize('form', ['blockwise', 'whole', 'random',
+                                  'random seeded'])
+def test_reset_factors_matches_jax(form):
+    """``make_reset_factors``, the whole-matrix form: the check of
+    ``tests/test_units.py:57-61`` (topic 1 of T and W replaced by the
+    reset's row and one-hot column at the largest residual, the other
+    columns untouched, the inputs unwritten) against JAX's wrapper at
+    1e-12, JAX's draws injected for the 'random' forms."""
+    rng = np.random.RandomState(0)
+    n, d, k = 12, 9, 3
+    X = np.abs(rng.rand(n, d))
+    W = np.abs(rng.rand(n, k))
+    T = np.abs(rng.rand(k, d))
+    X[5] += 10.0                       # row 5 has the largest residual
+    kw = dict(k=k, reset_blockwise=form != 'whole',
+              reset_topic_method=('random' if form.startswith('random')
+                                  else 'max_resid_document'),
+              fix_reset_seed=form == 'random seeded')
+    draws = jax_draws(3)
+    Wj, Tj, _ = make_reset_factors_jax(JaxSweepConfig(**kw))(
+        jnp.asarray(X), jnp.asarray(W), jnp.asarray(T), 1, draws.key,
+        draws.reset_key)
+    Wt, Tt = _torch(W), _torch(T)
+    W2, T2 = make_reset_factors(SweepConfig(**kw))(_torch(X), Wt, Tt, 1,
+                                                   draws)
+    _assert_close(T2.numpy(), np.array(Tj), 1e-12)
+    _assert_close(W2.numpy(), np.array(Wj), 1e-12)
+    assert np.array_equal(W2.numpy()[:, [0, 2]], W[:, [0, 2]])
+    assert np.array_equal(T2.numpy()[[0, 2]], T[[0, 2]])
+    assert np.array_equal(Wt.numpy(), W) and np.array_equal(Tt.numpy(), T)
+    if not form.startswith('random'):
+        expect = np.maximum(X[5] - W[5] @ T, 0.0)
+        _assert_close(T2.numpy()[1], expect, 1e-12)
+        assert W2[5, 1] == 1.0 and float(W2[:, 1].sum()) == 1.0
 
 
 @pytest.mark.parametrize('seeded', [False, True])

@@ -1,0 +1,345 @@
+"""Rank processes for the port's mesh tests, and the pool that feeds them.
+
+A test module starts one :class:`MeshPool` (a module-scoped fixture): four
+processes, each one rank of a gloo world on the CPU that meets through a
+``FileStore`` in a temporary directory. The pool sends each case to every
+rank; every rank builds its mesh (cached by shape; ranks beyond the
+mesh's size sit the case out), runs the case on its blocks and answers,
+and the pool returns the first rank's answer (whole factors gathered over
+the mesh) or raises the first error any rank met.
+
+This module imports only torch, numpy and the port: a rank never imports
+JAX or the JAX package (the test modules, which do, run in the parent).
+Run as a script, it is one rank: ``python torch_mesh_worker.py RANK WORLD
+STORE_FILE``; cases come on stdin and answers go to stdout, each a
+length-prefixed pickle.
+"""
+
+import datetime
+import logging
+import os
+import pickle
+import select
+import struct
+import subprocess
+import sys
+import time
+import traceback
+
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+WORLD = 4
+# a case that takes longer than this on any rank fails its test
+CASE_SECONDS = 180
+
+
+def _send(stream, obj):
+    blob = pickle.dumps(obj)
+    stream.write(struct.pack('<Q', len(blob)) + blob)
+    stream.flush()
+
+
+def _recv(stream):
+    head = stream.read(8)
+    if len(head) < 8:
+        return None
+    (size,) = struct.unpack('<Q', head)
+    return pickle.loads(stream.read(size))
+
+
+# ---------------------------------------------------------------------------
+# the rank side
+# ---------------------------------------------------------------------------
+
+class _Records(logging.Handler):
+    """The warnings the port logs during a case."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _np(a):
+    """A tensor as a float64 numpy array (16-bit values widen exactly)."""
+    if not hasattr(a, 'detach'):
+        return a
+    a = a.detach().cpu()
+    return (a.double() if a.is_floating_point() else a).numpy()
+
+
+def _whole(mesh, split, W, T):
+    return (_np(mesh.gather_rows(W, split)), _np(mesh.gather_cols(T, split)))
+
+
+def case_fit(mesh, X, kw):
+    """``nmf(X, mesh=mesh, device='cpu', **kw)``: the whole factors, the
+    history, the budget left and the warnings logged."""
+    from rri_nmf_tpu_torch.nmf import nmf
+    res = nmf(X, mesh=mesh, device='cpu', **kw)
+    out = {key: _np(res[key]) for key in ('W', 'T')}
+    out['dtype'] = str(res['W'].dtype)
+    out['obj_history'] = list(res.get('obj_history', []))
+    out['n_resets_remaining'] = res['n_resets_remaining']
+    if 'diagnostics' in res:
+        out['diagnostics'] = {name: [float(v) for v in vals]
+                              for name, vals in res['diagnostics'].items()}
+    return out
+
+
+def case_refusal(mesh, X, kw):
+    """The message of the error ``nmf(X, mesh=mesh, **kw)`` raises."""
+    from rri_nmf_tpu_torch.nmf import nmf
+    try:
+        nmf(X, mesh=mesh, device='cpu', **kw)
+    except Exception as e:          # the test checks the kind and text
+        return '%s: %s' % (type(e).__name__, e)
+    return None
+
+
+def _blocks(mesh, X, W, T, wrs=None, quantize=False):
+    import torch
+
+    from rri_nmf_tpu_torch.ops.quantized import quantize_x
+    from rri_nmf_tpu_torch.parallel import shard_problem
+    X = torch.as_tensor(X)
+    if quantize:
+        X = quantize_x(X, torch.float64)
+    return shard_problem(mesh, X, W, T, w_row_sum_vec=wrs, device='cpu')
+
+
+def case_step(mesh, X, W, T, cfg, sweeps, resets=0, seed=3, wrs=None):
+    """``sweeps`` steps of :func:`make_sharded_training_step` from whole
+    (X, W, T): the whole factors, the objectives and the budget left."""
+    from rri_nmf_tpu_torch.ops.sweep import SweepConfig, make_draws
+    from rri_nmf_tpu_torch.parallel import make_sharded_training_step
+    step = make_sharded_training_step(SweepConfig(**cfg), mesh)
+    blocks = _blocks(mesh, X, W, T, wrs)
+    Xl, Wl, Tl = blocks[:3]
+    draws = make_draws(seed, 'cpu')
+    objs = []
+    for _ in range(sweeps):
+        out = step(Xl, Wl, Tl, draws, resets, *blocks[3:])
+        Wl, Tl, resets = out[:3]
+        objs.append(float(out[-1]))
+    W, T = _whole(mesh, mesh.split(*X.shape), Wl, Tl)
+    return {'W': W, 'T': T, 'obj': objs, 'resets': resets}
+
+
+def case_dense_sweep(mesh, X, W, T, cfg, sweeps=1, wrs=None, quantize=False):
+    """``sweeps`` sweeps of :func:`make_sharded_dense_sweep` from whole
+    (X, W, T) (X int16-coded with ``quantize``): the whole factors and
+    the B1/B2 calls this rank made."""
+    from rri_nmf_tpu_torch.ops import dense_kernels as dk
+    from rri_nmf_tpu_torch.ops.sweep import SweepConfig
+    from rri_nmf_tpu_torch.parallel import make_sharded_dense_sweep
+    sweep = make_sharded_dense_sweep(SweepConfig(**cfg), mesh)
+    blocks = _blocks(mesh, X, W, T, wrs, quantize)
+    Xl, Wl, Tl = blocks[:3]
+    calls = {'gs': 0, 'tm_proj': 0}
+    gs, tm = dk.gs_update, dk.tm_proj_update
+
+    def count(name, fn):
+        def wrapped(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    dk.gs_update, dk.tm_proj_update = count('gs', gs), count('tm_proj', tm)
+    try:
+        for _ in range(sweeps):
+            Wl, Tl = sweep(Xl, Wl, Tl, *blocks[3:])
+    finally:
+        dk.gs_update, dk.tm_proj_update = gs, tm
+    W, T = _whole(mesh, mesh.split(*X.shape), Wl, Tl)
+    return {'W': W, 'T': T, 'calls': calls}
+
+
+def case_objective(mesh, X, W, T, cfg, quantize=False):
+    """The distributed residual objective of whole (X, W, T)."""
+    from rri_nmf_tpu_torch.ops.accel import make_residual_obj
+    from rri_nmf_tpu_torch.ops.sweep import SweepConfig
+    obj = make_residual_obj(SweepConfig(mesh=mesh, **cfg), distributed=True)
+    Xl, Wl, Tl = _blocks(mesh, X, W, T, quantize=quantize)
+    return float(obj(Xl, Wl, Tl))
+
+
+def case_reset(mesh, X, W, T, cfg, t, seed=0):
+    """The mesh reset of topic ``t`` on whole (X, W, T): the whole new row
+    and column."""
+    from rri_nmf_tpu_torch.ops.sweep import (SweepConfig, make_draws,
+                                             make_reset_rowcol)
+    reset = make_reset_rowcol(SweepConfig(mesh=mesh, **cfg))
+    Xl, Wl, Tl = _blocks(mesh, X, W, T)
+    split = mesh.split(*X.shape)
+    row, col = reset(Xl, Wl, Tl, t, make_draws(seed, 'cpu'), split)
+    return {'row': _np(mesh.gather_cols(row, split)),
+            'col': _np(mesh.gather_rows(col, split))}
+
+
+def case_made(mesh, shapes):
+    """Meshes made on every rank of the world: each default shape and the
+    first rank's coordinate in it, a shape's error, every rank's block of
+    a (10, 7) problem on a (2, 2) mesh, and the error of a rank outside a
+    (3, 1) mesh (the last rank's)."""
+    import torch.distributed as dist
+
+    from rri_nmf_tpu_torch.parallel import make_mesh
+    mine = {'shapes': [], 'coordinates': []}
+    for n in shapes:
+        m = make_mesh(n)
+        mine['shapes'].append(m.shape)
+        mine['coordinates'].append(m.coordinate)
+    try:
+        make_mesh(4, (3, 2))
+    except ValueError as e:
+        mine['bad'] = str(e)
+    s = make_mesh(4, (2, 2)).split(10, 7)
+    mine['range'] = (s.r0, s.r1, s.c0, s.c1)
+    try:
+        make_mesh(3, (3, 1)).member()
+        mine['outside'] = None
+    except ValueError as e:
+        mine['outside'] = str(e)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return dict(every[0], ranges=[e['range'] for e in every],
+                outside=every[-1]['outside'])
+
+
+def frobenius(X, W, T):
+    """A callback that needs the whole factors: ``||X - WT||``."""
+    import torch
+    return float(torch.linalg.norm(torch.as_tensor(X) - W @ T))
+
+
+CASES = {name[5:]: fn for name, fn in globals().items()
+         if name.startswith('case_')}
+
+
+def serve(rank, world, store_file):
+    """One rank: join the gloo world, then answer cases until stdin ends."""
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    sys.path.insert(0, REPO)
+    from rri_nmf_tpu_torch.parallel import make_mesh
+    dist.init_process_group(
+        'gloo', store=dist.FileStore(store_file, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=CASE_SECONDS))
+    records = _Records()
+    logging.getLogger('rri_nmf_tpu_torch').addHandler(records)
+    meshes = {}
+    stdin, stdout = sys.stdin.buffer, sys.stdout.buffer
+    while True:
+        msg = _recv(stdin)
+        if msg is None:
+            break
+        shape = tuple(msg['mesh'])
+        records.messages = []
+        try:
+            if shape not in meshes:
+                meshes[shape] = make_mesh(shape[0] * shape[1], shape)
+            mesh = meshes[shape]
+            out = None
+            if mesh.coordinate is not None:
+                out = CASES[msg['case']](mesh, **msg['kw'])
+                if isinstance(out, dict):
+                    out['warnings'] = list(records.messages)
+            _send(stdout, ('ok', out))
+        except BaseException:
+            _send(stdout, ('error', traceback.format_exc()))
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the parent side
+# ---------------------------------------------------------------------------
+
+class MeshPool(object):
+    """Four rank processes in one gloo world (see the module docstring).
+    ``run(case, mesh=(dp, tp), **kw)`` runs ``case_<case>`` on every rank
+    of a ``(dp, tp)`` mesh and returns the first rank's answer."""
+
+    def __init__(self, workdir, world=WORLD):
+        env = dict(os.environ, OMP_NUM_THREADS='1', MKL_NUM_THREADS='1',
+                   PYTHONPATH=REPO + os.pathsep + os.environ.get(
+                       'PYTHONPATH', ''))
+        store = os.path.join(str(workdir), 'store')
+        self.logs = [os.path.join(str(workdir), 'rank%d.log' % r)
+                     for r in range(world)]
+        self.procs = []
+        self.broken = None
+        for rank in range(world):
+            with open(self.logs[rank], 'wb') as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), str(rank),
+                     str(world), store],
+                    stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                    stderr=log, cwd=REPO, env=env))
+
+    def _read(self, proc, deadline):
+        """One answer of ``proc``, or a timeout error past ``deadline``."""
+        fd = proc.stdout.fileno()
+        buf = b''
+        need = 8
+        size = None
+        while len(buf) < need:
+            left = deadline - time.monotonic()
+            if left <= 0 or not select.select([fd], [], [], left)[0]:
+                raise TimeoutError('a mesh case took over %d s'
+                                   % CASE_SECONDS)
+            chunk = os.read(fd, need - len(buf))
+            if not chunk:
+                raise RuntimeError('a rank process ended: %s'
+                                   % self._tail())
+            buf += chunk
+            if size is None and len(buf) == 8:
+                (size,) = struct.unpack('<Q', buf)
+                buf, need = b'', size
+        return pickle.loads(buf)
+
+    def _tail(self):
+        out = []
+        for path in self.logs:
+            with open(path, 'rb') as f:
+                out.append(f.read()[-2000:].decode(errors='replace'))
+        return '\n'.join(out)
+
+    def run(self, case, mesh, **kw):
+        if self.broken:
+            raise RuntimeError('an earlier case left the ranks out of step: '
+                               + self.broken)
+        msg = {'case': case, 'mesh': tuple(mesh), 'kw': kw}
+        self.broken = 'the %r case did not finish' % (case,)
+        for proc in self.procs:
+            _send(proc.stdin, msg)
+        deadline = time.monotonic() + CASE_SECONDS
+        answers = [self._read(proc, deadline) for proc in self.procs]
+        for status, body in answers:
+            if status == 'error':
+                self.broken = 'the %r case failed' % (case,)
+                raise RuntimeError('a rank failed the %r case:\n%s'
+                                   % (case, body))
+        self.broken = None
+        return answers[0][1]
+
+    def close(self):
+        for proc in self.procs:
+            try:
+                proc.stdin.close()
+            except OSError:
+                pass
+        for proc in self.procs:
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+if __name__ == '__main__':
+    serve(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
