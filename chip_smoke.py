@@ -178,22 +178,42 @@ its users run, one line per phase:
     gathered over tp), in float64 and float32 from numpy-seeded warm
     starts, against the single-device card fits: float64 within 1e-10,
     float32 within 1e-4 relative objective, B1/B2 launches per rank.
-    These ranks share one card: the times are no scaling reading.
+    These ranks share one card: the times are no scaling reading;
+28. the masked mesh (``parallel/sharded_masked``) on phase 7-8's ratings
+    and their observed mask at 6040×3952 k=40, the RS preset from a
+    numpy-seeded warm start: (a) in the one-rank world, float64 and
+    float32, W, T and ``obj_history`` bit for bit the single-device fit
+    with B3 and B4 k times a sweep in both, ms/sweep of both in turns;
+    a fixed-T fit with ``'max_resid_document'`` resets and a dead topic
+    at 600×400 k=8 on one device (B4 alone, k times a sweep), card
+    against CPU with the same reset documents; (b) 4 gloo ranks on a
+    (2, 2) mesh: the preset in float64 and float32 (B3/B4 k times a
+    sweep on each rank), its fixed-T form (B4 alone) and a
+    ``store_gradients`` fit (the plain masked sweep, no B3/B4) in
+    float64, against the single-device card fits at phase 27's gates
+    (the stores within 1e-10 of the largest entry);
+29. the sparse mesh (``parallel/sparse_mesh``) on phase 9's matrix,
+    50,000×30,000 0.5% k=128 as a CSR tensor: (a) ``sparse='mxu'`` in the
+    one-rank world, bit for bit the single-device fit with 2 gather
+    launches a sweep in both, ms/sweep of both in turns; (b) 4 gloo
+    ranks, float64 and float32: ``'mxu'`` on (2, 2), ``'mxu'`` with the TM
+    preset on (4, 1) (B2 on each rank's whole rows) and ``sparse=True``
+    on (2, 2), at phase 27's gates, the gather, B1 and B2 launches per
+    rank.
 
 Phases 5-6, phase 8, phases 10-11, phases 12-16, phases 18-19, phases
-20-23, phases 24-25, each dtype's fits of phase 26 and phase 27 drive a
-main path with the launch counts set to 0 just before and read just
-after (no kernel of this repo runs in phases 12-13; phases 14-15 run B1;
-phases 18-19 the gather kernel; phases 20-23 B1-B4; phases 24-25 B1;
-phase 26 the 16-bit builds of all six; phase 27 B1 in this process and
-B1/B2 in each rank, counted there; the HER recursion run by hand and the
-sync check of phases 20 and 23 leave the counts as they were). Then one JSON
-line of the kernels (those launches, error against the twin, kernel and
-twin ms, the least time the card could take for the same work with what
-binds it, and the library call's ms where one computes the same
-function; the 16-bit builds as ``<name>_bf16`` and ``<name>_f16``), and
-as the last line
-``{"ok": true, "device": {...}}``. Any failure raises before that line
+20-23, phases 24-25, each dtype's fits of phase 26 and phases 27-29
+drive a main path with the launch counts set to 0 just before and read
+just after (no kernel of this repo runs in phases 12-13; phases 14-15
+run B1; phases 18-19 the gather kernel; phases 20-23 B1-B4; phases 24-25
+B1; phase 26 the 16-bit builds of all six; phases 27-29 B1-B5 in this
+process and in each rank, counted there; the HER recursion run by hand
+and the sync check of phases 20 and 23 leave the counts as they were).
+Then one JSON line of the kernels (those launches, error against the
+twin, kernel and twin ms, the least time the card could take for the same
+work with what binds it, and the library call's ms where one computes the
+same function; the 16-bit builds as ``<name>_bf16`` and ``<name>_f16``),
+and as the last line ``{"ok": true, "device": {...}}``. Any failure raises before that line
 and exits non-zero; without a CUDA device the script exits non-zero
 before doing anything. Data come from numpy seeds.
 """
@@ -408,6 +428,17 @@ MESH_SEED = 11
 TOL_MESH_F64 = 1e-10
 TOL_MESH_F32_OBJ = 1e-4
 MESH_SECONDS = 600
+# phase 28: the masked mesh at RS_SHAPE (phase 7-8's ratings and mask),
+# the RS preset from a MESH_SEED warm start: (a) the one-rank world, bit
+# for bit; (b) MESH_RANKS gloo ranks on MASKED_MESH_SHAPE, at the mesh
+# gates above (float64 also for the gradient stores)
+MASKED_MESH_SHAPE = (2, 2)
+MASKED_MESH_SWEEPS = 5
+MASKED_MESH_STORE_SWEEPS = 2
+# phase 29: the sparse mesh at SPARSE_SHAPE: (a) 'mxu' in the one-rank
+# world, bit for bit; (b) 'mxu' on (2, 2), 'mxu' with the TM preset on
+# (4, 1), sparse=True on (2, 2), at the mesh gates above
+SPARSE_MESH_SWEEPS = 5
 
 
 def log(phase, **fields):
@@ -3069,7 +3100,7 @@ def run_16_bit_fits(dev, dk, mk, sk, nmf, Est, counts, ratings, dt):
 
 
 def run(dev):
-    """Phases 3-27 on ``dev``; returns the kernels' JSON entries."""
+    """Phases 3-29 on ``dev``; returns the kernels' JSON entries."""
     from rri_nmf_tpu_torch.metrics import frobenius_relative_error
     from rri_nmf_tpu_torch.nmf import nmf
     from rri_nmf_tpu_torch.ops import dense_kernels as dk
@@ -3278,19 +3309,47 @@ def run(dev):
             raise AssertionError('a 16-bit kernel never ran: %r'
                                  % counts16[dt])
         log('launches, phase 26 %s' % dt, **counts16[dt])
-    del ratings
 
-    # 27. the mesh, counted from zero: B1 in the one-rank world's fit
-    # (this process), B1 and B2 in the ranks' fits (each rank's counts)
+    # 27-29. the meshes, counted from zero: B1 in the one-rank world's
+    # fit (this process), B1 and B2 in the ranks' fits (each rank's
+    # counts); B3/B4 in the masked mesh fits and the gather kernel in the
+    # sparse ones, in this process and in the ranks
     dk.reset_launches()
-    mesh_gs = run_mesh_one_rank_phase(dev, dk, nmf)
-    sync(dev)
-    ranks = run_mesh_ranks_phase(dev, dk, nmf)
-    if mesh_gs == 0 or ranks['gs'] == 0 or ranks['tm_proj'] == 0:
-        raise AssertionError('a kernel of the mesh phase never ran: %d %r'
-                             % (mesh_gs, ranks))
-    launches['gs'] += mesh_gs + ranks['gs']
-    launches['tm_proj'] += ranks['tm_proj']
+    mk.reset_launches()
+    sk.reset_launches()
+    with one_rank_world(dev) as mesh:
+        mesh_gs = run_mesh_one_rank_phase(dev, dk, nmf, mesh)
+        sync(dev)
+        ranks = run_mesh_ranks_phase(dev, dk, nmf)
+        if mesh_gs == 0 or ranks['gs'] == 0 or ranks['tm_proj'] == 0:
+            raise AssertionError('a kernel of the mesh phase never ran: %d '
+                                 '%r' % (mesh_gs, ranks))
+        launches['gs'] += mesh_gs + ranks['gs']
+        launches['tm_proj'] += ranks['tm_proj']
+
+        one = run_masked_mesh_one_rank_phase(dev, mk, nmf, mesh, ratings)
+        sync(dev)
+        del ratings
+        fixed = run_fixed_t_max_resid_phase(dev, mk, nmf)
+        sync(dev)
+        ranks = run_masked_mesh_ranks_phase(dev, nmf)
+        for key in ('phase_a', 'phase_b'):
+            if one[key] == 0 or ranks[key] == 0:
+                raise AssertionError('a kernel of the masked mesh phase '
+                                     'never ran: %r %r' % (one, ranks))
+            masked[key] += one[key] + fixed[key] + ranks[key]
+
+        one = run_sparse_mesh_one_rank_phase(dev, sk, nmf, mesh)
+        sync(dev)
+        ranks = run_sparse_mesh_ranks_phase(dev, nmf)
+        if one == 0 or any(ranks[key] == 0 for key in ranks):
+            raise AssertionError('a kernel of the sparse mesh phase never '
+                                 'ran: %d %r' % (one, ranks))
+        sparse['mxu'] += one + ranks['mxu']
+        launches['gs'] += ranks['gs']
+        launches['tm_proj'] += ranks['tm_proj']
+    log('launches, phases 27-29', gs=launches['gs'],
+        tm_proj=launches['tm_proj'], **masked, mxu=sparse['mxu'])
     # no single PyTorch call computes B1-B4 (sequential topic chains with
     # clamps, a simplex projection, fused in-place rank-one updates)
     wide = [dict(B1, launches=launches['gs'], max_abs_err=err1, ms=ms1,
@@ -3322,16 +3381,37 @@ def run(dev):
 
 
 # --------------------------------------------------------------------------
-# phase 27: the mesh
+# phases 27-29: the meshes
 # --------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def one_rank_world(dev):
+    """A one-rank ``torch.distributed`` world (NCCL on a card, gloo on the
+    CPU) and its (1, 1) mesh, for phases 27-29 (a)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rri_nmf_tpu_torch.parallel import make_mesh
+    backend = 'nccl' if dev.type == 'cuda' else 'gloo'
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            backend, store=dist.FileStore(os.path.join(tmp, 'store'), 1),
+            rank=0, world_size=1)
+        try:
+            yield make_mesh(1, (1, 1))
+        finally:
+            dist.destroy_process_group()
+
+
 def mesh_problems(spec, dev):
-    """The fits of phase 27 (b), as ``(name, X, nmf kwargs)`` built from
-    numpy seeds on ``dev`` (the same in the parent and in every rank):
-    ``nmf()`` in the phase recipe at ``spec['nmf']`` (n, d, k) and the TM
-    preset at ``spec['tm']`` (train docs, test docs, words, k), each in
-    float64 and float32, from warm starts drawn with MESH_SEED."""
+    """The fits of phase 27 (b), as ``(name, X, nmf kwargs, mesh shape)``
+    built from numpy seeds on ``dev`` (the same in the parent and in every
+    rank): ``nmf()`` in the phase recipe at ``spec['nmf']`` (n, d, k) and
+    the TM preset at ``spec['tm']`` (train docs, test docs, words, k),
+    each in float64 and float32, from warm starts drawn with MESH_SEED."""
     from rri_nmf_tpu_torch.matrixops import normalize, tfidf
+    shape = tuple(spec['mesh'])
     n, d, k = spec['nmf']
     rng = np.random.RandomState(MESH_SEED)
     W0, T0 = rng.rand(n, k), rng.rand(k, d)
@@ -3339,7 +3419,7 @@ def mesh_problems(spec, dev):
     base = dict(max_iter=spec['sweeps'], compute_obj_each_iter=True,
                 random_state=0, W_in=W0, T_in=T0, **FAST_TM)
     for dt in (torch.float64, torch.float32):
-        yield 'nmf %s' % str(dt)[6:], X.to(dt), dict(base, k=k)
+        yield 'nmf %s' % str(dt)[6:], X.to(dt), dict(base, k=k), shape
     del X
     n_train, n_test, n_words, k = spec['tm']
     counts = zipf_corpus(n_train + n_test, n_words, k, seed=0)[:n_train]
@@ -3347,31 +3427,100 @@ def mesh_problems(spec, dev):
     # (a dead topic's T row is the simplex projection of rounding noise,
     # on which no two summation orders agree; from unscaled U[0,1] rows a
     # topic dies in the second sweep)
-    W0, T0 = rng.rand(n_train, k), rng.rand(k, n_words)
-    W0 /= W0.sum(1, keepdims=True)
-    T0 /= T0.sum(1, keepdims=True)
+    W0, T0 = unit_rows(rng, n_train, n_words, k)
     tm = dict(max_iter=spec['sweeps'], compute_obj_each_iter=True,
               random_state=0, k=k, W_in=W0, T_in=T0,
               project_W_each_iter=False, w_row_sum=1.0,
               project_T_each_iter=True, t_row_sum=1.0, **FAST_TM)
     for dt in (torch.float64, torch.float32):
         Xt = normalize(tfidf(torch.as_tensor(counts, dtype=dt, device=dev)))
-        yield 'tm %s' % str(dt)[6:], Xt, tm
+        yield 'tm %s' % str(dt)[6:], Xt, tm, shape
         del Xt
 
 
+def unit_rows(rng, n, d, k):
+    """U[0,1] warm starts W (n, k) and T (k, d) with unit row sums."""
+    W0, T0 = rng.rand(n, k), rng.rand(k, d)
+    return W0 / W0.sum(1, keepdims=True), T0 / T0.sum(1, keepdims=True)
+
+
+def rs_preset(M, k, sweeps, W0, T0):
+    """The RS estimator's masked ``nmf()`` settings (no resets, T entries
+    bounded by t_row_sum=1, unprojected) from a warm start."""
+    return dict(k=k, W_mat=M, max_iter=sweeps, compute_obj_each_iter=True,
+                random_state=0, reset_topic_method=None, t_row_sum=1.0,
+                W_in=W0, T_in=T0)
+
+
+def masked_mesh_problems(spec, dev):
+    """The fits of phase 28 (b) on a ``spec['mesh']`` mesh: the RS
+    preset on phase 7-8's ratings and their observed mask at RS_SHAPE in
+    float64 and float32 (B3/B4 on each rank), its fixed-T W-phase (B4
+    alone) and a ``store_gradients`` fit (the plain masked sweep), both in
+    float64, from warm starts drawn with MESH_SEED."""
+    shape = tuple(spec['mesh'])
+    n, d, q, k = spec['rs']
+    X = torch.as_tensor(synth_ratings(n, d, q, 8), device=dev)
+    M = (X != 0).double()
+    rng = np.random.RandomState(MESH_SEED)
+    W0, T0 = rng.rand(n, k), rng.rand(k, d)
+    sweeps = spec['sweeps']
+    for dt in (torch.float64, torch.float32):
+        yield ('masked %s' % str(dt)[6:], X.to(dt),
+               rs_preset(M.to(dt), k, sweeps, W0, T0), shape)
+    T1 = T0 / T0.sum(1, keepdims=True)
+    yield ('fixed T float64', X, dict(
+        rs_preset(M, k, sweeps, W0, T1), fix_T=True), shape)
+    yield ('store_gradients float64', X, dict(
+        rs_preset(M, k, MASKED_MESH_STORE_SWEEPS, W0, T0),
+        store_gradients=True), shape)
+
+
+def sparse_mesh_problems(spec, dev):
+    """The fits of phase 29 (b): phase 9's matrix at SPARSE_SHAPE as a CSR
+    tensor on ``dev``, in float64 and float32, from warm starts drawn with
+    MESH_SEED: ``sparse='mxu'`` on (2, 2) in the phase recipe, ``'mxu'``
+    with the TM preset on (4, 1) (B2 on each rank's whole rows) and
+    ``sparse=True`` (``torch.sparse.mm``) on (2, 2)."""
+    n, d, dens, k = spec['sparse']
+    rng = np.random.RandomState(MESH_SEED)
+    W0, T0 = rng.rand(n, k), rng.rand(k, d)
+    Wu, Tu = unit_rows(rng, n, d, k)
+    base = dict(k=k, max_iter=spec['sweeps'], compute_obj_each_iter=True,
+                random_state=0, **FAST_TM)
+    tm = dict(project_W_each_iter=False, w_row_sum=1.0,
+              project_T_each_iter=True, t_row_sum=1.0)
+    for dt in (torch.float64, torch.float32):
+        X = sparse_csr(n, d, dens, dev, seed=0, dtype=dt)
+        tag = str(dt)[6:]
+        yield ('mxu (2, 2) %s' % tag, X,
+               dict(base, sparse='mxu', W_in=W0, T_in=T0), (2, 2))
+        yield ('mxu TM (4, 1) %s' % tag, X,
+               dict(base, sparse='mxu', W_in=Wu, T_in=Tu, **tm), (4, 1))
+        yield ('torch (2, 2) %s' % tag, X,
+               dict(base, sparse=True, W_in=W0, T_in=T0), (2, 2))
+        del X
+
+
+RANK_PROBLEMS = {27: mesh_problems, 28: masked_mesh_problems,
+                 29: sparse_mesh_problems}
+
+
 def mesh_rank(rank, world, store, out, spec):
-    """One rank of phase 27 (b): joins the gloo world on ``spec['device']``
-    (every rank on the one card), fits each of :func:`mesh_problems` on
-    its block of a ``spec['mesh']`` mesh, and saves its kernel launches
-    (counted from zero around each fit) and, on the first rank, the whole
-    factors, histories and seconds to ``out``."""
+    """One rank of phase 27, 28 or 29 (b) (``spec['phase']``): joins the
+    gloo world on ``spec['device']`` (every rank on the one card), fits
+    each of the phase's problems on its block of the problem's mesh, and
+    saves its kernel launches (counted from zero around each fit) and, on
+    the first rank, the whole factors, histories, gradient stores and
+    seconds to ``out``."""
     import datetime
 
     import torch.distributed as dist
 
     from rri_nmf_tpu_torch.nmf import nmf
     from rri_nmf_tpu_torch.ops import dense_kernels as dk
+    from rri_nmf_tpu_torch.ops import masked_kernels as mk
+    from rri_nmf_tpu_torch.ops import sparse_kernels as sk
     from rri_nmf_tpu_torch.parallel import make_mesh
     dev = torch.device(spec['device'])
     if dev.type == 'cuda':
@@ -3382,20 +3531,26 @@ def mesh_rank(rank, world, store, out, spec):
         'gloo', store=dist.FileStore(store, world), rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=MESH_SECONDS))
     try:
-        mesh = make_mesh(world, tuple(spec['mesh']))
-        launches, fits = {}, {}
-        for name, X, kw in mesh_problems(spec, dev):
+        meshes, launches, fits = {}, {}, {}
+        for name, X, kw, shape in RANK_PROBLEMS[spec['phase']](spec, dev):
+            if shape not in meshes:
+                meshes[shape] = make_mesh(world, shape)
             sync(dev)
-            dk.reset_launches()
+            for module in (dk, mk, sk):
+                module.reset_launches()
             t0 = time.perf_counter()
-            res = nmf(X, mesh=mesh, **kw)
+            res = nmf(X, mesh=meshes[shape], **kw)
             sync(dev)
             wall = time.perf_counter() - t0
-            launches[name] = dict(dk.LAUNCHES)
+            launches[name] = dict(dk.LAUNCHES, **mk.LAUNCHES, **sk.LAUNCHES)
             if rank == 0:
                 fits[name] = dict(W=res['W'].cpu(), T=res['T'].cpu(),
                                   obj=res['obj_history'], wall_s=wall,
                                   stamps=res['iter_cputime'])
+                if 'numer_W' in res:
+                    fits[name]['stores'] = {
+                        key: {it: v.cpu() for it, v in res[key].items()}
+                        for key in ('numer_W', 'denom_W')}
         torch.save({'launches': launches, 'fits': fits},
                    os.path.join(out, 'rank%d.pt' % rank))
     finally:
@@ -3408,88 +3563,23 @@ def _mesh_gap(got, want):
                  / want.double().abs().max())
 
 
-def run_mesh_one_rank_phase(dev, dk, nmf):
-    """Phase 27 (a): a one-rank world (NCCL on a card) and a (1, 1) mesh:
-    ``nmf(mesh=...)`` at NMF_SHAPE in the phase recipe equals the
-    single-device fit bit for bit with the same B1 launches; ms/sweep of
-    both in turns, and the mesh sweeps' collective kernels by
-    ``torch.profiler``. Returns the phase's B1 launches (its fits with
-    and without the mesh)."""
+def run_ranks(spec, dev, nmf):
+    """MESH_RANKS rank processes on the one card in a gloo world
+    (:func:`mesh_rank`) fitting phase ``spec['phase']``'s problems, and
+    the same fits on one device: ``(one-device fits, rank results,
+    seconds from spawn to exit)``; any rank that fails fails the phase."""
     import tempfile
-
-    import torch.distributed as dist
-
-    from rri_nmf_tpu_torch.parallel import make_mesh
-    n, d, k = NMF_SHAPE
-    X = lowrank(n, d, k, dev, seed=0)
-    kw = dict(max_iter=SWEEPS, compute_obj_each_iter=True, random_state=0,
-              **FAST_TM)
-    backend = 'nccl' if dev.type == 'cuda' else 'gloo'
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group(
-            backend, store=dist.FileStore(os.path.join(tmp, 'store'), 1),
-            rank=0, world_size=1)
-        try:
-            mesh = make_mesh(1, (1, 1))
-            gs0 = dk.LAUNCHES['gs']
-            single = nmf(X, k, **kw)
-            sync(dev)
-            gs1 = dk.LAUNCHES['gs']
-            meshed = nmf(X, k, mesh=mesh, **kw)
-            sync(dev)
-            gs_single, gs_mesh = gs1 - gs0, dk.LAUNCHES['gs'] - gs1
-            same = (torch.equal(single['W'], meshed['W'])
-                    and torch.equal(single['T'], meshed['T'])
-                    and single['obj_history'] == meshed['obj_history'])
-            if not same or gs_mesh != gs_single or \
-                    gs_mesh != 2 * len(meshed['obj_history']):
-                raise AssertionError(
-                    'one-rank mesh fit: bit for bit %s, B1 %d against %d'
-                    % (same, gs_mesh, gs_single))
-            # ms/sweep without the objective, in turns (single, mesh, mesh,
-            # single), continuing from the fit
-            cont = dict(max_iter=10, W_in=single['W'], T_in=single['T'],
-                        random_state=0, **FAST_TM)
-            ms = {'single': [], 'mesh': []}
-            for which in ('single', 'mesh', 'mesh', 'single'):
-                extra = dict(mesh=mesh) if which == 'mesh' else {}
-                r = nmf(X, k, **cont, **extra)
-                sync(dev)
-                ms[which].append(float(np.median(np.diff(
-                    r['iter_cputime']))) * 1e3)
-            kernels, device_ms, by_name = device_kernels(
-                lambda: nmf(X, k, mesh=mesh, **dict(cont, max_iter=5)), dev)
-            coll = [(c, t) for name, (c, t) in by_name.items()
-                    if 'nccl' in name.lower()]
-            gs_total = dk.LAUNCHES['gs'] - gs0
-        finally:
-            dist.destroy_process_group()
-    log('mesh one-rank %s world (1, 1) nmf %dx%d k=%d float32' % (
-        backend, n, d, k), sweeps=len(meshed['obj_history']),
-        bit_for_bit=same, gs_launches=gs_mesh,
-        gs_launches_single=gs_single,
-        ms_per_sweep_single=ms['single'], ms_per_sweep_mesh=ms['mesh'],
-        device_ms_per_sweep=device_ms / 5, kernels_per_sweep=kernels / 5,
-        collective_kernels_per_sweep=sum(c for c, _ in coll) / 5,
-        collective_device_ms_per_sweep=sum(t for _, t in coll) / 5)
-    return gs_total
-
-
-def run_mesh_ranks_phase(dev, dk, nmf):
-    """Phase 27 (b): MESH_RANKS rank processes on the one card in a gloo
-    world (:func:`mesh_rank`), held against the single-device card fits
-    of :func:`mesh_problems`; any rank that fails fails the phase.
-    Returns the ranks' B1 and B2 launches."""
-    import tempfile
-    spec = dict(device=str(dev), mesh=list(MESH_SHAPE), nmf=list(NMF_SHAPE),
-                tm=list(TM_SHAPE), sweeps=MESH_SWEEPS)
     want = {}
-    for name, X, kw in mesh_problems(spec, dev):
+    for name, X, kw, _ in RANK_PROBLEMS[spec['phase']](spec, dev):
         res = nmf(X, **kw)
         sync(dev)
         want[name] = dict(W=res['W'].cpu(), T=res['T'].cpu(),
                           obj=res['obj_history'],
                           stamps=res['iter_cputime'])
+        if 'numer_W' in res:
+            want[name]['stores'] = {
+                key: {it: v.cpu() for it, v in res[key].items()}
+                for key in ('numer_W', 'denom_W')}
         del X, res
     if dev.type == 'cuda':
         torch.cuda.empty_cache()
@@ -3521,42 +3611,285 @@ def run_mesh_ranks_phase(dev, dk, nmf):
                  for r in range(MESH_RANKS)]
         for f in logs:
             f.close()
-    total = {'gs': 0, 'tm_proj': 0}
+    return want, ranks, wall
+
+
+def check_rank_fits(phase, want, ranks, expect):
+    """Each rank fit of a phase against its one-device fit: float64
+    within TOL_MESH_F64 (largest entry of W and T, relative objective,
+    and the gradient stores), float32 within TOL_MESH_F32_OBJ relative
+    final objective; every rank's launches ``expect(name, sweeps)``.
+    Logs each fit; returns the launches summed over fits and ranks."""
+    total = {}
     for name, ref in want.items():
         got = ranks[0]['fits'][name]
         sweeps = len(got['obj'])
         per_rank = [r['launches'][name] for r in ranks]
         for c in per_rank:
-            for key in total:
-                total[key] += c[key]
+            for key, v in c.items():
+                total[key] = total.get(key, 0) + v
         gap_w, gap_t = _mesh_gap(got['W'], ref['W']), _mesh_gap(got['T'],
                                                                  ref['T'])
         obj_gap = max(abs(a - b) / abs(b) for a, b in zip(got['obj'],
                                                            ref['obj']))
-        log('mesh %d ranks sharing one card, gloo %r: %s' % (
-            MESH_RANKS, tuple(MESH_SHAPE), name), sweeps=sweeps,
-            launches_per_rank=per_rank, rel_gap_W=gap_w, rel_gap_T=gap_t,
-            max_rel_gap_obj=obj_gap, obj_last=got['obj'][-1],
-            fit_wall_s=got['wall_s'],
+        gap_s = None
+        if 'stores' in ref:
+            gap_s = max(_mesh_gap(got['stores'][key][it], v)
+                        for key, vs in ref['stores'].items()
+                        for it, v in vs.items())
+        shown = {key: v for key, v in per_rank[0].items() if v}
+        log('mesh %d ranks sharing one card, gloo, phase %d: %s' % (
+            MESH_RANKS, phase, name), sweeps=sweeps,
+            launches_rank0=shown, rel_gap_W=gap_w, rel_gap_T=gap_t,
+            max_rel_gap_obj=obj_gap, rel_gap_stores=gap_s,
+            obj_last=got['obj'][-1], fit_wall_s=got['wall_s'],
             ms_per_sweep_with_objective=float(np.median(np.diff(
                 got['stamps']))) * 1e3,
             ms_per_sweep_one_device=float(np.median(np.diff(
                 ref['stamps']))) * 1e3)
-        expect = ({'gs': sweeps, 'tm_proj': sweeps} if name.startswith('tm')
-                  else {'gs': 2 * sweeps, 'tm_proj': 0})
-        if any(c != expect for c in per_rank) or sweeps != len(ref['obj']):
+        want_l = expect(name, sweeps)
+        if any({key: c.get(key, 0) for key in want_l} != want_l
+               for c in per_rank) or sweeps != len(ref['obj']):
             raise AssertionError('%s on the mesh: launches per rank %r for '
-                                 '%d sweeps' % (name, per_rank, sweeps))
+                                 '%d sweeps, want %r' % (name, per_rank,
+                                                         sweeps, want_l))
         if name.endswith('float64'):
-            ok = max(gap_w, gap_t, obj_gap) <= TOL_MESH_F64
+            ok = max(gap_w, gap_t, obj_gap, gap_s or 0.0) <= TOL_MESH_F64
         else:
             ok = abs(got['obj'][-1] - ref['obj'][-1]) / abs(
                 ref['obj'][-1]) <= TOL_MESH_F32_OBJ
         if not ok:
             raise AssertionError('%s on the mesh against one device: W %.3g, '
-                                 'T %.3g, objective %.3g' % (name, gap_w,
-                                                             gap_t, obj_gap))
+                                 'T %.3g, objective %.3g, stores %r'
+                                 % (name, gap_w, gap_t, obj_gap, gap_s))
+    return total
+
+
+def _bit_for_bit(a, b):
+    return (torch.equal(a['W'], b['W']) and torch.equal(a['T'], b['T'])
+            and a['obj_history'] == b['obj_history'])
+
+
+def in_turns_ms(fit, mesh, dev):
+    """ms/sweep (median of the sweeps' stamps) of ``fit(mesh)`` and
+    ``fit(None)`` in turns: one device, mesh, mesh, one device."""
+    ms = {'single': [], 'mesh': []}
+    for which in ('single', 'mesh', 'mesh', 'single'):
+        r = fit(mesh if which == 'mesh' else None)
+        sync(dev)
+        ms[which].append(float(np.median(np.diff(r['iter_cputime']))) * 1e3)
+    return ms
+
+
+def run_mesh_one_rank_phase(dev, dk, nmf, mesh):
+    """Phase 27 (a): on the one-rank world's (1, 1) ``mesh``,
+    ``nmf(mesh=...)`` at NMF_SHAPE in the phase recipe equals the
+    single-device fit bit for bit with the same B1 launches; ms/sweep of
+    both in turns, and the mesh sweeps' collective kernels by
+    ``torch.profiler``. Returns the phase's B1 launches (its fits with
+    and without the mesh)."""
+    n, d, k = NMF_SHAPE
+    X = lowrank(n, d, k, dev, seed=0)
+    kw = dict(max_iter=SWEEPS, compute_obj_each_iter=True, random_state=0,
+              **FAST_TM)
+    gs0 = dk.LAUNCHES['gs']
+    single = nmf(X, k, **kw)
+    sync(dev)
+    gs1 = dk.LAUNCHES['gs']
+    meshed = nmf(X, k, mesh=mesh, **kw)
+    sync(dev)
+    gs_single, gs_mesh = gs1 - gs0, dk.LAUNCHES['gs'] - gs1
+    same = _bit_for_bit(single, meshed)
+    if not same or gs_mesh != gs_single or \
+            gs_mesh != 2 * len(meshed['obj_history']):
+        raise AssertionError('one-rank mesh fit: bit for bit %s, B1 %d '
+                             'against %d' % (same, gs_mesh, gs_single))
+    # ms/sweep without the objective, continuing from the fit
+    cont = dict(max_iter=10, W_in=single['W'], T_in=single['T'],
+                random_state=0, **FAST_TM)
+    ms = in_turns_ms(lambda m: nmf(X, k, mesh=m, **cont), mesh, dev)
+    kernels, device_ms, by_name = device_kernels(
+        lambda: nmf(X, k, mesh=mesh, **dict(cont, max_iter=5)), dev)
+    coll = [(c, t) for name, (c, t) in by_name.items()
+            if 'nccl' in name.lower()]
+    log('mesh one-rank %s world (1, 1) nmf %dx%d k=%d float32' % (
+        mesh.backend, n, d, k), sweeps=len(meshed['obj_history']),
+        bit_for_bit=same, gs_launches=gs_mesh,
+        gs_launches_single=gs_single,
+        ms_per_sweep_single=ms['single'], ms_per_sweep_mesh=ms['mesh'],
+        device_ms_per_sweep=device_ms / 5, kernels_per_sweep=kernels / 5,
+        collective_kernels_per_sweep=sum(c for c, _ in coll) / 5,
+        collective_device_ms_per_sweep=sum(t for _, t in coll) / 5)
+    return dk.LAUNCHES['gs'] - gs0
+
+
+def run_mesh_ranks_phase(dev, dk, nmf):
+    """Phase 27 (b): MESH_RANKS ranks on a MESH_SHAPE mesh fitting
+    :func:`mesh_problems`, held against the single-device card fits.
+    Returns the ranks' B1 and B2 launches."""
+    spec = dict(phase=27, device=str(dev), mesh=list(MESH_SHAPE),
+                nmf=list(NMF_SHAPE), tm=list(TM_SHAPE), sweeps=MESH_SWEEPS)
+    want, ranks, wall = run_ranks(spec, dev, nmf)
+    total = check_rank_fits(27, want, ranks, lambda name, sweeps: (
+        {'gs': sweeps, 'tm_proj': sweeps} if name.startswith('tm')
+        else {'gs': 2 * sweeps, 'tm_proj': 0}))
+    total = {key: total.get(key, 0) for key in ('gs', 'tm_proj')}
     log('mesh ranks phase', ranks=MESH_RANKS, wall_s=wall, **total)
+    return total
+
+
+def run_masked_mesh_one_rank_phase(dev, mk, nmf, mesh, ratings):
+    """Phase 28 (a): on the one-rank world's (1, 1) ``mesh``, the RS
+    preset at RS_SHAPE (phase 7-8's ratings and mask) in float64 and
+    float32: W, T and ``obj_history`` bit for bit the single-device fit,
+    B3 and B4 k launches a sweep in each; ms/sweep of both in turns.
+    Returns the phase's B3 and B4 launches."""
+    n, d, _, k = RS_SHAPE
+    X = torch.as_tensor(ratings, device=dev)
+    M = (X != 0).double()
+    rng = np.random.RandomState(MESH_SEED)
+    W0, T0 = rng.rand(n, k), rng.rand(k, d)
+    b0 = dict(mk.LAUNCHES)
+    for dt in (torch.float64, torch.float32):
+        Xd, Md = X.to(dt), M.to(dt)
+        kw = rs_preset(Md, k, MASKED_MESH_SWEEPS, W0, T0)
+        counts = []
+        fits = []
+        for m in (None, mesh):
+            c0 = dict(mk.LAUNCHES)
+            fits.append(nmf(Xd, mesh=m, **kw))
+            sync(dev)
+            counts.append({key: mk.LAUNCHES[key] - c0[key] for key in c0})
+        sweeps = len(fits[1]['obj_history'])
+        same = _bit_for_bit(*fits)
+        if not same or any(c != {'phase_a': k * sweeps,
+                                 'phase_b': k * sweeps} for c in counts):
+            raise AssertionError('one-rank masked mesh fit %s: bit for bit '
+                                 '%s, launches %r for %d sweeps'
+                                 % (dt, same, counts, sweeps))
+        cont = dict(kw, max_iter=5, compute_obj_each_iter=False,
+                    W_in=fits[0]['W'], T_in=fits[0]['T'])
+        ms = in_turns_ms(lambda m: nmf(Xd, mesh=m, **cont), mesh, dev)
+        log('masked mesh one-rank %s world (1, 1) %dx%d k=%d %s' % (
+            mesh.backend, n, d, k, str(dt)[6:]), sweeps=sweeps,
+            bit_for_bit=same, launches=counts[1],
+            launches_single=counts[0], obj_last=fits[1]['obj_history'][-1],
+            ms_per_sweep_single=ms['single'], ms_per_sweep_mesh=ms['mesh'])
+        del fits, Xd, Md
+    return {key: mk.LAUNCHES[key] - b0[key] for key in b0}
+
+
+def run_fixed_t_max_resid_phase(dev, mk, nmf):
+    """Phase 28, §C.2: a fixed-T dense-mask fit with
+    ``'max_resid_document'`` resets and a dead topic on one device runs
+    B4 alone, k times a sweep (the resets included), on the card, and
+    picks the CPU's reset documents (float32 card, float64 CPU). Returns
+    its B4 launches."""
+    nu, ni, q, km = MASKED_SMALL
+    R = synth_ratings(nu, ni, q, 4, seed=2)
+    M = (R != 0).astype(float)
+    rng = np.random.RandomState(7)
+    T0 = rng.rand(km, ni)
+    T0 /= T0.sum(1, keepdims=True)
+    T0[2] = 0.0
+    b0 = dict(mk.LAUNCHES)
+    sweeps = []
+
+    def fixed_t_fit(where):
+        dt = torch.float32 if where.type == 'cuda' else torch.float64
+
+        def t(a):
+            return torch.as_tensor(a, device=where, dtype=dt)
+        out = nmf(t(R), km, W_mat=t(M), T_in=t(T0), fix_T=True,
+                  reset_topic_method='max_resid_document', max_iter=SWEEPS,
+                  compute_obj_each_iter=True, t_row_sum=1.0, random_state=0)
+        sweeps.append(len(out['obj_history']))
+        if out['n_resets_remaining'] >= 23:
+            raise AssertionError('fixed-T max_resid_document: no reset fired')
+        return out
+    _card_vs_cpu('masked fixed-T nmf %dx%d k=%d max_resid_document (B4)'
+                 % (nu, ni, km), fixed_t_fit, dev)
+    got = {key: mk.LAUNCHES[key] - b0[key] for key in b0}
+    if dev.type == 'cuda' and got != {'phase_a': 0,
+                                      'phase_b': km * sweeps[0]}:
+        raise AssertionError('fixed-T max_resid_document: launches %r for '
+                             '%d sweeps of k=%d' % (got, sweeps[0], km))
+    log('fixed-T max_resid_document launches', **got)
+    return got
+
+
+def run_masked_mesh_ranks_phase(dev, nmf):
+    """Phase 28 (b): MESH_RANKS ranks on a MASKED_MESH_SHAPE mesh fitting
+    :func:`masked_mesh_problems`, held against the single-device card
+    fits. Returns the ranks' B3 and B4 launches."""
+    spec = dict(phase=28, device=str(dev), mesh=list(MASKED_MESH_SHAPE),
+                rs=list(RS_SHAPE), sweeps=MASKED_MESH_SWEEPS)
+    k = RS_SHAPE[3]
+    want, ranks, wall = run_ranks(spec, dev, nmf)
+    total = check_rank_fits(28, want, ranks, lambda name, sweeps: (
+        {'phase_a': 0, 'phase_b': 0} if name.startswith('store')
+        else {'phase_a': 0, 'phase_b': k * sweeps} if name.startswith('fix')
+        else {'phase_a': k * sweeps, 'phase_b': k * sweeps}))
+    total = {key: total.get(key, 0) for key in ('phase_a', 'phase_b')}
+    log('masked mesh ranks phase', ranks=MESH_RANKS, wall_s=wall, **total)
+    return total
+
+
+def run_sparse_mesh_one_rank_phase(dev, sk, nmf, mesh):
+    """Phase 29 (a): on the one-rank world's (1, 1) ``mesh``, ``'mxu'`` at
+    SPARSE_SHAPE (phase 9's matrix, a float32 CSR tensor): W, T and
+    ``obj_history`` bit for bit the single-device fit, 2 gather launches a
+    sweep in each; ms/sweep of both in turns. Returns the phase's gather
+    launches."""
+    n, d, dens, k = SPARSE_SHAPE
+    X = sparse_csr(n, d, dens, dev, seed=0)
+    # a warm start: the card's NNDSVD of a CSR X (cuSPARSE and cuSOLVER
+    # underneath) need not repeat bit for bit from one call to the next
+    rng = np.random.RandomState(MESH_SEED)
+    kw = dict(max_iter=SPARSE_MESH_SWEEPS, compute_obj_each_iter=True,
+              random_state=0, sparse='mxu', W_in=rng.rand(n, k),
+              T_in=rng.rand(k, d), **FAST_TM)
+    b0 = sk.LAUNCHES['mxu']
+    fits, counts = [], []
+    for m in (None, mesh):
+        c0 = sk.LAUNCHES['mxu']
+        fits.append(nmf(X, k, mesh=m, **kw))
+        sync(dev)
+        counts.append(sk.LAUNCHES['mxu'] - c0)
+    sweeps = len(fits[1]['obj_history'])
+    same = _bit_for_bit(*fits)
+    if not same or counts != [2 * sweeps, 2 * sweeps]:
+        raise AssertionError("one-rank sparse='mxu' mesh fit: bit for bit "
+                             '%s, gather launches %r for %d sweeps'
+                             % (same, counts, sweeps))
+    cont = dict(kw, max_iter=5, compute_obj_each_iter=False,
+                W_in=fits[0]['W'], T_in=fits[0]['T'])
+    ms = in_turns_ms(lambda m: nmf(X, k, mesh=m, **cont), mesh, dev)
+    log("sparse mesh one-rank %s world (1, 1) %dx%d %.1f%% k=%d 'mxu' "
+        'float32' % (mesh.backend, n, d, 100 * dens, k), sweeps=sweeps,
+        bit_for_bit=same, gather_launches=counts[1],
+        gather_launches_single=counts[0],
+        obj_last=fits[1]['obj_history'][-1],
+        ms_per_sweep_single=ms['single'], ms_per_sweep_mesh=ms['mesh'])
+    return sk.LAUNCHES['mxu'] - b0
+
+
+def run_sparse_mesh_ranks_phase(dev, nmf):
+    """Phase 29 (b): MESH_RANKS ranks fitting :func:`sparse_mesh_problems`,
+    held against the single-device card fits. Returns the ranks' B1, B2
+    and gather launches."""
+    spec = dict(phase=29, device=str(dev), sparse=list(SPARSE_SHAPE),
+                sweeps=SPARSE_MESH_SWEEPS)
+    want, ranks, wall = run_ranks(spec, dev, nmf)
+
+    def expect(name, sweeps):
+        gather = 2 * sweeps if name.startswith('mxu') else 0
+        if ' TM ' in name:
+            return {'gs': sweeps, 'tm_proj': sweeps, 'mxu': gather}
+        return {'gs': 2 * sweeps, 'tm_proj': 0, 'mxu': gather}
+    total = check_rank_fits(29, want, ranks, expect)
+    total = {key: total.get(key, 0) for key in ('gs', 'tm_proj', 'mxu')}
+    log('sparse mesh ranks phase', ranks=MESH_RANKS, wall_s=wall, **total)
     return total
 
 

@@ -19,7 +19,7 @@ the JAX ``nmf()`` routes it (``rri_nmf_tpu/nmf.py:1489-1596``):
   kernel sweep, checked once after the sweep, and the plain
   Gram-blocked sweep only when a topic died with budget left;
 - masked WRRI with a dense ``W_mat`` and no resets (or ``fix_T`` with
-  ``'random'``) through
+  either reset) through
   :func:`rri_nmf_tpu_torch.ops.masked_kernels.make_masked_sweep`
   (kernels B3 and B4), in the interleaved order;
 - masked WRRI with a sparse ``W_mat`` (scipy, or a torch sparse tensor)
@@ -48,7 +48,11 @@ On a mesh (``mesh=``, :mod:`rri_nmf_tpu_torch.parallel`) every rank of a
 ``torch.distributed`` world passes the whole X and fits its own block: the
 phase recipe through
 :func:`rri_nmf_tpu_torch.parallel.sharded_dense.make_sharded_dense_sweep`
-(B1 and B2 on each rank's block), the rest through the plain sweep and
+(B1 and B2 on each rank's block), a dense mask through
+:func:`rri_nmf_tpu_torch.parallel.sharded_masked.
+make_sharded_masked_sweep` (B3 and B4), a sparse X through
+:mod:`rri_nmf_tpu_torch.parallel.sparse_mesh` (each rank's block of
+nonzeros), the rest through the plain sweep and
 :class:`~rri_nmf_tpu_torch.ops.dense_kernels.DenseResetSweep` with their
 collectives.
 
@@ -106,6 +110,11 @@ from rri_nmf_tpu_torch.ops.sweep_sparse import (TorchSparseX,
                                                 make_sparse_sweep)
 from rri_nmf_tpu_torch.parallel.mesh import Mesh
 from rri_nmf_tpu_torch.parallel.sharded_dense import make_sharded_dense_sweep
+from rri_nmf_tpu_torch.parallel.sharded_masked import (
+    make_sharded_masked_sweep, supports_sharded_masked)
+from rri_nmf_tpu_torch.parallel.sparse_mesh import (
+    make_sharded_mxu_sweep, make_sharded_sparse_objective,
+    make_sharded_sparse_sweep, partition_coo, partition_mxu)
 
 # logger levels follow the reference convention (nmf.py:36-48):
 # INFO — per-iteration summaries; DEBUG — objective deltas (forces
@@ -229,9 +238,11 @@ class TrueObjComputer(object):
         if self._fn is None and self.masked_sparse:
             self._fn = self._masked_sparse_fn()
         if self._fn is None and self.sparse:
-            self._fn = make_sparse_objective(
-                reg_w_l2=self.reg_w_l2, reg_t_l2=self.reg_t_l2,
-                reg_w_l1=self.reg_w_l1, reg_t_l1=self.reg_t_l1)
+            regs = dict(reg_w_l2=self.reg_w_l2, reg_t_l2=self.reg_t_l2,
+                        reg_w_l1=self.reg_w_l1, reg_t_l1=self.reg_t_l1)
+            self._fn = (make_sparse_objective(**regs) if self.mesh is None
+                        else make_sharded_sparse_objective(self.mesh,
+                                                           **regs))
         if isinstance(self.X, tuple) and self.X[0] == 'quantized_x':
             self.X = QuantizedX(self.X[1].to(self.W.device),
                                 self.X[2].to(self.W.device))
@@ -302,8 +313,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
       package's 10-sweep fixed-T W refit on the unscaled X, whose
       objectives and stamps extend ``obj_history`` and
       ``iter_cputime``. ``accel='her'`` with ``accel_opts`` wraps the
-      sweep that runs (see **HER** below). ``mesh`` takes a dense fit
-      onto a ``torch.distributed`` mesh (see **Meshes** below).
+      sweep that runs (see **HER** below). ``mesh`` takes a fit onto a
+      ``torch.distributed`` mesh (see **Meshes** below).
     - **Storage** (``x_dtype``, ``dtype``) as in the JAX package:
       ``x_dtype='bfloat16'`` stores X in 16 bits beside the factors'
       dtype; ``x_dtype='int16'`` (or a QuantizedX as X) stores it as the
@@ -393,9 +404,17 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
       ``obj_history`` on every rank. A checkpoint holds the whole factors,
       written by the first rank once every rank has gathered them, so a
       single-device checkpoint resumes on a mesh and the other way round.
-      Not ported yet, raising ``NotImplementedError``: a masked fit (dense
-      ``W_mat``, A.12c), a sparse fit (A.12d), a sparse mask (A.12e) and
-      ``store_gradients`` (A.12g) on a mesh.
+      A dense ``W_mat`` is split like X, and runs B3/B4 on each rank's
+      block where the kernels' mesh gate passes
+      (:func:`~rri_nmf_tpu_torch.parallel.sharded_masked.
+      supports_sharded_masked`), else the plain masked sweep with its
+      collectives. ``store_gradients`` returns the whole stores on every
+      rank. A sparse X is split into each rank's block of nonzeros
+      (``sparse=True``, ``'mxu'`` and ``'auto'``, which engages as JAX's
+      does and never densifies on a mesh); ``'dma'`` and, with ``tp > 1``,
+      a T-row sum constraint raise JAX's ``ValueError``. A sparse mask on
+      a mesh is not ported yet and raises ``NotImplementedError``
+      (A.12e).
     - **Callbacks** (``diagnostics``, a callable ``early_stop``) receive
       ``(X, W, T)``: W and T as tensors on the fit's device, a sparse X
       (and any X of a sparse-mask fit) as the user passed it, a dense X
@@ -457,6 +476,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         if sparse == 'mxu':
             gram_backend = 'mxu'
             sparse = 'auto'
+    if mesh is not None:
+        if not isinstance(mesh, Mesh):
+            raise TypeError('mesh must be a rri_nmf_tpu_torch.parallel.Mesh '
+                            '(parallel.make_mesh), got %r' % (mesh,))
+        mesh.member()
     # With T fixed only the W-phase runs, so both orders are the same
     # computation (the JAX nmf()'s rule) — take the phase path.
     if fix_T and not fix_W and not masked and update_order == 'interleaved':
@@ -466,18 +490,31 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     X_is_sparse = is_sparse(X)
     _viable = (W_mat is None and w_row is None and not store_gradients
                and not (eps_gauss_t and delta_gauss_t))
+    # a sparse mesh (parallel/sparse_mesh.py): a T-row sum constraint
+    # projects a whole T row, so it needs the columns unsplit (tp == 1)
+    _mesh_sp_ok = (mesh is None or mesh.shape[1] == 1
+                   or not (project_T_each_iter and t_row_sum))
     sparse_mode = False
     backend = None
     if sparse in ('mxu', 'dma'):
         if not X_is_sparse:
             raise ValueError('sparse=%r requires a scipy-sparse or torch '
                              'sparse X' % (sparse,))
+        if sparse == 'dma' and mesh is not None:
+            raise ValueError("sparse='dma' is single-device; use "
+                             "sparse='mxu' with a mesh")
         backend = sparse
     if sparse is True or backend is not None:
         if not _viable:
             raise ValueError(
                 'sparse=True requires: no W_mat, no w_row, no '
                 'store_gradients, no DP noise')
+        if not _mesh_sp_ok:
+            raise ValueError(
+                'sparse=True with a column-sharded mesh (tp > 1) does not '
+                'support project_T_each_iter with t_row_sum (the T-row '
+                'simplex projection needs the row device-local); use a '
+                '(n_devices, 1) mesh')
         sparse_mode = True
         if update_order != 'phase':
             logger.info('sparse mode uses the phase update order')
@@ -489,21 +526,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     elif sparse == 'auto' and X_is_sparse:
         # only when the settings already match the sparse sweep: no silent
         # change of semantics against densify-and-proceed
-        sparse_mode = (_viable and update_order == 'phase'
+        sparse_mode = (_viable and _mesh_sp_ok and update_order == 'phase'
                        and reset_topic_method is None and x_dtype is None)
-
-    # ---- options not ported yet -----------------------------------------
-    if mesh is not None:
-        if sparse_mode:
-            _not_yet('a sparse fit on a mesh', 'A.12d')
-        if masked:
-            _not_yet('a masked fit on a mesh', 'A.12c')
-        if store_gradients:
-            _not_yet('store_gradients on a mesh', 'A.12g')
-        if not isinstance(mesh, Mesh):
-            raise TypeError('mesh must be a rri_nmf_tpu_torch.parallel.Mesh '
-                            '(parallel.make_mesh), got %r' % (mesh,))
-        mesh.member()
 
     # ---- X and its dtypes -------------------------------------------------
     # callbacks receive a sparse X as the user passed it
@@ -574,10 +598,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         X = X.to(device)
     if sparse_mode and backend is None:
         backend = 'torch'
-        if sparse == 'auto' and device.type == 'cuda':
+        if sparse == 'auto' and device.type == 'cuda' and mesh is None:
             # the JAX package's policy (reference nmf.py:1343-1374):
             # densify on the card when the dense form fits, else the B5
-            # chunk-plan contractions
+            # chunk-plan contractions; a mesh keeps the nonzeros, each
+            # rank its block
             budget = 0.45 * torch.cuda.mem_get_info(device)[1]
             dense_bytes = n * d * dtype.itemsize
             if dense_bytes <= budget:
@@ -592,7 +617,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                             'contractions', dense_bytes / 1e9)
                 backend = 'mxu'
     X_dev = None    # masked_sparse: planned below, after the initialization
-    if sparse_mode:
+    if sparse_mode and mesh is not None:
+        # this rank's block of nonzeros, in local indices
+        X_dev = (partition_mxu(X, mesh, dtype, device) if backend == 'mxu'
+                 else partition_coo(X, mesh, dtype, device))
+    elif sparse_mode:
         X_dev = (plan_sparse_matrix_dma(X, dtype, device=device)
                  if backend == 'dma' else
                  plan_sparse_matrix(X, dtype, device=device)
@@ -763,7 +792,10 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                 'splitting it in uneven blocks (the first n %% dp rows and '
                 'd %% tp columns one longer): the numbers of an aligned '
                 'split', n, d, *mesh.shape)
-        X_dev = mesh.block(X_dev, split)
+        if not sparse_mode:          # a sparse X_dev is the block already
+            X_dev = mesh.block(X_dev, split)
+        if Wm is not None:
+            Wm = mesh.block(Wm, split)
         W = mesh.block(W, split, cols=False)
         T = mesh.block(T, split, rows=False)
         if w_row_sum_is_vector:
@@ -841,8 +873,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             'the CUDA kernels do not fit this problem (k=%d, d=%d, %s): see '
             'dense_kernels.gs_fits / tm_proj_fits; use_pallas=False takes '
             'the plain sweep' % (k, d, dtype))
-    if use_pallas is True and not sparse_mode and not dense_ok and not (
-            masked and supports_masked_kernels(cfg)):
+    # B3/B4 cover a dense mask by their gate: on a mesh the sharded one
+    masked_ok = (supports_masked_kernels(cfg) if mesh is None
+                 else supports_sharded_masked(cfg))
+    if use_pallas is True and not sparse_mode and not dense_ok and \
+            not masked_ok:
         logger.warning('use_pallas requested but config unsupported by the '
                        'kernels; falling back to the plain sweep.')
     if masked_sparse:
@@ -866,19 +901,20 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                                              *extras)
             return W, T
     elif sparse_mode:
-        sparse_sweep = make_sparse_sweep(cfg, backend)
+        sparse_sweep = (make_sparse_sweep(cfg, backend) if mesh is None
+                        else make_sharded_mxu_sweep(cfg, mesh)
+                        if backend == 'mxu'
+                        else make_sharded_sparse_sweep(cfg, mesh))
 
         def sweep_fn(X, W, T):
             return sparse_sweep(X, W, T, wrs)
-    elif (masked and use_pallas is not False and supports_masked_kernels(cfg)
-          and reset_topic_method != 'max_resid_document'
+    elif (masked_ok and use_pallas is not False
           and not (use_pallas is None and dtype in NARROW)):
-        # B3/B4. A fixed-T fit with 'max_resid_document' takes the plain
-        # masked sweep, where the JAX package takes its Pallas sweep: the
-        # same math (ROADMAP §C). 16-bit factors take the plain masked
-        # sweep unless use_pallas asks for the kernels (the JAX rule,
-        # reference nmf.py:1489-1499)
-        masked_sweep = make_masked_sweep(cfg)
+        # B3/B4 (each rank's block on a mesh). 16-bit factors take the
+        # plain masked sweep unless use_pallas asks for the kernels (the
+        # JAX rule, reference nmf.py:1489-1499)
+        masked_sweep = (make_masked_sweep(cfg) if mesh is None
+                        else make_sharded_masked_sweep(cfg, mesh))
 
         def sweep_fn(X, W, T):
             nonlocal resets_left
@@ -1038,7 +1074,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         X_obj = X_dev
         if sparse_mode:
             X_obj = (X_dev.coo if backend == 'torch'
-                     else to_torch_sparse(X, dtype, device))
+                     else to_torch_sparse(X, dtype, device) if mesh is None
+                     else partition_coo(X, mesh, dtype, device).coo)
         OBJ = TrueObjComputer(X_obj, W, T, reg_w_l1=reg_w_l1,
                               reg_t_l2=reg_t_l2, reg_w_l2=reg_w_l2,
                               reg_t_l1=reg_t_l1, Wm=Wm,

@@ -73,18 +73,14 @@ def make_residual_obj(cfg, block_rows=4096, distributed=None):
     before it covered.
 
     ``distributed`` (default: whether ``cfg.mesh`` is set) is the mesh
-    form: X, W and T are this rank's blocks, each summed blockwise as
-    above, and the sums are all-reduced over the mesh
+    form: X, W, T (and M, split like X) are this rank's blocks, each
+    summed blockwise as above, and the sums are all-reduced over the mesh
     (:func:`~rri_nmf_tpu_torch.ops.sweep.mesh_sums`), so every rank gets
     the same value; nothing larger than a block is formed."""
     if distributed is None:
         distributed = cfg.mesh is not None
     if distributed and cfg.mesh is None:
         raise ValueError('the distributed objective needs cfg.mesh')
-    if distributed and cfg.masked:
-        raise NotImplementedError(
-            'a masked fit on a mesh is not ported to rri_nmf_tpu_torch yet; '
-            'it arrives with ROADMAP A.12c')
     mesh = cfg.mesh if distributed else None
 
     def obj(X, W, T, M=None):

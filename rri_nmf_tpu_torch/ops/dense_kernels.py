@@ -317,11 +317,13 @@ def make_dense_phase_sweep(cfg, wtx=_dense_wtx, xtt=_dense_xtt):
     mesh = cfg.mesh
     where = []      # the Split of the X the sweep last ran on (a mesh)
 
-    def split_of(X):
-        key = ((X.q if isinstance(X, QuantizedX) else X).data_ptr(),
+    def split_of(X, device):
+        # a dense block by its storage, a sparse block or plan by itself
+        key = ((X.q if isinstance(X, QuantizedX) else X).data_ptr()
+               if isinstance(X, (torch.Tensor, QuantizedX)) else id(X),
                tuple(X.shape))
         if not where or where[0] != key:
-            where[:] = [key, mesh.locate(*X.shape, X.device)]
+            where[:] = [key, mesh.locate(*X.shape, device)]
         return where[1]
 
     # upper bounds of the concave qf branch (reference semantics: the
@@ -345,7 +347,7 @@ def make_dense_phase_sweep(cfg, wtx=_dense_wtx, xtt=_dense_xtt):
                 if _tm_proj_active(cfg) and mesh is not None:
                     # B2 on the whole panel, gathered over tp (exactly:
                     # a 16-bit T through its float32 work dtype)
-                    split = split_of(X)
+                    split = split_of(X, W.device)
                     Tg = mesh.gather_cols(T.to(acc), split).to(T.dtype)
                     T = mesh.own_cols(tm_proj_update(
                         G, mesh.gather_cols(WX, split), Tg.contiguous(),

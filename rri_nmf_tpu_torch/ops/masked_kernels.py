@@ -37,6 +37,13 @@ Unlike the TPU kernels nothing is padded, so the ``row_ok``/``col_ok``
 masks and ``_pick_tiles`` have no counterpart: no coordinate outside
 (n, d) exists, so a negative L1 regularizer cannot give phantom mass to
 one.
+
+**On a mesh** (``cfg.mesh``; :mod:`rri_nmf_tpu_torch.parallel.
+sharded_masked`) the same topic loop runs on this rank's blocks of X, M
+and R: B3's two (d_loc,) sums are summed over ``dp`` and B4's two
+(n_loc,) sums over ``tp``, each pair in one all-reduce, and the T solve's
+l1 norm over ``tp`` where it is read. The rank-one residual updates stay
+local.
 """
 
 import functools
@@ -45,7 +52,8 @@ import torch
 
 from rri_nmf_tpu_torch.matrixops import (_proj_simplex_core,
                                          reproject_row_if_drifted)
-from rri_nmf_tpu_torch.optimization import qf_min_vector_c
+from rri_nmf_tpu_torch.optimization import (qf_min_vector_c,
+                                            qf_min_vector_c_sharded)
 from rri_nmf_tpu_torch.ops._build import check_operands, launch
 from rri_nmf_tpu_torch.ops.quantized import work_dtype
 from rri_nmf_tpu_torch.ops.sweep import make_reset_rowcol, precision_scope
@@ -214,12 +222,30 @@ def make_masked_sweep(cfg):
     (:class:`rri_nmf_tpu_torch.ops.sweep.GeneratorDraws`) gives the
     random numbers of the resets of a fixed-T sweep and ``resets_left``
     (an int) their remaining budget. ``w_row_sum_vec``
-    (n,) is the per-row W bound when ``cfg.w_row_sum_is_vector``."""
-    if not supports_masked_kernels(cfg):
+    (n,) is the per-row W bound when ``cfg.w_row_sum_is_vector``.
+
+    With ``cfg.mesh`` the arrays are this rank's blocks and the config
+    one that :func:`rri_nmf_tpu_torch.parallel.sharded_masked.
+    supports_sharded_masked` accepts (see the module docstring)."""
+    mesh = cfg.mesh
+    if mesh is None:
+        ok = supports_masked_kernels(cfg)
+    else:
+        from rri_nmf_tpu_torch.parallel.sharded_masked import \
+            supports_sharded_masked
+        ok = supports_sharded_masked(cfg)
+    if not ok:
         raise ValueError('config not supported by the masked kernels')
     k = cfg.k
     reset_fn = (make_reset_rowcol(cfg)
                 if cfg.reset_topic_method is not None else None)
+    # the collectives (an axis of one rank makes none; no mesh, no call);
+    # the T solve's norm is summed only where the rescale or the scale
+    # transfer reads it
+    sum_dp = mesh.sum_dp if mesh is not None else None
+    sum_tp = mesh.sum_tp if mesh is not None else None
+    t_total = (sum_tp if cfg.scale_transfer or cfg.t_update_s is not None
+               else None)
 
     def sweep(X, W, T, M, draws, resets_left, w_row_sum_vec=None):
         n, d = X.shape
@@ -236,11 +262,11 @@ def make_masked_sweep(cfg):
         pend_dw = torch.zeros(n, dtype=dtype, device=X.device)
         pend_t = torch.zeros(d, dtype=dtype, device=X.device)
         # the kernels' outputs, written anew by every topic (each topic
-        # reads them before the next launch, and keeps nothing of them)
-        a_out = (torch.empty(d, dtype=acc, device=X.device),
-                 torch.empty(d, dtype=acc, device=X.device))
-        b_out = (torch.empty(n, dtype=acc, device=X.device),
-                 torch.empty(n, dtype=acc, device=X.device))
+        # reads them before the next launch, and keeps nothing of them);
+        # each phase's pair is one buffer, so one all-reduce sums both
+        a_buf = torch.empty(2, d, dtype=acc, device=X.device)
+        b_buf = torch.empty(2, n, dtype=acc, device=X.device)
+        a_out, b_out = a_buf.unbind(0), b_buf.unbind(0)
 
         for t in range(k):
             w = cols[t]
@@ -249,16 +275,20 @@ def make_masked_sweep(cfg):
                 # update (w_eff = 0 leaves the T side alone)
                 Rt0, mt2 = phase_b(R, M, pend_dw, torch.zeros_like(w),
                                    pend_t, rows[t], out=b_out)
+                if sum_tp is not None:
+                    sum_tp(b_buf)
                 w_eff = w
             else:
                 # ---- T-phase: one pass (pending update + reductions)
                 wR0, nw = phase_a(R, M, pend_dw, pend_t, w, out=a_out)
+                if sum_dp is not None:
+                    sum_dp(a_buf)
                 wR = torch.addcmul(wR0, rows[t].to(acc), nw)  # rank-one
                 # restore
-                t_new, nt1 = qf_min_vector_c(
+                t_new, nt1 = qf_min_vector_c_sharded(
                     cfg.reg_t_l1 - wR,
                     nw + cfg.reg_t_l2 if cfg.reg_t_l2 else nw,
-                    s=cfg.t_update_s, ub=cfg.t_row_sum)
+                    s=cfg.t_update_s, ub=cfg.t_row_sum, total=t_total)
                 t_old = rows[t]
                 # scale transfer: the reference's W[:, t] *= nt1 is
                 # overwritten by the W-phase below, so only the residual
@@ -273,6 +303,8 @@ def make_masked_sweep(cfg):
                 # stored row, so R tracks T exactly
                 Rt0, mt2 = phase_b(R, M, w, w_eff, t_old, t_new,
                                    out=b_out)
+                if sum_tp is not None:
+                    sum_tp(b_buf)
             Rt = torch.addcmul(Rt0, w_eff.to(acc), mt2)  # rank-one restore
             w_new, _ = qf_min_vector_c(
                 cfg.reg_w_l1 - Rt, mt2 + cfg.reg_w_l2 if cfg.reg_w_l2
@@ -285,8 +317,10 @@ def make_masked_sweep(cfg):
 
             if (reset_fn is not None and resets_left > 0
                     and not bool(w_new.sum() > 1e-10)):
-                # a dead column (fixed-T sweeps only): reset it, rebuild R
-                # and drop the deferred update, as the JAX sweep does
+                # a dead column (fixed-T sweeps only): reset it on the
+                # unmasked X, W and T (JAX's reset_fn(Xp[:n, :d], ...)),
+                # rebuild R and drop the deferred update, as the JAX sweep
+                # does
                 rows[t], cols[t] = reset_fn(X, torch.stack(cols, 1),
                                             torch.stack(rows), t, draws)
                 resets_left -= 1
@@ -296,7 +330,8 @@ def make_masked_sweep(cfg):
                 pend_t = torch.zeros_like(pend_t)
 
         W = torch.stack(cols, 1)
-        # per-iteration W row projection (reference nmf.py:481-484)
+        # per-iteration W row projection (reference nmf.py:481-484); W's
+        # rows are this rank's own on a mesh
         if (cfg.project_W_each_iter
                 and (cfg.w_row_sum is not None or cfg.w_row_sum_is_vector)):
             W = _proj_simplex_core(W, ub_w)

@@ -271,6 +271,10 @@ class SparseMXUPlan(object):
         self.d = int(d)
         self.group = int(group)
 
+    @property
+    def shape(self):
+        return (self.n, self.d)
+
     def to(self, device):
         return SparseMXUPlan(self.t_phase.to(device), self.w_phase.to(device),
                              self.n, self.d, self.group)

@@ -67,7 +67,8 @@ from rri_nmf_tpu_torch.ops.quantized import (QuantizedX, dequantize_x,
                                              qx_row_block, work_dtype, xmm)
 from rri_nmf_tpu_torch.optimization import (qf_min_scalar_c,
                                             qf_min_scalar_free,
-                                            qf_min_vector_c)
+                                            qf_min_vector_c,
+                                            qf_min_vector_c_sharded)
 
 logger = logging.getLogger(__name__)
 
@@ -201,13 +202,9 @@ def make_objective(masked=False, row_weighted=False, reg_w_l2=0.0,
     QuantizedX`: dequantized a row block at a time (whole without
     ``block_rows``).
 
-    With ``mesh`` (unmasked) X, W, T and ``wr`` are this rank's blocks,
-    and the sums are taken over the mesh (:func:`mesh_sums`); every rank
-    of the mesh calls the objective and gets the same value."""
-    if mesh is not None and masked:
-        raise NotImplementedError(
-            'a masked fit on a mesh is not ported to rri_nmf_tpu_torch yet; '
-            'it arrives with ROADMAP A.12c')
+    With ``mesh`` X, W, T, ``M`` and ``wr`` are this rank's blocks, and
+    the sums are taken over the mesh (:func:`mesh_sums`); every rank of
+    the mesh calls the objective and gets the same value."""
 
     def _res_sq(acc, X, W, T, M, wr):
         R = (X.to(acc) - W.to(acc) @ T.to(acc)) ** 2
@@ -497,10 +494,15 @@ class Sweep(object):
     only when a topic died with budget left. On the card the speculative
     sweep replays as one CUDA graph (:meth:`replay`).
 
-    On a mesh (``cfg.mesh``) the arrays are this rank's blocks (and the
-    ``w_row_sum`` vector its rows); every rank of the mesh calls the sweep
-    with the same ``draws`` and budget. Gradient stores do not run on a
-    mesh yet."""
+    On a mesh (``cfg.mesh``) the arrays are this rank's blocks (the mask
+    split like X, the ``w_row_sum`` vector as W's rows); every rank of the
+    mesh calls the sweep with the same ``draws`` and budget. The masked
+    sums over rows (``wᵀR``, ``(w²)ᵀM``) all-reduce over ``dp`` and those
+    over columns (``R·t``, ``M·t²``) over ``tp``, each pair in one
+    all-reduce. Gradient stores come back whole on every rank: the
+    numerators (and a masked fit's denominators) gathered over ``tp``; a
+    selected row belongs to one ``dp`` rank, and its sums are summed over
+    ``dp``."""
 
     def __init__(self, cfg):
         method = cfg.reset_topic_method
@@ -514,12 +516,6 @@ class Sweep(object):
         self.cfg = cfg
         self.reset_rowcol = (make_reset_rowcol(cfg) if method is not None
                              else None)
-        if cfg.mesh is not None and (cfg.masked or cfg.store_gradients):
-            raise NotImplementedError(
-                '%s on a mesh is not ported to rri_nmf_tpu_torch yet; it '
-                'arrives with ROADMAP %s'
-                % (('a masked fit', 'A.12c') if cfg.masked else
-                   ('store_gradients', 'A.12g')))
         self.random = method == 'random' or cfg.dp_sigma is not None
         # a speculative sweep that draws nothing, copies nothing to the
         # device and makes no collective a graph cannot capture replays as
@@ -639,7 +635,6 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras,
     if cfg.w_row_sum_is_vector:
         wrs = extras[i].reshape(-1)
     ub_w = wrs if cfg.w_row_sum_is_vector else cfg.w_row_sum
-    qf = qf_min_vector_c if cfg.masked else qf_min_scalar_c
     l1t, l2t, l1w, l2w = (cfg.reg_t_l1, cfg.reg_t_l2, cfg.reg_w_l1,
                           cfg.reg_w_l2)
     n, d = X.shape
@@ -683,6 +678,9 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras,
         if cfg.store_rows is not None:
             rows = torch.as_tensor(list(cfg.store_rows), dtype=torch.long,
                                    device=dev)
+            if mesh is not None:
+                # the selected rows this rank owns, in its local indices
+                rows = rows[(rows >= split.r0) & (rows < split.r1)] - split.r0
             X_rows = X[rows].to(dtype)
             M_rows = W_mat[rows] if cfg.masked else None
 
@@ -727,11 +725,13 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras,
             Rt_rows = R[rows] + M_rows * torch.outer(ws, T[t])
             wR_s = ws @ Rt_rows
             nw_s = (ws * ws) @ M_rows
+            if mesh is not None:
+                wR_s, nw_s = sum_dp(torch.stack([wR_s, nw_s])).unbind(0)
         else:
-            wWs = Wt[:, rows] @ ws
+            wWs = sum_dp(Wt[:, rows] @ ws)
             wWs[t].zero_()
-            wR_s = ws @ X_rows - wWs @ T
-            nw_s = (ws * ws).sum()
+            wR_s = sum_dp(ws @ X_rows) - wWs @ T
+            nw_s = sum_dp((ws * ws).sum())
         numer_store[t] = wR_s
         denom_store[t] = nw_s
 
@@ -745,7 +745,10 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras,
             if cfg.masked:
                 w = Wt[t].clone()
                 nw = (w * w) @ W_mat                               # (d,)
-                wR = w @ R + T[t] * nw
+                wR = w @ R
+                if mesh is not None:
+                    nw, wR = sum_dp(torch.stack([nw, wR])).unbind(0)
+                wR = wR + T[t] * nw
             else:
                 w = Wt[t]
                 wW = sum_dp(Wt @ w)                                # (k,)
@@ -756,16 +759,24 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras,
                 store(t, w, wR, nw)
             if cfg.dp_sigma is not None:
                 # Gaussian-mechanism noise (reference nmf.py:422-435), the
-                # whole row's draws on a mesh
-                z1, z2 = draws.normal(whole(wR), nw.shape)
+                # whole row's draws on a mesh (a masked nw is a row too)
+                z1, z2 = draws.normal(whole(wR), nw.shape if nw.dim() == 0
+                                      or mesh is None else (split.d,))
                 wR = wR + cfg.dp_sigma * own(z1)
-                nw = (nw + cfg.dp_sigma * z2).clamp_min(0.0)
+                nw = (nw + cfg.dp_sigma * (own(z2) if nw.dim() else z2)
+                      ).clamp_min(0.0)
             numer = wR - l1t if l1t else wR
             denom = nw + l2t if l2t else nw
-            if cfg.masked or cfg.t_update_s is not None:
+            if cfg.masked:
+                # the l1 norm of the whole row (JAX's _qf_min_vector_psum)
+                t_new, nt1 = qf_min_vector_c_sharded(
+                    -numer, denom, s=cfg.t_update_s, ub=cfg.t_row_sum,
+                    total=None if mesh is None else sum_tp)
+            elif cfg.t_update_s is not None:
                 # the simplex projection takes the whole row
-                t_new, nt1 = qf(-whole(numer), denom, s=cfg.t_update_s,
-                                ub=cfg.t_row_sum)
+                t_new, nt1 = qf_min_scalar_c(-whole(numer), denom,
+                                             s=cfg.t_update_s,
+                                             ub=cfg.t_row_sum)
                 t_new = own(t_new)
             elif mesh is None:
                 t_new, nt1 = qf_min_scalar_free(numer, denom, cfg.t_row_sum,
@@ -785,11 +796,12 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras,
                     w_eff = rnd(w * rnd(nt1))
             if cfg.masked and proj_t:
                 # the drift re-projection hoisted before the rank-2
-                # residual update, so R tracks T exactly
-                t_new = reproject_row_if_drifted(
-                    t_new, cfg.t_row_sum,
-                    extra_pred=(t_new.sum() > ALIVE
-                                if method is not None else None))
+                # residual update, so R tracks T exactly (on the whole row)
+                row = whole(t_new)
+                t_new = own(reproject_row_if_drifted(
+                    row, cfg.t_row_sum,
+                    extra_pred=(row.sum() > ALIVE
+                                if method is not None else None)))
             T[t] = rnd(t_new)
             if cfg.masked:
                 # R += M ⊙ (w t_oldᵀ − w_eff t_newᵀ) as one (n,2)×(2,d)
@@ -802,7 +814,10 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras,
             if cfg.masked:
                 w_old = Wt[t].clone()
                 mt2 = W_mat @ (trow * trow)                        # (n,)
-                Rt = R @ trow + w_old * mt2
+                Rt = R @ trow
+                if mesh is not None:
+                    mt2, Rt = sum_tp(torch.stack([mt2, Rt])).unbind(0)
+                Rt = Rt + w_old * mt2
                 nt = mt2
             else:
                 Xt = XTt[t] if XTt is not None else \
@@ -814,7 +829,7 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras,
             numer = Rt - l1w if l1w else Rt
             denom = nt + l2w if l2w else nt
             if cfg.masked:
-                w_new = qf(-numer, denom, s=None, ub=ub_w)[0]
+                w_new = qf_min_vector_c(-numer, denom, s=None, ub=ub_w)[0]
             else:
                 w_new = qf_min_scalar_free(numer, denom, ub_w, zeros_n,
                                            norm=False)
@@ -907,6 +922,10 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras,
     dead = None
     if method is not None and not resets.eager and resets.budget > 0:
         dead = _dead_topics(Wt, T, not cfg.fix_T, not cfg.fix_W, mesh)
+    if stores and mesh is not None:
+        # the whole stores on every rank
+        stores = (whole(numer_store),
+                  whole(denom_store) if cfg.masked else denom_store)
     W = Wt.T.to(out_dtype, memory_format=torch.contiguous_format)
     T = T.to(out_dtype)
     # per-iteration W row projection (reference nmf.py:481-484)

@@ -96,6 +96,16 @@ def qf_min_scalar_c(w, c, s, ub):
 def qf_min_vector_c(w, c, s, ub):
     """qf_min for a per-coordinate curvature ``c`` (WRRI path, reference
     ``optimization.py:75-88``)."""
+    return qf_min_vector_c_sharded(w, c, s, ub, None)
+
+
+def qf_min_vector_c_sharded(w, c, s, ub, total):
+    """:func:`qf_min_vector_c` on one rank's block of a solution split
+    over a mesh axis: ``total`` sums the block's l1 norm over that axis
+    (``Mesh.sum_tp``, say), so the rescale to ``s`` and the returned norm
+    are the whole vector's (:func:`rri_nmf_tpu.parallel.sharded_pallas.
+    _qf_min_vector_psum`). ``total=None`` is the single-device function,
+    bit for bit."""
     ub_eff = _ub_eff(s, ub, w)
     pos = c > 0
     denom_safe = torch.where(pos, c, 1.0) + EPS_DIV_BY_ZERO
@@ -107,6 +117,8 @@ def qf_min_vector_c(w, c, s, ub):
         # be a host-to-device copy, which waits for the stream
         x = x.clamp_max(ub_eff)
     nx = x.sum()
+    if total is not None:
+        nx = total(nx)
     if s is not None:
         x = torch.where(nx > 0, s * x / torch.where(nx > 0, nx, 1.0), x)
     return x, nx

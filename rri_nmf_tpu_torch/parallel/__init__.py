@@ -5,10 +5,14 @@
   ``shard_problem`` and ``make_sharded_training_step`` (the plain sweep
   on a mesh);
 - :mod:`rri_nmf_tpu_torch.parallel.sharded_dense` — the dense phase
-  sweep (kernels B1 and B2) on each rank's block.
+  sweep (kernels B1 and B2) on each rank's block;
+- :mod:`rri_nmf_tpu_torch.parallel.sharded_masked` — the dense-mask
+  sweep (kernels B3 and B4) on each rank's block;
+- :mod:`rri_nmf_tpu_torch.parallel.sparse_mesh` — the sparse-X sweeps
+  (``torch.sparse.mm`` or the gather kernel, then B1/B2) on each rank's
+  block of nonzeros.
 
-The masked, sparse and multi-host mesh forms arrive with ROADMAP
-A.12c-f.
+The sparse-mask and multi-host mesh forms arrive with ROADMAP A.12e-f.
 """
 
 from rri_nmf_tpu_torch.parallel.mesh import (Mesh, make_mesh,
@@ -17,7 +21,16 @@ from rri_nmf_tpu_torch.parallel.mesh import (Mesh, make_mesh,
                                              shard_problem)
 from rri_nmf_tpu_torch.parallel.sharded_dense import (
     make_sharded_dense_sweep, supports_sharded_dense)
+from rri_nmf_tpu_torch.parallel.sharded_masked import (
+    make_sharded_masked_sweep, supports_sharded_masked)
+from rri_nmf_tpu_torch.parallel.sparse_mesh import (
+    make_sharded_mxu_sweep, make_sharded_sparse_objective,
+    make_sharded_sparse_sweep, partition_coo, partition_mxu,
+    supports_sharded_sparse)
 
 __all__ = ['Mesh', 'make_mesh', 'problem_shardings', 'shard_problem',
            'make_sharded_training_step', 'make_sharded_dense_sweep',
-           'supports_sharded_dense']
+           'supports_sharded_dense', 'make_sharded_masked_sweep',
+           'supports_sharded_masked', 'partition_coo', 'partition_mxu',
+           'supports_sharded_sparse', 'make_sharded_sparse_sweep',
+           'make_sharded_mxu_sweep', 'make_sharded_sparse_objective']

@@ -286,31 +286,31 @@ def problem_shardings(mesh, masked=False, w_row_sum_is_vector=False):
 
 def shard_problem(mesh, X, W, T, W_mat=None, w_row_sum_vec=None,
                   device=None):
-    """This rank's blocks of the whole ``X``, ``W``, ``T`` (and
-    ``w_row_sum_vec``), in the order given, as contiguous tensors on
-    ``device`` (default: a tensor's own device, the card for numpy). X
-    may be a :class:`~rri_nmf_tpu_torch.ops.quantized.QuantizedX`."""
-    if W_mat is not None:
-        raise NotImplementedError(
-            'a masked fit on a mesh is not ported to rri_nmf_tpu_torch yet; '
-            'it arrives with ROADMAP A.12c')
+    """This rank's blocks of the whole ``X``, ``W``, ``T`` (and the mask
+    ``W_mat``, split like X, and ``w_row_sum_vec``), in the order given,
+    as contiguous tensors on ``device`` (default: a tensor's own device,
+    the card for numpy). X may be a
+    :class:`~rri_nmf_tpu_torch.ops.quantized.QuantizedX`."""
     if isinstance(X, QuantizedX):
         X = X if device is None else X.to(device)
     else:
         X = as_tensor(X, device=fit_device(X, device))
     split = mesh.split(*X.shape)
     arrays = [X, W, T]
+    if W_mat is not None:
+        arrays.append(W_mat)
     if w_row_sum_vec is not None:
         arrays.append(as_tensor(w_row_sum_vec).reshape(-1, 1))
     out = []
     for A, layout in zip(arrays, problem_shardings(
-            mesh, w_row_sum_is_vector=w_row_sum_vec is not None)):
+            mesh, masked=W_mat is not None,
+            w_row_sum_is_vector=w_row_sum_vec is not None)):
         if not isinstance(A, QuantizedX):
             A = as_tensor(A, device=X.device)
         out.append(mesh.block(A, split, rows=layout.rows is not None,
                               cols=layout.cols is not None))
     if w_row_sum_vec is not None:
-        out[3] = out[3].reshape(-1)
+        out[-1] = out[-1].reshape(-1)
     return tuple(out)
 
 
@@ -323,8 +323,10 @@ def make_sharded_training_step(cfg, mesh, with_objective=True):
         step(X, W, T, draws, resets_left, *extras)
             -> (W, T, resets_left[, numer_store, denom_store][, obj])
 
-    ``extras`` is ``(w_row_sum_vec,)`` (this rank's rows) when
-    ``cfg.w_row_sum_is_vector``; every rank passes the same ``draws``
+    ``extras`` is ``(W_mat,)`` (this rank's block of the mask) when
+    ``cfg.masked``, then ``(w_row_sum_vec,)`` (this rank's rows) when
+    ``cfg.w_row_sum_is_vector``, as :func:`shard_problem` returns them;
+    the objective takes the mask. Every rank passes the same ``draws``
     (one seed). ``cfg.mesh`` is filled in with ``mesh``; a cfg that holds
     another mesh raises ``ValueError``, as in JAX."""
     import dataclasses
@@ -335,10 +337,6 @@ def make_sharded_training_step(cfg, mesh, with_objective=True):
         raise ValueError('cfg.mesh differs from the mesh argument; pass a '
                          'cfg without a mesh (it is filled in here) or the '
                          'same mesh object')
-    if cfg.masked:
-        raise NotImplementedError(
-            'a masked fit on a mesh is not ported to rri_nmf_tpu_torch yet; '
-            'it arrives with ROADMAP A.12c')
     cfg = dataclasses.replace(cfg, mesh=mesh)
     sweep = make_sweep(cfg)
     if not with_objective:
@@ -347,6 +345,7 @@ def make_sharded_training_step(cfg, mesh, with_objective=True):
 
     def step(X, W, T, draws, resets_left, *extras):
         out = sweep(X, W, T, draws, resets_left, *extras)
-        return tuple(out) + (obj_fn(X, out[0], out[1]),)
+        return tuple(out) + (obj_fn(X, out[0], out[1],
+                                    *extras[:int(cfg.masked)]),)
 
     return step

@@ -22,8 +22,10 @@ and ``tests/test_checkpoint.py`` are carried over at their tolerances:
 
 The port's sweep runs B1's plain twin on the CPU where JAX's default
 there is its XLA sweep, so each port fit is also held against the port's
-own single-device fit at the same bound. Masked, sparse and sparse-mask
-fits on a mesh raise ``NotImplementedError`` naming A.12c-e.
+own single-device fit at the same bound. Sparse-mask fits on a mesh
+raise ``NotImplementedError`` naming A.12e; the masked and sparse meshes
+and ``store_gradients`` on a mesh have their own modules
+(``tests/test_torch_sharded_masked.py``, ``test_torch_sparse_mesh.py``).
 """
 
 import numpy as np
@@ -491,28 +493,39 @@ def test_nmf_options_on_a_mesh(pool, case):
                                   'store_gradients', 'not a mesh'])
 def test_deferred_mesh_options_raise(pool, case):
     """The mesh forms still outside the port raise naming their ROADMAP
-    item (the masked A.12c, sparse A.12d, sparse-mask A.12e)."""
+    item (the sparse-mask A.12e), and a mesh that is not a ``Mesh`` raises
+    ``TypeError``. The masked (A.12c), sparse (A.12d) and
+    ``store_gradients`` (A.12g) forms, which raised until they were
+    ported, run: each (2, 1) fit equals the port's single-device fit at
+    1e-11 (tests/test_torch_sharded_masked.py and
+    test_torch_sparse_mesh.py hold them against JAX)."""
     X = _lowrank(20, 15, 2)
     kw = dict(k=2, max_iter=1, update_order='phase', reset_topic_method=None)
     if case == 'not a mesh':
         with pytest.raises(TypeError, match='make_mesh'):
             torch_nmf(X, mesh=object(), device='cpu', **kw)
         return
-    extra, want = {
-        'masked': (dict(W_mat=np.ones((20, 15))),
-                   'NotImplementedError: a masked fit on a mesh.*A.12c'),
-        'sparse': (dict(sparse=True),
-                   'NotImplementedError: a sparse fit on a mesh.*A.12d'),
-        'sparse mask': (dict(W_mat=scipy.sparse.csr_matrix(np.ones((20, 15)))),
-                        'NotImplementedError: a sparse-mask fit on a mesh'
-                        '.*A.12e'),
-        'store_gradients': (dict(store_gradients=True),
-                            'NotImplementedError: store_gradients on a mesh'
-                            '.*A.12g'),
+    extra = {
+        'masked': dict(W_mat=np.ones((20, 15))),
+        'sparse': dict(sparse=True),
+        'sparse mask': dict(W_mat=scipy.sparse.csr_matrix(np.ones((20, 15)))),
+        'store_gradients': dict(store_gradients=True),
     }[case]
-    import re
-    msg = pool.run('refusal', mesh=(2, 1), X=X, kw=dict(kw, **extra))
-    assert msg is not None and re.search(want, msg), msg
+    if case == 'sparse mask':
+        import re
+        msg = pool.run('refusal', mesh=(2, 1), X=X, kw=dict(kw, **extra))
+        want = 'NotImplementedError: a sparse-mask fit on a mesh.*A.12e'
+        assert msg is not None and re.search(want, msg), msg
+        return
+    kw = dict(kw, max_iter=3, random_state=0, compute_obj_each_iter=True,
+              **extra)
+    got = pool.run('fit', mesh=(2, 1), X=X, kw=kw)
+    want = torch_nmf(X, device='cpu', **kw)
+    _same_fit(got, {k: _np(v) for k, v in want.items()}, RESET_TOL)
+    if case == 'store_gradients':
+        for key in ('numer_W', 'denom_W'):
+            for it, v in want[key].items():
+                assert _close(got[key][it], _np(v), RESET_TOL)
 
 
 def test_mesh_objective_calculator_does_not_pickle():

@@ -298,14 +298,17 @@ DEFERRED = {
     # w_row, checkpoint and accel run since ROADMAP A.4 and A.9: their
     # cases hold the fit against JAX's (PORTED_SINCE below)
     'w_row': dict(w_row=np.linspace(0.5, 2.0, 20), **FAST_TM),
-    # sparse fits run on one device; a mesh waits for A.12d (the dense-X
-    # sparse=True fit is held against JAX in test_torch_sparse_tm.py)
+    # sparse fits run on one device and, since A.12d, on a mesh
+    # (tests/test_torch_sparse_mesh.py): a mesh that is not a Mesh meets
+    # the TypeError (the dense-X sparse=True fit is held against JAX in
+    # test_torch_sparse_tm.py)
     'sparse mode': dict(sparse=True, mesh=object(), **FAST_TM),
     'x_dtype': dict(x_dtype='bfloat16', **FAST_TM),
     'bfloat16 factors': dict(dtype=torch.bfloat16, **FAST_TM),
     # a dense fit runs on a mesh since A.12a-b (tests/test_torch_mesh.py,
-    # test_torch_sharded_dense.py hold it against JAX); its masked form
-    # waits for A.12c
+    # test_torch_sharded_dense.py hold it against JAX), and its masked
+    # form since A.12c (test_torch_sharded_masked.py): a mesh that is not
+    # a Mesh meets the TypeError
     'mesh': dict(W_mat=np.ones((20, 15)), mesh=object(), **FAST_TM),
     'checkpoint': dict(checkpoint='ckpt', **FAST_TM),
     'accel': dict(accel='her', **FAST_TM),
@@ -321,7 +324,8 @@ PORTED_SINCE = {'w_row': 'A.4', 'checkpoint': 'A.9', 'accel': 'A.9',
 @pytest.mark.parametrize('case', sorted(DEFERRED))
 def test_options_outside_the_slice_raise(case, tmp_path):
     """Each option still outside the port raises naming its ROADMAP item;
-    one ported since runs and equals the JAX fit."""
+    one ported since runs and equals the JAX fit, and a mesh option
+    ported since meets the TypeError of its non-Mesh ``mesh=object()``."""
     if case in PORTED_SINCE:
         X = _lowrank(20, 15, 2)
         kw = dict(DEFERRED[case], max_iter=4, random_state=0,
@@ -358,10 +362,14 @@ def test_options_outside_the_slice_raise(case, tmp_path):
         else:
             _same_fit(X, 2, **kw)
         return
-    match = {'sparse mode': 'sparse fit on a mesh.*ROADMAP A.12d',
-             'W_mat': 'sparse-mask fit on a mesh.*ROADMAP A.12e',
-             'mesh': 'masked fit on a mesh.*ROADMAP A.12c'}.get(
-                 case, 'ROADMAP A')
+    if case in ('sparse mode', 'mesh'):
+        with pytest.raises(TypeError, match='must be a rri_nmf_tpu_torch'
+                                            '.parallel.Mesh'):
+            torch_nmf(_lowrank(20, 15, 2), 2, max_iter=1, device='cpu',
+                      **DEFERRED[case])
+        return
+    match = {'W_mat': 'sparse-mask fit on a mesh.*ROADMAP A.12e'}.get(
+        case, 'ROADMAP A')
     with pytest.raises(NotImplementedError, match=match):
         torch_nmf(_lowrank(20, 15, 2), 2, max_iter=1, device='cpu',
                   **DEFERRED[case])

@@ -151,7 +151,9 @@ def _dead_column(n, k, col, seed=13):
 
 # masked options of the plain sweep (they raised before it was ported):
 # held against JAX's make_sweep, a reset firing where one is asked for
-# (the 'random' draws injected: jax_draws)
+# (the 'random' draws injected: jax_draws). A fixed-T fit with
+# 'max_resid_document' runs B4 alone, k times a sweep, as JAX's Pallas
+# sweep does (ROADMAP §C.2); the others run no B3/B4
 MASKED_PLAIN_CASES = {
     'use_pallas=False': dict(use_pallas=False, reset_topic_method=None,
                              t_row_sum=1.0),
@@ -178,9 +180,18 @@ def test_masked_plain_sweep_matches_jax(case, monkeypatch):
               random_state=3, **MASKED_PLAIN_CASES[case])
     if 'W_in' in kw and not kw.get('fix_W'):
         kw['T_in'] = np.random.RandomState(17).rand(3, 30)
+    calls = {'phase_a': 0, 'phase_b': 0}
+    for name in calls:
+        def counted(*args, _fn=getattr(mk, name), _name=name, **kw_):
+            calls[_name] += 1
+            return _fn(*args, **kw_)
+        monkeypatch.setattr(mk, name, counted)
     a, b = _same_fit(X, 3, **kw)
     if case in ('max_resid_document', 'random', 'fix_T max_resid_document'):
         assert b['n_resets_remaining'] == a['n_resets_remaining'] < 23
+    b4 = 3 * len(b['obj_history']) if case == 'fix_T max_resid_document' \
+        else 0
+    assert calls == {'phase_a': 0, 'phase_b': b4}
 
 
 def test_masked_options_outside_the_slice():

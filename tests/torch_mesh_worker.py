@@ -75,12 +75,55 @@ def _whole(mesh, split, W, T):
     return (_np(mesh.gather_rows(W, split)), _np(mesh.gather_cols(T, split)))
 
 
+class _Counting(object):
+    """Counts, as launches, this rank's calls of the kernels' wrappers and
+    of the sparse partitions while it is entered: on the CPU the wrappers
+    run their twins, which count nothing themselves. The sweeps look the
+    wrappers up at call time, so wrapping the module attributes is
+    enough."""
+
+    def __init__(self):
+        from rri_nmf_tpu_torch import nmf
+        from rri_nmf_tpu_torch.ops import dense_kernels as dk
+        from rri_nmf_tpu_torch.ops import masked_kernels as mk
+        from rri_nmf_tpu_torch.ops import sparse_kernels as sk
+        self.targets = [(dk, 'gs_update'), (dk, 'tm_proj_update'),
+                        (mk, 'phase_a'), (mk, 'phase_b'),
+                        (sk, 'gather_contract'), (nmf, 'partition_coo'),
+                        (nmf, 'partition_mxu')]
+        self.calls = {name: 0 for _, name in self.targets}
+        self.saved = []
+
+    def __enter__(self):
+        for module, name in self.targets:
+            fn = getattr(module, name)
+            self.saved.append((module, name, fn))
+            setattr(module, name, self._wrap(name, fn))
+        return self.calls
+
+    def _wrap(self, name, fn):
+        def wrapped(*args, **kw):
+            self.calls[name] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
 def case_fit(mesh, X, kw):
     """``nmf(X, mesh=mesh, device='cpu', **kw)``: the whole factors, the
-    history, the budget left and the warnings logged."""
+    history, the budget left, the gradient stores, this rank's kernel
+    calls (:class:`_Counting`) and the warnings logged."""
     from rri_nmf_tpu_torch.nmf import nmf
-    res = nmf(X, mesh=mesh, device='cpu', **kw)
+    with _Counting() as calls:
+        res = nmf(X, mesh=mesh, device='cpu', **kw)
     out = {key: _np(res[key]) for key in ('W', 'T')}
+    out['calls'] = dict(calls)
+    for key in ('numer_W', 'denom_W'):
+        if key in res:
+            out[key] = {it: _np(v) for it, v in res[key].items()}
     out['dtype'] = str(res['W'].dtype)
     out['obj_history'] = list(res.get('obj_history', []))
     out['n_resets_remaining'] = res['n_resets_remaining']
@@ -100,7 +143,7 @@ def case_refusal(mesh, X, kw):
     return None
 
 
-def _blocks(mesh, X, W, T, wrs=None, quantize=False):
+def _blocks(mesh, X, W, T, wrs=None, quantize=False, M=None):
     import torch
 
     from rri_nmf_tpu_torch.ops.quantized import quantize_x
@@ -108,16 +151,19 @@ def _blocks(mesh, X, W, T, wrs=None, quantize=False):
     X = torch.as_tensor(X)
     if quantize:
         X = quantize_x(X, torch.float64)
-    return shard_problem(mesh, X, W, T, w_row_sum_vec=wrs, device='cpu')
+    return shard_problem(mesh, X, W, T, W_mat=M, w_row_sum_vec=wrs,
+                         device='cpu')
 
 
-def case_step(mesh, X, W, T, cfg, sweeps, resets=0, seed=3, wrs=None):
+def case_step(mesh, X, W, T, cfg, sweeps, resets=0, seed=3, wrs=None,
+              M=None):
     """``sweeps`` steps of :func:`make_sharded_training_step` from whole
-    (X, W, T): the whole factors, the objectives and the budget left."""
+    (X, W, T) (and the mask ``M``): the whole factors, the objectives and
+    the budget left."""
     from rri_nmf_tpu_torch.ops.sweep import SweepConfig, make_draws
     from rri_nmf_tpu_torch.parallel import make_sharded_training_step
     step = make_sharded_training_step(SweepConfig(**cfg), mesh)
-    blocks = _blocks(mesh, X, W, T, wrs)
+    blocks = _blocks(mesh, X, W, T, wrs, M=M)
     Xl, Wl, Tl = blocks[:3]
     draws = make_draws(seed, 'cpu')
     objs = []
@@ -156,6 +202,100 @@ def case_dense_sweep(mesh, X, W, T, cfg, sweeps=1, wrs=None, quantize=False):
         dk.gs_update, dk.tm_proj_update = gs, tm
     W, T = _whole(mesh, mesh.split(*X.shape), Wl, Tl)
     return {'W': W, 'T': T, 'calls': calls}
+
+
+def case_masked_sweep(mesh, X, M, W, T, cfg, sweeps=1):
+    """``sweeps`` sweeps of :func:`make_sharded_masked_sweep` from whole
+    (X, M, W, T): the whole factors and the B3/B4 calls this rank made."""
+    from rri_nmf_tpu_torch.ops.sweep import SweepConfig, make_draws
+    from rri_nmf_tpu_torch.parallel import make_sharded_masked_sweep
+    sweep = make_sharded_masked_sweep(SweepConfig(**cfg), mesh)
+    Xl, Wl, Tl, Ml = _blocks(mesh, X, W, T, M=M)
+    draws = make_draws(0, 'cpu')
+    with _Counting() as calls:
+        for _ in range(sweeps):
+            Wl, Tl, _ = sweep(Xl, Wl, Tl, Ml, draws, 0)
+    W, T = _whole(mesh, mesh.split(*X.shape), Wl, Tl)
+    return {'W': W, 'T': T, 'calls': dict(calls)}
+
+
+def case_masked_objective(mesh, X, M, W, T, cfg):
+    """The distributed masked objectives of whole (X, M, W, T): the
+    residual one (HER's) and the tracked one (``make_objective``)."""
+    from rri_nmf_tpu_torch.ops.accel import make_residual_obj
+    from rri_nmf_tpu_torch.ops.sweep import SweepConfig, make_objective
+    obj = make_residual_obj(SweepConfig(mesh=mesh, **cfg), distributed=True)
+    tracked = make_objective(masked=True, mesh=mesh, reg_w_l2=cfg.get(
+        'reg_w_l2', 0.0), reg_t_l1=cfg.get('reg_t_l1', 0.0))
+    Xl, Wl, Tl, Ml = _blocks(mesh, X, W, T, M=M)
+    return [float(obj(Xl, Wl, Tl, Ml)), float(tracked(Xl, Wl, Tl, Ml))]
+
+
+def case_partition(mesh, X, mxu=False):
+    """Every rank's :func:`partition_coo` block (dense, with its row and
+    column ranges), and with ``mxu`` every rank's :func:`partition_mxu`
+    plan's products against dense factors of ones."""
+    import torch
+    import torch.distributed as dist
+
+    from rri_nmf_tpu_torch.ops import sparse_kernels as sk
+    from rri_nmf_tpu_torch.parallel import partition_coo, partition_mxu
+    split = mesh.split(*X.shape)
+    block = partition_coo(X, mesh, torch.float64, 'cpu')
+    mine = {'range': (split.r0, split.r1, split.c0, split.c1),
+            'dense': _np(block.coo.to_dense()), 'nnz': int(block.coo._nnz())}
+    if mxu:
+        plan = partition_mxu(X, mesh, torch.float64, 'cpu')
+        n_loc, d_loc = split.r1 - split.r0, split.c1 - split.c0
+        mine['wtx'] = _np(sk.contract_wtx(plan, torch.ones(
+            n_loc, 2, dtype=torch.float64)))
+        mine['xtt'] = _np(sk.contract_xtt(plan, torch.ones(
+            2, d_loc, dtype=torch.float64)))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every[:mesh.size]
+
+
+def case_sparse_sweep(mesh, X, W, T, cfg, backend, sweeps=1, group=8):
+    """``sweeps`` sweeps of :func:`make_sharded_sparse_sweep`
+    (``backend='torch'``) or :func:`make_sharded_mxu_sweep` (``'mxu'``,
+    the plan's chunks in groups of ``group``) from the sparse X and whole
+    (W, T): the whole factors and this rank's kernel calls."""
+    import torch
+
+    from rri_nmf_tpu_torch.ops.sweep import SweepConfig
+    from rri_nmf_tpu_torch.parallel import (make_sharded_mxu_sweep,
+                                            make_sharded_sparse_sweep,
+                                            partition_coo, partition_mxu)
+    cfg = SweepConfig(**cfg)
+    if backend == 'mxu':
+        Xl = partition_mxu(X, mesh, torch.float64, 'cpu', group=group)
+        sweep = make_sharded_mxu_sweep(cfg, mesh)
+    else:
+        Xl = partition_coo(X, mesh, torch.float64, 'cpu')
+        sweep = make_sharded_sparse_sweep(cfg, mesh)
+    split = mesh.split(*X.shape)
+    Wl = torch.as_tensor(W)[split.r0:split.r1].contiguous()
+    Tl = torch.as_tensor(T)[:, split.c0:split.c1].contiguous()
+    with _Counting() as calls:
+        for _ in range(sweeps):
+            Wl, Tl = sweep(Xl, Wl, Tl)
+    W, T = _whole(mesh, split, Wl, Tl)
+    return {'W': W, 'T': T, 'calls': dict(calls)}
+
+
+def case_sparse_objective(mesh, X, W, T, regs):
+    """:func:`make_sharded_sparse_objective` of whole (X, W, T) on each
+    rank's blocks."""
+    import torch
+
+    from rri_nmf_tpu_torch.parallel import (make_sharded_sparse_objective,
+                                            partition_coo)
+    split = mesh.split(*X.shape)
+    Wl = torch.as_tensor(W)[split.r0:split.r1]
+    Tl = torch.as_tensor(T)[:, split.c0:split.c1]
+    f = make_sharded_sparse_objective(mesh, **regs)
+    return float(f(partition_coo(X, mesh, torch.float64, 'cpu'), Wl, Tl))
 
 
 def case_objective(mesh, X, W, T, cfg, quantize=False):
