@@ -199,16 +199,35 @@ its users run, one line per phase:
     ranks, float64 and float32: ``'mxu'`` on (2, 2), ``'mxu'`` with the TM
     preset on (4, 1) (B2 on each rank's whole rows) and ``sparse=True``
     on (2, 2), at phase 27's gates, the gather, B1 and B2 launches per
-    rank.
+    rank;
+30. the sparse-mask meshes (``parallel/masked_gram_mesh``,
+    ``parallel/masked_sparse_mesh``) on phase 18's recorded problem,
+    100,000×50,000 with 25M observations as scipy CSR, from numpy-seeded
+    warm starts: (a) in the one-rank world, the Gram-phase fit at k=32,
+    the defaults (the O(nnz) sweep, one CUDA graph a sweep) and k=128 in
+    panels, W, T and ``obj_history`` bit for bit the single-device fits
+    with the same gather launches (4 a Gram sweep, 2 an objective),
+    ms/sweep of each sweep in turns with the single-device one; (b) 4
+    gloo ranks on (4, 1): the Gram fit in float32 and float64 and the
+    O(nnz) fit in float32 at phase 27's gates, k=128 in panels on phase
+    8's ratings in float64 with the Gram budget lowered in each rank
+    (2 + 2·⌈k/p⌉ launches a sweep), the guards ((2, 2), a ``'random'``
+    reset), and ``NMF_RS_Estimator(sparse_obs=True)`` in the phase order
+    on phase 8's ratings (its test RMSE beside the single-device fit's,
+    a pickle round trip); the host plan seconds per rank, the bytes of
+    each all-reduce a sweep and the rank walls (gloo copies through the
+    host: no scaling reading).
 
 Phases 5-6, phase 8, phases 10-11, phases 12-16, phases 18-19, phases
-20-23, phases 24-25, each dtype's fits of phase 26 and phases 27-29
+20-23, phases 24-25, each dtype's fits of phase 26 and phases 27-30
 drive a main path with the launch counts set to 0 just before and read
 just after (no kernel of this repo runs in phases 12-13; phases 14-15
 run B1; phases 18-19 the gather kernel; phases 20-23 B1-B4; phases 24-25
-B1; phase 26 the 16-bit builds of all six; phases 27-29 B1-B5 in this
-process and in each rank, counted there; the HER recursion run by hand
-and the sync check of phases 20 and 23 leave the counts as they were).
+B1; phase 26 the 16-bit builds of all six; phases 27-29 B1-B5 and phase
+30 the gather kernel, in this process and in each rank, counted there;
+the HER recursion run by hand, the sync check of phases 20 and 23 and
+the sweeps timed beside phases 18 and 30's fits leave the counts as they
+were).
 Then one JSON line of the kernels (those launches, error against the
 twin, kernel and twin ms, the least time the card could take for the same
 work with what binds it, and the library call's ms where one computes the
@@ -439,6 +458,21 @@ MASKED_MESH_STORE_SWEEPS = 2
 # world, bit for bit; (b) 'mxu' on (2, 2), 'mxu' with the TM preset on
 # (4, 1), sparse=True on (2, 2), at the mesh gates above
 SPARSE_MESH_SWEEPS = 5
+# phase 30: the sparse-mask meshes on phase 18's recorded problem
+# (MASKED_RECORD, scipy CSR) from MESH_SEED warm starts: (a) the one-rank
+# world, bit for bit: the Gram-phase fit at k=32 (GRAM_MESH_SWEEPS), the
+# defaults (the O(nnz) sweep, INTERLEAVED_MASKED_SWEEPS), k=MASKED_PANEL_K
+# in panels (PANEL_MESH_SWEEPS); (b) MESH_RANKS gloo ranks on
+# GRAM_MESH_SHAPE at phase 27's gates: the Gram fit in float32 and float64
+# (GRAM_MESH_F64_SWEEPS), the O(nnz) fit in float32, k=MASKED_PANEL_K on
+# RS_SHAPE's ratings in float64 with the Gram budget lowered to
+# PANEL_MESH_UNITS (k, n / dp + d) rows (so the panel is that many topics),
+# the guards, and NMF_RS_Estimator(sparse_obs=True) with its pickle
+GRAM_MESH_SHAPE = (4, 1)
+GRAM_MESH_SWEEPS = 3
+GRAM_MESH_F64_SWEEPS = 2
+PANEL_MESH_SWEEPS = 2
+PANEL_MESH_UNITS = 32
 
 
 def log(phase, **fields):
@@ -450,10 +484,12 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def time_ms(fn, dev, runs=5):
+def time_ms(fn, dev, runs=5, warm=True):
     """Median milliseconds of ``fn()`` over ``runs`` runs after one
-    warm-up: CUDA events on a card, the host clock otherwise."""
-    fn()
+    warm-up (none without ``warm``): CUDA events on a card, the host
+    clock otherwise."""
+    if warm:
+        fn()
     sync(dev)
     out = []
     for _ in range(runs):
@@ -3100,7 +3136,7 @@ def run_16_bit_fits(dev, dk, mk, sk, nmf, Est, counts, ratings, dt):
 
 
 def run(dev):
-    """Phases 3-29 on ``dev``; returns the kernels' JSON entries."""
+    """Phases 3-30 on ``dev``; returns the kernels' JSON entries."""
     from rri_nmf_tpu_torch.metrics import frobenius_relative_error
     from rri_nmf_tpu_torch.nmf import nmf
     from rri_nmf_tpu_torch.ops import dense_kernels as dk
@@ -3244,7 +3280,7 @@ def run(dev):
     sk.reset_launches()
     gram = run_masked_record_phase(dev, sk, nmf, mg, msp, Xr, Mr,
                                    *plans[record])
-    del Xr, Mr, plans
+    del plans
     sync(dev)
     gram += run_sparse_obs_phase(dev, mk, sk, NMF_RS_Estimator, ratings,
                                  rmse_dense)
@@ -3348,7 +3384,22 @@ def run(dev):
         sparse['mxu'] += one + ranks['mxu']
         launches['gs'] += ranks['gs']
         launches['tm_proj'] += ranks['tm_proj']
-    log('launches, phases 27-29', gs=launches['gs'],
+
+        # 30. the sparse-mask meshes, counted from zero: the gather kernel
+        # in the one-rank world's Gram fits (this process; the sweeps
+        # timed beside them launch it too) and in the ranks' (each rank's
+        # counts)
+        sk.reset_launches()
+        one = run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, Xr, Mr)
+        sync(dev)
+        log('launches, phase 30 (a)', mxu=sk.LAUNCHES['mxu'], fits=one)
+        del Xr, Mr
+        ranks = run_sparse_mask_mesh_ranks_phase(dev, nmf)
+        if one == 0 or ranks == 0:
+            raise AssertionError('the gather kernel never ran on the '
+                                 'sparse-mask meshes: %d %d' % (one, ranks))
+        sparse['mxu'] += one + ranks
+    log('launches, phases 27-30', gs=launches['gs'],
         tm_proj=launches['tm_proj'], **masked, mxu=sparse['mxu'])
     # no single PyTorch call computes B1-B4 (sequential topic chains with
     # clamps, a simplex projection, fused in-place rank-one updates)
@@ -3381,7 +3432,7 @@ def run(dev):
 
 
 # --------------------------------------------------------------------------
-# phases 27-29: the meshes
+# phases 27-30: the meshes
 # --------------------------------------------------------------------------
 
 @contextlib.contextmanager
@@ -3502,8 +3553,109 @@ def sparse_mesh_problems(spec, dev):
         del X
 
 
+def sparse_mask_mesh_problems(spec, dev):
+    """The problems of phase 30 (b), on a ``spec['mesh']`` mesh unless
+    marked: the recorded problem at ``spec['record']`` (scipy CSR X and
+    mask) through the Gram-phase fit in float32 and float64 and the
+    O(nnz) fit in float32; phase 8's ratings at ``spec['rs']`` as CSR at
+    k=MASKED_PANEL_K in float64 with ``gram_budget`` lowered to
+    PANEL_MESH_UNITS (k, n / dp + d) float64 rows; the two guards, a
+    (2, 2) mesh and a ``'random'`` reset (``raises``); and
+    ``NMF_RS_Estimator(sparse_obs=True)`` in the phase order on the
+    ratings' 90% split on ``dev`` (``estimator``). Warm starts are drawn
+    with MESH_SEED."""
+    import scipy.sparse as sp
+    shape = tuple(spec['mesh'])
+    n, d, q, k = spec['record']
+    X, M = masked_record_problem(n, d, q, seed=0)
+    rng = np.random.RandomState(MESH_SEED)
+    base = dict(k=k, W_mat=M, W_in=rng.rand(n, k), T_in=rng.rand(k, d),
+                compute_obj_each_iter=True, random_state=0, eps_stop=0.0,
+                device=dev)
+    gram = dict(base, update_order='phase', reset_topic_method=None)
+    yield 'gram float32', X, dict(gram, max_iter=GRAM_MESH_SWEEPS), shape
+    yield 'gram float64', X, dict(gram, max_iter=GRAM_MESH_F64_SWEEPS,
+                                  dtype=torch.float64), shape
+    yield ('interleaved float32', X,
+           dict(base, max_iter=INTERLEAVED_MASKED_SWEEPS), shape)
+    del X, M, base, gram
+    nr, dr, qr, _ = spec['rs']
+    kp = spec['panel_k']
+    ratings = synth_ratings(nr, dr, qr, 8)
+    R = sp.csr_matrix(ratings)
+    Rm = R.copy()
+    Rm.data[:] = 1.0
+    yield ('panels float64', R, dict(
+        k=kp, W_mat=Rm, W_in=rng.rand(nr, kp), T_in=rng.rand(kp, dr),
+        update_order='phase', reset_topic_method=None,
+        max_iter=PANEL_MESH_SWEEPS, compute_obj_each_iter=True,
+        random_state=0, eps_stop=0.0, dtype=torch.float64, device=dev,
+        gram_budget=spec['panel_budget']), shape)
+    guard = dict(k=4, W_mat=Rm, max_iter=1, raises=True)
+    yield 'guard (2, 2)', R, guard, (2, 2)
+    yield 'guard random', R, dict(guard, reset_topic_method='random'), shape
+    split = [torch.as_tensor(a, device=dev) for a in rs_split(ratings)]
+    yield ('estimator float32', (tuple(spec['rs']), split),
+           dict(estimator=True), shape)
+
+
 RANK_PROBLEMS = {27: mesh_problems, 28: masked_mesh_problems,
-                 29: sparse_mesh_problems}
+                 29: sparse_mesh_problems, 30: sparse_mask_mesh_problems}
+
+
+def solve(nmf, X, kw, mesh=None):
+    """One problem of a rank phase on ``mesh`` (None: one device): an
+    ``nmf()`` fit, with ``gram_budget`` as the Gram-phase sweep's budget
+    around it; a refusal (``raises``: the ValueError's text); or
+    :func:`mesh_estimator` (``estimator``)."""
+    from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg
+    kw = dict(kw)
+    if kw.pop('raises', False):
+        try:
+            nmf(X, mesh=mesh, **kw)
+        except ValueError as e:
+            return {'error': str(e)}
+        raise AssertionError('a sparse-mask mesh guard did not raise')
+    if kw.pop('estimator', False):
+        return mesh_estimator(X, mesh)
+    budget = mg.GRAM_BUDGET_BYTES
+    mg.GRAM_BUDGET_BYTES = kw.pop('gram_budget', budget)
+    try:
+        return nmf(X, mesh=mesh, **kw)
+    finally:
+        mg.GRAM_BUDGET_BYTES = budget
+
+
+def mesh_estimator(problem, mesh):
+    """``NMF_RS_Estimator(sparse_obs=True)`` in the phase order (the
+    Gram-phase sweep) on ``problem``, ``(shape, split)``: RS_SHAPE's form
+    and :func:`rs_split`'s four arrays; on ``mesh`` when given. Returns
+    W, T, the history, the test RMSE;
+    on a mesh also a pickle round trip's test RMSE, whether the loaded
+    ``nmf_kwargs`` hold a mesh, and what its objective calculator
+    answers."""
+    import pickle
+
+    from rri_nmf_tpu_torch.sklearn_interface import NMF_RS_Estimator
+    shape, (p_tr, r_tr, p_te, r_te) = problem
+    kwargs = dict(update_order='phase')
+    if mesh is not None:
+        kwargs['mesh'] = mesh
+    est = _rs_fit(NMF_RS_Estimator, p_tr, r_tr, shape, sparse_obs=True,
+                  nmf_kwargs=kwargs)
+    out = dict(W=est.W, T=est.T, rmse=est.score(p_te, r_te),
+               obj_history=est.nmf_outputs['obj_history'],
+               iter_cputime=est.nmf_outputs['iter_cputime'])
+    if mesh is not None:
+        loaded = pickle.loads(pickle.dumps(est))
+        out.update(loaded_rmse=loaded.score(p_te, r_te),
+                   loaded_mesh='mesh' in loaded.nmf_kwargs)
+        try:
+            loaded.nmf_outputs['obj_calculator'].true_objective()
+            out['loaded_objective'] = 'evaluated'
+        except ValueError as e:
+            out['loaded_objective'] = str(e)
+    return out
 
 
 def mesh_rank(rank, world, store, out, spec):
@@ -3530,20 +3682,35 @@ def mesh_rank(rank, world, store, out, spec):
     dist.init_process_group(
         'gloo', store=dist.FileStore(store, world), rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=MESH_SECONDS))
+    # the host seconds of each fit's sparse-mask plan (nmf() looks its
+    # partition functions up at call time)
+    import rri_nmf_tpu_torch.nmf as driver
+    plan_s = []
+    for fn in ('partition_masked_coo', 'partition_masked_gram'):
+        def timed(*args, _fn=getattr(driver, fn), **kwargs):
+            t = time.perf_counter()
+            plan = _fn(*args, **kwargs)
+            plan_s.append(time.perf_counter() - t)
+            return plan
+        setattr(driver, fn, timed)
     try:
-        meshes, launches, fits = {}, {}, {}
+        meshes, launches, fits, plans = {}, {}, {}, {}
         for name, X, kw, shape in RANK_PROBLEMS[spec['phase']](spec, dev):
             if shape not in meshes:
                 meshes[shape] = make_mesh(world, shape)
             sync(dev)
             for module in (dk, mk, sk):
                 module.reset_launches()
+            del plan_s[:]
             t0 = time.perf_counter()
-            res = nmf(X, mesh=meshes[shape], **kw)
+            res = solve(nmf, X, kw, meshes[shape])
             sync(dev)
             wall = time.perf_counter() - t0
             launches[name] = dict(dk.LAUNCHES, **mk.LAUNCHES, **sk.LAUNCHES)
-            if rank == 0:
+            plans[name] = sum(plan_s)
+            if rank == 0 and 'error' in res:
+                fits[name] = res
+            elif rank == 0:
                 fits[name] = dict(W=res['W'].cpu(), T=res['T'].cpu(),
                                   obj=res['obj_history'], wall_s=wall,
                                   stamps=res['iter_cputime'])
@@ -3551,7 +3718,11 @@ def mesh_rank(rank, world, store, out, spec):
                     fits[name]['stores'] = {
                         key: {it: v.cpu() for it, v in res[key].items()}
                         for key in ('numer_W', 'denom_W')}
-        torch.save({'launches': launches, 'fits': fits},
+                fits[name].update((key, v) for key, v in res.items()
+                                  if key in ('rmse', 'loaded_rmse',
+                                             'loaded_mesh',
+                                             'loaded_objective'))
+        torch.save({'launches': launches, 'fits': fits, 'plan_s': plans},
                    os.path.join(out, 'rank%d.pt' % rank))
     finally:
         dist.destroy_process_group()
@@ -3571,11 +3742,15 @@ def run_ranks(spec, dev, nmf):
     import tempfile
     want = {}
     for name, X, kw, _ in RANK_PROBLEMS[spec['phase']](spec, dev):
-        res = nmf(X, **kw)
+        if kw.get('raises'):
+            continue
+        res = solve(nmf, X, kw)
         sync(dev)
         want[name] = dict(W=res['W'].cpu(), T=res['T'].cpu(),
                           obj=res['obj_history'],
                           stamps=res['iter_cputime'])
+        if 'rmse' in res:
+            want[name]['rmse'] = res['rmse']
         if 'numer_W' in res:
             want[name]['stores'] = {
                 key: {it: v.cpu() for it, v in res[key].items()}
@@ -3891,6 +4066,220 @@ def run_sparse_mesh_ranks_phase(dev, nmf):
     total = {key: total.get(key, 0) for key in ('gs', 'tm_proj', 'mxu')}
     log('sparse mesh ranks phase', ranks=MESH_RANKS, wall_s=wall, **total)
     return total
+
+
+def run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, X, M):
+    """Phase 30 (a): on the one-rank world's (1, 1) ``mesh``, the recorded
+    problem (scipy CSR ``X``, ``M``) from MESH_SEED warm starts: the
+    Gram-phase fit at k=32, the defaults (the O(nnz) sweep) and
+    k=MASKED_PANEL_K in panels, each W, T and ``obj_history`` bit for bit
+    the single-device fit with the same gather launches (4 a Gram sweep
+    and 2 an objective; none in the O(nnz) fit); the mesh's O(nnz) sweep
+    one CUDA graph; ms/sweep of each sweep in turns with the single-device
+    one, on the fits' own plans. Returns the fits' gather launches."""
+    from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg
+    from rri_nmf_tpu_torch.ops import sweep_masked_sparse as msp
+    from rri_nmf_tpu_torch.ops.sweep import make_draws
+    from rri_nmf_tpu_torch.parallel import (make_sharded_masked_gram_sweep,
+                                            make_sharded_masked_sparse_sweep)
+    n, d, nnz, k = MASKED_RECORD
+    kp = MASKED_PANEL_K
+    rng = np.random.RandomState(MESH_SEED)
+    W0, T0 = rng.rand(n, kp), rng.rand(kp, d)
+    draws = make_draws(0, dev)
+    total = 0
+
+    def pair(kk, sweeps, per_sweep, **kw):
+        """The single-device fit and the (1, 1) mesh fit: bit for bit,
+        each with ``per_sweep`` gather launches a sweep and its
+        objective."""
+        nonlocal total
+        kw = dict(k=kk, W_mat=M, W_in=W0[:, :kk], T_in=T0[:kk],
+                  max_iter=sweeps, compute_obj_each_iter=True, random_state=0,
+                  eps_stop=0.0, device=dev, **kw)
+        fits, counts, walls = [], [], []
+        for m in (None, mesh):
+            c0 = sk.LAUNCHES['mxu']
+            t0 = time.perf_counter()
+            fits.append(nmf(X, mesh=m, **kw))
+            sync(dev)
+            walls.append(time.perf_counter() - t0)
+            counts.append(sk.LAUNCHES['mxu'] - c0)
+        total += sum(counts)
+        got = len(fits[1]['obj_history'])
+        same = _bit_for_bit(*fits)
+        if not same or got != sweeps or counts != [per_sweep * got] * 2:
+            raise AssertionError(
+                'one-rank sparse-mask mesh fit k=%d %r: bit for bit %s, '
+                '%d sweeps, gather launches %r (want %d a sweep)'
+                % (kk, kw.get('update_order'), same, got, counts, per_sweep))
+        return fits, counts, walls
+
+    def in_turns(single, meshed):
+        """ms of ``single()`` and ``meshed()`` in turns (one device,
+        mesh, mesh, one device)."""
+        ms = {'single': [], 'mesh': []}
+        for which in ('single', 'mesh', 'mesh', 'single'):
+            fn = single if which == 'single' else meshed
+            ms[which].append(time_ms(fn, dev, runs=2))
+        return ms
+
+    def plans(fits):
+        return [f['obj_calculator'].X for f in fits]
+
+    # the Gram-phase fit at k=32: 4 launches a sweep, 2 an objective
+    cfg = masked_cfg(k, update_order='phase')
+    fits, counts, walls = pair(k, GRAM_MESH_SWEEPS, 6,
+                               update_order='phase', reset_topic_method=None)
+    ps, pm = plans(fits)
+    W, T = fits[0]['W'], fits[0]['T']
+    one = mg.make_masked_gram_sweep(cfg, 'mxu')
+    sharded = make_sharded_masked_gram_sweep(cfg, mesh, 'mxu')
+    ms = in_turns(lambda: one(ps, W, T, draws, 0),
+                  lambda: sharded(pm, W, T, draws, 0))
+    log('sparse-mask mesh one-rank %s world (1, 1) %dx%d %d observations '
+        'k=%d float32, Gram-phase' % (mesh.backend, n, d, nnz, k),
+        sweeps=len(fits[1]['obj_history']), bit_for_bit=True,
+        gather_launches=counts[1], gather_launches_single=counts[0],
+        obj_last=fits[1]['obj_history'][-1], wall_s_single=walls[0],
+        wall_s_mesh=walls[1], ms_per_sweep_single=ms['single'],
+        ms_per_sweep_mesh=ms['mesh'])
+    del fits, ps, pm, one, sharded
+
+    # the defaults: the O(nnz) sweep, one CUDA graph a sweep on the mesh
+    cfg = masked_cfg(k)
+    fits, counts, walls = pair(k, INTERLEAVED_MASKED_SWEEPS, 0)
+    ps, pm = plans(fits)
+    W, T = fits[0]['W'], fits[0]['T']
+    one = msp.make_masked_sparse_sweep(cfg)
+    sharded = make_sharded_masked_sparse_sweep(cfg, mesh)
+    launched = sharded.speculate(pm, W, T, draws, 0)[0][:2]
+    for _ in range(2):     # launch by launch, then the capture
+        sharded(pm, W, T, draws, 0)
+    replayed = sharded(pm, W, T, draws, 0)[:2]
+    sync(dev)
+    graph = sharded._graph is not None
+    if not ((graph or dev.type != 'cuda')
+            and torch.equal(launched[0], replayed[0])
+            and torch.equal(launched[1], replayed[1])):
+        raise AssertionError('the mesh O(nnz) sweep: graph %s, replay equal '
+                             'to the launches %s' % (graph, torch.equal(
+                                 launched[0], replayed[0])))
+    ms = in_turns(lambda: one(ps, W, T, draws, 0),
+                  lambda: sharded(pm, W, T, draws, 0))
+    log('sparse-mask mesh one-rank %s world (1, 1) %dx%d k=%d float32, '
+        'defaults (O(nnz))' % (mesh.backend, n, d, k),
+        sweeps=len(fits[1]['obj_history']), bit_for_bit=True,
+        gather_launches=counts[1], cuda_graph=graph,
+        graph_equals_launches=True, obj_last=fits[1]['obj_history'][-1],
+        wall_s_single=walls[0], wall_s_mesh=walls[1],
+        graph_ms_per_sweep_single=ms['single'],
+        graph_ms_per_sweep_mesh=ms['mesh'])
+    del fits, ps, pm, one, sharded, launched, replayed
+
+    # k=128 in panels (the panel from n / dp rows, dp = 1)
+    panel = mg.auto_panel(kp, n, d, 4)
+    npan = -(-kp // panel)
+    cfg = masked_cfg(kp, update_order='phase')
+    fits, counts, walls = pair(kp, PANEL_MESH_SWEEPS,
+                               (2 + 2 * npan) + (1 + npan),
+                               update_order='phase', reset_topic_method=None)
+    ps, pm = plans(fits)
+    W, T = fits[0]['W'], fits[0]['T']
+    one = mg.make_masked_gram_sweep(cfg, 'mxu', panel)
+    sharded = make_sharded_masked_gram_sweep(cfg, mesh, 'mxu', panel)
+    # (seconds a sweep, and each plan warm from its fit: one run each)
+    ms = {'single': [], 'mesh': []}
+    for which in ('single', 'mesh', 'mesh', 'single'):
+        fn, plan = (one, ps) if which == 'single' else (sharded, pm)
+        ms[which].append(time_ms(lambda: fn(plan, W, T, draws, 0), dev,
+                                 runs=1, warm=False))
+    log('sparse-mask mesh one-rank %s world (1, 1) %dx%d k=%d float32, '
+        'Gram-phase in %d-topic panels' % (mesh.backend, n, d, kp, panel),
+        panel=panel, panels=npan, sweeps=len(fits[1]['obj_history']),
+        bit_for_bit=True, gather_launches=counts[1],
+        obj=fits[1]['obj_history'], wall_s_single=walls[0],
+        wall_s_mesh=walls[1], ms_per_sweep_single=ms['single'],
+        ms_per_sweep_mesh=ms['mesh'])
+    return total
+
+
+def run_sparse_mask_mesh_ranks_phase(dev, nmf):
+    """Phase 30 (b): MESH_RANKS gloo ranks fitting
+    :func:`sparse_mask_mesh_problems`, held against the single-device
+    card fits at phase 27's gates, every rank's gather launches counted
+    (4 a Gram sweep and 2 an objective; 2 + 2·⌈k/p⌉ a panel sweep and
+    1 + ⌈k/p⌉ an objective; none in the O(nnz) fit); the guards' errors;
+    the estimator's test RMSE beside the single-device one and its pickle
+    round trip. Logs the host plan seconds per rank and the bytes of each
+    all-reduce a sweep. Returns the ranks' gather launches."""
+    from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg
+    nr, dr, _, _ = RS_SHAPE
+    dp = GRAM_MESH_SHAPE[0]
+    kp = MASKED_PANEL_K
+    budget = PANEL_MESH_UNITS * kp * (nr / dp + dr) * 8
+    panel = mg.auto_panel(kp, nr / dp, dr, 8, budget=budget)
+    npan = -(-kp // panel)
+    spec = dict(phase=30, device=str(dev), mesh=list(GRAM_MESH_SHAPE),
+                record=list(MASKED_RECORD), rs=list(RS_SHAPE), panel_k=kp,
+                panel_budget=budget)
+    want, ranks, wall = run_ranks(spec, dev, nmf)
+    ref = want.pop('estimator float32')
+    mine = ranks[0]['fits'].pop('estimator float32')
+    est_launches = [r['launches'].pop('estimator float32') for r in ranks]
+    guards = {name: ranks[0]['fits'].pop(name)['error']
+              for name in ('guard (2, 2)', 'guard random')}
+    for r in ranks:
+        for name in guards:
+            r['launches'].pop(name)
+
+    def expect(name, sweeps):
+        gather = (6 * sweeps if name.startswith('gram') else
+                  ((2 + 2 * npan) + (1 + npan)) * sweeps
+                  if name.startswith('panels') else 0)
+        return {'mxu': gather, 'gs': 0, 'phase_a': 0, 'phase_b': 0}
+    total = check_rank_fits(30, want, ranks, expect)
+    if not ('row blocks' in guards['guard (2, 2)']
+            and 'random' in guards['guard random']):
+        raise AssertionError('the sparse-mask mesh guards: %r' % guards)
+    # the estimator: an early stop runs one sweep more than it keeps
+    kept = len(mine['obj'])
+    gather = [c['mxu'] for c in est_launches]
+    gap = abs(mine['rmse'] - ref['rmse']) / ref['rmse']
+    if not (gap <= TOL_RMSE_ROUTES and mine['loaded_rmse'] == mine['rmse']
+            and not mine['loaded_mesh']
+            and 'mesh-sharded' in mine['loaded_objective']
+            and all(g in (6 * kept, 6 * (kept + 1)) for g in gather)):
+        raise AssertionError('the estimator on the mesh: RMSE %r against '
+                             '%r, loaded %r, %r; gather %r for %d sweeps'
+                             % (mine['rmse'], ref['rmse'],
+                                mine['loaded_rmse'],
+                                mine['loaded_objective'], gather, kept))
+    n, d, _, k = MASKED_RECORD
+    log('sparse-mask mesh ranks: NMF_RS_Estimator(sparse_obs=True, '
+        "update_order='phase') %dx%d k=%d on %r" % (nr, dr, RS_SHAPE[3],
+                                                    GRAM_MESH_SHAPE),
+        sweeps_kept=kept, test_rmse=mine['rmse'],
+        test_rmse_one_device=ref['rmse'], rel_gap=gap,
+        pickled_test_rmse=mine['loaded_rmse'],
+        pickled_objective=mine['loaded_objective'],
+        gather_launches_per_rank=gather, guards=guards)
+    total['mxu'] = total.get('mxu', 0) + sum(gather)
+    log('sparse-mask mesh ranks phase', ranks=MESH_RANKS, wall_s=wall,
+        rank_walls_s={name: f['wall_s'] for name, f in
+                      ranks[0]['fits'].items()},
+        host_plan_s_per_rank={name: [r['plan_s'][name] for r in ranks]
+                              for name in ranks[0]['plan_s']},
+        allreduce_MB_per_sweep={
+            'gram float32': (k + k * (k + 1) // 2) * d * 4 / 1e6,
+            'gram float64': (k + k * (k + 1) // 2) * d * 8 / 1e6,
+            'interleaved float32 (k of (2, d))': k * 2 * d * 4 / 1e6,
+            'panels float64 (A, then %d panels)' % npan:
+                (kp + kp * kp) * dr * 8 / 1e6},
+        panel=panel, note='gloo copies each all-reduce through the host '
+        '(~12 ms per 4 MB among 4 ranks, tools/probe_gloo_cuda.py) and the '
+        'ranks share one card: no scaling reading', gather=total['mxu'])
+    return total['mxu']
 
 
 def main():

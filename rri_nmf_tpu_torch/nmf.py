@@ -52,7 +52,11 @@ phase recipe through
 :func:`rri_nmf_tpu_torch.parallel.sharded_masked.
 make_sharded_masked_sweep` (B3 and B4), a sparse X through
 :mod:`rri_nmf_tpu_torch.parallel.sparse_mesh` (each rank's block of
-nonzeros), the rest through the plain sweep and
+nonzeros), a sparse mask on a ``(dp, 1)`` mesh through
+:mod:`rri_nmf_tpu_torch.parallel.masked_gram_mesh` (the Gram-phase
+sweep) or :mod:`rri_nmf_tpu_torch.parallel.masked_sparse_mesh` (the
+O(nnz) sweep) on each rank's row block of observations, the rest through
+the plain sweep and
 :class:`~rri_nmf_tpu_torch.ops.dense_kernels.DenseResetSweep` with their
 collectives.
 
@@ -64,8 +68,8 @@ tracking and the relative-progress stop, early-stop rollback,
 ``max_time``, grouped dispatch, diagnostics, ``debug_checks``, the final
 W projection and the result dict.
 
-Every option outside the port so far raises ``NotImplementedError``
-naming the ROADMAP item that brings it.
+What the port has not taken yet is the multi-host layer (pre-built
+mesh plans, ``parallel/multihost.py``: ROADMAP A.12f).
 """
 
 import dataclasses
@@ -108,6 +112,10 @@ from rri_nmf_tpu_torch.ops.sweep_masked_sparse import (
 from rri_nmf_tpu_torch.ops.sweep_sparse import (TorchSparseX,
                                                 make_sparse_objective,
                                                 make_sparse_sweep)
+from rri_nmf_tpu_torch.parallel.masked_gram_mesh import (
+    make_sharded_masked_gram_sweep, partition_masked_gram)
+from rri_nmf_tpu_torch.parallel.masked_sparse_mesh import (
+    make_sharded_masked_sparse_sweep, partition_masked_coo)
 from rri_nmf_tpu_torch.parallel.mesh import Mesh
 from rri_nmf_tpu_torch.parallel.sharded_dense import make_sharded_dense_sweep
 from rri_nmf_tpu_torch.parallel.sharded_masked import (
@@ -137,12 +145,6 @@ def _parse_dtype(dtype):
     if not isinstance(out, torch.dtype):
         raise ValueError('unknown dtype %r' % (dtype,))
     return out
-
-
-def _not_yet(what, item):
-    raise NotImplementedError(
-        '%s is not ported to rri_nmf_tpu_torch yet; it arrives with '
-        'ROADMAP %s' % (what, item))
 
 
 def _sync(device):
@@ -177,16 +179,24 @@ class TrueObjComputer(object):
     travels as its host COO arrays and comes back as the observed-entry
     form, on W's device.
 
-    On a ``mesh`` X, W, T and ``wr`` are this rank's blocks, the objective
-    is summed over the mesh (every rank calls it together and gets the
-    same value), and the calculator does not pickle (it holds the mesh's
-    process groups)."""
+    On a ``mesh`` X, W, T, ``Wm`` and ``wr`` are this rank's blocks (a
+    sparse-mask X this rank's plan), the objective is summed over the
+    mesh (every rank calls it together and gets the same value), and
+    ``whole`` holds the whole X, ``Wm`` and ``wr`` the caller gave every
+    rank (references, not copies; X is None for a sparse X or a sparse
+    mask, which no rank holds whole) and, once the fit ends, the whole W
+    and T. A pickle keeps JAX's contract (``rri_nmf_tpu/nmf.py:229-317``):
+    the mesh and the rank's blocks are dropped and the whole arrays
+    travel, so a loaded dense or dense-mask calculator evaluates the
+    whole objective on one device, while a sparse or sparse-mask one
+    raises ``ValueError`` on :meth:`true_objective`."""
 
     def __init__(self, X, W, T, reg_w_l2, reg_t_l2, reg_w_l1, reg_t_l1,
                  Wm=None, matmul_precision=None, sparse=False,
-                 masked_sparse=False, wr=None, mesh=None):
+                 masked_sparse=False, wr=None, mesh=None, whole=None):
         self.X = X
         self.mesh = mesh
+        self.whole = whole
         self.sparse = sparse
         self.masked_sparse = masked_sparse
         self.W = W
@@ -202,20 +212,22 @@ class TrueObjComputer(object):
         self._fn = None
 
     def __getstate__(self):
-        if self.mesh is not None:
-            raise TypeError('the objective calculator of a mesh fit holds '
-                            "this rank's blocks and the mesh; it does not "
-                            'pickle')
         state = dict(self.__dict__)
         state['_fn'] = None      # a closure; rebuilt on the next use
-        if self.masked_sparse and not isinstance(self.X, tuple):
-            coo = self.X.coo if isinstance(self.X, MaskedGramPlan) \
-                else self.X
+        if self.mesh is not None:
+            # the mesh and this rank's blocks stay behind; the whole
+            # arrays travel (X None for a sparse X or a sparse mask)
+            state.update(state.pop('whole') or dict(X=None), mesh=None,
+                         whole=None)
+        X = state['X']
+        if self.masked_sparse and X is not None \
+                and not isinstance(X, tuple):
+            coo = X.coo if isinstance(X, MaskedGramPlan) else X
             state['X'] = (('masked_coo',) + coo.host_arrays()
                           + (coo.shape, coo.nnz))
-        elif isinstance(self.X, QuantizedX):
+        elif isinstance(X, QuantizedX):
             # the int16 code and scale; re-wrapped on the next use
-            state['X'] = ('quantized_x', self.X.q.cpu(), self.X.s.cpu())
+            state['X'] = ('quantized_x', X.q.cpu(), X.s.cpu())
         return state
 
     def _masked_sparse_fn(self):
@@ -224,17 +236,24 @@ class TrueObjComputer(object):
         if isinstance(self.X, tuple):            # restored from a pickle
             self.X = coo_plan(*self.X[1:], device=self.W.device)
         if isinstance(self.X, MaskedGramPlan) and self.X.backend == 'mxu':
+            # Θ in panels past the budget at the plan's rows (on a mesh
+            # the rank's)
             n, d = self.X.shape
             p = auto_panel(self.W.shape[1], n, d, self.W.element_size())
             return make_masked_gram_objective(
-                'mxu', panel=1 if p == 0 else p, **regs)
-        fn = make_masked_sparse_objective(**regs)
+                'mxu', panel=1 if p == 0 else p, mesh=self.mesh, **regs)
+        fn = make_masked_sparse_objective(mesh=self.mesh, **regs)
         if isinstance(self.X, MaskedGramPlan):
             # a segsum Gram plan: the observed-entry form is the cheaper
             return lambda plan, W, T: fn(plan.coo, W, T)
         return fn
 
     def true_objective(self):
+        if self.X is None:
+            raise ValueError(
+                'this TrueObjComputer was pickled from a mesh-sharded '
+                'sparse fit, whose per-rank X cannot be serialized; re-fit '
+                '(or construct a new calculator) to evaluate the objective')
         if self._fn is None and self.masked_sparse:
             self._fn = self._masked_sparse_fn()
         if self._fn is None and self.sparse:
@@ -412,9 +431,17 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
       rank. A sparse X is split into each rank's block of nonzeros
       (``sparse=True``, ``'mxu'`` and ``'auto'``, which engages as JAX's
       does and never densifies on a mesh); ``'dma'`` and, with ``tp > 1``,
-      a T-row sum constraint raise JAX's ``ValueError``. A sparse mask on
-      a mesh is not ported yet and raises ``NotImplementedError``
-      (A.12e).
+      a T-row sum constraint raise JAX's ``ValueError``. A sparse mask
+      runs on a ``(dp, 1)`` mesh, each rank planning its row block of
+      observations: in phase order without resets the Gram-phase sweep
+      (one all-reduce of A and Γ a T-phase, the gather kernel on each
+      rank's plan on a card; Γ/Θ in k-panels past the budget at n / dp
+      rows), else the O(nnz) sweep (one (2, d) all-reduce a topic). As in
+      JAX, ``tp > 1``, a ``'random'`` reset and a per-row ``w_row_sum``
+      vector raise ``ValueError``. The objective calculator of a mesh
+      fit pickles without the mesh: a dense or dense-mask one evaluates
+      the whole objective on one device after a load, a sparse or
+      sparse-mask one raises ``ValueError``.
     - **Callbacks** (``diagnostics``, a callable ``early_stop``) receive
       ``(X, W, T)``: W and T as tensors on the fit's device, a sparse X
       (and any X of a sparse-mask fit) as the user passed it, a dense X
@@ -443,6 +470,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             or sparse in ('auto', 'mxu', 'dma')):
         raise ValueError("sparse must be one of True, False, 'auto', "
                          "'mxu', 'dma'; got %r" % (sparse,))
+    if mesh is not None:
+        if not isinstance(mesh, Mesh):
+            raise TypeError('mesh must be a rri_nmf_tpu_torch.parallel.Mesh '
+                            '(parallel.make_mesh), got %r' % (mesh,))
+        mesh.member()
     masked = W_mat is not None
     # ---- sparse-mask WRRI mode (reference nmf.py:843-882): the observed
     # set as COO end to end, O(nnz) memory
@@ -466,8 +498,21 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                         "residual, which has no O(nnz) form; disabling "
                         "resets (pass 'random' to keep budgeted resets)")
             reset_topic_method = None
-        if mesh is not None:
-            _not_yet('a sparse-mask fit on a mesh', 'A.12e')
+        # the mesh forms' limits (reference nmf.py:869-882)
+        if mesh is not None and mesh.shape[1] != 1:
+            raise ValueError(
+                'sparse-mask mode shards observations by row blocks; use '
+                'an (n_devices, 1) mesh (the T-phase d-vectors are '
+                'replicated)')
+        if mesh is not None and reset_topic_method == 'random':
+            raise ValueError(
+                "sparse-mask mesh sweeps support reset_topic_method=None "
+                "only (a 'random' reset draws a global (n,) column "
+                'stream); run single-device for the transform preset')
+        if mesh is not None and w_row_sum is not None \
+                and np.ndim(w_row_sum) > 0:
+            raise ValueError('sparse-mask mesh sweeps do not support a '
+                             'per-row w_row_sum vector')
         # the sparse kwarg is the Gram-backend hint (reference
         # nmf.py:988-998): 'mxu' forces the gather-kernel contractions
         if sparse == 'dma':
@@ -476,11 +521,6 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         if sparse == 'mxu':
             gram_backend = 'mxu'
             sparse = 'auto'
-    if mesh is not None:
-        if not isinstance(mesh, Mesh):
-            raise TypeError('mesh must be a rri_nmf_tpu_torch.parallel.Mesh '
-                            '(parallel.make_mesh), got %r' % (mesh,))
-        mesh.member()
     # With T fixed only the W-phase runs, so both orders are the same
     # computation (the JAX nmf()'s rule) — take the phase path.
     if fix_T and not fix_W and not masked and update_order == 'interleaved':
@@ -699,21 +739,27 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                 **_sentinel_extra}
 
     # the Gram-phase sweep (reference nmf.py:884-961): phase order, no
-    # resets, and Γ/Θ within the Gram budget in full or in k-panels
+    # resets, and Γ/Θ within the Gram budget in full or in k-panels; on a
+    # mesh Θ holds each rank's n / dp rows
     gram_panel = None
     masked_gram = False
     if masked_sparse:
-        gram_panel = auto_panel(k, n, d, dtype.itemsize)
+        dp = 1 if mesh is None else mesh.shape[0]
+        gram_panel = auto_panel(k, n / dp, d, dtype.itemsize)
         gram_fits = gram_panel is None or gram_panel >= 1
+        gram_mesh_ok = mesh is None or (mesh.shape[1] == 1
+                                        and not w_row_sum_is_vector)
         masked_gram = (update_order == 'phase' and reset_topic_method is None
-                       and gram_fits)
+                       and gram_mesh_ok and gram_fits)
         if update_order == 'phase' and not masked_gram:
             why = ('reset_topic_method=%r is set (a mid-phase reset would '
                    'rewrite the frozen factor)' % (reset_topic_method,)
                    if reset_topic_method is not None else
                    'even single-row Γ/Θ panels exceed the Gram budget '
                    '(sweep_masked_gram.GRAM_BUDGET_BYTES; k=%d, shape %s)'
-                   % (k, (n, d)))
+                   % (k, (n, d)) if not gram_fits else
+                   'the mesh is not (n_devices, 1) or a per-row w_row_sum '
+                   'vector is set')
             warnings.warn(
                 "masked update_order='phase' cannot take the Gram-phase "
                 'sweep because ' + why + '; falling back to the '
@@ -761,11 +807,12 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     start_time = time.perf_counter()
     X_init, Wm_init = X, Wm
     fresh = _size(W_in) == 0 or _size(T_in) == 0
+    first = mesh is None or mesh.member() == (0, 0)
     if masked_sparse:
         X_init, Wm_init = None, None
-        if fresh:
+        if fresh and first:
             X_init = _masked_init_matrix(X, W_mat)
-    if mesh is not None and fresh and mesh.member() != (0, 0):
+    if not first and fresh:
         # a fresh init runs on the first rank and is shared with the rest
         W = torch.zeros(n, k, dtype=dtype, device=device)
         T = torch.zeros(k, d, dtype=dtype, device=device)
@@ -780,9 +827,13 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
 
     # ---- the mesh: this rank's blocks (parallel/mesh.py); the whole
     # factors come back at the end of the fit
-    split = None
+    split = whole = None
     w_row_sum_all = w_row_sum
     if mesh is not None:
+        # what the caller gave every rank whole, for the objective's
+        # pickle (no rank holds a sparse X or a sparse mask whole)
+        whole = dict(X=None if sparse_mode or masked_sparse else X_dev,
+                     Wm=Wm, wr=wr)
         if fresh:
             W, T = mesh.from_first(W), mesh.from_first(T)
         split = mesh.split(n, d)
@@ -792,7 +843,9 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                 'splitting it in uneven blocks (the first n %% dp rows and '
                 'd %% tp columns one longer): the numbers of an aligned '
                 'split', n, d, *mesh.shape)
-        if not sparse_mode:          # a sparse X_dev is the block already
+        if not (sparse_mode or masked_sparse):
+            # (a sparse X_dev is the block already; a sparse-mask plan is
+            # made of the rank's rows below)
             X_dev = mesh.block(X_dev, split)
         if Wm is not None:
             Wm = mesh.block(Wm, split)
@@ -881,19 +934,29 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         logger.warning('use_pallas requested but config unsupported by the '
                        'kernels; falling back to the plain sweep.')
     if masked_sparse:
-        # the observed set, planned on the host once for this call
+        # the observed set, planned on the host once for this call (on a
+        # mesh this rank's row block)
         if masked_gram:
-            X_dev = plan_masked_gram(X, W_mat, dtype, backend=gram_backend,
-                                     device=device)
+            X_dev = (plan_masked_gram(X, W_mat, dtype, backend=gram_backend,
+                                      device=device) if mesh is None else
+                     partition_masked_gram(X, W_mat, mesh, dtype,
+                                           backend=gram_backend,
+                                           device=device))
             if gram_panel is not None:
                 logger.info('Gram-phase masked sweep: k=%d exceeds the '
                             'full-tensor budget; tiling Γ/Θ in %d-panel '
                             'tiles', k, gram_panel)
-            masked_sweep = make_masked_gram_sweep(cfg, X_dev.backend,
-                                                  gram_panel)
+            masked_sweep = (make_masked_gram_sweep(cfg, X_dev.backend,
+                                                   gram_panel)
+                            if mesh is None else
+                            make_sharded_masked_gram_sweep(
+                                cfg, mesh, X_dev.backend, gram_panel))
         else:
-            X_dev = plan_masked_coo(X, W_mat, dtype, device=device)
-            masked_sweep = make_masked_sparse_sweep(cfg)
+            X_dev = (plan_masked_coo(X, W_mat, dtype, device=device)
+                     if mesh is None else
+                     partition_masked_coo(X, W_mat, mesh, dtype, device))
+            masked_sweep = (make_masked_sparse_sweep(cfg) if mesh is None
+                            else make_sharded_masked_sparse_sweep(cfg, mesh))
 
         def sweep_fn(X, W, T):
             nonlocal resets_left
@@ -1081,7 +1144,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                               reg_t_l1=reg_t_l1, Wm=Wm,
                               matmul_precision=matmul_precision,
                               sparse=sparse_mode,
-                              masked_sparse=masked_sparse, wr=wr, mesh=mesh)
+                              masked_sparse=masked_sparse, wr=wr, mesh=mesh,
+                              whole=whole)
 
     # (a QuantizedX given as X reaches the callbacks dequantized)
     X_cb = (X_user if X_is_sparse or masked_sparse else
@@ -1273,6 +1337,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     if compute_obj_each_iter:
         rtv['obj_history'] = obj_history
         OBJ.W, OBJ.T = _block_w(rtv['W']), _block_t(rtv['T'])
+        if whole is not None:
+            whole.update(W=rtv['W'], T=rtv['T'])
         rtv['obj_calculator'] = OBJ
     rtv['iter_cputime'] = iter_cputime
     rtv['random_state'] = random_state

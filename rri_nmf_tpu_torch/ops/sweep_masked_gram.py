@@ -36,6 +36,15 @@ torch builds one panel at a time.
 The objective factors through the same tensors::
 
     ‖√M ⊙ (X − WT)‖² = Σ m x² − 2 Σ_t w_tᵀ C[t] + Σ_{t,s} w_tᵀ Θ[t,s] w_s
+
+On a ``(dp, 1)`` mesh (``cfg.mesh``, :mod:`rri_nmf_tpu_torch.parallel.
+masked_gram_mesh`) the plan is this rank's row block (local rows, global
+columns), W its rows and T whole. A and Γ are column-keyed: each rank
+contracts its block, and one all-reduce over ``dp`` of the stacked
+(k + k(k+1)/2, d) partial (in panels: one of A, then one per (p·k, d) Γ
+panel) makes them whole; the T-phase then runs the same on every rank.
+C and Θ are row-keyed and stay local: the W-phase makes no collective.
+A (1, 1) mesh makes no call.
 """
 
 from functools import lru_cache
@@ -50,7 +59,8 @@ from rri_nmf_tpu_torch.ops import sparse_kernels
 from rri_nmf_tpu_torch.ops.sparse_plan import (TILE, ContractPlan,
                                                _plan_direction_np,
                                                layout_values, numpy_dtype)
-from rri_nmf_tpu_torch.ops.sweep import precision_scope, resolve_mixed_dtypes
+from rri_nmf_tpu_torch.ops.sweep import (mesh_sums, precision_scope,
+                                         resolve_mixed_dtypes)
 from rri_nmf_tpu_torch.ops.sweep_masked_sparse import (coo_plan,
                                                        masked_coo_host_arrays)
 
@@ -185,7 +195,9 @@ def _sym_pairs(k):
     return idx_t, idx_s, pair_of.reshape(-1)
 
 
+@lru_cache(maxsize=32)
 def _pairs_on(k, device):
+    """:func:`_sym_pairs` as tensors on ``device``, copied there once."""
     return tuple(torch.as_tensor(a, dtype=torch.long, device=device)
                  for a in _sym_pairs(k))
 
@@ -233,26 +245,29 @@ def _mxu_gram_w_panel(plan, T, t0, p, acc):
     return _contract(plan, 'w', KRt, p * k, n).reshape(p, k, n)
 
 
+def _unpack(Gp, k):
+    """The (k, k, m) Gram tensor of its k(k+1)/2 unique rows ``Gp``."""
+    return Gp[_pairs_on(k, Gp.device)[2]].reshape(k, k, Gp.shape[1])
+
+
 def _mxu_gram_t(plan, W, acc):
-    """(A, Γ) from the frozen W; Γ from its k(k+1)/2 unique rows."""
+    """(A, Γ's k(k+1)/2 unique rows) from the frozen W."""
     n, d = plan.shape
     k = W.shape[1]
     Wa = W.to(acc)
     A = _contract(plan, 't', Wa, k, d, mx=True)
-    it, is_, unpack = _pairs_on(k, W.device)
-    Gp = _contract(plan, 't', Wa[:, it] * Wa[:, is_], it.shape[0], d)
-    return A, Gp[unpack].reshape(k, k, d)
+    it, is_, _ = _pairs_on(k, W.device)
+    return A, _contract(plan, 't', Wa[:, it] * Wa[:, is_], it.shape[0], d)
 
 
 def _mxu_gram_w(plan, T, acc):
-    """(C, Θ) from the frozen T, Θ as Γ."""
+    """(C, Θ's unique rows) from the frozen T, as Γ."""
     n, d = plan.shape
     k = T.shape[0]
     Tt = T.to(acc).T.contiguous()
     C = _contract(plan, 'w', Tt, k, n, mx=True)
-    it, is_, unpack = _pairs_on(k, T.device)
-    Hp = _contract(plan, 'w', Tt[:, it] * Tt[:, is_], it.shape[0], n)
-    return C, Hp[unpack].reshape(k, k, n)
+    it, is_, _ = _pairs_on(k, T.device)
+    return C, _contract(plan, 'w', Tt[:, it] * Tt[:, is_], it.shape[0], n)
 
 
 def _seg_chunked(coo, fn, out_dim, seg_ids, width, acc):
@@ -310,19 +325,21 @@ def _seg_gram_w_panel(plan, T, t0, p, acc):
 
 
 def _seg_gram(plan, F, acc, side):
-    """(A, Γ) (``side='t'``, F = W) or (C, Θ) (``'w'``, F = Tᵀ): the k
-    numerator columns and the k² Gram columns in one pass."""
+    """(A, Γ's unique rows) (``side='t'``, F = W) or (C, Θ's)
+    (``'w'``, F = Tᵀ): the k numerator columns and the k(k+1)/2 Gram
+    columns in one pass."""
     coo = plan.coo
     k = F.shape[1]
+    it, is_, _ = _pairs_on(k, F.device)
     out_dim = plan.shape[1] if side == 't' else plan.shape[0]
     seg = coo.cols if side == 't' else coo.rows
 
     def vals(r, c, m, x):
         P = F[r] if side == 't' else F[c]
-        outer = (P[:, :, None] * P[:, None, :]).reshape(-1, k * k)
-        return torch.cat([P * (m * x)[:, None], outer * m[:, None]], 1)
-    out = _seg_chunked(coo, vals, out_dim, seg, k + k * k, acc)
-    return out[:, :k].T, out[:, k:].T.reshape(k, k, out_dim)
+        return torch.cat([P * (m * x)[:, None],
+                          P[:, it] * P[:, is_] * m[:, None]], 1)
+    out = _seg_chunked(coo, vals, out_dim, seg, k + it.shape[0], acc)
+    return out[:, :k].T, out[:, k:].T
 
 
 def _seg_gram_t(plan, W, acc):
@@ -354,10 +371,12 @@ class MaskedGramSweep(object):
             -> (W, T, resets_left)
 
     ``resets_left`` passes through (no resets here); ``draws`` gives the
-    DP noise. ``panel`` (1 <= panel < k) builds Γ/Θ in (panel, k, ·)
-    tiles: the same updates in the same order, at ``panel·k·max(n, d)``
-    words of Gram memory. The inputs are not written. It is not a CUDA
-    graph: its gather-kernel launches are counted by their wrapper."""
+    DP noise (the same draws on every rank of a mesh). ``panel``
+    (1 <= panel < k) builds Γ/Θ in (panel, k, ·) tiles: the same updates
+    in the same order, at ``panel·k·max(n, d)`` words of Gram memory.
+    With ``cfg.mesh`` the plan and W are this rank's row block (module
+    docstring). The inputs are not written. It is not a CUDA graph: its
+    gather-kernel launches are counted by their wrapper."""
 
     def __init__(self, cfg, backend='segsum', panel=None):
         if not supports_masked_gram(cfg):
@@ -392,6 +411,10 @@ class MaskedGramSweep(object):
         Wt = W.T.to(acc).contiguous()
         T = T.to(acc).clone(memory_format=torch.contiguous_format)
         proj_t = bool(cfg.t_row_sum and cfg.project_T_each_iter)
+
+        def sum_dp(x):
+            # a mesh's sum of the column-keyed T-phase partials
+            return x if cfg.mesh is None else cfg.mesh.sum_dp(x)
         panels = [(t0, min(self.panel, k - t0))
                   for t0 in range(0, k, self.panel)] if self.panel else None
 
@@ -424,15 +447,21 @@ class MaskedGramSweep(object):
             W_fro = Wt.T
             if panels is None:
                 A, G = gram_t(plan, W_fro, acc)
+                if cfg.mesh is not None:
+                    # A and Γ's unique rows, (k + k(k+1)/2, d), in one
+                    # all-reduce
+                    AG = cfg.mesh.sum_dp(torch.cat([A, G]))
+                    A, G = AG[:k], AG[k:]
+                G = _unpack(G, k)
                 for i in range(cfg.inner_reps * k):
                     t = i % k
                     t_topic(t, G[t], A)
                 del G
             else:
-                A = gram_A(plan, W_fro, acc)
+                A = sum_dp(gram_A(plan, W_fro, acc))
                 for _ in range(cfg.inner_reps):
                     for t0, p in panels:
-                        Gp = gram_t_panel(plan, W_fro, t0, p, acc)
+                        Gp = sum_dp(gram_t_panel(plan, W_fro, t0, p, acc))
                         for j in range(p):
                             t_topic(t0 + j, Gp[j], A)
                         del Gp
@@ -441,6 +470,7 @@ class MaskedGramSweep(object):
         if not cfg.fix_W:
             if panels is None:
                 C, H = gram_w(plan, T, acc)
+                H = _unpack(H, k)
                 for i in range(cfg.inner_reps * k):
                     t = i % k
                     w_topic(t, H[t], C)
@@ -469,13 +499,17 @@ def make_masked_gram_sweep(cfg, backend='segsum', panel=None):
 
 
 def make_masked_gram_objective(backend='segsum', reg_w_l2=0.0, reg_t_l2=0.0,
-                               reg_w_l1=0.0, reg_t_l1=0.0, panel=None):
+                               reg_w_l1=0.0, reg_t_l1=0.0, panel=None,
+                               mesh=None):
     """``objective(plan, W, T)`` through the Gram identity
     (:func:`rri_nmf_tpu.ops.sweep_masked_gram.make_masked_gram_objective`):
     ``0.5 (Σ m x² − 2·cross + quad)`` plus the regularizers, from one C
     and one Θ contraction (Θ in (panel, k, n) tiles with ``panel``). In
     float32 the three terms cancel: the result is good to about float32
-    eps times ``Σ m x²``."""
+    eps times ``Σ m x²``. On a ``(dp, 1)`` ``mesh`` the plan and W are
+    this rank's row block: its three terms (row-keyed, local) and the W
+    terms are summed over ``dp`` and the T terms taken once, in one
+    all-reduce (:func:`~rri_nmf_tpu_torch.ops.sweep.mesh_sums`)."""
     (_, gram_w, _, _, gram_C, gram_w_panel) = _BACKENDS[backend]
 
     def objective(plan, W, T):
@@ -485,7 +519,8 @@ def make_masked_gram_objective(backend='segsum', reg_w_l2=0.0, reg_t_l2=0.0,
         if panel is None:
             C, H = gram_w(plan, Ta, acc)
             cross = (C * Wa.T).sum()
-            quad = torch.einsum('tsi,it,is->', H, Wa, Wa)
+            quad = torch.einsum('tsi,it,is->', _unpack(H, Ta.shape[0]), Wa,
+                                Wa)
         else:
             C = gram_C(plan, Ta, acc)
             cross = (C * Wa.T).sum()
@@ -495,11 +530,15 @@ def make_masked_gram_objective(backend='segsum', reg_w_l2=0.0, reg_t_l2=0.0,
                 Hp = gram_w_panel(plan, Ta, t0, p, acc)
                 quad = quad + torch.einsum('tsi,it,is->', Hp,
                                            Wa[:, t0:t0 + p], Wa)
-        obj = 0.5 * (plan.sum_mx2.to(acc) - 2.0 * cross + quad)
-        obj = obj + 0.5 * reg_w_l2 * (Wa ** 2).sum()
-        obj = obj + 0.5 * reg_t_l2 * (Ta ** 2).sum()
-        obj = obj + reg_t_l1 * Ta.abs().sum()
-        obj = obj + reg_w_l1 * Wa.abs().sum()
+        total, (w2, w1), (t2, t1) = mesh_sums(
+            mesh, plan.sum_mx2.to(acc) - 2.0 * cross + quad,
+            ((Wa ** 2).sum(), Wa.abs().sum()),
+            ((Ta ** 2).sum(), Ta.abs().sum()))
+        obj = 0.5 * total
+        obj = obj + 0.5 * reg_w_l2 * w2
+        obj = obj + 0.5 * reg_t_l2 * t2
+        obj = obj + reg_t_l1 * t1
+        obj = obj + reg_w_l1 * w1
         return obj
 
     return objective

@@ -29,6 +29,14 @@ speculatively, with no reset firing and no host read (one CUDA graph on
 the card), checked once after the sweep, and re-run eagerly, with JAX's
 reset semantics, only when a topic died with ``'random'`` budget left. A
 reset draws a fresh topic and patches the carried residual in O(nnz).
+
+On a ``(dp, 1)`` mesh (``cfg.mesh``, :mod:`rri_nmf_tpu_torch.parallel.
+masked_sparse_mesh`) the plan holds this rank's row block of
+observations (local rows, global columns) and W its rows; T is whole on
+every rank. The two column-keyed sums of a topic's T-phase go into one
+all-reduce of a (2, d) buffer over ``dp``, and the T row is solved the
+same on every rank; the W-phase and the residual are row-keyed and stay
+local. A (1, 1) mesh makes no call.
 """
 
 import numpy as np
@@ -39,7 +47,8 @@ from rri_nmf_tpu_torch.matrixops import (_proj_simplex_core, fit_device,
 from rri_nmf_tpu_torch.optimization import qf_min_vector_c
 from rri_nmf_tpu_torch.ops.sparse_plan import host_coo, numpy_dtype
 from rri_nmf_tpu_torch.ops.sweep import (ALIVE, Sweep, _dead_topics,
-                                         make_reset_rowcol, precision_scope,
+                                         make_reset_rowcol, mesh_sums,
+                                         precision_scope,
                                          resolve_mixed_dtypes)
 
 # nnz padding quantum (JAX's): padding entries carry m = x = 0 and add
@@ -235,6 +244,10 @@ def _masked_sparse_body(cfg, reset_rowcol, plan, W, T, draws, resets,
         return torch.segment_reduce(data, 'sum', offsets=plan.row_ptr,
                                     unsafe=True)
 
+    def sum_dp(x):
+        # a mesh's sum of the T-phase's column-keyed partials
+        return x if cfg.mesh is None else cfg.mesh.sum_dp(x)
+
     # the masked residual at the observed entries, fresh every sweep
     r = m * (x - _predicted_obs(rows, cols, Wt.T, T.T.contiguous()))
 
@@ -255,8 +268,10 @@ def _masked_sparse_body(cfg, reset_rowcol, plan, W, T, draws, resets,
         # ---- T-phase (reference nmf.py:687-714, O(nnz) form) ----
         if not cfg.fix_T:
             wr = Wt[t][rows]
-            nw = seg_cols(wr * wr * m)                            # (d,)
-            wR = seg_cols(wr * r) + T[t] * nw                     # (d,)
+            # (w²)ᵀM and wᵀ(M⊙R), (d,) each: one all-reduce on a mesh
+            nw, wR = sum_dp(torch.stack([seg_cols(wr * wr * m),
+                                         seg_cols(wr * r)]))
+            wR = wR + T[t] * nw
             if cfg.dp_sigma is not None:
                 # Gaussian mechanism (reference nmf.py:422-435)
                 z1, z2 = draws.normal(wR, nw.shape)
@@ -314,7 +329,9 @@ class MaskedSparseSweep(Sweep):
 
     ``plan`` a :class:`MaskedCOOPlan`; ``draws`` and ``resets_left`` as
     for :class:`rri_nmf_tpu_torch.ops.sweep.Sweep`, whose speculative
-    run, single check, eager re-run and CUDA graph this sweep shares."""
+    run, single check, eager re-run and CUDA graph this sweep shares (on
+    a mesh the graph only where the mesh's collectives can be captured,
+    :attr:`~rri_nmf_tpu_torch.parallel.mesh.Mesh.graphable`)."""
 
     def __init__(self, cfg):
         if not supports_masked_sparse(cfg):
@@ -325,7 +342,8 @@ class MaskedSparseSweep(Sweep):
         self.reset_rowcol = (make_reset_rowcol(cfg) if method is not None
                              else None)
         self.random = method == 'random' or cfg.dp_sigma is not None
-        self.graphable = cfg.dp_sigma is None
+        self.graphable = cfg.dp_sigma is None and (cfg.mesh is None
+                                                   or cfg.mesh.graphable)
         self._graph = self._seen = None
 
     def _body(self, plan, W, T, draws, resets, extras):
@@ -342,11 +360,15 @@ def make_masked_sparse_sweep(cfg):
 
 
 def make_masked_sparse_objective(reg_w_l2=0.0, reg_t_l2=0.0, reg_w_l1=0.0,
-                                 reg_t_l1=0.0):
+                                 reg_t_l1=0.0, mesh=None):
     """``objective(plan, W, T)``: ``0.5 Σ_obs m·(x − (WT))²`` plus the
     four regularizers over a :class:`MaskedCOOPlan`
     (:func:`rri_nmf_tpu.ops.sweep_masked_sparse.
-    make_masked_sparse_objective`); no n×d product is formed."""
+    make_masked_sparse_objective`); no n×d product is formed. On a
+    ``(dp, 1)`` ``mesh`` the plan and W are this rank's row block and T
+    is whole: the observed entries' sum and the W terms are summed over
+    ``dp`` and the T terms taken once, in one all-reduce
+    (:func:`~rri_nmf_tpu_torch.ops.sweep.mesh_sums`)."""
 
     def objective(plan, W, T):
         _, acc, _ = resolve_mixed_dtypes(W.dtype, W.dtype)
@@ -354,11 +376,15 @@ def make_masked_sparse_objective(reg_w_l2=0.0, reg_t_l2=0.0, reg_w_l1=0.0,
         Ta = T.to(acc)
         pred = _predicted_obs(plan.rows, plan.cols, Wa, Ta.T.contiguous())
         res = plan.x_vals.to(acc) - pred
-        obj = 0.5 * (plan.m_vals.to(acc) * res * res).sum()
-        obj = obj + 0.5 * reg_w_l2 * (Wa ** 2).sum()
-        obj = obj + 0.5 * reg_t_l2 * (Ta ** 2).sum()
-        obj = obj + reg_t_l1 * Ta.abs().sum()
-        obj = obj + reg_w_l1 * Wa.abs().sum()
+        total, (w2, w1), (t2, t1) = mesh_sums(
+            mesh, (plan.m_vals.to(acc) * res * res).sum(),
+            ((Wa ** 2).sum(), Wa.abs().sum()),
+            ((Ta ** 2).sum(), Ta.abs().sum()))
+        obj = 0.5 * total
+        obj = obj + 0.5 * reg_w_l2 * w2
+        obj = obj + 0.5 * reg_t_l2 * t2
+        obj = obj + reg_t_l1 * t1
+        obj = obj + reg_w_l1 * w1
         return obj
 
     return objective

@@ -10,11 +10,22 @@
   sweep (kernels B3 and B4) on each rank's block;
 - :mod:`rri_nmf_tpu_torch.parallel.sparse_mesh` — the sparse-X sweeps
   (``torch.sparse.mm`` or the gather kernel, then B1/B2) on each rank's
-  block of nonzeros.
+  block of nonzeros;
+- :mod:`rri_nmf_tpu_torch.parallel.masked_sparse_mesh` — the sparse-mask
+  O(nnz) sweep on each rank's row block of observations;
+- :mod:`rri_nmf_tpu_torch.parallel.masked_gram_mesh` — the sparse-mask
+  Gram-phase sweep (the gather kernel) on each rank's row block.
 
-The sparse-mask and multi-host mesh forms arrive with ROADMAP A.12e-f.
+The multi-host forms (``multihost.py``, pre-built mesh plans) arrive with
+ROADMAP A.12f.
 """
 
+from rri_nmf_tpu_torch.parallel.masked_gram_mesh import (
+    make_sharded_masked_gram_objective, make_sharded_masked_gram_sweep,
+    partition_masked_gram, supports_sharded_masked_gram)
+from rri_nmf_tpu_torch.parallel.masked_sparse_mesh import (
+    make_sharded_masked_sparse_objective, make_sharded_masked_sparse_sweep,
+    partition_masked_coo, supports_sharded_masked_sparse)
 from rri_nmf_tpu_torch.parallel.mesh import (Mesh, make_mesh,
                                              make_sharded_training_step,
                                              problem_shardings,
@@ -33,4 +44,9 @@ __all__ = ['Mesh', 'make_mesh', 'problem_shardings', 'shard_problem',
            'supports_sharded_dense', 'make_sharded_masked_sweep',
            'supports_sharded_masked', 'partition_coo', 'partition_mxu',
            'supports_sharded_sparse', 'make_sharded_sparse_sweep',
-           'make_sharded_mxu_sweep', 'make_sharded_sparse_objective']
+           'make_sharded_mxu_sweep', 'make_sharded_sparse_objective',
+           'partition_masked_coo', 'supports_sharded_masked_sparse',
+           'make_sharded_masked_sparse_sweep',
+           'make_sharded_masked_sparse_objective', 'partition_masked_gram',
+           'supports_sharded_masked_gram', 'make_sharded_masked_gram_sweep',
+           'make_sharded_masked_gram_objective']

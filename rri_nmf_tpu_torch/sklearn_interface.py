@@ -70,10 +70,22 @@ def _host(a):
 
 class _Estimator(object):
     """Constructor-argument plumbing shared by the estimators:
-    ``get_params``/``set_params`` over ``_PARAMS`` and
-    :meth:`from_numpy_state`."""
+    ``get_params``/``set_params`` over ``_PARAMS``,
+    :meth:`from_numpy_state` and the pickle state."""
 
     _PARAMS = ()
+
+    def __getstate__(self):
+        """Pickle support: a ``mesh`` in ``nmf_kwargs`` holds this
+        process's process groups and stays behind, as the fitted
+        objective calculator drops it; the loaded estimator predicts,
+        scores and refits on one device."""
+        state = dict(self.__dict__)
+        if 'mesh' in (state.get('nmf_kwargs') or {}):
+            state['nmf_kwargs'] = {key: v for key, v in
+                                   state['nmf_kwargs'].items()
+                                   if key != 'mesh'}
+        return state
 
     def get_params(self, deep=True):
         """The constructor arguments, by name (scikit-learn's contract)."""
@@ -443,7 +455,7 @@ class NMF_RS_Estimator(_Estimator):
         """Pickle support: the validation scorer :meth:`fit` makes is a
         closure over the held-out split and is dropped (``None`` after a
         load), as in the JAX estimator."""
-        state = dict(self.__dict__)
+        state = super().__getstate__()
         if callable(state.get('early_stop')):
             state['early_stop'] = None
         return state

@@ -22,10 +22,13 @@ and ``tests/test_checkpoint.py`` are carried over at their tolerances:
 
 The port's sweep runs B1's plain twin on the CPU where JAX's default
 there is its XLA sweep, so each port fit is also held against the port's
-own single-device fit at the same bound. Sparse-mask fits on a mesh
-raise ``NotImplementedError`` naming A.12e; the masked and sparse meshes
-and ``store_gradients`` on a mesh have their own modules
-(``tests/test_torch_sharded_masked.py``, ``test_torch_sparse_mesh.py``).
+own single-device fit at the same bound. The masked, sparse and
+sparse-mask meshes and ``store_gradients`` on a mesh have their own
+modules (``tests/test_torch_sharded_masked.py``,
+``test_torch_sparse_mesh.py``, ``test_torch_masked_sparse_mesh.py``,
+``test_torch_masked_gram_mesh.py``); here each runs once through
+``nmf(mesh=...)``, and the objective calculator of a mesh fit and a
+fitted estimator with a mesh pickle as JAX's do.
 """
 
 import numpy as np
@@ -492,13 +495,13 @@ def test_nmf_options_on_a_mesh(pool, case):
 @pytest.mark.parametrize('case', ['masked', 'sparse', 'sparse mask',
                                   'store_gradients', 'not a mesh'])
 def test_deferred_mesh_options_raise(pool, case):
-    """The mesh forms still outside the port raise naming their ROADMAP
-    item (the sparse-mask A.12e), and a mesh that is not a ``Mesh`` raises
-    ``TypeError``. The masked (A.12c), sparse (A.12d) and
-    ``store_gradients`` (A.12g) forms, which raised until they were
-    ported, run: each (2, 1) fit equals the port's single-device fit at
-    1e-11 (tests/test_torch_sharded_masked.py and
-    test_torch_sparse_mesh.py hold them against JAX)."""
+    """A mesh that is not a ``Mesh`` raises ``TypeError``. The masked
+    (A.12c), sparse (A.12d), ``store_gradients`` (A.12g) and sparse-mask
+    (A.12e) forms, which raised until they were ported, run: each (2, 1)
+    fit equals the port's single-device fit at 1e-11
+    (tests/test_torch_sharded_masked.py, test_torch_sparse_mesh.py,
+    test_torch_masked_sparse_mesh.py and test_torch_masked_gram_mesh.py
+    hold them against JAX)."""
     X = _lowrank(20, 15, 2)
     kw = dict(k=2, max_iter=1, update_order='phase', reset_topic_method=None)
     if case == 'not a mesh':
@@ -511,12 +514,6 @@ def test_deferred_mesh_options_raise(pool, case):
         'sparse mask': dict(W_mat=scipy.sparse.csr_matrix(np.ones((20, 15)))),
         'store_gradients': dict(store_gradients=True),
     }[case]
-    if case == 'sparse mask':
-        import re
-        msg = pool.run('refusal', mesh=(2, 1), X=X, kw=dict(kw, **extra))
-        want = 'NotImplementedError: a sparse-mask fit on a mesh.*A.12e'
-        assert msg is not None and re.search(want, msg), msg
-        return
     kw = dict(kw, max_iter=3, random_state=0, compute_obj_each_iter=True,
               **extra)
     got = pool.run('fit', mesh=(2, 1), X=X, kw=kw)
@@ -528,14 +525,62 @@ def test_deferred_mesh_options_raise(pool, case):
                 assert _close(got[key][it], _np(v), RESET_TOL)
 
 
-def test_mesh_objective_calculator_does_not_pickle():
-    from rri_nmf_tpu_torch.nmf import TrueObjComputer
-    import pickle
-    calc = TrueObjComputer(torch.zeros(2, 2), torch.zeros(2, 1),
-                           torch.zeros(1, 2), 0, 0, 0, 0,
-                           mesh=Mesh.__new__(Mesh))
-    with pytest.raises(TypeError, match='does not pickle'):
-        pickle.dumps(calc)
+def test_mesh_objective_calculator_does_not_pickle(pool):
+    """(Named for the contract it replaced: a mesh calculator raised on
+    pickling.) JAX's contract (``rri_nmf_tpu/nmf.py:229-317``): a mesh
+    fit's calculator pickles without the mesh and the rank's blocks. A
+    dense or dense-mask one (JAX host-gathers its X) evaluates the whole
+    objective on one device after a load, equal to the fit's last
+    objective; a sparse-X or sparse-mask one (no rank holds X whole)
+    raises JAX's ``mesh-sharded`` ValueError."""
+    X = _lowrank(20, 15, 2)
+    M = (np.random.RandomState(3).rand(20, 15) < 0.6).astype(float)
+    kw = dict(k=2, max_iter=3, update_order='phase', reset_topic_method=None,
+              random_state=0, compute_obj_each_iter=True)
+    for extra, evaluates in ((dict(), True), (dict(W_mat=M), True),
+                             (dict(w_row=np.linspace(0.5, 2.0, 20)), True),
+                             (dict(sparse=True), False),
+                             (dict(W_mat=scipy.sparse.csr_matrix(M)), False)):
+        got = pool.run('fit', mesh=(2, 1), X=X, kw=dict(kw, **extra),
+                       pickled=True)
+        if evaluates:
+            # (a w_row fit's history ends with its refit's objectives)
+            want = got['objective']
+            assert got['pickled'] == pytest.approx(want, rel=1e-12), extra
+        else:
+            assert got['pickled'].startswith('ValueError') \
+                and 'mesh-sharded' in got['pickled'], (extra, got['pickled'])
+
+
+@pytest.mark.parametrize('sparse_obs', [False, True])
+def test_mesh_estimator_pickles(pool, recsys_train, sparse_obs):
+    """``NMF_RS_Estimator(nmf_kwargs=dict(mesh=...))`` fitted on a (2, 1)
+    mesh pickles and loads back without the mesh (its process groups
+    stay behind): the same factors and score, the fit's objective
+    calculator evaluating (dense mask) or raising JAX's ``mesh-sharded``
+    ValueError (sparse mask), as the calculator's contract says."""
+    from rri_nmf_tpu_torch.sklearn_interface import NMF_RS_Estimator
+    n, d = recsys_train.shape
+    I, J = recsys_train.nonzero()
+    pairs, ratings = np.stack([I, J], axis=1), recsys_train[I, J]
+    kw = dict(random_state=0, max_iter=6, sparse_obs=sparse_obs,
+              nmf_kwargs=dict(update_order='phase'))
+    got = pool.run('rs_estimator', mesh=(2, 1), pairs=pairs,
+                   ratings=ratings, shape=(n, d, 5), kw=kw)
+    assert np.array_equal(got['loaded_W'], got['W'])
+    assert np.array_equal(got['loaded_T'], got['T'])
+    assert got['loaded_score'] == got['score']
+    assert 'mesh' not in got['loaded_nmf_kwargs']
+    if sparse_obs:
+        assert got['loaded_objective'].startswith('ValueError') \
+            and 'mesh-sharded' in got['loaded_objective']
+    else:
+        assert got['loaded_objective'] == pytest.approx(
+            got['obj_history'][-1], rel=1e-10)
+    one = NMF_RS_Estimator(n, d, 5, device='cpu', **kw).fit(pairs, ratings)
+    assert np.allclose(got['W'], _np(one.W), rtol=0, atol=1e-11)
+    assert got['score'] == pytest.approx(one.score(pairs, ratings),
+                                         rel=1e-10)
 
 
 def test_problem_shardings_are_jax_layouts():

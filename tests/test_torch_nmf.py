@@ -291,8 +291,9 @@ def test_refused_kernel_gate_raises_on_the_card():
 
 DEFERRED = {
     # a sparse W_mat runs (tests/test_torch_masked_sparse.py and
-    # test_torch_masked_gram.py hold it against JAX); its mesh form waits
-    # for A.12
+    # test_torch_masked_gram.py hold it against JAX), and on a mesh since
+    # A.12e (test_torch_masked_sparse_mesh.py, test_torch_masked_gram_mesh
+    # .py): a mesh that is not a Mesh meets the TypeError
     'W_mat': dict(W_mat=scipy.sparse.csr_matrix(np.ones((20, 15))),
                   mesh=object(), **FAST_TM),
     # w_row, checkpoint and accel run since ROADMAP A.4 and A.9: their
@@ -323,9 +324,10 @@ PORTED_SINCE = {'w_row': 'A.4', 'checkpoint': 'A.9', 'accel': 'A.9',
 
 @pytest.mark.parametrize('case', sorted(DEFERRED))
 def test_options_outside_the_slice_raise(case, tmp_path):
-    """Each option still outside the port raises naming its ROADMAP item;
-    one ported since runs and equals the JAX fit, and a mesh option
-    ported since meets the TypeError of its non-Mesh ``mesh=object()``."""
+    """Each option that was outside the port (and raised naming its
+    ROADMAP item) runs: one ported since runs and equals the JAX fit, and
+    a mesh option ported since meets the TypeError of its non-Mesh
+    ``mesh=object()``."""
     if case in PORTED_SINCE:
         X = _lowrank(20, 15, 2)
         kw = dict(DEFERRED[case], max_iter=4, random_state=0,
@@ -362,15 +364,8 @@ def test_options_outside_the_slice_raise(case, tmp_path):
         else:
             _same_fit(X, 2, **kw)
         return
-    if case in ('sparse mode', 'mesh'):
-        with pytest.raises(TypeError, match='must be a rri_nmf_tpu_torch'
-                                            '.parallel.Mesh'):
-            torch_nmf(_lowrank(20, 15, 2), 2, max_iter=1, device='cpu',
-                      **DEFERRED[case])
-        return
-    match = {'W_mat': 'sparse-mask fit on a mesh.*ROADMAP A.12e'}.get(
-        case, 'ROADMAP A')
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(TypeError, match='must be a rri_nmf_tpu_torch'
+                                        '.parallel.Mesh'):
         torch_nmf(_lowrank(20, 15, 2), 2, max_iter=1, device='cpu',
                   **DEFERRED[case])
 

@@ -90,7 +90,9 @@ class _Counting(object):
         self.targets = [(dk, 'gs_update'), (dk, 'tm_proj_update'),
                         (mk, 'phase_a'), (mk, 'phase_b'),
                         (sk, 'gather_contract'), (nmf, 'partition_coo'),
-                        (nmf, 'partition_mxu')]
+                        (nmf, 'partition_mxu'),
+                        (nmf, 'partition_masked_coo'),
+                        (nmf, 'partition_masked_gram')]
         self.calls = {name: 0 for _, name in self.targets}
         self.saved = []
 
@@ -112,15 +114,55 @@ class _Counting(object):
             setattr(module, name, fn)
 
 
-def case_fit(mesh, X, kw):
+def _objective(calc):
+    """A calculator's objective, or the error it raises."""
+    try:
+        return float(calc.true_objective())
+    except Exception as e:          # the test checks the kind and text
+        return '%s: %s' % (type(e).__name__, e)
+
+
+def _pickled_objective(calc):
+    """A calculator's objective after a pickle round trip, or the error
+    that raises."""
+    return _objective(pickle.loads(pickle.dumps(calc)))
+
+
+def case_fit(mesh, X, kw, single=False, every_rank=False, pickled=False,
+             gram_budget=None):
     """``nmf(X, mesh=mesh, device='cpu', **kw)``: the whole factors, the
     history, the budget left, the gradient stores, this rank's kernel
-    calls (:class:`_Counting`) and the warnings logged."""
+    calls (:class:`_Counting`) and the warnings logged. ``single`` adds
+    the fit without the mesh in this process, ``every_rank`` every rank's
+    T, ``pickled`` the objective calculator's value before and after a
+    pickle round trip; ``gram_budget`` sets the Gram-phase sweep's
+    memory budget for the fit."""
     from rri_nmf_tpu_torch.nmf import nmf
-    with _Counting() as calls:
-        res = nmf(X, mesh=mesh, device='cpu', **kw)
+    from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg
+    budget = mg.GRAM_BUDGET_BYTES
+    if gram_budget is not None:
+        mg.GRAM_BUDGET_BYTES = gram_budget
+    try:
+        with _Counting() as calls:
+            res = nmf(X, mesh=mesh, device='cpu', **kw)
+        if single:
+            one = nmf(X, device='cpu', **kw)
+    finally:
+        mg.GRAM_BUDGET_BYTES = budget
     out = {key: _np(res[key]) for key in ('W', 'T')}
     out['calls'] = dict(calls)
+    if single:
+        out['single'] = {key: _np(one[key]) for key in ('W', 'T')}
+        out['single']['obj_history'] = list(one.get('obj_history', []))
+    if every_rank:
+        import torch.distributed as dist
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, out['T'])
+        out['every_T'] = every[:mesh.size]
+    if pickled:
+        calc = res['obj_calculator']
+        out['objective'] = calc.true_objective()
+        out['pickled'] = _pickled_objective(calc)
     for key in ('numer_W', 'denom_W'):
         if key in res:
             out[key] = {it: _np(v) for it, v in res[key].items()}
@@ -348,6 +390,114 @@ def case_made(mesh, shapes):
     dist.all_gather_object(every, mine)
     return dict(every[0], ranges=[e['range'] for e in every],
                 outside=every[-1]['outside'])
+
+
+def _masked_plan(mesh, X, M, gram, backend):
+    import torch
+
+    from rri_nmf_tpu_torch.parallel import (partition_masked_coo,
+                                            partition_masked_gram)
+    if gram:
+        return partition_masked_gram(X, M, mesh, torch.float64,
+                                     backend=backend, device='cpu')
+    return partition_masked_coo(X, M, mesh, torch.float64, 'cpu')
+
+
+def case_masked_partition(mesh, X, M):
+    """Every rank's :func:`partition_masked_coo` plan: its row range, its
+    host arrays and real observations, and its Gram plan's ``Σ m x²``."""
+    import torch.distributed as dist
+    split = mesh.split(*X.shape)
+    coo = _masked_plan(mesh, X, M, False, None)
+    gram = _masked_plan(mesh, X, M, True, 'segsum')
+    mine = {'range': (split.r0, split.r1), 'shape': coo.shape,
+            'nnz': coo.nnz, 'sum_mx2': float(gram.sum_mx2),
+            'arrays': coo.host_arrays()}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every[:mesh.size]
+
+
+def case_masked_mesh_sweep(mesh, X, M, W, T, cfg, sweeps, gram=True,
+                           backend='segsum', panel=None, seed=3,
+                           single=False):
+    """``sweeps`` sweeps of the sparse-mask mesh sweep (the Gram-phase
+    one with ``gram``, of ``backend`` and ``panel``; else the O(nnz) one)
+    on this rank's plan from whole (W, T): the whole factors after each
+    sweep and this rank's gather calls; ``single`` adds the same sweeps
+    without the mesh on the single-device plan, in this process."""
+    import torch
+
+    from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg
+    from rri_nmf_tpu_torch.ops import sweep_masked_sparse as ms
+    from rri_nmf_tpu_torch.ops.sweep import SweepConfig, make_draws
+    from rri_nmf_tpu_torch.parallel import (
+        make_sharded_masked_gram_sweep, make_sharded_masked_sparse_sweep)
+    cfg = SweepConfig(**cfg)
+    split = mesh.split(*X.shape)
+    plan = _masked_plan(mesh, X, M, gram, backend)
+    sweep = (make_sharded_masked_gram_sweep(cfg, mesh, backend, panel)
+             if gram else make_sharded_masked_sparse_sweep(cfg, mesh))
+    W, T = torch.as_tensor(W), torch.as_tensor(T)
+    Wl, Tl = W[split.r0:split.r1].contiguous(), T
+    draws = make_draws(seed, 'cpu')
+    out = {'steps': []}
+    with _Counting() as calls:
+        for _ in range(sweeps):
+            Wl, Tl, _ = sweep(plan, Wl, Tl, draws, 0)
+            out['steps'].append((_np(mesh.gather_rows(Wl, split)), _np(Tl)))
+    out['calls'] = dict(calls)
+    if single:
+        one = (mg.plan_masked_gram(X, M, torch.float64, backend=backend,
+                                   device='cpu') if gram
+               else ms.plan_masked_coo(X, M, torch.float64, device='cpu'))
+        sweep = (mg.make_masked_gram_sweep(cfg, backend, panel) if gram
+                 else ms.make_masked_sparse_sweep(cfg))
+        draws = make_draws(seed, 'cpu')
+        out['single'] = []
+        for _ in range(sweeps):
+            W, T, _ = sweep(one, W, T, draws, 0)
+            out['single'].append((_np(W), _np(T)))
+    return out
+
+
+def case_masked_mesh_objective(mesh, X, M, W, T, regs, gram=True,
+                               backend='segsum', panel=None):
+    """The sparse-mask mesh objective (the Gram form with ``gram``, of
+    ``backend`` and ``panel``; else the observed-entry form) of whole
+    (W, T) on this rank's plan."""
+    import torch
+
+    from rri_nmf_tpu_torch.parallel import (
+        make_sharded_masked_gram_objective,
+        make_sharded_masked_sparse_objective)
+    split = mesh.split(*X.shape)
+    plan = _masked_plan(mesh, X, M, gram, backend)
+    f = (make_sharded_masked_gram_objective(mesh, backend, panel=panel,
+                                            **regs) if gram
+         else make_sharded_masked_sparse_objective(mesh, **regs))
+    return float(f(plan, torch.as_tensor(W)[split.r0:split.r1],
+                   torch.as_tensor(T)))
+
+
+def case_rs_estimator(mesh, pairs, ratings, shape, kw):
+    """``NMF_RS_Estimator(*shape, nmf_kwargs=dict(mesh=mesh, ...))``
+    fitted on the pairs, then pickled and loaded: the fit's factors,
+    history and score, and the loaded estimator's factors, score,
+    ``nmf_kwargs`` and objective calculator (its value, or the error)."""
+    from rri_nmf_tpu_torch.sklearn_interface import NMF_RS_Estimator
+    kw = dict(kw)
+    kw['nmf_kwargs'] = dict(kw.get('nmf_kwargs', {}), mesh=mesh)
+    est = NMF_RS_Estimator(*shape, device='cpu', **kw).fit(pairs, ratings)
+    loaded = pickle.loads(pickle.dumps(est))
+    return {'W': _np(est.W), 'T': _np(est.T),
+            'obj_history': list(est.nmf_outputs['obj_history']),
+            'score': est.score(pairs, ratings),
+            'loaded_W': _np(loaded.W), 'loaded_T': _np(loaded.T),
+            'loaded_score': loaded.score(pairs, ratings),
+            'loaded_nmf_kwargs': sorted(loaded.nmf_kwargs),
+            'loaded_objective': _objective(
+                loaded.nmf_outputs['obj_calculator'])}
 
 
 def frobenius(X, W, T):
