@@ -216,15 +216,40 @@ its users run, one line per phase:
     on phase 8's ratings (its test RMSE beside the single-device fit's,
     a pickle round trip); the host plan seconds per rank, the bytes of
     each all-reduce a sweep and the rank walls (gloo copies through the
-    host: no scaling reading).
+    host: no scaling reading);
+31. the multi-host layer (``parallel/multihost``), every fit from the
+    rank's own slab or pre-built plan: (a) in the one-rank NCCL world,
+    ``initialize_distributed()`` (the world it is in), ``make_global_mesh()``,
+    ``process_row_block`` and the ``distribute_*`` calls; ``nmf()`` on
+    ``distribute_dense`` at 16384×8192 k=128 (B1) and ``'mxu'`` on
+    ``distribute_sparse_coo`` at 50,000×30,000 0.5% k=128 (the gather
+    kernel, B1), each bit for bit the whole-X mesh fit and the
+    single-device fit with the same launches; the Gram fit at k=32 and the
+    O(nnz) fit on ``distribute_masked_coo`` of the recorded problem, bit
+    for bit phase 30 (a)'s fits of the same settings with the same
+    launches; the mesh NNDSVD (float64, 16384×8192 k=128, one Ω) bit for
+    bit ``randomized_svd_torch``'s on the whole X; (b) 4 gloo ranks as two
+    hosts of two (``LOCAL_WORLD_SIZE=2``), each joining through
+    ``initialize_distributed('localhost:<port>', 4, rank,
+    backend='gloo')``: the dense fit on the default ``make_global_mesh()``
+    (float64) and on (2, 2) (float32), a checkpointed fit resumed from
+    other warm starts through per-rank directories (only the first rank's
+    holds the checkpoint), the TM preset on (4, 1) (B2 on each rank's
+    rows), the COO plan on (2, 2), ``'mxu'`` on (4, 1),
+    the masked COO and Gram plans on (4, 1), each bit for bit the same
+    ranks' whole-X mesh fit with the same launches and at phase 27's gates
+    against the single-device card fit, and the mesh NNDSVD in float64
+    within 1e-10 of the single-device one with the same Ω; the host plan
+    seconds per rank.
 
 Phases 5-6, phase 8, phases 10-11, phases 12-16, phases 18-19, phases
-20-23, phases 24-25, each dtype's fits of phase 26 and phases 27-30
-drive a main path with the launch counts set to 0 just before and read
-just after (no kernel of this repo runs in phases 12-13; phases 14-15
+20-23, phases 24-25, each dtype's fits of phase 26, phases 27-30 and
+phase 31 drive a main path with the launch counts set to 0 just before and
+read just after (no kernel of this repo runs in phases 12-13; phases 14-15
 run B1; phases 18-19 the gather kernel; phases 20-23 B1-B4; phases 24-25
-B1; phase 26 the 16-bit builds of all six; phases 27-29 B1-B5 and phase
-30 the gather kernel, in this process and in each rank, counted there;
+B1; phase 26 the 16-bit builds of all six; phases 27-29 B1-B5, phase
+30 the gather kernel and phase 31 B1, B2 and the gather kernel, in this
+process and in each rank, counted there;
 the HER recursion run by hand, the sync check of phases 20 and 23 and
 the sweeps timed beside phases 18 and 30's fits leave the counts as they
 were).
@@ -473,6 +498,26 @@ GRAM_MESH_SWEEPS = 3
 GRAM_MESH_F64_SWEEPS = 2
 PANEL_MESH_SWEEPS = 2
 PANEL_MESH_UNITS = 32
+# phase 31: the multi-host layer (parallel/multihost), each fit from the
+# rank's own slab or plan: (a) in the one-rank world, NMF_SHAPE dense and
+# SPARSE_SHAPE 'mxu' (MULTIHOST_SWEEPS) bit for bit the whole-X mesh fit
+# and the single-device fit, the Gram and O(nnz) fits of phase 30 (a)'s
+# settings bit for bit its fits, the mesh NNDSVD in float64 bit for bit
+# the single-device one; (b) MESH_RANKS gloo ranks as two hosts of two
+# (LOCAL_WORLD_SIZE=MULTIHOST_LOCAL), bit for bit the same ranks' whole-X
+# mesh fits, at phase 27's gates against one device (the mesh NNDSVD at
+# TOL_MESH_F64), a checkpointed fit resumed through per-rank directories
+MULTIHOST_SWEEPS = 3
+MULTIHOST_MASKED_SWEEPS = 2
+MULTIHOST_LOCAL = 2
+# the mesh NNDSVD at NMF_SHAPE: its SVD (S, U·diag(S)·Vt) within
+# TOL_MESH_F64 of one device's, its W and H within TOL_NNDSVD_MESH. The
+# low-rank X's trailing singular values cluster far below the first, so
+# the (p, p) Gram's eigenvectors, and the NNDSVD sections built on them,
+# move with the summation order; phase 31 logs how far moving every entry
+# of X by about one ulp moves the single-device W and H, beside the
+# mesh's gap
+TOL_NNDSVD_MESH = 1e-8
 
 
 def log(phase, **fields):
@@ -3356,7 +3401,7 @@ def run(dev):
     with one_rank_world(dev) as mesh:
         mesh_gs = run_mesh_one_rank_phase(dev, dk, nmf, mesh)
         sync(dev)
-        ranks = run_mesh_ranks_phase(dev, dk, nmf)
+        ranks = run_mesh_ranks_phase(dev, dk, nmf, counts)
         if mesh_gs == 0 or ranks['gs'] == 0 or ranks['tm_proj'] == 0:
             raise AssertionError('a kernel of the mesh phase never ran: %d '
                                  '%r' % (mesh_gs, ranks))
@@ -3390,16 +3435,37 @@ def run(dev):
         # timed beside them launch it too) and in the ranks' (each rank's
         # counts)
         sk.reset_launches()
-        one = run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, Xr, Mr)
+        one, refs = run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh,
+                                                        Xr, Mr)
         sync(dev)
         log('launches, phase 30 (a)', mxu=sk.LAUNCHES['mxu'], fits=one)
-        del Xr, Mr
         ranks = run_sparse_mask_mesh_ranks_phase(dev, nmf)
         if one == 0 or ranks == 0:
             raise AssertionError('the gather kernel never ran on the '
                                  'sparse-mask meshes: %d %d' % (one, ranks))
         sparse['mxu'] += one + ranks
-    log('launches, phases 27-30', gs=launches['gs'],
+
+        # 31. the multi-host layer, counted from zero: B1 and the gather
+        # kernel in the one-rank world's slab fits (this process) and in
+        # the ranks' (each rank's counts)
+        dk.reset_launches()
+        sk.reset_launches()
+        t31 = time.perf_counter()
+        one = run_multihost_one_rank_phase(dev, dk, sk, nmf, Xr, Mr, refs)
+        sync(dev)
+        del Xr, Mr, refs
+        ranks = run_multihost_ranks_phase(dev, nmf)
+        if any(one[key] == 0 or ranks[key] == 0 for key in ('gs', 'mxu')) \
+                or ranks['tm_proj'] == 0:
+            raise AssertionError('a kernel of the multi-host phase never '
+                                 'ran: %r %r' % (one, ranks))
+        log('launches, phase 31', gs=one['gs'] + ranks['gs'],
+            tm_proj=ranks['tm_proj'], mxu=one['mxu'] + ranks['mxu'],
+            one_rank=one, ranks=ranks, seconds=time.perf_counter() - t31)
+        launches['gs'] += one['gs'] + ranks['gs']
+        launches['tm_proj'] += ranks['tm_proj']
+        sparse['mxu'] += one['mxu'] + ranks['mxu']
+    log('launches, phases 27-31', gs=launches['gs'],
         tm_proj=launches['tm_proj'], **masked, mxu=sparse['mxu'])
     # no single PyTorch call computes B1-B4 (sequential topic chains with
     # clamps, a simplex projection, fused in-place rank-one updates)
@@ -3473,7 +3539,12 @@ def mesh_problems(spec, dev):
         yield 'nmf %s' % str(dt)[6:], X.to(dt), dict(base, k=k), shape
     del X
     n_train, n_test, n_words, k = spec['tm']
-    counts = zipf_corpus(n_train + n_test, n_words, k, seed=0)[:n_train]
+    if spec.get('corpus'):
+        # the parent's corpus of phase 6 (the same seed), not drawn again
+        import scipy.sparse as sp
+        counts = sp.load_npz(spec['corpus']).toarray()[:n_train]
+    else:
+        counts = zipf_corpus(n_train + n_test, n_words, k, seed=0)[:n_train]
     # unit rows, as the preset's init scales them: every topic stays alive
     # (a dead topic's T row is the simplex projection of rounding noise,
     # on which no two summation orders agree; from unscaled U[0,1] rows a
@@ -3599,17 +3670,215 @@ def sparse_mask_mesh_problems(spec, dev):
            dict(estimator=True), shape)
 
 
+def multihost_problems(spec, dev):
+    """The problems of phase 31 (b), each with the way a rank builds its
+    input from its slab (``slab``), and None for the default global mesh:
+    the dense fit at ``spec['nmf']`` in float64 on ``make_global_mesh()``
+    and in float32 on (2, 2); a checkpointed float32 fit (``'restore'``);
+    the mesh NNDSVD in float64 (``'nndsvd'``); the TM preset on (4, 1)
+    on X with unit rows; phase 9's CSR matrix at
+    ``spec['sparse']`` through the COO plan on (2, 2) and ``'mxu'`` on
+    (4, 1); the recorded problem at ``spec['record']`` through the Gram
+    and the masked COO plans on (4, 1). Warm starts are drawn with
+    MESH_SEED; X is made whole from its seed in every rank, which gives
+    ``nmf()`` and the plans only its slab, and the whole-X mesh fit the
+    whole."""
+    n, d, k = spec['nmf']
+    rng = np.random.RandomState(MESH_SEED)
+    W0, T0 = rng.rand(n, k), rng.rand(k, d)
+    X = lowrank(n, d, k, dev, seed=0)
+    base = dict(k=k, max_iter=spec['sweeps'], compute_obj_each_iter=True,
+                random_state=0, W_in=W0, T_in=T0, **FAST_TM)
+    yield ('dense default float64', X.double(), dict(base, slab='dense'),
+           None)
+    yield 'dense float32', X, dict(base, slab='dense'), (2, 2)
+    yield ('restore float32', X, dict(base, slab='restore',
+                                      max_iter=2 * spec['sweeps']), (2, 2))
+    yield 'nndsvd float64', X.double(), dict(k=k, slab='nndsvd'), (2, 2)
+    # the TM preset on each rank's whole rows (B1 and B2) of X with unit
+    # rows, from unit-row warm starts (phase 27's rule: every topic lives)
+    from rri_nmf_tpu_torch.matrixops import normalize
+    Wu, Tu = unit_rows(rng, n, d, k)
+    yield ('tm (4, 1) float32', normalize(X), dict(
+        base, W_in=Wu, T_in=Tu, project_W_each_iter=False, w_row_sum=1.0,
+        project_T_each_iter=True, t_row_sum=1.0, slab='dense'), (4, 1))
+    del X
+    n, d, dens, k = spec['sparse']
+    Xs = sparse_csr(n, d, dens, dev, seed=0)
+    base = dict(base, k=k, W_in=rng.rand(n, k), T_in=rng.rand(k, d))
+    yield 'coo float32', Xs, dict(base, sparse=True, slab='coo'), (2, 2)
+    yield 'mxu float32', Xs, dict(base, sparse='mxu', slab='mxu'), (4, 1)
+    del Xs
+    n, d, q, k = spec['record']
+    X, M = masked_record_problem(n, d, q, seed=0)
+    masked = dict(k=k, W_mat=M, W_in=rng.rand(n, k), T_in=rng.rand(k, d),
+                  compute_obj_each_iter=True, random_state=0, eps_stop=0.0,
+                  device=dev)
+    yield ('gram float32', X, dict(
+        masked, max_iter=spec['sweeps'], update_order='phase',
+        reset_topic_method=None, slab='masked_gram'), (4, 1))
+    yield ('masked coo float32', X, dict(
+        masked, max_iter=spec['masked_sweeps'], slab='masked_coo'), (4, 1))
+
+
 RANK_PROBLEMS = {27: mesh_problems, 28: masked_mesh_problems,
-                 29: sparse_mesh_problems, 30: sparse_mask_mesh_problems}
+                 29: sparse_mesh_problems, 30: sparse_mask_mesh_problems,
+                 31: multihost_problems}
 
 
-def solve(nmf, X, kw, mesh=None):
+def csr_rows(X, lo, hi):
+    """Rows [lo, hi) of a torch CSR tensor, as a CSR tensor."""
+    crow = X.crow_indices()
+    a, b = int(crow[lo]), int(crow[hi])
+    return torch.sparse_csr_tensor(crow[lo:hi + 1] - a, X.col_indices()[a:b],
+                                   X.values()[a:b], (hi - lo, X.shape[1]))
+
+
+def _launch_counts():
+    from rri_nmf_tpu_torch.ops import dense_kernels as dk
+    from rri_nmf_tpu_torch.ops import masked_kernels as mk
+    from rri_nmf_tpu_torch.ops import sparse_kernels as sk
+    return dict(dk.LAUNCHES, **mk.LAUNCHES, **sk.LAUNCHES)
+
+
+def slab_inputs(X, kw, mesh, slab):
+    """This rank's X and warm starts built from its slab alone
+    (``parallel.multihost``): a RankBlock of the dense slab, the COO or
+    ``'mxu'`` plan of the sparse slab, the masked COO or Gram plan of the
+    slabs of X and mask; with the fit's other settings. Returns
+    ``(X_rank, kw, host plan seconds)``."""
+    from rri_nmf_tpu_torch.parallel import (distribute_dense,
+                                            distribute_factors,
+                                            distribute_masked_coo,
+                                            distribute_sparse_coo,
+                                            process_row_block)
+    n, d = X.shape
+    kw = dict(kw)
+    dev = kw.get('device')
+    lo, hi = process_row_block(n, mesh)
+    kw['W_in'], kw['T_in'] = distribute_factors(
+        kw['W_in'][lo:hi], kw['T_in'], n, mesh,
+        device=dev if dev is not None else X.device)
+    t0 = time.perf_counter()
+    if slab in ('dense', 'restore'):
+        Xr = distribute_dense(X[lo:hi], (n, d), mesh)
+    elif slab in ('coo', 'mxu'):
+        Xr = distribute_sparse_coo(csr_rows(X, lo, hi), (n, d), mesh,
+                                   backend=None if slab == 'coo' else 'mxu')
+    else:
+        M = kw.pop('W_mat')
+        Xr = distribute_masked_coo(
+            X[lo:hi], M[lo:hi], (n, d), mesh, device=dev,
+            backend='mxu' if slab == 'masked_gram' else None)
+    sync(dev if dev is not None else X.device)
+    return Xr, kw, time.perf_counter() - t0
+
+
+def solve_slab(nmf, X, kw, mesh, slab, out=None):
+    """A phase 31 problem on ``mesh`` (None: one device, the whole X):
+    the fit from this rank's slab (:func:`slab_inputs`), then the same
+    ranks' whole-X mesh fit; the slab fit with ``same_as_whole`` (W, T
+    and ``obj_history`` bit for bit), ``same_launches`` (the two fits'
+    kernel launches) and ``plan_s`` (the slab plan's host seconds).
+    ``'nndsvd'``: the NNDSVD init (``svd_backend='torch'``, through the
+    mesh from the rank's block). ``'restore'``: 2 of ``max_iter`` sweeps
+    with a checkpoint in ``out``/rank<r> (only the first rank writes),
+    then ``max_iter`` from other warm starts, resuming; ``same_as_whole``
+    is then the resumed fit against the straight slab fit."""
+    from rri_nmf_tpu_torch.initialization import initialize_nmf
+    kw = dict(kw)
+    dev = kw['device'] if 'device' in kw else X.device
+    if slab == 'nndsvd':
+        from rri_nmf_tpu_torch.initialization import randomized_svd_torch
+        Xi = X
+        if mesh is not None:
+            from rri_nmf_tpu_torch.parallel import (distribute_dense,
+                                                    process_row_block)
+            lo, hi = process_row_block(X.shape[0], mesh)
+            Xi = distribute_dense(X[lo:hi], X.shape, mesh)
+        W, H = initialize_nmf(Xi, kw['k'], 'nndsvd', random_state=0,
+                              svd_backend='torch', mesh=mesh)
+        # the SVD under it, from the same Ω (the seed's generator)
+        U, S, Vt = randomized_svd_torch(
+            Xi, kw['k'], generator=torch.Generator(dev).manual_seed(0),
+            mesh=mesh)
+        if mesh is not None:
+            U, Vt = mesh.gather_rows(U, Xi.split), mesh.gather_cols(
+                Vt, Xi.split)
+        out = dict(W=W, T=H, obj_history=[], iter_cputime=[0.0, 0.0],
+                   svd=(U.cpu(), S.cpu(), Vt.cpu()))
+        if mesh is None:
+            # the init's own conditioning: X with every entry moved by
+            # about one ulp (a seeded relative 2^-52 normal draw)
+            gen = torch.Generator(dev).manual_seed(1)
+            Xp = X * (1 + 2.0 ** -52 * torch.randn(
+                X.shape, generator=gen, dtype=X.dtype, device=dev))
+            Wp, Hp = initialize_nmf(Xp, kw['k'], 'nndsvd', random_state=0,
+                                    svd_backend='torch')
+            out['ulp_gap'] = max(_mesh_gap(Wp, W), _mesh_gap(Hp, H))
+            del Xp, Wp, Hp
+        return out
+    if mesh is None:
+        return nmf(X, **dict(kw, max_iter=kw['max_iter'] // 2)
+                   if slab == 'restore' else kw)
+    Xr, skw, plan_s = slab_inputs(X, kw, mesh, slab)
+    if slab == 'restore':
+        import torch.distributed as dist
+
+        from rri_nmf_tpu_torch.checkpoint import NMFCheckpointer
+        ck = os.path.join(out, 'ckpt', 'rank%d' % dist.get_rank())
+        sweeps = kw['max_iter'] // 2
+        straight = nmf(Xr, mesh=mesh, **dict(skw, max_iter=sweeps))
+        nmf(Xr, mesh=mesh, checkpoint=ck, checkpoint_every=sweeps // 2 or 1,
+            **dict(skw, max_iter=sweeps // 2 or 1))
+        disk = NMFCheckpointer(ck).steps()
+        other = dict(kw, W_in=1.0 - kw['W_in'], T_in=1.0 - kw['T_in'])
+        _, okw, _ = slab_inputs(X, other, mesh, 'dense')
+        res = dict(nmf(Xr, mesh=mesh, checkpoint=ck, checkpoint_every=100,
+                       **dict(okw, max_iter=sweeps)))
+        res.update(same_as_whole=_bit_for_bit(res, straight),
+                   same_launches=True, plan_s=plan_s, disk=disk)
+        return res
+    c0 = _launch_counts()
+    res = dict(nmf(Xr, mesh=mesh, **skw))
+    sync(dev)
+    c1 = _launch_counts()
+    whole = nmf(X, mesh=mesh, **kw)
+    sync(dev)
+    c2 = _launch_counts()
+    res.update(same_as_whole=_bit_for_bit(res, whole), plan_s=plan_s,
+               same_launches=all(c1[key] - c0[key] == c2[key] - c1[key]
+                                 for key in c0))
+    if slab == 'coo':
+        # torch.sparse.mm on the card (cuSPARSE) need not repeat its bits:
+        # the slab's block must equal partition_coo's bit for bit, the fit
+        # the whole-X fit within the float32 gate; whether two whole-X
+        # fits repeat is logged
+        from rri_nmf_tpu_torch.parallel import partition_coo
+        ref = partition_coo(X, mesh, Xr.dtype, dev).coo
+        again = nmf(X, mesh=mesh, **kw)
+        sync(dev)
+        gap = abs(res['obj_history'][-1] - whole['obj_history'][-1]) / abs(
+            whole['obj_history'][-1])
+        res.update(whole_repeats=_bit_for_bit(whole, again), obj_gap=gap,
+                   same_as_whole=(torch.equal(Xr.coo.indices(), ref.indices())
+                                  and torch.equal(Xr.coo.values(),
+                                                  ref.values())
+                                  and gap <= TOL_MESH_F32_OBJ))
+    return res
+
+
+def solve(nmf, X, kw, mesh=None, out=None):
     """One problem of a rank phase on ``mesh`` (None: one device): an
     ``nmf()`` fit, with ``gram_budget`` as the Gram-phase sweep's budget
-    around it; a refusal (``raises``: the ValueError's text); or
-    :func:`mesh_estimator` (``estimator``)."""
+    around it; a refusal (``raises``: the ValueError's text);
+    :func:`mesh_estimator` (``estimator``); or a phase 31 problem
+    (``slab``, :func:`solve_slab`; ``out`` the rank's directory)."""
     from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg
     kw = dict(kw)
+    if 'slab' in kw:
+        slab = kw.pop('slab')
+        return solve_slab(nmf, X, kw, mesh, slab, out=out)
     if kw.pop('raises', False):
         try:
             nmf(X, mesh=mesh, **kw)
@@ -3679,9 +3948,20 @@ def mesh_rank(rank, world, store, out, spec):
         torch.cuda.set_device(dev)
     # the host's cores shared among the ranks
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    dist.init_process_group(
-        'gloo', store=dist.FileStore(store, world), rank=rank,
-        world_size=world, timeout=datetime.timedelta(seconds=MESH_SECONDS))
+    multihost = spec['phase'] == 31
+    if multihost:
+        # the multi-host entry: a coordinator address, as across hosts
+        from rri_nmf_tpu_torch.parallel import (initialize_distributed,
+                                                make_global_mesh)
+        joined = initialize_distributed('localhost:%d' % spec['port'],
+                                        world, rank, backend='gloo')
+        if joined != (rank, world):
+            raise AssertionError('initialize_distributed: %r' % (joined,))
+    else:
+        dist.init_process_group(
+            'gloo', store=dist.FileStore(store, world), rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=MESH_SECONDS))
     # the host seconds of each fit's sparse-mask plan (nmf() looks its
     # partition functions up at call time)
     import rri_nmf_tpu_torch.nmf as driver
@@ -3694,20 +3974,25 @@ def mesh_rank(rank, world, store, out, spec):
             return plan
         setattr(driver, fn, timed)
     try:
-        meshes, launches, fits, plans = {}, {}, {}, {}
+        meshes, launches, fits, plans, flags = {}, {}, {}, {}, {}
         for name, X, kw, shape in RANK_PROBLEMS[spec['phase']](spec, dev):
             if shape not in meshes:
-                meshes[shape] = make_mesh(world, shape)
+                meshes[shape] = (make_global_mesh(shape) if multihost
+                                 else make_mesh(world, shape))
             sync(dev)
             for module in (dk, mk, sk):
                 module.reset_launches()
             del plan_s[:]
             t0 = time.perf_counter()
-            res = solve(nmf, X, kw, meshes[shape])
+            res = solve(nmf, X, kw, meshes[shape], out=out)
             sync(dev)
             wall = time.perf_counter() - t0
             launches[name] = dict(dk.LAUNCHES, **mk.LAUNCHES, **sk.LAUNCHES)
-            plans[name] = sum(plan_s)
+            # (a slab fit: its own plan's seconds)
+            plans[name] = res.get('plan_s', sum(plan_s))
+            flags[name] = {key: res[key] for key in (
+                'same_as_whole', 'same_launches', 'disk', 'whole_repeats',
+                'obj_gap') if key in res}
             if rank == 0 and 'error' in res:
                 fits[name] = res
             elif rank == 0:
@@ -3721,9 +4006,9 @@ def mesh_rank(rank, world, store, out, spec):
                 fits[name].update((key, v) for key, v in res.items()
                                   if key in ('rmse', 'loaded_rmse',
                                              'loaded_mesh',
-                                             'loaded_objective'))
-        torch.save({'launches': launches, 'fits': fits, 'plan_s': plans},
-                   os.path.join(out, 'rank%d.pt' % rank))
+                                             'loaded_objective', 'svd'))
+        torch.save({'launches': launches, 'fits': fits, 'plan_s': plans,
+                    'flags': flags}, os.path.join(out, 'rank%d.pt' % rank))
     finally:
         dist.destroy_process_group()
 
@@ -3749,8 +4034,9 @@ def run_ranks(spec, dev, nmf):
         want[name] = dict(W=res['W'].cpu(), T=res['T'].cpu(),
                           obj=res['obj_history'],
                           stamps=res['iter_cputime'])
-        if 'rmse' in res:
-            want[name]['rmse'] = res['rmse']
+        for key in ('rmse', 'svd', 'ulp_gap'):
+            if key in res:
+                want[name][key] = res[key]
         if 'numer_W' in res:
             want[name]['stores'] = {
                 key: {it: v.cpu() for it, v in res[key].items()}
@@ -3762,10 +4048,12 @@ def run_ranks(spec, dev, nmf):
         logs = [open(os.path.join(tmp, 'rank%d.log' % r), 'w+')
                 for r in range(MESH_RANKS)]
         t0 = time.perf_counter()
+        env = dict(os.environ, **spec.get('env', {}))
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), '--mesh-rank',
              str(r), str(MESH_RANKS), os.path.join(tmp, 'store'), tmp,
-             json.dumps(spec)], stdout=logs[r], stderr=subprocess.STDOUT)
+             json.dumps(spec)], stdout=logs[r], stderr=subprocess.STDOUT,
+            env=env)
             for r in range(MESH_RANKS)]
         try:
             rcs = [p.wait(timeout=MESH_SECONDS) for p in procs]
@@ -3898,13 +4186,22 @@ def run_mesh_one_rank_phase(dev, dk, nmf, mesh):
     return dk.LAUNCHES['gs'] - gs0
 
 
-def run_mesh_ranks_phase(dev, dk, nmf):
+def run_mesh_ranks_phase(dev, dk, nmf, counts):
     """Phase 27 (b): MESH_RANKS ranks on a MESH_SHAPE mesh fitting
-    :func:`mesh_problems`, held against the single-device card fits.
-    Returns the ranks' B1 and B2 launches."""
-    spec = dict(phase=27, device=str(dev), mesh=list(MESH_SHAPE),
-                nmf=list(NMF_SHAPE), tm=list(TM_SHAPE), sweeps=MESH_SWEEPS)
-    want, ranks, wall = run_ranks(spec, dev, nmf)
+    :func:`mesh_problems`, held against the single-device card fits; the
+    TM corpus is phase 6's ``counts``, handed to the ranks in a file (its
+    multinomial draws take ~18 s). Returns the ranks' B1 and B2
+    launches."""
+    import tempfile
+
+    import scipy.sparse as sp
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, 'corpus.npz')
+        sp.save_npz(corpus, sp.csr_matrix(counts), compressed=False)
+        spec = dict(phase=27, device=str(dev), mesh=list(MESH_SHAPE),
+                    nmf=list(NMF_SHAPE), tm=list(TM_SHAPE),
+                    sweeps=MESH_SWEEPS, corpus=corpus)
+        want, ranks, wall = run_ranks(spec, dev, nmf)
     total = check_rank_fits(27, want, ranks, lambda name, sweeps: (
         {'gs': sweeps, 'tm_proj': sweeps} if name.startswith('tm')
         else {'gs': 2 * sweeps, 'tm_proj': 0}))
@@ -4076,7 +4373,9 @@ def run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, X, M):
     the single-device fit with the same gather launches (4 a Gram sweep
     and 2 an objective; none in the O(nnz) fit); the mesh's O(nnz) sweep
     one CUDA graph; ms/sweep of each sweep in turns with the single-device
-    one, on the fits' own plans. Returns the fits' gather launches."""
+    one, on the fits' own plans. Returns the fits' gather launches and the
+    Gram and O(nnz) mesh fits (W, T, ``obj_history``, gather launches) for
+    phase 31 (a)."""
     from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg
     from rri_nmf_tpu_torch.ops import sweep_masked_sparse as msp
     from rri_nmf_tpu_torch.ops.sweep import make_draws
@@ -4131,6 +4430,9 @@ def run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, X, M):
     cfg = masked_cfg(k, update_order='phase')
     fits, counts, walls = pair(k, GRAM_MESH_SWEEPS, 6,
                                update_order='phase', reset_topic_method=None)
+    refs = {'gram': dict(W=fits[1]['W'], T=fits[1]['T'],
+                         obj_history=fits[1]['obj_history'],
+                         launches=counts[1])}
     ps, pm = plans(fits)
     W, T = fits[0]['W'], fits[0]['T']
     one = mg.make_masked_gram_sweep(cfg, 'mxu')
@@ -4149,6 +4451,9 @@ def run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, X, M):
     # the defaults: the O(nnz) sweep, one CUDA graph a sweep on the mesh
     cfg = masked_cfg(k)
     fits, counts, walls = pair(k, INTERLEAVED_MASKED_SWEEPS, 0)
+    refs['interleaved'] = dict(W=fits[1]['W'], T=fits[1]['T'],
+                               obj_history=fits[1]['obj_history'],
+                               launches=counts[1])
     ps, pm = plans(fits)
     W, T = fits[0]['W'], fits[0]['T']
     one = msp.make_masked_sparse_sweep(cfg)
@@ -4201,7 +4506,7 @@ def run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, X, M):
         obj=fits[1]['obj_history'], wall_s_single=walls[0],
         wall_s_mesh=walls[1], ms_per_sweep_single=ms['single'],
         ms_per_sweep_mesh=ms['mesh'])
-    return total
+    return total, refs
 
 
 def run_sparse_mask_mesh_ranks_phase(dev, nmf):
@@ -4280,6 +4585,249 @@ def run_sparse_mask_mesh_ranks_phase(dev, nmf):
         '(~12 ms per 4 MB among 4 ranks, tools/probe_gloo_cuda.py) and the '
         'ranks share one card: no scaling reading', gather=total['mxu'])
     return total['mxu']
+
+
+# --------------------------------------------------------------------------
+# phase 31: the multi-host layer
+# --------------------------------------------------------------------------
+
+def run_multihost_one_rank_phase(dev, dk, sk, nmf, Xr, Mr, refs):
+    """Phase 31 (a), in the one-rank world: ``initialize_distributed()``
+    returns the world it is in, ``make_global_mesh()`` is (1, 1); from the
+    rank's slab (all rows here) ``nmf()`` at NMF_SHAPE (dense,
+    ``distribute_dense``) and at SPARSE_SHAPE (``'mxu'``,
+    ``distribute_sparse_coo``), MULTIHOST_SWEEPS each, bit for bit the
+    whole-X mesh fit and the single-device fit with the same launches;
+    the Gram and O(nnz) fits of phase 30 (a)'s settings on
+    ``distribute_masked_coo`` plans of the recorded problem (``Xr``,
+    ``Mr``), bit for bit phase 30 (a)'s fits (``refs``) with the same
+    gather launches; the mesh NNDSVD in float64 at NMF_SHAPE bit for bit
+    the single-device ``svd_backend='torch'`` one. Returns the phase's B1
+    and gather launches."""
+    from rri_nmf_tpu_torch.initialization import initialize_nmf
+    from rri_nmf_tpu_torch.parallel import (distribute_dense,
+                                            distribute_factors,
+                                            distribute_masked_coo,
+                                            distribute_sparse_coo,
+                                            initialize_distributed,
+                                            make_global_mesh,
+                                            process_row_block)
+    joined = initialize_distributed()
+    mesh = make_global_mesh()
+    if joined != (0, 1) or mesh.shape != (1, 1):
+        raise AssertionError('the one-rank world: %r, %r' % (joined, mesh))
+    total = {'gs': 0, 'mxu': 0}
+
+    def launched(fn):
+        c0 = _launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        c1 = _launch_counts()
+        got = {key: c1[key] - c0[key] for key in ('gs', 'mxu')}
+        for key in total:
+            total[key] += got[key]
+        return res, got, wall
+
+    def sweep_ms(res):
+        return float(np.median(np.diff(res['iter_cputime']))) * 1e3
+
+    def three(label, X, X_rank, k, kw, per_sweep):
+        """The single-device, whole-X mesh and slab fits: bit for bit, the
+        same launches, ``per_sweep`` of each kernel a sweep."""
+        n = X.shape[0]
+        lo, hi = process_row_block(n, mesh)
+        W_r, T_r = distribute_factors(kw['W_in'][lo:hi], kw['T_in'], n, mesh,
+                                      device=dev)
+        fits = [launched(lambda: nmf(X, k, **kw)),
+                launched(lambda: nmf(X, k, mesh=mesh, **kw)),
+                launched(lambda: nmf(X_rank, k, mesh=mesh,
+                                     **dict(kw, W_in=W_r, T_in=T_r)))]
+        sweeps = len(fits[2][0]['obj_history'])
+        want = {key: v * sweeps for key, v in per_sweep.items()}
+        same = (_bit_for_bit(fits[2][0], fits[0][0])
+                and _bit_for_bit(fits[2][0], fits[1][0]))
+        if not same or any(f[1] != want for f in fits):
+            raise AssertionError('%s from the slab: bit for bit %s, launches '
+                                 '%r, want %r' % (label, same,
+                                                  [f[1] for f in fits], want))
+        log('multi-host one-rank %s world %s' % (mesh.backend, label),
+            sweeps=sweeps, bit_for_bit=same, launches=fits[2][1],
+            obj_last=fits[2][0]['obj_history'][-1],
+            wall_s=[f[2] for f in fits],
+            ms_per_sweep_with_objective={
+                name: sweep_ms(f[0]) for name, f in zip(
+                    ('single', 'whole-X mesh', 'slab'), fits)})
+
+    # dense: distribute_dense at NMF_SHAPE (B1, 2 a sweep)
+    n, d, k = NMF_SHAPE
+    rng = np.random.RandomState(MESH_SEED)
+    W0, T0 = rng.rand(n, k), rng.rand(k, d)
+    X = lowrank(n, d, k, dev, seed=0)
+    lo, hi = process_row_block(n, mesh)
+    kw = dict(max_iter=MULTIHOST_SWEEPS, compute_obj_each_iter=True,
+              random_state=0, W_in=W0, T_in=T0, **FAST_TM)
+    three('nmf %dx%d k=%d float32 distribute_dense' % (n, d, k), X,
+          distribute_dense(X[lo:hi], (n, d), mesh), k, kw,
+          {'gs': 2, 'mxu': 0})
+
+    # the mesh NNDSVD in float64 from the rank's block, one Ω
+    X = X.double()
+    t0 = time.perf_counter()
+    Wm, Hm = initialize_nmf(distribute_dense(X[lo:hi], (n, d), mesh), k,
+                            'nndsvd', random_state=0, svd_backend='torch',
+                            mesh=mesh)
+    sync(dev)
+    t1 = time.perf_counter()
+    Ws, Hs = initialize_nmf(X, k, 'nndsvd', random_state=0,
+                            svd_backend='torch')
+    sync(dev)
+    t2 = time.perf_counter()
+    same = torch.equal(Wm, Ws) and torch.equal(Hm, Hs)
+    if not same:
+        raise AssertionError('the one-rank mesh NNDSVD differs from the '
+                             'single-device one: %.3g, %.3g'
+                             % (_mesh_gap(Wm, Ws), _mesh_gap(Hm, Hs)))
+    log('multi-host one-rank NNDSVD %dx%d k=%d float64 (device backend)'
+        % (n, d, k), bit_for_bit=same, seconds_mesh=t1 - t0,
+        seconds_single=t2 - t1)
+    del X, Wm, Hm, Ws, Hs
+
+    # 'mxu': distribute_sparse_coo at SPARSE_SHAPE (gather 2, B1 2 a sweep)
+    n, d, dens, k = SPARSE_SHAPE
+    X = sparse_csr(n, d, dens, dev, seed=0)
+    rng = np.random.RandomState(MESH_SEED)
+    kw = dict(max_iter=MULTIHOST_SWEEPS, compute_obj_each_iter=True,
+              random_state=0, sparse='mxu', W_in=rng.rand(n, k),
+              T_in=rng.rand(k, d), **FAST_TM)
+    lo, hi = process_row_block(n, mesh)
+    t0 = time.perf_counter()
+    plan = distribute_sparse_coo(csr_rows(X, lo, hi), (n, d), mesh,
+                                 backend='mxu')
+    sync(dev)
+    plan_s = time.perf_counter() - t0
+    three("'mxu' %dx%d %.1f%% k=%d float32 distribute_sparse_coo "
+          '(host plan %.3f s)' % (n, d, 100 * dens, k, plan_s), X, plan, k,
+          kw, {'gs': 2, 'mxu': 2})
+    del X, plan
+
+    # the recorded problem: phase 30 (a)'s Gram and O(nnz) fits from
+    # distribute_masked_coo plans
+    n, d, nnz, k = MASKED_RECORD
+    rng = np.random.RandomState(MESH_SEED)
+    W0 = rng.rand(n, MASKED_PANEL_K)
+    T0 = rng.rand(MASKED_PANEL_K, d)
+    lo, hi = process_row_block(n, mesh)
+    W_r, T_r = distribute_factors(W0[lo:hi, :k], T0[:k], n, mesh, device=dev)
+    for name, backend, sweeps, extra in (
+            ('gram', 'mxu', GRAM_MESH_SWEEPS,
+             dict(update_order='phase', reset_topic_method=None)),
+            ('interleaved', None, INTERLEAVED_MASKED_SWEEPS, {})):
+        t0 = time.perf_counter()
+        plan = distribute_masked_coo(Xr[lo:hi], Mr[lo:hi], (n, d), mesh,
+                                     backend=backend, device=dev)
+        sync(dev)
+        plan_s = time.perf_counter() - t0
+        res, got, wall = launched(lambda: nmf(
+            plan, k, mesh=mesh, W_in=W_r, T_in=T_r, max_iter=sweeps,
+            compute_obj_each_iter=True, random_state=0, eps_stop=0.0,
+            device=dev, **extra))
+        ref = refs[name]
+        same = _bit_for_bit(res, ref)
+        if not same or got['mxu'] != ref['launches']:
+            raise AssertionError('the %s fit on a distribute_masked_coo plan: '
+                                 'bit for bit %s, gather launches %d against '
+                                 '%d' % (name, same, got['mxu'],
+                                         ref['launches']))
+        log('multi-host one-rank %s world %dx%d %d observations k=%d '
+            'float32, %s from distribute_masked_coo(backend=%r)'
+            % (mesh.backend, n, d, nnz, k, name, backend),
+            sweeps=len(res['obj_history']), bit_for_bit_phase_30=same,
+            gather_launches=got['mxu'], host_plan_s=plan_s, fit_wall_s=wall,
+            ms_per_sweep_with_objective=sweep_ms(res))
+        del plan, res
+    return total
+
+
+def run_multihost_ranks_phase(dev, nmf):
+    """Phase 31 (b): MESH_RANKS gloo ranks as two hosts of MULTIHOST_LOCAL
+    (``LOCAL_WORLD_SIZE``) joining through ``initialize_distributed`` at a
+    localhost coordinator, fitting :func:`multihost_problems` from their
+    slabs: each fit bit for bit the same ranks' whole-X mesh fit with the
+    same launches (the COO plan's ``torch.sparse.mm`` fit, which cuSPARSE
+    need not repeat bit for bit: its block bit for bit and the fit within
+    the float32 gate of the whole-X fit), at phase 27's gates against the
+    single-device card fits; the resumed fit bit for bit the straight one,
+    only the first rank's directory holding the checkpoint; the mesh
+    NNDSVD's SVD within TOL_MESH_F64 of the single-device one and its W,
+    H within TOL_NNDSVD_MESH (beside what one ulp of X moves them).
+    Launches per
+    rank, each fit: 2 B1 a dense sweep; 2 gather and 2 B1 an ``'mxu'``
+    sweep; B1 and B2 a TM sweep; 4 gather a Gram sweep and 2 its
+    objective; none in the O(nnz) fit (the COO problem fits three times).
+    Returns the ranks' B1, B2 and gather launches."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    spec = dict(phase=31, device=str(dev), nmf=list(NMF_SHAPE),
+                sparse=list(SPARSE_SHAPE), record=list(MASKED_RECORD),
+                sweeps=MULTIHOST_SWEEPS, masked_sweeps=MULTIHOST_MASKED_SWEEPS,
+                port=port, env={'LOCAL_WORLD_SIZE': str(MULTIHOST_LOCAL)})
+    want, ranks, wall = run_ranks(spec, dev, nmf)
+    flags = [r['flags'] for r in ranks]
+    bad = [(r, name, f) for r, fl in enumerate(flags)
+           for name, f in fl.items()
+           if not (f.get('same_as_whole', True)
+                   and f.get('same_launches', True))]
+    disk = [fl['restore float32']['disk'] for fl in flags]
+    if bad or disk != [[MULTIHOST_SWEEPS // 2 or 1], [], [], []]:
+        raise AssertionError('slab fits against the whole-X mesh fits: %r; '
+                             'checkpoints on disk per rank %r' % (bad, disk))
+    ref = want.pop('nndsvd float64')
+    got = ranks[0]['fits'].pop('nndsvd float64')
+    for r in ranks:
+        r['launches'].pop('nndsvd float64')
+    gap = max(_mesh_gap(got['W'], ref['W']), _mesh_gap(got['T'], ref['T']))
+    (U, S, Vt), (Ur, Sr, Vtr) = got['svd'], ref['svd']
+    gap_s = float(((S - Sr) / Sr).abs().max())
+    gap_usv = _mesh_gap((U * S).to(dev) @ Vt.to(dev),
+                        (Ur * Sr).to(dev) @ Vtr.to(dev))
+    if not (max(gap_s, gap_usv) <= TOL_MESH_F64 and gap <= TOL_NNDSVD_MESH):
+        raise AssertionError('the mesh NNDSVD against one device: W, H %.3g, '
+                             'S %.3g, U·S·Vt %.3g' % (gap, gap_s, gap_usv))
+    log('multi-host %d ranks (2 hosts of %d), gloo: NNDSVD %dx%d k=%d '
+        'float64 through the mesh' % (MESH_RANKS, MULTIHOST_LOCAL,
+                                      *NMF_SHAPE), rel_gap_W_H=gap,
+        rel_gap_W_H_one_ulp_of_X=ref['ulp_gap'], rel_gap_S=gap_s,
+        rel_gap_USVt=gap_usv)
+
+    def expect(name, sweeps):
+        if name.startswith('coo'):            # slab, whole X, whole X again
+            return {'gs': 6 * sweeps, 'mxu': 0}
+        if name.startswith(('dense', 'restore')):
+            return {'gs': 4 * sweeps, 'mxu': 0}
+        if name.startswith('tm'):
+            return {'gs': 2 * sweeps, 'tm_proj': 2 * sweeps, 'mxu': 0}
+        if name.startswith('mxu'):
+            return {'gs': 4 * sweeps, 'mxu': 4 * sweeps}
+        if name.startswith('gram'):
+            return {'gs': 0, 'mxu': 12 * sweeps}
+        return {'gs': 0, 'mxu': 0, 'phase_a': 0, 'phase_b': 0}
+    total = check_rank_fits(31, want, ranks, expect)
+    total = {key: total.get(key, 0) for key in ('gs', 'tm_proj', 'mxu')}
+    coo = [fl['coo float32'] for fl in flags]
+    log('multi-host ranks phase', ranks=MESH_RANKS, wall_s=wall,
+        bit_for_bit_whole_x='every problem but coo float32',
+        coo_obj_gap_to_whole_x=[c['obj_gap'] for c in coo],
+        coo_whole_x_fit_repeats_bits=[c['whole_repeats'] for c in coo],
+        checkpoints_on_disk=disk,
+        host_plan_s_per_rank={name: [r['plan_s'][name] for r in ranks]
+                              for name in ranks[0]['plan_s']},
+        note='the ranks share one card and gloo copies through the host: '
+        'no scaling reading', **total)
+    return total
 
 
 def main():

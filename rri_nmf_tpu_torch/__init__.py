@@ -17,7 +17,9 @@ so a reader finds each counterpart:
   ``NMF_RS_Estimator``
 - :mod:`rri_nmf_tpu_torch.ops`            — the sweeps and their kernels
 - :mod:`rri_nmf_tpu_torch.parallel`       — the sweeps on a
-  ``torch.distributed`` mesh (``make_mesh``, ``nmf(mesh=...)``)
+  ``torch.distributed`` mesh (``make_mesh``, ``nmf(mesh=...)``) and
+  across hosts (``initialize_distributed``, ``make_global_mesh``, the
+  ``distribute_*`` slab entry points)
 - :mod:`rri_nmf_tpu_torch.convert`        — carry fitted numpy state over
 - :mod:`rri_nmf_tpu_torch.utils`          — runtime checks, profiling hooks
 

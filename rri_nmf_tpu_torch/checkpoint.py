@@ -10,11 +10,16 @@ key. :class:`NMFCheckpointer` keeps the last ``keep`` states of a
 directory, one file a step, each written atomically.
 
 ``nmf(checkpoint=...)`` resumes from the latest step and saves every
-``checkpoint_every`` sweeps; a resumed fit equals the straight one.
+``checkpoint_every`` sweeps; a resumed fit equals the straight one. On a
+mesh the first rank writes and the first rank reads: :func:`restore_shared`
+sends what it restored, or that it found nothing, to every rank, so the
+whole mesh takes one branch even where the ranks see different
+directories (as JAX's orbax restore is one collective operation).
 """
 
 import dataclasses
 import os
+import pickle
 import re
 from typing import Any, Optional
 
@@ -153,3 +158,61 @@ class NMFCheckpointer(object):
 
     def close(self):
         pass
+
+
+# a tensor of more entries than this crosses as a tensor of its own shape
+# (the factors, HER's factor-sized state); the rest rides one byte buffer
+_INLINE = 1 << 12
+
+
+def _pack(tree, big):
+    if isinstance(tree, torch.Tensor) and tree.numel() > _INLINE:
+        big.append(tree)
+        return ('__tensor__', len(big) - 1, tuple(tree.shape),
+                str(tree.dtype).split('.')[-1])
+    if isinstance(tree, dict):
+        return {k: _pack(v, big) for k, v in tree.items()}
+    return tree
+
+
+def _unpack(tree, big):
+    if isinstance(tree, tuple) and tree and tree[0] == '__tensor__':
+        return big[tree[1]]
+    if isinstance(tree, dict):
+        return {k: _unpack(v, big) for k, v in tree.items()}
+    return tree
+
+
+def restore_shared(ckpt, mesh, device):
+    """The latest state of the first rank's (coordinate (0, 0))
+    checkpointer, on every rank of ``mesh``, or None on every rank when
+    the first rank finds none; the other ranks' ``ckpt`` is not read.
+    The tensors of more than a few thousand entries cross as tensors of
+    their shape on ``device`` (:meth:`Mesh.from_first`); the rest (the
+    step, the history, the generator state, the reset budget, HER's
+    scalars, the early-stop score) as one pickled byte buffer on the
+    mesh's control device, after its length (0: no checkpoint). Every
+    rank of the mesh calls it together."""
+    first = mesh.member() == (0, 0)
+    ctrl = mesh.control_device(device)
+    header, big = b'', []
+    if first:
+        step = ckpt.latest_step()
+        if step is not None:
+            tree = torch.load(ckpt._path(step), map_location='cpu',
+                              weights_only=True)
+            skeleton = _pack(tree, big)
+            header = pickle.dumps((skeleton, [(tuple(t.shape), t.dtype)
+                                              for t in big]))
+    size = int(mesh.from_first(torch.tensor(
+        [len(header)], dtype=torch.int64, device=ctrl))[0])
+    if size == 0:
+        return None
+    buf = (torch.frombuffer(bytearray(header), dtype=torch.uint8).to(ctrl)
+           if first else torch.zeros(size, dtype=torch.uint8, device=ctrl))
+    skeleton, specs = pickle.loads(
+        mesh.from_first(buf).cpu().numpy().tobytes())
+    big = [mesh.from_first(big[i].to(device) if first else
+                           torch.zeros(shape, dtype=dtype, device=device))
+           for i, (shape, dtype) in enumerate(specs)]
+    return NMFState.from_tree(_unpack(skeleton, big), device=device)

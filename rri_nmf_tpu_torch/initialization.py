@@ -50,6 +50,7 @@ from rri_nmf_tpu_torch.matrixops import (as_tensor, default_float,
 from rri_nmf_tpu_torch.ops.quantized import (NARROW, QuantizedX, qx_lmul_t,
                                              qx_mean, qx_rmul, work_dtype,
                                              xmm)
+from rri_nmf_tpu_torch.parallel.multihost import RankBlock
 
 
 def _to_scipy(X):
@@ -235,15 +236,21 @@ def _randomized_svd_sklearn(X, k, random_state, device=None):
 # the device backend
 # ---------------------------------------------------------------------------
 
-def _ortho_eigh(Y):
+def _same(a):
+    return a
+
+
+def _ortho_eigh(Y, total=_same):
     """Orthonormal basis of range(Y) through the (p, p) Gram
     eigendecomposition, two passes (the CholeskyQR2 regime). Eigenvalues
     are floored at the Gram's rounding level ε·λmax, never zeroed: a
     zeroed direction stays dead, a floored one is re-orthonormalized by
-    the second pass (see :func:`rri_nmf_tpu.initialization._ortho_eigh`)."""
+    the second pass (see :func:`rri_nmf_tpu.initialization._ortho_eigh`).
+    On a mesh Y is a block of rows and ``total`` sums its Gram over the
+    ranks that hold the other rows."""
     fi = torch.finfo(Y.dtype)
     for _ in range(2):
-        lam, V = torch.linalg.eigh(Y.T @ Y)             # ascending
+        lam, V = torch.linalg.eigh(total(Y.T @ Y))      # ascending
         lmax = lam[-1].clamp_min(fi.tiny)
         inv = 1.0 / torch.sqrt(torch.maximum(lam, lmax * fi.eps))
         Y = Y @ (V * inv)
@@ -251,7 +258,7 @@ def _ortho_eigh(Y):
 
 
 def randomized_svd_torch(X, k, generator=None, n_oversamples=10, n_iter=4,
-                         omega=None):
+                         omega=None, mesh=None):
     """Randomized SVD (Halko et al. 2011) of ``X`` on its device,
     returning ``(U, S, Vt)`` in X's work dtype (float32 for 16 bits). The
     Gaussian test matrix is drawn from ``generator`` unless ``omega`` (d, k +
@@ -259,14 +266,35 @@ def randomized_svd_torch(X, k, generator=None, n_oversamples=10, n_iter=4,
     block of rows at a time in float32), a torch sparse tensor (every
     product a ``torch.sparse.mm``, with a coalesced copy of Xᵀ) or a
     :class:`~rri_nmf_tpu_torch.ops.quantized.QuantizedX` (the scale folded
-    outside each product)."""
-    n, d = X.shape
+    outside each product).
+
+    On a ``mesh`` X is this rank's
+    :class:`~rri_nmf_tpu_torch.parallel.multihost.RankBlock` (its block a
+    dense tensor or a QuantizedX) and every rank of the mesh calls
+    together. Ω is drawn whole on every rank (one seed) and each takes
+    its rows of it; ``X @ A`` is summed over ``tp``, ``XᵀQ`` and ``QᵀX``
+    over ``dp``, the Gram of an (n, p) panel over ``dp`` and of a (d, p)
+    panel over ``tp``, and ``B Bᵀ`` over ``tp``; the (p, p) eigensolves
+    run on every rank on the same values. U comes back as this rank's
+    rows, Vt as its columns; a (1, 1) mesh computes what the whole X
+    does, bit for bit."""
+    split = None
+    if isinstance(X, RankBlock):
+        if mesh is None:
+            raise ValueError('a RankBlock X is a rank\'s block: pass its '
+                             'mesh=')
+        X, split = X.block, X.split
+    n, d = X.shape if split is None else (split.n, split.d)
+    sum_dp = _same if mesh is None else mesh.sum_dp
+    sum_tp = _same if mesh is None else mesh.sum_tp
     p = min(k + n_oversamples, min(n, d))
     # float32 for a 16-bit X: its tail spectrum is noise at bf16 precision
     comp = work_dtype(X.dtype)
     if omega is None:
         omega = torch.randn(d, p, generator=generator, dtype=comp,
                             device=X.device)
+    if split is not None:
+        omega = omega[split.c0:split.c1]
     if isinstance(X, QuantizedX):
         def mm(A):
             return qx_rmul(X, A, comp)
@@ -297,12 +325,13 @@ def randomized_svd_torch(X, k, generator=None, n_oversamples=10, n_iter=4,
 
         def qtx(Q):
             return xmm(Q.T, X, comp)
-    Q = _ortho_eigh(mm(omega))
+    Q = _ortho_eigh(sum_tp(mm(omega)), sum_dp)
     for _ in range(n_iter):
-        Q = _ortho_eigh(mm(_ortho_eigh(tmm(Q))))
-    B = qtx(Q)                                          # (p, d)
+        Z = _ortho_eigh(sum_dp(tmm(Q)), sum_tp)
+        Q = _ortho_eigh(sum_tp(mm(Z)), sum_dp)
+    B = sum_dp(qtx(Q))                                  # (p, d)
     # SVD of the small panel via its Gram: B = Ub S Vt
-    lam, Ub = torch.linalg.eigh(B @ B.T)
+    lam, Ub = torch.linalg.eigh(sum_tp(B @ B.T))
     order = torch.argsort(lam).flip(0)
     lam = lam[order].clamp_min(0.0)
     Ub = Ub[:, order]
@@ -338,11 +367,18 @@ class _TorchNS:
         return torch.cat(xs, dim=axis)
 
 
-def _nndsvd_from_svd(U, S, Vt, eps):
+def _nndsvd_from_svd(U, S, Vt, eps, mesh=None):
     """Boutsidis-Gallopoulos NNDSVD section split, vectorized over all
     components; numpy in, numpy out (the JAX package's host code, line
-    for line) or tensors in, tensors out."""
+    for line) or tensors in, tensors out. On a ``mesh`` U is a rank's
+    rows and Vt its columns (:func:`randomized_svd_torch` of a
+    RankBlock): the squared norms of the positive and negative parts are
+    summed over ``dp`` for U and over ``tp`` for Vt, so every rank picks
+    the same sections, and W, H come back as the rank's rows and
+    columns."""
     xp = _TorchNS if isinstance(U, torch.Tensor) else np
+    sum_dp = _same if mesh is None else mesh.sum_dp
+    sum_tp = _same if mesh is None else mesh.sum_tp
 
     # leading singular triplet is already non-negative (Perron-Frobenius)
     W0 = xp.sqrt(S[0]) * xp.abs(U[:, 0])
@@ -353,10 +389,10 @@ def _nndsvd_from_svd(U, S, Vt, eps):
     x_p, y_p = xp.maximum(Xc, 0), xp.maximum(Yc, 0)
     x_n, y_n = xp.abs(xp.minimum(Xc, 0)), xp.abs(xp.minimum(Yc, 0))
 
-    x_p_nrm = xp.sqrt(xp.sum(x_p ** 2, axis=0))
-    y_p_nrm = xp.sqrt(xp.sum(y_p ** 2, axis=1))
-    x_n_nrm = xp.sqrt(xp.sum(x_n ** 2, axis=0))
-    y_n_nrm = xp.sqrt(xp.sum(y_n ** 2, axis=1))
+    x_p_nrm = xp.sqrt(sum_dp(xp.sum(x_p ** 2, axis=0)))
+    y_p_nrm = xp.sqrt(sum_tp(xp.sum(y_p ** 2, axis=1)))
+    x_n_nrm = xp.sqrt(sum_dp(xp.sum(x_n ** 2, axis=0)))
+    y_n_nrm = xp.sqrt(sum_tp(xp.sum(y_n ** 2, axis=1)))
 
     m_p = x_p_nrm * y_p_nrm
     m_n = x_n_nrm * y_n_nrm
@@ -502,16 +538,24 @@ def _nndsvd_lrc_host(X, k, random_state, eps, lrc_iters=2, device=None):
     return W, H
 
 
-def _nndsvd_lrc_device(X, k, eps, generator=None, omega=None, lrc_iters=2):
+def _nndsvd_lrc_device(X, k, eps, generator=None, omega=None, lrc_iters=2,
+                       mesh=None):
     """NNSVD-LRC with the torch backend on X's device
     (:func:`rri_nmf_tpu.initialization._nndsvd_lrc_device_jit`): the
     half-rank :func:`randomized_svd_torch` (test matrix from
     ``generator`` or ``omega``), the split, and
-    :func:`_lrc_correct_torch`, in the SVD's computation dtype."""
+    :func:`_lrc_correct_torch`, in the SVD's computation dtype. For a
+    rank's block on a ``mesh`` the SVD runs through the mesh and its
+    (n, p) and (p, d) factors are gathered whole, so every rank corrects
+    the same whole candidates."""
     n, d = X.shape
     p, degenerate = _lrc_rank(k, n, d)
     assert not degenerate, 'half-rank construction cannot yield k candidates'
-    U, S, Vt = randomized_svd_torch(X, p, generator=generator, omega=omega)
+    U, S, Vt = randomized_svd_torch(X, p, generator=generator, omega=omega,
+                                    mesh=mesh)
+    if isinstance(X, RankBlock):
+        U = mesh.gather_rows(U, X.split)
+        Vt = mesh.gather_cols(Vt, X.split)
     W, H = _nndsvd_lrc_split(U, S, Vt, k)
     W, H = _lrc_correct_torch(U * S, Vt, W, H, iters=lrc_iters)
     W = torch.where(W < eps, 0.0, W)
@@ -670,9 +714,17 @@ def _rng(random_state):
         else np.random.RandomState(random_state)
 
 
-def _mean(X):
+def _mean(X, mesh=None):
     """The mean of all n·d entries of X (a sparse or quantized X is not
-    densified)."""
+    densified); of a rank's block, its sum over the mesh over n·d."""
+    if isinstance(X, RankBlock):
+        n, d = X.shape
+        B = X.block
+        total = (qx_mean(B) * (B.shape[0] * B.shape[1])
+                 if isinstance(B, QuantizedX) else
+                 B.sum(dtype=torch.float64) if B.dtype in NARROW
+                 else B.sum())
+        return float(mesh.sum_all(total.reshape(1))[0] / (n * d))
     if isinstance(X, QuantizedX):
         return float(qx_mean(X))
     if is_torch_sparse(X):
@@ -692,7 +744,7 @@ INITS = (None, 'random', 'smart_random', 'nndsvd', 'nndsvda', 'nndsvdar',
 
 def initialize_nmf(X, n_components, init=None, eps=1e-6, random_state=None,
                    row_normalize=False, n_words_beam=20,
-                   svd_backend='sklearn', dtype=None, device=None):
+                   svd_backend='sklearn', dtype=None, device=None, mesh=None):
     """Initial ``(W, H)`` for ``X ≈ W H``, as tensors on ``device``
     (default: X's device for a tensor or a
     :class:`~rri_nmf_tpu_torch.ops.quantized.QuantizedX`, the card for a
@@ -704,19 +756,36 @@ def initialize_nmf(X, n_components, init=None, eps=1e-6, random_state=None,
     ``random``), the numpy random streams, the nndsvd/nndsvda/nndsvdar
     family, ``nndsvd_lrc`` (plain nndsvd when k is near full rank) and
     ``coherence_pmi``. A ``QuantizedX`` takes ``svd_backend='torch'``
-    for the SVD family and refuses ``coherence_pmi``, which walks X."""
+    for the SVD family and refuses ``coherence_pmi``, which walks X.
+
+    With ``mesh``, X is this rank's
+    :class:`~rri_nmf_tpu_torch.parallel.multihost.RankBlock` of a matrix
+    no rank holds whole, and every rank of the mesh calls together: the
+    random inits draw from the shape alone, the means are one mesh sum
+    over n·d, the SVD family runs :func:`randomized_svd_torch` through the
+    mesh (``svd_backend='torch'``, the JAX package's device backend for a
+    process-spanning X), and every rank gets the whole W and H.
+    ``coherence_pmi`` raises."""
     if svd_backend not in ('sklearn', 'torch'):
         raise ValueError("svd_backend must be 'sklearn' or 'torch', got %r"
                          % (svd_backend,))
-    quant = isinstance(X, QuantizedX)
-    device = X.device if quant and device is None else fit_device(X, device)
+    blocked = isinstance(X, RankBlock)
+    if blocked and mesh is None:
+        raise ValueError('a RankBlock X initializes through its mesh; pass '
+                         'mesh=')
+    quant = isinstance(X.block if blocked else X, QuantizedX)
+    device = X.device if (quant or blocked) and device is None \
+        else fit_device(X, device)
     if dtype is None:
-        dtype = (X.dtype if (quant or isinstance(X, torch.Tensor))
+        dtype = (X.dtype if (quant or blocked or isinstance(X, torch.Tensor))
                  and X.dtype.is_floating_point else default_float(device))
     n_samples, n_features = X.shape
     k = n_components
 
-    def out(W, H):
+    def out(W, H, blocks=False):
+        if blocks:
+            # this rank's rows of W and columns of H, made whole
+            W, H = mesh.gather_rows(W, X.split), mesh.gather_cols(H, X.split)
         W = as_tensor(W, device=device, dtype=dtype)
         H = as_tensor(H, device=device, dtype=dtype)
         return W, (normalize(H) if row_normalize else H)
@@ -735,33 +804,37 @@ def initialize_nmf(X, n_components, init=None, eps=1e-6, random_state=None,
         return out(W, T)
 
     if init == 'smart_random':
-        avg = np.sqrt(_mean(X) / k)
+        avg = np.sqrt(_mean(X, mesh) / k)
         rng = _rng(random_state)
         H = np.abs(avg * rng.randn(k, n_features))
         W = np.abs(avg * rng.randn(n_samples, k))
         return out(W, H)
 
     if init == 'coherence_pmi':
-        if quant:
+        if quant or blocked:
             raise ValueError("init='coherence_pmi' walks X; with a "
-                             'QuantizedX initialize explicitly and pass '
-                             'W_in/T_in')
+                             'QuantizedX or a rank-block X initialize '
+                             'explicitly and pass W_in/T_in')
         return out(*init_coherence_beam_search(
             X, k, n_words_beam=n_words_beam, device=device))
 
     if quant and svd_backend != 'torch':
         raise ValueError("a QuantizedX initializes through "
                          "svd_backend='torch' (no host SVD reads its code)")
+    if blocked and svd_backend != 'torch':
+        raise ValueError("a rank-block X initializes through "
+                         "svd_backend='torch' (no rank holds X for a host "
+                         'SVD)')
 
     if init == 'nndsvd_lrc':
         if _lrc_rank(k, n_samples, n_features)[1]:
             init = 'nndsvd'     # k near full rank: the construction fails
         elif svd_backend == 'torch':
-            Xt = X if quant else as_tensor(X, device=device)
+            Xt = X if quant or blocked else as_tensor(X, device=device)
             gen = torch.Generator(device=device).manual_seed(
                 _seed_int(random_state))
             return out(*_nndsvd_lrc_device(Xt, k, float(eps),
-                                           generator=gen))
+                                           generator=gen, mesh=mesh))
         else:
             return out(*_nndsvd_lrc_host(X, k, random_state, eps,
                                          device=device))
@@ -773,26 +846,30 @@ def initialize_nmf(X, n_components, init=None, eps=1e-6, random_state=None,
             'factorizations' % (init, min(n_samples, n_features), k))
 
     if svd_backend == 'torch':
-        Xt = X if quant else as_tensor(X, device=device)
-        if not quant and not is_torch_sparse(Xt) and (
+        Xt = X if quant or blocked else as_tensor(X, device=device)
+        if not (quant or blocked) and not is_torch_sparse(Xt) and (
                 not Xt.dtype.is_floating_point):
             Xt = Xt.to(dtype)
         gen = torch.Generator(device=device).manual_seed(
             _seed_int(random_state))
-        U, S, Vt = randomized_svd_torch(Xt, k, generator=gen)
+        U, S, Vt = randomized_svd_torch(Xt, k, generator=gen, mesh=mesh)
     else:
         U, S, Vt = _randomized_svd_sklearn(X, k, random_state, device)
-    W, H = _nndsvd_from_svd(U, S, Vt, eps)
+    W, H = _nndsvd_from_svd(U, S, Vt, eps, mesh)
 
     if init == 'nndsvda':
-        avg = _mean(X)
+        avg = _mean(X, mesh)
         W[W == 0] = avg
         H[H == 0] = avg
     elif init == 'nndsvdar':
         rng = _rng(random_state)
-        avg = _mean(X)
+        avg = _mean(X, mesh)
+        if blocked:
+            # the fill draws in the whole factors' order
+            W, H = mesh.gather_rows(W, X.split), mesh.gather_cols(H, X.split)
+            blocked = False
         for A in (W, H):
             fill = np.abs(avg * rng.randn(int((A == 0).sum())) / 100)
             A[A == 0] = (torch.as_tensor(fill, dtype=A.dtype, device=A.device)
                          if isinstance(A, torch.Tensor) else fill)
-    return out(W, H)
+    return out(W, H, blocks=blocked)

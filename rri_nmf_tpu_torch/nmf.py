@@ -58,7 +58,10 @@ sweep) or :mod:`rri_nmf_tpu_torch.parallel.masked_sparse_mesh` (the
 O(nnz) sweep) on each rank's row block of observations, the rest through
 the plain sweep and
 :class:`~rri_nmf_tpu_torch.ops.dense_kernels.DenseResetSweep` with their
-collectives.
+collectives. Across hosts (:mod:`rri_nmf_tpu_torch.parallel.multihost`)
+no rank holds X whole: each passes its own block (a ``RankBlock`` from
+``distribute_dense``) or its pre-built plan (``distribute_sparse_coo``,
+``distribute_masked_coo``), and the same sweeps run on it.
 
 Around them: initialization, HER extrapolation (``accel='her'``,
 :mod:`rri_nmf_tpu_torch.ops.accel`, wrapping whichever sweep was picked),
@@ -67,9 +70,6 @@ checkpoint/resume (:mod:`rri_nmf_tpu_torch.checkpoint`), row weights
 tracking and the relative-progress stop, early-stop rollback,
 ``max_time``, grouped dispatch, diagnostics, ``debug_checks``, the final
 W projection and the result dict.
-
-What the port has not taken yet is the multi-host layer (pre-built
-mesh plans, ``parallel/multihost.py``: ROADMAP A.12f).
 """
 
 import dataclasses
@@ -82,7 +82,8 @@ import warnings
 import numpy as np
 import torch
 
-from rri_nmf_tpu_torch.checkpoint import NMFCheckpointer, NMFState
+from rri_nmf_tpu_torch.checkpoint import (NMFCheckpointer, NMFState,
+                                          restore_shared)
 from rri_nmf_tpu_torch.initialization import initialize_nmf
 from rri_nmf_tpu_torch.matrixops import (as_tensor, default_float,
                                          fit_device, is_sparse, normalize,
@@ -117,6 +118,8 @@ from rri_nmf_tpu_torch.parallel.masked_gram_mesh import (
 from rri_nmf_tpu_torch.parallel.masked_sparse_mesh import (
     make_sharded_masked_sparse_sweep, partition_masked_coo)
 from rri_nmf_tpu_torch.parallel.mesh import Mesh
+from rri_nmf_tpu_torch.parallel.multihost import (RankBlock, plan_kind,
+                                                  plan_values)
 from rri_nmf_tpu_torch.parallel.sharded_dense import make_sharded_dense_sweep
 from rri_nmf_tpu_torch.parallel.sharded_masked import (
     make_sharded_masked_sweep, supports_sharded_masked)
@@ -131,7 +134,80 @@ logger = logging.getLogger(__name__)
 
 
 def _size(a):
+    if isinstance(a, RankBlock):
+        a = a.block
     return a.numel() if isinstance(a, torch.Tensor) else int(np.size(a))
+
+
+def _check_premade(X, mesh, W_mat, W_in, T_in, diagnostics, early_stop):
+    """The guards of a pre-built plan as X (reference nmf.py:751-841)."""
+    if mesh is None:
+        raise ValueError('X is a pre-built mesh plan but mesh=None; pass the '
+                         'mesh it was partitioned over')
+    if W_mat is not None:
+        raise ValueError('a pre-built mesh plan already carries its '
+                         'observation structure; leave W_mat=None (masked '
+                         'plans ARE the observed set)')
+    s = X.split
+    if s != mesh.split(s.n, s.d):
+        m = mesh.split(s.n, s.d)
+        raise ValueError(
+            'the plan was partitioned for rows [%d, %d) and columns [%d, %d) '
+            'of the (%d, %d) problem, but this mesh gives this rank rows '
+            '[%d, %d) and columns [%d, %d); rebuild it over this mesh'
+            % (s.r0, s.r1, s.c0, s.c1, s.n, s.d, m.r0, m.r1, m.c0, m.c1))
+    if _size(W_in) == 0 or _size(T_in) == 0:
+        raise ValueError(
+            'a pre-built mesh plan carries no X to initialize from; pass '
+            'W_in AND T_in (initialize on every rank, e.g. random draws '
+            'from a shared seed, and place them with '
+            'parallel.distribute_factors)')
+    # (None or an empty tuple is no callback: reference fault 1 not copied)
+    if [f for f in (diagnostics if isinstance(diagnostics, (list, tuple))
+                    else [diagnostics]) if f is not None] \
+            or callable(early_stop):
+        raise ValueError(
+            'diagnostics callbacks and a callable early_stop consume the '
+            'host X, which a pre-built mesh plan does not carry; compute '
+            'diagnostics from the returned factors instead')
+
+
+def _check_rank_block(X, mesh, W_mat, w_row, sparse):
+    """The guards of a :class:`~rri_nmf_tpu_torch.parallel.multihost.
+    RankBlock` X (reference nmf.py:1044-1066)."""
+    if mesh is None:
+        raise ValueError('X spans processes but mesh=None; pass the global '
+                         'mesh (parallel.make_global_mesh) the block was '
+                         'built over')
+    if sparse is True or sparse in ('mxu', 'dma') or (
+            W_mat is not None and is_sparse(W_mat)):
+        raise NotImplementedError(
+            'a rank-block DENSE X cannot drive the sparse sweeps; partition '
+            'the sparse corpus per rank with parallel.distribute_sparse_coo '
+            'and pass the plan as X (masked observed sets: '
+            'parallel.distribute_masked_coo)')
+    if w_row is not None:
+        raise NotImplementedError(
+            'w_row pre-scales X on the host; with a rank-block X apply '
+            'sqrt(w_row) row scaling before distribute_dense and run the W '
+            're-fit explicitly')
+    if not X.block.dtype.is_floating_point:
+        raise ValueError('a rank-block X must be floating point')
+    if X.split != mesh.split(*X.shape):
+        raise ValueError('the X block is the %r, but this mesh gives this '
+                         'rank the %r; rebuild it over this mesh'
+                         % (X.split, mesh.split(*X.shape)))
+
+
+def _premade_device(X, device):
+    """A pre-built plan's device; ``device``, when given, must be it."""
+    where = plan_values(X).device
+    asked = None if device is None else torch.device(device)
+    if asked is not None and (asked.type != where.type or asked.index
+                              not in (None, where.index)):
+        raise ValueError('the plan lies on %s, not on device=%s; build it '
+                         'there' % (where, device))
+    return where
 
 
 def _parse_dtype(dtype):
@@ -251,9 +327,11 @@ class TrueObjComputer(object):
     def true_objective(self):
         if self.X is None:
             raise ValueError(
-                'this TrueObjComputer was pickled from a mesh-sharded '
-                'sparse fit, whose per-rank X cannot be serialized; re-fit '
-                '(or construct a new calculator) to evaluate the objective')
+                'this TrueObjComputer was pickled from a mesh-sharded fit '
+                'whose X no rank holds whole (a sparse X or mask, a rank '
+                'block or a pre-built plan), which cannot be serialized; '
+                're-fit (or construct a new calculator) to evaluate the '
+                'objective')
         if self._fn is None and self.masked_sparse:
             self._fn = self._masked_sparse_fn()
         if self._fn is None and self.sparse:
@@ -441,7 +519,34 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
       vector raise ``ValueError``. The objective calculator of a mesh
       fit pickles without the mesh: a dense or dense-mask one evaluates
       the whole objective on one device after a load, a sparse or
-      sparse-mask one raises ``ValueError``.
+      sparse-mask one raises ``ValueError``. A checkpointed mesh fit
+      restores what the first rank reads, on every rank, so ranks that
+      see different directories resume (or start) together.
+    - **Slabs and plans** (:mod:`rri_nmf_tpu_torch.parallel.multihost`),
+      for a mesh across hosts where no rank holds X whole. X may be this
+      rank's ``RankBlock`` (``distribute_dense`` of its row slab): n and d
+      come from its split, it is not blocked again, nor is a
+      ``RankBlock`` ``W_mat`` or ``W_in`` (``distribute_factors``); a
+      fresh init runs on every rank through the mesh (``'random'`` from
+      the shape, the means one mesh sum, the SVD family
+      :func:`~rri_nmf_tpu_torch.initialization.randomized_svd_torch`
+      through the mesh; ``'coherence_pmi'`` raises), ``x_dtype`` works
+      (the int16 scales from each column's maximum over ``dp``), a sparse
+      mode, a sparse mask and ``w_row`` raise JAX's
+      ``NotImplementedError``, and callbacks get X gathered whole. Or X
+      may be a pre-built plan (``distribute_sparse_coo``,
+      ``distribute_masked_coo``): its type names the sweep (the COO
+      block: ``sparse=True``; the ``'mxu'`` plan: the gather kernel; the
+      masked COO plan: the O(nnz) sweep, a ``'phase'`` request warning;
+      the Gram plan: the Gram-phase sweep, which needs
+      ``update_order='phase'``), ``W_in`` and ``T_in`` are required, and
+      JAX's guards raise (no mesh, a ``W_mat``, a plan of another mesh, a
+      contradicting ``sparse``, another ``dtype``, callbacks, an
+      objective without the ``'mxu'`` plan's COO companion). The
+      objective calculator of such a fit pickles without X, and its
+      loaded copy raises the ``mesh-sharded`` ``ValueError`` (JAX
+      gathers X when it pickles; here that would be a collective only
+      the pickling rank enters).
     - **Callbacks** (``diagnostics``, a callable ``early_stop``) receive
       ``(X, W, T)``: W and T as tensors on the fit's device, a sparse X
       (and any X of a sparse-mask fit) as the user passed it, a dense X
@@ -475,10 +580,22 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             raise TypeError('mesh must be a rri_nmf_tpu_torch.parallel.Mesh '
                             '(parallel.make_mesh), got %r' % (mesh,))
         mesh.member()
-    masked = W_mat is not None
+    # ---- a rank's own slab (parallel/multihost.py, reference
+    # nmf.py:751-841, 1044-1066): a RankBlock X, or a pre-built plan
+    premade = plan_kind(X)
+    X_block = isinstance(X, RankBlock)
+    if premade is not None:
+        _check_premade(X, mesh, W_mat, W_in, T_in, diagnostics, early_stop)
+    if X_block:
+        _check_rank_block(X, mesh, W_mat, w_row, sparse)
+    if isinstance(W_in, RankBlock) and _size(T_in) == 0:
+        raise ValueError('W_in as a rank block (parallel.distribute_factors) '
+                         'needs T_in: a fresh T would come with a whole W')
+    masked = W_mat is not None or premade in ('masked_coo', 'masked_gram')
     # ---- sparse-mask WRRI mode (reference nmf.py:843-882): the observed
     # set as COO end to end, O(nnz) memory
-    masked_sparse = masked and is_sparse(W_mat)
+    masked_sparse = premade in ('masked_coo', 'masked_gram') or (
+        masked and is_sparse(W_mat))
     gram_backend = None
     if masked_sparse:
         if w_row is not None:
@@ -527,7 +644,20 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         update_order = 'phase'
 
     # ---- the sparse mode (reference nmf.py:963-1042) ---------------------
-    X_is_sparse = is_sparse(X)
+    if premade in ('coo', 'mxu'):
+        # the plan's type picks the sweep; the sparse kwarg must not
+        # contradict it (reference nmf.py:972-986)
+        if sparse is False:
+            raise ValueError('X is a pre-built sparse mesh plan; '
+                             'sparse=False conflicts with it')
+        if sparse == 'dma':
+            raise ValueError("sparse='dma' is single-device; pre-built "
+                             'plans are mesh paths')
+        if sparse == 'mxu' and premade == 'coo':
+            raise ValueError("sparse='mxu' with a COO block plan: rebuild "
+                             "it with distribute_sparse_coo(backend='mxu')")
+        sparse = 'mxu' if premade == 'mxu' else True
+    X_is_sparse = is_sparse(X) or premade in ('coo', 'mxu')
     _viable = (W_mat is None and w_row is None and not store_gradients
                and not (eps_gauss_t and delta_gauss_t))
     # a sparse mesh (parallel/sparse_mesh.py): a T-row sum constraint
@@ -575,12 +705,24 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     x_quant_in = isinstance(X, QuantizedX)
     x_store = _parse_dtype(x_dtype)
     host = not isinstance(X, torch.Tensor) and not x_quant_in
-    if x_quant_in:
+    split_in = None
+    if premade is not None:
+        # the plan lies where it was built
+        device = _premade_device(X, device)
+        host = False
+    elif X_block:
+        # this rank's block as X from here on; the whole shape in split_in
+        split_in, host = X.split, X.host
+        X = X.block if device is None else X.block.to(device)
+        device = X.device
+    elif x_quant_in:
         X = X if device is None else X.to(device)
         device = X.device
     else:
         device = fit_device(X, device)
-    if masked_sparse:
+    if premade is not None:
+        pass
+    elif masked_sparse:
         # X stays where it is: the plan reads its values at the observed
         # coordinates on the host
         if host and not hasattr(X, 'tocsr'):
@@ -589,10 +731,13 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         # densified on its device (a scipy matrix on the host)
         X = X.to_dense() if isinstance(X, torch.Tensor) else X.toarray()
     if not masked_sparse and (not X_is_sparse or not sparse_mode) \
-            and not x_quant_in:
+            and not x_quant_in and premade is None:
         X = as_tensor(X)            # host data: a CPU tensor, for now
-    n, d = X.shape
-    if dtype is None:
+    n, d = ((X_user.split.n, X_user.split.d) if premade is not None
+            else (split_in.n, split_in.d) if X_block else X.shape)
+    if dtype is None and premade is not None:
+        dtype = plan_values(X).dtype
+    elif dtype is None:
         dtype = X.dtype if isinstance(X, (torch.Tensor, QuantizedX)) \
             else torch.from_numpy(np.zeros(0, X.dtype)).dtype
         # host data takes the card's default float there (the JAX rule:
@@ -600,6 +745,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         if not dtype.is_floating_point or (host and device.type != 'cpu'):
             dtype = default_float(device)
     dtype = _parse_dtype(dtype)
+    if premade is not None and dtype != plan_values(X).dtype:
+        raise ValueError(
+            'the plan holds %s values but the fit runs %s; rebuild the plan '
+            'with dtype=%s (or pass dtype=%s)'
+            % (plan_values(X).dtype, dtype, dtype, plan_values(X).dtype))
 
     # ---- X storage (reference nmf.py:1089-1116) ---------------------------
     x_quant = x_quant_in or x_store == torch.int16
@@ -621,7 +771,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         raise ValueError('x_dtype (mixed X storage) is not supported with '
                          'sparse modes: sparse X is stored as nonzeros and '
                          'the contractions key off that dtype directly')
-    elif x_store is not None and x_store != dtype and W_mat is not None:
+    elif x_store is not None and x_store != dtype and masked:
         # the masked sweeps stream a residual built from X once a sweep,
         # so narrowing X alone saves no memory traffic there
         logger.info('x_dtype ignored on the masked path (the streamed '
@@ -657,7 +807,9 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                             'contractions', dense_bytes / 1e9)
                 backend = 'mxu'
     X_dev = None    # masked_sparse: planned below, after the initialization
-    if sparse_mode and mesh is not None:
+    if premade is not None:
+        X_dev = X
+    elif sparse_mode and mesh is not None:
         # this rank's block of nonzeros, in local indices
         X_dev = (partition_mxu(X, mesh, dtype, device) if backend == 'mxu'
                  else partition_coo(X, mesh, dtype, device))
@@ -672,7 +824,23 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         X = X.to(dtype).contiguous()
         X_dev = X
     Wm = None
-    if masked_sparse:
+    Wm_block = isinstance(W_mat, RankBlock)
+    if premade is not None:
+        pass
+    elif Wm_block:
+        # this rank's block of the mask (parallel.distribute_dense)
+        if not X_block and (_size(W_in) == 0 or _size(T_in) == 0):
+            raise ValueError('a fresh init reads W_mat * X: a W_mat block '
+                             'needs X as a block too (or W_in and T_in)')
+        if W_mat.shape != (n, d) or (
+                mesh is not None and W_mat.split != mesh.split(n, d)):
+            raise ValueError('the W_mat block is the %r of a %s mask; this '
+                             'mesh gives this rank %r of %s: rebuild it '
+                             'over this mesh' % (W_mat.split, W_mat.shape,
+                                                 mesh and mesh.split(n, d),
+                                                 (n, d)))
+        Wm = W_mat.block.to(device=device, dtype=dtype).contiguous()
+    elif masked_sparse:
         if tuple(W_mat.shape) != (n, d):
             raise ValueError('W_mat must have the shape of X, %s; got %s'
                              % ((n, d), tuple(W_mat.shape)))
@@ -694,7 +862,10 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         X_dev = X
     # the stored form: the int16 code or the 16-bit X, on the card
     if x_quant:
-        X_dev = X if x_quant_in else quantize_x(X, dtype).to(device)
+        # (a rank's block: each column's scale from its maximum over dp)
+        X_dev = (X if x_quant_in else
+                 quantize_x(X, dtype, mesh=mesh if X_block else None)
+                 .to(device))
     elif x_store is not None:
         X_dev = X.to(x_store).to(device).contiguous()
     elif staged and not (sparse_mode or masked_sparse):
@@ -751,7 +922,33 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                                         and not w_row_sum_is_vector)
         masked_gram = (update_order == 'phase' and reset_topic_method is None
                        and gram_mesh_ok and gram_fits)
-        if update_order == 'phase' and not masked_gram:
+        if premade == 'masked_gram':
+            # the plan's type, not the heuristics, picks the sweep
+            # (reference nmf.py:920-937)
+            if update_order != 'phase':
+                raise ValueError(
+                    "this plan was built for the Gram-phase sweep "
+                    "(backend=%r); pass update_order='phase'" % (X.backend,))
+            if reset_topic_method is not None:
+                raise ValueError('the Gram-phase sweep supports '
+                                 'reset_topic_method=None only')
+            if not gram_fits:
+                raise ValueError(
+                    'even single-row Γ/Θ panels exceed the Gram budget '
+                    '(k=%d, shape %s); rebuild the plan with '
+                    'distribute_masked_coo(backend=None)' % (k, (n, d)))
+            masked_gram = True
+        elif premade == 'masked_coo':
+            if update_order == 'phase':
+                warnings.warn(
+                    "update_order='phase' needs a Gram plan; this "
+                    'interleaved COO plan runs the reference order (rebuild '
+                    "it with distribute_masked_coo(backend='segsum' or "
+                    "'mxu') for the Gram-phase sweep)", RuntimeWarning,
+                    stacklevel=2)
+                update_order = 'interleaved'
+            masked_gram = False
+        elif update_order == 'phase' and not masked_gram:
             why = ('reset_topic_method=%r is set (a mid-phase reset would '
                    'rewrite the frozen factor)' % (reset_topic_method,)
                    if reset_topic_method is not None else
@@ -812,7 +1009,15 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         X_init, Wm_init = None, None
         if fresh and first:
             X_init = _masked_init_matrix(X, W_mat)
-    if not first and fresh:
+    elif X_block:
+        # every rank initializes from its own block, through the mesh
+        if Wm is not None and not Wm_block:
+            Wm = mesh.block(Wm, mesh.split(n, d))
+            Wm_block = True
+        X_init = (RankBlock(X if Wm is None else Wm * X, split_in, host)
+                  if fresh else None)
+        Wm_init = None
+    if not first and fresh and not X_block:
         # a fresh init runs on the first rank and is shared with the rest
         W = torch.zeros(n, k, dtype=dtype, device=device)
         T = torch.zeros(k, d, dtype=dtype, device=device)
@@ -823,7 +1028,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             project_T_each_iter=project_T_each_iter,
             project_W_each_iter=project_W_each_iter, w_row_sum=w_row_sum,
             t_row_sum=t_row_sum, fix_W=fix_W, fix_T=fix_T, n=n, d=d,
-            device=device, dtype=dtype)
+            device=device, dtype=dtype, mesh=mesh)
 
     # ---- the mesh: this rank's blocks (parallel/mesh.py); the whole
     # factors come back at the end of the fit
@@ -832,9 +1037,10 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     if mesh is not None:
         # what the caller gave every rank whole, for the objective's
         # pickle (no rank holds a sparse X or a sparse mask whole)
-        whole = dict(X=None if sparse_mode or masked_sparse else X_dev,
-                     Wm=Wm, wr=wr)
-        if fresh:
+        whole = dict(X=None if (sparse_mode or masked_sparse or X_block
+                                or Wm_block) else X_dev,
+                     Wm=None if Wm_block else Wm, wr=wr)
+        if fresh and not X_block:
             W, T = mesh.from_first(W), mesh.from_first(T)
         split = mesh.split(n, d)
         if n % mesh.shape[0] or d % mesh.shape[1]:
@@ -843,13 +1049,14 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                 'splitting it in uneven blocks (the first n %% dp rows and '
                 'd %% tp columns one longer): the numbers of an aligned '
                 'split', n, d, *mesh.shape)
-        if not (sparse_mode or masked_sparse):
+        if not (sparse_mode or masked_sparse or X_block):
             # (a sparse X_dev is the block already; a sparse-mask plan is
-            # made of the rank's rows below)
+            # made of the rank's rows below; a rank's block is its own)
             X_dev = mesh.block(X_dev, split)
-        if Wm is not None:
+        if Wm is not None and not Wm_block:
             Wm = mesh.block(Wm, split)
-        W = mesh.block(W, split, cols=False)
+        if not isinstance(W_in, RankBlock):
+            W = mesh.block(W, split, cols=False)
         T = mesh.block(T, split, rows=False)
         if w_row_sum_is_vector:
             w_row_sum = mesh.block(w_row_sum, split, cols=False)
@@ -937,7 +1144,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         # the observed set, planned on the host once for this call (on a
         # mesh this rank's row block)
         if masked_gram:
-            X_dev = (plan_masked_gram(X, W_mat, dtype, backend=gram_backend,
+            X_dev = (X if premade is not None else
+                     plan_masked_gram(X, W_mat, dtype, backend=gram_backend,
                                       device=device) if mesh is None else
                      partition_masked_gram(X, W_mat, mesh, dtype,
                                            backend=gram_backend,
@@ -952,7 +1160,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                             make_sharded_masked_gram_sweep(
                                 cfg, mesh, X_dev.backend, gram_panel))
         else:
-            X_dev = (plan_masked_coo(X, W_mat, dtype, device=device)
+            X_dev = (X if premade is not None else
+                     plan_masked_coo(X, W_mat, dtype, device=device)
                      if mesh is None else
                      partition_masked_coo(X, W_mat, mesh, dtype, device))
             masked_sweep = (make_masked_sparse_sweep(cfg) if mesh is None
@@ -1071,7 +1280,10 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     if checkpoint is not None:
         ckpt_owned = not isinstance(checkpoint, NMFCheckpointer)
         ckpt = NMFCheckpointer(checkpoint) if ckpt_owned else checkpoint
-        resumed = ckpt.restore(device=device)
+        # on a mesh the first rank reads, and every rank takes what it
+        # found: ranks that see other directories take the same branch
+        resumed = (ckpt.restore(device=device) if mesh is None
+                   else restore_shared(ckpt, mesh, device))
         if resumed is not None:
             logger.info('Resuming from checkpoint step %d',
                         resumed.iteration)
@@ -1135,7 +1347,15 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         # the plan modes' X is a chunk plan: the sparse objective's cross
         # term wants the plain coordinate list (reference nmf.py:1762-1790)
         X_obj = X_dev
-        if sparse_mode:
+        if premade == 'mxu':
+            X_obj = X.obj_coo
+            if X_obj is None:
+                raise ValueError(
+                    'compute_obj_each_iter with a pre-built MXU plan needs '
+                    "its COO companion; build the plan with distribute_"
+                    "sparse_coo(backend='mxu', with_obj_coo=True), or pass "
+                    'compute_obj_each_iter=False')
+        elif sparse_mode:
             X_obj = (X_dev.coo if backend == 'torch'
                      else to_torch_sparse(X, dtype, device) if mesh is None
                      else partition_coo(X, mesh, dtype, device).coo)
@@ -1148,7 +1368,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                               whole=whole)
 
     # (a QuantizedX given as X reaches the callbacks dequantized)
-    X_cb = (X_user if X_is_sparse or masked_sparse else
+    X_cb = (_Gathered(mesh, X, split) if X_block else
+            X_user if X_is_sparse or masked_sparse else
             _Dequantized(X) if x_quant_in else X)
     for func in diagnostics:
         rtv['diagnostics'][func.__name__].append(
@@ -1355,11 +1576,29 @@ class _Dequantized(object):
         self.X = None
 
 
+class _Gathered(object):
+    """A rank's block of X for the callbacks, gathered whole over the mesh
+    at its first use (the JAX package's ``_to_host`` of a process-spanning
+    X; every rank calls the callbacks together)."""
+
+    def __init__(self, mesh, block, split):
+        self.mesh = mesh
+        self.block = block
+        self.split = split
+        self.X = None
+
+
 def _x(X_cb):
-    """The X a callback receives (see :class:`_Dequantized`)."""
+    """The X a callback receives (see :class:`_Dequantized` and
+    :class:`_Gathered`)."""
     if isinstance(X_cb, _Dequantized):
         if X_cb.X is None:
             X_cb.X = dequantize_x(X_cb.qx)
+        return X_cb.X
+    if isinstance(X_cb, _Gathered):
+        if X_cb.X is None:
+            m, s = X_cb.mesh, X_cb.split
+            X_cb.X = m.gather_cols(m.gather_rows(X_cb.block, s), s)
         return X_cb.X
     return X_cb
 
@@ -1398,7 +1637,7 @@ def _masked_init_matrix(X, W_mat):
 def _initialize_and_validate(W_in, T_in, W_mat, X, k, init, random_state,
                              project_T_each_iter, project_W_each_iter,
                              w_row_sum, t_row_sum, fix_W, fix_T, n, d, device,
-                             dtype):
+                             dtype, mesh=None):
     """Initialize W, T or validate warm starts (reference
     ``_initialize_and_validate``, ``nmf.py:819-880``): a fresh init runs
     on the masked matrix ``W_mat * X`` when masked, fresh factors get
@@ -1406,22 +1645,42 @@ def _initialize_and_validate(W_in, T_in, W_mat, X, k, init, random_state,
     shape-checked, negatives clipped, and the initial simplex projections
     applied when per-iteration projection is on. A sparse X (scipy or a
     torch sparse tensor) initializes as it is, never densified. Returns
-    tensors on ``device`` in ``dtype``."""
+    tensors on ``device`` in ``dtype``. A rank's block of X (a
+    :class:`~rri_nmf_tpu_torch.parallel.multihost.RankBlock`) initializes
+    through ``mesh`` on every rank, the SVD family on the device backend,
+    as JAX's does for a process-spanning X; a RankBlock ``W_in`` stays
+    this rank's rows."""
     W = T = None
     if _size(W_in) == 0 or _size(T_in) == 0:
         # scikit-learn's SVD in float64 (on the host for a CPU X, the
         # reference's goldens; on the card for a CUDA X); the device
-        # backend for a QuantizedX (reference nmf.py:2145-2166)
-        backend = 'torch' if isinstance(X, QuantizedX) else 'sklearn'
+        # backend for a QuantizedX or a rank's block (reference
+        # nmf.py:2145-2166)
+        backend = ('torch' if isinstance(X, (QuantizedX, RankBlock))
+                   else 'sklearn')
+        if isinstance(X, RankBlock) and init == 'coherence_pmi':
+            raise ValueError(
+                "init='coherence_pmi' walks X on the host; with a "
+                'rank-block X initialize explicitly and pass W_in/T_in')
         W, T = initialize_nmf(X if W_mat is None else W_mat * X, k, init,
                               random_state=random_state,
                               row_normalize=False, svd_backend=backend,
-                              device=device)
+                              device=device,
+                              mesh=mesh if isinstance(X, RankBlock) else None)
         if t_row_sum is not None:
             T = normalize(T) * t_row_sum
         if w_row_sum is not None:
             W = normalize(W) * w_row_sum
-    if _size(W_in) > 0:
+    rows = None
+    if isinstance(W_in, RankBlock):
+        # this rank's rows of W (parallel.distribute_factors)
+        if W_in.shape != (n, k) or mesh is None or (
+                W_in.split.r0, W_in.split.r1) != mesh.split(n, d)[2:4]:
+            raise ValueError('W_in has wrong dimensions, must be n*k, its '
+                             'block the rows of this rank')
+        W = W_in.block
+        rows = slice(W_in.split.r0, W_in.split.r1)
+    elif _size(W_in) > 0:
         if tuple(np.shape(W_in)) != (n, k):
             raise ValueError('W_in has wrong dimensions, must be n*k')
         W = W_in
@@ -1436,7 +1695,8 @@ def _initialize_and_validate(W_in, T_in, W_mat, X, k, init, random_state,
     if project_W_each_iter and not fix_W and w_row_sum is not None:
         logger.debug('Projecting W rows after initialization')
         W = proj_mat_to_simplex(W, w_row_sum if isinstance(w_row_sum, float)
-                                else w_row_sum.reshape(-1))
+                                else w_row_sum.reshape(-1)[rows or
+                                                           slice(None)])
     if project_T_each_iter and not fix_T and t_row_sum is not None:
         logger.debug('Projecting T rows after initialization')
         T = proj_mat_to_simplex(T, t_row_sum)

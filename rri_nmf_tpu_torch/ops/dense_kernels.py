@@ -370,9 +370,13 @@ def make_dense_phase_sweep(cfg, wtx=_dense_wtx, xtt=_dense_xtt):
                 ub = None
                 if cfg.w_row_sum_is_vector:
                     ub = w_row_sum_vec.reshape(-1).to(acc).contiguous()
+                # W back in rows (n, k): a transposed view would reach the
+                # next sweep's GEMMs in another layout than a W_in or a
+                # restored W does, and cuBLAS sums the two in another
+                # order (a resumed fit would leave the straight one)
                 W = gs_update(G2, XTt, W.T.contiguous(), cfg.reg_w_l1,
                               cfg.reg_w_l2, w_bound, ub=ub,
-                              reps=cfg.inner_reps).T
+                              reps=cfg.inner_reps).T.contiguous()
         # per-iteration W row projection (reference nmf.py:481-484)
         if (cfg.project_W_each_iter and not cfg.fix_W
                 and (cfg.w_row_sum is not None or cfg.w_row_sum_is_vector)):

@@ -96,7 +96,7 @@ def _quantize_np(X, dt):
     return q, s
 
 
-def quantize_x(X, dtype=None, device=None):
+def quantize_x(X, dtype=None, device=None, mesh=None):
     """Encode the nonnegative dense ``X`` as a :class:`QuantizedX`.
 
     A numpy array (or list) is encoded on the host, so only the int16
@@ -105,7 +105,11 @@ def quantize_x(X, dtype=None, device=None):
     encoded on its own device (or ``device``), a block of columns at a
     time, so the float temporaries stay at block size. ``dtype`` is the
     scale's (dequantized) dtype: by default X's float dtype, else the
-    device's default float. Negative entries raise ``ValueError``."""
+    device's default float. Negative entries raise ``ValueError``. With
+    ``mesh``, X is a rank's block of a matrix no rank holds whole: each
+    column's scale comes from its maximum over ``dp`` (the whole column,
+    every rank calling together), and a negative entry on any rank
+    raises on every rank."""
     from rri_nmf_tpu_torch.matrixops import fit_device
     if not isinstance(X, torch.Tensor):
         device = fit_device(X, device)
@@ -124,11 +128,19 @@ def quantize_x(X, dtype=None, device=None):
         dtype = X.dtype if X.dtype.is_floating_point \
             else default_float(X.device)
     n, d = X.shape
-    if X.numel() and float(X.min()) < 0:
+    negative = bool(X.numel()) and bool(X.min() < 0)
+    if mesh is not None:
+        negative = bool(mesh.any_all(torch.tensor(negative,
+                                                     device=X.device)))
+    if negative:
         raise ValueError("quantize_x encodes nonnegative X only (NMF input "
                          'contract); found negative entries')
-    s = X.amax(0).to(dtype) / 32767 if n else torch.ones(d, dtype=dtype,
-                                                        device=X.device)
+    if mesh is not None:
+        # the whole column's maximum (every rank has a row)
+        s = mesh.max_dp(X.amax(0)).to(dtype) / 32767
+    else:
+        s = X.amax(0).to(dtype) / 32767 if n else torch.ones(
+            d, dtype=dtype, device=X.device)
     s = torch.where(s > 0, s, torch.ones((), dtype=dtype, device=X.device))
     q = torch.empty(n, d, dtype=torch.int16, device=X.device)
     B = _block(d, n, torch.empty(0, dtype=dtype).element_size())

@@ -14,10 +14,13 @@
 - :mod:`rri_nmf_tpu_torch.parallel.masked_sparse_mesh` — the sparse-mask
   O(nnz) sweep on each rank's row block of observations;
 - :mod:`rri_nmf_tpu_torch.parallel.masked_gram_mesh` — the sparse-mask
-  Gram-phase sweep (the gather kernel) on each rank's row block.
-
-The multi-host forms (``multihost.py``, pre-built mesh plans) arrive with
-ROADMAP A.12f.
+  Gram-phase sweep (the gather kernel) on each rank's row block;
+- :mod:`rri_nmf_tpu_torch.parallel.multihost` — the multi-host wiring:
+  ``initialize_distributed``, ``make_global_mesh`` (``tp`` within a
+  host), ``process_row_block`` and the slab entry points
+  (``distribute_dense``, ``distribute_factors``,
+  ``distribute_sparse_coo``, ``distribute_masked_coo``), whose blocks and
+  pre-built plans ``nmf()`` takes as X, so no rank holds X whole.
 """
 
 from rri_nmf_tpu_torch.parallel.masked_gram_mesh import (
@@ -26,6 +29,10 @@ from rri_nmf_tpu_torch.parallel.masked_gram_mesh import (
 from rri_nmf_tpu_torch.parallel.masked_sparse_mesh import (
     make_sharded_masked_sparse_objective, make_sharded_masked_sparse_sweep,
     partition_masked_coo, supports_sharded_masked_sparse)
+from rri_nmf_tpu_torch.parallel.multihost import (
+    RankBlock, distribute_dense, distribute_factors, distribute_masked_coo,
+    distribute_sparse_coo, initialize_distributed, make_global_mesh,
+    process_row_block)
 from rri_nmf_tpu_torch.parallel.mesh import (Mesh, make_mesh,
                                              make_sharded_training_step,
                                              problem_shardings,
@@ -49,4 +56,7 @@ __all__ = ['Mesh', 'make_mesh', 'problem_shardings', 'shard_problem',
            'make_sharded_masked_sparse_sweep',
            'make_sharded_masked_sparse_objective', 'partition_masked_gram',
            'supports_sharded_masked_gram', 'make_sharded_masked_gram_sweep',
-           'make_sharded_masked_gram_objective']
+           'make_sharded_masked_gram_objective', 'RankBlock',
+           'initialize_distributed', 'make_global_mesh', 'process_row_block',
+           'distribute_dense', 'distribute_factors', 'distribute_sparse_coo',
+           'distribute_masked_coo']

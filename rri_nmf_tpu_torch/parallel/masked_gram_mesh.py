@@ -30,7 +30,12 @@ second value set. JAX pads each device's chunk plan to a common group
 count and splits it at SMEM segment boundaries (``_pad_plan_np``,
 ``_stack_segments``) so one ``pallas_call`` shape serves every device;
 here every rank launches the gather kernel on its own plan, so neither
-has a counterpart. Pre-built plans belong to ROADMAP A.12f.
+has a counterpart. A rank that holds only its row slabs builds the same
+plan through :func:`~rri_nmf_tpu_torch.parallel.multihost.
+distribute_masked_coo` (``backend='segsum'`` or ``'mxu'``): the rows of
+:func:`~rri_nmf_tpu_torch.parallel.masked_sparse_mesh.host_rows`, then
+:func:`~rri_nmf_tpu_torch.ops.sweep_masked_gram.plan_masked_gram`, the
+planning half here too.
 """
 
 import dataclasses

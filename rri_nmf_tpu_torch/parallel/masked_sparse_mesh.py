@@ -28,9 +28,10 @@ follow :mod:`rri_nmf_tpu_torch.parallel.mesh` (uneven by
 plan of its own rows, so there is no ghost row and no block padded to
 another's length. A rank whose block holds no observation adds zeros.
 Resets and a per-row ``w_row_sum`` vector are refused
-(:func:`supports_sharded_masked_sparse`), as in JAX. Pre-built plans
-(``distribute_masked_coo``) belong to the multi-host slice (ROADMAP
-A.12f).
+(:func:`supports_sharded_masked_sparse`), as in JAX. A rank that holds
+only its row slabs plans the same rows through
+:func:`~rri_nmf_tpu_torch.parallel.multihost.distribute_masked_coo`
+(:func:`host_rows`, then the same plan builder).
 """
 
 import dataclasses
@@ -44,19 +45,17 @@ from rri_nmf_tpu_torch.ops.sweep_masked_sparse import (
     plan_masked_coo, supports_masked_sparse)
 
 
-def row_block(X, W_mat, mesh):
-    """This rank's rows of ``X`` and of the mask ``W_mat`` on a
-    ``(dp, 1)`` mesh, as host data in the forms
-    :func:`~rri_nmf_tpu_torch.ops.sweep_masked_sparse.
+def host_rows(X, W_mat, r0, r1):
+    """Rows ``[r0, r1)`` of ``X`` and of the mask ``W_mat`` as host data
+    in the forms :func:`~rri_nmf_tpu_torch.ops.sweep_masked_sparse.
     masked_coo_host_arrays` reads: the mask as scipy CSR; X as scipy CSR
     when sparse, else a numpy array (a dense tensor is sliced where it
-    lies before it crosses to the host). Raises ``ValueError`` for a mesh
-    whose ``tp`` is not 1."""
-    if mesh.shape[1] != 1:
-        raise ValueError('sparse-mask mesh sweeps split the observations '
-                         'by row blocks; use a (dp, 1) mesh')
-    split = mesh.split(*X.shape)
-    rows = slice(split.r0, split.r1)
+    lies before it crosses to the host). The slicing half of the
+    partitioners: a rank that holds the whole X and mask cuts its row
+    block out of them, a rank that holds only its row slabs
+    (:func:`~rri_nmf_tpu_torch.parallel.multihost.distribute_masked_coo`)
+    takes them whole, and both plan the rows the same way."""
+    rows = slice(r0, r1)
     M = host_sparse(W_mat).tocsr()[rows]
     if isinstance(X, torch.Tensor) and X.layout == torch.strided:
         return X[rows].detach().cpu().numpy(), M
@@ -65,15 +64,27 @@ def row_block(X, W_mat, mesh):
             else np.asarray(X)[rows]), M
 
 
+def row_block(X, W_mat, mesh):
+    """This rank's rows of ``X`` and of the mask ``W_mat`` on a
+    ``(dp, 1)`` mesh (:func:`host_rows`). Raises ``ValueError`` for a mesh
+    whose ``tp`` is not 1."""
+    if mesh.shape[1] != 1:
+        raise ValueError('sparse-mask mesh sweeps split the observations '
+                         'by row blocks; use a (dp, 1) mesh')
+    split = mesh.split(*X.shape)
+    return host_rows(X, W_mat, split.r0, split.r1)
+
+
 def partition_masked_coo(X, W_mat, mesh, dtype, device=None):
     """This rank's observations on a ``(dp, 1)`` ``mesh`` as a
     :class:`~rri_nmf_tpu_torch.ops.sweep_masked_sparse.MaskedCOOPlan`
     of shape ``(n_loc, d)``: local row indices, global column indices,
     rows sorted; the plan
     :func:`~rri_nmf_tpu_torch.ops.sweep_masked_sparse.plan_masked_coo`
-    makes of the rank's rows (:func:`row_block`), on ``device`` (default:
-    X's device, the card for host data). The counterpart of JAX's
-    ``partition_masked_coo`` for the rank that calls it."""
+    (the planning half) makes of the rank's rows (:func:`row_block`), on
+    ``device`` (default: X's device, the card for host data). The
+    counterpart of JAX's ``partition_masked_coo`` for the rank that calls
+    it."""
     device = fit_device(X, device)
     return plan_masked_coo(*row_block(X, W_mat, mesh), dtype, device=device)
 

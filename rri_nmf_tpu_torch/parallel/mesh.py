@@ -122,6 +122,10 @@ class Mesh(object):
         """``x`` summed over the whole mesh (in place)."""
         return self._reduce(self._reduce(x, 0), 1)
 
+    def max_dp(self, x):
+        """``x``'s elementwise maximum over the ``dp`` axis (in place)."""
+        return self._reduce(x, 0, dist.ReduceOp.MAX)
+
     def any_all(self, flag):
         """A 0-d bool tensor: whether ``flag`` holds on any rank of the
         mesh (a MAX all-reduce, so every rank takes the same branch)."""
@@ -229,12 +233,15 @@ class Mesh(object):
         return A.contiguous()
 
 
-def make_mesh(n_devices=None, mesh_shape=None, axis_names=AXES):
+def make_mesh(n_devices=None, mesh_shape=None, axis_names=AXES, ranks=None):
     """A :class:`Mesh` over the first ``n_devices`` ranks (default: the
     whole world) of the initialized default process group, one device per
     rank. ``mesh_shape`` defaults to JAX's rule: ``(n/2, 2)`` for an even
-    ``n`` > 1, else ``(n, 1)``. Every rank of the world calls it (it makes
-    the axis groups); a rank beyond ``n_devices`` gets a mesh it is not in.
+    ``n`` > 1, else ``(n, 1)``. ``ranks`` (default: ``0 .. n_devices-1``)
+    lists the ranks in mesh order, row-major: the multi-host mesh
+    (:func:`~rri_nmf_tpu_torch.parallel.multihost.make_global_mesh`) lays
+    each host's ranks along ``tp``. Every rank of the world calls it (it
+    makes the axis groups); a rank not listed gets a mesh it is not in.
     Raises ``ValueError`` when no process group is initialized or the
     shape does not fit the world."""
     from torch.distributed.device_mesh import DeviceMesh
@@ -258,9 +265,15 @@ def make_mesh(n_devices=None, mesh_shape=None, axis_names=AXES):
     if not 1 <= n_devices <= world or math.prod(mesh_shape) != n_devices:
         raise ValueError('a %r mesh of %d ranks does not fit a world of %d'
                          % (mesh_shape, n_devices, world))
+    if ranks is None:
+        ranks = range(n_devices)
+    ranks = torch.tensor([int(r) for r in ranks], dtype=torch.int64)
+    if ranks.numel() != n_devices or len(set(ranks.tolist())) != n_devices \
+            or int(ranks.min()) < 0 or int(ranks.max()) >= world:
+        raise ValueError('ranks %r are not %d distinct ranks of a world of %d'
+                         % (ranks.tolist(), n_devices, world))
     device_type = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
-    return Mesh(DeviceMesh(device_type,
-                           torch.arange(n_devices).reshape(mesh_shape),
+    return Mesh(DeviceMesh(device_type, ranks.reshape(mesh_shape),
                            mesh_dim_names=tuple(axis_names)),
                 axis_names)
 

@@ -26,8 +26,9 @@ Blocks follow :mod:`rri_nmf_tpu_torch.parallel.mesh` (uneven by
 equal blocks (``ShardedCOO``), its per-device plan stacking
 (``ShardedMXUPlan``, ``_pad_stack_mxu``, ``_mxu_put``) and its ghost
 columns have no counterpart: each rank holds one unpadded block in local
-indices. Pre-built plans and ``distribute_sparse_coo`` belong to the
-multi-host slice (ROADMAP A.12f).
+indices. A rank that holds only its row slab plans the same block through
+:func:`~rri_nmf_tpu_torch.parallel.multihost.distribute_sparse_coo`
+(:func:`block_coo`, then the same plan of the block as here).
 """
 
 import dataclasses
@@ -44,13 +45,18 @@ from rri_nmf_tpu_torch.ops.sweep_sparse import (TorchSparseX,
                                                 supports_sparse)
 
 
-def _block_coo(X, mesh, dtype=None, device=None):
-    """This rank's block of X (scipy sparse, a torch COO/CSR tensor, or
-    dense) as a coalesced COO tensor of the block's shape in local
-    indices, duplicates summed, on ``device`` (default: X's own, the CPU
-    for host data), values in ``dtype`` (default: X's float dtype)."""
-    split = mesh.split(*X.shape)
-    r0, r1, c0, c1 = split.r0, split.r1, split.c0, split.c1
+def block_coo(X, r0, r1, c0, c1, dtype=None, device=None):
+    """Rows ``[r0, r1)`` and columns ``[c0, c1)`` of X (scipy sparse, a
+    torch COO/CSR tensor, or dense) as a coalesced COO tensor of the
+    block's shape in local indices, duplicates summed, on ``device``
+    (default: X's own, the CPU for host data), values in ``dtype``
+    (default: X's float dtype). The slicing half of the partitioners: a
+    rank that holds the whole X cuts its block out of it, a rank that
+    holds its row slab (:func:`~rri_nmf_tpu_torch.parallel.multihost.
+    distribute_sparse_coo`) cuts its columns, and both plan the block
+    the same way (a :class:`~rri_nmf_tpu_torch.ops.sweep_sparse.
+    TorchSparseX`, or :func:`~rri_nmf_tpu_torch.ops.sparse_plan.
+    plan_sparse_matrix`)."""
     if is_scipy_sparse(X):
         return to_torch_sparse(X.tocsr()[r0:r1, c0:c1], dtype, device)
     coo = to_torch_sparse(X, dtype)
@@ -70,7 +76,8 @@ def partition_coo(X, mesh, dtype=None, device=None):
     ``dtype`` (default: X's). The counterpart of JAX's ``partition_coo``
     for the rank that calls it."""
     device = fit_device(X, device)
-    return TorchSparseX(_block_coo(X, mesh, dtype, device))
+    s = mesh.split(*X.shape)
+    return TorchSparseX(block_coo(X, s.r0, s.r1, s.c0, s.c1, dtype, device))
 
 
 def partition_mxu(X, mesh, dtype=None, device=None, group=8):
@@ -82,8 +89,9 @@ def partition_mxu(X, mesh, dtype=None, device=None, group=8):
     The counterpart of JAX's ``partition_mxu`` for the rank that calls
     it."""
     device = fit_device(X, device)
-    return plan_sparse_matrix(_block_coo(X, mesh), dtype, group=group,
-                              device=device)
+    s = mesh.split(*X.shape)
+    return plan_sparse_matrix(block_coo(X, s.r0, s.r1, s.c0, s.c1), dtype,
+                              group=group, device=device)
 
 
 def supports_sharded_sparse(cfg, mesh):

@@ -11,8 +11,9 @@ the mesh) or raises the first error any rank met.
 This module imports only torch, numpy and the port: a rank never imports
 JAX or the JAX package (the test modules, which do, run in the parent).
 Run as a script, it is one rank: ``python torch_mesh_worker.py RANK WORLD
-STORE_FILE``; cases come on stdin and answers go to stdout, each a
-length-prefixed pickle.
+STORE_FILE [MODULE]``; cases come on stdin and answers go to stdout, each
+a length-prefixed pickle. ``MODULE`` names a module of this directory
+whose ``case_*`` functions the rank serves too (``MeshPool(cases=...)``).
 """
 
 import datetime
@@ -510,12 +511,20 @@ CASES = {name[5:]: fn for name, fn in globals().items()
          if name.startswith('case_')}
 
 
-def serve(rank, world, store_file):
-    """One rank: join the gloo world, then answer cases until stdin ends."""
+def serve(rank, world, store_file, cases=None):
+    """One rank: join the gloo world, then answer cases until stdin ends
+    (those of this module and of the module ``cases``)."""
+    import importlib
+
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
     sys.path.insert(0, REPO)
+    if cases:
+        sys.path.insert(0, HERE)
+        extra = importlib.import_module(cases)
+        CASES.update((name[5:], fn) for name, fn in vars(extra).items()
+                     if name.startswith('case_'))
     from rri_nmf_tpu_torch.parallel import make_mesh
     dist.init_process_group(
         'gloo', store=dist.FileStore(store_file, world), rank=rank,
@@ -552,12 +561,14 @@ def serve(rank, world, store_file):
 class MeshPool(object):
     """Four rank processes in one gloo world (see the module docstring).
     ``run(case, mesh=(dp, tp), **kw)`` runs ``case_<case>`` on every rank
-    of a ``(dp, tp)`` mesh and returns the first rank's answer."""
+    of a ``(dp, tp)`` mesh and returns the first rank's answer. ``env``
+    adds to the ranks' environment; ``cases`` names a module of this
+    directory whose cases the ranks serve too."""
 
-    def __init__(self, workdir, world=WORLD):
+    def __init__(self, workdir, world=WORLD, env=None, cases=None):
         env = dict(os.environ, OMP_NUM_THREADS='1', MKL_NUM_THREADS='1',
                    PYTHONPATH=REPO + os.pathsep + os.environ.get(
-                       'PYTHONPATH', ''))
+                       'PYTHONPATH', ''), **(env or {}))
         store = os.path.join(str(workdir), 'store')
         self.logs = [os.path.join(str(workdir), 'rank%d.log' % r)
                      for r in range(world)]
@@ -567,7 +578,7 @@ class MeshPool(object):
             with open(self.logs[rank], 'wb') as log:
                 self.procs.append(subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__), str(rank),
-                     str(world), store],
+                     str(world), store] + ([cases] if cases else []),
                     stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                     stderr=log, cwd=REPO, env=env))
 
@@ -632,4 +643,5 @@ class MeshPool(object):
 
 
 if __name__ == '__main__':
-    serve(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    serve(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+          sys.argv[4] if len(sys.argv) > 4 else None)
