@@ -92,18 +92,21 @@ its users run, one line per phase:
     reset count and the same reset documents: the default ``nmf()`` at
     2048×1024 k=32 with a dead topic, the TM default preset at 600×1500
     k=10, a masked fit with ``'max_resid_document'`` at 600×400 k=8;
-17. the gather kernel as the Gram-phase sparse-mask sweep calls it, on
-    the mask's layouts with M⊙X as a second value set: A = Wᵀ(M⊙X) and
-    C = (M⊙X)Tᵀ (k rows), Γ and Θ (the k(k+1)/2 Khatri-Rao rows) and a
-    p·k-row panel, at the MovieLens shape (k=40, float64 and float32)
-    and at the JAX package's recorded masked shape, 100,000×50,000 with
-    25M observations, k=32 (float32): against the twin, each launch
-    repeated and matched bit for bit, CUDA-event times beside
-    ``torch.sparse.mm`` of the mask's CSR by the same rows, the host plan
-    seconds;
+17. the Gram-phase sparse-mask sweep's contractions on the mask's
+    layouts: the gather kernel for A = Wᵀ(M⊙X) and C = (M⊙X)Tᵀ (k rows,
+    M⊙X as a second value set), the Gram kernel (``csrc/gram.cu``) for Γ
+    and Θ (the k(k+1)/2 Khatri-Rao rows, formed on chip) and p·k-row
+    panels, at the MovieLens shape (k=40, float64 and float32) and at
+    the JAX package's recorded masked shape, 100,000×50,000 with 25M
+    observations, k=32 and the 6656-row panels of k=128 (float32):
+    against the twins and, for Γ/Θ, the gather kernel on the
+    materialized rows, each launch repeated and matched bit for bit,
+    CUDA-event times beside ``torch.sparse.mm`` of the mask's CSR by the
+    same rows (and the gather kernel's on them), the host plan seconds;
 18. ``nmf()`` on that recorded problem (scipy CSR X and mask, float32 on
-    the card): ``update_order='phase'`` (the Gram-phase sweep, 4 gather
-    launches a sweep and 2 an objective), its Gram objective against the
+    the card): ``update_order='phase'`` (the Gram-phase sweep: 3 gather
+    launches (A, C, the objective's C) and 3 Gram launches (Γ, Θ, the
+    objective's Θ) a tracked sweep), its Gram objective against the
     observed-entry one, the defaults (the O(nnz) interleaved sweep, no
     kernel of this repo, sync-free, one CUDA graph a sweep), and a k=128
     sweep in Γ/Θ panels: launch counts, non-increasing objectives, ms
@@ -206,12 +209,14 @@ its users run, one line per phase:
     warm starts: (a) in the one-rank world, the Gram-phase fit at k=32,
     the defaults (the O(nnz) sweep, one CUDA graph a sweep) and k=128 in
     panels, W, T and ``obj_history`` bit for bit the single-device fits
-    with the same gather launches (4 a Gram sweep, 2 an objective),
-    ms/sweep of each sweep in turns with the single-device one; (b) 4
+    with the same gather and Gram launches (3 and 3 a tracked Gram
+    sweep), ms/sweep of each sweep in turns with the single-device one;
+    (b) 4
     gloo ranks on (4, 1): the Gram fit in float32 and float64 and the
     O(nnz) fit in float32 at phase 27's gates, k=128 in panels on phase
     8's ratings in float64 with the Gram budget lowered in each rank
-    (2 + 2·⌈k/p⌉ launches a sweep), the guards ((2, 2), a ``'random'``
+    (3 gather and 3·⌈k/p⌉ Gram launches a tracked sweep), the guards
+    ((2, 2), a ``'random'``
     reset), and ``NMF_RS_Estimator(sparse_obs=True)`` in the phase order
     on phase 8's ratings (its test RMSE beside the single-device fit's,
     a pickle round trip); the host plan seconds per rank, the bytes of
@@ -246,17 +251,19 @@ Phases 5-6, phase 8, phases 10-11, phases 12-16, phases 18-19, phases
 20-23, phases 24-25, each dtype's fits of phase 26, phases 27-30 and
 phase 31 drive a main path with the launch counts set to 0 just before and
 read just after (no kernel of this repo runs in phases 12-13; phases 14-15
-run B1; phases 18-19 the gather kernel; phases 20-23 B1-B4; phases 24-25
-B1; phase 26 the 16-bit builds of all six; phases 27-29 B1-B5, phase
-30 the gather kernel and phase 31 B1, B2 and the gather kernel, in this
-process and in each rank, counted there;
+run B1; phases 18-19 the gather and Gram kernels; phases 20-23 B1-B4;
+phases 24-25 B1; phase 26 the 16-bit builds of all six; phases 27-29
+B1-B5, phase 30 the gather and Gram kernels and phase 31 B1, B2, the
+gather and the Gram kernel, in this process and in each rank, counted
+there;
 the HER recursion run by hand, the sync check of phases 20 and 23 and
 the sweeps timed beside phases 18 and 30's fits leave the counts as they
 were).
 Then one JSON line of the kernels (those launches, error against the
 twin, kernel and twin ms, the least time the card could take for the same
 work with what binds it, and the library call's ms where one computes the
-same function; the 16-bit builds as ``<name>_bf16`` and ``<name>_f16``),
+same function; the Gram kernel as ``gram_contract``, timed at phase
+17's k=32 Γ; the 16-bit builds as ``<name>_bf16`` and ``<name>_f16``),
 and as the last line ``{"ok": true, "device": {...}}``. Any failure raises before that line
 and exits non-zero; without a CUDA device the script exits non-zero
 before doing anything. Data come from numpy seeds.
@@ -331,6 +338,11 @@ B5 = {'name': 'sparse_mxu', 'route': 'cuda',
 B6 = {'name': 'sparse_dma', 'route': 'cuda',
       'source': 'rri_nmf_tpu_torch/csrc/sparse.cu',
       'replaces': 'rri_nmf_tpu/ops/sparse_dma.py:164'}
+# B5 on the Khatri-Rao rows of the Gram-phase sweep (Γ/Θ): the Gram
+# kernel forms them on chip (csrc/gram.cu)
+GRAM = {'name': 'gram_contract', 'route': 'cuda',
+        'source': 'rri_nmf_tpu_torch/csrc/gram.cu',
+        'replaces': 'rri_nmf_tpu/ops/sparse_mxu.py:298'}
 FAST_TM = dict(update_order='phase', reset_topic_method=None)
 
 # (n, d, k): bench.py's headline fit; the small card-vs-CPU fit
@@ -1956,32 +1968,28 @@ def masked_cfg(k, **kw):
 
 
 def gram_contractions(mg, plan, W, T, p, names=None):
-    """The gather-kernel calls of the Gram-phase sweep on ``plan`` for the
+    """The contractions of the Gram-phase sweep on ``plan`` for the
     factors W (n, k), T (k, d): {name: (direction, plan direction, Fᵀ's
-    rows, rows, output columns, values or None)}; ``p`` the panel."""
+    rows, k, pairs, rows, output columns, values or None)}; ``p`` the
+    panel. A and C (pairs None, the M⊙X values) run the gather kernel on
+    the k factor rows; Γ and Θ the Gram kernel on the Khatri-Rao rows of
+    ``pairs`` (``'unique'`` or a panel ``(0, p)``)."""
     n, d = plan.shape
     k = W.shape[1]
     p = min(p, k)
-    it, is_, _ = mg._pairs_on(k, W.device)
     Tt = T.T.contiguous()
     calls = {
-        'A (k rows, M⊙X)': lambda: ('t', W, k, True),
-        'Gamma (k(k+1)/2 rows)': lambda: ('t', W[:, it] * W[:, is_],
-                                          it.shape[0], False),
-        'Gamma panel (p·k rows)': lambda: (
-            't', (W[:, :p, None] * W[:, None, :]).reshape(n, p * k),
-            p * k, False),
-        'C (k rows, M⊙X)': lambda: ('w', Tt, k, True),
-        'Theta (k(k+1)/2 rows)': lambda: ('w', Tt[:, it] * Tt[:, is_],
-                                          it.shape[0], False),
-        'Theta panel (p·k rows)': lambda: (
-            'w', (Tt[:, :p, None] * Tt[:, None, :]).reshape(d, p * k),
-            p * k, False)}
+        'A (k rows, M⊙X)': ('t', W, None, k),
+        'Gamma (k(k+1)/2 rows)': ('t', W, 'unique', k * (k + 1) // 2),
+        'Gamma panel (p·k rows)': ('t', W, (0, p), p * k),
+        'C (k rows, M⊙X)': ('w', Tt, None, k),
+        'Theta (k(k+1)/2 rows)': ('w', Tt, 'unique', k * (k + 1) // 2),
+        'Theta panel (p·k rows)': ('w', Tt, (0, p), p * k)}
     for name in (names or calls):
-        side, Ft, rows, mx = calls[name]()
-        yield name, (side, plan.m_t if side == 't' else plan.m_w, Ft, rows,
-                     d if side == 't' else n,
-                     plan.mx_layout_values(side) if mx else None)
+        side, Ft, pairs, rows = calls[name]
+        yield name, (side, plan.m_t if side == 't' else plan.m_w, Ft, k,
+                     pairs, rows, d if side == 't' else n,
+                     plan.mx_layout_values(side) if pairs is None else None)
 
 
 def library_masks(plan):
@@ -2003,11 +2011,18 @@ def library_masks(plan):
 
 
 def check_masked_gram(dev, sk, spl, mg, cases):
-    """Phase 17: the gather kernel with the Gram sweep's operands against
-    its twin. ``cases``: ``(label, X, M, dtype, tol, timed, runs)``, runs
-    a list of ``(k, p, names)``. Returns {label: (plan, build seconds)}
-    of the timed cases."""
-    plans = {}
+    """Phase 17: the Gram-phase sweep's contractions on the card: A and C
+    through the gather kernel against its twin; Γ and Θ through the Gram
+    kernel against its twin and against the gather kernel on the
+    materialized Khatri-Rao rows (the path it replaced); each repeats bit
+    for bit. ``cases``: ``(label, X, M, dtype, tol, timed, runs)``, runs
+    a list of ``(k, p, names)``. A timed call logs its ms beside its
+    twin's, its bound and ``torch.sparse.mm``'s ms on the same operand
+    (the Gram kernel's: on the materialized rows, beside the gather
+    kernel's ms on them). Returns ({label: (plan, build seconds)} of the
+    timed cases, {(label, contraction, k): line} of the Gram kernel's
+    timed calls)."""
+    plans, gram = {}, {}
     for label, X, M, dtype, tol, timed, runs in cases:
         t0 = time.perf_counter()
         plan = mg.plan_masked_gram(X, M, dtype, backend='mxu', device=dev)
@@ -2020,90 +2035,140 @@ def check_masked_gram(dev, sk, spl, mg, cases):
             rng = np.random.RandomState(3)
             W = torch.as_tensor(rng.rand(n, k), dtype=dtype, device=dev)
             T = torch.as_tensor(rng.rand(k, d), dtype=dtype, device=dev)
-            for name, (side, pl, Ft, rows, ncols, vals) in \
+            for name, (side, pl, Ft, kk, pairs, rows, ncols, vals) in \
                     gram_contractions(mg, plan, W, T, p, names):
-                def call():
-                    return sk.gather_contract(pl, Ft, rows, ncols, 'mxu',
-                                              vals)
+                lay = spl.column_layout(pl)
+                panel = None if pairs == 'unique' else pairs
+                if pairs is None:
+                    kernel, KR = 'gather', None
+
+                    def call():
+                        return sk.gather_contract(pl, Ft, rows, ncols, 'mxu',
+                                                  vals)
+
+                    def twin():
+                        return sk.gather_contract_ref(lay, Ft, rows, ncols,
+                                                      vals)
+                else:
+                    kernel = 'gram'
+                    a, b = (x.to(dev) for x in sk.gram_pairs(kk, panel))
+                    KR = Ft[:, a] * Ft[:, b]
+                    del a, b
+
+                    def call():
+                        return sk.gram_contract(pl, Ft, kk, panel, ncols)
+
+                    def twin():
+                        return sk.gram_contract_ref(lay, Ft, kk, panel,
+                                                    ncols)
+
+                    def gather():
+                        return sk.gather_contract(pl, KR, rows, ncols, 'mxu')
                 first, again = call(), call()
                 sync(dev)
                 if not torch.equal(first, again):
                     raise AssertionError('%s %s %s: two launches differ'
                                          % (label, name, dtype))
-                lay = spl.column_layout(pl)
-
-                def twin():
-                    return sk.gather_contract_ref(lay, Ft, rows, ncols, vals)
-                err = row_err(first, twin())
-                if not (err <= tol and bool(torch.isfinite(first).all())):
-                    raise AssertionError('%s %s %s: error %.3g against the '
-                                         'twin > %g' % (label, name, dtype,
-                                                        err, tol))
-                line = {'case': label, 'contraction': name, 'k': k,
-                        'rows': rows, 'dtype': str(dtype), 'rel_err': err,
+                want = twin()
+                errs = {'twin': row_err(first, want)}
+                if KR is not None:
+                    errs['gather_kernel_on_rows'] = row_err(first, gather())
+                if not (max(errs.values()) <= tol
+                        and bool(torch.isfinite(first).all())):
+                    raise AssertionError('%s %s %s: error %r > %g'
+                                         % (label, name, dtype, errs, tol))
+                line = {'case': label, 'contraction': name, 'k': kk,
+                        'rows': rows, 'dtype': str(dtype),
+                        'rel_err': errs['twin'],
+                        'max_abs_err': float((first - want).abs().max()),
                         'bitwise_repeat': True, 'nnz': plan.nnz,
                         'plan_build_s': plan_s}
+                if KR is not None:
+                    line['rel_err_gather_kernel_on_rows'] = \
+                        errs['gather_kernel_on_rows']
+                del want
                 if timed:
                     nnz = lay.gidx.shape[0]
                     ms = time_ms(call, dev, runs=5)
-                    line.update(
-                        ms=ms, plain_ms=time_ms(twin, dev, runs=1),
-                        gather_TB_per_s=nnz * rows * size / ms / 1e9)
+                    line.update(ms=ms, plain_ms=time_ms(twin, dev, runs=1))
                     b = bound(2 * nnz * rows,
                               Ft.numel() * size + lay.nbytes
                               + rows * ncols * size, str(dtype)[6:])
                     line.update(bound_ms=b[0], bound_by=b[1])
+                    if KR is not None:
+                        line['gather_kernel_on_rows_ms'] = time_ms(
+                            gather, dev, runs=5)
                     if lib:
                         S = lib[(side, vals is not None)]
-                        got = torch.sparse.mm(S, Ft).T
+                        operand = Ft if KR is None else KR
+                        got = torch.sparse.mm(S, operand).T
                         line['library_rel_err'] = row_err(first, got)
                         if not line['library_rel_err'] <= tol:
                             raise AssertionError('%s %s: torch.sparse.mm '
                                                  'differs' % (label, name))
                         del got
                         line['library_ms'] = time_ms(
-                            lambda: torch.sparse.mm(S, Ft), dev, runs=5)
+                            lambda: torch.sparse.mm(S, operand), dev, runs=5)
                         line['ms_over_library_ms'] = ms / line['library_ms']
-                log('kernel gather, Gram-phase contractions', **line)
-                del first, again
+                    if KR is not None:
+                        gram[(label, name, kk)] = line
+                log('kernel %s, Gram-phase contractions' % kernel, **line)
+                del first, again, KR
         if timed:
             plans[label] = (plan, plan_s)
         del lib
-    return plans
+    return plans, gram
+
+
+def sparse_launches(sk):
+    """The sparse kernels' launch counts now: the gather kernel's under
+    ``'mxu'`` (A and C of a Gram sweep) and the Gram kernel's (Γ, Θ)."""
+    return {key: sk.LAUNCHES[key] for key in ('mxu', 'gram')}
+
+
+def launched_since(sk, before):
+    return {key: sk.LAUNCHES[key] - v for key, v in before.items()}
+
+
+def gram_launches(sweeps, panels=None):
+    """The launches of ``sweeps`` tracked Gram-phase sweeps (each with its
+    objective): 3 gather (A, C, the objective's C) and 3 Gram (Γ, Θ, the
+    objective's Θ) a sweep; in ``panels`` panels, 3·panels Gram."""
+    return {'mxu': 3 * sweeps, 'gram': 3 * (panels or 1) * sweeps}
 
 
 def run_masked_record_phase(dev, sk, nmf, mg, ms, X, M, plan, plan_s):
     """Phase 18 on the recorded problem (scipy CSR ``X``, ``M``; ``plan``
-    its Gram plan from phase 17): returns the gather launches of the
-    main path."""
+    its Gram plan from phase 17): returns the gather and Gram kernels'
+    launches of the main path's fits, ``{'mxu': .., 'gram': ..}``."""
     from rri_nmf_tpu_torch.ops.sweep import make_draws
     n, d, _, k = MASKED_RECORD
     nnz = int(M.nnz)
-    main = 0
+    main = gram_launches(0)
 
     def fit(**kw):
-        """nmf() on the problem: (result, wall s, gather launches, peak
-        GB)."""
+        """nmf() on the problem: (result, wall s, {'mxu', 'gram'}
+        launches, peak GB)."""
         if dev.type == 'cuda':
             torch.cuda.reset_peak_memory_stats(dev)
-        b0 = sk.LAUNCHES['mxu']
+        b0 = sparse_launches(sk)
         t0 = time.perf_counter()
         res = nmf(X, kw.pop('k', k), W_mat=M, compute_obj_each_iter=True,
                   random_state=0, eps_stop=0.0, device=dev, **kw)
         sync(dev)
         peak = (torch.cuda.max_memory_allocated(dev) / 1e9
                 if dev.type == 'cuda' else None)
-        return (res, time.perf_counter() - t0, sk.LAUNCHES['mxu'] - b0,
-                peak)
+        return (res, time.perf_counter() - t0, launched_since(sk, b0), peak)
 
-    # 18a. the Gram-phase sweep (4 launches a sweep, 2 an objective)
+    # 18a. the Gram-phase sweep (A, Γ, C, Θ a sweep; C, Θ an objective)
     res, wall, got, peak = fit(update_order='phase', reset_topic_method=None,
                                max_iter=GRAM_SWEEPS)
     obj = res['obj_history']
-    if got != 6 * len(obj):
-        raise AssertionError('Gram-phase nmf(): %d gather launches for %d '
-                             'sweeps (want 6 a sweep)' % (got, len(obj)))
-    main += got
+    if got != gram_launches(len(obj)):
+        raise AssertionError('Gram-phase nmf(): launches %r for %d sweeps '
+                             '(want %r)' % (got, len(obj),
+                                            gram_launches(len(obj))))
+    main = got
     non_increasing(obj, 'Gram-phase nmf()', float(plan.sum_mx2))
     W, T = res['W'], res['T']
     o_gram = float(mg.make_masked_gram_objective('mxu')(plan, W, T))
@@ -2120,7 +2185,8 @@ def run_masked_record_phase(dev, sk, nmf, mg, ms, X, M, plan, plan_s):
     gram_objective = mg.make_masked_gram_objective('mxu')
     log('nmf %dx%d %d observations k=%d float32, update_order=phase '
         '(Gram-phase)' % (n, d, nnz, k), sweeps=len(obj),
-        gather_launches=got, obj_first=obj[0], obj_last=obj[-1], wall_s=wall,
+        gather_launches=got['mxu'], gram_launches=got['gram'],
+        obj_first=obj[0], obj_last=obj[-1], wall_s=wall,
         host_plan_s=plan_s, peak_GB=peak, sum_mx2=float(plan.sum_mx2),
         gram_vs_observed_objective_rel_sum_mx2=gap,
         ms_per_sweep_with_objective=_sweep_ms(res), ms_per_sweep=sweep_ms,
@@ -2137,7 +2203,7 @@ def run_masked_record_phase(dev, sk, nmf, mg, ms, X, M, plan, plan_s):
     before = dict(sk.LAUNCHES)
     res, wall, _, peak = fit(max_iter=INTERLEAVED_MASKED_SWEEPS)
     if sk.LAUNCHES != before:
-        raise AssertionError('the O(nnz) sweep launched the gather kernel')
+        raise AssertionError('the O(nnz) sweep launched a sparse kernel')
     obj = res['obj_history']
     non_increasing(obj, 'interleaved sparse-mask nmf()')
     W, T = res['W'], res['T']
@@ -2179,18 +2245,19 @@ def run_masked_record_phase(dev, sk, nmf, mg, ms, X, M, plan, plan_s):
     res, wall, got, peak = fit(k=kp, update_order='phase',
                                reset_topic_method=None, max_iter=1,
                                W_in=W0, T_in=T0)
-    if got != (2 + 2 * npan) + (1 + npan):
-        raise AssertionError('k=%d panel sweep: %d gather launches (want %d)'
-                             % (kp, got, 3 + 3 * npan))
-    main += got
+    if got != gram_launches(1, npan):
+        raise AssertionError('k=%d panel sweep: launches %r (want %r)'
+                             % (kp, got, gram_launches(1, npan)))
+    main = {key: main[key] + got[key] for key in main}
     if not (bool(torch.isfinite(res['W']).all())
             and np.isfinite(res['obj_history'][-1])):
         raise AssertionError('non-finite panel sweep')
     sweep = mg.make_masked_gram_sweep(masked_cfg(kp, update_order='phase'),
                                       'mxu', panel)
     log('nmf %dx%d k=%d float32, Gram-phase in %d-topic panels'
-        % (n, d, kp, panel), panels=npan, gather_launches=got,
-        obj=res['obj_history'], wall_s=wall, peak_GB=peak,
+        % (n, d, kp, panel), panels=npan, gather_launches=got['mxu'],
+        gram_launches=got['gram'], obj=res['obj_history'], wall_s=wall,
+        peak_GB=peak,
         ms_per_sweep=time_ms(lambda: sweep(plan, W0, T0, draws, 0), dev,
                              runs=1))
     return main
@@ -2198,7 +2265,7 @@ def run_masked_record_phase(dev, sk, nmf, mg, ms, X, M, plan, plan_s):
 
 def run_sparse_obs_phase(dev, mk, sk, Est, X, rmse_dense):
     """Phase 19 on phase 8's ratings ``X`` (numpy): returns the gather
-    launches of the main path."""
+    and Gram kernels' launches of the main path's fits."""
     n, d, _, k = RS_SHAPE
     p_tr, r_tr, p_te, r_te = (torch.as_tensor(a, device=dev) for a in
                               rs_split(X))
@@ -2207,7 +2274,7 @@ def run_sparse_obs_phase(dev, mk, sk, Est, X, rmse_dense):
     sel = p_te[:, 0] < rows
     Xnew = torch.zeros(rows, d, device=dev)
     Xnew[p_te[sel, 0], p_te[sel, 1]] = r_te[sel]
-    main = 0
+    main = gram_launches(0)
     rmse = {}
     from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg
     from rri_nmf_tpu_torch.ops import sweep_masked_sparse as ms
@@ -2217,29 +2284,29 @@ def run_sparse_obs_phase(dev, mk, sk, Est, X, rmse_dense):
     for label, kw in (('interleaved', {}),
                       ('Gram-phase', dict(nmf_kwargs=dict(
                           update_order='phase')))):
-        b0 = dict(mk.LAUNCHES), sk.LAUNCHES['mxu']
+        b0 = dict(mk.LAUNCHES), sparse_launches(sk)
         t0 = time.perf_counter()
         est = _rs_fit(Est, p_tr, r_tr, RS_SHAPE, sparse_obs=True, **kw)
         sync(dev)
         fit_s = time.perf_counter() - t0
-        got = sk.LAUNCHES['mxu'] - b0[1]
+        got = launched_since(sk, b0[1])
         obj = est.nmf_outputs['obj_history']
         # an early stop runs one sweep more than it keeps
-        want = {0} if label == 'interleaved' else {6 * len(obj),
-                                                   6 * (len(obj) + 1)}
+        want = ([gram_launches(0)] if label == 'interleaved' else
+                [gram_launches(len(obj)), gram_launches(len(obj) + 1)])
         if mk.LAUNCHES != b0[0] or got not in want:
-            raise AssertionError('sparse_obs %s fit: B3/B4 %r, gather %d '
-                                 'launches for %d sweeps kept' % (
+            raise AssertionError('sparse_obs %s fit: B3/B4 %r, launches %r '
+                                 'for %d sweeps kept' % (
                                      label, mk.LAUNCHES, got, len(obj)))
-        main += got
+        main = {key: main[key] + got[key] for key in main}
         non_increasing(obj, 'sparse_obs %s fit' % label,
-                       float((r_tr ** 2).sum()) if got else None)
-        b1 = dict(mk.LAUNCHES), sk.LAUNCHES['mxu']
+                       float((r_tr ** 2).sum()) if got['mxu'] else None)
+        b1 = dict(mk.LAUNCHES), sparse_launches(sk)
         t0 = time.perf_counter()
         Wn = est.transform(Xnew)
         sync(dev)
         transform_s = time.perf_counter() - t0
-        if mk.LAUNCHES != b1[0] or sk.LAUNCHES['mxu'] != b1[1] or \
+        if mk.LAUNCHES != b1[0] or sparse_launches(sk) != b1[1] or \
                 tuple(Wn.shape) != (rows, k) or \
                 not bool(torch.isfinite(Wn).all()):
             raise AssertionError('sparse_obs transform: launches or output')
@@ -2253,7 +2320,8 @@ def run_sparse_obs_phase(dev, mk, sk, Est, X, rmse_dense):
         sw(plan, est.W, est.T, None, 0)
         log('NMF_RS_Estimator(sparse_obs=True) %dx%d k=%d float32, %s'
             % (n, d, k, label), fit_s=fit_s, sweeps_kept=len(obj),
-            gather_launches=got, obj_first=obj[0], obj_last=obj[-1],
+            gather_launches=got['mxu'], gram_launches=got['gram'],
+            obj_first=obj[0], obj_last=obj[-1],
             ms_per_sweep=time_ms(lambda: sw(plan, est.W, est.T, None, 0),
                                  dev, runs=5),
             transform_rows=rows, transform_s=transform_s,
@@ -2271,11 +2339,12 @@ def run_sparse_obs_phase(dev, mk, sk, Est, X, rmse_dense):
         kw = dict(max_iter=SWEEPS, use_validation_early_stopping=False,
                   sparse_obs=True, nmf_kwargs=dict(init='random',
                                                    eps_stop=0.0, **extra))
-        b0 = sk.LAUNCHES['mxu']
+        b0 = sparse_launches(sk)
         o_gpu = _rs_fit(Est, torch.as_tensor(p_s, device=dev),
                         torch.as_tensor(r_s, device=dev).float(), RS_SMALL,
                         **kw).nmf_outputs['obj_history']
-        main += sk.LAUNCHES['mxu'] - b0
+        got = launched_since(sk, b0)
+        main = {key: main[key] + got[key] for key in main}
         o_cpu = _rs_fit(Est, p_s, r_s, RS_SMALL, device='cpu',
                         **kw).nmf_outputs['obj_history']
         diff = abs(o_gpu[-1] - o_cpu[-1]) / abs(o_cpu[-1])
@@ -3181,7 +3250,7 @@ def run_16_bit_fits(dev, dk, mk, sk, nmf, Est, counts, ratings, dt):
 
 
 def run(dev):
-    """Phases 3-30 on ``dev``; returns the kernels' JSON entries."""
+    """Phases 3-31 on ``dev``; returns the kernels' JSON entries."""
     from rri_nmf_tpu_torch.metrics import frobenius_relative_error
     from rri_nmf_tpu_torch.nmf import nmf
     from rri_nmf_tpu_torch.ops import dense_kernels as dk
@@ -3309,7 +3378,7 @@ def run(dev):
     Ms.data[:] = 1.0
     record = '%dx%d %d observations' % (n, d, Mr.nnz)
     k_rs = RS_SHAPE[3]
-    plans = check_masked_gram(dev, sk, spl, mg, [
+    plans, gram_lines = check_masked_gram(dev, sk, spl, mg, [
         ('MovieLens %dx%d' % Rs.shape, Rs, Ms, dtype, tol, False,
          [(k_rs, GRAM_GATE_PANEL, None)])
         for dtype, tol in ((torch.float64, TOL_F64),
@@ -3317,23 +3386,28 @@ def run(dev):
         (record, Xr, Mr, torch.float32, TOL_F32, True,
          [(k, 2 * GRAM_GATE_PANEL, None),
           (MASKED_PANEL_K, mg.auto_panel(MASKED_PANEL_K, n, d, 4),
-           ['Gamma panel (p·k rows)'])])])
+           ['Gamma panel (p·k rows)', 'Theta panel (p·k rows)'])])])
+    # the Gram kernel's entry: Γ at k=32, the main path's full form
+    gram_stats = gram_lines[record, 'Gamma (k(k+1)/2 rows)', k]
     del Rs, Ms
     sync(dev)
 
-    # 18-19. the sparse-mask paths, counted from zero
+    # 18-19. the sparse-mask paths, counted from zero: the gather kernel
+    # (A, C) and the Gram kernel (Γ, Θ)
     sk.reset_launches()
-    gram = run_masked_record_phase(dev, sk, nmf, mg, msp, Xr, Mr,
-                                   *plans[record])
+    masks = run_masked_record_phase(dev, sk, nmf, mg, msp, Xr, Mr,
+                                    *plans[record])
     del plans
     sync(dev)
-    gram += run_sparse_obs_phase(dev, mk, sk, NMF_RS_Estimator, ratings,
-                                 rmse_dense)
+    more = run_sparse_obs_phase(dev, mk, sk, NMF_RS_Estimator, ratings,
+                                rmse_dense)
     sync(dev)
-    if gram == 0:
-        raise AssertionError('the gather kernel never ran on the sparse-mask '
-                             'paths')
-    sparse['mxu'] += gram
+    masks = {key: masks[key] + more[key] for key in masks}
+    if masks['mxu'] == 0 or masks['gram'] == 0:
+        raise AssertionError('a kernel of the sparse-mask paths never ran: '
+                             '%r' % masks)
+    sparse['mxu'] += masks['mxu']
+    sparse['gram'] = masks['gram']
 
     # 20-23. HER, checkpoint/resume and row weights, counted from zero:
     # B1 and B2 under HER and in the w_row fit and refit, B3 and B4 under
@@ -3386,6 +3460,8 @@ def run(dev):
                         ratings, dt)
         sync(dev)
         counts16[dt] = dict(dk.LAUNCHES, **mk.LAUNCHES, **sk.LAUNCHES)
+        if counts16[dt].pop('gram'):
+            raise AssertionError('a 16-bit fit ran the Gram kernel')
         if any(v == 0 for v in counts16[dt].values()):
             raise AssertionError('a 16-bit kernel never ran: %r'
                                  % counts16[dt])
@@ -3438,12 +3514,14 @@ def run(dev):
         one, refs = run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh,
                                                         Xr, Mr)
         sync(dev)
-        log('launches, phase 30 (a)', mxu=sk.LAUNCHES['mxu'], fits=one)
+        log('launches, phase 30 (a)', mxu=sk.LAUNCHES['mxu'],
+            gram=sk.LAUNCHES['gram'], fits=one)
         ranks = run_sparse_mask_mesh_ranks_phase(dev, nmf)
-        if one == 0 or ranks == 0:
-            raise AssertionError('the gather kernel never ran on the '
-                                 'sparse-mask meshes: %d %d' % (one, ranks))
-        sparse['mxu'] += one + ranks
+        if any(one[key] == 0 or ranks[key] == 0 for key in ('mxu', 'gram')):
+            raise AssertionError('a kernel of the sparse-mask meshes never '
+                                 'ran: %r %r' % (one, ranks))
+        for key in ('mxu', 'gram'):
+            sparse[key] += one[key] + ranks[key]
 
         # 31. the multi-host layer, counted from zero: B1 and the gather
         # kernel in the one-rank world's slab fits (this process) and in
@@ -3455,18 +3533,21 @@ def run(dev):
         sync(dev)
         del Xr, Mr, refs
         ranks = run_multihost_ranks_phase(dev, nmf)
-        if any(one[key] == 0 or ranks[key] == 0 for key in ('gs', 'mxu')) \
-                or ranks['tm_proj'] == 0:
+        if any(one[key] == 0 or ranks[key] == 0
+               for key in ('gs', 'mxu', 'gram')) or ranks['tm_proj'] == 0:
             raise AssertionError('a kernel of the multi-host phase never '
                                  'ran: %r %r' % (one, ranks))
         log('launches, phase 31', gs=one['gs'] + ranks['gs'],
             tm_proj=ranks['tm_proj'], mxu=one['mxu'] + ranks['mxu'],
-            one_rank=one, ranks=ranks, seconds=time.perf_counter() - t31)
+            gram=one['gram'] + ranks['gram'], one_rank=one, ranks=ranks,
+            seconds=time.perf_counter() - t31)
         launches['gs'] += one['gs'] + ranks['gs']
         launches['tm_proj'] += ranks['tm_proj']
-        sparse['mxu'] += one['mxu'] + ranks['mxu']
+        for key in ('mxu', 'gram'):
+            sparse[key] += one[key] + ranks[key]
     log('launches, phases 27-31', gs=launches['gs'],
-        tm_proj=launches['tm_proj'], **masked, mxu=sparse['mxu'])
+        tm_proj=launches['tm_proj'], **masked, mxu=sparse['mxu'],
+        gram=sparse['gram'])
     # no single PyTorch call computes B1-B4 (sequential topic chains with
     # clamps, a simplex projection, fused in-place rank-one updates)
     wide = [dict(B1, launches=launches['gs'], max_abs_err=err1, ms=ms1,
@@ -3483,7 +3564,13 @@ def run(dev):
              ms=sparse_stats[key][1], plain_ms=sparse_stats[key][2],
              bound_ms=sparse_stats[key][3], bound_by=sparse_stats[key][4],
              library_ms=sparse_stats[key][5])
-        for entry, key in ((B5, 'mxu'), (B6, 'dma'))]
+        for entry, key in ((B5, 'mxu'), (B6, 'dma'))] + [
+        dict(GRAM, launches=sparse['gram'],
+             max_abs_err=gram_stats['max_abs_err'], ms=gram_stats['ms'],
+             plain_ms=gram_stats['plain_ms'],
+             bound_ms=gram_stats['bound_ms'],
+             bound_by=gram_stats['bound_by'],
+             library_ms=gram_stats.get('library_ms'))]
     # the 16-bit builds of the same sources (16-bit storage, float32 work)
     narrow = [
         dict(entry, name='%s_%s' % (entry['name'], tag),
@@ -4370,12 +4457,12 @@ def run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, X, M):
     problem (scipy CSR ``X``, ``M``) from MESH_SEED warm starts: the
     Gram-phase fit at k=32, the defaults (the O(nnz) sweep) and
     k=MASKED_PANEL_K in panels, each W, T and ``obj_history`` bit for bit
-    the single-device fit with the same gather launches (4 a Gram sweep
-    and 2 an objective; none in the O(nnz) fit); the mesh's O(nnz) sweep
-    one CUDA graph; ms/sweep of each sweep in turns with the single-device
-    one, on the fits' own plans. Returns the fits' gather launches and the
-    Gram and O(nnz) mesh fits (W, T, ``obj_history``, gather launches) for
-    phase 31 (a)."""
+    the single-device fit with the same launches (:func:`gram_launches`;
+    none in the O(nnz) fit); the mesh's O(nnz) sweep one CUDA graph;
+    ms/sweep of each sweep in turns with the single-device one, on the
+    fits' own plans. Returns the fits' gather and Gram launches and the
+    Gram and O(nnz) mesh fits (W, T, ``obj_history``, launches) for phase
+    31 (a)."""
     from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg
     from rri_nmf_tpu_torch.ops import sweep_masked_sparse as msp
     from rri_nmf_tpu_torch.ops.sweep import make_draws
@@ -4386,32 +4473,32 @@ def run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, X, M):
     rng = np.random.RandomState(MESH_SEED)
     W0, T0 = rng.rand(n, kp), rng.rand(kp, d)
     draws = make_draws(0, dev)
-    total = 0
+    total = gram_launches(0)
 
-    def pair(kk, sweeps, per_sweep, **kw):
+    def pair(kk, sweeps, expect, **kw):
         """The single-device fit and the (1, 1) mesh fit: bit for bit,
-        each with ``per_sweep`` gather launches a sweep and its
-        objective."""
-        nonlocal total
+        each with the launches ``expect(sweeps)``."""
         kw = dict(k=kk, W_mat=M, W_in=W0[:, :kk], T_in=T0[:kk],
                   max_iter=sweeps, compute_obj_each_iter=True, random_state=0,
                   eps_stop=0.0, device=dev, **kw)
         fits, counts, walls = [], [], []
         for m in (None, mesh):
-            c0 = sk.LAUNCHES['mxu']
+            c0 = sparse_launches(sk)
             t0 = time.perf_counter()
             fits.append(nmf(X, mesh=m, **kw))
             sync(dev)
             walls.append(time.perf_counter() - t0)
-            counts.append(sk.LAUNCHES['mxu'] - c0)
-        total += sum(counts)
+            counts.append(launched_since(sk, c0))
+            for key in total:
+                total[key] += counts[-1][key]
         got = len(fits[1]['obj_history'])
         same = _bit_for_bit(*fits)
-        if not same or got != sweeps or counts != [per_sweep * got] * 2:
+        if not same or got != sweeps or counts != [expect(got)] * 2:
             raise AssertionError(
                 'one-rank sparse-mask mesh fit k=%d %r: bit for bit %s, '
-                '%d sweeps, gather launches %r (want %d a sweep)'
-                % (kk, kw.get('update_order'), same, got, counts, per_sweep))
+                '%d sweeps, launches %r (want %r)'
+                % (kk, kw.get('update_order'), same, got, counts,
+                   expect(got)))
         return fits, counts, walls
 
     def in_turns(single, meshed):
@@ -4426,9 +4513,9 @@ def run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, X, M):
     def plans(fits):
         return [f['obj_calculator'].X for f in fits]
 
-    # the Gram-phase fit at k=32: 4 launches a sweep, 2 an objective
+    # the Gram-phase fit at k=32: A, Γ, C, Θ a sweep, C, Θ an objective
     cfg = masked_cfg(k, update_order='phase')
-    fits, counts, walls = pair(k, GRAM_MESH_SWEEPS, 6,
+    fits, counts, walls = pair(k, GRAM_MESH_SWEEPS, gram_launches,
                                update_order='phase', reset_topic_method=None)
     refs = {'gram': dict(W=fits[1]['W'], T=fits[1]['T'],
                          obj_history=fits[1]['obj_history'],
@@ -4442,7 +4529,7 @@ def run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, X, M):
     log('sparse-mask mesh one-rank %s world (1, 1) %dx%d %d observations '
         'k=%d float32, Gram-phase' % (mesh.backend, n, d, nnz, k),
         sweeps=len(fits[1]['obj_history']), bit_for_bit=True,
-        gather_launches=counts[1], gather_launches_single=counts[0],
+        launches=counts[1], launches_single=counts[0],
         obj_last=fits[1]['obj_history'][-1], wall_s_single=walls[0],
         wall_s_mesh=walls[1], ms_per_sweep_single=ms['single'],
         ms_per_sweep_mesh=ms['mesh'])
@@ -4450,7 +4537,8 @@ def run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, X, M):
 
     # the defaults: the O(nnz) sweep, one CUDA graph a sweep on the mesh
     cfg = masked_cfg(k)
-    fits, counts, walls = pair(k, INTERLEAVED_MASKED_SWEEPS, 0)
+    fits, counts, walls = pair(k, INTERLEAVED_MASKED_SWEEPS,
+                               lambda sweeps: gram_launches(0))
     refs['interleaved'] = dict(W=fits[1]['W'], T=fits[1]['T'],
                                obj_history=fits[1]['obj_history'],
                                launches=counts[1])
@@ -4475,7 +4563,7 @@ def run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, X, M):
     log('sparse-mask mesh one-rank %s world (1, 1) %dx%d k=%d float32, '
         'defaults (O(nnz))' % (mesh.backend, n, d, k),
         sweeps=len(fits[1]['obj_history']), bit_for_bit=True,
-        gather_launches=counts[1], cuda_graph=graph,
+        launches=counts[1], cuda_graph=graph,
         graph_equals_launches=True, obj_last=fits[1]['obj_history'][-1],
         wall_s_single=walls[0], wall_s_mesh=walls[1],
         graph_ms_per_sweep_single=ms['single'],
@@ -4487,7 +4575,7 @@ def run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, X, M):
     npan = -(-kp // panel)
     cfg = masked_cfg(kp, update_order='phase')
     fits, counts, walls = pair(kp, PANEL_MESH_SWEEPS,
-                               (2 + 2 * npan) + (1 + npan),
+                               lambda sweeps: gram_launches(sweeps, npan),
                                update_order='phase', reset_topic_method=None)
     ps, pm = plans(fits)
     W, T = fits[0]['W'], fits[0]['T']
@@ -4502,7 +4590,7 @@ def run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, X, M):
     log('sparse-mask mesh one-rank %s world (1, 1) %dx%d k=%d float32, '
         'Gram-phase in %d-topic panels' % (mesh.backend, n, d, kp, panel),
         panel=panel, panels=npan, sweeps=len(fits[1]['obj_history']),
-        bit_for_bit=True, gather_launches=counts[1],
+        bit_for_bit=True, launches=counts[1],
         obj=fits[1]['obj_history'], wall_s_single=walls[0],
         wall_s_mesh=walls[1], ms_per_sweep_single=ms['single'],
         ms_per_sweep_mesh=ms['mesh'])
@@ -4512,12 +4600,12 @@ def run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh, X, M):
 def run_sparse_mask_mesh_ranks_phase(dev, nmf):
     """Phase 30 (b): MESH_RANKS gloo ranks fitting
     :func:`sparse_mask_mesh_problems`, held against the single-device
-    card fits at phase 27's gates, every rank's gather launches counted
-    (4 a Gram sweep and 2 an objective; 2 + 2·⌈k/p⌉ a panel sweep and
-    1 + ⌈k/p⌉ an objective; none in the O(nnz) fit); the guards' errors;
-    the estimator's test RMSE beside the single-device one and its pickle
-    round trip. Logs the host plan seconds per rank and the bytes of each
-    all-reduce a sweep. Returns the ranks' gather launches."""
+    card fits at phase 27's gates, every rank's launches counted
+    (:func:`gram_launches`, in panels of ⌈k/p⌉; none in the O(nnz) fit);
+    the guards' errors; the estimator's test RMSE beside the
+    single-device one and its pickle round trip. Logs the host plan
+    seconds per rank and the bytes of each all-reduce a sweep. Returns
+    the ranks' gather and Gram launches."""
     from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg
     nr, dr, _, _ = RS_SHAPE
     dp = GRAM_MESH_SHAPE[0]
@@ -4539,24 +4627,25 @@ def run_sparse_mask_mesh_ranks_phase(dev, nmf):
             r['launches'].pop(name)
 
     def expect(name, sweeps):
-        gather = (6 * sweeps if name.startswith('gram') else
-                  ((2 + 2 * npan) + (1 + npan)) * sweeps
-                  if name.startswith('panels') else 0)
-        return {'mxu': gather, 'gs': 0, 'phase_a': 0, 'phase_b': 0}
+        launches = (gram_launches(sweeps) if name.startswith('gram') else
+                    gram_launches(sweeps, npan) if name.startswith('panels')
+                    else gram_launches(0))
+        return dict(launches, gs=0, phase_a=0, phase_b=0)
     total = check_rank_fits(30, want, ranks, expect)
     if not ('row blocks' in guards['guard (2, 2)']
             and 'random' in guards['guard random']):
         raise AssertionError('the sparse-mask mesh guards: %r' % guards)
     # the estimator: an early stop runs one sweep more than it keeps
     kept = len(mine['obj'])
-    gather = [c['mxu'] for c in est_launches]
+    gather = [{key: c[key] for key in ('mxu', 'gram')} for c in est_launches]
     gap = abs(mine['rmse'] - ref['rmse']) / ref['rmse']
     if not (gap <= TOL_RMSE_ROUTES and mine['loaded_rmse'] == mine['rmse']
             and not mine['loaded_mesh']
             and 'mesh-sharded' in mine['loaded_objective']
-            and all(g in (6 * kept, 6 * (kept + 1)) for g in gather)):
+            and all(g in (gram_launches(kept), gram_launches(kept + 1))
+                    for g in gather)):
         raise AssertionError('the estimator on the mesh: RMSE %r against '
-                             '%r, loaded %r, %r; gather %r for %d sweeps'
+                             '%r, loaded %r, %r; launches %r for %d sweeps'
                              % (mine['rmse'], ref['rmse'],
                                 mine['loaded_rmse'],
                                 mine['loaded_objective'], gather, kept))
@@ -4568,8 +4657,9 @@ def run_sparse_mask_mesh_ranks_phase(dev, nmf):
         test_rmse_one_device=ref['rmse'], rel_gap=gap,
         pickled_test_rmse=mine['loaded_rmse'],
         pickled_objective=mine['loaded_objective'],
-        gather_launches_per_rank=gather, guards=guards)
-    total['mxu'] = total.get('mxu', 0) + sum(gather)
+        launches_per_rank=gather, guards=guards)
+    for key in ('mxu', 'gram'):
+        total[key] = total.get(key, 0) + sum(g[key] for g in gather)
     log('sparse-mask mesh ranks phase', ranks=MESH_RANKS, wall_s=wall,
         rank_walls_s={name: f['wall_s'] for name, f in
                       ranks[0]['fits'].items()},
@@ -4583,8 +4673,9 @@ def run_sparse_mask_mesh_ranks_phase(dev, nmf):
                 (kp + kp * kp) * dr * 8 / 1e6},
         panel=panel, note='gloo copies each all-reduce through the host '
         '(~12 ms per 4 MB among 4 ranks, tools/probe_gloo_cuda.py) and the '
-        'ranks share one card: no scaling reading', gather=total['mxu'])
-    return total['mxu']
+        'ranks share one card: no scaling reading', gather=total['mxu'],
+        gram=total['gram'])
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -4601,9 +4692,9 @@ def run_multihost_one_rank_phase(dev, dk, sk, nmf, Xr, Mr, refs):
     the Gram and O(nnz) fits of phase 30 (a)'s settings on
     ``distribute_masked_coo`` plans of the recorded problem (``Xr``,
     ``Mr``), bit for bit phase 30 (a)'s fits (``refs``) with the same
-    gather launches; the mesh NNDSVD in float64 at NMF_SHAPE bit for bit
-    the single-device ``svd_backend='torch'`` one. Returns the phase's B1
-    and gather launches."""
+    gather and Gram launches; the mesh NNDSVD in float64 at NMF_SHAPE bit
+    for bit the single-device ``svd_backend='torch'`` one. Returns the
+    phase's B1, gather and Gram launches."""
     from rri_nmf_tpu_torch.initialization import initialize_nmf
     from rri_nmf_tpu_torch.parallel import (distribute_dense,
                                             distribute_factors,
@@ -4616,7 +4707,7 @@ def run_multihost_one_rank_phase(dev, dk, sk, nmf, Xr, Mr, refs):
     mesh = make_global_mesh()
     if joined != (0, 1) or mesh.shape != (1, 1):
         raise AssertionError('the one-rank world: %r, %r' % (joined, mesh))
-    total = {'gs': 0, 'mxu': 0}
+    total = {'gs': 0, 'mxu': 0, 'gram': 0}
 
     def launched(fn):
         c0 = _launch_counts()
@@ -4625,7 +4716,7 @@ def run_multihost_one_rank_phase(dev, dk, sk, nmf, Xr, Mr, refs):
         sync(dev)
         wall = time.perf_counter() - t0
         c1 = _launch_counts()
-        got = {key: c1[key] - c0[key] for key in ('gs', 'mxu')}
+        got = {key: c1[key] - c0[key] for key in total}
         for key in total:
             total[key] += got[key]
         return res, got, wall
@@ -4670,7 +4761,7 @@ def run_multihost_one_rank_phase(dev, dk, sk, nmf, Xr, Mr, refs):
               random_state=0, W_in=W0, T_in=T0, **FAST_TM)
     three('nmf %dx%d k=%d float32 distribute_dense' % (n, d, k), X,
           distribute_dense(X[lo:hi], (n, d), mesh), k, kw,
-          {'gs': 2, 'mxu': 0})
+          {'gs': 2, 'mxu': 0, 'gram': 0})
 
     # the mesh NNDSVD in float64 from the rank's block, one Ω
     X = X.double()
@@ -4709,7 +4800,7 @@ def run_multihost_one_rank_phase(dev, dk, sk, nmf, Xr, Mr, refs):
     plan_s = time.perf_counter() - t0
     three("'mxu' %dx%d %.1f%% k=%d float32 distribute_sparse_coo "
           '(host plan %.3f s)' % (n, d, 100 * dens, k, plan_s), X, plan, k,
-          kw, {'gs': 2, 'mxu': 2})
+          kw, {'gs': 2, 'mxu': 2, 'gram': 0})
     del X, plan
 
     # the recorded problem: phase 30 (a)'s Gram and O(nnz) fits from
@@ -4735,16 +4826,16 @@ def run_multihost_one_rank_phase(dev, dk, sk, nmf, Xr, Mr, refs):
             device=dev, **extra))
         ref = refs[name]
         same = _bit_for_bit(res, ref)
-        if not same or got['mxu'] != ref['launches']:
+        got = {key: got[key] for key in ('mxu', 'gram')}
+        if not same or got != ref['launches']:
             raise AssertionError('the %s fit on a distribute_masked_coo plan: '
-                                 'bit for bit %s, gather launches %d against '
-                                 '%d' % (name, same, got['mxu'],
-                                         ref['launches']))
+                                 'bit for bit %s, launches %r against %r'
+                                 % (name, same, got, ref['launches']))
         log('multi-host one-rank %s world %dx%d %d observations k=%d '
             'float32, %s from distribute_masked_coo(backend=%r)'
             % (mesh.backend, n, d, nnz, k, name, backend),
             sweeps=len(res['obj_history']), bit_for_bit_phase_30=same,
-            gather_launches=got['mxu'], host_plan_s=plan_s, fit_wall_s=wall,
+            launches=got, host_plan_s=plan_s, fit_wall_s=wall,
             ms_per_sweep_with_objective=sweep_ms(res))
         del plan, res
     return total
@@ -4764,9 +4855,9 @@ def run_multihost_ranks_phase(dev, nmf):
     H within TOL_NNDSVD_MESH (beside what one ulp of X moves them).
     Launches per
     rank, each fit: 2 B1 a dense sweep; 2 gather and 2 B1 an ``'mxu'``
-    sweep; B1 and B2 a TM sweep; 4 gather a Gram sweep and 2 its
-    objective; none in the O(nnz) fit (the COO problem fits three times).
-    Returns the ranks' B1, B2 and gather launches."""
+    sweep; B1 and B2 a TM sweep; 3 gather and 3 Gram a tracked Gram
+    sweep; none in the O(nnz) fit (the COO problem fits three times).
+    Returns the ranks' B1, B2, gather and Gram launches."""
     import socket
     with socket.socket() as sock:
         sock.bind(('localhost', 0))
@@ -4804,19 +4895,21 @@ def run_multihost_ranks_phase(dev, nmf):
         rel_gap_USVt=gap_usv)
 
     def expect(name, sweeps):
+        none = {'mxu': 0, 'gram': 0}
         if name.startswith('coo'):            # slab, whole X, whole X again
-            return {'gs': 6 * sweeps, 'mxu': 0}
+            return dict(none, gs=6 * sweeps)
         if name.startswith(('dense', 'restore')):
-            return {'gs': 4 * sweeps, 'mxu': 0}
+            return dict(none, gs=4 * sweeps)
         if name.startswith('tm'):
-            return {'gs': 2 * sweeps, 'tm_proj': 2 * sweeps, 'mxu': 0}
+            return dict(none, gs=2 * sweeps, tm_proj=2 * sweeps)
         if name.startswith('mxu'):
-            return {'gs': 4 * sweeps, 'mxu': 4 * sweeps}
-        if name.startswith('gram'):
-            return {'gs': 0, 'mxu': 12 * sweeps}
-        return {'gs': 0, 'mxu': 0, 'phase_a': 0, 'phase_b': 0}
+            return dict(none, gs=4 * sweeps, mxu=4 * sweeps)
+        if name.startswith('gram'):           # slab and whole X
+            return dict(gram_launches(2 * sweeps), gs=0)
+        return dict(none, gs=0, phase_a=0, phase_b=0)
     total = check_rank_fits(31, want, ranks, expect)
-    total = {key: total.get(key, 0) for key in ('gs', 'tm_proj', 'mxu')}
+    total = {key: total.get(key, 0)
+             for key in ('gs', 'tm_proj', 'mxu', 'gram')}
     coo = [fl['coo float32'] for fl in flags]
     log('multi-host ranks phase', ranks=MESH_RANKS, wall_s=wall,
         bit_for_bit_whole_x='every problem but coo float32',

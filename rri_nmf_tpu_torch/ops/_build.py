@@ -73,6 +73,10 @@ SIGNATURES = {
 for _name in [n for n in SIGNATURES if n.endswith('_f32')]:
     for _suffix in ('bf16', 'f16'):
         SIGNATURES[_name[:-3] + _suffix] = SIGNATURES[_name]
+# the Gram contraction in float32 and float64 only (Γ/Θ are built in the
+# accumulation dtype): Ft, colptr, gidx, vals, out; k, ldf, t0, p, ncols
+for _suffix in ('f32', 'f64'):
+    SIGNATURES['rri_gram_contract_' + _suffix] = [_P] * 5 + [_I] * 6 + [_P]
 # the kernels' dtypes: ctypes scalar and C-function suffix
 CTYPES = {torch.float32: _F, torch.float64: _D, torch.bfloat16: _F,
           torch.float16: _F}

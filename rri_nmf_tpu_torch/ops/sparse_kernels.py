@@ -1,4 +1,5 @@
-"""Sparse contractions ``F @ X``: kernels B5 and B6, one CUDA kernel.
+"""Sparse contractions ``F @ X``: kernels B5 and B6, one CUDA kernel;
+and B5 on Khatri-Rao rows formed on chip, the Gram kernel.
 
 Counterpart of the kernel halves of :mod:`rri_nmf_tpu.ops.sparse_mxu`
 and :mod:`rri_nmf_tpu.ops.sparse_dma`. The sparse sweep needs ``WᵀX``
@@ -28,6 +29,13 @@ in float32, summed in float32, and the output is float32.
 then ``index_add_`` into the output columns): the oracles the tests hold
 against the Pallas kernels. Every twin works in slices whose gather
 temporary stays under ~2 GB.
+
+The Gram-phase sparse-mask sweep contracts the mask with the Khatri-Rao
+rows ``f_a ⊙ f_b`` of a factor (Γ, Θ). JAX builds those rows and runs
+B5 on them; here ``csrc/gram.cu`` ``gram_kernel`` forms them on chip
+from Fᵀ's rows: :func:`gram_contract` launches it (float32 and float64,
+counted under ``LAUNCHES['gram']``), and :func:`gram_contract_ref`, its
+twin, builds the rows and runs :func:`gather_contract_ref`.
 """
 
 import torch
@@ -39,7 +47,7 @@ from rri_nmf_tpu_torch.ops.sparse_plan import (TILE, SparseDMAPlan,
 
 # Kernel launches per plan type since the last reset_launches(). A wrapper
 # adds one right after the kernel launched, and nowhere else.
-LAUNCHES = {'mxu': 0, 'dma': 0}
+LAUNCHES = {'mxu': 0, 'dma': 0, 'gram': 0}
 
 # Largest gather temporary of a twin, in bytes.
 GATHER_BUDGET = 2 << 30
@@ -143,6 +151,51 @@ def gather_contract_ref(layout, Ft, k, ncols, vals=None):
     return out
 
 
+def _gram_panel(k, panel):
+    """``(t0, p)`` of a panel of :func:`gram_pairs`, ``(0, 0)`` for the
+    unique pairs; raises on a panel outside the k topics."""
+    if panel is None:
+        return 0, 0
+    t0, p = (int(x) for x in panel)
+    if not (p >= 1 and 0 <= t0 and t0 + p <= k):
+        raise ValueError('panel (t0=%d, p=%d) does not lie in the %d topics'
+                         % (t0, p, k))
+    return t0, p
+
+
+def gram_pairs(k, panel=None):
+    """``(a, b)`` (rows,) int64: the factor columns of each Khatri-Rao row
+    ``f_a ⊙ f_b`` of :func:`gram_contract`. ``panel=None``: the
+    k(k+1)/2 pairs a <= b in ``np.triu_indices(k)`` order (Γ/Θ's unique
+    rows); ``panel=(t0, p)``: ``a = t0 + r // k``, ``b = r % k`` for
+    r < p·k. Raises on a panel outside [0, k)."""
+    t0, p = _gram_panel(k, panel)
+    if panel is None:
+        a, b = torch.triu_indices(k, k)
+        return a, b
+    r = torch.arange(p * k)
+    return t0 + r // k, r % k
+
+
+def gram_contract_ref(layout, Ft, k, panel, ncols):
+    """Plain version of the Gram kernel: the Khatri-Rao rows
+    ``Ft[:, a] * Ft[:, b]`` of :func:`gram_pairs` built in slices whose
+    (m, rows) temporary stays under :data:`GATHER_BUDGET`, each contracted
+    by :func:`gather_contract_ref` (the materialized-row path the kernel
+    replaces, the same sums in the same order)."""
+    a, b = (x.to(Ft.device) for x in gram_pairs(k, panel))
+    rows = a.shape[0]
+    out = torch.empty(rows, ncols, dtype=work_dtype(Ft.dtype),
+                      device=Ft.device)
+    size = torch.empty(0, dtype=out.dtype).element_size()
+    step = max(1, GATHER_BUDGET // (max(Ft.shape[0], 1) * size))
+    for r0 in range(0, rows, step):
+        r1 = min(r0 + step, rows)
+        KR = Ft[:, a[r0:r1]] * Ft[:, b[r0:r1]]
+        out[r0:r1] = gather_contract_ref(layout, KR, r1 - r0, ncols)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -207,6 +260,63 @@ def gather_contract(plan, Ft, k, ncols, kind, vals=None):
            layout.colptr.data_ptr(), layout.gidx.data_ptr(), v.data_ptr(),
            out.data_ptr(), k, rows.shape[1], ncols, ncols)
     LAUNCHES[kind] += 1
+    return out
+
+
+def gram_contract(plan, Ft, k, panel, ncols):
+    """``out (rows, ncols)``: the mask of the plan direction ``plan``
+    contracted with the Khatri-Rao rows ``f_a ⊙ f_b`` of Fᵀ's rows ``Ft``
+    (m, >= k), the pairs of :func:`gram_pairs` (``panel=None``: Γ/Θ's
+    k(k+1)/2 unique rows; ``(t0, p)``: a p·k panel), without
+    materializing them::
+
+        out[r, c] = Σ_i v_i·Ft[g_i, a_r]·Ft[g_i, b_r]   (column c's nonzeros i)
+
+    float32 or float64 (Γ/Θ are built in the accumulation dtype). A CPU
+    ``Ft`` runs :func:`gram_contract_ref`; a CUDA ``Ft`` launches
+    ``csrc/gram.cu`` and counts it under ``LAUNCHES['gram']``."""
+    if Ft.dtype not in (torch.float32, torch.float64):
+        raise ValueError('the Gram contraction takes float32 or float64 '
+                         'factors, got %s' % Ft.dtype)
+    t0, p = _gram_panel(k, panel)
+    rows = p * k if p else k * (k + 1) // 2
+    if Ft.dim() != 2 or Ft.shape[1] < k:
+        raise ValueError('Ft must be (m, >= %d), got %s'
+                         % (k, tuple(Ft.shape)))
+    layout = column_layout(plan)
+    for name in layout._fields:
+        a = getattr(layout, name)
+        if a.device != Ft.device:
+            raise ValueError('the plan is on %s, the factor on %s'
+                             % (a.device, Ft.device))
+    if layout.vals.dtype != Ft.dtype:
+        raise ValueError('plan values are %s, the factor %s'
+                         % (layout.vals.dtype, Ft.dtype))
+    if Ft.shape[0] < layout.n_rows:
+        raise ValueError('the factor has %d rows; the plan gathers %d'
+                         % (Ft.shape[0], layout.n_rows))
+    if not 0 < ncols <= layout.n_cols or layout.gidx.shape[0] >= 2 ** 31 - 8:
+        raise ValueError('%d output columns of a %d-column plan with %d '
+                         'nonzeros' % (ncols, layout.n_cols,
+                                       layout.gidx.shape[0]))
+    if Ft.device.type == 'cpu':
+        return gram_contract_ref(layout, Ft, k, panel, ncols)
+    if Ft.device.type != 'cuda':
+        raise ValueError('the kernels run on CUDA or (plain twin) CPU '
+                         'tensors, got %s' % Ft.device)
+    # rows of whole tiles (8 float32, 4 float64: 32 bytes)
+    ti = 32 // Ft.element_size()
+    kp = -(-k // ti) * ti
+    Fr = Ft
+    if not (Ft.is_contiguous() and Ft.shape[1] == kp
+            and Ft.data_ptr() % 16 == 0):
+        Fr = Ft.new_zeros(Ft.shape[0], kp)
+        Fr[:, :k] = Ft[:, :k]
+    out = torch.empty(rows, ncols, dtype=Ft.dtype, device=Ft.device)
+    launch('rri_gram_contract', Fr, Fr.data_ptr(),
+           layout.colptr.data_ptr(), layout.gidx.data_ptr(),
+           layout.vals.data_ptr(), out.data_ptr(), k, kp, t0, p, ncols)
+    LAUNCHES['gram'] += 1
     return out
 
 

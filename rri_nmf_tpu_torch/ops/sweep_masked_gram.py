@@ -17,13 +17,17 @@ k-row factor stack, Γ and Θ with the k(k+1)/2 unique Khatri-Rao rows
 
 Two backends, as in JAX:
 
-- ``'mxu'`` runs the four contractions on the gather kernel that
-  serves B5 (``csrc/sparse.cu``, :func:`rri_nmf_tpu_torch.ops.
-  sparse_kernels.gather_contract`, counted under ``LAUNCHES['mxu']``):
-  one output-column layout per direction, derived from the MASK's B5
-  plan, with M⊙X as a second value set on the same nonzeros (A and C);
-  one launch per contraction. The default on a card; on the CPU the
-  kernel's plain twin runs.
+- ``'mxu'`` runs A and C on the gather kernel that serves B5
+  (``csrc/sparse.cu``, :func:`rri_nmf_tpu_torch.ops.sparse_kernels.
+  gather_contract`, counted under ``LAUNCHES['mxu']``), with M⊙X as a
+  second value set on the mask's nonzeros, and Γ and Θ on the Gram
+  kernel (``csrc/gram.cu``, :func:`~rri_nmf_tpu_torch.ops.
+  sparse_kernels.gram_contract`, ``LAUNCHES['gram']``), which forms the
+  Khatri-Rao rows on chip from W's (Tᵀ's) rows where JAX materializes
+  them for B5: one output-column layout per direction, derived from the
+  MASK's B5 plan, and one launch per contraction. The default on a card;
+  on the CPU the kernels' plain twins run (the Gram twin materializes
+  the rows and runs the gather twin, JAX's arithmetic).
 - ``'segsum'`` computes them with gathers and ``index_add_`` over slices
   of the observations: the CPU default and the oracle.
 
@@ -215,6 +219,14 @@ def _contract(plan, direction, Ft, rows, ncols, mx=False):
     return sparse_kernels.gather_contract(p, Ft, rows, ncols, 'mxu', vals)
 
 
+def _gram(plan, direction, Ft, k, panel, ncols):
+    """Γ/Θ's Khatri-Rao rows of Fᵀ's rows ``Ft`` contracted with the mask
+    in one Gram-kernel launch (its twin on the CPU): the k(k+1)/2 unique
+    rows (``panel=None``) or the p·k rows of ``panel=(t0, p)``."""
+    p = plan.m_t if direction == 't' else plan.m_w
+    return sparse_kernels.gram_contract(p, Ft, k, panel, ncols)
+
+
 def _mxu_gram_t_A(plan, W, acc):
     """A = Wᵀ(M⊙X) (k, d): W itself is Fᵀ."""
     return _contract(plan, 't', W.to(acc), W.shape[1], plan.shape[1],
@@ -223,11 +235,9 @@ def _mxu_gram_t_A(plan, W, acc):
 
 def _mxu_gram_t_panel(plan, W, t0, p, acc):
     """Γ[t0:t0+p] (p, k, d) from the p·k rows ``w_t ⊙ w_s``."""
-    n, d = plan.shape
+    d = plan.shape[1]
     k = W.shape[1]
-    Wa = W.to(acc)
-    KR = (Wa[:, t0:t0 + p, None] * Wa[:, None, :]).reshape(n, p * k)
-    return _contract(plan, 't', KR, p * k, d).reshape(p, k, d)
+    return _gram(plan, 't', W.to(acc), k, (t0, p), d).reshape(p, k, d)
 
 
 def _mxu_gram_w_C(plan, T, acc):
@@ -238,11 +248,9 @@ def _mxu_gram_w_C(plan, T, acc):
 
 def _mxu_gram_w_panel(plan, T, t0, p, acc):
     """Θ[t0:t0+p] (p, k, n) from the p·k rows ``t_t ⊙ t_s``."""
-    n, d = plan.shape
+    n = plan.shape[0]
     k = T.shape[0]
-    Tt = T.to(acc).T
-    KRt = (Tt[:, t0:t0 + p, None] * Tt[:, None, :]).reshape(d, p * k)
-    return _contract(plan, 'w', KRt, p * k, n).reshape(p, k, n)
+    return _gram(plan, 'w', T.to(acc).T, k, (t0, p), n).reshape(p, k, n)
 
 
 def _unpack(Gp, k):
@@ -252,22 +260,20 @@ def _unpack(Gp, k):
 
 def _mxu_gram_t(plan, W, acc):
     """(A, Γ's k(k+1)/2 unique rows) from the frozen W."""
-    n, d = plan.shape
+    d = plan.shape[1]
     k = W.shape[1]
     Wa = W.to(acc)
-    A = _contract(plan, 't', Wa, k, d, mx=True)
-    it, is_, _ = _pairs_on(k, W.device)
-    return A, _contract(plan, 't', Wa[:, it] * Wa[:, is_], it.shape[0], d)
+    return (_contract(plan, 't', Wa, k, d, mx=True),
+            _gram(plan, 't', Wa, k, None, d))
 
 
 def _mxu_gram_w(plan, T, acc):
     """(C, Θ's unique rows) from the frozen T, as Γ."""
-    n, d = plan.shape
+    n = plan.shape[0]
     k = T.shape[0]
     Tt = T.to(acc).T.contiguous()
-    C = _contract(plan, 'w', Tt, k, n, mx=True)
-    it, is_, _ = _pairs_on(k, T.device)
-    return C, _contract(plan, 'w', Tt[:, it] * Tt[:, is_], it.shape[0], n)
+    return (_contract(plan, 'w', Tt, k, n, mx=True),
+            _gram(plan, 'w', Tt, k, None, n))
 
 
 def _seg_chunked(coo, fn, out_dim, seg_ids, width, acc):

@@ -7,16 +7,18 @@ float64.
   off, so both run the NumPy argsort form), the output-column layouts
   derived from JAX's plans equal the port's, and ``Σ m x²``.
 - ``make_masked_gram_sweep`` against JAX's at 1e-9, both backends
-  (JAX's ``'mxu'`` in interpret mode, the port's through the gather
-  kernel's plain twin): the oracle configurations of
+  (JAX's ``'mxu'`` in interpret mode, the port's through the gather and
+  Gram kernels' plain twins): the oracle configurations of
   ``tests/test_masked_gram.py``, random ones, a vector ``w_row_sum`` and
   DP noise (JAX's draws injected); the panel form against the full form
   at 1e-13; the objective; ``auto_panel``.
 - ``nmf()`` routing as JAX's: phase order to the Gram sweep (the
   ``sparse='mxu'`` hint included), the fallback warning, ``inner_reps``
   with grouped dispatch, k-panels past the budget, the objective's pickle.
-- On a card (marked ``cuda``): the gather kernel with the M⊙X values and
-  the k-, k(k+1)/2- and p·k-row stacks against its twin.
+- On a card (marked ``cuda``): the gather kernel with the M⊙X values (A,
+  C) and the Gram kernel (the k(k+1)/2 and p·k Khatri-Rao rows, Γ/Θ)
+  against their twins, and the Gram kernel against the gather kernel on
+  the materialized rows.
 """
 
 import pickle
@@ -446,9 +448,11 @@ def cuda_device():
 @pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-10),
                                        (torch.float32, 1e-4)])
 def test_cuda_gram_contractions_match_twins(cuda_device, dtype, tol):
-    """A, C (M⊙X values), Γ/Θ (k(k+1)/2 rows) and a p·k panel through the
-    gather kernel against the twin; repeats give the same bits; one
-    launch each."""
+    """A, C (M⊙X values) through the gather kernel, Γ/Θ (k(k+1)/2 rows)
+    and p·k panels through the Gram kernel, against the twins and (Γ/Θ)
+    the gather kernel on the materialized Khatri-Rao rows; repeats give
+    the same bits; one launch each, counted under ``'mxu'`` and
+    ``'gram'``."""
     X, M, W0, T0 = _problem(30, n=700, d=500, k=12, density=0.05)
     plan = mg.plan_masked_gram(X, sp.csr_matrix(M), dtype, backend='mxu',
                                device=cuda_device)
@@ -456,7 +460,7 @@ def test_cuda_gram_contractions_match_twins(cuda_device, dtype, tol):
                               device='cpu')
     W = torch.as_tensor(W0, dtype=dtype)
     T = torch.as_tensor(T0, dtype=dtype)
-    before = sk.LAUNCHES['mxu']
+    before = dict(sk.LAUNCHES)
     for fn, args in ((mg._mxu_gram_t, ()), (mg._mxu_gram_w, ()),
                      (mg._mxu_gram_t_panel, (0, 5)),
                      (mg._mxu_gram_w_panel, (5, 7))):
@@ -470,4 +474,17 @@ def test_cuda_gram_contractions_match_twins(cuda_device, dtype, tol):
             assert torch.equal(g, a)
             scale = w.abs().max().clamp_min(1e-300)
             assert float((g.cpu() - w).abs().max() / scale) <= tol
-    assert sk.LAUNCHES['mxu'] - before == 2 * (2 + 2 + 1 + 1)
+    assert sk.LAUNCHES['mxu'] - before['mxu'] == 2 * (1 + 1)
+    assert sk.LAUNCHES['gram'] - before['gram'] == 2 * (1 + 1 + 1 + 1)
+    # the Gram kernel against the gather kernel on the materialized rows
+    k = W.shape[1]
+    for side, F, ncols in (('t', W, X.shape[1]), ('w', T.T, X.shape[0])):
+        pl = plan.m_t if side == 't' else plan.m_w
+        F = F.to(cuda_device)
+        for panel in (None, (0, 5), (5, 7)):
+            a, b = (x.to(cuda_device) for x in sk.gram_pairs(k, panel))
+            want = sk.gather_contract(pl, F[:, a] * F[:, b], a.shape[0],
+                                      ncols, 'mxu')
+            got = sk.gram_contract(pl, F, k, panel, ncols)
+            scale = want.abs().max().clamp_min(1e-300)
+            assert float((got - want).abs().max() / scale) <= tol

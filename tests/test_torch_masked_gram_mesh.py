@@ -129,7 +129,8 @@ def test_mesh_matches_single_device(pool, kw):
 
 def test_mesh_mxu_backend_matches_segsum(pool):
     """Each rank's gather-kernel plans (the twin on the CPU) == the
-    segsum mesh backend; 4 gather launches a sweep on every rank."""
+    segsum mesh backend; 2 gather (A, C) and 2 Gram (Γ, Θ) launches a
+    sweep on every rank."""
     X, M, W0, T0 = _problem(7, n=40, d=33, k=5)
     kw = dict(project_T_each_iter=True, t_row_sum=1.0, w_row_sum=1.0,
               project_W_each_iter=True)
@@ -137,7 +138,8 @@ def test_mesh_mxu_backend_matches_segsum(pool):
     got = pool.run('masked_mesh_sweep', mesh=MESH, X=X, M=sp.csr_matrix(M),
                    W=W0, T=T0, cfg=_cfg(5, **kw), sweeps=2, backend='mxu')
     _same(got['steps'], t1, 1e-9)
-    assert got['calls']['gather_contract'] == 4 * 2
+    assert got['calls']['gather_contract'] == 2 * 2
+    assert got['calls']['gram_contract'] == 2 * 2
 
 
 def test_mesh_mxu_uneven_plans(pool):
@@ -338,8 +340,8 @@ def test_driver_mesh_routes_large_k_to_panels(pool):
     takes the panel-tiled mesh sweep and matches the full-tensor mesh
     fit. The panel comes from ``auto_panel(k, n / dp, d, ·)``: with a
     budget of two (k, n / dp + d) units it is 2 (the whole n would give
-    1), read from the gather launches of the ``'mxu'`` hint (2 + 2·2 a
-    sweep, 1 + 2 an objective)."""
+    1), read from the Gram launches of the ``'mxu'`` hint (2·2 a sweep,
+    2 an objective; the gather kernel's A and C, 3 either way)."""
     X, M, _, _ = _problem(33, n=40, d=30, k=4)
     kw = dict(k=4, W_mat=sp.csr_matrix(M), max_iter=5,
               compute_obj_each_iter=True, random_state=0,
@@ -351,10 +353,9 @@ def test_driver_mesh_routes_large_k_to_panels(pool):
     assert np.allclose(r_tiled['W'], r_full['W'], rtol=0, atol=1e-13)
     assert np.allclose(r_tiled['T'], r_full['T'], rtol=0, atol=1e-13)
     assert np.all(np.diff(r_tiled['obj_history']) <= 1e-12)
-    assert r_full['calls']['gather_contract'] == \
-        6 * len(r_full['obj_history'])
-    assert r_tiled['calls']['gather_contract'] == \
-        9 * len(r_tiled['obj_history'])
+    for r, gram in ((r_full, 3), (r_tiled, 6)):
+        assert r['calls']['gather_contract'] == 3 * len(r['obj_history'])
+        assert r['calls']['gram_contract'] == gram * len(r['obj_history'])
 
 
 @pytest.mark.parametrize('backend', ['segsum', 'mxu'])
@@ -376,7 +377,7 @@ def test_mesh_panel_objective_matches_full(pool, backend):
 def test_one_rank_mesh_is_the_single_device_sweep(pool, panel):
     """A (1, 1) mesh makes no collective: the gather-kernel sweep (full
     tensors and panels) bit for bit the single-device one in the same
-    process, with the same 4 launches a sweep full."""
+    process, with the same 2 gather and 2 Gram launches a sweep full."""
     X, M, W0, T0 = _problem(35, n=40, d=30, k=5)
     got = pool.run('masked_mesh_sweep', mesh=(1, 1), X=X,
                    M=sp.csr_matrix(M), W=W0, T=T0,
@@ -385,7 +386,8 @@ def test_one_rank_mesh_is_the_single_device_sweep(pool, panel):
     for (Wm, Tm), (Ws, Ts) in zip(got['steps'], got['single']):
         assert np.array_equal(Wm, Ws) and np.array_equal(Tm, Ts)
     if panel is None:
-        assert got['calls']['gather_contract'] == 4 * 2
+        assert got['calls']['gather_contract'] == 2 * 2
+        assert got['calls']['gram_contract'] == 2 * 2
 
 
 def test_supports_sharded_masked_gram_gate():

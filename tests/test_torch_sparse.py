@@ -379,7 +379,7 @@ def test_shared_memory_gate_and_launch_counter_reset():
                                atol=ATOL_TWIN)
     sk.LAUNCHES['mxu'] += 2
     sk.reset_launches()
-    assert sk.LAUNCHES == {'mxu': 0, 'dma': 0}
+    assert sk.LAUNCHES == {'mxu': 0, 'dma': 0, 'gram': 0}
 
 
 # ---------------------------------------------------------------------------

@@ -90,7 +90,8 @@ class _Counting(object):
         from rri_nmf_tpu_torch.ops import sparse_kernels as sk
         self.targets = [(dk, 'gs_update'), (dk, 'tm_proj_update'),
                         (mk, 'phase_a'), (mk, 'phase_b'),
-                        (sk, 'gather_contract'), (nmf, 'partition_coo'),
+                        (sk, 'gather_contract'), (sk, 'gram_contract'),
+                        (nmf, 'partition_coo'),
                         (nmf, 'partition_mxu'),
                         (nmf, 'partition_masked_coo'),
                         (nmf, 'partition_masked_gram')]
