@@ -161,8 +161,10 @@ its users run, one line per phase:
     relative errors beside the float32 fit's;
 26. every kernel's 16-bit build (bfloat16 and float16 storage, float32
     work) against its twin at the main path's shapes (B1 k=128 m=8192,
-    B2 k=50 d=26,214, B3/B4 6040×3952, the gather kernel through both
-    plans at 50,000×30,000 0.5% k=128): each entry within one ulp of the
+    B2 k=50 d=26,214, B3/B4 6040×3952 in their 16-byte forms and
+    517×1030 in their scalar forms, B4 also with fixed T, the gather
+    kernel through both plans at 50,000×30,000 0.5% k=128; the ragged
+    cases checked, not timed): each entry within one ulp of the
     storage type plus the float32 build's own difference from the float32
     twin at that entry, on the same (upcast) inputs (the share of entries
     within one ulp logged), bits repeating, timed in turns beside the
@@ -3058,13 +3060,16 @@ def check_16_bit_kernels(dev, counts, ratings):
             row_sum_err=row, bitwise_repeat=True, ms=ms, float32_ms=ms32,
             plain_ms=plain, bound_ms=b[0], bound_by=b[1], **fields)
 
-    # B3/B4 at the MovieLens shape (6040×3952)
+    # B3/B4 at the MovieLens shape (6040×3952, d % 8 == 0: the 16-byte
+    # forms; timed) and the ragged shape (517×1030: the scalar forms), B4
+    # also with fixed T (w_eff = 0)
     X = torch.as_tensor(ratings, device=dev)
-    cases = masked_cases(dev, X, (X != 0).double())[:2]
+    cases = masked_cases(dev, X, (X != 0).double())[:6]
     del X
     for label, kind, R, M, args in cases:
         kernel, twin = getattr(mk, kind), getattr(mk, kind + '_ref')
         n, d = R.shape
+        form = '16-byte' if d % 8 == 0 else 'scalar'
         for dt in NARROW:
             R16, M16 = R.to(dt).contiguous(), M.to(dt).contiguous()
             a16 = [x.to(dt).contiguous() for x in args]
@@ -3082,6 +3087,12 @@ def check_16_bit_kernels(dev, counts, ratings):
                 raise AssertionError('%s %s: sums %r' % (label, dt, sums))
             err = max(err, *(float((g - h).abs().max())
                              for g, h in zip(got, want)))
+            if not label.startswith(('B3 rs', 'B4 rs')):
+                log('kernel masked 16-bit ' + label, dtype=str(dt),
+                    form=form, R=fields, rel_err_sums=sums,
+                    bitwise_repeat=True, max_abs_err=err)
+                del Rk, Rr, Rt, Rk32, Rt32
+                continue
             pre = tuple(torch.empty_like(g) for g in got)
             R32, M32 = R.float().contiguous(), M.float().contiguous()
             a32 = [x.float().contiguous() for x in args]
@@ -3095,10 +3106,10 @@ def check_16_bit_kernels(dev, counts, ratings):
             b = bound((7 if kind == 'phase_a' else 9) * n * d,
                       3 * n * d * 2 + vectors * 2 + sum_bytes)
             out[(kind, dt)] = (err, ms, plain, b[0], b[1], None)
-            log('kernel masked 16-bit ' + label, dtype=str(dt), R=fields,
-                rel_err_sums=sums, bitwise_repeat=True, ms=ms,
-                float32_ms=ms32, plain_ms=plain, bound_ms=b[0],
-                bound_by=b[1])
+            log('kernel masked 16-bit ' + label, dtype=str(dt), form=form,
+                R=fields, rel_err_sums=sums, bitwise_repeat=True,
+                max_abs_err=err, ms=ms, float32_ms=ms32, plain_ms=plain,
+                bound_ms=b[0], bound_by=b[1])
             del Rk, Rr, Rt, R32, M32, Rk32, Rt32
 
     # the gather kernel (B5, B6) at the recorded sparse shape

@@ -76,7 +76,27 @@
 // round to 16 bits where the TPU kernels compute in 16 bits: each product
 // and each sum of the rank-one updates, M . R, and w*w (t_new*t_new);
 // each 16-bit product then enters its float32 sum exactly, as the TPU
-// kernels' float32 dots take it. B3 takes the scalar-load form there.
+// kernels' float32 dots take it. Both kernels have a 16-byte form for
+// 16 bits (d % 8 == 0, R and M 16-byte aligned, for B4 t_old and t_new
+// too; the scalar forms otherwise), in which a lane moves 8 consecutive
+// values of a row as one 16-byte word and keeps them packed until used,
+// widening, stepping and rounding them in pairs (Storage::load2, store2):
+// the same steps as the scalar forms, so R is the same bits.
+// - B3: lane l owns columns 8l .. 8l + 7 of its 256-column stripe, whose
+//   sums keep the scalar form's order (the same stripes, warps and
+//   ranks: phase_a_layout for 2-byte words is unchanged), so wR0 and nw
+//   are the same bits too. The stripes give 16 x 8 = 128 blocks at 6040 x
+//   3952, one an SM; a warp loads the next A16_DEPTH = 4 rows (of its tile
+//   or its next tile) while it works the current ones, which keeps ~64 KB
+//   of loads in flight an SM. 0.064 ms, 66% of the 16-bit byte bound
+//   (0.0428 ms; R.add_(M) on the same bytes 0.054-0.057 ms); 2, 6 or 8
+//   rows in flight measured slower (tools/bench_masked_kernels.py
+//   --variants; PERF.md).
+// - B4: lane l owns columns 8l .. 8l + 7 of each 256-column step and adds
+//   them in order before the shuffle tree, so the row sums take another
+//   order than the scalar form's (and their bits differ from it). One
+//   step in flight keeps 40 registers and the 1510 blocks in one wave
+//   (two steps: 48 registers, two waves, 16% slower). 0.056 ms, 76%.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -93,6 +113,12 @@ namespace cg = cooperative_groups;
 #define B_ROWS 4          // rows (warps) per B4 block
 #ifndef DEPTH
 #define DEPTH 8           // loads in flight per B4 thread and array
+#endif
+#ifndef A16_DEPTH
+#define A16_DEPTH 4       // rows in flight per thread and array, B3 packed
+#endif
+#ifndef B16_DEPTH
+#define B16_DEPTH 1       // 256-column steps in flight per warp, B4 packed
 #endif
 
 __device__ __forceinline__ float fma_(float a, float b, float c) {
@@ -134,6 +160,7 @@ __global__ void __launch_bounds__(A_WARPS * 32)
   typedef Storage<S> St;
   constexpr int VEC = 16 / sizeof(S);
   constexpr int COLS = 32 * VEC;
+  constexpr bool PACKED = St::narrow && VECTOR;
   __shared__ T stage[A_WARPS][3][A_TILE];  // a warp's tile: dw, w, w*w
   __shared__ T part[A_WARPS][2][COLS];     // the warps' sums
   __shared__ T sums[2][COLS];              // the block's sums
@@ -161,6 +188,28 @@ __global__ void __launch_bounds__(A_WARPS * 32)
   const int tiles = (n + A_TILE - 1) / A_TILE;
   const int per = (tiles + csize - 1) / csize;
   const int t_end = min(tiles, (rank + 1) * per);
+  // 16 bits, 16-byte form: a row's 8 values a lane stay packed in one
+  // 16-byte word of R and one of M until used; each pair is widened,
+  // stepped as the scalar form steps each value, and rounded at once. The
+  // warp's next A16_DEPTH rows (of this tile or of its next) are loaded
+  // into xn, mn while the current ones are worked.
+  uint4 xn[A16_DEPTH], mn[A16_DEPTH];
+  auto fetch = [&](int t, int r) {  // rows r, r + 1, ... of tile t
+    const int i0 = t * A_TILE, rows = min(A_TILE, n - i0);
+#pragma unroll
+    for (int u = 0; u < A16_DEPTH; ++u) {
+      const size_t o = (size_t)(i0 + r + u) * d + jl;
+      if (r + u < rows && ok[0]) {
+        xn[u] = *reinterpret_cast<const uint4*>(R + o);
+        mn[u] = *reinterpret_cast<const uint4*>(M + o);
+      } else {
+        xn[u] = mn[u] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  };
+  if constexpr (PACKED) {
+    if (rank * per + warp < t_end) fetch(rank * per + warp, 0);
+  }
   // lane l holds dw, w of row l of the warp's next tile, loaded a tile
   // ahead so that staging never waits on memory
   T a_next = T(0), b_next = T(0);
@@ -186,53 +235,95 @@ __global__ void __launch_bounds__(A_WARPS * 32)
       a_next = more ? St::load(dw[i]) : T(0);
       b_next = more ? St::load(w[i]) : T(0);
     }
-    for (int r = 0; r < rows; r += A_DEPTH) {
-      T x[A_DEPTH][VEC], m[A_DEPTH][VEC];
+    if constexpr (PACKED) {
+      for (int r = 0; r < rows; r += A16_DEPTH) {
+        uint4 x[A16_DEPTH], m[A16_DEPTH];
 #pragma unroll
-      for (int u = 0; u < A_DEPTH; ++u) {
-        const bool live = r + u < rows;  // the same for the whole warp
-        const size_t o = (size_t)(i0 + r + u) * d + jl;
-        if constexpr (VECTOR) {
-          if (live && ok[0]) {
-            ld16(R + o, x[u]);
-            ld16(M + o, m[u]);
-          } else {
+        for (int u = 0; u < A16_DEPTH; ++u) {
+          x[u] = xn[u];
+          m[u] = mn[u];
+        }
+        if (r + A16_DEPTH < rows)
+          fetch(t, r + A16_DEPTH);
+        else if (t + A_WARPS < t_end)
+          fetch(t + A_WARPS, 0);
 #pragma unroll
-            for (int v = 0; v < VEC; ++v) x[u][v] = m[u][v] = T(0);
-          }
-        } else {
+        for (int u = 0; u < A16_DEPTH; ++u) {
+          if (r + u < rows) {
+            const T dwi = stage[warp][0][r + u];
+            const T wi = stage[warp][1][r + u];
+            const T w2i = stage[warp][2][r + u];
+            unsigned int xw[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+            const unsigned int mw[4] = {m[u].x, m[u].y, m[u].z, m[u].w};
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) {
-            const bool in = live && ok[v];
-            x[u][v] = in ? St::load(R[o + 32 * v]) : T(0);
-            m[u][v] = in ? St::load(M[o + 32 * v]) : T(0);
+            for (int p = 0; p < 4; ++p) {
+              const float2 xv = St::load2(xw[p]), mv = St::load2(mw[p]);
+              const float2 step = rnd2<S>(
+                  make_float2(dwi * tpj[2 * p], dwi * tpj[2 * p + 1]));
+              xw[p] = St::store2(make_float2(xv.x + step.x, xv.y + step.y));
+              const float2 xs = St::load2(xw[p]);
+              const float2 mx =
+                  rnd2<S>(make_float2(mv.x * xs.x, mv.y * xs.y));
+              s_wr[2 * p] = fma_(wi, mx.x, s_wr[2 * p]);
+              s_wr[2 * p + 1] = fma_(wi, mx.y, s_wr[2 * p + 1]);
+              s_nw[2 * p] = fma_(w2i, mv.x, s_nw[2 * p]);
+              s_nw[2 * p + 1] = fma_(w2i, mv.y, s_nw[2 * p + 1]);
+            }
+            if (ok[0])
+              *reinterpret_cast<uint4*>(R + (size_t)(i0 + r + u) * d + jl) =
+                  make_uint4(xw[0], xw[1], xw[2], xw[3]);
           }
         }
       }
+    } else {
+      for (int r = 0; r < rows; r += A_DEPTH) {
+        T x[A_DEPTH][VEC], m[A_DEPTH][VEC];
 #pragma unroll
-      for (int u = 0; u < A_DEPTH; ++u) {
-        if (r + u < rows) {
-          const T dwi = stage[warp][0][r + u];
-          const T wi = stage[warp][1][r + u];
-          const T w2i = stage[warp][2][r + u];
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) {
-            if constexpr (St::narrow) {
-              x[u][v] = rnd<S>(x[u][v] + rnd<S>(dwi * tpj[v]));
-              s_wr[v] = fma_(wi, rnd<S>(m[u][v] * x[u][v]), s_wr[v]);
-            } else {
-              x[u][v] = fma_(dwi, tpj[v], x[u][v]);
-              s_wr[v] = fma_(wi, m[u][v] * x[u][v], s_wr[v]);
-            }
-            s_nw[v] = fma_(w2i, m[u][v], s_nw[v]);
-          }
+        for (int u = 0; u < A_DEPTH; ++u) {
+          const bool live = r + u < rows;  // the same for the whole warp
           const size_t o = (size_t)(i0 + r + u) * d + jl;
           if constexpr (VECTOR) {
-            if (ok[0]) st16(R + o, x[u]);
+            if (live && ok[0]) {
+              ld16(R + o, x[u]);
+              ld16(M + o, m[u]);
+            } else {
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) x[u][v] = m[u][v] = T(0);
+            }
           } else {
 #pragma unroll
-            for (int v = 0; v < VEC; ++v)
-              if (ok[v]) R[o + 32 * v] = St::store(x[u][v]);
+            for (int v = 0; v < VEC; ++v) {
+              const bool in = live && ok[v];
+              x[u][v] = in ? St::load(R[o + 32 * v]) : T(0);
+              m[u][v] = in ? St::load(M[o + 32 * v]) : T(0);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < A_DEPTH; ++u) {
+          if (r + u < rows) {
+            const T dwi = stage[warp][0][r + u];
+            const T wi = stage[warp][1][r + u];
+            const T w2i = stage[warp][2][r + u];
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) {
+              if constexpr (St::narrow) {
+                x[u][v] = rnd<S>(x[u][v] + rnd<S>(dwi * tpj[v]));
+                s_wr[v] = fma_(wi, rnd<S>(m[u][v] * x[u][v]), s_wr[v]);
+              } else {
+                x[u][v] = fma_(dwi, tpj[v], x[u][v]);
+                s_wr[v] = fma_(wi, m[u][v] * x[u][v], s_wr[v]);
+              }
+              s_nw[v] = fma_(w2i, m[u][v], s_nw[v]);
+            }
+            const size_t o = (size_t)(i0 + r + u) * d + jl;
+            if constexpr (VECTOR) {
+              if (ok[0]) st16(R + o, x[u]);
+            } else {
+#pragma unroll
+              for (int v = 0; v < VEC; ++v)
+                if (ok[v]) R[o + 32 * v] = St::store(x[u][v]);
+            }
           }
         }
       }
@@ -335,6 +426,96 @@ __global__ void phase_b_kernel(S* __restrict__ R, const S* __restrict__ M,
   }
 }
 
+// B4's element step on a packed 16-byte word of 8 16-bit values: the
+// rank-one updates of each pair as b_step does them, R's new word stored
+// to *out before the sums take the 8 columns in order
+template <typename S>
+__device__ __forceinline__ void b_step_packed(uint4* out, uint4 r, uint4 m,
+                                              float wi, float ei, uint4 to,
+                                              uint4 tn, float& s_rt,
+                                              float& s_mt2) {
+  typedef Storage<S> St;
+  const unsigned int rw[4] = {r.x, r.y, r.z, r.w};
+  const unsigned int mw[4] = {m.x, m.y, m.z, m.w};
+  const unsigned int ow[4] = {to.x, to.y, to.z, to.w};
+  const unsigned int nw[4] = {tn.x, tn.y, tn.z, tn.w};
+  unsigned int yw[4];
+  float2 tv[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const float2 rv = St::load2(rw[p]), ov = St::load2(ow[p]);
+    tv[p] = St::load2(nw[p]);
+    const float2 a = rnd2<S>(make_float2(wi * ov.x, wi * ov.y));
+    const float2 b = rnd2<S>(make_float2(rv.x + a.x, rv.y + a.y));
+    const float2 c = rnd2<S>(make_float2(-ei * tv[p].x, -ei * tv[p].y));
+    yw[p] = St::store2(make_float2(b.x - c.x, b.y - c.y));
+  }
+  *out = make_uint4(yw[0], yw[1], yw[2], yw[3]);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const float2 rv = St::load2(yw[p]), mv = St::load2(mw[p]);
+    const float2 mr = rnd2<S>(make_float2(mv.x * rv.x, mv.y * rv.y));
+    const float2 t2 = rnd2<S>(make_float2(tv[p].x * tv[p].x,
+                                          tv[p].y * tv[p].y));
+    s_rt = fmaf(mr.x, tv[p].x, s_rt);
+    s_rt = fmaf(mr.y, tv[p].y, s_rt);
+    s_mt2 = fmaf(mv.x, t2.x, s_mt2);
+    s_mt2 = fmaf(mv.y, t2.y, s_mt2);
+  }
+}
+
+// B4 in the 16-bit 16-byte form (d % 8 == 0, R, M, t_old, t_new 16-byte
+// aligned): one warp a row as in phase_b_kernel, but lane l owns the 8
+// columns j + 8l ... j + 8l + 7 of each 256-column step j and moves them
+// in 16-byte words, B16_DEPTH steps of R and M in flight. Each lane adds
+// its columns in order, then the same shuffle tree adds the lanes.
+template <typename S>
+__global__ void phase_b_packed_kernel(
+    S* __restrict__ R, const S* __restrict__ M, const S* __restrict__ w,
+    const S* __restrict__ weff, const S* __restrict__ told,
+    const S* __restrict__ tnew, float* __restrict__ Rt,
+    float* __restrict__ mt2, int n, int d) {
+  typedef Storage<S> St;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * B_ROWS + (threadIdx.x >> 5);
+  if (i >= n) return;  // the whole warp leaves together
+  const float wi = St::load(w[i]);
+  const float ei = -St::load(weff[i]);
+  S* Ri = R + (size_t)i * d;
+  const S* Mi = M + (size_t)i * d;
+  float s_rt = 0.f, s_mt2 = 0.f;
+  for (int j = 8 * lane; j < d; j += 256 * B16_DEPTH) {
+    uint4 r[B16_DEPTH], m[B16_DEPTH];
+#pragma unroll
+    for (int u = 0; u < B16_DEPTH; ++u) {
+      const int jj = j + 256 * u;
+      if (jj < d) {
+        r[u] = *reinterpret_cast<const uint4*>(Ri + jj);
+        m[u] = *reinterpret_cast<const uint4*>(Mi + jj);
+      } else {
+        r[u] = m[u] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < B16_DEPTH; ++u) {
+      const int jj = j + 256 * u;
+      if (jj < d)
+        b_step_packed<S>(reinterpret_cast<uint4*>(Ri + jj), r[u], m[u], wi,
+                         ei, *reinterpret_cast<const uint4*>(told + jj),
+                         *reinterpret_cast<const uint4*>(tnew + jj), s_rt,
+                         s_mt2);
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    s_rt += __shfl_down_sync(0xffffffffu, s_rt, off);
+    s_mt2 += __shfl_down_sync(0xffffffffu, s_mt2, off);
+  }
+  if (lane == 0) {
+    Rt[i] = s_rt;
+    mt2[i] = s_mt2;
+  }
+}
+
 template <typename S, typename T, bool VECTOR>
 static cudaError_t launch_a(S* R, const S* M, const S* dw, const S* tp,
                             const S* w, T* wR0, T* nw, int n, int d,
@@ -357,8 +538,8 @@ static cudaError_t launch_a(S* R, const S* M, const S* dw, const S* tp,
 }
 
 // One B3 launch in clusters of `cluster` blocks (1..8); returns the CUDA
-// error, the launch's own if the cluster launch is refused. 16-bit
-// storage takes the scalar-load form.
+// error, the launch's own if the cluster launch is refused. The 16-byte
+// form where the shape and alignment allow it, else the scalar form.
 template <typename S, typename T>
 static int launch_phase_a(S* R, const S* M, const S* dw, const S* tp,
                           const S* w, T* wR0, T* nw, int n, int d,
@@ -367,17 +548,12 @@ static int launch_phase_a(S* R, const S* M, const S* dw, const S* tp,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const bool vector = !Storage<S>::narrow && d % (16 / sizeof(S)) == 0 &&
+  const bool vector = d % (16 / sizeof(S)) == 0 &&
                       ((uintptr_t)R | (uintptr_t)M) % 16 == 0;
-  if constexpr (Storage<S>::narrow) {
-    err = launch_a<S, T, false>(R, M, dw, tp, w, wR0, nw, n, d, cluster,
-                                (cudaStream_t)stream);
-  } else {
-    err = vector ? launch_a<S, T, true>(R, M, dw, tp, w, wR0, nw, n, d,
-                                        cluster, (cudaStream_t)stream)
-                 : launch_a<S, T, false>(R, M, dw, tp, w, wR0, nw, n, d,
-                                         cluster, (cudaStream_t)stream);
-  }
+  err = vector ? launch_a<S, T, true>(R, M, dw, tp, w, wR0, nw, n, d,
+                                      cluster, (cudaStream_t)stream)
+               : launch_a<S, T, false>(R, M, dw, tp, w, wR0, nw, n, d,
+                                       cluster, (cudaStream_t)stream);
   const cudaError_t last = cudaGetLastError();  // clears a launch error
   return (int)(err != cudaSuccess ? err : last);
 }
@@ -389,9 +565,18 @@ static int launch_phase_b(S* R, const S* M, const S* w, const S* weff,
   if (n <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  phase_b_kernel<S, T><<<(n + B_ROWS - 1) / B_ROWS, 32 * B_ROWS, 0,
-                      (cudaStream_t)stream>>>(R, M, w, weff, told, tnew, Rt,
-                                              mt2, n, d);
+  const int blocks = (n + B_ROWS - 1) / B_ROWS;
+  if constexpr (Storage<S>::narrow) {
+    if (d % 8 == 0 && ((uintptr_t)R | (uintptr_t)M | (uintptr_t)told |
+                       (uintptr_t)tnew) % 16 == 0) {
+      phase_b_packed_kernel<S><<<blocks, 32 * B_ROWS, 0,
+                                 (cudaStream_t)stream>>>(
+          R, M, w, weff, told, tnew, Rt, mt2, n, d);
+      return (int)cudaGetLastError();
+    }
+  }
+  phase_b_kernel<S, T><<<blocks, 32 * B_ROWS, 0, (cudaStream_t)stream>>>(
+      R, M, w, weff, told, tnew, Rt, mt2, n, d);
   return (int)cudaGetLastError();
 }
 

@@ -31,7 +31,9 @@ the JAX package's ``_acc_of`` has them. The elementwise steps round to 16
 bits where JAX computes in 16 bits (each product and sum of the rank-one
 updates, ``M ⊙ R``, ``w²``), and each such product enters its float32 sum
 exactly. The twins do the same: torch's 16-bit elementwise ops round per
-op, and their sums widen the rounded terms.
+op, and their sums widen the rounded terms. On the card both kernels take
+a 16-byte form (8 values a lane a load) where d % 8 == 0 and the operands
+are 16-byte aligned, else their scalar forms (``csrc/masked.cu``).
 
 Unlike the TPU kernels nothing is padded, so the ``row_ok``/``col_ok``
 masks and ``_pick_tiles`` have no counterpart: no coordinate outside
@@ -66,7 +68,7 @@ LAUNCHES = {'phase_a': 0, 'phase_b': 0}
 # tiles of B3_TILE, dealt to B3_WARPS warps a block; the cluster of
 # blocks that owns a column stripe has at most B3_MAX_CLUSTER blocks and
 # is sized for about B3_BLOCKS blocks in all, two on each of an H100's
-# 132 SMs.
+# 132 SMs (at 6040×3952 in 16 bits the cap leaves 16 stripes × 8 = 128).
 B3_TILE = 32
 B3_WARPS = 8
 B3_MAX_CLUSTER = 8
@@ -82,7 +84,8 @@ def reset_launches():
 def phase_a_layout(n, d, itemsize):
     """B3's launch geometry for an (n, d) problem of ``itemsize``-byte
     words: ``(stripes, cluster, ranges)``. A stripe is 32 lanes × 16
-    bytes of columns (128 float32, 64 float64) and is owned by one
+    bytes of columns (128 float32, 64 float64, 256 in 16 bits) and is
+    owned by one
     cluster of ``cluster`` blocks; ``ranges[r]`` is the ``(start, stop)``
     of the rows cluster rank r sums (whole tiles of ``B3_TILE`` rows;
     empty when the rows run out first). A function of the shape alone,

@@ -11,8 +11,13 @@ package.
   ``w_row_sum`` and negative L1 on a ragged shape.
 - A dead topic in a fixed-T sweep spends the same ``'random'`` reset
   budget as JAX (the values differ by generator).
-- B3's launch geometry (``phase_a_layout``), and a NumPy mirror of its
-  summation order (lanes, warps, cluster ranks) against the twin.
+- B3's launch geometry (``phase_a_layout``, in 2-, 4- and 8-byte
+  words), and a NumPy mirror of its summation order (lanes, warps,
+  cluster ranks) against the twin.
+- A NumPy mirror of B4's row-sum order (each lane's columns in order, in
+  the 16-byte form's 8-column groups or the scalar form's lane stride,
+  then the shuffle tree) against the twin, with faults it catches, and in
+  float32 on 16-bit terms, where the two forms' orders give other bits.
 - The wrappers' routing: a CPU tensor takes the twin and launches
   nothing (and writes into ``out=`` when given); any other non-CUDA
   tensor raises.
@@ -270,8 +275,11 @@ def test_supports_masked_kernels_gates():
     # the RS shape: 31 stripes of 128 float32 columns, 8 ranks of 24 tiles
     (6040, 3952, 4, (31, 8, 768)),
     (6040, 3952, 8, (62, 5, 1216)),   # 64 float64 columns a stripe
+    (6040, 3952, 2, (16, 8, 768)),    # 256 16-bit columns: 128 blocks
     (40, 300, 4, (3, 8, 32)),          # two tiles for eight ranks
+    (40, 300, 2, (2, 8, 32)),
     (10 ** 6, 40000, 4, (313, 1, 10 ** 6)),
+    (10 ** 6, 40000, 2, (157, 2, 500000)),
 ])
 def test_phase_a_layout(n, d, itemsize, want):
     stripes, cluster, ranges = mk.phase_a_layout(n, d, itemsize)
@@ -280,7 +288,8 @@ def test_phase_a_layout(n, d, itemsize, want):
 
 @pytest.mark.parametrize('n,d,itemsize', [
     (6040, 3952, 4), (6040, 3952, 8), (517, 1030, 4), (40, 300, 4),
-    (5, 3, 8), (100, 257, 4), (2 ** 20, 1, 4), (33, 33000, 8)])
+    (5, 3, 8), (100, 257, 4), (2 ** 20, 1, 4), (33, 33000, 8),
+    (6040, 3952, 2), (517, 1030, 2), (5, 3, 2), (33, 33000, 2)])
 def test_phase_a_layout_covers_every_row_once(n, d, itemsize):
     """Stripes cover d; the cluster is 1-8 blocks; the ranks' ranges are
     whole tiles, in order, and cover [0, n) once."""
@@ -333,7 +342,7 @@ def _mirror_against_twin(n, d, ranges, seed):
             for g, h in zip(got, want)]
 
 
-@pytest.mark.parametrize('itemsize', [4, 8])
+@pytest.mark.parametrize('itemsize', [2, 4, 8])
 @pytest.mark.parametrize('n,d', [(30, 20), (517, 130), (64, 1030),
                                  (100, 257), (5, 3), (300, 700)])
 def test_phase_a_summation_order_matches_twin(n, d, itemsize):
@@ -348,6 +357,96 @@ def test_phase_a_mirror_fails_on_a_wrong_row_range(fault):
     a, b = ranges[1]
     ranges[1] = (a, b - 1) if fault == 'a row left out' else (a - 1, b)
     assert max(_mirror_against_twin(n, d, ranges, seed=3)) > 1e-6
+
+
+def _phase_b_columns(d, packed):
+    """B4's column order (``csrc/masked.cu``): ``cols[l]`` the columns
+    lane l of a row's warp adds, in order; -1 past d. The 16-byte form
+    (``packed``): columns 256 s + 8 l + v, v = 0..7, of each step s; the
+    scalar form: l + 32 s."""
+    lane = np.arange(32)[:, None]
+    if packed:
+        k = np.arange(-(-d // 256) * 8)[None, :]
+        cols = 256 * (k // 8) + 8 * lane + k % 8
+    else:
+        cols = lane + 32 * np.arange(-(-d // 32))[None, :]
+    return np.where(cols < d, cols, -1)
+
+
+def _phase_b_mirror_sums(R, M, t_new, cols, rnd=lambda a: a):
+    """NumPy mirror of B4's row sums on the updated residual ``R``: lane l
+    adds its terms in the order of ``cols[l]``, then the shuffle tree adds
+    lane l + off into lane l for off = 16, 8, 4, 2, 1 and lane 0 holds the
+    sum. ``rnd`` rounds to storage where the 16-bit kernels do (M ⊙ R and
+    t_new²); the terms ``rnd(M ⊙ R)·t_new`` and ``M·rnd(t_new²)`` are
+    then exact in float32, as in the kernels' fused multiply-adds."""
+    out = []
+    for terms in (rnd(M * R) * t_new[None, :], M * rnd(t_new * t_new)):
+        lanes = np.zeros((R.shape[0], 32), dtype=R.dtype)
+        padded = np.concatenate([terms, np.zeros_like(terms[:, :1])], 1)
+        for k in range(cols.shape[1]):
+            lanes = lanes + padded[:, cols[:, k]]   # -1: the zero column
+        for off in (16, 8, 4, 2, 1):
+            lanes[:, :off] = lanes[:, :off] + lanes[:, off:2 * off]
+        out.append(lanes[:, 0])
+    return out
+
+
+def _b4_mirror_against_twin(n, d, cols, seed):
+    R, M, (w, weff, told, tnew) = _kernel_inputs(n, d, seed)
+    Rt, Mt, wt, et, tot, tnt = _t(R, M, w, weff, told, tnew)
+    want = mk.phase_b_ref(Rt, Mt, wt, et, tot, tnt)
+    got = _phase_b_mirror_sums(Rt.numpy(), M, tnew, cols)
+    return [float(np.abs(g - h.numpy()).max() / np.abs(h.numpy()).max())
+            for g, h in zip(got, want)]
+
+
+@pytest.mark.parametrize('packed', [True, False])
+@pytest.mark.parametrize('n,d', [(30, 24), (64, 1032), (40, 264), (5, 8),
+                                 (100, 3952)])
+def test_phase_b_summation_order_matches_twin(n, d, packed):
+    cols = _phase_b_columns(d, packed)
+    used = np.sort(cols[cols >= 0])
+    assert np.array_equal(used, np.arange(d))      # every column once
+    assert max(_b4_mirror_against_twin(n, d, cols, seed=n + d)) <= 1e-12
+
+
+@pytest.mark.parametrize('fault', ['the tail step left out',
+                                   'a lane twice, its neighbour never'])
+def test_phase_b_mirror_fails_on_a_wrong_column_split(fault):
+    n, d = 40, 1000                    # 3 full steps and a 232-column tail
+    cols = _phase_b_columns(d, True)
+    if fault == 'the tail step left out':
+        cols[:, 24:] = -1
+    else:
+        cols[1] = cols[0]
+    assert max(_b4_mirror_against_twin(n, d, cols, seed=3)) > 1e-6
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+def test_phase_b_forms_sum_in_other_orders_in_float32(dtype):
+    """In float32 on 16-bit terms (the 16-bit builds' sums) the two forms'
+    orders give other bits on some rows, each within float32 rounding of
+    the twin: the card's test of B4's 16-byte sums against the packed
+    mirror bit for bit tells the orders apart."""
+    n, d = 64, 3952
+    R, M, (w, weff, told, tnew) = _kernel_inputs(n, d, seed=21)
+    Rt, Mt, wt, et, tot, tnt = (a.to(dtype) for a in _t(
+        R, M, w, weff, told, tnew))
+    want = mk.phase_b_ref(Rt, Mt, wt, et, tot, tnt)
+
+    def rnd(a):
+        return torch.from_numpy(a).to(dtype).float().numpy()
+    f32 = [a.float().numpy() for a in (Rt, Mt, tnt)]
+    sums = {packed: _phase_b_mirror_sums(
+        *f32, _phase_b_columns(d, packed), rnd) for packed in (True, False)}
+    for got in sums.values():
+        for g, h in zip(got, want):
+            assert g.dtype == np.float32
+            assert np.abs(g - h.numpy()).max() <= 1e-5 * np.abs(
+                h.numpy()).max()
+    assert not all(np.array_equal(a, b)
+                   for a, b in zip(sums[True], sums[False]))
 
 
 # ---------------------------------------------------------------------------
@@ -409,19 +508,38 @@ def cuda_device():
     return torch.device('cuda')
 
 
+def _within_one_ulp(got, want, got32, want32, dtype):
+    """Each 16-bit entry of ``got`` within one ulp of the storage type of
+    ``want`` plus the float32 build's own difference from the float32 twin
+    at that entry (``got32``, ``want32``: on the same values upcast), as
+    ``chip_smoke.py`` phase 26 gates it."""
+    g, w = got.double(), want.double()
+    mant, tiny = (7, 2.0 ** -126) if dtype == torch.bfloat16 \
+        else (10, 2.0 ** -14)
+    ulp = torch.pow(2.0, torch.floor(torch.log2(
+        torch.maximum(g.abs(), w.abs()).clamp_min(tiny))) - mant)
+    return bool(((g - w).abs()
+                 <= ulp + (got32.double() - want32.double()).abs()).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-10),
-                                       (torch.float32, 1e-4)])
+                                       (torch.float32, 1e-4),
+                                       (torch.bfloat16, None),
+                                       (torch.float16, None)])
 @pytest.mark.parametrize('n,d', [(517, 1030), (2000, 3000), (40, 300),
-                                 (700, 100), (300, 257), (5, 130)])
+                                 (700, 100), (300, 257), (5, 130),
+                                 (300, 3952)])
 def test_cuda_kernels_match_twins(cuda_device, dtype, tol, n, d):
     """Each kernel against its twin, and bit for bit on a repeat launch:
-    B3 at ragged d (its scalar-load form in float32 at d % 4 != 0), d
-    below one stripe, and n below the cluster's row split."""
+    B3 at ragged d (its scalar-load form in float32 at d % 4 != 0, in 16
+    bits at d % 8 != 0), d below one stripe, and n below the cluster's row
+    split. 16 bits: R within one ulp plus the float32 build's own
+    difference, the float32 sums within 1e-4 relative."""
     R, M, vecs = _kernel_inputs(n, d, seed=13)
 
-    def on(*arrays):
-        return [torch.as_tensor(a, dtype=dtype, device=cuda_device)
+    def on(*arrays, dt=dtype):
+        return [torch.as_tensor(a, device=cuda_device).to(dt)
                 for a in arrays]
     R0, Mt = on(R, M)
     dw, w, tp, tn = on(*vecs)
@@ -435,11 +553,44 @@ def test_cuda_kernels_match_twins(cuda_device, dtype, tol, n, d):
         got = kernel(Ra, Mt, *args)
         again = kernel(Rc, Mt, *args)
         want = ref(Rb, Mt, *args)
+        if tol is None:
+            R32, Rb32 = R0.float(), R0.float()
+            kernel(R32, Mt.float(), *(a.float() for a in args))
+            ref(Rb32, Mt.float(), *(a.float() for a in args))
         torch.cuda.synchronize()
-        assert float((Ra - Rb).abs().max() / Rb.abs().max()) <= tol
+        if tol is None:
+            assert _within_one_ulp(Ra, Rb, R32, Rb32, dtype)
+        else:
+            assert float((Ra - Rb).abs().max() / Rb.abs().max()) <= tol
         for g, h in zip(got, want):
-            assert float((g - h).abs().max() / h.abs().max()) <= tol
+            assert float((g - h).abs().max() / h.abs().max()) <= (tol or
+                                                                  1e-4)
         assert torch.equal(Ra, Rc)
         assert all(torch.equal(g, h) for g, h in zip(got, again))
-    assert mk.LAUNCHES['phase_a'] == before['phase_a'] + 2
-    assert mk.LAUNCHES['phase_b'] == before['phase_b'] + 4
+    assert mk.LAUNCHES['phase_a'] == before['phase_a'] + (
+        4 if tol is None else 2)
+    assert mk.LAUNCHES['phase_b'] == before['phase_b'] + (
+        8 if tol is None else 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('n,d', [(64, 3952), (40, 1032), (30, 1030)])
+def test_cuda_phase_b_16_bit_sums_follow_the_mirror(cuda_device, dtype, n,
+                                                    d):
+    """B4's 16-bit row sums bit for bit the float32 mirror of its order:
+    the 16-byte form's at d % 8 == 0, the scalar form's otherwise."""
+    R, M, (w, weff, told, tnew) = _kernel_inputs(n, d, seed=17)
+    Rk, Mt, wt, et, tot, tnt = (torch.as_tensor(a, device=cuda_device)
+                                .to(dtype) for a in (R, M, w, weff, told,
+                                                     tnew))
+    got = mk.phase_b(Rk, Mt, wt, et, tot, tnt)
+    torch.cuda.synchronize()
+
+    def rnd(a):
+        return torch.from_numpy(a).to(dtype).float().numpy()
+    want = _phase_b_mirror_sums(
+        *(a.float().cpu().numpy() for a in (Rk, Mt, tnt)),
+        _phase_b_columns(d, d % 8 == 0), rnd)
+    for g, h in zip(got, want):
+        assert np.array_equal(g.cpu().numpy(), h)
