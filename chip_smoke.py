@@ -163,15 +163,22 @@ its users run, one line per phase:
     work) against its twin at the main path's shapes (B1 k=128 m=8192,
     B2 k=50 d=26,214, B3/B4 6040×3952 in their 16-byte forms and
     517×1030 in their scalar forms, B4 also with fixed T, the gather
-    kernel through both plans at 50,000×30,000 0.5% k=128; the ragged
-    cases checked, not timed): each entry within one ulp of the
-    storage type plus the float32 build's own difference from the float32
-    twin at that entry, on the same (upcast) inputs (the share of entries
-    within one ulp logged), bits repeating, timed in turns beside the
+    kernel through both plans at 50,000×30,000 0.5% k=128 in both
+    directions beside ``torch.sparse.mm`` in its dtype, with its L2
+    gather rate, and at k = 24, 50, 200 and on the TM corpus within 1e-4
+    of its twin, and bit for bit the float32 NumPy mirror of its order of
+    summation, ``ops/sparse_mirror``, on 700×500 and on Zipf columns cut
+    between warps at k = 24, 50, 128, 200; the ragged cases checked, not
+    timed): each entry of
+    B1-B4 within one ulp of the storage type plus the float32 build's own
+    difference from the float32 twin at that entry, on the same (upcast)
+    inputs (the share of entries within one ulp logged), the gather
+    within 1e-4 of its twin, bits repeating, timed in turns beside the
     float32 build; then in each 16-bit dtype ``nmf()`` at
     16384×8192 k=128 (objective non-increasing within 1e-3·obj₀ + 1e-6),
     the TM estimator, the masked fit with ``use_pallas=True`` and the
-    sparse ``'mxu'``/``'dma'`` fits;
+    sparse ``'mxu'``/``'dma'`` fits (ms a sweep with the objective, and
+    continued without it);
 27. the mesh (``rri_nmf_tpu_torch.parallel``): (a) a one-rank NCCL world
     and a (1, 1) mesh, ``nmf(mesh=...)`` at 16384×8192 k=128 float32 in
     the phase recipe bit for bit the single-device fit with the same B1
@@ -311,10 +318,13 @@ TOL_SIMPLEX_F32 = 1e-4
 # objective near 0.5||X||², so the cancellation costs less than a digit.
 OBJ_SLACK_F32 = 1e-5
 # The published peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the
-# bound of a kernel's timed call is the larger of its flop over the rate
-# of its type outside the tensor cores and its bytes (each input read
-# once, each output written once) over the memory rate.
-PEAK_FLOPS = {'float32': 67e12, 'float64': 34e12}
+# bound of a kernel's timed call is the larger of its flop over the peak
+# rate for the type of its operands (float32 and float64 outside the
+# tensor cores; bfloat16 and float16 dense on them, with float32 sums)
+# and its bytes (each input read once, each output written once) over the
+# memory rate.
+PEAK_FLOPS = {'float32': 67e12, 'float64': 34e12, 'bfloat16': 989e12,
+              'float16': 989e12}
 PEAK_BYTES_PER_S = 3.35e12
 # card float32 vs CPU float64 fit of the same problem from the same init:
 # final objectives after 20 sweeps differ by float32 rounding of the
@@ -468,6 +478,18 @@ STORAGE_PEAK_GAP = 8e9
 SWEEPS_16 = 10
 MASKED_SWEEPS_16 = 4
 SPARSE_SWEEPS_16 = 3
+# the 16-bit sparse fits continued without the objective, for the ms a
+# sweep of the sweep alone; the other k of the 16-bit gather's checks
+SPARSE_PLAIN_SWEEPS_16 = 5
+GATHER_KS_16 = (24, 50, 200)
+# the 16-bit gather bit for bit the float32 NumPy mirror of its order of
+# summation (ops/sparse_mirror), at every k a slice width gives, on a
+# random matrix (n, d, density) and on Zipf word columns (documents,
+# words, topics, words a document) that the kernel's blocks cut between
+# warps
+MIRROR_KS_16 = (24, 50, 128, 200)
+MIRROR_RANDOM = (700, 500, 0.03)
+MIRROR_ZIPF = (400, 700, 8, 40)
 OBJ_SLACK_16 = (1e-3, 1e-6)
 NARROW = (torch.bfloat16, torch.float16)
 # phase 27: the mesh. (a) a one-rank NCCL world at NMF_SHAPE, bit for bit
@@ -3032,7 +3054,8 @@ def check_16_bit_kernels(dev, counts, ratings):
                             lambda: dk.gs_update(G, N, F, 0.0, 0.0, inf), dev)
         plain = time_ms(lambda: dk.gs_update_ref(G, N, F16, 0.0, 0.0, inf),
                         dev)
-        b = bound(2 * k * k * m, (k * k + k * m) * 4 + 2 * k * m * 2)
+        b = bound(2 * k * k * m, (k * k + k * m) * 4 + 2 * k * m * 2,
+                  str(dt)[6:])
         out[('gs', dt)] = (worst, ms, plain, b[0], b[1], None)
         log('kernel gs 16-bit k=%d m=%d' % (k, m), dtype=str(dt), ms=ms,
             float32_ms=ms32, plain_ms=plain, bound_ms=b[0], bound_by=b[1])
@@ -3054,7 +3077,8 @@ def check_16_bit_kernels(dev, counts, ratings):
         ms, ms32 = in_turns(lambda: dk.tm_proj_update(G, N, F16, **kw),
                             lambda: dk.tm_proj_update(G, N, F, **kw), dev)
         plain = time_ms(lambda: dk.tm_proj_update_ref(G, N, F16, **kw), dev)
-        b = bound(2 * k * k * d, (k * k + k * d) * 4 + 2 * k * d * 2)
+        b = bound(2 * k * k * d, (k * k + k * d) * 4 + 2 * k * d * 2,
+                  str(dt)[6:])
         out[('tm_proj', dt)] = (err, ms, plain, b[0], b[1], None)
         log('kernel tm_proj 16-bit ' + label, dtype=str(dt), max_abs_err=err,
             row_sum_err=row, bitwise_repeat=True, ms=ms, float32_ms=ms32,
@@ -3104,7 +3128,7 @@ def check_16_bit_kernels(dev, counts, ratings):
             vectors = (3 * n + 3 * d) if kind == 'phase_a' else (5 * n + 2 * d)
             sum_bytes = 2 * (d if kind == 'phase_a' else n) * 4
             b = bound((7 if kind == 'phase_a' else 9) * n * d,
-                      3 * n * d * 2 + vectors * 2 + sum_bytes)
+                      3 * n * d * 2 + vectors * 2 + sum_bytes, str(dt)[6:])
             out[(kind, dt)] = (err, ms, plain, b[0], b[1], None)
             log('kernel masked 16-bit ' + label, dtype=str(dt), form=form,
                 R=fields, rel_err_sums=sums, bitwise_repeat=True,
@@ -3112,47 +3136,156 @@ def check_16_bit_kernels(dev, counts, ratings):
                 bound_ms=b[0], bound_by=b[1])
             del Rk, Rr, Rt, R32, M32, Rk32, Rt32
 
-    # the gather kernel (B5, B6) at the recorded sparse shape
+    # the gather kernel (B5, B6) at the recorded sparse shape, both
+    # directions, each beside torch.sparse.mm in its dtype; the kernels
+    # line takes WᵀX's time
     n, d, dens, k = SPARSE_SHAPE
     X = sparse_csr(n, d, dens, dev, seed=0)
     nnz = X.values().numel()
     W = torch.as_tensor(rng.rand(n, k), dtype=f32, device=dev)
-    Xtc = X.t().to_sparse_csr()
+    T = torch.as_tensor(rng.rand(k, d), dtype=f32, device=dev)
     for kind, build in (('mxu', spl.plan_sparse_matrix),
                         ('dma', spl.plan_sparse_matrix_dma)):
         plan32 = build(X, f32, device=dev)
         for dt in NARROW:
-            plan, W16 = build(X, dt, device=dev), W.to(dt)
-            got, again = (sk.contract_wtx(plan, W16) for _ in range(2))
-            want = sk.gather_contract_ref(spl.column_layout(plan.t_phase),
-                                          W16, k, d)
-            sync(dev)
-            same('B5/B6 ' + kind, [got], [again])
-            err = rel_err(got, want)
-            if not (got.dtype == f32 and err <= TOL_F32):
-                raise AssertionError('gather %s %s: %.3g' % (kind, dt, err))
-            ms, ms32 = in_turns(lambda: sk.contract_wtx(plan, W16),
-                                lambda: sk.contract_wtx(plan32, W), dev)
-            plain = time_ms(lambda: sk.gather_contract_ref(
-                spl.column_layout(plan.t_phase), W16, k, d), dev, runs=3)
-            lib = None
-            try:
-                Xt16 = Xtc.to(dt)
-                lib = time_ms(lambda: torch.sparse.mm(Xt16, W16), dev)
-            except (RuntimeError, NotImplementedError, TypeError):
-                pass
-            b = bound(2 * nnz * k, n * k * 2 + nnz * (2 + 4) + (d + 1) * 4
-                      + k * d * 4)
-            out[(kind, dt)] = (float((got - want).abs().max()), ms, plain,
-                               b[0], b[1], lib)
-            log('kernel gather 16-bit WtX %dx%d %g k=%d %s' % (n, d, dens, k,
-                                                              kind),
-                dtype=str(dt), rel_err=err, bitwise_repeat=True, ms=ms,
-                float32_ms=ms32, plain_ms=plain, library_ms=lib,
-                bound_ms=b[0], bound_by=b[1])
-            del plan
+            plan = build(X, dt, device=dev)
+            W16, T16, X16 = W.to(dt), T.to(dt), X.to(dt)
+            Xt16, Tt16 = X16.t().to_sparse_csr(), T16.T.contiguous()
+            worst = 0.0
+            for dirn, m, ncols, call, call32, lib_call in (
+                    ('WtX', n, d, lambda: sk.contract_wtx(plan, W16),
+                     lambda: sk.contract_wtx(plan32, W),
+                     lambda: torch.sparse.mm(Xt16, W16)),
+                    ('TXt', d, n, lambda: sk.contract_xtt(plan, T16),
+                     lambda: sk.contract_xtt(plan32, T),
+                     lambda: torch.sparse.mm(X16, Tt16))):
+                lay = spl.column_layout(plan.t_phase if dirn == 'WtX'
+                                        else plan.w_phase)
+                Ft = W16 if dirn == 'WtX' else T16.T
+                got, again = call(), call()
+                want = sk.gather_contract_ref(lay, Ft, k, ncols)
+                sync(dev)
+                same('B5/B6 %s %s' % (kind, dirn), [got], [again])
+                err = rel_err(got, want)
+                if not (got.dtype == f32 and err <= TOL_F32):
+                    raise AssertionError('gather %s %s %s: %.3g'
+                                         % (kind, dirn, dt, err))
+                worst = max(worst, float((got - want).abs().max()))
+                ms, ms32 = in_turns(call, call32, dev)
+                plain = time_ms(lambda: sk.gather_contract_ref(
+                    lay, Ft, k, ncols), dev, runs=3)
+                lib = None
+                try:
+                    lib = time_ms(lib_call, dev)
+                except (RuntimeError, NotImplementedError, TypeError):
+                    pass
+                b = bound(2 * nnz * k, m * k * 2 + nnz * (2 + 4)
+                          + (ncols + 1) * 4 + k * ncols * 4, str(dt)[6:])
+                if dirn == 'WtX':
+                    stats = (ms, plain, b[0], b[1], lib)
+                log('kernel gather 16-bit %s %dx%d %g k=%d %s'
+                    % (dirn, n, d, dens, k, kind), dtype=str(dt),
+                    rel_err=err, bitwise_repeat=True, ms=ms,
+                    float32_ms=ms32, plain_ms=plain, library_ms=lib,
+                    bound_ms=b[0], bound_by=b[1],
+                    l2_gather_TB_per_s=nnz * k * 2 / ms / 1e9)
+            out[(kind, dt)] = (worst,) + stats
+            if kind == 'mxu':
+                check_gather_16(dev, sk, spl, plan, X, dt, counts)
+                check_gather_mirror_16(dev, sk, spl, dt)
+            del plan, X16, Xt16, Tt16
         del plan32
     return out
+
+
+def check_gather_16(dev, sk, spl, plan, X, dt, counts):
+    """Phase 26, the 16-bit gather kernel beside the timed shape: k = 24
+    and 50 (rows padded to 16 bytes, part of one slice), 200 (a second
+    slice) on the same layout, and the TM corpus at k=50 (its Zipf word
+    columns cut between warps), both directions, within ``TOL_F32`` of
+    the twin and repeated bit for bit."""
+    n_train, _, _, k_tm = TM_SHAPE
+    Xtm = torch.as_tensor(counts[:n_train], device=dev).to_sparse_csr()
+    rng = np.random.RandomState(22)
+    cases = [('%dx%d k=%d' % (*X.shape, kk), plan, kk) for kk in GATHER_KS_16]
+    cases.append(('TM corpus %dx%d k=%d' % (*Xtm.shape, k_tm),
+                  spl.plan_sparse_matrix(Xtm, dt, device=dev), k_tm))
+    for label, pl, k in cases:
+        errs = {}
+        for dirn, direction, m, ncols in (('WtX', pl.t_phase, pl.n, pl.d),
+                                          ('TXt', pl.w_phase, pl.d, pl.n)):
+            Ft = torch.as_tensor(rng.rand(m, k), dtype=torch.float32,
+                                 device=dev).to(dt)
+            got, again = (sk.gather_contract(direction, Ft, k, ncols, 'mxu')
+                          for _ in range(2))
+            want = sk.gather_contract_ref(spl.column_layout(direction), Ft,
+                                          k, ncols)
+            sync(dev)
+            errs[dirn] = rel_err(got, want)
+            if not (torch.equal(got, again) and errs[dirn] <= TOL_F32):
+                raise AssertionError('gather 16-bit %s %s %s: %.3g, '
+                                     'repeat %s' % (label, dirn, dt,
+                                                    errs[dirn],
+                                                    torch.equal(got, again)))
+        log('kernel gather 16-bit ' + label, dtype=str(dt), rel_err=errs,
+            bitwise_repeat=True)
+
+
+def check_gather_mirror_16(dev, sk, spl, dt):
+    """Phase 26, the 16-bit gather kernel's order of summation: through
+    ``contract_wtx``/``contract_xtt`` on the :data:`MIRROR_RANDOM` and
+    :data:`MIRROR_ZIPF` matrices at each k of :data:`MIRROR_KS_16`, both
+    directions, bit for bit the float32 NumPy mirror of its decomposition
+    on the layout the kernel read (its products of 16-bit values are exact
+    in float32), and within ``TOL_F32`` of the twin. The Zipf case must
+    hold columns cut between warps."""
+    from rri_nmf_tpu_torch.ops import sparse_mirror as sm
+    c = sm.kernel_constants()
+    n_z, d_z, t_z, len_z = MIRROR_ZIPF
+    mats = {'random %dx%d %g' % MIRROR_RANDOM: sparse_csr(
+                *MIRROR_RANDOM, dev, seed=4),
+            'zipf %dx%d' % (n_z, d_z): torch.as_tensor(zipf_corpus(
+                n_z, d_z, t_z, seed=3, doc_len=len_z),
+                device=dev).to_sparse_csr()}
+    rng = np.random.RandomState(23)
+    for label, X in mats.items():
+        plan = spl.plan_sparse_matrix(X, dt, device=dev)
+        cut = sm.cut_columns(spl.column_layout(plan.t_phase), c['SG_NC'],
+                             c['SG_WARPS'])
+        if label.startswith('zipf') and not cut:
+            raise AssertionError('gather mirror %s: no column cut between '
+                                 'warps' % label)
+        errs = {}
+        for k in MIRROR_KS_16:
+            W = torch.as_tensor(rng.rand(plan.n, k), dtype=torch.float32,
+                                device=dev).to(dt)
+            T = torch.as_tensor(rng.rand(k, plan.d), dtype=torch.float32,
+                                device=dev).to(dt)
+            for dirn, call, direction, Ft, ncols in (
+                    ('WtX', lambda: sk.contract_wtx(plan, W), plan.t_phase,
+                     W, plan.d),
+                    ('TXt', lambda: sk.contract_xtt(plan, T), plan.w_phase,
+                     T.T, plan.n)):
+                got, again = call(), call()
+                lay = spl.column_layout(direction)
+                want = sk.gather_contract_ref(lay, Ft, k, ncols)
+                mirror = sm.kernel_mirror(
+                    lay, Ft, k, ncols, c['SG_NC'], c['SG_WARPS'],
+                    sm.slice_groups(k, Ft.element_size()), np.float32)
+                sync(dev)
+                err = rel_err(got, want)
+                equal = bool(np.array_equal(got.cpu().numpy(), mirror))
+                if not (equal and torch.equal(got, again)
+                        and err <= TOL_F32):
+                    raise AssertionError(
+                        'gather mirror %s k=%d %s %s: bit for bit %s, '
+                        'repeat %s, %.3g of the twin' % (
+                            label, k, dirn, dt, equal,
+                            torch.equal(got, again), err))
+                errs['k=%d %s' % (k, dirn)] = err
+        log('kernel gather 16-bit mirror ' + label, dtype=str(dt),
+            nnz=int(X.values().numel()), columns_cut_between_warps=cut,
+            bitwise_mirror=True, bitwise_repeat=True, rel_err=errs)
 
 
 def run_16_bit_fits(dev, dk, mk, sk, nmf, Est, counts, ratings, dt):
@@ -3246,18 +3379,29 @@ def run_16_bit_fits(dev, dk, mk, sk, nmf, Est, counts, ratings, dt):
                   **FAST_TM)
         sync(dev)
         obj = res['obj_history']
-        if sk.LAUNCHES[mode] - b0 != 2 * SPARSE_SWEEPS_16:
-            raise AssertionError('sparse %s %s: %d launches' % (
-                mode, name, sk.LAUNCHES[mode] - b0))
+        # the same fit continued, no objective a sweep
+        res2 = nmf(Xs, k, sparse=mode, dtype=dt, W_in=res['W'],
+                   T_in=res['T'], max_iter=SPARSE_PLAIN_SWEEPS_16,
+                   random_state=0, eps_stop=0.0, **FAST_TM)
+        sync(dev)
+        got = sk.LAUNCHES[mode] - b0
+        if got != 2 * (SPARSE_SWEEPS_16 + SPARSE_PLAIN_SWEEPS_16) or not (
+                bool(torch.isfinite(res2['W']).all())
+                and res2['W'].dtype == dt):
+            raise AssertionError('sparse %s %s: %d launches, %s factors'
+                                 % (mode, name, got, res2['W'].dtype))
         non_increasing_16(obj, 'sparse %s %s' % (mode, name))
         line["sparse='%s' %dx%d %g k=%d" % (mode, n, d, dens, k)] = dict(
             obj_first=obj[0], obj_last=obj[-1],
             ms_per_sweep_with_objective=float(np.median(np.diff(
-                res['iter_cputime']))) * 1e3)
+                res['iter_cputime']))) * 1e3,
+            ms_per_sweep=_sweep_ms(res2))
+        del res, res2
     del Xs
     log('16-bit fits %s' % name, sweeps=SWEEPS_16,
         masked_sweeps=MASKED_SWEEPS_16, sparse_sweeps=SPARSE_SWEEPS_16,
-        slack=OBJ_SLACK_16, **line)
+        sparse_plain_sweeps=SPARSE_PLAIN_SWEEPS_16, slack=OBJ_SLACK_16,
+        **line)
 
 
 def run(dev):

@@ -52,15 +52,24 @@
 //
 // 16-bit factors (bfloat16, float16; JAX's narrow MXU dots): F^T's rows
 // and the values are stored in 16 bits, read as 16-byte pieces of 8
-// values, widened, multiplied exactly in float32 and summed in float32 in
-// the same order; the output is float32 (storage.cuh).
+// values, multiplied exactly in float32 and summed in float32 in the same
+// order; the output is float32 (storage.cuh). A lane keeps its pieces
+// packed (a uint4, 4 registers for 8 values) until the FMAs, which widen
+// them in pairs (Piece<S, true>). SG_U16 = 4 pieces in flight a lane (64
+// bytes) take 60-62 registers: 4 blocks (32 warps, 64 KB of rows in
+// flight) an SM, where float32 holds 3 (73 registers, 8 pieces, 128 bytes
+// a lane, 96 KB an SM).
 //
 // What bounds it on the H100: each nonzero reads one k-row of F^T (512 bytes
-// at k = 128 in float32), nnz k sizeof(T) bytes gathered from L2 (F^T, 25.6
+// at k = 128 in float32), nnz k sizeof(S) bytes gathered from L2 (F^T, 25.6
 // MB for W at n = 50,000, stays in the 50 MB L2), plus 8 bytes of (g, v) per
 // nonzero streamed from device memory. The DRAM bound (each byte once) is far
-// below the L2 gather: the rate the L2 serves scattered 512-byte rows sets
-// the time, as it does for torch.sparse.mm of the CSR X.
+// below the L2 gather: the rate the L2 serves scattered rows sets the time,
+// as it does for torch.sparse.mm of the CSR X. The 16-bit builds gather half
+// the bytes (1.92 GB at 7.48M nonzeros, k = 128): at the float32 build's
+// measured ~6.9 TB/s that is a 0.28 ms floor (PERF.md). Tensor cores are no
+// lever: the 2 nnz k flop (1.9 GFLOP) take ~0.03 ms on the FMA pipes, a
+// tenth of the gather, and an mma would still need every row gathered first.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,6 +79,9 @@
 #define SG_NC 16       // output columns per block
 #define SG_WARPS 8     // warps per block
 #define SG_U 8         // row loads in flight per lane
+#ifndef SG_U16
+#define SG_U16 4       // row loads in flight per lane, 16-bit builds
+#endif
 
 #define FULL_MASK 0xffffffffu
 
@@ -88,17 +100,47 @@ __device__ __forceinline__ void load16(const double* p, double (&r)[2]) {
   r[1] = v.y;
 }
 
-// eight 16-bit values, widened
+// A 16-byte piece of a row of F^T as a lane holds it from its load to its
+// FMAs, and U, the pieces a lane has in flight: float and double widened
+// as loaded, SG_U deep; the 16-bit types packed until the FMAs, which
+// widen them in pairs, SG_U16 deep.
+template <typename S, bool = Storage<S>::narrow>
+struct Piece;
+
 template <typename S>
-__device__ __forceinline__ void load16(const S* p, float (&r)[8]) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  const unsigned int u[4] = {v.x, v.y, v.z, v.w};
+struct Piece<S, false> {
+  static constexpr int U = SG_U;
+  static constexpr int V = 16 / sizeof(S);
+  S r[V];
+  __device__ __forceinline__ void load(const S* p) { load16(p, r); }
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    r[2 * i] = Storage<S>::bits((unsigned short)(u[i] & 0xffffu));
-    r[2 * i + 1] = Storage<S>::bits((unsigned short)(u[i] >> 16));
+    for (int i = 0; i < V; ++i) r[i] = (S)0;
   }
-}
+  __device__ __forceinline__ void fma_into(S w, S (&acc)[V]) const {
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = fma(w, r[i], acc[i]);
+  }
+};
+
+template <typename S>
+struct Piece<S, true> {
+  static constexpr int U = SG_U16;
+  uint4 r;
+  __device__ __forceinline__ void load(const S* p) {
+    r = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void zero() { r = make_uint4(0, 0, 0, 0); }
+  __device__ __forceinline__ void fma_into(float w, float (&acc)[8]) const {
+    const unsigned int h[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = Storage<S>::load2(h[i]);
+      acc[2 * i] = fma(w, f.x, acc[2 * i]);
+      acc[2 * i + 1] = fma(w, f.y, acc[2 * i + 1]);
+    }
+  }
+};
 
 // one value of the nonzeros, streamed past the caches
 __device__ __forceinline__ float load_val(const float* p) {
@@ -123,7 +165,7 @@ __device__ __forceinline__ void run_sum(const S* __restrict__ Ft, long ldf,
                                         const S* __restrict__ vals, int s,
                                         int e, int col, bool on,
                                         T (&acc)[16 / sizeof(S)]) {
-  constexpr int V = 16 / sizeof(S);
+  typedef Piece<S> P;
   constexpr int G = 32 / L;
   const int lane = threadIdx.x & 31;
   const int grp = lane / L;
@@ -141,27 +183,23 @@ __device__ __forceinline__ void run_sum(const S* __restrict__ Ft, long ldf,
       gi = __ldcs(gidx + base + 32 + lane);
       vi = load_val(vals + base + 32 + lane);
     }
-    for (int j0 = 0; j0 < n; j0 += G * SG_U) {
-      T r[SG_U][V];
-      T w[SG_U];
+    for (int j0 = 0; j0 < n; j0 += G * P::U) {
+      P r[P::U];
+      T w[P::U];
 #pragma unroll
-      for (int u = 0; u < SG_U; ++u) {
+      for (int u = 0; u < P::U; ++u) {
         const int j = j0 + u * G + grp;
         const int g = __shfl_sync(FULL_MASK, g_cur, j & 31);
         const T v = __shfl_sync(FULL_MASK, v_cur, j & 31);
         w[u] = j < n ? v : (T)0;
         if (j < n && on) {
-          load16(Ft + (long)g * ldf + col, r[u]);
+          r[u].load(Ft + (long)g * ldf + col);
         } else {
-#pragma unroll
-          for (int i = 0; i < V; ++i) r[u][i] = (T)0;
+          r[u].zero();
         }
       }
 #pragma unroll
-      for (int u = 0; u < SG_U; ++u) {
-#pragma unroll
-        for (int i = 0; i < V; ++i) acc[i] = fma(w[u], r[u][i], acc[i]);
-      }
+      for (int u = 0; u < P::U; ++u) r[u].fma_into(w[u], acc);
     }
   }
 }

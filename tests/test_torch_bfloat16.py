@@ -13,7 +13,9 @@
   dtype), ``nmf()`` with HER against JAX's at 1e-8, the auto-densified
   sparse X and the refusal in the sparse modes.
 - ``cuda``-marked: each kernel's 16-bit build against its twin, in
-  bfloat16 and float16, repeated bit for bit (skipped without a card).
+  bfloat16 and float16, repeated bit for bit (skipped without a card);
+  the gather kernel's also bit for bit the float32 NumPy mirror of its
+  decomposition (``ops/sparse_mirror.kernel_mirror``).
 """
 
 import jax
@@ -32,6 +34,7 @@ from rri_nmf_tpu_torch.nmf import nmf
 from rri_nmf_tpu_torch.ops import dense_kernels as dk
 from rri_nmf_tpu_torch.ops import masked_kernels as mk
 from rri_nmf_tpu_torch.ops import sparse_kernels as sk
+from rri_nmf_tpu_torch.ops import sparse_mirror
 from rri_nmf_tpu_torch.ops import sparse_plan as spl
 from rri_nmf_tpu_torch.ops.sweep import SweepConfig, make_objective
 
@@ -566,14 +569,31 @@ def test_cuda_16_bit_kernels_match_twins(cuda_device, dt):
             assert a.dtype == torch.float32
             assert float((a - b).abs().max()) <= 1e-4 * float(
                 b.abs().max())
-    X = sps.random(700, 500, density=0.03, random_state=4, format='csr')
-    plan = spl.plan_sparse_matrix(X, dt, device=dev)
-    W = torch.as_tensor(np.random.RandomState(5).rand(700, 24),
-                        device=dev).to(dt)
-    got = sk.contract_wtx(plan, W)
-    assert got.dtype == torch.float32
-    assert torch.equal(got, sk.contract_wtx(plan, W))
-    want = sk.gather_contract_ref(spl.column_layout(plan.t_phase), W, 24,
-                                  plan.d)
-    assert float((got - want).abs().max()) <= 1e-5 * float(
-        want.abs().max())
+    # the gather kernel: ragged k (rows padded to 16 bytes), k past one
+    # slice (200), both directions, a random matrix and Zipf word columns
+    # cut between warps; its sums follow the float32 mirror of its
+    # decomposition bit for bit
+    from test_torch_sparse_layout import MATRICES
+    c = sparse_mirror.kernel_constants()
+    rng = np.random.RandomState(5)
+    for X in (sps.random(700, 500, density=0.03, random_state=4,
+                         format='csr'), MATRICES['zipf']()):
+        plan = spl.plan_sparse_matrix(X, dt, device=dev)
+        for k in (24, 50, 128, 200):
+            W = torch.as_tensor(rng.rand(X.shape[0], k), device=dev).to(dt)
+            T = torch.as_tensor(rng.rand(k, X.shape[1]), device=dev).to(dt)
+            for call, dirn, Ft, ncols in (
+                    (lambda: sk.contract_wtx(plan, W), 't_phase', W, plan.d),
+                    (lambda: sk.contract_xtt(plan, T), 'w_phase', T.T,
+                     plan.n)):
+                got = call()
+                assert got.dtype == torch.float32
+                assert torch.equal(got, call())
+                lay = spl.column_layout(getattr(plan, dirn))
+                want = sk.gather_contract_ref(lay, Ft, k, ncols)
+                assert float((got - want).abs().max()) <= 1e-5 * float(
+                    want.abs().max())
+                mirror = sparse_mirror.kernel_mirror(
+                    lay, Ft, k, ncols, c['SG_NC'], c['SG_WARPS'],
+                    sparse_mirror.slice_groups(k, 2), np.float32)
+                assert np.array_equal(got.cpu().numpy(), mirror)

@@ -10,18 +10,17 @@ plain twin, against the plan-walking twins of B5 and B6.
   1e-12, at k = 16, 50 (in float32 a 200-byte row, which the kernel pads
   to 16 bytes) and 128, ragged shapes, duplicates, an empty 128-column
   band and a Zipf corpus (a few long columns).
-- A NumPy mirror of ``csrc/sparse.cu``'s decomposition (blocks of
-  ``SG_NC`` columns, ``SG_WARPS`` equal runs of nonzeros, pieces of cut
-  columns added in warp order, 32/L interleaved partial sums), read
-  from the source's constants, against the twin: the kernel's index
-  logic, which only the card can run.
+- The NumPy mirror of ``csrc/sparse.cu``'s decomposition
+  (``ops/sparse_mirror``: blocks of ``SG_NC`` columns, ``SG_WARPS`` equal
+  runs of nonzeros, pieces of cut columns added in warp order, 32/L
+  interleaved partial sums), read from the source's constants, against
+  the twin: the kernel's index logic, which only the card can run; also
+  the 16-bit builds' in float32 on 16-bit rows, and a wrong piece rule
+  caught.
 - ``_rows`` (W itself when its rows are 16-byte multiples).
 
-float64 on the CPU.
+float64 on the CPU but for the 16-bit mirror.
 """
-
-import re
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -30,13 +29,14 @@ import torch
 
 from rri_nmf_tpu_torch.ops import sparse_kernels as sk
 from rri_nmf_tpu_torch.ops import sparse_plan as spl
+from rri_nmf_tpu_torch.ops.sparse_mirror import (kernel_constants,
+                                                 kernel_mirror, slice_groups)
 
 torch.set_num_threads(2)
 # float64, relative to the largest entry of the wanted product (the Zipf
 # columns sum hundreds of terms into entries ~1e3): the two sides differ
 # only in summation order
 RTOL = 1e-12
-SOURCE = Path(sk.__file__).resolve().parent.parent / 'csrc' / 'sparse.cu'
 
 
 def _matrix(n, d, dens, seed, dup=False, empty_band=None):
@@ -247,97 +247,85 @@ def test_zipf_columns_are_skewed():
 # the kernel's decomposition, mirrored in NumPy
 # ---------------------------------------------------------------------------
 
-def _kernel_constants():
-    text = SOURCE.read_text()
-    return {name: int(re.search(r'#define %s (\d+)' % name, text).group(1))
-            for name in ('SG_NC', 'SG_WARPS')}
+# the decompositions held (the ids pytest gave the float64 cases before
+# the 16-bit ones joined): float64 rows at k=6 in the source's blocks and
+# in others, with 1, 2 or 8 groups; the 16-bit builds' (the source's
+# blocks, 8 values a lane: ``slice_groups(k, 2)`` groups) at k = 24, 50,
+# 128 and 200
+DECOMPOSITIONS = {
+    '%s-%d' % (name, groups): (torch.float64, 6, blocks, groups)
+    for name, blocks in (('source', 'source'), ('blocks1', (4, 3)),
+                         ('blocks2', (5, 8)))
+    for groups in (1, 2, 8)}
+DECOMPOSITIONS.update({
+    '%s-k%d' % (str(dt)[6:], k): (dt, k, 'source', None)
+    for dt in (torch.bfloat16, torch.float16) for k in (24, 50, 128, 200)})
 
 
-def _xor_tree(acc):
-    """The groups' partial sums combined as the kernel's shuffle tree:
-    at each level, group g adds the partial of group g ^ off."""
-    acc = acc.copy()
-    off = 1
-    while off < acc.shape[0]:
-        acc = acc + acc[np.arange(acc.shape[0]) ^ off]
-        off <<= 1
-    return acc[0]
+def _gamma_bound(lay, exact, ncols):
+    """Per entry, the float32 error bound of summing its column's m
+    nonnegative terms in any order: γ_m·(their sum), γ_m = m·u/(1 - m·u),
+    u = 2⁻²⁴ (the products of 16-bit values are exact in float32)."""
+    m = np.diff(lay.colptr.numpy())[:ncols].astype(np.float64)
+    u = 2.0 ** -24
+    return (m * u / (1 - m * u))[None, :] * np.abs(exact)
 
 
-def kernel_mirror(lay, Ft, k, ncols, nc, nw, groups):
-    """``csrc/sparse.cu`` ``gather_kernel``'s arithmetic in NumPy: blocks
-    of ``nc`` columns, ``nw`` equal runs of nonzeros per block, ``groups``
-    (32 / L) interleaved partial sums per run piece, pieces of a cut
-    column added in warp order, empty columns 0. Unwritten outputs stay
-    NaN."""
-    colptr, gidx = lay.colptr.numpy(), lay.gidx.numpy()
-    vals, F = lay.vals.numpy(), Ft.numpy()[:, :k]
-    out = np.full((k, ncols), np.nan)
-    for c0 in range(0, ncols, nc):
-        cn = min(nc, ncols - c0)
-        cp = colptr[c0:c0 + cn + 1]
-        lo, hi = int(cp[0]), int(cp[cn])
-        q = -(-(hi - lo) // nw)
-        tile = np.full((cn, k), np.nan)
-        piece = np.full((nw, 2, k), np.nan)
-        for w in range(nw):
-            a = min(hi, lo + w * q)
-            b = min(hi, a + q)
-            if a >= b:
-                continue
-            c = 0
-            while cp[c + 1] <= a:
-                c += 1
-            s = a
-            while s < b:
-                e = min(b, int(cp[c + 1]))
-                acc = np.zeros((groups, k))
-                for base in range(s, e, 32):
-                    for j in range(min(32, e - base)):
-                        i = base + j
-                        acc[j % groups] += vals[i] * F[gidx[i]]
-                total = _xor_tree(acc)
-                if cp[c] >= a and cp[c + 1] <= b:
-                    tile[c] = total
-                else:
-                    piece[w, 0 if cp[c] <= a else 1] = total
-                s = e
-                c += 1
-                while c < cn and cp[c + 1] <= s:
-                    c += 1
-        for c in range(cn):
-            s0, s1 = int(cp[c]), int(cp[c + 1])
-            if s0 == s1:
-                tile[c] = 0.0
-                continue
-            w0, w1 = (s0 - lo) // q, (s1 - 1 - lo) // q
-            if w0 == w1:
-                continue
-            total = piece[w0, 0 if lo + w0 * q == s0 else 1].copy()
-            for w in range(w0 + 1, w1 + 1):
-                total += piece[w, 0]
-            tile[c] = total
-        out[:, c0:c0 + cn] = tile.T
-    return out
-
-
-@pytest.mark.parametrize('groups', [1, 2, 8])
-@pytest.mark.parametrize('blocks', ['source', (4, 3), (5, 8)])
+@pytest.mark.parametrize('setup', list(DECOMPOSITIONS.values()),
+                         ids=list(DECOMPOSITIONS))
 @pytest.mark.parametrize('case', ['duplicates and empty band', 'zipf',
                                   'dense tiles'])
-def test_kernel_decomposition_matches_twin(case, blocks, groups):
-    nc, nw = ((_kernel_constants()['SG_NC'], _kernel_constants()['SG_WARPS'])
-              if blocks == 'source' else blocks)
+def test_kernel_decomposition_matches_twin(case, setup):
+    """The mirror against the twin: in float64 within 1e-12 of it; in 16
+    bits (16-bit factor rows and values, float32 arithmetic) the mirror
+    and the twin each within the float32 bound of the exact product, and
+    within twice that of each other."""
+    dt, k, blocks, groups = setup
+    c = kernel_constants()
+    nc, nw = (c['SG_NC'], c['SG_WARPS']) if blocks == 'source' else blocks
     X = MATRICES[case]()
-    k = 6
-    W = torch.as_tensor(np.random.RandomState(4).rand(X.shape[0], k))
-    plan = _plans(X)['dma']
-    lay = spl.column_layout(plan.t_phase)
+    W = torch.as_tensor(np.random.RandomState(4).rand(X.shape[0], k)).to(dt)
+    if dt == torch.float64:
+        lay = spl.column_layout(_plans(X)['dma'].t_phase)
+    else:
+        lay = spl.column_layout(spl.plan_sparse_matrix_dma(
+            X, dt, device='cpu').t_phase)
+        groups = slice_groups(k, W.element_size())
     for ncols in (lay.n_cols, X.shape[1]):
-        got = kernel_mirror(lay, W, k, ncols, nc, nw, groups)
-        want = sk.gather_contract_ref(lay, W, k, ncols).numpy()
+        got = kernel_mirror(lay, W, k, ncols, nc, nw, groups,
+                            np.float64 if dt == torch.float64 else np.float32)
+        want = sk.gather_contract_ref(lay, W, k, ncols)
         assert np.all(np.isfinite(got))
-        assert _close(got, want)
+        if dt == torch.float64:
+            assert _close(got, want.numpy())
+            continue
+        assert got.dtype == np.float32 and want.dtype == torch.float32
+        exact = sk.gather_contract_ref(lay, W.double(), k, ncols,
+                                       vals=lay.vals.double()).numpy()
+        tol = _gamma_bound(lay, exact, ncols)
+        assert np.all(np.abs(got - exact) <= tol)
+        assert np.all(np.abs(want.numpy() - exact) <= tol)
+        assert np.all(np.abs(got - want.numpy()) <= 2 * tol)
+
+
+@pytest.mark.parametrize('dtype', [np.float64, np.float32])
+def test_kernel_mirror_fails_on_a_wrong_piece_rule(dtype):
+    """The Zipf columns are cut between warps, so a mirror whose cut
+    columns start from the wrong piece does not match the twin."""
+    c = kernel_constants()
+    X = MATRICES['zipf']()
+    tdt = torch.float64 if dtype == np.float64 else torch.bfloat16
+    W = torch.as_tensor(np.random.RandomState(4).rand(X.shape[0], 6)).to(tdt)
+    lay = spl.column_layout(spl.plan_sparse_matrix_dma(
+        X, tdt, device='cpu').t_phase)
+    groups = slice_groups(6, W.element_size())
+    want = sk.gather_contract_ref(lay, W, 6, lay.n_cols).double().numpy()
+    right = kernel_mirror(lay, W, 6, lay.n_cols, c['SG_NC'], c['SG_WARPS'],
+                          groups, dtype)
+    wrong = kernel_mirror(lay, W, 6, lay.n_cols, c['SG_NC'], c['SG_WARPS'],
+                          groups, dtype, wrong_pieces=True)
+    assert np.allclose(right, want, rtol=1e-5, atol=0)
+    assert not np.allclose(wrong, want, rtol=1e-5, atol=0)
 
 
 # ---------------------------------------------------------------------------
