@@ -126,6 +126,7 @@ from rri_nmf_tpu_torch.parallel.sharded_masked import (
 from rri_nmf_tpu_torch.parallel.sparse_mesh import (
     make_sharded_mxu_sweep, make_sharded_sparse_objective,
     make_sharded_sparse_sweep, partition_coo, partition_mxu)
+from rri_nmf_tpu_torch.utils.profiling import span, spanned, stage
 
 # logger levels follow the reference convention (nmf.py:36-48):
 # INFO — per-iteration summaries; DEBUG — objective deltas (forces
@@ -362,6 +363,7 @@ class TrueObjComputer(object):
         return self.obj
 
 
+@spanned('rri.nmf')
 def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         random_state=None, init='nndsvd', T_in=[], W_in=[], max_iter=200,
         max_time=600, eps_stop=1e-4, compute_obj_each_iter=False,
@@ -558,7 +560,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     ``'obj_calculator'`` with ``compute_obj_each_iter``, ``'diagnostics'``
     when given, ``'numer_W'``/``'denom_W'`` with ``store_gradients``,
     ``'iter_cputime'``, ``'random_state'`` and ``'n_resets_remaining'``.
+
+    Under a profiler the call is an ``rri.nmf`` span whose stages follow
+    one another (:mod:`rri_nmf_tpu_torch.utils.profiling`).
     """
+    stage('rri.nmf.input')
     rtv = {}
     if not (isinstance(k, numbers.Integral)
             or (isinstance(k, numbers.Real) and float(k).is_integer())) \
@@ -1001,6 +1007,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     if n <= k:
         init = 'random'
 
+    stage('rri.nmf.init', device)
     start_time = time.perf_counter()
     X_init, Wm_init = X, Wm
     fresh = _size(W_in) == 0 or _size(T_in) == 0
@@ -1029,6 +1036,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             project_W_each_iter=project_W_each_iter, w_row_sum=w_row_sum,
             t_row_sum=t_row_sum, fix_W=fix_W, fix_T=fix_T, n=n, d=d,
             device=device, dtype=dtype, mesh=mesh)
+    stage('rri.nmf.plan', device)
 
     # ---- the mesh: this rank's blocks (parallel/mesh.py); the whole
     # factors come back at the end of the fit
@@ -1428,17 +1436,19 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                                  or debug_checks)
 
     # ---- outer iteration loop (reference nmf.py:377-514) ------------------
+    stage(None, device)
     for iter_no in range(start_iter, max_iter):
         logger.info('Iteration %d', iter_no)
 
         if _es_active:
-            if callable(early_stop):
-                this_score = float(early_stop(_x(X_cb), _whole_w(W),
-                                              _whole_t(T)))
-            elif compute_obj_each_iter and len(obj_history) > 0:
-                this_score = obj_history[-1]
-            else:
-                this_score = np.inf
+            with span('rri.nmf.score'):
+                if callable(early_stop):
+                    this_score = float(early_stop(_x(X_cb), _whole_w(W),
+                                                  _whole_t(T)))
+                elif compute_obj_each_iter and len(obj_history) > 0:
+                    this_score = obj_history[-1]
+                else:
+                    this_score = np.inf
             logger.info('Iter %d stopping score %.3f', iter_no, this_score)
             if this_score > last_score:  # STOP EARLY (nmf.py:391-403)
                 logger.info('Stopping early at iter %d', iter_no)
@@ -1453,6 +1463,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             last_score = this_score
             W_prev, T_prev = W, T
 
+        stage('rri.nmf.sweep')
         it_start_time = time.time()
         _md = None
         if OBJ is not None and logger.getEffectiveLevel() <= logging.DEBUG:
@@ -1487,12 +1498,14 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             iter_cputime.extend([time.perf_counter()] * pending)
         elif compute_obj_each_iter:
             OBJ.W, OBJ.T = W, T
-            obj_history.append(OBJ.true_objective())
+            with span('rri.nmf.score'):
+                obj_history.append(OBJ.true_objective())
             logger.info('\tObj: %3.3e', obj_history[-1])
             iter_cputime.append(time.perf_counter())
         else:
             _sync(device)   # keep the host clock honest
             iter_cputime.append(time.perf_counter())
+        stage()
 
         for func in diagnostics:
             dval = func(_x(X_cb), _whole_w(W), _whole_t(T))
@@ -1518,6 +1531,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
             logger.info('STOPPING because obj_history after iter %d', iter_no)
             break
 
+    stage('rri.nmf.finish')
     iter_cputime = [x - start_time for x in iter_cputime]
 
     # ---- HER: the lowest-objective accepted iterate (reference
@@ -1565,6 +1579,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
     rtv['random_state'] = random_state
     if ckpt is not None and ckpt_owned:
         ckpt.close()
+    stage(None, device)
     return rtv
 
 

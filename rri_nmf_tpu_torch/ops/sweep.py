@@ -69,6 +69,7 @@ from rri_nmf_tpu_torch.optimization import (qf_min_scalar_c,
                                             qf_min_scalar_free,
                                             qf_min_vector_c,
                                             qf_min_vector_c_sharded)
+from rri_nmf_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -562,12 +563,13 @@ class Sweep(object):
             if self._seen != key:
                 self._seen = key
                 return self.speculate(X, W, T, draws, resets_left, *extras)
-            W_in = W.clone(memory_format=torch.contiguous_format)
-            T_in = T.clone(memory_format=torch.contiguous_format)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                out, dead = self.speculate(X, W_in, T_in, draws,
-                                           resets_left, *extras)
+            with span('rri.sweep.capture'):
+                W_in = W.clone(memory_format=torch.contiguous_format)
+                T_in = T.clone(memory_format=torch.contiguous_format)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    out, dead = self.speculate(X, W_in, T_in, draws,
+                                               resets_left, *extras)
             self._graph = (key, graph, W_in, T_in, out[0], out[1], dead)
         _, graph, W_in, T_in, W_out, T_out, dead = self._graph
         W_in.copy_(W)

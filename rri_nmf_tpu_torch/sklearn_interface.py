@@ -44,6 +44,7 @@ from rri_nmf_tpu_torch.matrixops import (as_tensor, default_float,
 from rri_nmf_tpu_torch.nmf import nmf
 from rri_nmf_tpu_torch.ops.sweep_masked_sparse import host_sparse
 from rri_nmf_tpu_torch.ops.sweep_sparse import sparse_cross_term
+from rri_nmf_tpu_torch.utils.profiling import span
 
 # nmf() kwargs dropped from the TRANSFORM presets (fixed-T sweeps over new
 # data) so one nmf_kwargs dict serves fit and transform; see
@@ -231,23 +232,28 @@ class NMF_TM_Estimator(_Estimator):
 
     def fit_transform(self, X, y=None):
         """Fit on an (n, d) matrix; returns W (reference
-        ``sklearn_interface.py:247-282``). A sparse X stays sparse."""
-        if is_sparse(X):
-            vals = (X.data if not isinstance(X, torch.Tensor) else
-                    X.values() if X.layout == torch.sparse_csr
-                    else X._values())
-            negative = bool((vals < 0).any())
-        else:
-            X = as_tensor(X, device=fit_device(X, self.device))
-            negative = bool((X < 0).any())
-        if negative:
-            raise ValueError('X must be non-negative')
-        preset = self._fit_preset(self.max_iter, 7200)
-        soln = nmf(self._preprocess(X), self.k,
-                   **_merged(preset, self.nmf_kwargs))
-        self.W = soln.pop('W')
-        self.T = soln.pop('T')
-        self.nmf_outputs = soln
+        ``sklearn_interface.py:247-282``). A sparse X stays sparse. Under
+        a profiler the fit is an ``rri.fit`` span, its work before
+        :func:`nmf` ``rri.fit.prepare``."""
+        device = fit_device(X, self.device)
+        with span('rri.fit'):
+            with span('rri.fit.prepare', device):
+                if is_sparse(X):
+                    vals = (X.data if not isinstance(X, torch.Tensor) else
+                            X.values() if X.layout == torch.sparse_csr
+                            else X._values())
+                    negative = bool((vals < 0).any())
+                else:
+                    X = as_tensor(X, device=device)
+                    negative = bool((X < 0).any())
+                if negative:
+                    raise ValueError('X must be non-negative')
+                preset = self._fit_preset(self.max_iter, 7200)
+                X = self._preprocess(X)
+            soln = nmf(X, self.k, **_merged(preset, self.nmf_kwargs))
+            self.W = soln.pop('W')
+            self.T = soln.pop('T')
+            self.nmf_outputs = soln
         return self.W
 
     def one_iter(self, X):
@@ -495,7 +501,34 @@ class NMF_RS_Estimator(_Estimator):
         fit's device, stops the fit when it rises. With ``sparse_obs``
         resolved True the observed set is scipy CSR (:meth:`_coo_matrices`)
         and no (n, d) array exists, on the host or the device."""
-        X, y = _check_pairs(X, y, fit_device(X, self.device))
+        device = fit_device(X, self.device)
+        with span('rri.fit'):
+            with span('rri.fit.prepare', device):
+                device, Xtr, W_mat_tr = self._prepare(X, y, device)
+            soln = nmf(Xtr, self.k, **_merged(
+                dict(max_iter=self.max_iter, max_time=7200,
+                     compute_obj_each_iter=True, reset_topic_method=None,
+                     early_stop=self.early_stop, project_T_each_iter=False,
+                     t_row_sum=1.0, project_W_each_iter=False,
+                     w_row_sum=None, W_mat=W_mat_tr, device=device,
+                     dtype=default_float(device),
+                     W_in=self.W if _size(self.W) > 0 else [],
+                     T_in=self.T if _size(self.T) > 0 else [],
+                     reg_w_l1=self.wr1, reg_t_l1=self.tr1,
+                     random_state=self.random_state),
+                self.nmf_kwargs))
+            self.W = soln.pop('W')
+            self.T = soln.pop('T')
+            self.Xpred = np.array([])
+            self.nmf_outputs = soln
+        return self
+
+    def _prepare(self, X, y, device):
+        """:meth:`fit`'s work before :func:`nmf`: the pairs checked, the
+        rating range, the held-out split and its scorer
+        (``self.early_stop``); returns the pairs' device and the training
+        ratings with their mask."""
+        X, y = _check_pairs(X, y, device)
         masks = self._coo_matrices if self._use_sparse_obs() \
             else self._dense_mask
         device = X.device
@@ -503,45 +536,27 @@ class NMF_RS_Estimator(_Estimator):
         self.min_rating = float(y.min())
         self.max_rating = float(y.max())
 
-        if self.use_validation_early_stopping:
-            tr, te = (torch.as_tensor(i, device=device)
-                      for i in train_test_split_indices(X.shape[0]))
-            UItr, UIval, Rtr, Rval = X[tr], X[te], y[tr], y[te]
-            Xtr, W_mat_tr = masks(UItr[:, 0], UItr[:, 1], Rtr)
-            # gather-based validation RMSE, O(q·k) per check; zero ratings
-            # are dropped, as the reference's Xv.nonzero() does
-            vnz = Rval != 0
-            Iv = UIval[vnz, 0].long()
-            Jv = UIval[vnz, 1].long()
-            Rv = Rval[vnz].to(dtype)
-            lo, hi = self.min_rating, self.max_rating
-
-            def RMSE_val(X_ignored, W, T):
-                pred = (W[Iv] * T[:, Jv].T).sum(1).clamp(lo, hi)
-                return float(torch.sqrt(((pred - Rv.to(pred.dtype)) ** 2)
-                                        .mean()))
-
-            self.early_stop = RMSE_val
-        else:
+        if not self.use_validation_early_stopping:
             self.early_stop = False
-            Xtr, W_mat_tr = masks(X[:, 0], X[:, 1], y)
+            return (device,) + masks(X[:, 0], X[:, 1], y)
+        tr, te = (torch.as_tensor(i, device=device)
+                  for i in train_test_split_indices(X.shape[0]))
+        UItr, UIval, Rtr, Rval = X[tr], X[te], y[tr], y[te]
+        # gather-based validation RMSE, O(q·k) per check; zero ratings
+        # are dropped, as the reference's Xv.nonzero() does
+        vnz = Rval != 0
+        Iv = UIval[vnz, 0].long()
+        Jv = UIval[vnz, 1].long()
+        Rv = Rval[vnz].to(dtype)
+        lo, hi = self.min_rating, self.max_rating
 
-        soln = nmf(Xtr, self.k, **_merged(
-            dict(max_iter=self.max_iter, max_time=7200,
-                 compute_obj_each_iter=True, reset_topic_method=None,
-                 early_stop=self.early_stop, project_T_each_iter=False,
-                 t_row_sum=1.0, project_W_each_iter=False, w_row_sum=None,
-                 W_mat=W_mat_tr, device=device, dtype=dtype,
-                 W_in=self.W if _size(self.W) > 0 else [],
-                 T_in=self.T if _size(self.T) > 0 else [],
-                 reg_w_l1=self.wr1, reg_t_l1=self.tr1,
-                 random_state=self.random_state),
-            self.nmf_kwargs))
-        self.W = soln.pop('W')
-        self.T = soln.pop('T')
-        self.Xpred = np.array([])
-        self.nmf_outputs = soln
-        return self
+        def RMSE_val(X_ignored, W, T):
+            pred = (W[Iv] * T[:, Jv].T).sum(1).clamp(lo, hi)
+            return float(torch.sqrt(((pred - Rv.to(pred.dtype)) ** 2)
+                                    .mean()))
+
+        self.early_stop = RMSE_val
+        return (device,) + masks(UItr[:, 0], UItr[:, 1], Rtr)
 
     def fit_from_Xtr(self, Xtr):
         """Fit from a ratings matrix: its nonzeros, in row-major order,

@@ -1,23 +1,29 @@
-"""Tracing and timing hooks (counterpart of
-:mod:`rri_nmf_tpu.utils.profiling`).
+"""Tracing hooks (counterpart of :mod:`rri_nmf_tpu.utils.profiling`).
 
 - :func:`trace` — a context manager around ``torch.profiler`` that
   records host and device activity of a region and exports it as a
-  Chrome trace (open it in Perfetto or ``chrome://tracing``);
-- :class:`TraceAnnotation` — a named region inside a trace
-  (``torch.profiler.record_function``);
-- :class:`SweepTimer` — a host-side per-iteration timer shaped like the
-  reference's ``iter_cputime``, which synchronizes the device of the
-  tensors it is given before it reads the clock (kernel launches return
-  before the kernels finish).
+  Chrome trace (open it in Perfetto or ``chrome://tracing``); its
+  docstring lists the ``rri.*`` spans a fit records;
+- :func:`span` — a named region on the profiler's timeline
+  (``torch.profiler.record_function``) while a profiler records, and a
+  shared null context otherwise, so the spans a fit opens cost a flag
+  check when no profiler runs;
+- :func:`spanned` and :func:`stage` — a function call as a span, and the
+  consecutive stage spans inside it, each opening where the last closed.
 """
 
 import contextlib
+import functools
 import os
-import time
+import threading
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
+
+# what span() returns while no profiler records: one object for every call
+_OFF = contextlib.nullcontext()
+# the stage span open in this thread's innermost spanned() call
+_stages = threading.local()
 
 
 @contextlib.contextmanager
@@ -25,7 +31,32 @@ def trace(logdir):
     """Profile a region: ``with trace('prof'): run_sweeps()`` writes
     ``prof/trace.json`` (a Chrome trace) and yields the
     ``torch.profiler.profile`` object, whose ``key_averages()`` tabulate
-    the region. The card's activity is recorded when CUDA is available."""
+    the region. The card's activity is recorded when CUDA is available.
+
+    A fit inside the region records its stages as spans, on the same
+    clock as the card's kernels:
+
+    - ``rri.fit`` — ``NMF_TM_Estimator.fit_transform`` (and ``fit``),
+      ``NMF_RS_Estimator.fit``: the whole estimator fit; inside it
+    - ``rri.fit.prepare`` — the estimator's work before ``nmf()``: input
+      checks, the recommender's held-out split and its mask, TF-IDF and
+      normalization;
+    - ``rri.nmf`` — one :func:`rri_nmf_tpu_torch.nmf.nmf` call, whose
+      stages follow one another: ``rri.nmf.input`` (the arguments, X
+      densified or planned and copied to the device), ``rri.nmf.init``
+      (the initialization), ``rri.nmf.plan`` (the sparse-mask plan, the
+      sweep and the objective set up), one ``rri.nmf.sweep`` a sweep run
+      (kept, or rolled back by the early stop) with ``rri.nmf.score``
+      around the objective inside it, an ``rri.nmf.score`` at the top of
+      an iteration for the early-stop score, and ``rri.nmf.finish`` (the
+      final W projection; the row weights' W refit, whose ``nmf`` call
+      nests its own stages);
+    - ``rri.sweep.capture`` — inside a sweep, the CUDA graph capture of
+      the plain sweep (a fit's second sweep on the card).
+
+    ``rri.fit.prepare`` and ``nmf()``'s stages outside its loop wait for
+    the device's work before they close, so each ends when its device
+    work ended; a sweep span ends at the sweep's synchronized stamp."""
     os.makedirs(str(logdir), exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -37,33 +68,79 @@ def trace(logdir):
     prof.export_chrome_trace(os.path.join(str(logdir), 'trace.json'))
 
 
-class TraceAnnotation(record_function):
-    """Named region on the profiler timeline:
-    ``with TraceAnnotation('sweep3'):``"""
+def _recording():
+    """Whether a profiler records on this thread."""
+    return torch.autograd._profiler_enabled()
 
 
-class SweepTimer(object):
-    """Per-iteration wall-clock timer.
+class _Span(object):
+    """A ``record_function`` that, on a clean exit, waits for the work of
+    its CUDA ``device`` before it closes."""
 
-    Produces a list shaped like the reference's ``iter_cputime``
-    (cumulative seconds since construction, ``nmf.py:349,492,516``).
-    :meth:`mark` synchronizes the device of the tensors it receives before
-    it reads the clock; a bare ``mark()`` records the host clock as it is,
-    which after asynchronous launches measures dispatch, not execution."""
+    __slots__ = ('region', 'device')
 
-    def __init__(self):
-        self.start = time.perf_counter()
-        self.marks = []
+    def __init__(self, name, device=None):
+        self.region = record_function(name)
+        self.device = device
 
-    def mark(self, *sync_tensors):
-        """Record an iteration boundary, after waiting for the devices of
-        ``sync_tensors`` (CUDA tensors; CPU tensors need no wait)."""
-        for dev in {t.device for t in sync_tensors}:
-            if dev.type == 'cuda':
-                torch.cuda.synchronize(dev)
-        self.marks.append(time.perf_counter() - self.start)
-        return self.marks[-1]
+    def __enter__(self):
+        self.region.__enter__()
+        return self
 
-    def deltas(self):
-        prev = [0.0] + self.marks[:-1]
-        return [m - p for m, p in zip(self.marks, prev)]
+    def __exit__(self, *exc):
+        try:
+            if exc[0] is None and self.device is not None and \
+                    torch.device(self.device).type == 'cuda':
+                torch.cuda.synchronize(self.device)
+        finally:
+            self.region.__exit__(*exc)
+
+
+def span(name, device=None):
+    """``with span('rri.nmf.score'):`` — a region named ``name`` on the
+    profiler's timeline while a profiler records; otherwise one shared
+    null context, and nothing is built, dispatched or synchronized. With
+    a CUDA ``device`` the recorded span closes once that device's work is
+    done; give none inside a sweep or a CUDA graph capture, where a
+    synchronization is not allowed."""
+    if not _recording():
+        return _OFF
+    return _Span(name, device)
+
+
+def stage(name=None, device=None):
+    """Close the stage span open in the innermost :func:`spanned` call,
+    once the work of ``device`` is done, and open ``name`` in its place
+    (``None``: open none). Costs a flag check when no profiler records."""
+    if not _recording():
+        return
+    top = getattr(_stages, 'open', None)
+    _stages.open = None
+    if top is not None:
+        top.device = device
+        top.__exit__(None, None, None)
+    if name is not None:
+        _stages.open = _Span(name).__enter__()
+
+
+def spanned(name):
+    """Decorator: each call of the function runs inside ``span(name)``,
+    and a :func:`stage` it leaves open closes with it (without waiting on
+    a device). Stages of an outer call stay open around a nested one."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _recording():
+                return fn(*args, **kwargs)
+            outer = getattr(_stages, 'open', None)
+            _stages.open = None
+            try:
+                with _Span(name):
+                    try:
+                        return fn(*args, **kwargs)
+                    finally:
+                        stage()
+            finally:
+                _stages.open = outer
+        return call
+    return wrap

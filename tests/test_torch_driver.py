@@ -7,7 +7,10 @@ on the CPU in float64.
   default, with a vector ``w_row_sum``, with a sparse X (densified) and
   with the objective tracked (the fit's and the refit's history); unit
   row weights equal the unweighted fit (tests/test_consistency.py).
-- ``rri_nmf_tpu_torch.utils.profiling`` on the CPU.
+- ``rri_nmf_tpu_torch.utils.profiling`` on the CPU: the Chrome trace,
+  and the ``rri.*`` spans of estimator fits under the profiler (nested,
+  stages in order, one a sweep run), which cost nothing and change
+  nothing when no profiler records.
 - The leaf functions of ``optimization`` and ``matrixops`` against their
   JAX counterparts at 1e-12.
 """
@@ -24,6 +27,7 @@ from rri_nmf_tpu import optimization as jopt
 from rri_nmf_tpu.nmf import nmf as jax_nmf
 from rri_nmf_tpu_torch import matrixops as tmo
 from rri_nmf_tpu_torch import optimization as topt
+from rri_nmf_tpu_torch import sklearn_interface as tsk
 from rri_nmf_tpu_torch.nmf import nmf as torch_nmf
 from rri_nmf_tpu_torch.utils import profiling
 
@@ -116,28 +120,143 @@ def test_w_row_with_a_sparse_mask_raises_like_jax():
 def test_trace_writes_a_chrome_trace(tmp_path):
     X = torch.as_tensor(_problem())
     with profiling.trace(tmp_path / 'prof') as prof:
-        with profiling.TraceAnnotation('two sweeps'):
+        with profiling.span('two sweeps'):
             torch_nmf(X, 4, max_iter=2, update_order='phase',
                       reset_topic_method=None)
     events = json.loads((tmp_path / 'prof' / 'trace.json').read_text())
     names = {e.get('name') for e in events['traceEvents']}
-    assert 'two sweeps' in names
+    assert {'two sweeps', 'rri.nmf', 'rri.nmf.sweep'} <= names
     assert any(e.key == 'two sweeps' for e in prof.key_averages())
 
 
-def test_sweep_timer_marks_cumulative_seconds():
-    timer = profiling.SweepTimer()
-    x = torch.ones(3)
-    marks = [timer.mark(x), timer.mark(), timer.mark(x * 2, x)]
-    assert marks == timer.marks and marks == sorted(marks)
-    assert np.allclose(np.cumsum(timer.deltas()), marks)
-    assert all(d >= 0 for d in timer.deltas())
+def _ratings(n=50, d=40, seed=0):
+    rng = np.random.RandomState(seed)
+    I, J = np.nonzero(rng.rand(n, d) < 0.3)
+    return np.stack([I, J], 1), rng.randint(1, 6, size=len(I)).astype(float)
 
 
-def test_trace_annotation_is_a_record_function():
-    with profiling.TraceAnnotation('region') as ann:
-        torch.ones(2).sum()
-    assert isinstance(ann, torch.profiler.record_function)
+# estimator fits on the CPU: the TM defaults, the fast-TM recipe, and the
+# recommender with its held-out stop (which stops this table after one
+# kept sweep, rolling the second back)
+FITS = {
+    'tm interleaved': lambda: tsk.NMF_TM_Estimator(
+        60, 40, 4, max_iter=3, device='cpu').fit(_problem(60, 40, 4)),
+    'tm phase': lambda: tsk.NMF_TM_Estimator(
+        60, 40, 4, max_iter=3, device='cpu',
+        nmf_kwargs=dict(update_order='phase',
+                        reset_topic_method=None)).fit(_problem(60, 40, 4)),
+    'rs early stop': lambda: tsk.NMF_RS_Estimator(
+        50, 40, 4, max_iter=30, device='cpu').fit(*_ratings()),
+}
+STAGES = ('rri.fit.prepare', 'rri.nmf.input', 'rri.nmf.init',
+          'rri.nmf.plan', 'rri.nmf.sweep', 'rri.nmf.score', 'rri.nmf.finish')
+
+
+def _spans(fit):
+    """``(result, [(name, start, end)])``: ``fit()`` under the profiler and
+    its ``rri.*`` host spans in order of their start."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fit()
+    spans = [(e.name(), e.start_ns(), e.end_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.name().startswith('rri.')]
+    return out, sorted(spans, key=lambda s: s[1])
+
+
+def _inside(inner, outer):
+    return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+@pytest.mark.parametrize('case', sorted(FITS))
+def test_fit_spans_nest_and_follow_one_another(case):
+    est, spans = _spans(FITS[case])
+    named = {}
+    for s in spans:
+        named.setdefault(s[0], []).append(s)
+    assert set(named) == {'rri.fit', 'rri.nmf'} | set(STAGES) - (
+        set() if case.startswith('rs') else {'rri.nmf.score'})
+    (fit,), (call,) = named['rri.fit'], named['rri.nmf']
+    assert _inside(call, fit)
+    assert all(_inside(s, fit) for s in spans)
+    assert all(_inside(s, call) for s in spans
+               if s[0].startswith('rri.nmf.'))
+    sweeps = named['rri.nmf.sweep']
+    # the objective after a sweep nests in it; the early-stop score at the
+    # top of an iteration is a stage of its own
+    inner = [s for s in named.get('rri.nmf.score', [])
+             if any(_inside(s, w) for w in sweeps)]
+    stages = [s for s in spans if s[0] in STAGES and s not in inner]
+    assert all(a[2] <= b[1] for a, b in zip(stages, stages[1:])), stages
+    order = [s[0] for s in stages]
+    assert order[:4] == list(STAGES[:4]) and order[-1] == 'rri.nmf.finish'
+    assert set(order[4:-1]) <= {'rri.nmf.sweep', 'rri.nmf.score'}
+    kept = len(est.nmf_outputs['iter_cputime'])
+    if case.startswith('rs'):
+        # every sweep scores its objective; each iteration, and the one
+        # that stops the fit, scores the held-out ratings first
+        assert kept < 30 and len(sweeps) == kept + 1
+        assert len(inner) == len(sweeps)
+        assert order.count('rri.nmf.score') == len(sweeps) + 1
+    else:
+        assert len(sweeps) == kept == 3 and not inner
+
+
+def test_w_row_refit_nests_its_stages_in_finish():
+    X = torch.as_tensor(_problem())
+    res, spans = _spans(lambda: torch_nmf(
+        X, 4, w_row=_w_row(40), max_iter=2, update_order='phase',
+        reset_topic_method=None))
+    calls = [s for s in spans if s[0] == 'rri.nmf']
+    finish = [s for s in spans if s[0] == 'rri.nmf.finish']
+    assert len(calls) == 2 and len(finish) == 2
+    outer, refit = calls
+    assert _inside(refit, finish[0]) and _inside(finish[1], refit)
+    sweeps = [s for s in spans if s[0] == 'rri.nmf.sweep']
+    # the fit's 2 sweeps, then the refit's 10
+    assert len(sweeps) == len(res['iter_cputime']) == 12
+    assert sum(_inside(s, refit) for s in sweeps) == 10
+
+
+def test_a_fit_that_raises_closes_its_spans():
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with pytest.raises(ValueError, match='non-negative'):
+            tsk.NMF_TM_Estimator(40, 30, 4, device='cpu').fit(-_problem())
+        with pytest.raises(ValueError, match='update_order'):
+            torch_nmf(_problem(), 4, update_order='bogus')
+        torch_nmf(_problem(), 4, max_iter=1, device='cpu')
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.name().startswith('rri.')]
+    assert names.count('rri.fit.prepare') == 1
+    assert names.count('rri.nmf') == names.count('rri.nmf.input') == 2
+    assert names.count('rri.nmf.sweep') == 1
+    # no stage is left open for a later call to close
+    assert getattr(profiling._stages, 'open', None) is None
+
+
+def test_spans_off_build_nothing(monkeypatch):
+    """With no profiler a span is one shared null context: no
+    ``record_function`` is made and no device synchronized."""
+    def boom(*args, **kwargs):
+        raise AssertionError('called with no profiler recording')
+    monkeypatch.setattr(profiling, 'record_function', boom)
+    monkeypatch.setattr(torch.cuda, 'synchronize', boom)
+    off = profiling.span('rri.a')
+    assert off is profiling.span('rri.b', 'cuda')
+    with off:
+        profiling.stage('rri.c', 'cuda')
+    for fit in FITS.values():
+        fit()
+
+
+@pytest.mark.parametrize('case', sorted(FITS))
+def test_profiler_leaves_the_fit_unchanged(case):
+    plain = FITS[case]()
+    traced, _ = _spans(FITS[case])
+    assert torch.equal(plain.W, traced.W) and torch.equal(plain.T, traced.T)
+    assert len(plain.nmf_outputs['iter_cputime']) == \
+        len(traced.nmf_outputs['iter_cputime'])
 
 
 # ---------------------------------------------------------------------------
