@@ -85,9 +85,14 @@ its users run, one line per phase:
     sweep with resets on (B1, one check a sweep): ms/sweep, and final
     objectives within 1e-4;
 15. ``NMF_TM_Estimator`` with its default preset on the corpus of phase
-    6: a fit (ms/sweep beside the byte floor), then transform (B1 four
-    times a call, the W-phase with T fixed) and score of the 512 held-out
-    documents, T and transform rows on the simplex;
+    6: a fit (ms/sweep beside the byte floor; the W side's ``X @ T[t]``
+    through the SpMV kernel ``csrc/spmv.cu``, at least k launches a
+    sweep), then transform (B1 four times a call, the W-phase with T
+    fixed) and score of the 512 held-out documents, T and transform rows
+    on the simplex; the SpMV on the fit's X with rows of its T against
+    the float64 product, its twin and the GEMV on the dense X, two
+    launches bit for bit, and the device ms of each beside
+    ``torch.sparse``'s CSR ``mv``;
 16. card (float32) against CPU (float64) from one init, with the same
     reset count and the same reset documents: the default ``nmf()`` at
     2048×1024 k=32 with a dead topic, the TM default preset at 600×1500
@@ -260,8 +265,8 @@ Phases 5-6, phase 8, phases 10-11, phases 12-16, phases 18-19, phases
 20-23, phases 24-25, each dtype's fits of phase 26, phases 27-30 and
 phase 31 drive a main path with the launch counts set to 0 just before and
 read just after (no kernel of this repo runs in phases 12-13; phases 14-15
-run B1; phases 18-19 the gather and Gram kernels; phases 20-23 B1-B4;
-phases 24-25 B1; phase 26 the 16-bit builds of all six; phases 27-29
+run B1, phase 15 the SpMV; phases 18-19 the gather and Gram kernels;
+phases 20-23 B1-B4; phases 24-25 B1; phase 26 the 16-bit builds of all six; phases 27-29
 B1-B5, phase 30 the gather and Gram kernels and phase 31 B1, B2, the
 gather and the Gram kernel, in this process and in each rank, counted
 there;
@@ -272,7 +277,9 @@ Then one JSON line of the kernels (those launches, error against the
 twin, kernel and twin ms, the least time the card could take for the same
 work with what binds it, and the library call's ms where one computes the
 same function; the Gram kernel as ``gram_contract``, timed at phase
-17's k=32 Γ; the 16-bit builds as ``<name>_bf16`` and ``<name>_f16``),
+17's k=32 Γ; the SpMV as ``spmv``, in device ms at phase 15's corpus,
+with the GEMV it replaced as ``gemv_ms``; the 16-bit builds as
+``<name>_bf16`` and ``<name>_f16``),
 and as the last line ``{"ok": true, "device": {...}}``. Any failure raises before that line
 and exits non-zero; without a CUDA device the script exits non-zero
 before doing anything. Data come from numpy seeds.
@@ -317,6 +324,15 @@ TOL_SIMPLEX_F32 = 1e-4
 # the card), and a rank-k fit of these random sparse matrices keeps the
 # objective near 0.5||X||², so the cancellation costs less than a digit.
 OBJ_SLACK_F32 = 1e-5
+# The SpMV (phase 15) in float32 against the exact (float64) product, its
+# twin and the GEMV on the dense X, relative to the largest row of
+# |X|·|t|: each sums a row's products in its own order (the kernel in a
+# shuffle tree, ~log2(nonzeros)·eps ≈ 7e-7 at most at the corpus's
+# longest rows; the GEMV and the twin likewise). The tests on the card
+# hold the kernel to the same 2e-6.
+TOL_SPMV_F32 = 2e-6
+# calls of each product back to back whose device time phase 15 averages
+SPMV_CALLS = 20
 # The published peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the
 # bound of a kernel's timed call is the larger of its flop over the peak
 # rate for the type of its operands (float32 and float64 outside the
@@ -355,6 +371,10 @@ B6 = {'name': 'sparse_dma', 'route': 'cuda',
 GRAM = {'name': 'gram_contract', 'route': 'cuda',
         'source': 'rri_nmf_tpu_torch/csrc/gram.cu',
         'replaces': 'rri_nmf_tpu/ops/sparse_mxu.py:298'}
+# no TPU kernel: the SpMV takes the place of the library GEMV on the dense
+# X in the interleaved W side's X @ T[t] (JAX forms it with XLA's dot)
+SPMV = {'name': 'spmv', 'route': 'cuda',
+        'source': 'rri_nmf_tpu_torch/csrc/spmv.cu', 'replaces': None}
 FAST_TM = dict(update_order='phase', reset_topic_method=None)
 
 # (n, d, k): bench.py's headline fit; the small card-vs-CPU fit
@@ -1827,9 +1847,82 @@ def run_interleaved_phase(dev, dk, nmf):
         final_objectives=finals, rel_spread=(hi - lo) / abs(lo))
 
 
+def device_ms_a_call(fn, dev, calls=SPMV_CALLS):
+    """``(device ms, kernels)`` of one of ``calls`` calls of ``fn`` back
+    to back (torch.profiler: the kernels' device time, no host gaps; the
+    operands stay in L2 from call to call, as between the sweep's k
+    products)."""
+    fn()
+    kernels, ms, _ = device_kernels(lambda: [fn() for _ in range(calls)],
+                                    dev)
+    return ms / calls, kernels / calls
+
+
+def check_spmv(dev, spmv, X, T):
+    """The SpMV at the fit's shape (phase 15): ``spmv.spmv`` on X's
+    nonzeros, with rows of the fitted T as t, against the exact product,
+    its twin and the GEMV on the dense X (:data:`TOL_SPMV_F32`), two
+    launches bit for bit; device ms of the kernel, the twin, the GEMV it
+    replaced and ``torch.sparse``'s CSR ``mv``, and its bound (bytes:
+    8 a nonzero, the row pointers, t and the output once). Returns the
+    kernel's stats."""
+    t0 = time.perf_counter()
+    rows = spmv.sparse_rows(X)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    if rows is None:
+        raise AssertionError('the corpus takes no SpMV route')
+    n, d = X.shape
+    nnz = rows.cols.shape[0]
+    max_err, worst = 0.0, {}
+    for i in (0, T.shape[0] // 2, T.shape[0] - 1):
+        t = T[i].contiguous()
+        got = spmv.spmv(rows, t)
+        if not torch.equal(got, spmv.spmv(rows, t)):
+            raise AssertionError('two SpMV launches differ (topic %d)' % i)
+        scale = float((X.abs() @ t.abs()).max().clamp_min(1e-30))
+        for what, want in (('exact', (X.double() @ t.double())),
+                           ('twin', spmv.spmv_ref(rows, t)),
+                           ('gemv', X @ t)):
+            err = float((got.double() - want.double()).abs().max())
+            worst[what] = max(worst.get(what, 0.0), err / scale)
+            if err > TOL_SPMV_F32 * scale:
+                raise AssertionError('SpMV vs %s, topic %d: %.3g > %.3g'
+                                     % (what, i, err, TOL_SPMV_F32 * scale))
+            if what == 'twin':
+                max_err = max(max_err, err)
+    t = T[0].contiguous()
+    Xcsr = torch.sparse_csr_tensor(rows.rowptr, rows.cols, rows.vals,
+                                   size=(n, d))
+    ms, per = {}, {}
+    for what, fn in (('kernel', lambda: spmv.spmv(rows, t)),
+                     ('plain', lambda: spmv.spmv_ref(rows, t)),
+                     ('gemv', lambda: X @ t[:, None]),
+                     ('library', lambda: torch.mv(Xcsr, t))):
+        ms[what], per[what] = device_ms_a_call(fn, dev)
+    del Xcsr
+    size = X.element_size()
+    nbytes = nnz * (4 + size) + 4 * (n + 1) + size * (d + n)
+    b = bound(2 * nnz, nbytes)
+    log("SpMV %dx%d %d nonzeros float32, the fit's X" % (n, d, nnz),
+        density=nnz / (n * d), blocks=int(rows.blocks.shape[0] - 1),
+        longest_row=int(torch.diff(rows.rowptr.long()).max()),
+        rows_s=build_s, err_over_scale=worst,
+        device_ms=ms, kernels_a_call=per, bound_bytes=nbytes,
+        bound_ms=b[0], bound_by=b[1],
+        ms_over_bound_ms=ms['kernel'] / b[0])
+    return dict(max_abs_err=max_err, ms=ms['kernel'], plain_ms=ms['plain'],
+                bound_ms=b[0], bound_by=b[1], library_ms=ms['library'],
+                gemv_ms=ms['gemv'])
+
+
 def run_tm_default_phase(dev, dk, Est, counts):
-    """Phase 15: the TM estimator with its default preset."""
+    """Phase 15: the TM estimator with its default preset; the W side
+    reads the corpus's nonzeros (``ops/spmv.py``), k launches a sweep.
+    Returns the SpMV's stats (:func:`check_spmv`) and the fit's
+    launches of it."""
     from rri_nmf_tpu_torch.matrixops import normalize, tfidf
+    from rri_nmf_tpu_torch.ops import spmv
     n_train, _, _, k = TM_SHAPE
     X = torch.as_tensor(counts, device=dev)
     Xtr, idf = tfidf(X[:n_train], return_idf=True)
@@ -1838,6 +1931,7 @@ def run_tm_default_phase(dev, dk, Est, counts):
     del X
     n, d = Xtr.shape
     b0 = dict(dk.LAUNCHES)
+    s0 = spmv.LAUNCHES['spmv']
     t0 = time.perf_counter()
     est = Est(n, d, k, random_state=0, max_iter=TM_DEFAULT_SWEEPS,
               nmf_kwargs=dict(compute_obj_each_iter=True)).fit(Xtr)
@@ -1845,6 +1939,13 @@ def run_tm_default_phase(dev, dk, Est, counts):
     fit_s = time.perf_counter() - t0
     if dk.LAUNCHES != b0:
         raise AssertionError('the default TM fit launched kernels')
+    spmv_launches = spmv.LAUNCHES['spmv'] - s0
+    sweeps = len(est.nmf_outputs['iter_cputime'])
+    if dev.type == 'cuda' and spmv_launches < k * sweeps:
+        raise AssertionError('the default TM fit launched the SpMV %d times '
+                             'in %d sweeps of k=%d' % (spmv_launches, sweeps,
+                                                       k))
+    spmv_stats = check_spmv(dev, spmv, Xtr, est.T)
     out = est.nmf_outputs
     if not np.all(np.isfinite(out['obj_history'])):
         raise AssertionError('non-finite TM objective')
@@ -1869,6 +1970,7 @@ def run_tm_default_phase(dev, dk, Est, counts):
     sw = make_sweep(SweepConfig(k=k, project_T_each_iter=True, t_row_sum=1.0,
                                 w_row_sum=1.0))
     draws = make_draws(0, dev)
+    sw.rows(Xtr, est.W)         # the corpus's nonzeros, as the fit's sweep
     trace = trace_shares(
         lambda: sw.speculate(Xtr, est.W, est.T, draws, 23), dev)
     r2 = est.score(Xte)
@@ -1878,12 +1980,14 @@ def run_tm_default_phase(dev, dk, Est, counts):
         sweeps=len(out['iter_cputime']), fit_s=fit_s,
         obj_first=out['obj_history'][0], obj_last=out['obj_history'][-1],
         n_resets_remaining=out['n_resets_remaining'],
+        spmv_launches=spmv_launches,
         ms_per_sweep_with_objective=_sweep_ms(out),
         ms_per_sweep=_sweep_ms(est2.nmf_outputs),
         byte_floor_ms=stream_floor_ms(n, d, k),
         speculative_sweep_trace=trace, T_row_sum_err=t_dev,
         transform_rows=list(Wn.shape), transform_b1_launches=transforms,
         transform_ms=transform_ms, transform_row_sum_err=w_dev, score_r2=r2)
+    return dict(spmv_stats, launches=spmv_launches)
 
 
 def _card_vs_cpu(label, fit, dev):
@@ -3511,7 +3615,7 @@ def run(dev):
     dk.reset_launches()
     run_interleaved_phase(dev, dk, nmf)
     sync(dev)
-    run_tm_default_phase(dev, dk, NMF_TM_Estimator, counts)
+    spmv_stats = run_tm_default_phase(dev, dk, NMF_TM_Estimator, counts)
     sync(dev)
     run_default_small_phase(dev, nmf, NMF_TM_Estimator)
     sync(dev)
@@ -3725,7 +3829,10 @@ def run(dev):
              plain_ms=gram_stats['plain_ms'],
              bound_ms=gram_stats['bound_ms'],
              bound_by=gram_stats['bound_by'],
-             library_ms=gram_stats.get('library_ms'))]
+             library_ms=gram_stats.get('library_ms')),
+        # the fit's launches; the library call computing the same product
+        # from the same CSR, beside the GEMV it replaced on the dense X
+        dict(SPMV, **spmv_stats)]
     # the 16-bit builds of the same sources (16-bit storage, float32 work)
     narrow = [
         dict(entry, name='%s_%s' % (entry['name'], tag),

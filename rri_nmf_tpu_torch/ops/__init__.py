@@ -5,6 +5,9 @@
   the plain sweep
   (``make_sweep``: the interleaved order, the Gram-blocked phase form,
   DP noise, gradient stores);
+- :mod:`rri_nmf_tpu_torch.ops.spmv` — a dense X's nonzeros in CSR, the
+  wrapper of the SpMV kernel the interleaved W side reads them through
+  and its plain twin;
 - :mod:`rri_nmf_tpu_torch.ops.dense_kernels` — the dense phase sweep
   (with resets: ``DenseResetSweep``), the wrappers of kernels B1 and B2
   and their plain twins;

@@ -77,6 +77,10 @@ for _name in [n for n in SIGNATURES if n.endswith('_f32')]:
 # accumulation dtype): Ft, colptr, gidx, vals, out; k, ldf, t0, p, ncols
 for _suffix in ('f32', 'f64'):
     SIGNATURES['rri_gram_contract_' + _suffix] = [_P] * 5 + [_I] * 6 + [_P]
+# the SpMV in float32 and float64 only: rowptr, cols, vals, blocks, t, out;
+# nblocks
+for _suffix in ('f32', 'f64'):
+    SIGNATURES['rri_spmv_' + _suffix] = [_P] * 6 + [_I, _I, _P]
 # the kernels' dtypes: ctypes scalar and C-function suffix
 CTYPES = {torch.float32: _F, torch.float64: _D, torch.bfloat16: _F,
           torch.float16: _F}

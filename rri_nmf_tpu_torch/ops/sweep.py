@@ -35,6 +35,11 @@ The objectives evaluate in the accumulator dtype, over a
 :class:`~rri_nmf_tpu_torch.ops.quantized.QuantizedX`'s dequantized blocks
 where X is quantized.
 
+**X's nonzeros.** Where X is mostly zeros, the interleaved W side's
+per-topic ``X @ T[t]`` reads X's nonzeros through the SpMV kernel
+(:mod:`rri_nmf_tpu_torch.ops.spmv`, :meth:`Sweep.rows`) in place of a
+GEMV over the dense X; every other product reads the dense X.
+
 Random numbers (the ``'random'`` reset, the DP noise) come from a
 ``draws`` object (:class:`GeneratorDraws`: a ``torch.Generator``); the
 tests pass one that draws what ``jax.random`` draws, so a reset that
@@ -56,13 +61,16 @@ NCCL, or a one-rank mesh).
 
 import contextlib
 import dataclasses
+import itertools
 import logging
+import weakref
 from typing import Any, Optional, Tuple
 
 import torch
 
 from rri_nmf_tpu_torch.matrixops import (_proj_simplex_core,
                                          reproject_row_if_drifted)
+from rri_nmf_tpu_torch.ops import spmv
 from rri_nmf_tpu_torch.ops.quantized import (QuantizedX, dequantize_x,
                                              qx_row_block, work_dtype, xmm)
 from rri_nmf_tpu_torch.optimization import (qf_min_scalar_c,
@@ -487,7 +495,8 @@ class Sweep(object):
       the W-phase contractions as one ``X @ Tᵀ``;
     - else the interleaved per-topic body: T row, then W column, per
       topic; unmasked, the T side takes one ``WᵀX`` for the sweep and the
-      W side a GEMV ``X @ T[t]`` per topic; masked, the residual
+      W side a GEMV ``X @ T[t]`` per topic (an SpMV on X's nonzeros where
+      :meth:`rows` finds X sparse enough); masked, the residual
       ``R = M ⊙ (X − WT)`` is carried with rank-2 and rank-1 updates.
 
     :meth:`speculate` runs the sweep as if no reset fired (no host
@@ -504,6 +513,11 @@ class Sweep(object):
     numerators (and a masked fit's denominators) gathered over ``tp``; a
     selected row belongs to one ``dp`` rank, and its sums are summed over
     ``dp``."""
+
+    # X's nonzeros for the W side's SpMV (:meth:`rows`), kept for one X
+    _rows = None
+    spmv_route = False
+    _generations = itertools.count()
 
     def __init__(self, cfg):
         method = cfg.reset_topic_method
@@ -523,6 +537,9 @@ class Sweep(object):
         # one CUDA graph
         self.graphable = (cfg.dp_sigma is None and not cfg.store_gradients
                           and (cfg.mesh is None or cfg.mesh.graphable))
+        # the unmasked interleaved body's W side, on one device
+        self.spmv_route = (cfg.mesh is None and not cfg.masked
+                           and cfg.update_order != 'phase' and not cfg.fix_W)
         self._graph = self._seen = self._where = None
 
     def split(self, X):
@@ -537,8 +554,33 @@ class Sweep(object):
             self._where = (key, mesh.locate(*X.shape, X.device))
         return self._where[1]
 
+    def rows(self, X, W, find=True):
+        """X's nonzeros (:class:`~rri_nmf_tpu_torch.ops.spmv.Rows`) where
+        the W side's ``X @ T[t]`` reads them through
+        :func:`~rri_nmf_tpu_torch.ops.spmv.spmv`, else None: the unmasked
+        interleaved body without a mesh (:attr:`spmv_route`), X float32
+        or float64 and the accumulator dtype, its density at most
+        :func:`~rri_nmf_tpu_torch.ops.spmv.max_density`. Decided and
+        built once per X object (a later X at the same address is
+        another), with a host read: by the sweep's call and by
+        :meth:`eager`, before any capture. ``find=False`` only looks
+        them up, as :meth:`speculate` does, which reads nothing on the
+        host: an X not seen before takes the GEMV."""
+        if (not self.spmv_route or not spmv.takes(X)
+                or resolve_mixed_dtypes(X.dtype, W.dtype)[1] != X.dtype):
+            return None
+        key = (X.data_ptr(), tuple(X.shape), X.dtype)
+        if (self._rows is None or self._rows[0]() is not X
+                or self._rows[1] != key):
+            if not find:
+                return None
+            self._rows = (weakref.ref(X), key, spmv.sparse_rows(X),
+                          next(self._generations))
+        return self._rows[2]
+
     def __call__(self, X, W, T, draws, resets_left, *extras):
         state = draws.get_state() if self.random else None
+        self.rows(X, W)
         if X.is_cuda and self.graphable:
             out, dead = self.replay(X, W, T, draws, resets_left, *extras)
         else:
@@ -555,9 +597,14 @@ class Sweep(object):
         runs launch by launch, which also warms up what a capture needs
         (so a fit of one sweep captures nothing); the second captures the
         graph, which it and every later sweep replay from static copies
-        of W and T, the results copied out of the graph's memory."""
+        of W and T, the results copied out of the graph's memory. X's
+        nonzeros (:meth:`rows`) are found before any capture, and a graph
+        is kept for them as for X; each replay adds the SpMV launches its
+        capture recorded to ``spmv.LAUNCHES``."""
+        self.rows(X, W)
         key = (X.data_ptr(), tuple(X.shape), tuple(W.shape), W.dtype,
-               resets_left > 0, tuple(e.data_ptr() for e in extras))
+               resets_left > 0, tuple(e.data_ptr() for e in extras),
+               self._rows[3] if self._rows is not None else None)
         if self._graph is None or self._graph[0] != key:
             self._graph = None
             if self._seen != key:
@@ -567,14 +614,20 @@ class Sweep(object):
                 W_in = W.clone(memory_format=torch.contiguous_format)
                 T_in = T.clone(memory_format=torch.contiguous_format)
                 graph = torch.cuda.CUDAGraph()
+                before = spmv.LAUNCHES['spmv']
                 with torch.cuda.graph(graph):
                     out, dead = self.speculate(X, W_in, T_in, draws,
                                                resets_left, *extras)
-            self._graph = (key, graph, W_in, T_in, out[0], out[1], dead)
-        _, graph, W_in, T_in, W_out, T_out, dead = self._graph
+                # recorded, not run: counted at each replay
+                launches = spmv.LAUNCHES['spmv'] - before
+                spmv.LAUNCHES['spmv'] = before
+            self._graph = (key, graph, W_in, T_in, out[0], out[1], dead,
+                           launches)
+        _, graph, W_in, T_in, W_out, T_out, dead, launches = self._graph
         W_in.copy_(W)
         T_in.copy_(T)
         graph.replay()
+        spmv.LAUNCHES['spmv'] += launches
         return (W_out.clone(), T_out.clone(), int(resets_left)), dead
 
     def speculate(self, X, W, T, draws, resets_left, *extras):
@@ -592,9 +645,10 @@ class Sweep(object):
     def _body(self, X, W, T, draws, resets, extras):
         cfg = self.cfg
         split = self.split(X)
+        Xs = self.rows(X, W, find=resets.eager)
         with precision_scope(cfg.matmul_precision):
             W, T, dead, stores = _sweep_body(cfg, self.reset_rowcol, X, W, T,
-                                             draws, resets, extras, split)
+                                             draws, resets, extras, split, Xs)
         return (W, T, resets.budget) + stores, dead
 
 
@@ -608,11 +662,13 @@ def _same(x):
 
 
 def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras,
-                split=None):
+                split=None, Xs=None):
     """One sweep (see :class:`Sweep`): ``(W, T, dead, stores)``; ``dead``
     is :func:`_dead_topics` for a speculative sweep with budget left,
     else None, and ``stores`` is empty or ``(numer_store,
-    denom_store)``. On a mesh ``split`` locates this rank's blocks."""
+    denom_store)``. On a mesh ``split`` locates this rank's blocks.
+    ``Xs``: X's nonzeros (:meth:`Sweep.rows`), which the interleaved W
+    side's ``X @ T[t]`` then reads through the SpMV in place of X."""
     k = cfg.k
     mesh = cfg.mesh
     # the collectives of a mesh sweep (module docstring); without a mesh
@@ -822,8 +878,12 @@ def _sweep_body(cfg, reset_rowcol, X, W, T, draws, resets, extras,
                 Rt = Rt + w_old * mt2
                 nt = mt2
             else:
-                Xt = XTt[t] if XTt is not None else \
-                    sum_tp(xmm(X, trow[:, None], dtype)[:, 0])     # (n,)
+                if XTt is not None:
+                    Xt = XTt[t]
+                elif Xs is not None:
+                    Xt = spmv.spmv(Xs, trow)                       # (n,)
+                else:
+                    Xt = sum_tp(xmm(X, trow[:, None], dtype)[:, 0])
                 Tt = sum_tp(T @ trow)
                 Tt[t].zero_()
                 Rt = torch.addmv(Xt, Wt.T, Tt, alpha=-1.0)

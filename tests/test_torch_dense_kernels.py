@@ -519,7 +519,7 @@ def test_build_library_path_tracks_sources(tmp_path, monkeypatch):
     from rri_nmf_tpu_torch.ops import _build
     assert [p.name for p in _build.sources()] == ['gram.cu', 'gs.cu',
                                                   'masked.cu', 'sparse.cu',
-                                                  'tm_proj.cu']
+                                                  'spmv.cu', 'tm_proj.cu']
     p1 = _build.library_path()
     monkeypatch.setattr(_build, 'NVCC_FLAGS', _build.NVCC_FLAGS + ['-G'])
     assert _build.library_path() != p1

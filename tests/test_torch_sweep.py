@@ -18,6 +18,8 @@ at 1e-10/1e-11).
 - The speculative sweep: with no reset it equals the eager sweep; when a
   topic dies with budget left its re-run equals the eager sweep bit for
   bit.
+- A ~1%-dense X, whose W side reads X's nonzeros through the SpMV's twin
+  (``ops/spmv.py``): the sweep at 1e-9 and the speculative re-run.
 - The kernels' phase sweep with resets (``DenseResetSweep``): the twins
   with no reset, the Gram-blocked re-run when one fires.
 """
@@ -37,9 +39,11 @@ from rri_nmf_tpu.ops.sweep_xla import make_reset_rowcol as \
     make_reset_rowcol_jax
 from rri_nmf_tpu.ops.sweep_xla import make_sweep as jax_make_sweep
 from rri_nmf_tpu_torch.ops import dense_kernels as dk
+from rri_nmf_tpu_torch.ops import spmv
 from rri_nmf_tpu_torch.ops.sweep import (SweepConfig, _gram_block_size,
                                          make_reset_factors,
                                          make_reset_rowcol, make_sweep)
+from test_torch_spmv import _corpus, _factors
 
 torch.set_num_threads(2)
 ATOL = 1e-9
@@ -92,6 +96,28 @@ def _problem(n, d, k, seed=0, density=0.6):
     X = np.abs(rng.rand(n, k) @ rng.rand(k, d) + 0.01 * rng.rand(n, d))
     M = (rng.rand(n, d) < density).astype(float)
     return X, M, np.abs(rng.rand(n, k)), np.abs(rng.rand(k, d))
+
+
+def _sparse_problem(n, d, k, seed=0):
+    """A ~1%-dense X of k blocks and factors near them (no topic dies),
+    as numpy."""
+    X = _corpus(n, d, k, 0.01, seed=seed)
+    W, T = _factors(n, d, k, seed=seed + 1)
+    return X.numpy(), W.numpy(), T.numpy()
+
+
+def _spmv_calls(monkeypatch):
+    """The sweep's calls of ``spmv.spmv`` (its twin on the CPU), under
+    the card's density rule, which takes a ~1%-dense X."""
+    monkeypatch.setattr(spmv, 'CPU_MAX_DENSITY', spmv.MAX_DENSITY)
+    calls = []
+    real = spmv.spmv
+
+    def counted(rows, t):
+        calls.append(t.shape)
+        return real(rows, t)
+    monkeypatch.setattr(spmv, 'spmv', counted)
+    return calls
 
 
 def _extras(kw, M, wrs):
@@ -181,13 +207,23 @@ SWEEP_CASES = {
                                   reset_topic_method=None),
     'phase gram fix_T': dict(update_order='phase', fix_T=True,
                              w_row_sum=1.0),
+    # ~1%-dense X: the W side's X @ T[t] through the SpMV
+    'interleaved sparse X': dict(),
+    'project_T sparse X': dict(project_T_each_iter=True, t_row_sum=1.0,
+                               w_row_sum=1.0),
+    'fix_T sparse X': dict(fix_T=True, w_row_sum=1.0),
 }
 
 
 @pytest.mark.parametrize('case', sorted(SWEEP_CASES))
-def test_sweep_matches_jax(case):
+def test_sweep_matches_jax(case, monkeypatch):
     n, d, k = 40, 30, 6
     X, M, W0, T0 = _problem(n, d, k, seed=len(case))
+    sparse = case.endswith('sparse X')
+    if sparse:
+        n, d = 60, 800
+        X, W0, T0 = _sparse_problem(n, d, k, seed=len(case))
+        calls = _spmv_calls(monkeypatch)
     kw = dict(k=k, **SWEEP_CASES[case])
     if kw.get('project_T_each_iter'):
         T0 = T0 / T0.sum(1, keepdims=True)
@@ -204,6 +240,9 @@ def test_sweep_matches_jax(case):
         assert np.abs(Tt.sum(1) - 1.0).max() < 1e-12
     if kw.get('w_row_sum_is_vector'):
         assert np.abs(Wt.sum(1) - wrs).max() < 1e-12
+    if sparse:
+        # k products a sweep: 1 + 3 sweeps, no reset
+        assert len(calls) == 4 * k and left == 5
 
 
 def _max_resid_doc(X, W, T):
@@ -385,13 +424,19 @@ def test_store_gradients_match_jax(case, rows):
     assert denom.shape == (k, d if case == 'masked' else 1)
 
 
-@pytest.mark.parametrize('case', ['interleaved', 'masked', 'gram', 'random'])
-def test_speculative_rerun_equals_the_eager_sweep(case):
+@pytest.mark.parametrize('case', ['interleaved', 'masked', 'gram', 'random',
+                                  'sparse X'])
+def test_speculative_rerun_equals_the_eager_sweep(case, monkeypatch):
     """A topic that dies with budget left sends the sweep to its eager
     re-run: bit for bit the eager sweep's result, draws included. With no
-    reset the speculative result is the eager one, bit for bit."""
+    reset the speculative result is the eager one, bit for bit. On a
+    ~1%-dense X both runs read X's nonzeros."""
     n, d, k = 40, 30, 6
     X, M, W0, T0 = _problem(n, d, k, seed=16)
+    if case == 'sparse X':
+        n, d = 60, 800
+        X, W0, T0 = _sparse_problem(n, d, k, seed=16)
+        calls = _spmv_calls(monkeypatch)
     kw = dict(k=k, masked=case == 'masked',
               update_order='phase' if case == 'gram' else 'interleaved',
               reset_topic_method='random' if case == 'random'
@@ -410,12 +455,19 @@ def test_speculative_rerun_equals_the_eager_sweep(case):
         assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
         assert a[2] == b[2] == (2 if dead else 3)
     sweep = make_sweep(SweepConfig(**kw))
-    out, dead = sweep.speculate(_torch(X), _torch(W), _torch(T0),
+    Xt, Wt = _torch(X), _torch(W)
+    if case == 'sparse X':
+        sweep.rows(Xt, Wt)      # found before, as the sweep's call does
+    out, dead = sweep.speculate(Xt, Wt, _torch(T0),
                                 jax_draws(3), 3, *map(_torch, extras))
     assert bool(dead) and out[2] == 3        # no reset fired speculatively
-    out, dead = sweep.speculate(_torch(X), _torch(W), _torch(T0),
+    out, dead = sweep.speculate(Xt, Wt, _torch(T0),
                                 jax_draws(3), 0, *map(_torch, extras))
     assert dead is None                      # no budget: no check kept
+    if case == 'sparse X':
+        # 2 sweeps of k products each way, and the dead topic's sweep
+        # again; then the two speculative sweeps above
+        assert len(calls) == (4 + 4 + 1) * k + 2 * k
 
 
 @pytest.mark.parametrize('c', [2.5, 0.0, -1.5, float('inf')])
