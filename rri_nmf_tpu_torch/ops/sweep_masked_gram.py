@@ -67,6 +67,7 @@ from rri_nmf_tpu_torch.ops.sweep import (mesh_sums, precision_scope,
                                          resolve_mixed_dtypes)
 from rri_nmf_tpu_torch.ops.sweep_masked_sparse import (coo_plan,
                                                        masked_coo_host_arrays)
+from rri_nmf_tpu_torch.utils.profiling import span
 
 # full-tensor Γ/Θ budget (JAX's memory policy): past it, k-panels
 GRAM_BUDGET_BYTES = 4e9
@@ -128,7 +129,14 @@ def plan_masked_gram(X, W_mat, dtype, backend=None, group=8, device=None):
     if backend not in ('mxu', 'segsum'):
         raise ValueError("backend must be 'mxu' or 'segsum', got %r"
                          % (backend,))
-    dtype = numpy_dtype(dtype)
+    with span('rri.gram.plan', device):
+        return _plan(X, W_mat, numpy_dtype(dtype), backend, group, device)
+
+
+def _plan(X, W_mat, dtype, backend, group, device):
+    """:func:`plan_masked_gram`'s work, ``backend`` resolved. The mxu
+    plan's output-column layouts and M⊙X in their order are built here,
+    once, and not at the first contraction."""
     rows_h, cols_h, x_np, m_np, shape, nz = masked_coo_host_arrays(
         X, W_mat, dtype)
     coo = coo_plan(rows_h, cols_h, x_np, m_np, shape, nz, device)
@@ -159,8 +167,11 @@ def plan_masked_gram(X, W_mat, dtype, backend=None, group=8, device=None):
     n_rt, n_ct = -(-n // TILE), -(-d // TILE)
     m_t, mx_t = direction(rows, cols, n_rt, n_ct)
     m_w, mx_w = direction(cols, rows, n_ct, n_rt)
-    return MaskedGramPlan(coo, m_t, m_w, mx_t, mx_w, sum_mx2, shape, nz,
+    plan = MaskedGramPlan(coo, m_t, m_w, mx_t, mx_w, sum_mx2, shape, nz,
                           group, 'mxu')
+    for side in ('t', 'w'):
+        plan.mx_layout_values(side)
+    return plan
 
 
 def auto_panel(k, n, d, itemsize, budget=None):
@@ -216,7 +227,9 @@ def _contract(plan, direction, Ft, rows, ncols, mx=False):
     CPU)."""
     p = plan.m_t if direction == 't' else plan.m_w
     vals = plan.mx_layout_values(direction) if mx else None
-    return sparse_kernels.gather_contract(p, Ft, rows, ncols, 'mxu', vals)
+    with span('rri.gram.contract', Ft.device):
+        return sparse_kernels.gather_contract(p, Ft, rows, ncols, 'mxu',
+                                              vals)
 
 
 def _gram(plan, direction, Ft, k, panel, ncols):
@@ -224,7 +237,8 @@ def _gram(plan, direction, Ft, k, panel, ncols):
     in one Gram-kernel launch (its twin on the CPU): the k(k+1)/2 unique
     rows (``panel=None``) or the p·k rows of ``panel=(t0, p)``."""
     p = plan.m_t if direction == 't' else plan.m_w
-    return sparse_kernels.gram_contract(p, Ft, k, panel, ncols)
+    with span('rri.gram.contract', Ft.device):
+        return sparse_kernels.gram_contract(p, Ft, k, panel, ncols)
 
 
 def _mxu_gram_t_A(plan, W, acc):
@@ -281,12 +295,14 @@ def _seg_chunked(coo, fn, out_dim, seg_ids, width, acc):
     width)`` over slices of :data:`_SEG_CHUNK` observations, added by
     ``seg_ids`` (padding entries carry m = 0)."""
     nnz = coo.rows.shape[0]
-    out = torch.zeros(out_dim, width, dtype=acc, device=coo.rows.device)
-    for a in range(0, nnz, _SEG_CHUNK):
-        b = min(a + _SEG_CHUNK, nnz)
-        out.index_add_(0, seg_ids[a:b],
-                       fn(coo.rows[a:b], coo.cols[a:b],
-                          coo.m_vals[a:b].to(acc), coo.x_vals[a:b].to(acc)))
+    with span('rri.gram.contract', coo.rows.device):
+        out = torch.zeros(out_dim, width, dtype=acc, device=coo.rows.device)
+        for a in range(0, nnz, _SEG_CHUNK):
+            b = min(a + _SEG_CHUNK, nnz)
+            out.index_add_(0, seg_ids[a:b],
+                           fn(coo.rows[a:b], coo.cols[a:b],
+                              coo.m_vals[a:b].to(acc),
+                              coo.x_vals[a:b].to(acc)))
     return out
 
 
@@ -416,6 +432,7 @@ class MaskedGramSweep(object):
         # the factors are copied, never written: row t of Wt is W[:, t]
         Wt = W.T.to(acc).contiguous()
         T = T.to(acc).clone(memory_format=torch.contiguous_format)
+        dev = T.device
         proj_t = bool(cfg.t_row_sum and cfg.project_T_each_iter)
 
         def sum_dp(x):
@@ -459,17 +476,19 @@ class MaskedGramSweep(object):
                     AG = cfg.mesh.sum_dp(torch.cat([A, G]))
                     A, G = AG[:k], AG[k:]
                 G = _unpack(G, k)
-                for i in range(cfg.inner_reps * k):
-                    t = i % k
-                    t_topic(t, G[t], A)
+                with span('rri.gram.topics', dev):
+                    for i in range(cfg.inner_reps * k):
+                        t = i % k
+                        t_topic(t, G[t], A)
                 del G
             else:
                 A = sum_dp(gram_A(plan, W_fro, acc))
                 for _ in range(cfg.inner_reps):
                     for t0, p in panels:
                         Gp = sum_dp(gram_t_panel(plan, W_fro, t0, p, acc))
-                        for j in range(p):
-                            t_topic(t0 + j, Gp[j], A)
+                        with span('rri.gram.topics', dev):
+                            for j in range(p):
+                                t_topic(t0 + j, Gp[j], A)
                         del Gp
 
         # ---- W-phase: T frozen, C and Θ exact ----
@@ -477,17 +496,19 @@ class MaskedGramSweep(object):
             if panels is None:
                 C, H = gram_w(plan, T, acc)
                 H = _unpack(H, k)
-                for i in range(cfg.inner_reps * k):
-                    t = i % k
-                    w_topic(t, H[t], C)
+                with span('rri.gram.topics', dev):
+                    for i in range(cfg.inner_reps * k):
+                        t = i % k
+                        w_topic(t, H[t], C)
                 del H
             else:
                 C = gram_C(plan, T, acc)
                 for _ in range(cfg.inner_reps):
                     for t0, p in panels:
                         Hp = gram_w_panel(plan, T, t0, p, acc)
-                        for j in range(p):
-                            w_topic(t0 + j, Hp[j], C)
+                        with span('rri.gram.topics', dev):
+                            for j in range(p):
+                                w_topic(t0 + j, Hp[j], C)
                         del Hp
 
         W = Wt.T.contiguous()

@@ -52,11 +52,19 @@ def trace(logdir):
       final W projection; the row weights' W refit, whose ``nmf`` call
       nests its own stages);
     - ``rri.sweep.capture`` — inside a sweep, the CUDA graph capture of
-      the plain sweep (a fit's second sweep on the card).
+      the plain sweep (a fit's second sweep on the card);
+    - on the sparse-mask Gram-phase route
+      (:mod:`rri_nmf_tpu_torch.ops.sweep_masked_gram`): ``rri.gram.plan``
+      inside ``rri.nmf.plan`` (the observed set from the host COO arrays
+      to the plans, layouts and values on the device), and inside a
+      sweep or its objective ``rri.gram.contract`` (each contraction: A,
+      C, Γ and Θ, whole or one panel) and ``rri.gram.topics`` (a phase's
+      per-topic Gauss-Seidel loop, or its part over one panel).
 
-    ``rri.fit.prepare`` and ``nmf()``'s stages outside its loop wait for
-    the device's work before they close, so each ends when its device
-    work ended; a sweep span ends at the sweep's synchronized stamp."""
+    ``rri.fit.prepare``, ``nmf()``'s stages outside its loop and the
+    ``rri.gram.*`` spans wait for the device's work before they close, so
+    each ends when its device work ended; a sweep span ends at the
+    sweep's synchronized stamp."""
     os.makedirs(str(logdir), exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
