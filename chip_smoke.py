@@ -107,7 +107,7 @@ its users run, one line per phase:
     against the twins and, for Γ/Θ, the gather kernel on the
     materialized rows, each launch repeated and matched bit for bit,
     CUDA-event times beside ``torch.sparse.mm`` of the mask's CSR by the
-    same rows (and the gather kernel's on them), the host plan seconds;
+    same rows (and the gather kernel's on them), the plan seconds;
 18. ``nmf()`` on that recorded problem (scipy CSR X and mask, float32 on
     the card): ``update_order='phase'`` (the Gram-phase sweep: 3 gather
     launches (A, C, the objective's C) and 3 Gram launches (Γ, Θ, the

@@ -132,7 +132,8 @@ def gather_contract_ref(layout, Ft, k, ncols, vals=None):
     ops.sparse_plan.ColumnLayout` whose nonzeros lie in the first
     ``ncols`` columns; ``Ft`` (m, >= k) holds Fᵀ's rows. ``vals``: other
     values for the nonzeros, in layout order, in place of the layout's
-    (:func:`~rri_nmf_tpu_torch.ops.sparse_plan.layout_values`)."""
+    (:meth:`~rri_nmf_tpu_torch.ops.sweep_masked_gram.MaskedGramPlan.
+    mx_layout_values`)."""
     acc = work_dtype(Ft.dtype)
     out = torch.zeros(k, ncols, dtype=acc, device=Ft.device)
     nnz = layout.gidx.shape[0]
@@ -216,14 +217,15 @@ def _rows(Ft, k):
 
 def gather_contract(plan, Ft, k, ncols, kind, vals=None):
     """``out (k, ncols) = F @ X`` for the plan direction ``plan`` (either
-    type), ``F``'s rows given as ``Ft`` (m, >= k); ``ncols`` the output
-    columns wanted (the plan's padded width, or fewer when the rest are
-    empty). ``vals``: another matrix on the same nonzeros, its values in
-    the layout's order (:func:`~rri_nmf_tpu_torch.ops.sparse_plan.
-    layout_values`; JAX's ``vals_override``). The output is Ft's dtype,
-    float32 for 16-bit factors. A CPU ``Ft`` runs
-    :func:`gather_contract_ref`; a CUDA ``Ft`` launches
-    ``csrc/sparse.cu`` and counts it under ``LAUNCHES[kind]``."""
+    type, or a :class:`~rri_nmf_tpu_torch.ops.sparse_plan.ColumnLayout`),
+    ``F``'s rows given as ``Ft`` (m, >= k); ``ncols`` the output columns
+    wanted (the plan's padded width, or fewer when the rest are empty).
+    ``vals``: another matrix on the same nonzeros, its values in the
+    layout's order (:meth:`~rri_nmf_tpu_torch.ops.sweep_masked_gram.
+    MaskedGramPlan.mx_layout_values`; JAX's ``vals_override``). The
+    output is Ft's dtype, float32 for 16-bit factors. A CPU ``Ft`` runs
+    :func:`gather_contract_ref`; a CUDA ``Ft`` launches ``csrc/sparse.cu``
+    and counts it under ``LAUNCHES[kind]``."""
     if Ft.device.type == 'cpu':
         return gather_contract_ref(column_layout(plan), Ft, k, ncols, vals)
     if Ft.device.type != 'cuda':
@@ -264,7 +266,8 @@ def gather_contract(plan, Ft, k, ncols, kind, vals=None):
 
 
 def gram_contract(plan, Ft, k, panel, ncols):
-    """``out (rows, ncols)``: the mask of the plan direction ``plan``
+    """``out (rows, ncols)``: the mask of the plan direction ``plan`` (or
+    its :class:`~rri_nmf_tpu_torch.ops.sparse_plan.ColumnLayout`)
     contracted with the Khatri-Rao rows ``f_a ⊙ f_b`` of Fᵀ's rows ``Ft``
     (m, >= k), the pairs of :func:`gram_pairs` (``panel=None``: Γ/Θ's
     k(k+1)/2 unique rows; ``(t0, p)``: a p·k panel), without

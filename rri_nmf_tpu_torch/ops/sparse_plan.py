@@ -28,7 +28,9 @@ neither plan as it stands: :func:`column_layout` derives from either, on
 the plan's device and once per plan (cached on it), the output-column
 CSR of :class:`ColumnLayout`: the plan's slots stably sorted by output
 column, zero-valued padding dropped, with int32 global gather indices.
-The B5 and B6 plans of one matrix give equal layouts.
+The B5 and B6 plans of one matrix give equal layouts. The Gram-phase
+sweep builds its mask's layouts straight from the observed COO, with no
+plan (:mod:`rri_nmf_tpu_torch.ops.sweep_masked_gram`).
 """
 
 import numpy as np
@@ -236,20 +238,15 @@ class ColumnLayout(object):
     ``colptr[c]:colptr[c+1]``; gidx: (nnz,) int32, the row of Fᵀ each
     gathers (``128·ftile + gloc``); vals: (nnz,) their values, in the
     plan's dtype. ``n_rows``: the rows of Fᵀ the gathers need (1 + the
-    largest ``gidx``; 0 when there is none). ``keep`` (the plan's slots,
-    bool) and ``order`` (int64) are the derivation's selection and sort:
-    slot ``keep.nonzero()[order[i]]`` is nonzero ``i``
-    (:func:`layout_values` maps a second value set through them)."""
+    largest ``gidx``; 0 when there is none)."""
 
     _fields = ('colptr', 'gidx', 'vals')
 
-    def __init__(self, colptr, gidx, vals, n_rows, keep=None, order=None):
+    def __init__(self, colptr, gidx, vals, n_rows):
         self.colptr = colptr
         self.gidx = gidx
         self.vals = vals
         self.n_rows = int(n_rows)
-        self.keep = keep
-        self.order = order
 
     @property
     def n_cols(self):
@@ -419,7 +416,11 @@ def column_layout(plan):
     The slots are sorted by output column with a stable sort, so each
     column keeps its nonzeros in plan order; slots with ``v = 0`` (the
     plans' padding slots, B5's dummy chunks) add nothing and are dropped.
-    The layouts from the B5 and the B6 plan of one matrix are equal."""
+    The layouts from the B5 and the B6 plan of one matrix are equal. A
+    :class:`ColumnLayout` (the Gram-phase sweep's, built without a plan)
+    is its own layout."""
+    if isinstance(plan, ColumnLayout):
+        return plan
     if plan.columns is None:
         g, s, v = _plan_slots(plan)
         keep = v != 0
@@ -431,18 +432,6 @@ def column_layout(plan):
         gidx = g[order].to(torch.int32)
         n_rows = int(gidx.max()) + 1 if gidx.numel() else 0
         plan.columns = ColumnLayout(colptr, gidx, v[order].contiguous(),
-                                    n_rows, keep, order)
+                                    n_rows)
     return plan.columns
 
-
-def layout_values(plan, vals):
-    """A second value set of the plan direction ``plan``, given in the
-    plan's slot order (shaped like ``plan.vals``), in the order of its
-    :class:`ColumnLayout`'s nonzeros: the values ``gather_contract``
-    takes in place of the layout's own. The slots the layout dropped
-    (zero in the plan) are dropped here too, whatever ``vals`` holds
-    there, so the layout is always the plan's (a second set may be 0
-    where the plan is not, and stays in)."""
-    lay = column_layout(plan)
-    v = vals.reshape(-1)[:lay.keep.shape[0]]
-    return v[lay.keep][lay.order].contiguous()

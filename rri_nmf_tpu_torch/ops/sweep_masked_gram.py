@@ -24,8 +24,12 @@ Two backends, as in JAX:
   kernel (``csrc/gram.cu``, :func:`~rri_nmf_tpu_torch.ops.
   sparse_kernels.gram_contract`, ``LAUNCHES['gram']``), which forms the
   Khatri-Rao rows on chip from W's (Tᵀ's) rows where JAX materializes
-  them for B5: one output-column layout per direction, derived from the
-  MASK's B5 plan, and one launch per contraction. The default on a card;
+  them for B5: one output-column layout per direction, built from the
+  observed COO on the plan's device (the mask's CSR for Θ as it stands,
+  its CSC for Γ in the COO's stable column order), and one launch per
+  contraction. JAX plans B5's tiles for each direction instead; the
+  layout sums each Γ column's observations in ascending row order. The
+  default on a card;
   on the CPU the kernels' plain twins run (the Gram twin materializes
   the rows and runs the gather twin, JAX's arithmetic).
 - ``'segsum'`` computes them with gathers and ``index_add_`` over slices
@@ -60,9 +64,8 @@ from rri_nmf_tpu_torch.matrixops import (_proj_simplex_core, fit_device,
                                          reproject_row_if_drifted)
 from rri_nmf_tpu_torch.optimization import qf_min_vector_c
 from rri_nmf_tpu_torch.ops import sparse_kernels
-from rri_nmf_tpu_torch.ops.sparse_plan import (TILE, ContractPlan,
-                                               _plan_direction_np,
-                                               layout_values, numpy_dtype)
+from rri_nmf_tpu_torch.ops.sparse_plan import (TILE, ColumnLayout,
+                                               numpy_dtype)
 from rri_nmf_tpu_torch.ops.sweep import (mesh_sums, precision_scope,
                                          resolve_mixed_dtypes)
 from rri_nmf_tpu_torch.ops.sweep_masked_sparse import (coo_plan,
@@ -73,6 +76,9 @@ from rri_nmf_tpu_torch.utils.profiling import span
 GRAM_BUDGET_BYTES = 4e9
 # observation slice of the segsum backend's O(nnz·k²) temporaries
 _SEG_CHUNK = 1 << 16
+# output-column layouts built straight from the COO, one per direction
+# (a routing counter the tests read, as ``sparse_kernels.LAUNCHES``)
+PLAN_BUILDS = {'layout': 0}
 
 
 class MaskedGramPlan(object):
@@ -81,12 +87,13 @@ class MaskedGramPlan(object):
 
     ``coo``: the :class:`~rri_nmf_tpu_torch.ops.sweep_masked_sparse.
     MaskedCOOPlan` (the segsum backend's input and the pickle form).
-    With ``backend='mxu'``: ``m_t``/``m_w``, the mask's B5
-    :class:`~rri_nmf_tpu_torch.ops.sparse_plan.ContractPlan` of each
+    With ``backend='mxu'``: ``m_t``/``m_w``, the mask's
+    :class:`~rri_nmf_tpu_torch.ops.sparse_plan.ColumnLayout` of each
     direction (Γ: contracted over rows, output columns; Θ: the
-    transpose), and ``mx_t_vals``/``mx_w_vals``, M⊙X in the same plans'
-    slots (1, nslots). ``sum_mx2``: ``Σ m x²`` (a 0-d tensor, at least
-    float32)."""
+    transpose), and ``mx_t_vals``/``mx_w_vals``, M⊙X on the same
+    nonzeros in the same order (nnz,). ``sum_mx2``: ``Σ m x²`` (a 0-d
+    tensor, at least float32). ``group`` is kept for JAX's signature:
+    the layouts do not depend on it."""
 
     def __init__(self, coo, m_t, m_w, mx_t_vals, mx_w_vals, sum_mx2, shape,
                  nnz, group, backend):
@@ -100,16 +107,12 @@ class MaskedGramPlan(object):
         self.nnz = int(nnz)
         self.group = int(group)
         self.backend = backend
-        self._mx = {}
 
     def mx_layout_values(self, direction):
         """M⊙X in the order of the mask layout of ``direction`` (``'t'``
-        or ``'w'``), mapped once and kept."""
-        if direction not in self._mx:
-            plan, vals = ((self.m_t, self.mx_t_vals) if direction == 't'
-                          else (self.m_w, self.mx_w_vals))
-            self._mx[direction] = layout_values(plan, vals)
-        return self._mx[direction]
+        or ``'w'``): the values ``gather_contract`` takes in place of the
+        layout's own."""
+        return self.mx_t_vals if direction == 't' else self.mx_w_vals
 
     def to_scipy(self):
         return self.coo.to_scipy()
@@ -117,12 +120,13 @@ class MaskedGramPlan(object):
 
 def plan_masked_gram(X, W_mat, dtype, backend=None, group=8, device=None):
     """The :class:`MaskedGramPlan` of the mask ``W_mat`` and ``X``
-    (:func:`rri_nmf_tpu.ops.sweep_masked_gram.plan_masked_gram`), built on
-    the host once and copied to ``device`` (default: X's device for a
-    tensor, else the card). ``backend=None`` picks ``'mxu'`` on a CUDA
-    device and ``'segsum'`` on the CPU, as JAX picks ``'mxu'`` only on a
-    TPU. The two directions' B5 plans of the mask carry M⊙X in the same
-    slots (``_plan_direction_np``'s second value set)."""
+    (:func:`rri_nmf_tpu.ops.sweep_masked_gram.plan_masked_gram`): the
+    observed COO built on the host once and copied to ``device``
+    (default: X's device for a tensor, else the card). ``backend=None``
+    picks ``'mxu'`` on a CUDA device and ``'segsum'`` on the CPU, as JAX
+    picks ``'mxu'`` only on a TPU. ``'mxu'`` builds the two
+    output-column layouts from that COO on ``device`` (:func:`_layouts`)
+    where JAX plans B5's tiles of each direction on the host."""
     device = fit_device(X, device)
     if backend is None:
         backend = 'mxu' if device.type == 'cuda' else 'segsum'
@@ -148,30 +152,40 @@ def _plan(X, W_mat, dtype, backend, group, device):
     if backend == 'segsum':
         return MaskedGramPlan(coo, None, None, None, None, sum_mx2, shape,
                               nz, group, 'segsum')
-    n, d = shape
-    rows, cols = rows_h[:nz], cols_h[:nz]
-    m = m_np[:nz]
-    mx = (m * x_np[:nz]).astype(dtype, copy=False)
-    m = m.astype(dtype, copy=False)
-
-    def direction(g, s, ngt, nst):
-        v, gl, sl, ft, ot, mask, v2 = _plan_direction_np(
-            g, s, m, ngt, nst, TILE, group, dtype, extra=mx)
-        arrays = dict(vals=v, gloc=gl, sloc=sl, ftile=ft, otile=ot,
-                      mask=mask)
-        plan = ContractPlan(ngt, **{key: torch.from_numpy(
-            np.ascontiguousarray(a)).to(device) for key, a in
-            arrays.items()})
-        return plan, torch.from_numpy(v2).to(device)
-
-    n_rt, n_ct = -(-n // TILE), -(-d // TILE)
-    m_t, mx_t = direction(rows, cols, n_rt, n_ct)
-    m_w, mx_w = direction(cols, rows, n_ct, n_rt)
-    plan = MaskedGramPlan(coo, m_t, m_w, mx_t, mx_w, sum_mx2, shape, nz,
+    m_t, m_w, mx_t, mx_w = _layouts(coo)
+    return MaskedGramPlan(coo, m_t, m_w, mx_t, mx_w, sum_mx2, shape, nz,
                           group, 'mxu')
-    for side in ('t', 'w'):
-        plan.mx_layout_values(side)
-    return plan
+
+
+def _column_layout(ptr, gidx, vals, width, nnz):
+    """The :class:`ColumnLayout` of ``nnz`` nonzeros in output-column
+    order whose offsets ``ptr`` (width + 1,) may count the COO's padding
+    at the end, ``width`` output columns padded to whole 128-column tiles,
+    as B5's plans padded them."""
+    colptr = torch.full((-(-width // TILE) * TILE + 1,), nnz,
+                        dtype=torch.int32, device=ptr.device)
+    colptr[:ptr.shape[0]] = ptr.clamp(max=nnz)
+    n_rows = int(gidx.max()) + 1 if gidx.numel() else 0
+    PLAN_BUILDS['layout'] += 1
+    return ColumnLayout(colptr, gidx, vals, n_rows)
+
+
+def _layouts(coo):
+    """``(m_t, m_w, mx_t, mx_w)``: the mask's output-column layouts of Γ
+    (columns out, rows gathered) and Θ (rows out, columns gathered), and
+    M⊙X in each one's order, from the row-major COO on its device. Θ's
+    is the COO as it stands (the mask's CSR); Γ's is the COO in its
+    stable column order (its CSC), so each column holds its rows in
+    ascending order. The padding is left out: it sits last in both
+    orders (on the last row and the last column)."""
+    nz = coo.nnz
+    n, d = coo.shape
+    rows, cols, m = coo.rows[:nz], coo.cols[:nz], coo.m_vals[:nz]
+    mx = m * coo.x_vals[:nz]
+    order = coo.col_order[:nz]
+    m_w = _column_layout(coo.row_ptr, cols, m, n, nz)
+    m_t = _column_layout(coo.col_ptr, rows[order], m[order], d, nz)
+    return m_t, m_w, mx[order], mx
 
 
 def auto_panel(k, n, d, itemsize, budget=None):

@@ -25,14 +25,15 @@ makes no call and is the single-device sweep, bit for bit.
 Each rank holds one unpadded plan of its own rows
 (:func:`~rri_nmf_tpu_torch.ops.sweep_masked_gram.plan_masked_gram` of
 :func:`~rri_nmf_tpu_torch.parallel.masked_sparse_mesh.row_block`): the
-mask's B5 plan of each direction, the output-column layouts, M⊙X as the
-second value set. JAX pads each device's chunk plan to a common group
-count and splits it at SMEM segment boundaries (``_pad_plan_np``,
-``_stack_segments``) so one ``pallas_call`` shape serves every device;
-here every rank launches the gather kernel on its own plan, so neither
-has a counterpart. A rank that holds only its row slabs builds the same
-plan through :func:`~rri_nmf_tpu_torch.parallel.multihost.
-distribute_masked_coo` (``backend='segsum'`` or ``'mxu'``): the rows of
+mask's output-column layout of each direction, built from the block's
+COO, and M⊙X as the second value set. JAX pads each device's chunk plan
+to a common group count and splits it at SMEM segment boundaries
+(``_pad_plan_np``, ``_stack_segments``) so one ``pallas_call`` shape
+serves every device; here every rank launches the gather kernel on its
+own layouts, so neither has a counterpart. A rank that holds only its
+row slabs builds the same plan through :func:`~rri_nmf_tpu_torch.
+parallel.multihost.distribute_masked_coo` (``backend='segsum'`` or
+``'mxu'``): the rows of
 :func:`~rri_nmf_tpu_torch.parallel.masked_sparse_mesh.host_rows`, then
 :func:`~rri_nmf_tpu_torch.ops.sweep_masked_gram.plan_masked_gram`, the
 planning half here too.

@@ -2,10 +2,10 @@
 (``ops/sweep_masked_gram.py``) against the JAX package, on the CPU in
 float64.
 
-- The plan: the COO arrays, both directions' B5 plans of the mask and
-  M⊙X in their slots equal JAX's bit for bit (JAX's native counting sort
-  off, so both run the NumPy argsort form), the output-column layouts
-  derived from JAX's plans equal the port's, and ``Σ m x²``.
+- The plan: the COO arrays and ``Σ m x²`` equal JAX's bit for bit; the
+  port's output-column layouts, built from the COO, hold the entries of
+  the layouts derived from JAX's B5 plans of the mask (JAX's native
+  counting sort off, so it runs the NumPy argsort form), M⊙X included.
 - ``make_masked_gram_sweep`` against JAX's at 1e-9, both backends
   (JAX's ``'mxu'`` in interpret mode, the port's through the gather and
   Gram kernels' plain twins): the oracle configurations of
@@ -39,6 +39,7 @@ from rri_nmf_tpu_torch.ops import sparse_kernels as sk
 from rri_nmf_tpu_torch.ops import sparse_plan as spl
 from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg
 from rri_nmf_tpu_torch.ops.sweep import SweepConfig
+from test_torch_gram_layout import entries, layout_of
 from test_torch_sweep import jax_draws
 
 torch.set_num_threads(2)
@@ -129,8 +130,11 @@ def _port_plan(jplan):
 
 @pytest.mark.parametrize('group', [1, 8])
 def test_plan_equals_jax(argsort_plans, group):
-    """Observed zeros included (x = 0 where m = 1): the layout is the
-    mask's, and M⊙X maps onto it through ``keep``/``order``."""
+    """Observed zeros included (x = 0 where m = 1): the COO and ``Σ m x²``
+    bit for bit JAX's; each direction's layout, built from the COO, holds
+    the entries of the layout derived from JAX's B5 plan of the mask (the
+    route it replaces), M⊙X carried over from JAX's second value set,
+    with equal column offsets and rows ascending inside each column."""
     X, M, _, _ = _problem(11, n=300, d=200, density=0.3)
     X[M != 0] *= (np.random.RandomState(1).rand(int(M.sum())) > 0.2)
     want = jmg.plan_masked_gram(X, sp.csr_matrix(M), np.float64,
@@ -143,20 +147,20 @@ def test_plan_equals_jax(argsort_plans, group):
         assert np.array_equal(_np(getattr(got.coo, f)),
                               np.array(getattr(want.coo, f))), f
     assert float(got.sum_mx2) == float(want.sum_mx2)
-    for side, jp, jmx, p, mx in (
-            ('t', want.m_t, want.mx_t_vals, got.m_t, got.mx_t_vals),
-            ('w', want.m_w, want.mx_w_vals, got.m_w, got.mx_w_vals)):
+    for side, jp, jmx, lay in (
+            ('t', want.m_t, want.mx_t_vals, got.m_t),
+            ('w', want.m_w, want.mx_w_vals, got.m_w)):
         assert len(jp) == len(jmx) == 1
-        for f in ('vals', 'gloc', 'sloc', 'ftile', 'otile', 'mask'):
-            assert np.array_equal(_np(getattr(p, f)),
-                                  np.array(getattr(jp[0], f))), (side, f)
-        assert np.array_equal(_np(mx), np.array(jmx[0])), side
-        lay, jlay = spl.column_layout(p), spl.column_layout(_port_plan(jp[0]))
-        for f in spl.ColumnLayout._fields:
-            assert torch.equal(getattr(lay, f), getattr(jlay, f)), (side, f)
+        jlay, jv = layout_of(_port_plan(jp[0]), jmx[0])
+        assert torch.equal(lay.colptr, jlay.colptr), side
+        assert lay.n_rows == jlay.n_rows, side
+        v = got.mx_layout_values(side)
+        ours, theirs = entries(lay, v), entries(jlay, jv)
+        for a, b in zip(ours, theirs):
+            assert np.array_equal(a, b), side
+        assert np.array_equal(ours[1], lay.gidx.long().numpy()), side
         # every observation is a nonzero of the layout, zero ratings too
         assert lay.gidx.shape[0] == got.nnz
-        v = got.mx_layout_values(side)
         assert v.shape == lay.vals.shape and int((v == 0).sum()) > 0
 
 
