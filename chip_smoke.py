@@ -47,25 +47,26 @@ its users run, one line per phase:
    ratings and ``'random'`` resets (B4 4k times a call); and a 600×400
    k=8 fit on the card against the same fit on the CPU in float64;
 9. the sparse gather kernel, which serves B5 and B6 (the sparse
-   contractions ``WᵀX`` and ``T Xᵀ``), in both directions: the layouts
-   derived from the B5 and B6 plans equal, the kernel through both
-   wrappers and the sweep's products (each launch repeated and matched
-   bit for bit) against its twin and the two plan twins, in float64 and
-   float32, at a ragged 1000×700 2% case with duplicates and an empty
+   contractions ``WᵀX`` and ``T Xᵀ``), in both directions: the kernel
+   over a layout's padded width and through the sweep's products (each
+   launch repeated and matched bit for bit) against its twin, in float64
+   and float32, at a ragged 1000×700 2% case with duplicates and an empty
    tile band (k=16, and k=128 f64 / k=200 f32: two k-slices), at the TM
    corpus as CSR (k=50, Zipf word columns) and in float32 at the JAX
    package's recorded sparse configuration, 50,000×30,000 at 0.5%
-   density (~7.5M nonzeros), k=128; the host plan and the layout build
-   seconds, the layout's bytes, CUDA-event times of the kernel and its
-   twin, and ``torch.sparse.mm`` of the CSR X (and Xᵀ) by the factor,
-   the library call for the same product, with the ratio;
+   density (~7.5M nonzeros), k=128; the plan's build seconds (its two
+   layouts, from X's COO on the card), the layout's bytes, CUDA-event
+   times of the kernel and its twin, and ``torch.sparse.mm`` of the
+   CSR X (and Xᵀ) by the factor, the library call for the same
+   product, with the ratio;
 10. ``nmf()`` on that matrix as a CUDA CSR tensor, k=128 float32, with
     ``sparse='mxu'``, ``'dma'``, ``'auto'`` (which densifies on an 80 GB
     card: 6 GB dense) and ``True`` (``torch.sparse.mm``): exact launch
     counts, a non-increasing objective, ms/sweep with and without it, the
-    final objectives in agreement; ``'auto'`` taking B5 on a card that
-    reports too little memory; and a 2000×1500 k=16 sparse fit on the
-    card against the same fit on the CPU in float64;
+    final objectives in agreement (``'mxu'`` and ``'dma'`` bit for bit);
+    ``'auto'`` taking the gather kernel on a card that reports too
+    little memory; and a 2000×1500 k=16 sparse fit on the card against
+    the same fit on the CPU in float64;
 11. ``NMF_TM_Estimator`` with ``sparse='mxu'`` on the 20 Newsgroups
     train-split shape as a CUDA CSR tensor (the counts of phase 6, tf-idf
     and normalization kept sparse on the card): fit, a sparse transform
@@ -359,13 +360,11 @@ B3 = {'name': 'masked_phase_a', 'route': 'cuda',
 B4 = {'name': 'masked_phase_b', 'route': 'cuda',
       'source': 'rri_nmf_tpu_torch/csrc/masked.cu',
       'replaces': 'rri_nmf_tpu/ops/sweep_pallas.py:133'}
-# B5 and B6: one kernel, gather_kernel, serves both plans
-B5 = {'name': 'sparse_mxu', 'route': 'cuda',
-      'source': 'rri_nmf_tpu_torch/csrc/sparse.cu',
-      'replaces': 'rri_nmf_tpu/ops/sparse_mxu.py:298'}
-B6 = {'name': 'sparse_dma', 'route': 'cuda',
-      'source': 'rri_nmf_tpu_torch/csrc/sparse.cu',
-      'replaces': 'rri_nmf_tpu/ops/sparse_dma.py:164'}
+# B5 and B6: one kernel, gather_kernel, on one layout plan
+GATHER = {'name': 'sparse_gather', 'route': 'cuda',
+          'source': 'rri_nmf_tpu_torch/csrc/sparse.cu',
+          'replaces': 'rri_nmf_tpu/ops/sparse_mxu.py:298 and '
+                      'rri_nmf_tpu/ops/sparse_dma.py:164'}
 # B5 on the Khatri-Rao rows of the Gram-phase sweep (Γ/Θ): the Gram
 # kernel forms them on chip (csrc/gram.cu)
 GRAM = {'name': 'gram_contract', 'route': 'cuda',
@@ -412,15 +411,15 @@ RS_SWEEPS = 30
 # users whose test ratings the RS transform takes
 RS_TRANSFORM_ROWS = 512
 # (n, d, density, k): the JAX package's recorded sparse configuration
-# (benchmarks/results_round2_sparse_mxu.json), and B5/B6's ragged float64
-# case (duplicates, an empty 128-column band)
+# (benchmarks/results_round2_sparse_mxu.json), and the gather kernel's
+# ragged float64 case (duplicates, an empty 128-column band)
 SPARSE_SHAPE = (50000, 30000, 0.005, 128)
 SPARSE_RAGGED = (1000, 700, 0.02, 16)
 # (n, d, density, k) of the small card-vs-CPU sparse fit
 SPARSE_SMALL = (2000, 1500, 0.02, 16)
 SPARSE_SWEEPS = 10
 # the sparse modes' final objectives (float32, 10 sweeps from one init):
-# B5 and B6 run one kernel on equal layouts, 'auto' the dense GEMMs, True
+# 'mxu' and 'dma' run one kernel on one plan, 'auto' the dense GEMMs, True
 # torch.sparse.mm; the trajectories differ by float32 rounding (~1e-6
 # relative); 1e-4 is stated. The same 1e-4 holds the plain Gram-blocked
 # phase sweep (use_pallas=False) against the kernel sweep (phase 14): the
@@ -1341,34 +1340,29 @@ def sparse_cases(dev, counts):
 
 
 def check_sparse(dev, sk, spl, counts):
-    """Phase 9: the gather kernel (B5 and B6) against its twins in both
-    directions. Per case, the B5 and the B6 plan, their output-column
-    layouts (equal, array for array; build seconds and bytes), and per
-    direction: the kernel through ``mxu_contract`` and ``dma_contract``
-    (B5's padded panel, B6's slabs) and through the sweep's
-    ``contract_wtx``/``contract_xtt``, each launched twice (the same
-    bits; the three paths too), against the gather twin on the layout and
-    the two plan twins; on the timed cases the CUDA-event ms of the
-    sweep's call and of ``torch.sparse.mm`` of the CSR X (or Xᵀ) by the
-    factor, checked equal, their ratio and the L2 gather rate. Returns
-    {kernel: (max float32 abs error, ms, plain_ms, bound_ms, bound_by,
-    library_ms)} of the sparse fit's ``WᵀX``: the bound counts 2·nnz·k
-    flop and the bytes of W, the layout and the output."""
-    out = {'mxu': [0.0, None, None, None, None, None],
-           'dma': [0.0, None, None, None, None, None]}
+    """Phase 9: the gather kernel (JAX's B5 and B6) against its twin in
+    both directions. Per case, the plan of X (its two output-column
+    layouts, built on the card from X's COO: build seconds and bytes),
+    and per direction the kernel over the layout's padded width and
+    through the sweep's ``contract_wtx``/``contract_xtt``, each launched
+    twice (the same bits; the two paths too), against the gather twin on
+    the layout; on the timed cases the CUDA-event ms of the sweep's call
+    and of ``torch.sparse.mm`` of the CSR X (or Xᵀ) by the factor,
+    checked equal, their ratio and the L2 gather rate. Returns (max
+    float32 abs error, ms, plain_ms, bound_ms, bound_by, library_ms) of
+    the sparse fit's ``WᵀX``: the bound counts 2·nnz·k flop and the
+    bytes of W, the layout and the output."""
+    out = [0.0, None, None, None, None, None]
     for label, X, kk, dtype, tol, timed in sparse_cases(dev, counts):
         rng = np.random.RandomState(2)
         nn, dd = X.shape
         nnz = int(X._nnz())
         W = torch.as_tensor(rng.rand(nn, kk), dtype=dtype, device=dev)
         T = torch.as_tensor(rng.rand(kk, dd), dtype=dtype, device=dev)
-        plans, build_s = {}, {}
-        for kind, make in (('mxu', spl.plan_sparse_matrix),
-                           ('dma', spl.plan_sparse_matrix_dma)):
-            t0 = time.perf_counter()
-            plans[kind] = make(X, dtype, device=dev)
-            sync(dev)
-            build_s[kind] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plan = spl.plan_sparse_matrix(X, dtype, device=dev)
+        sync(dev)
+        build_s = time.perf_counter() - t0
         library = {}
         if timed and dev.type == 'cuda':
             # the library call for the same products: torch.sparse.mm of
@@ -1378,30 +1372,14 @@ def check_sparse(dev, sk, spl, counts):
             Tt = T.T.contiguous()
             library = {'WtX': (lambda: torch.sparse.mm(Xtc, W).T),
                        'TXt': (lambda: torch.sparse.mm(Xc, Tt).T)}
-        for dirn, F, m, cols in (('WtX', W.T, nn, dd), ('TXt', T, dd, nn)):
-            dirs = {kind: (p.t_phase if dirn == 'WtX' else p.w_phase)
-                    for kind, p in plans.items()}
-            layouts = {}
-            for kind, direction in dirs.items():
-                t0 = time.perf_counter()
-                layouts[kind] = spl.column_layout(direction)
-                sync(dev)
-                build_s['layout ' + kind] = time.perf_counter() - t0
-            lay = layouts['mxu']
-            for f in spl.ColumnLayout._fields:
-                if not torch.equal(getattr(lay, f),
-                                   getattr(layouts['dma'], f)):
-                    raise AssertionError('%s %s: the B5 and B6 plans give '
-                                         'different layouts (%s)'
-                                         % (label, dirn, f))
-            Fm, F3 = sk._padded(F, m), sk._tile_cols(F, m)
+        for dirn, Ft, cols in (('WtX', W, dd), ('TXt', T.T, nn)):
+            lay = plan.t_phase if dirn == 'WtX' else plan.w_phase
             contract = sk.contract_wtx if dirn == 'WtX' else sk.contract_xtt
             factor = W if dirn == 'WtX' else T
             calls = {
-                'mxu': lambda: sk.mxu_contract(dirs['mxu'], Fm),
-                'dma': lambda: sk.dma_contract(dirs['dma'], F3),
-                'mxu sweep': lambda: contract(plans['mxu'], factor),
-                'dma sweep': lambda: contract(plans['dma'], factor)}
+                'layout': lambda: sk.gather_contract(lay, Ft, kk,
+                                                     lay.n_cols),
+                'sweep': lambda: contract(plan, factor)}
             got = {}
             for name, fn in calls.items():
                 first, again = fn(), fn()
@@ -1410,68 +1388,53 @@ def check_sparse(dev, sk, spl, counts):
                     raise AssertionError('%s %s %s %s: two launches differ'
                                          % (name, dirn, label, dtype))
                 got[name] = first
-            if not all(torch.equal(got[name][:, :cols], got['mxu'][:, :cols])
-                       for name in got):
+            if not torch.equal(got['sweep'], got['layout'][:, :cols]):
                 raise AssertionError('%s %s %s: the wrappers\' launches '
                                      'differ' % (dirn, label, dtype))
-            twins = {'gather': lambda: sk.gather_contract_ref(
-                         lay, F.T, kk, lay.n_cols),
-                     'mxu plan': lambda: sk.mxu_contract_ref(dirs['mxu'], Fm),
-                     'dma plan': lambda: sk.dma_contract_ref(dirs['dma'], F3)}
-            errs = {}
-            for name, fn in twins.items():
-                want = fn()
-                sync(dev)
-                errs[name] = row_err(got['mxu'], want)
-                if not (errs[name] <= tol
-                        and bool(torch.isfinite(got['mxu']).all())):
-                    raise AssertionError('%s %s %s: error %.3g against the '
-                                         '%s twin > %g' % (dirn, label,
-                                                           dtype, errs[name],
-                                                           name, tol))
-                if name == 'gather':
-                    abs_err = float((got['mxu'] - want).abs().max())
-                del want
+
+            def twin():
+                return sk.gather_contract_ref(lay, Ft, kk, lay.n_cols)
+            want = twin()
+            sync(dev)
+            err = row_err(got['layout'], want)
+            if not (err <= tol and bool(torch.isfinite(got['layout']).all())):
+                raise AssertionError('%s %s %s: error %.3g against the '
+                                     'gather twin > %g' % (dirn, label,
+                                                           dtype, err, tol))
+            abs_err = float((got['layout'] - want).abs().max())
+            del want
             line = {'case': label, 'direction': dirn, 'dtype': str(dtype),
-                    'rel_err': errs, 'bitwise_repeat': True, 'nnz': nnz,
-                    'layout_MB': lay.nbytes / 1e6,
-                    'layout_build_s': {kind: build_s['layout ' + kind]
-                                       for kind in layouts},
-                    'plan_build_s': {kind: build_s[kind] for kind in plans}}
+                    'rel_err': err, 'bitwise_repeat': True, 'nnz': nnz,
+                    'layout_MB': lay.nbytes / 1e6, 'plan_build_s': build_s}
             if library:
-                lib_err = row_err(got['mxu'][:, :cols], library[dirn]())
+                lib_err = row_err(got['sweep'], library[dirn]())
                 if not lib_err <= tol:
                     raise AssertionError('%s %s: torch.sparse.mm differs by '
                                          '%.3g' % (dirn, label, lib_err))
                 line['library_rel_err'] = lib_err
             if dtype == torch.float32:
-                for kind in out:
-                    out[kind][0] = max(out[kind][0], abs_err)
+                out[0] = max(out[0], abs_err)
             if timed:
                 ms = {name: time_ms(fn, dev, runs=7)
                       for name, fn in calls.items()}
                 line['ms'] = ms
-                line['plain_ms'] = time_ms(twins['gather'], dev, runs=3)
-                line['gather_TB_per_s'] = nnz * kk * 4 / ms['mxu sweep'] / 1e9
+                line['plain_ms'] = time_ms(twin, dev, runs=3)
+                line['gather_TB_per_s'] = nnz * kk * 4 / ms['sweep'] / 1e9
                 if library:
                     lib_ms = time_ms(library[dirn], dev, runs=7)
                     line['library_ms'] = lib_ms
-                    line['ms_over_library_ms'] = {
-                        kind: ms[kind + ' sweep'] / lib_ms
-                        for kind in ('mxu', 'dma')}
+                    line['ms_over_library_ms'] = ms['sweep'] / lib_ms
                 if dirn == 'WtX' and label.startswith(
                         '%dx%d' % SPARSE_SHAPE[:2]):
                     nbytes = (W.nbytes + lay.nbytes + kk * dd
                               * W.element_size())
-                    for kind in out:
-                        out[kind][1:] = [ms[kind + ' sweep'],
-                                         line['plain_ms'],
-                                         *bound(2 * nnz * kk, nbytes),
-                                         line.get('library_ms')]
+                    out[1:] = [ms['sweep'], line['plain_ms'],
+                               *bound(2 * nnz * kk, nbytes),
+                               line.get('library_ms')]
             log('kernel sparse gather', **line)
-            del got, Fm, F3, calls, twins
-        del plans, library
-    return {key: tuple(v) for key, v in out.items()}
+            del got, calls
+        del plan, library
+    return tuple(out)
 
 
 class _Messages(logging.Handler):
@@ -1511,14 +1474,15 @@ def run_sparse_nmf_phase(dev, dk, sk, nmf):
         sweeps = len(obj)
         gs = dk.LAUNCHES['gs'] - b0[0]['gs']
         sparse_l = {key: sk.LAUNCHES[key] - b0[1][key] for key in sk.LAUNCHES}
-        want = {key: (2 * sweeps if key == mode else 0) for key in sparse_l}
+        want = {key: (2 * sweeps if key == 'gather' and mode in ('mxu', 'dma')
+                      else 0) for key in sparse_l}
         # sparse=True: torch.sparse.mm (cuSPARSE), no kernel of this repo
         decisions = [m for m in msgs.messages if m.startswith('sparse')]
         densified = any('densifying' in m for m in decisions)
         if (gs != 2 * sweeps or sparse_l != want
                 or dk.LAUNCHES['tm_proj'] != b0[0]['tm_proj']
                 or (mode == 'auto' and dev.type == 'cuda' and not densified)):
-            raise AssertionError('nmf(sparse=%r): B1 %d, B5/B6 %r for %d '
+            raise AssertionError('nmf(sparse=%r): B1 %d, gather %r for %d '
                                  'sweeps; log %r' % (mode, gs, sparse_l,
                                                      sweeps, decisions))
         for a, b in zip(obj, obj[1:]):
@@ -1545,15 +1509,16 @@ def run_sparse_nmf_phase(dev, dk, sk, nmf):
             * 1e3)
         del res, res2, W, T
     lo, hi = min(finals.values()), max(finals.values())
-    if not (hi - lo) <= TOL_MODES * abs(lo):
+    if not (hi - lo) <= TOL_MODES * abs(lo) or (finals['mxu']
+                                                 != finals['dma']):
         raise AssertionError('sparse modes disagree: %r' % finals)
     log('nmf sparse modes agree', final_objectives={
         str(key): v for key, v in finals.items()},
         rel_spread=(hi - lo) / abs(lo))
     del X
 
-    # 'auto' past the card's budget takes B5: the same decision on a card
-    # that reports 1 MB of memory
+    # 'auto' past the card's budget takes the gather kernel: the same
+    # decision on a card that reports 1 MB of memory
     n, d, dens, k = SPARSE_SMALL
     Xs = sparse_csr(n, d, dens, dev, seed=5)
     msgs = _Messages()
@@ -1562,7 +1527,7 @@ def run_sparse_nmf_phase(dev, dk, sk, nmf):
     nlog.setLevel(logging.INFO)
     real = torch.cuda.mem_get_info
     torch.cuda.mem_get_info = lambda *a: (10 ** 6, 10 ** 6)
-    b0 = sk.LAUNCHES['mxu']
+    b0 = sk.LAUNCHES['gather']
     try:
         res = nmf(Xs, k, max_iter=3, random_state=0, **FAST_TM)
         sync(dev)
@@ -1571,12 +1536,14 @@ def run_sparse_nmf_phase(dev, dk, sk, nmf):
         nlog.removeHandler(msgs)
         nlog.setLevel(level)
     decisions = [m for m in msgs.messages if m.startswith('sparse')]
-    got = sk.LAUNCHES['mxu'] - b0
-    if dev.type == 'cuda' and (got != 6 or 'B5' not in ' '.join(decisions)):
-        raise AssertionError("sparse='auto' past the budget: %d B5 launches "
-                             'for 3 sweeps; log %r' % (got, decisions))
+    got = sk.LAUNCHES['gather'] - b0
+    if dev.type == 'cuda' and (got != 6 or 'gather-kernel'
+                               not in ' '.join(decisions)):
+        raise AssertionError("sparse='auto' past the budget: %d gather "
+                             'launches for 3 sweeps; log %r'
+                             % (got, decisions))
     log("nmf %dx%d sparse='auto' past a 1 MB budget" % (n, d),
-        mxu_launches=got, mode_log=decisions,
+        gather_launches=got, mode_log=decisions,
         finite=bool(torch.isfinite(res['W']).all()))
 
     # the same small sparse fit on the card (float32) and on the CPU
@@ -1614,19 +1581,21 @@ def run_sparse_tm_phase(dev, dk, sk, Est, counts):
     sync(dev)
     fit_s = time.perf_counter() - t0
     sweeps = len(est.nmf_outputs['iter_cputime'])
-    got = (sk.LAUNCHES['mxu'] - b0[1]['mxu'],
+    got = (sk.LAUNCHES['gather'] - b0[1]['gather'],
            dk.LAUNCHES['tm_proj'] - b0[0]['tm_proj'],
            dk.LAUNCHES['gs'] - b0[0]['gs'])
     if got != (2 * sweeps, sweeps, sweeps):
-        raise AssertionError('sparse TM fit: B5, B2, B1 launches %r for %d '
-                             'sweeps' % (got, sweeps))
+        raise AssertionError('sparse TM fit: gather, B2, B1 launches %r '
+                             'for %d sweeps' % (got, sweeps))
     t_dev = check_simplex(est.T, 1.0, 'sparse TM T rows')
     b1 = dict(dk.LAUNCHES), dict(sk.LAUNCHES)
     Wn = est.transform(Xte)
     sync(dev)
-    got = (sk.LAUNCHES['mxu'] - b1[1]['mxu'], dk.LAUNCHES['gs'] - b1[0]['gs'])
+    got = (sk.LAUNCHES['gather'] - b1[1]['gather'],
+           dk.LAUNCHES['gs'] - b1[0]['gs'])
     if got != (4, 4) or tuple(Wn.shape) != (Xte.shape[0], k):
-        raise AssertionError('sparse transform: B5, B1 launches %r, shape %r'
+        raise AssertionError('sparse transform: gather, B1 launches %r, '
+                             'shape %r'
                              % (got, tuple(Wn.shape)))
     w_dev = check_simplex(Wn, 1.0, 'sparse transform rows')
     r2 = est.score(Xte)
@@ -2138,7 +2107,7 @@ def library_masks(plan):
             ('w', True): csr(r, c, m * coo.x_vals[:nz], (n, d))}
 
 
-def check_masked_gram(dev, sk, spl, mg, cases):
+def check_masked_gram(dev, sk, mg, cases):
     """Phase 17: the Gram-phase sweep's contractions on the card: A and C
     through the gather kernel against its twin; Γ and Θ through the Gram
     kernel against its twin and against the gather kernel on the
@@ -2165,14 +2134,13 @@ def check_masked_gram(dev, sk, spl, mg, cases):
             T = torch.as_tensor(rng.rand(k, d), dtype=dtype, device=dev)
             for name, (side, pl, Ft, kk, pairs, rows, ncols, vals) in \
                     gram_contractions(mg, plan, W, T, p, names):
-                lay = spl.column_layout(pl)
+                lay = pl
                 panel = None if pairs == 'unique' else pairs
                 if pairs is None:
                     kernel, KR = 'gather', None
 
                     def call():
-                        return sk.gather_contract(pl, Ft, rows, ncols, 'mxu',
-                                                  vals)
+                        return sk.gather_contract(pl, Ft, rows, ncols, vals)
 
                     def twin():
                         return sk.gather_contract_ref(lay, Ft, rows, ncols,
@@ -2191,7 +2159,7 @@ def check_masked_gram(dev, sk, spl, mg, cases):
                                                     ncols)
 
                     def gather():
-                        return sk.gather_contract(pl, KR, rows, ncols, 'mxu')
+                        return sk.gather_contract(pl, KR, rows, ncols)
                 first, again = call(), call()
                 sync(dev)
                 if not torch.equal(first, again):
@@ -2249,9 +2217,9 @@ def check_masked_gram(dev, sk, spl, mg, cases):
 
 
 def sparse_launches(sk):
-    """The sparse kernels' launch counts now: the gather kernel's under
-    ``'mxu'`` (A and C of a Gram sweep) and the Gram kernel's (Γ, Θ)."""
-    return {key: sk.LAUNCHES[key] for key in ('mxu', 'gram')}
+    """The sparse kernels' launch counts now: the gather kernel's
+    (A and C of a Gram sweep) and the Gram kernel's (Γ, Θ)."""
+    return {key: sk.LAUNCHES[key] for key in ('gather', 'gram')}
 
 
 def launched_since(sk, before):
@@ -2262,13 +2230,13 @@ def gram_launches(sweeps, panels=None):
     """The launches of ``sweeps`` tracked Gram-phase sweeps (each with its
     objective): 3 gather (A, C, the objective's C) and 3 Gram (Γ, Θ, the
     objective's Θ) a sweep; in ``panels`` panels, 3·panels Gram."""
-    return {'mxu': 3 * sweeps, 'gram': 3 * (panels or 1) * sweeps}
+    return {'gather': 3 * sweeps, 'gram': 3 * (panels or 1) * sweeps}
 
 
 def run_masked_record_phase(dev, sk, nmf, mg, ms, X, M, plan, plan_s):
     """Phase 18 on the recorded problem (scipy CSR ``X``, ``M``; ``plan``
     its Gram plan from phase 17): returns the gather and Gram kernels'
-    launches of the main path's fits, ``{'mxu': .., 'gram': ..}``."""
+    launches of the main path's fits, ``{'gather': .., 'gram': ..}``."""
     from rri_nmf_tpu_torch.ops.sweep import make_draws
     n, d, _, k = MASKED_RECORD
     nnz = int(M.nnz)
@@ -2313,7 +2281,7 @@ def run_masked_record_phase(dev, sk, nmf, mg, ms, X, M, plan, plan_s):
     gram_objective = mg.make_masked_gram_objective('mxu')
     log('nmf %dx%d %d observations k=%d float32, update_order=phase '
         '(Gram-phase)' % (n, d, nnz, k), sweeps=len(obj),
-        gather_launches=got['mxu'], gram_launches=got['gram'],
+        gather_launches=got['gather'], gram_launches=got['gram'],
         obj_first=obj[0], obj_last=obj[-1], wall_s=wall,
         host_plan_s=plan_s, peak_GB=peak, sum_mx2=float(plan.sum_mx2),
         gram_vs_observed_objective_rel_sum_mx2=gap,
@@ -2383,7 +2351,7 @@ def run_masked_record_phase(dev, sk, nmf, mg, ms, X, M, plan, plan_s):
     sweep = mg.make_masked_gram_sweep(masked_cfg(kp, update_order='phase'),
                                       'mxu', panel)
     log('nmf %dx%d k=%d float32, Gram-phase in %d-topic panels'
-        % (n, d, kp, panel), panels=npan, gather_launches=got['mxu'],
+        % (n, d, kp, panel), panels=npan, gather_launches=got['gather'],
         gram_launches=got['gram'], obj=res['obj_history'], wall_s=wall,
         peak_GB=peak,
         ms_per_sweep=time_ms(lambda: sweep(plan, W0, T0, draws, 0), dev,
@@ -2428,7 +2396,7 @@ def run_sparse_obs_phase(dev, mk, sk, Est, X, rmse_dense):
                                      label, mk.LAUNCHES, got, len(obj)))
         main = {key: main[key] + got[key] for key in main}
         non_increasing(obj, 'sparse_obs %s fit' % label,
-                       float((r_tr ** 2).sum()) if got['mxu'] else None)
+                       float((r_tr ** 2).sum()) if got['gather'] else None)
         b1 = dict(mk.LAUNCHES), sparse_launches(sk)
         t0 = time.perf_counter()
         Wn = est.transform(Xnew)
@@ -2448,7 +2416,7 @@ def run_sparse_obs_phase(dev, mk, sk, Est, X, rmse_dense):
         sw(plan, est.W, est.T, None, 0)
         log('NMF_RS_Estimator(sparse_obs=True) %dx%d k=%d float32, %s'
             % (n, d, k, label), fit_s=fit_s, sweeps_kept=len(obj),
-            gather_launches=got['mxu'], gram_launches=got['gram'],
+            gather_launches=got['gather'], gram_launches=got['gram'],
             obj_first=obj[0], obj_last=obj[-1],
             ms_per_sweep=time_ms(lambda: sw(plan, est.W, est.T, None, 0),
                                  dev, runs=5),
@@ -3248,57 +3216,52 @@ def check_16_bit_kernels(dev, counts, ratings):
     nnz = X.values().numel()
     W = torch.as_tensor(rng.rand(n, k), dtype=f32, device=dev)
     T = torch.as_tensor(rng.rand(k, d), dtype=f32, device=dev)
-    for kind, build in (('mxu', spl.plan_sparse_matrix),
-                        ('dma', spl.plan_sparse_matrix_dma)):
-        plan32 = build(X, f32, device=dev)
-        for dt in NARROW:
-            plan = build(X, dt, device=dev)
-            W16, T16, X16 = W.to(dt), T.to(dt), X.to(dt)
-            Xt16, Tt16 = X16.t().to_sparse_csr(), T16.T.contiguous()
-            worst = 0.0
-            for dirn, m, ncols, call, call32, lib_call in (
-                    ('WtX', n, d, lambda: sk.contract_wtx(plan, W16),
-                     lambda: sk.contract_wtx(plan32, W),
-                     lambda: torch.sparse.mm(Xt16, W16)),
-                    ('TXt', d, n, lambda: sk.contract_xtt(plan, T16),
-                     lambda: sk.contract_xtt(plan32, T),
-                     lambda: torch.sparse.mm(X16, Tt16))):
-                lay = spl.column_layout(plan.t_phase if dirn == 'WtX'
-                                        else plan.w_phase)
-                Ft = W16 if dirn == 'WtX' else T16.T
-                got, again = call(), call()
-                want = sk.gather_contract_ref(lay, Ft, k, ncols)
-                sync(dev)
-                same('B5/B6 %s %s' % (kind, dirn), [got], [again])
-                err = rel_err(got, want)
-                if not (got.dtype == f32 and err <= TOL_F32):
-                    raise AssertionError('gather %s %s %s: %.3g'
-                                         % (kind, dirn, dt, err))
-                worst = max(worst, float((got - want).abs().max()))
-                ms, ms32 = in_turns(call, call32, dev)
-                plain = time_ms(lambda: sk.gather_contract_ref(
-                    lay, Ft, k, ncols), dev, runs=3)
-                lib = None
-                try:
-                    lib = time_ms(lib_call, dev)
-                except (RuntimeError, NotImplementedError, TypeError):
-                    pass
-                b = bound(2 * nnz * k, m * k * 2 + nnz * (2 + 4)
-                          + (ncols + 1) * 4 + k * ncols * 4, str(dt)[6:])
-                if dirn == 'WtX':
-                    stats = (ms, plain, b[0], b[1], lib)
-                log('kernel gather 16-bit %s %dx%d %g k=%d %s'
-                    % (dirn, n, d, dens, k, kind), dtype=str(dt),
-                    rel_err=err, bitwise_repeat=True, ms=ms,
-                    float32_ms=ms32, plain_ms=plain, library_ms=lib,
-                    bound_ms=b[0], bound_by=b[1],
-                    l2_gather_TB_per_s=nnz * k * 2 / ms / 1e9)
-            out[(kind, dt)] = (worst,) + stats
-            if kind == 'mxu':
-                check_gather_16(dev, sk, spl, plan, X, dt, counts)
-                check_gather_mirror_16(dev, sk, spl, dt)
-            del plan, X16, Xt16, Tt16
-        del plan32
+    plan32 = spl.plan_sparse_matrix(X, f32, device=dev)
+    for dt in NARROW:
+        plan = spl.plan_sparse_matrix(X, dt, device=dev)
+        W16, T16, X16 = W.to(dt), T.to(dt), X.to(dt)
+        Xt16, Tt16 = X16.t().to_sparse_csr(), T16.T.contiguous()
+        worst = 0.0
+        for dirn, m, ncols, call, call32, lib_call in (
+                ('WtX', n, d, lambda: sk.contract_wtx(plan, W16),
+                 lambda: sk.contract_wtx(plan32, W),
+                 lambda: torch.sparse.mm(Xt16, W16)),
+                ('TXt', d, n, lambda: sk.contract_xtt(plan, T16),
+                 lambda: sk.contract_xtt(plan32, T),
+                 lambda: torch.sparse.mm(X16, Tt16))):
+            lay = plan.t_phase if dirn == 'WtX' else plan.w_phase
+            Ft = W16 if dirn == 'WtX' else T16.T
+            got, again = call(), call()
+            want = sk.gather_contract_ref(lay, Ft, k, ncols)
+            sync(dev)
+            same('gather %s' % dirn, [got], [again])
+            err = rel_err(got, want)
+            if not (got.dtype == f32 and err <= TOL_F32):
+                raise AssertionError('gather %s %s: %.3g' % (dirn, dt, err))
+            worst = max(worst, float((got - want).abs().max()))
+            ms, ms32 = in_turns(call, call32, dev)
+            plain = time_ms(lambda: sk.gather_contract_ref(
+                lay, Ft, k, ncols), dev, runs=3)
+            lib = None
+            try:
+                lib = time_ms(lib_call, dev)
+            except (RuntimeError, NotImplementedError, TypeError):
+                pass
+            b = bound(2 * nnz * k, m * k * 2 + nnz * (2 + 4)
+                      + (ncols + 1) * 4 + k * ncols * 4, str(dt)[6:])
+            if dirn == 'WtX':
+                stats = (ms, plain, b[0], b[1], lib)
+            log('kernel gather 16-bit %s %dx%d %g k=%d'
+                % (dirn, n, d, dens, k), dtype=str(dt),
+                rel_err=err, bitwise_repeat=True, ms=ms,
+                float32_ms=ms32, plain_ms=plain, library_ms=lib,
+                bound_ms=b[0], bound_by=b[1],
+                l2_gather_TB_per_s=nnz * k * 2 / ms / 1e9)
+        out[('gather', dt)] = (worst,) + stats
+        check_gather_16(dev, sk, spl, plan, X, dt, counts)
+        check_gather_mirror_16(dev, sk, spl, dt)
+        del plan, X16, Xt16, Tt16
+    del plan32
     return out
 
 
@@ -3320,10 +3283,9 @@ def check_gather_16(dev, sk, spl, plan, X, dt, counts):
                                           ('TXt', pl.w_phase, pl.d, pl.n)):
             Ft = torch.as_tensor(rng.rand(m, k), dtype=torch.float32,
                                  device=dev).to(dt)
-            got, again = (sk.gather_contract(direction, Ft, k, ncols, 'mxu')
+            got, again = (sk.gather_contract(direction, Ft, k, ncols)
                           for _ in range(2))
-            want = sk.gather_contract_ref(spl.column_layout(direction), Ft,
-                                          k, ncols)
+            want = sk.gather_contract_ref(direction, Ft, k, ncols)
             sync(dev)
             errs[dirn] = rel_err(got, want)
             if not (torch.equal(got, again) and errs[dirn] <= TOL_F32):
@@ -3354,8 +3316,7 @@ def check_gather_mirror_16(dev, sk, spl, dt):
     rng = np.random.RandomState(23)
     for label, X in mats.items():
         plan = spl.plan_sparse_matrix(X, dt, device=dev)
-        cut = sm.cut_columns(spl.column_layout(plan.t_phase), c['SG_NC'],
-                             c['SG_WARPS'])
+        cut = sm.cut_columns(plan.t_phase, c['SG_NC'], c['SG_WARPS'])
         if label.startswith('zipf') and not cut:
             raise AssertionError('gather mirror %s: no column cut between '
                                  'warps' % label)
@@ -3371,7 +3332,7 @@ def check_gather_mirror_16(dev, sk, spl, dt):
                     ('TXt', lambda: sk.contract_xtt(plan, T), plan.w_phase,
                      T.T, plan.n)):
                 got, again = call(), call()
-                lay = spl.column_layout(direction)
+                lay = direction
                 want = sk.gather_contract_ref(lay, Ft, k, ncols)
                 mirror = sm.kernel_mirror(
                     lay, Ft, k, ncols, c['SG_NC'], c['SG_WARPS'],
@@ -3477,7 +3438,7 @@ def run_16_bit_fits(dev, dk, mk, sk, nmf, Est, counts, ratings, dt):
     n, d, dens, k = SPARSE_SHAPE
     Xs = sparse_csr(n, d, dens, dev, seed=0)
     for mode in ('mxu', 'dma'):
-        b0 = sk.LAUNCHES[mode]
+        b0 = sk.LAUNCHES['gather']
         res = nmf(Xs, k, sparse=mode, dtype=dt, max_iter=SPARSE_SWEEPS_16,
                   compute_obj_each_iter=True, random_state=0, eps_stop=0.0,
                   **FAST_TM)
@@ -3488,7 +3449,7 @@ def run_16_bit_fits(dev, dk, mk, sk, nmf, Est, counts, ratings, dt):
                    T_in=res['T'], max_iter=SPARSE_PLAIN_SWEEPS_16,
                    random_state=0, eps_stop=0.0, **FAST_TM)
         sync(dev)
-        got = sk.LAUNCHES[mode] - b0
+        got = sk.LAUNCHES['gather'] - b0
         if got != 2 * (SPARSE_SWEEPS_16 + SPARSE_PLAIN_SWEEPS_16) or not (
                 bool(torch.isfinite(res2['W']).all())
                 and res2['W'].dtype == dt):
@@ -3606,7 +3567,7 @@ def run(dev):
     for key in ('gs', 'tm_proj'):
         launches[key] += dk.LAUNCHES[key]
     sparse = dict(sk.LAUNCHES)
-    if sparse['mxu'] == 0 or sparse['dma'] == 0 or dk.LAUNCHES['gs'] == 0:
+    if sparse['gather'] == 0 or dk.LAUNCHES['gs'] == 0:
         raise AssertionError('a kernel of the path never ran: %r %r'
                              % (sparse, dk.LAUNCHES))
 
@@ -3637,7 +3598,7 @@ def run(dev):
     Ms.data[:] = 1.0
     record = '%dx%d %d observations' % (n, d, Mr.nnz)
     k_rs = RS_SHAPE[3]
-    plans, gram_lines = check_masked_gram(dev, sk, spl, mg, [
+    plans, gram_lines = check_masked_gram(dev, sk, mg, [
         ('MovieLens %dx%d' % Rs.shape, Rs, Ms, dtype, tol, False,
          [(k_rs, GRAM_GATE_PANEL, None)])
         for dtype, tol in ((torch.float64, TOL_F64),
@@ -3662,10 +3623,10 @@ def run(dev):
                                 rmse_dense)
     sync(dev)
     masks = {key: masks[key] + more[key] for key in masks}
-    if masks['mxu'] == 0 or masks['gram'] == 0:
+    if masks['gather'] == 0 or masks['gram'] == 0:
         raise AssertionError('a kernel of the sparse-mask paths never ran: '
                              '%r' % masks)
-    sparse['mxu'] += masks['mxu']
+    sparse['gather'] += masks['gather']
     sparse['gram'] = masks['gram']
 
     # 20-23. HER, checkpoint/resume and row weights, counted from zero:
@@ -3761,7 +3722,7 @@ def run(dev):
         if one == 0 or any(ranks[key] == 0 for key in ranks):
             raise AssertionError('a kernel of the sparse mesh phase never '
                                  'ran: %d %r' % (one, ranks))
-        sparse['mxu'] += one + ranks['mxu']
+        sparse['gather'] += one + ranks['gather']
         launches['gs'] += ranks['gs']
         launches['tm_proj'] += ranks['tm_proj']
 
@@ -3773,13 +3734,14 @@ def run(dev):
         one, refs = run_sparse_mask_mesh_one_rank_phase(dev, sk, nmf, mesh,
                                                         Xr, Mr)
         sync(dev)
-        log('launches, phase 30 (a)', mxu=sk.LAUNCHES['mxu'],
+        log('launches, phase 30 (a)', gather=sk.LAUNCHES['gather'],
             gram=sk.LAUNCHES['gram'], fits=one)
         ranks = run_sparse_mask_mesh_ranks_phase(dev, nmf)
-        if any(one[key] == 0 or ranks[key] == 0 for key in ('mxu', 'gram')):
+        if any(one[key] == 0 or ranks[key] == 0
+               for key in ('gather', 'gram')):
             raise AssertionError('a kernel of the sparse-mask meshes never '
                                  'ran: %r %r' % (one, ranks))
-        for key in ('mxu', 'gram'):
+        for key in ('gather', 'gram'):
             sparse[key] += one[key] + ranks[key]
 
         # 31. the multi-host layer, counted from zero: B1 and the gather
@@ -3793,19 +3755,19 @@ def run(dev):
         del Xr, Mr, refs
         ranks = run_multihost_ranks_phase(dev, nmf)
         if any(one[key] == 0 or ranks[key] == 0
-               for key in ('gs', 'mxu', 'gram')) or ranks['tm_proj'] == 0:
+               for key in ('gs', 'gather', 'gram')) or ranks['tm_proj'] == 0:
             raise AssertionError('a kernel of the multi-host phase never '
                                  'ran: %r %r' % (one, ranks))
         log('launches, phase 31', gs=one['gs'] + ranks['gs'],
-            tm_proj=ranks['tm_proj'], mxu=one['mxu'] + ranks['mxu'],
+            tm_proj=ranks['tm_proj'], gather=one['gather'] + ranks['gather'],
             gram=one['gram'] + ranks['gram'], one_rank=one, ranks=ranks,
             seconds=time.perf_counter() - t31)
         launches['gs'] += one['gs'] + ranks['gs']
         launches['tm_proj'] += ranks['tm_proj']
-        for key in ('mxu', 'gram'):
+        for key in ('gather', 'gram'):
             sparse[key] += one[key] + ranks[key]
     log('launches, phases 27-31', gs=launches['gs'],
-        tm_proj=launches['tm_proj'], **masked, mxu=sparse['mxu'],
+        tm_proj=launches['tm_proj'], **masked, gather=sparse['gather'],
         gram=sparse['gram'])
     # no single PyTorch call computes B1-B4 (sequential topic chains with
     # clamps, a simplex projection, fused in-place rank-one updates)
@@ -3819,11 +3781,10 @@ def run(dev):
              ms=stats[key][1], plain_ms=stats[key][2],
              bound_ms=stats[key][3], bound_by=stats[key][4], library_ms=None)
         for entry, key in ((B3, 'phase_a'), (B4, 'phase_b'))] + [
-        dict(entry, launches=sparse[key], max_abs_err=sparse_stats[key][0],
-             ms=sparse_stats[key][1], plain_ms=sparse_stats[key][2],
-             bound_ms=sparse_stats[key][3], bound_by=sparse_stats[key][4],
-             library_ms=sparse_stats[key][5])
-        for entry, key in ((B5, 'mxu'), (B6, 'dma'))] + [
+        dict(GATHER, launches=sparse['gather'], max_abs_err=sparse_stats[0],
+             ms=sparse_stats[1], plain_ms=sparse_stats[2],
+             bound_ms=sparse_stats[3], bound_by=sparse_stats[4],
+             library_ms=sparse_stats[5])] + [
         dict(GRAM, launches=sparse['gram'],
              max_abs_err=gram_stats['max_abs_err'], ms=gram_stats['ms'],
              plain_ms=gram_stats['plain_ms'],
@@ -3842,7 +3803,7 @@ def run(dev):
              library_ms=stats16[key, dt][5])
         for dt, tag in ((torch.bfloat16, 'bf16'), (torch.float16, 'f16'))
         for entry, key in ((B1, 'gs'), (B2, 'tm_proj'), (B3, 'phase_a'),
-                           (B4, 'phase_b'), (B5, 'mxu'), (B6, 'dma'))]
+                           (B4, 'phase_b'), (GATHER, 'gather'))]
     return wide + narrow
 
 
@@ -4670,13 +4631,13 @@ def run_sparse_mesh_one_rank_phase(dev, sk, nmf, mesh):
     kw = dict(max_iter=SPARSE_MESH_SWEEPS, compute_obj_each_iter=True,
               random_state=0, sparse='mxu', W_in=rng.rand(n, k),
               T_in=rng.rand(k, d), **FAST_TM)
-    b0 = sk.LAUNCHES['mxu']
+    b0 = sk.LAUNCHES['gather']
     fits, counts = [], []
     for m in (None, mesh):
-        c0 = sk.LAUNCHES['mxu']
+        c0 = sk.LAUNCHES['gather']
         fits.append(nmf(X, k, mesh=m, **kw))
         sync(dev)
-        counts.append(sk.LAUNCHES['mxu'] - c0)
+        counts.append(sk.LAUNCHES['gather'] - c0)
     sweeps = len(fits[1]['obj_history'])
     same = _bit_for_bit(*fits)
     if not same or counts != [2 * sweeps, 2 * sweeps]:
@@ -4692,7 +4653,7 @@ def run_sparse_mesh_one_rank_phase(dev, sk, nmf, mesh):
         gather_launches_single=counts[0],
         obj_last=fits[1]['obj_history'][-1],
         ms_per_sweep_single=ms['single'], ms_per_sweep_mesh=ms['mesh'])
-    return sk.LAUNCHES['mxu'] - b0
+    return sk.LAUNCHES['gather'] - b0
 
 
 def run_sparse_mesh_ranks_phase(dev, nmf):
@@ -4706,10 +4667,10 @@ def run_sparse_mesh_ranks_phase(dev, nmf):
     def expect(name, sweeps):
         gather = 2 * sweeps if name.startswith('mxu') else 0
         if ' TM ' in name:
-            return {'gs': sweeps, 'tm_proj': sweeps, 'mxu': gather}
-        return {'gs': 2 * sweeps, 'tm_proj': 0, 'mxu': gather}
+            return {'gs': sweeps, 'tm_proj': sweeps, 'gather': gather}
+        return {'gs': 2 * sweeps, 'tm_proj': 0, 'gather': gather}
     total = check_rank_fits(29, want, ranks, expect)
-    total = {key: total.get(key, 0) for key in ('gs', 'tm_proj', 'mxu')}
+    total = {key: total.get(key, 0) for key in ('gs', 'tm_proj', 'gather')}
     log('sparse mesh ranks phase', ranks=MESH_RANKS, wall_s=wall, **total)
     return total
 
@@ -4899,7 +4860,8 @@ def run_sparse_mask_mesh_ranks_phase(dev, nmf):
         raise AssertionError('the sparse-mask mesh guards: %r' % guards)
     # the estimator: an early stop runs one sweep more than it keeps
     kept = len(mine['obj'])
-    gather = [{key: c[key] for key in ('mxu', 'gram')} for c in est_launches]
+    gather = [{key: c[key] for key in ('gather', 'gram')}
+              for c in est_launches]
     gap = abs(mine['rmse'] - ref['rmse']) / ref['rmse']
     if not (gap <= TOL_RMSE_ROUTES and mine['loaded_rmse'] == mine['rmse']
             and not mine['loaded_mesh']
@@ -4920,7 +4882,7 @@ def run_sparse_mask_mesh_ranks_phase(dev, nmf):
         pickled_test_rmse=mine['loaded_rmse'],
         pickled_objective=mine['loaded_objective'],
         launches_per_rank=gather, guards=guards)
-    for key in ('mxu', 'gram'):
+    for key in ('gather', 'gram'):
         total[key] = total.get(key, 0) + sum(g[key] for g in gather)
     log('sparse-mask mesh ranks phase', ranks=MESH_RANKS, wall_s=wall,
         rank_walls_s={name: f['wall_s'] for name, f in
@@ -4935,7 +4897,7 @@ def run_sparse_mask_mesh_ranks_phase(dev, nmf):
                 (kp + kp * kp) * dr * 8 / 1e6},
         panel=panel, note='gloo copies each all-reduce through the host '
         '(~12 ms per 4 MB among 4 ranks, tools/probe_gloo_cuda.py) and the '
-        'ranks share one card: no scaling reading', gather=total['mxu'],
+        'ranks share one card: no scaling reading', gather=total['gather'],
         gram=total['gram'])
     return total
 
@@ -4969,7 +4931,7 @@ def run_multihost_one_rank_phase(dev, dk, sk, nmf, Xr, Mr, refs):
     mesh = make_global_mesh()
     if joined != (0, 1) or mesh.shape != (1, 1):
         raise AssertionError('the one-rank world: %r, %r' % (joined, mesh))
-    total = {'gs': 0, 'mxu': 0, 'gram': 0}
+    total = {'gs': 0, 'gather': 0, 'gram': 0}
 
     def launched(fn):
         c0 = _launch_counts()
@@ -5023,7 +4985,7 @@ def run_multihost_one_rank_phase(dev, dk, sk, nmf, Xr, Mr, refs):
               random_state=0, W_in=W0, T_in=T0, **FAST_TM)
     three('nmf %dx%d k=%d float32 distribute_dense' % (n, d, k), X,
           distribute_dense(X[lo:hi], (n, d), mesh), k, kw,
-          {'gs': 2, 'mxu': 0, 'gram': 0})
+          {'gs': 2, 'gather': 0, 'gram': 0})
 
     # the mesh NNDSVD in float64 from the rank's block, one Ω
     X = X.double()
@@ -5062,7 +5024,7 @@ def run_multihost_one_rank_phase(dev, dk, sk, nmf, Xr, Mr, refs):
     plan_s = time.perf_counter() - t0
     three("'mxu' %dx%d %.1f%% k=%d float32 distribute_sparse_coo "
           '(host plan %.3f s)' % (n, d, 100 * dens, k, plan_s), X, plan, k,
-          kw, {'gs': 2, 'mxu': 2, 'gram': 0})
+          kw, {'gs': 2, 'gather': 2, 'gram': 0})
     del X, plan
 
     # the recorded problem: phase 30 (a)'s Gram and O(nnz) fits from
@@ -5088,7 +5050,7 @@ def run_multihost_one_rank_phase(dev, dk, sk, nmf, Xr, Mr, refs):
             device=dev, **extra))
         ref = refs[name]
         same = _bit_for_bit(res, ref)
-        got = {key: got[key] for key in ('mxu', 'gram')}
+        got = {key: got[key] for key in ('gather', 'gram')}
         if not same or got != ref['launches']:
             raise AssertionError('the %s fit on a distribute_masked_coo plan: '
                                  'bit for bit %s, launches %r against %r'
@@ -5157,7 +5119,7 @@ def run_multihost_ranks_phase(dev, nmf):
         rel_gap_USVt=gap_usv)
 
     def expect(name, sweeps):
-        none = {'mxu': 0, 'gram': 0}
+        none = {'gather': 0, 'gram': 0}
         if name.startswith('coo'):            # slab, whole X, whole X again
             return dict(none, gs=6 * sweeps)
         if name.startswith(('dense', 'restore')):
@@ -5165,13 +5127,13 @@ def run_multihost_ranks_phase(dev, nmf):
         if name.startswith('tm'):
             return dict(none, gs=2 * sweeps, tm_proj=2 * sweeps)
         if name.startswith('mxu'):
-            return dict(none, gs=4 * sweeps, mxu=4 * sweeps)
+            return dict(none, gs=4 * sweeps, gather=4 * sweeps)
         if name.startswith('gram'):           # slab and whole X
             return dict(gram_launches(2 * sweeps), gs=0)
         return dict(none, gs=0, phase_a=0, phase_b=0)
     total = check_rank_fits(31, want, ranks, expect)
     total = {key: total.get(key, 0)
-             for key in ('gs', 'tm_proj', 'mxu', 'gram')}
+             for key in ('gs', 'tm_proj', 'gather', 'gram')}
     coo = [fl['coo float32'] for fl in flags]
     log('multi-host ranks phase', ranks=MESH_RANKS, wall_s=wall,
         bit_for_bit_whole_x='every problem but coo float32',

@@ -1,8 +1,8 @@
 // The Gram-phase Khatri-Rao contractions Γ and Θ of the sparse-mask sweep,
 // straight from the factor rows.
 //
-// Replaces B5 (rri_nmf_tpu/ops/sparse_mxu.py:298 _make_contract_kernel /
-// mxu_contract) where the JAX sweep runs it on the Khatri-Rao rows
+// Replaces B5 (rri_nmf_tpu/ops/sparse_mxu.py:298 _make_contract_kernel)
+// where the JAX sweep runs it on the Khatri-Rao rows
 // w_t ⊙ w_s that XLA materializes first
 // (rri_nmf_tpu/ops/sweep_masked_gram.py:367-368,390-391 in panels and
 // :476-478,495-497 whole). This kernel fuses that elementwise product into
@@ -39,7 +39,7 @@
 //   GC_THREADS / team teams on consecutive columns (25 at k = 32, 2 for a
 //   112-tile panel). Past GC_THREADS tiles the tile set is cut into groups
 //   (blockIdx.y), each reading the column's nonzeros again.
-// - A team walks its column's nonzeros in plan order, GC_U at a time with
+// - A team walks its column's nonzeros in layout order, GC_U at a time with
 //   their row loads in flight before the first FMA and the next GC_U
 //   (g, v) pairs loaded meanwhile (3-6% on the panels). Each sum adds its
 //   terms in that order: no atomics, a launch repeats bit for bit. Every

@@ -3,9 +3,9 @@
 //
 // Replaces the Pallas kernels
 //
-//   B5  rri_nmf_tpu/ops/sparse_mxu.py _make_contract_kernel / mxu_contract
+//   B5  rri_nmf_tpu/ops/sparse_mxu.py _make_contract_kernel
 //       (the grouped chunk plan, one grid step per group of G chunks);
-//   B6  rri_nmf_tpu/ops/sparse_dma.py _make_dma_kernel / dma_contract
+//   B6  rri_nmf_tpu/ops/sparse_dma.py _make_dma_kernel
 //       (the CSR-offset chunk plan, factor slabs prefetched by manual DMA).
 //
 // Both compute out (k, spad) = F (k, m) @ X for one direction of the sparse
@@ -14,10 +14,10 @@
 // kernels rebuild each chunk's dense tile with one-hot matrix products. The
 // card has one, and this kernel gathers.
 //
-// Input (ops/sparse_plan.column_layout, derived once per plan on the card):
-// X in output-column CSR, colptr (spad + 1), and per nonzero gidx, the row of
-// F^T it gathers, and its value; each column's nonzeros stay in plan order
-// and the plans' zero-valued padding slots are dropped. F arrives as F^T
+// Input (ops/sparse_plan.column_layout, built once per X on the card from its
+// COO): X in output-column CSR, colptr (spad + 1), and per nonzero gidx, the
+// row of F^T it gathers, and its value; each column's nonzeros lie in
+// ascending gidx, and no value is 0. F arrives as F^T
 // (m, ldf) row-major, ldf a multiple of 16 bytes: W itself for W^T X.
 //
 //   out[r][c] = sum over the nonzeros i of column c of v_i * F^T[g_i][r]
@@ -34,7 +34,7 @@
 //   go at once, and each lane has SG_U such loads in flight before its
 //   first FMA. The 32/L partial sums of a column meet in a fixed shuffle
 //   tree; with L = 32 (k > 64 in float32, k > 32 in float64) a column is
-//   summed in plan order.
+//   summed in layout order.
 // - A column inside one warp's run goes to a shared (columns x slice) tile;
 //   a column cut between warps leaves one partial per warp, added in warp
 //   order. Empty columns are 0. No atomics: a launch repeats bit for bit.

@@ -11,8 +11,9 @@ the JAX ``nmf()`` routes it (``rri_nmf_tpu/nmf.py:1489-1596``):
 - the same recipe on a sparse X (scipy, or a torch COO/CSR tensor),
   never densified, through
   :func:`rri_nmf_tpu_torch.ops.sweep_sparse.make_sparse_sweep`: the
-  two numerator products by ``torch.sparse.mm`` (``sparse=True``), kernel
-  B5 (``'mxu'``) or kernel B6 (``'dma'``), around B1 and B2;
+  two numerator products by ``torch.sparse.mm`` (``sparse=True``) or by
+  the gather kernel on X's output-column layouts (``'mxu'`` and
+  ``'dma'``, JAX's B5 and B6: one kernel here), around B1 and B2;
 - the phase order with resets (a fixed-T call such as the TM estimator's
   transform included) through
   :class:`rri_nmf_tpu_torch.ops.dense_kernels.DenseResetSweep`: the
@@ -99,8 +100,7 @@ from rri_nmf_tpu_torch.ops.masked_kernels import (make_masked_sweep,
 from rri_nmf_tpu_torch.ops.quantized import (NARROW, QuantizedX,
                                              dequantize_x, quantize_x,
                                              work_dtype)
-from rri_nmf_tpu_torch.ops.sparse_plan import (plan_sparse_matrix,
-                                               plan_sparse_matrix_dma)
+from rri_nmf_tpu_torch.ops.sparse_plan import plan_sparse_matrix
 from rri_nmf_tpu_torch.ops.sweep import (SweepConfig, make_draws,
                                          make_objective, make_sweep,
                                          resolve_mixed_dtypes)
@@ -457,13 +457,15 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
       2 GB.
     - **Sparse X** (scipy, or a torch sparse tensor) with the phase
       recipe is never densified: ``sparse=True`` runs the two numerator
-      products with ``torch.sparse.mm``, ``'mxu'`` with kernel B5 and
-      ``'dma'`` with kernel B6 on a host plan of the nonzeros. The
-      default ``'auto'`` engages under the JAX conditions (phase order,
-      no resets, no mask, ``w_row``, DP or ``x_dtype``): on the CPU the
-      ``torch.sparse`` form; on a card it densifies on the device when
-      the dense form fits 45% of the card's memory, else B5. Otherwise,
-      and with ``sparse=False``, X is densified on its device.
+      products with ``torch.sparse.mm``; ``'mxu'`` and ``'dma'`` (JAX's
+      B5 and B6) both build one output-column layout of X per product
+      from X's COO on the card and run the gather kernel on it, so the
+      two give equal fits. The default ``'auto'`` engages under the JAX
+      conditions (phase order, no resets, no mask, ``w_row``, DP or
+      ``x_dtype``): on the CPU the ``torch.sparse`` form; on a card it
+      densifies on the device when the dense form fits 45% of the card's
+      memory, else the layouts (``'mxu'``). Otherwise, and with
+      ``sparse=False``, X is densified on its device.
       ``sparse=True`` also takes a dense X, and forces the phase order
       without resets, as in the JAX package.
     - **use_pallas** keeps its name and means the hand-written kernels
@@ -679,7 +681,8 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         if sparse == 'dma' and mesh is not None:
             raise ValueError("sparse='dma' is single-device; use "
                              "sparse='mxu' with a mesh")
-        backend = sparse
+        # JAX's B5 and B6 plans are one layout plan here
+        backend = 'mxu'
     if sparse is True or backend is not None:
         if not _viable:
             raise ValueError(
@@ -796,9 +799,9 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         backend = 'torch'
         if sparse == 'auto' and device.type == 'cuda' and mesh is None:
             # the JAX package's policy (reference nmf.py:1343-1374):
-            # densify on the card when the dense form fits, else the B5
-            # chunk-plan contractions; a mesh keeps the nonzeros, each
-            # rank its block
+            # densify on the card when the dense form fits, else the
+            # layout plan's contractions (JAX's B5); a mesh keeps the
+            # nonzeros, each rank its block
             budget = 0.45 * torch.cuda.mem_get_info(device)[1]
             dense_bytes = n * d * dtype.itemsize
             if dense_bytes <= budget:
@@ -809,7 +812,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
                 sparse_mode = False
             else:
                 logger.info('sparse auto: the dense form (%.2f GB) exceeds '
-                            'the card\'s budget; B5 chunk-plan '
+                            'the card\'s budget; gather-kernel '
                             'contractions', dense_bytes / 1e9)
                 backend = 'mxu'
     X_dev = None    # masked_sparse: planned below, after the initialization
@@ -820,9 +823,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         X_dev = (partition_mxu(X, mesh, dtype, device) if backend == 'mxu'
                  else partition_coo(X, mesh, dtype, device))
     elif sparse_mode:
-        X_dev = (plan_sparse_matrix_dma(X, dtype, device=device)
-                 if backend == 'dma' else
-                 plan_sparse_matrix(X, dtype, device=device)
+        X_dev = (plan_sparse_matrix(X, dtype, device=device)
                  if backend == 'mxu' else
                  TorchSparseX(to_torch_sparse(X, dtype, device)))
     elif not masked_sparse and not staged and not x_quant \
@@ -1352,7 +1353,7 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         compute_obj_each_iter = True
     OBJ = None
     if compute_obj_each_iter:
-        # the plan modes' X is a chunk plan: the sparse objective's cross
+        # the plan modes' X is a layout plan: the sparse objective's cross
         # term wants the plain coordinate list (reference nmf.py:1762-1790)
         X_obj = X_dev
         if premade == 'mxu':

@@ -16,10 +16,12 @@
 - :mod:`rri_nmf_tpu_torch.ops.sweep_sparse` — the sparse-X phase sweep
   (the dense phase sweep with sparse numerator products) and its
   objective;
-- :mod:`rri_nmf_tpu_torch.ops.sparse_plan` — the host plans of a sparse
-  X for kernels B5 and B6;
-- :mod:`rri_nmf_tpu_torch.ops.sparse_kernels` — the wrappers of kernels
-  B5 and B6 and their plain twins;
+- :mod:`rri_nmf_tpu_torch.ops.sparse_plan` — a sparse X (or a sparse
+  mask) as the gather kernel's output-column layouts, built from its COO
+  on the device;
+- :mod:`rri_nmf_tpu_torch.ops.sparse_kernels` — the wrappers of the
+  gather kernel (JAX's B5 and B6) and the Gram kernel, and their plain
+  twins;
 - :mod:`rri_nmf_tpu_torch.ops.sweep_masked_sparse` — the sparse-mask
   (O(nnz)) interleaved sweep, its plan and objective;
 - :mod:`rri_nmf_tpu_torch.ops.sweep_masked_gram` — the sparse-mask

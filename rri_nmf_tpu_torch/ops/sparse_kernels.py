@@ -3,32 +3,25 @@ and B5 on Khatri-Rao rows formed on chip, the Gram kernel.
 
 Counterpart of the kernel halves of :mod:`rri_nmf_tpu.ops.sparse_mxu`
 and :mod:`rri_nmf_tpu.ops.sparse_dma`. The sparse sweep needs ``WᵀX``
-(k, d) and ``T Xᵀ`` (k, n) once per phase. X comes as a host plan
-(:mod:`rri_nmf_tpu_torch.ops.sparse_plan`): B5's grouped chunk plan
-(:func:`~rri_nmf_tpu_torch.ops.sparse_plan.plan_sparse_matrix`) or B6's
-CSR-offset plan (:func:`~rri_nmf_tpu_torch.ops.sparse_plan.
-plan_sparse_matrix_dma`). Each plan direction derives, once, an
-output-column CSR (:func:`~rri_nmf_tpu_torch.ops.sparse_plan.
-column_layout`); the two plans of one matrix give the same layout.
+(k, d) and ``T Xᵀ`` (k, n) once per phase. X comes as the two
+output-column layouts of its :class:`~rri_nmf_tpu_torch.ops.sparse_plan.
+SparsePlan` (:mod:`rri_nmf_tpu_torch.ops.sparse_plan`), built from X's
+COO on the card, for ``sparse='mxu'`` and ``'dma'`` alike: JAX's two
+TPU kernels, B5 on grouped tile chunks and B6 on CSR-offset chunks, are
+one kernel here, on one format.
 
-One kernel, ``csrc/sparse.cu`` ``gather_kernel``, computes ``out = F @ X``
-on that layout for both plans, gathering rows of an L2-resident Fᵀ one
-output column at a time. :func:`gather_contract` launches it;
-``LAUNCHES`` counts its launches under the plan's kernel, ``'mxu'`` (B5)
-or ``'dma'`` (B6). The B5 and B6 interfaces stay: :func:`mxu_contract`
-takes F as one (k, gpad) panel, :func:`dma_contract` as (n_tiles, k, 128)
-slabs. :func:`contract_wtx` and :func:`contract_xtt` hand the kernel W
-itself and Tᵀ, and get (k, d) and (k, n).
+That kernel, ``csrc/sparse.cu`` ``gather_kernel``, computes ``out = F @
+X`` on a layout, gathering rows of an L2-resident Fᵀ one output column
+at a time. :func:`gather_contract` launches it and counts the launch in
+``LAUNCHES['gather']``; :func:`contract_wtx` and :func:`contract_xtt`
+hand it W itself and Tᵀ, and get (k, d) and (k, n).
 
 Each wrapper takes a CPU tensor to :func:`gather_contract_ref`, the
 kernel's plain PyTorch twin on the layout, and a CUDA tensor to the
 kernel — or raises. 16-bit factors (bfloat16, float16) meet values of
 their dtype, as the JAX kernels' narrow dots do: the products are exact
-in float32, summed in float32, and the output is float32.
-:func:`mxu_contract_ref` and :func:`dma_contract_ref` walk the plans themselves (a gather of factor columns times the values,
-then ``index_add_`` into the output columns): the oracles the tests hold
-against the Pallas kernels. Every twin works in slices whose gather
-temporary stays under ~2 GB.
+in float32, summed in float32, and the output is float32. Every twin
+works in slices whose gather temporary stays under ~2 GB.
 
 The Gram-phase sparse-mask sweep contracts the mask with the Khatri-Rao
 rows ``f_a ⊙ f_b`` of a factor (Γ, Θ). JAX builds those rows and runs
@@ -42,12 +35,10 @@ import torch
 
 from rri_nmf_tpu_torch.ops._build import CTYPES, launch
 from rri_nmf_tpu_torch.ops.quantized import work_dtype
-from rri_nmf_tpu_torch.ops.sparse_plan import (TILE, SparseDMAPlan,
-                                               SparseMXUPlan, column_layout)
 
-# Kernel launches per plan type since the last reset_launches(). A wrapper
+# Kernel launches per kernel since the last reset_launches(). A wrapper
 # adds one right after the kernel launched, and nowhere else.
-LAUNCHES = {'mxu': 0, 'dma': 0, 'gram': 0}
+LAUNCHES = {'gather': 0, 'gram': 0}
 
 # Largest gather temporary of a twin, in bytes.
 GATHER_BUDGET = 2 << 30
@@ -61,68 +52,6 @@ def reset_launches():
 # ---------------------------------------------------------------------------
 # plain PyTorch twins
 # ---------------------------------------------------------------------------
-
-def _gather_add(k, spad, nslots, gather, C, dtype, device):
-    """``out (k, spad)`` accumulated from ``gather(c0, c1) -> (cols, idx)``
-    over chunk ranges whose (k, slots) gather temporary stays under
-    :data:`GATHER_BUDGET`: ``cols`` (k, m) are the factor columns times
-    the values, ``idx`` (m,) their output columns."""
-    out = torch.zeros(k, spad, dtype=dtype, device=device)
-    nchunks = nslots // C
-    size = torch.empty(0, dtype=dtype).element_size()
-    step = max(1, GATHER_BUDGET // (max(k, 1) * C * size))
-    for c0 in range(0, nchunks, step):
-        cols, idx = gather(c0, min(c0 + step, nchunks))
-        out.index_add_(1, idx, cols)
-    return out
-
-
-def mxu_contract_ref(plan, F):
-    """Plain version of B5: ``out (k, spad) = F @ X`` for the direction
-    ``plan`` (a :class:`~rri_nmf_tpu_torch.ops.sparse_plan.ContractPlan`)
-    encodes; ``F`` (k, gpad) covers every factor tile. Slot i of chunk c
-    adds ``v_i · F[:, 128·ftile[c] + gloc_i]`` to output column
-    ``128·otile[c // G] + sloc_i``."""
-    k = F.shape[0]
-    nchunks = plan.ftile.shape[0]
-    C = plan.vals.shape[1] // nchunks
-    ochunk = plan.otile.long().repeat_interleave(plan.group)
-    vals, gl, sl = plan.vals[0], plan.gloc[0], plan.sloc[0]
-
-    def gather(c0, c1):
-        a, b = c0 * C, c1 * C
-        gi = plan.ftile[c0:c1].long().repeat_interleave(C) * TILE \
-            + gl[a:b].long()
-        si = ochunk[c0:c1].repeat_interleave(C) * TILE + sl[a:b].long()
-        return F[:, gi] * vals[a:b].to(F.dtype), si
-
-    return _gather_add(k, plan.mask.shape[1], nchunks * C, gather, C,
-                       F.dtype, F.device)
-
-
-def dma_contract_ref(plan, F3):
-    """Plain version of B6: ``out (k, spad) = F @ X`` for the direction
-    ``plan`` (a :class:`~rri_nmf_tpu_torch.ops.sparse_plan.
-    DMAContractPlan`) encodes; ``F3`` (n_tiles, k, 128) holds F's tiles.
-    The chunks of used output tile ``uotile[i]`` are
-    ``ostart[i]:ostart[i+1]``."""
-    k = F3.shape[1]
-    nchunks = int(plan.ostart[-1])
-    C = plan.vals.shape[1] // plan.ftile.shape[0]
-    ochunk = plan.uotile.long().repeat_interleave(
-        torch.diff(plan.ostart.long()))
-    vals, gl, sl = plan.vals[0], plan.idx[0], plan.idx[1]
-
-    def gather(c0, c1):
-        a, b = c0 * C, c1 * C
-        ft = plan.ftile[c0:c1].long().repeat_interleave(C)
-        cols = F3[ft, :, gl[a:b].long()].T           # (k, slots)
-        si = ochunk[c0:c1].repeat_interleave(C) * TILE + sl[a:b].long()
-        return cols * vals[a:b].to(F3.dtype), si
-
-    return _gather_add(k, plan.mask.shape[1], nchunks * C, gather, C,
-                       F3.dtype, F3.device)
-
 
 def gather_contract_ref(layout, Ft, k, ncols, vals=None):
     """Plain version of the gather kernel: ``out (k, ncols)``, column c
@@ -215,26 +144,25 @@ def _rows(Ft, k):
     return rows
 
 
-def gather_contract(plan, Ft, k, ncols, kind, vals=None):
-    """``out (k, ncols) = F @ X`` for the plan direction ``plan`` (either
-    type, or a :class:`~rri_nmf_tpu_torch.ops.sparse_plan.ColumnLayout`),
-    ``F``'s rows given as ``Ft`` (m, >= k); ``ncols`` the output columns
-    wanted (the plan's padded width, or fewer when the rest are empty).
+def gather_contract(layout, Ft, k, ncols, vals=None):
+    """``out (k, ncols) = F @ X`` for the direction ``layout`` encodes (a
+    :class:`~rri_nmf_tpu_torch.ops.sparse_plan.ColumnLayout`), ``F``'s
+    rows given as ``Ft`` (m, >= k); ``ncols`` the output columns wanted
+    (the layout's padded width, or fewer when the rest are empty).
     ``vals``: another matrix on the same nonzeros, its values in the
     layout's order (:meth:`~rri_nmf_tpu_torch.ops.sweep_masked_gram.
     MaskedGramPlan.mx_layout_values`; JAX's ``vals_override``). The
     output is Ft's dtype, float32 for 16-bit factors. A CPU ``Ft`` runs
     :func:`gather_contract_ref`; a CUDA ``Ft`` launches ``csrc/sparse.cu``
-    and counts it under ``LAUNCHES[kind]``."""
+    and counts it under ``LAUNCHES['gather']``."""
     if Ft.device.type == 'cpu':
-        return gather_contract_ref(column_layout(plan), Ft, k, ncols, vals)
+        return gather_contract_ref(layout, Ft, k, ncols, vals)
     if Ft.device.type != 'cuda':
         raise ValueError('the kernels run on CUDA or (plain twin) CPU '
                          'tensors, got %s' % Ft.device)
     if Ft.dtype not in CTYPES:
         raise ValueError('the kernels take float32/float64 or '
                          'bfloat16/float16, got %s' % Ft.dtype)
-    layout = column_layout(plan)
     for name in layout._fields:
         a = getattr(layout, name)
         if a.device != Ft.device:
@@ -261,15 +189,15 @@ def gather_contract(plan, Ft, k, ncols, kind, vals=None):
     launch('rri_sparse_gather', rows, rows.data_ptr(),
            layout.colptr.data_ptr(), layout.gidx.data_ptr(), v.data_ptr(),
            out.data_ptr(), k, rows.shape[1], ncols, ncols)
-    LAUNCHES[kind] += 1
+    LAUNCHES['gather'] += 1
     return out
 
 
-def gram_contract(plan, Ft, k, panel, ncols):
-    """``out (rows, ncols)``: the mask of the plan direction ``plan`` (or
-    its :class:`~rri_nmf_tpu_torch.ops.sparse_plan.ColumnLayout`)
-    contracted with the Khatri-Rao rows ``f_a ⊙ f_b`` of Fᵀ's rows ``Ft``
-    (m, >= k), the pairs of :func:`gram_pairs` (``panel=None``: Γ/Θ's
+def gram_contract(layout, Ft, k, panel, ncols):
+    """``out (rows, ncols)``: the mask of the direction ``layout`` (a
+    :class:`~rri_nmf_tpu_torch.ops.sparse_plan.ColumnLayout`) contracted
+    with the Khatri-Rao rows ``f_a ⊙ f_b`` of Fᵀ's rows ``Ft`` (m, >= k),
+    the pairs of :func:`gram_pairs` (``panel=None``: Γ/Θ's
     k(k+1)/2 unique rows; ``(t0, p)``: a p·k panel), without
     materializing them::
 
@@ -286,7 +214,6 @@ def gram_contract(plan, Ft, k, panel, ncols):
     if Ft.dim() != 2 or Ft.shape[1] < k:
         raise ValueError('Ft must be (m, >= %d), got %s'
                          % (k, tuple(Ft.shape)))
-    layout = column_layout(plan)
     for name in layout._fields:
         a = getattr(layout, name)
         if a.device != Ft.device:
@@ -323,75 +250,18 @@ def gram_contract(plan, Ft, k, panel, ncols):
     return out
 
 
-def mxu_contract(plan, F):
-    """B5's interface: ``out (k, spad) = F @ X`` for a :class:`~rri_nmf_
-    tpu_torch.ops.sparse_plan.ContractPlan`, F (k, gpad) covering every
-    factor tile (see :func:`mxu_contract_ref`). Runs
-    :func:`gather_contract` on Fᵀ; counts under ``LAUNCHES['mxu']``."""
-    nchunks = plan.ftile.shape[0]
-    if nchunks % plan.otile.shape[0]:
-        raise ValueError('plan chunk count %d is not a multiple of its %d '
-                         'groups' % (nchunks, plan.otile.shape[0]))
-    k, gpad = F.shape
-    if gpad % TILE or gpad // TILE != plan.n_gtiles:
-        raise ValueError('F must have %d columns (the plan\'s %d tiles of '
-                         '%d), got %d' % (plan.n_gtiles * TILE, plan.n_gtiles,
-                                          TILE, gpad))
-    return gather_contract(plan, F.T, k, plan.mask.shape[1], 'mxu')
-
-
-def dma_contract(plan, F3):
-    """B6's interface: ``out (k, spad) = F @ X`` for a :class:`~rri_nmf_
-    tpu_torch.ops.sparse_plan.DMAContractPlan`, ``F3`` (n_tiles, k, 128)
-    holding F's tiles (see :func:`dma_contract_ref`). Runs
-    :func:`gather_contract` on Fᵀ; counts under ``LAUNCHES['dma']``."""
-    n_tiles, k, width = F3.shape
-    if width != TILE or n_tiles != plan.n_gtiles:
-        raise ValueError('F3 must be (%d, k, %d), got %s'
-                         % (plan.n_gtiles, TILE, tuple(F3.shape)))
-    Ft = F3.permute(0, 2, 1).reshape(n_tiles * TILE, k)
-    return gather_contract(plan, Ft, k, plan.mask.shape[1], 'dma')
-
-
 # ---------------------------------------------------------------------------
 # the two numerator products of the sparse sweep
 # ---------------------------------------------------------------------------
 
-def _padded(F, m):
-    """(k, m) -> (k, 128·ceil(m/128)), zero columns after m: the factor
-    panel of B5's interface."""
-    k = F.shape[0]
-    Fp = F.new_zeros(k, -(-m // TILE) * TILE)
-    Fp[:, :m] = F
-    return Fp
-
-
-def _tile_cols(F, m):
-    """(k, m) factor -> (n_tiles, k, 128) contiguous tile slabs: the
-    factor of B6's interface."""
-    Fp = _padded(F, m)
-    k = Fp.shape[0]
-    return Fp.reshape(k, -1, TILE).permute(1, 0, 2).contiguous()
-
-
-def _kind(plan):
-    if isinstance(plan, SparseDMAPlan):
-        return 'dma'
-    if isinstance(plan, SparseMXUPlan):
-        return 'mxu'
-    raise TypeError('expected a SparseMXUPlan or SparseDMAPlan, got %s'
-                    % type(plan).__name__)
-
-
 def contract_wtx(plan, W):
-    """``WᵀX`` (k, d) for W (n, k): the kernel gathers W's rows (W itself
-    is Fᵀ), one output column of X at a time; B5 or B6 by the plan's
-    type."""
-    return gather_contract(plan.t_phase, W, W.shape[1], plan.d, _kind(plan))
+    """``WᵀX`` (k, d) for W (n, k) and the :class:`~rri_nmf_tpu_torch.
+    ops.sparse_plan.SparsePlan` of X: the kernel gathers W's rows (W
+    itself is Fᵀ), one output column of X at a time."""
+    return gather_contract(plan.t_phase, W, W.shape[1], plan.d)
 
 
 def contract_xtt(plan, T):
     """``T Xᵀ`` (k, n) for T (k, d): the kernel gathers Tᵀ's rows, one row
-    of X at a time; B5 or B6 by the plan's type."""
-    return gather_contract(plan.w_phase, T.T, T.shape[0], plan.n,
-                           _kind(plan))
+    of X at a time."""
+    return gather_contract(plan.w_phase, T.T, T.shape[0], plan.n)

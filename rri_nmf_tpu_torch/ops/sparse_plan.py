@@ -1,233 +1,45 @@
-"""Host plans of a sparse X for the two contraction kernels B5 and B6.
+"""A sparse X as the gather kernel reads it: output-column layouts.
 
 Counterpart of the host halves of :mod:`rri_nmf_tpu.ops.sparse_mxu` and
 :mod:`rri_nmf_tpu.ops.sparse_dma`. The sparse sweep touches X only
-through ``WᵀX`` (k×d) and ``T Xᵀ`` (k×n); each direction is planned once
-per matrix, on the host:
+through ``WᵀX`` (k×d) and ``T Xᵀ`` (k×n). One CUDA kernel computes both
+(``csrc/sparse.cu``, :func:`rri_nmf_tpu_torch.ops.sparse_kernels.
+gather_contract`) and reads each direction as a :class:`ColumnLayout`,
+an output-column CSR of X with int32 gather indices: X's CSC for
+``WᵀX``, its CSR for ``T Xᵀ``. JAX's TPU kernels read X in 128×128 tile
+plans instead (B5's grouped chunks, B6's CSR-offset chunks); the layouts
+hold the same nonzeros, and no tile plan is built here.
 
-1. The nonzeros are bucketed by their (128, 128) tile of X,
-   output-tile-major (the tile along the output axis first, then the
-   tile along the contracted axis), and packed into chunks of ``C = 128``
-   slots. Padding slots carry ``v = 0``; duplicate coordinates stay two
-   slots, so they sum.
-2. B5's plan (:func:`plan_sparse_matrix`) groups the chunks G per output
-   tile (``group=8``), padding each output tile's run with dummy chunks
-   (``v = 0``); ``otile`` holds one entry per group.
-3. B6's plan (:func:`plan_sparse_matrix_dma`) keeps the ungrouped chunks
-   with CSR offsets ``ostart`` over the used output tiles ``uotile``, and
-   ``MBLK_MAX`` trailing pad chunks so a kernel may read a whole
-   metadata block past the last chunk.
+This module is the one place that makes a layout, from a row-major COO
+on the COO's own device:
 
-The plans come from the JAX package's NumPy argsort form, copied line for
-line so the arrays match bit for bit (its native counting sort is not
-used: importing it would import JAX). Local indices stay uint8 on the
-device too, where the TPU kernel needed int32.
+- :func:`coo_segments`: the row offsets, the stable column order and
+  its offsets (also the segments of the sparse-mask sweeps' sums,
+  :class:`~rri_nmf_tpu_torch.ops.sweep_masked_sparse.MaskedCOOPlan`);
+- :func:`coo_layouts`: the two layouts of a row-major COO (the sparse X
+  plan's, and the Gram-phase mask plan's,
+  :mod:`rri_nmf_tpu_torch.ops.sweep_masked_gram`);
+- :func:`plan_sparse_matrix`: a scipy or torch sparse X as its
+  :class:`SparsePlan`. The COO goes to the device once (a torch X's own
+  indices stay where they are), its values are rounded there once to the
+  plan's dtype, entries that are then 0 are dropped, and one stable
+  (row, column) sort makes it row-major.
 
-Plans are small classes of tensors on one device. The CUDA kernel reads
-neither plan as it stands: :func:`column_layout` derives from either, on
-the plan's device and once per plan (cached on it), the output-column
-CSR of :class:`ColumnLayout`: the plan's slots stably sorted by output
-column, zero-valued padding dropped, with int32 global gather indices.
-The B5 and B6 plans of one matrix give equal layouts. The Gram-phase
-sweep builds its mask's layouts straight from the observed COO, with no
-plan (:mod:`rri_nmf_tpu_torch.ops.sweep_masked_gram`).
+Within a column the nonzeros lie in ascending gather index; duplicate
+coordinates stay separate entries, in input order. The output columns
+are padded to whole 128-wide tiles (the width of ``colptr``), as the
+tile plans padded them.
 """
 
 import numpy as np
 import torch
 
 from rri_nmf_tpu_torch.matrixops import fit_device
-from rri_nmf_tpu_torch.ops.quantized import NARROW
 
 TILE = 128
-# Chunks per metadata block B6 may read ahead (the plan's trailing pad).
-MBLK_MAX = 16
-
-
-def _run_starts(a):
-    """First-of-run flags of the SORTED array ``a`` (boundary flags, not
-    ``np.unique``)."""
-    new = np.empty(a.shape[0], np.bool_)
-    if new.size:
-        new[0] = True
-        np.not_equal(a[1:], a[:-1], out=new[1:])
-    return new
-
-
-def _plan_direction_np(g, s, v, n_gtiles, n_stiles, C, G, dtype,
-                       extra=None):
-    """Bucket nonzeros by (scatter tile, gather tile), output-tile-major,
-    padded to C-slot chunks; chunks grouped G per output tile (dummy
-    chunks, ``v = 0``, pad each output tile's run to a multiple of G).
-    ``g`` indexes the contracted axis, ``s`` the output axis. Returns
-    host arrays ``(vals, gloc, sloc, ftile, otile, mask)``
-    (:func:`rri_nmf_tpu.ops.sparse_mxu._plan_direction_np`).
-
-    ``extra``: a second value per nonzero, placed in the same slots as
-    ``v`` (padding 0) and returned last, as a seventh array shaped like
-    ``vals``: what JAX's ``sweep_masked_gram._vals_like`` gets from a
-    second call, without sorting again."""
-    if len(v) == 0:
-        # degenerate: one all-padding group, all-zero mask -> zeros out
-        out = (np.zeros((1, G * C), dtype), np.zeros((1, G * C), np.uint8),
-               np.zeros((1, G * C), np.uint8),
-               np.zeros((G,), np.int32), np.zeros((1,), np.int32),
-               np.zeros((1, n_stiles * TILE), dtype))
-        return out if extra is None else out + (np.zeros((1, G * C),
-                                                         dtype),)
-    # one argsort on the fused (scatter-tile, gather-tile) key; only the
-    # per-slot arrays are permuted
-    pair = (s // TILE).astype(np.int64) * n_gtiles + g // TILE
-    order = np.argsort(pair)              # st-major, gt within
-    pair = pair[order]
-    g = g[order]
-    s = s[order]
-    v = v[order]
-    if extra is not None:
-        extra = extra[order]
-    gl = (g % TILE).astype(np.uint8)
-    sl = (s % TILE).astype(np.uint8)
-    newrun = _run_starts(pair)
-    first = np.flatnonzero(newrun)
-    counts = np.diff(np.append(first, len(pair)))
-    gt_first = (pair[first] % n_gtiles).astype(np.int64)
-    st_first = (pair[first] // n_gtiles).astype(np.int64)
-    chunks_per = -(-counts // C)
-    nchunks = int(chunks_per.sum())
-    choff = np.zeros(len(first) + 1, np.int64)
-    choff[1:] = np.cumsum(chunks_per)
-    within = np.arange(len(v)) - np.repeat(first, counts)
-    dst = np.repeat(choff[:-1], counts) * C + within
-
-    vals = np.zeros(nchunks * C, dtype)
-    vals[dst] = v
-    if extra is not None:
-        vals2 = np.zeros(nchunks * C, dtype)
-        vals2[dst] = extra
-    glo = np.zeros(nchunks * C, np.uint8)
-    glo[dst] = gl
-    slo = np.zeros(nchunks * C, np.uint8)
-    slo[dst] = sl
-    ftile = np.repeat(gt_first.astype(np.int32), chunks_per)
-    otile = np.repeat(st_first.astype(np.int32), chunks_per)
-
-    if G > 1:
-        # pad each otile's chunk run to a multiple of G (dummy chunks:
-        # v = 0, ftile = 0) so no group straddles an output tile
-        onew = _run_starts(otile)
-        ofirst = np.flatnonzero(onew)
-        uo = otile[ofirst]
-        ocnt = np.diff(np.append(ofirst, nchunks))
-        opad = -(-ocnt // G) * G
-        tot = int(opad.sum())
-        ooff = np.zeros(len(uo) + 1, np.int64)
-        ooff[1:] = np.cumsum(opad)
-        within_o = np.arange(nchunks) - np.repeat(ofirst, ocnt)
-        dstc = np.repeat(ooff[:-1], ocnt) + within_o
-
-        def scatter_chunks(a, width, dt):
-            out = np.zeros((tot, width), dt)
-            out[dstc] = a.reshape(nchunks, width)
-            return out
-
-        vals = scatter_chunks(vals, C, dtype)
-        if extra is not None:
-            vals2 = scatter_chunks(vals2, C, dtype)
-        glo = scatter_chunks(glo, C, np.uint8)
-        slo = scatter_chunks(slo, C, np.uint8)
-        ft2 = np.zeros(tot, np.int32)
-        ft2[dstc] = ftile
-        ftile = ft2
-        otile = np.repeat(uo, opad // G).astype(np.int32)  # per GROUP
-        nchunks = tot
-
-    mask = np.zeros((n_stiles, 1), dtype)
-    mask[st_first] = 1.0
-    mask = np.broadcast_to(mask, (n_stiles, TILE)).reshape(1, -1)
-
-    out = (vals.reshape(1, nchunks * C), glo.reshape(1, nchunks * C),
-           slo.reshape(1, nchunks * C), ftile, otile,
-           np.ascontiguousarray(mask))
-    return out if extra is None else out + (vals2.reshape(1, nchunks * C),)
-
-
-def _plan_direction_dma_np(g, s, v, n_gtiles, n_stiles, C, dtype):
-    """B6's layout of one direction, host arrays ``(vals, idx, ftile,
-    uotile, ostart, mask)`` (:func:`rri_nmf_tpu.ops.sparse_dma.
-    _plan_direction_dma`, without the device placement)."""
-    vdt = np.float32 if np.dtype(dtype).itemsize < 4 else np.dtype(dtype)
-    vals, glo, slo, ftile, otile, mask = _plan_direction_np(
-        g, s, v, n_gtiles, n_stiles, C, 1, vdt)
-    nchunks = ftile.shape[0]
-    # CSR offsets over the (already output-tile-major) chunk order
-    onew = _run_starts(otile)
-    ofirst = np.flatnonzero(onew)
-    uo = otile[ofirst]
-    ostart = np.concatenate([ofirst, [nchunks]]).astype(np.int32)
-    # pad so a trailing metadata block of up to MBLK_MAX chunks may
-    # over-read
-    npad = nchunks + MBLK_MAX
-    vp = np.zeros((1, npad * C), vdt)
-    vp[:, :nchunks * C] = vals
-    ip = np.zeros((2, npad * C), np.uint8)
-    ip[0, :nchunks * C] = glo[0]
-    ip[1, :nchunks * C] = slo[0]
-    fp = np.zeros((npad,), np.int32)
-    fp[:nchunks] = ftile
-    return vp, ip, fp, uo.astype(np.int32), ostart, mask
-
-
-# ---------------------------------------------------------------------------
-# plan containers
-# ---------------------------------------------------------------------------
-
-class _Tensors(object):
-    """A few named tensors on one device, and ``n_gtiles``, the number of
-    128-wide factor tiles the plan gathers from (the bound on ``ftile``,
-    known on the host). ``columns``: the :class:`ColumnLayout` derived
-    from the plan (:func:`column_layout`), None until first asked for."""
-
-    _fields = ()
-    columns = None
-
-    def __init__(self, n_gtiles, **arrays):
-        self.n_gtiles = int(n_gtiles)
-        for name in self._fields:
-            setattr(self, name, arrays[name])
-
-    def to(self, device):
-        """The same plan with every tensor on ``device``."""
-        return type(self)(self.n_gtiles, **{f: getattr(self, f).to(device)
-                                            for f in self._fields})
-
-
-class ContractPlan(_Tensors):
-    """One contraction direction in B5's layout
-    (:class:`rri_nmf_tpu.ops.sparse_mxu.ContractPlan`).
-
-    vals/gloc/sloc: (1, nchunks·C) values (the fit's dtype) and uint8
-    local gather / scatter indices; ftile: (nchunks,) int32 factor tile
-    per chunk; otile: (nchunks/G,) int32 output tile per group; mask:
-    (1, n_otiles·128), 1 on output tiles that hold a nonzero."""
-
-    _fields = ('vals', 'gloc', 'sloc', 'ftile', 'otile', 'mask')
-
-    @property
-    def group(self):
-        return self.ftile.shape[0] // self.otile.shape[0]
-
-
-class DMAContractPlan(_Tensors):
-    """One contraction direction in B6's layout
-    (:class:`rri_nmf_tpu.ops.sparse_dma.DMAContractPlan`).
-
-    vals: (1, npad·C); idx: (2, npad·C) uint8, row 0 the local gather
-    index, row 1 the local scatter index; ftile: (npad,) int32; uotile:
-    (n_used,) int32 used output tiles, ascending; ostart: (n_used+1,)
-    int32 chunk offsets; mask: (1, n_otiles·128). ``npad = nchunks +
-    MBLK_MAX``."""
-
-    _fields = ('vals', 'idx', 'ftile', 'uotile', 'ostart', 'mask')
+# output-column layouts built, one per direction (a routing counter the
+# tests read, as ``sparse_kernels.LAUNCHES``)
+PLAN_BUILDS = {'layout': 0}
 
 
 class ColumnLayout(object):
@@ -236,9 +48,9 @@ class ColumnLayout(object):
 
     colptr: (spad+1,) int32, column ``c``'s nonzeros are
     ``colptr[c]:colptr[c+1]``; gidx: (nnz,) int32, the row of Fᵀ each
-    gathers (``128·ftile + gloc``); vals: (nnz,) their values, in the
-    plan's dtype. ``n_rows``: the rows of Fᵀ the gathers need (1 + the
-    largest ``gidx``; 0 when there is none)."""
+    gathers; vals: (nnz,) their values, in the plan's dtype. ``n_rows``:
+    the rows of Fᵀ the gathers need (1 + the largest ``gidx``; 0 when
+    there is none)."""
 
     _fields = ('colptr', 'gidx', 'vals')
 
@@ -257,28 +69,16 @@ class ColumnLayout(object):
         return sum(getattr(self, f).nbytes for f in self._fields)
 
 
-class SparseMXUPlan(object):
-    """Both directions of one (n, d) matrix for B5: ``t_phase`` gives
-    ``WᵀX`` (k, d), ``w_phase`` gives ``T Xᵀ`` (k, n)."""
+class SparsePlan(object):
+    """Both directions of one sparse (n, d) X: ``t_phase``, the
+    :class:`ColumnLayout` of ``WᵀX`` (k, d) (X's CSC: columns out, rows
+    gathered), and ``w_phase``, that of ``T Xᵀ`` (k, n) (X's CSR).
+    ``split`` and ``obj_coo``: a rank's block and the objective's COO,
+    where :func:`rri_nmf_tpu_torch.parallel.multihost.
+    distribute_sparse_coo` sets them; else None."""
 
-    def __init__(self, t_phase, w_phase, n, d, group=1):
-        self.t_phase = t_phase
-        self.w_phase = w_phase
-        self.n = int(n)
-        self.d = int(d)
-        self.group = int(group)
-
-    @property
-    def shape(self):
-        return (self.n, self.d)
-
-    def to(self, device):
-        return SparseMXUPlan(self.t_phase.to(device), self.w_phase.to(device),
-                             self.n, self.d, self.group)
-
-
-class SparseDMAPlan(object):
-    """Both directions of one (n, d) matrix for B6."""
+    split = None
+    obj_coo = None
 
     def __init__(self, t_phase, w_phase, n, d):
         self.t_phase = t_phase
@@ -286,13 +86,60 @@ class SparseDMAPlan(object):
         self.n = int(n)
         self.d = int(d)
 
-    def to(self, device):
-        return SparseDMAPlan(self.t_phase.to(device), self.w_phase.to(device),
-                             self.n, self.d)
+    @property
+    def shape(self):
+        return (self.n, self.d)
 
 
 # ---------------------------------------------------------------------------
-# building the plans
+# the layouts of a row-major COO
+# ---------------------------------------------------------------------------
+
+def coo_segments(rows, cols, shape):
+    """``(row_ptr, col_order, col_ptr)`` of a row-major COO on its
+    device: row i's entries are ``row_ptr[i]:row_ptr[i+1]`` (n+1,);
+    ``col_order`` (nnz,) int64 sorts the entries stably by column, so
+    each column keeps its rows ascending; ``col_ptr`` (d+1,) are its
+    column offsets."""
+    n, d = shape
+    row_ptr = torch.searchsorted(rows, torch.arange(
+        n + 1, dtype=rows.dtype, device=rows.device))
+    sorted_cols, col_order = torch.sort(cols, stable=True)
+    col_ptr = torch.searchsorted(sorted_cols, torch.arange(
+        d + 1, dtype=cols.dtype, device=cols.device))
+    return row_ptr, col_order, col_ptr
+
+
+def column_layout(ptr, gidx, vals, width, nnz):
+    """The :class:`ColumnLayout` of ``nnz`` nonzeros in output-column
+    order whose offsets ``ptr`` (width + 1,) may count padding after
+    them; ``width`` output columns padded to whole 128-column tiles."""
+    colptr = torch.full((-(-width // TILE) * TILE + 1,), nnz,
+                        dtype=torch.int32, device=ptr.device)
+    colptr[:ptr.shape[0]] = ptr.clamp(max=nnz)
+    n_rows = int(gidx.max()) + 1 if gidx.numel() else 0
+    PLAN_BUILDS['layout'] += 1
+    return ColumnLayout(colptr, gidx, vals, n_rows)
+
+
+def coo_layouts(rows, cols, vals, shape, segments, nnz=None):
+    """``(t, w)``: the output-column layouts of a row-major COO (int32
+    ``rows``/``cols``) on its device, given its :func:`coo_segments`.
+    ``t`` (columns out, rows gathered) is the COO in its stable column
+    order, X's CSC; ``w`` (rows out, columns gathered) the COO as it
+    stands, X's CSR. ``nnz``: the leading entries to keep (default all);
+    padding after them must sit last in both orders."""
+    row_ptr, col_order, col_ptr = segments
+    n, d = shape
+    nz = rows.shape[0] if nnz is None else nnz
+    order = col_order[:nz]
+    w = column_layout(row_ptr, cols[:nz], vals[:nz], n, nz)
+    t = column_layout(col_ptr, rows[order], vals[order], d, nz)
+    return t, w
+
+
+# ---------------------------------------------------------------------------
+# the plan of a sparse X
 # ---------------------------------------------------------------------------
 
 def host_coo(X):
@@ -303,14 +150,19 @@ def host_coo(X):
     if not isinstance(X, torch.Tensor):
         coo = X.tocoo()
         return coo.row, coo.col, coo.data, coo.shape
-    n, d = X.shape
+    return tuple(a.cpu().numpy() for a in _torch_coo(X)) + (tuple(X.shape),)
+
+
+def _torch_coo(X):
+    """``(rows, cols, vals)`` of a torch COO or CSR tensor on its device,
+    in the order X stores them."""
     if X.layout == torch.sparse_csr:
-        crow = X.crow_indices().cpu().numpy()
-        rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(crow))
-        return (rows, X.col_indices().cpu().numpy(),
-                X.values().cpu().numpy(), (n, d))
-    idx = X._indices().cpu().numpy()
-    return idx[0], idx[1], X._values().cpu().numpy(), (n, d)
+        crow = X.crow_indices()
+        rows = torch.repeat_interleave(
+            torch.arange(X.shape[0], device=crow.device), torch.diff(crow))
+        return rows, X.col_indices(), X.values()
+    idx = X._indices()
+    return idx[0], idx[1], X._values()
 
 
 def numpy_dtype(dtype):
@@ -320,118 +172,36 @@ def numpy_dtype(dtype):
     return np.dtype(dtype)
 
 
-def _host_dtype(dtype, vals):
-    """The numpy dtype a plan is built in on the host: the values' own
-    for a 16-bit ``dtype`` (numpy has no bfloat16; the values are
-    rounded once, on the device, by :func:`_to_device`)."""
-    if dtype is None or dtype in NARROW:
-        return np.dtype(vals.dtype) if np.issubdtype(vals.dtype, np.floating) \
-            else np.dtype(np.float64)
-    return numpy_dtype(dtype)
-
-
-def _to_device(arrays, device, dtype=None):
-    """The host arrays as tensors on ``device``, the values (``'vals'``)
-    in the 16-bit ``dtype`` when one is asked for."""
-    out = {k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-           for k, a in arrays.items()}
-    if dtype in NARROW:
-        out['vals'] = out['vals'].to(dtype)
-    return out
-
-
-def plan_sparse_matrix(X, dtype=None, C=TILE, group=8, device=None):
-    """Sparse (n, d) ``X`` (scipy, or a torch COO/CSR tensor) to a
-    :class:`SparseMXUPlan` on ``device`` (default: X's device; the card
-    for scipy, ``'cpu'`` for the CPU), values in ``dtype`` (default X's).
-    Host-side and one-off
-    (:func:`rri_nmf_tpu.ops.sparse_mxu.plan_sparse_matrix`)."""
+def plan_sparse_matrix(X, dtype=None, device=None):
+    """Sparse (n, d) ``X`` (scipy, or a torch COO/CSR tensor) to its
+    :class:`SparsePlan` on ``device`` (default: X's device; the card for
+    scipy, ``'cpu'`` for the CPU), values in ``dtype`` (a torch or numpy
+    dtype; default X's, float64 for integer values). A scipy X's COO is
+    copied to the device once; a torch X's indices are taken where they
+    lie. The values are rounded to ``dtype`` on the device, and the
+    entries that are then 0 dropped. The counterpart of the plans of
+    :mod:`rri_nmf_tpu.ops.sparse_mxu` (B5) and
+    :mod:`rri_nmf_tpu.ops.sparse_dma` (B6)."""
     device = fit_device(X, device)
-    rows, cols, data, (n, d) = host_coo(X)
-    host_dt = _host_dtype(dtype, data)
-    n_rt = -(-n // TILE)
-    n_ct = -(-d // TILE)
-    vals = np.asarray(data, dtype=host_dt)
-    plans = []
-    for g, s, n_g, n_s in ((rows, cols, n_rt, n_ct), (cols, rows, n_ct, n_rt)):
-        v, gl, sl, ft, ot, mask = _plan_direction_np(g, s, vals, n_g, n_s, C,
-                                                     group, host_dt)
-        plans.append(ContractPlan(n_g, **_to_device(dict(
-            vals=v, gloc=gl, sloc=sl, ftile=ft, otile=ot, mask=mask),
-            device, dtype)))
-    return SparseMXUPlan(plans[0], plans[1], n, d, group)
-
-
-def plan_sparse_matrix_dma(X, dtype=None, C=TILE, device=None):
-    """Sparse (n, d) ``X`` to a :class:`SparseDMAPlan` on ``device``
-    (:func:`rri_nmf_tpu.ops.sparse_dma.plan_sparse_matrix_dma`)."""
-    device = fit_device(X, device)
-    rows, cols, data, (n, d) = host_coo(X)
-    host_dt = _host_dtype(dtype, data)
-    n_rt = -(-n // TILE)
-    n_ct = -(-d // TILE)
-    vals = np.asarray(data, dtype=host_dt)
-    plans = []
-    for g, s, n_g, n_s in ((rows, cols, n_rt, n_ct), (cols, rows, n_ct, n_rt)):
-        v, idx, ft, uo, ostart, mask = _plan_direction_dma_np(
-            g, s, vals, n_g, n_s, C, host_dt)
-        plans.append(DMAContractPlan(n_g, **_to_device(dict(
-            vals=v, idx=idx, ftile=ft, uotile=uo, ostart=ostart, mask=mask),
-            device, dtype)))
-    return SparseDMAPlan(plans[0], plans[1], n, d)
-
-
-# ---------------------------------------------------------------------------
-# the output-column layout of a plan direction
-# ---------------------------------------------------------------------------
-
-def _plan_slots(plan):
-    """``(g, s, v)`` of every slot of a plan direction, in plan order:
-    the row of Fᵀ it gathers, its output column and its value (int64,
-    int64, the plan's dtype). B6's trailing pad chunks are left out."""
-    C = plan.vals.shape[1] // plan.ftile.shape[0]
-    if isinstance(plan, ContractPlan):
-        ftile, gl, sl, v = plan.ftile, plan.gloc[0], plan.sloc[0], \
-            plan.vals[0]
-        otile = plan.otile.long().repeat_interleave(plan.group)
-    elif isinstance(plan, DMAContractPlan):
-        nslots = int(plan.ostart[-1]) * C
-        ftile, gl, sl, v = (plan.ftile[:nslots // C], plan.idx[0, :nslots],
-                            plan.idx[1, :nslots], plan.vals[0, :nslots])
-        otile = plan.uotile.long().repeat_interleave(
-            torch.diff(plan.ostart.long()))
+    if isinstance(X, torch.Tensor):
+        rows, cols, vals = (a.to(device) for a in _torch_coo(X))
     else:
-        raise TypeError('expected a ContractPlan or DMAContractPlan, got %s'
-                        % type(plan).__name__)
-    g = (ftile.long() * TILE).repeat_interleave(C) + gl.long()
-    s = (otile * TILE).repeat_interleave(C) + sl.long()
-    return g, s, v
-
-
-def column_layout(plan):
-    """The :class:`ColumnLayout` of a plan direction (a
-    :class:`ContractPlan` or :class:`DMAContractPlan`), built with torch
-    ops on the plan's device at the first call and cached on the plan.
-
-    The slots are sorted by output column with a stable sort, so each
-    column keeps its nonzeros in plan order; slots with ``v = 0`` (the
-    plans' padding slots, B5's dummy chunks) add nothing and are dropped.
-    The layouts from the B5 and the B6 plan of one matrix are equal. A
-    :class:`ColumnLayout` (the Gram-phase sweep's, built without a plan)
-    is its own layout."""
-    if isinstance(plan, ColumnLayout):
-        return plan
-    if plan.columns is None:
-        g, s, v = _plan_slots(plan)
-        keep = v != 0
-        g, s, v = g[keep], s[keep], v[keep]
-        s, order = torch.sort(s, stable=True)
-        n_cols = plan.mask.shape[1]
-        colptr = torch.searchsorted(
-            s, torch.arange(n_cols + 1, device=s.device)).to(torch.int32)
-        gidx = g[order].to(torch.int32)
-        n_rows = int(gidx.max()) + 1 if gidx.numel() else 0
-        plan.columns = ColumnLayout(colptr, gidx, v[order].contiguous(),
-                                    n_rows)
-    return plan.columns
-
+        coo = X.tocoo()
+        rows, cols, vals = (torch.from_numpy(np.ascontiguousarray(a))
+                            .to(device) for a in (coo.row, coo.col,
+                                                  coo.data))
+    n, d = (int(s) for s in X.shape)
+    if dtype is None:
+        dtype = vals.dtype if vals.is_floating_point() else torch.float64
+    elif not isinstance(dtype, torch.dtype):
+        dtype = torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+    vals = vals.to(dtype)
+    keep = vals != 0
+    # one stable sort on the (row, column) key: row-major, duplicates in
+    # input order
+    order = torch.sort((rows.long() * d + cols)[keep], stable=True)[1]
+    rows, cols, vals = (a[keep][order] for a in (rows, cols, vals))
+    rows, cols = rows.int(), cols.int()
+    t, w = coo_layouts(rows, cols, vals.contiguous(), (n, d),
+                       coo_segments(rows, cols, (n, d)))
+    return SparsePlan(t, w, n, d)

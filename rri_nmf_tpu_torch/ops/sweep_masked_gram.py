@@ -19,19 +19,20 @@ Two backends, as in JAX:
 
 - ``'mxu'`` runs A and C on the gather kernel that serves B5
   (``csrc/sparse.cu``, :func:`rri_nmf_tpu_torch.ops.sparse_kernels.
-  gather_contract`, counted under ``LAUNCHES['mxu']``), with M⊙X as a
+  gather_contract`, counted under ``LAUNCHES['gather']``), with M⊙X as a
   second value set on the mask's nonzeros, and Γ and Θ on the Gram
   kernel (``csrc/gram.cu``, :func:`~rri_nmf_tpu_torch.ops.
   sparse_kernels.gram_contract`, ``LAUNCHES['gram']``), which forms the
   Khatri-Rao rows on chip from W's (Tᵀ's) rows where JAX materializes
   them for B5: one output-column layout per direction, built from the
-  observed COO on the plan's device (the mask's CSR for Θ as it stands,
-  its CSC for Γ in the COO's stable column order), and one launch per
-  contraction. JAX plans B5's tiles for each direction instead; the
-  layout sums each Γ column's observations in ascending row order. The
-  default on a card;
-  on the CPU the kernels' plain twins run (the Gram twin materializes
-  the rows and runs the gather twin, JAX's arithmetic).
+  observed COO on the plan's device by the sparse X plan's own code
+  (:func:`rri_nmf_tpu_torch.ops.sparse_plan.coo_layouts`: the mask's CSR
+  for Θ as it stands, its CSC for Γ in the COO's stable column order),
+  and one launch per contraction. JAX plans B5's tiles for each
+  direction instead; the layout sums each Γ column's observations in
+  ascending row order. The default on a card; on the CPU the kernels'
+  plain twins run (the Gram twin materializes the rows and runs the
+  gather twin, JAX's arithmetic).
 - ``'segsum'`` computes them with gathers and ``index_add_`` over slices
   of the observations: the CPU default and the oracle.
 
@@ -64,8 +65,7 @@ from rri_nmf_tpu_torch.matrixops import (_proj_simplex_core, fit_device,
                                          reproject_row_if_drifted)
 from rri_nmf_tpu_torch.optimization import qf_min_vector_c
 from rri_nmf_tpu_torch.ops import sparse_kernels
-from rri_nmf_tpu_torch.ops.sparse_plan import (TILE, ColumnLayout,
-                                               numpy_dtype)
+from rri_nmf_tpu_torch.ops.sparse_plan import coo_layouts, numpy_dtype
 from rri_nmf_tpu_torch.ops.sweep import (mesh_sums, precision_scope,
                                          resolve_mixed_dtypes)
 from rri_nmf_tpu_torch.ops.sweep_masked_sparse import (coo_plan,
@@ -76,9 +76,6 @@ from rri_nmf_tpu_torch.utils.profiling import span
 GRAM_BUDGET_BYTES = 4e9
 # observation slice of the segsum backend's O(nnz·k²) temporaries
 _SEG_CHUNK = 1 << 16
-# output-column layouts built straight from the COO, one per direction
-# (a routing counter the tests read, as ``sparse_kernels.LAUNCHES``)
-PLAN_BUILDS = {'layout': 0}
 
 
 class MaskedGramPlan(object):
@@ -92,11 +89,10 @@ class MaskedGramPlan(object):
     direction (Γ: contracted over rows, output columns; Θ: the
     transpose), and ``mx_t_vals``/``mx_w_vals``, M⊙X on the same
     nonzeros in the same order (nnz,). ``sum_mx2``: ``Σ m x²`` (a 0-d
-    tensor, at least float32). ``group`` is kept for JAX's signature:
-    the layouts do not depend on it."""
+    tensor, at least float32)."""
 
     def __init__(self, coo, m_t, m_w, mx_t_vals, mx_w_vals, sum_mx2, shape,
-                 nnz, group, backend):
+                 nnz, backend):
         self.coo = coo
         self.m_t = m_t
         self.m_w = m_w
@@ -105,7 +101,6 @@ class MaskedGramPlan(object):
         self.sum_mx2 = sum_mx2
         self.shape = (int(shape[0]), int(shape[1]))
         self.nnz = int(nnz)
-        self.group = int(group)
         self.backend = backend
 
     def mx_layout_values(self, direction):
@@ -118,7 +113,7 @@ class MaskedGramPlan(object):
         return self.coo.to_scipy()
 
 
-def plan_masked_gram(X, W_mat, dtype, backend=None, group=8, device=None):
+def plan_masked_gram(X, W_mat, dtype, backend=None, device=None):
     """The :class:`MaskedGramPlan` of the mask ``W_mat`` and ``X``
     (:func:`rri_nmf_tpu.ops.sweep_masked_gram.plan_masked_gram`): the
     observed COO built on the host once and copied to ``device``
@@ -134,10 +129,10 @@ def plan_masked_gram(X, W_mat, dtype, backend=None, group=8, device=None):
         raise ValueError("backend must be 'mxu' or 'segsum', got %r"
                          % (backend,))
     with span('rri.gram.plan', device):
-        return _plan(X, W_mat, numpy_dtype(dtype), backend, group, device)
+        return _plan(X, W_mat, numpy_dtype(dtype), backend, device)
 
 
-def _plan(X, W_mat, dtype, backend, group, device):
+def _plan(X, W_mat, dtype, backend, device):
     """:func:`plan_masked_gram`'s work, ``backend`` resolved. The mxu
     plan's output-column layouts and M⊙X in their order are built here,
     once, and not at the first contraction."""
@@ -151,41 +146,27 @@ def _plan(X, W_mat, dtype, backend, group, device):
                                torch.float32), device=device)
     if backend == 'segsum':
         return MaskedGramPlan(coo, None, None, None, None, sum_mx2, shape,
-                              nz, group, 'segsum')
+                              nz, 'segsum')
     m_t, m_w, mx_t, mx_w = _layouts(coo)
     return MaskedGramPlan(coo, m_t, m_w, mx_t, mx_w, sum_mx2, shape, nz,
-                          group, 'mxu')
-
-
-def _column_layout(ptr, gidx, vals, width, nnz):
-    """The :class:`ColumnLayout` of ``nnz`` nonzeros in output-column
-    order whose offsets ``ptr`` (width + 1,) may count the COO's padding
-    at the end, ``width`` output columns padded to whole 128-column tiles,
-    as B5's plans padded them."""
-    colptr = torch.full((-(-width // TILE) * TILE + 1,), nnz,
-                        dtype=torch.int32, device=ptr.device)
-    colptr[:ptr.shape[0]] = ptr.clamp(max=nnz)
-    n_rows = int(gidx.max()) + 1 if gidx.numel() else 0
-    PLAN_BUILDS['layout'] += 1
-    return ColumnLayout(colptr, gidx, vals, n_rows)
+                          'mxu')
 
 
 def _layouts(coo):
     """``(m_t, m_w, mx_t, mx_w)``: the mask's output-column layouts of Γ
     (columns out, rows gathered) and Θ (rows out, columns gathered), and
-    M⊙X in each one's order, from the row-major COO on its device. Θ's
-    is the COO as it stands (the mask's CSR); Γ's is the COO in its
-    stable column order (its CSC), so each column holds its rows in
-    ascending order. The padding is left out: it sits last in both
-    orders (on the last row and the last column)."""
+    M⊙X in each one's order, from the row-major COO and the segments it
+    already holds (:func:`~rri_nmf_tpu_torch.ops.sparse_plan.
+    coo_layouts`: no sort of its own). Θ's is the COO as it stands (the
+    mask's CSR); Γ's is the COO in its stable column order (its CSC), so
+    each column holds its rows in ascending order. The padding is left
+    out: it sits last in both orders (on the last row and the last
+    column)."""
     nz = coo.nnz
-    n, d = coo.shape
-    rows, cols, m = coo.rows[:nz], coo.cols[:nz], coo.m_vals[:nz]
-    mx = m * coo.x_vals[:nz]
-    order = coo.col_order[:nz]
-    m_w = _column_layout(coo.row_ptr, cols, m, n, nz)
-    m_t = _column_layout(coo.col_ptr, rows[order], m[order], d, nz)
-    return m_t, m_w, mx[order], mx
+    m_t, m_w = coo_layouts(coo.rows, coo.cols, coo.m_vals, coo.shape,
+                           (coo.row_ptr, coo.col_order, coo.col_ptr), nz)
+    mx = coo.m_vals[:nz] * coo.x_vals[:nz]
+    return m_t, m_w, mx[coo.col_order[:nz]], mx
 
 
 def auto_panel(k, n, d, itemsize, budget=None):
@@ -242,8 +223,7 @@ def _contract(plan, direction, Ft, rows, ncols, mx=False):
     p = plan.m_t if direction == 't' else plan.m_w
     vals = plan.mx_layout_values(direction) if mx else None
     with span('rri.gram.contract', Ft.device):
-        return sparse_kernels.gather_contract(p, Ft, rows, ncols, 'mxu',
-                                              vals)
+        return sparse_kernels.gather_contract(p, Ft, rows, ncols, vals)
 
 
 def _gram(plan, direction, Ft, k, panel, ncols):

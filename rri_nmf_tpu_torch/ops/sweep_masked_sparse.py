@@ -45,7 +45,8 @@ import torch
 from rri_nmf_tpu_torch.matrixops import (_proj_simplex_core, fit_device,
                                          reproject_row_if_drifted)
 from rri_nmf_tpu_torch.optimization import qf_min_vector_c
-from rri_nmf_tpu_torch.ops.sparse_plan import host_coo, numpy_dtype
+from rri_nmf_tpu_torch.ops.sparse_plan import (coo_segments, host_coo,
+                                               numpy_dtype)
 from rri_nmf_tpu_torch.ops.sweep import (ALIVE, Sweep, _dead_topics,
                                          make_reset_rowcol, mesh_sums,
                                          precision_scope,
@@ -71,7 +72,8 @@ class MaskedCOOPlan(object):
     derived on the plan's device: ``row_ptr`` (n+1,), row i's entries
     are ``row_ptr[i]:row_ptr[i+1]``; ``col_order`` (nnz_pad,) int64, the
     entries stably sorted by column, and ``col_ptr`` (d+1,) its column
-    offsets. The sweep takes the plan where the dense sweeps take X: it
+    offsets (:func:`~rri_nmf_tpu_torch.ops.sparse_plan.coo_segments`).
+    The sweep takes the plan where the dense sweeps take X: it
     has X's ``shape``, ``is_cuda`` and ``data_ptr``."""
 
     def __init__(self, rows, cols, x_vals, m_vals, shape, nnz):
@@ -81,12 +83,8 @@ class MaskedCOOPlan(object):
         self.m_vals = m_vals
         self.shape = (int(shape[0]), int(shape[1]))
         self.nnz = int(nnz)
-        n, d = self.shape
-        self.row_ptr = torch.searchsorted(rows, torch.arange(
-            n + 1, dtype=rows.dtype, device=rows.device))
-        sorted_cols, self.col_order = torch.sort(cols, stable=True)
-        self.col_ptr = torch.searchsorted(sorted_cols, torch.arange(
-            d + 1, dtype=cols.dtype, device=cols.device))
+        self.row_ptr, self.col_order, self.col_ptr = coo_segments(
+            rows, cols, self.shape)
 
     @property
     def device(self):

@@ -5,16 +5,16 @@ sweep touches X through exactly two products, ``WᵀX`` before the T-phase
 and ``T Xᵀ`` before the W-phase; everything else works on the small dense
 factors. So the sparse sweep is the dense phase sweep
 (:func:`rri_nmf_tpu_torch.ops.dense_kernels.make_dense_phase_sweep`,
-kernels B1 and B2) with those two products swapped for one of three
+kernels B1 and B2) with those two products swapped for one of two
 backends:
 
 - ``'torch'``: ``torch.sparse.mm`` on a coalesced COO form of X and of
   Xᵀ (:class:`TorchSparseX`); the counterpart of the JAX package's BCOO
   contractions, which are XLA's and no Pallas kernel;
-- ``'mxu'``: kernel B5 on a :class:`~rri_nmf_tpu_torch.ops.sparse_plan.
-  SparseMXUPlan`;
-- ``'dma'``: kernel B6 on a :class:`~rri_nmf_tpu_torch.ops.sparse_plan.
-  SparseDMAPlan`.
+- ``'mxu'``: the gather kernel on the output-column layouts of a
+  :class:`~rri_nmf_tpu_torch.ops.sparse_plan.SparsePlan`, built from X's
+  COO on the card; the counterpart of JAX's B5 and B6, which
+  ``nmf(sparse='mxu')`` and ``'dma'`` both reach.
 
 :func:`to_torch_sparse` (defined in :mod:`rri_nmf_tpu_torch.matrixops`,
 whose leaf math needs it too) is the counterpart of ``to_bcoo``. The
@@ -28,7 +28,7 @@ from rri_nmf_tpu_torch.matrixops import to_torch_sparse  # noqa: F401
 from rri_nmf_tpu_torch.ops import sparse_kernels
 from rri_nmf_tpu_torch.ops.dense_kernels import (_supports_base,
                                                  make_dense_phase_sweep)
-from rri_nmf_tpu_torch.ops.sparse_plan import SparseDMAPlan, SparseMXUPlan
+from rri_nmf_tpu_torch.ops.sparse_plan import SparsePlan
 
 
 class TorchSparseX(object):
@@ -73,41 +73,38 @@ def _torch_xtt(X, T, acc, x_narrow=False):
     return torch.sparse.mm(X.wide(acc)[0], T.T.to(acc)).T.contiguous()
 
 
-def _plan_products(plan_type):
-    def check(X):
-        if not isinstance(X, plan_type):
-            raise TypeError('this sweep takes a %s, got %s'
-                            % (plan_type.__name__, type(X).__name__))
+def _check_plan(X):
+    if not isinstance(X, SparsePlan):
+        raise TypeError('this sweep takes a SparsePlan, got %s'
+                        % type(X).__name__)
 
-    def wtx(X, W, acc, x_narrow=False):
-        check(X)
-        return sparse_kernels.contract_wtx(X, W)
 
-    def xtt(X, T, acc, x_narrow=False):
-        check(X)
-        return sparse_kernels.contract_xtt(X, T)
+def _plan_wtx(X, W, acc, x_narrow=False):
+    _check_plan(X)
+    return sparse_kernels.contract_wtx(X, W)
 
-    return wtx, xtt
+
+def _plan_xtt(X, T, acc, x_narrow=False):
+    _check_plan(X)
+    return sparse_kernels.contract_xtt(X, T)
 
 
 def make_sparse_sweep(cfg, backend='torch'):
     """Build ``sweep(X, W, T, w_row_sum_vec=None) -> (W, T)``, one phase
     sweep over a sparse X (:func:`rri_nmf_tpu.ops.sweep_sparse.
     make_sparse_sweep`). ``backend`` picks X's form and the two products:
-    ``'torch'`` (a :class:`TorchSparseX`, ``torch.sparse.mm``), ``'mxu'``
-    (a ``SparseMXUPlan``, kernel B5) or ``'dma'`` (a ``SparseDMAPlan``,
-    kernel B6). The T-phase runs B2 when every T row is projected onto
-    the simplex and B1 otherwise; the W-phase runs B1."""
+    ``'torch'`` (a :class:`TorchSparseX`, ``torch.sparse.mm``) or
+    ``'mxu'`` (a :class:`~rri_nmf_tpu_torch.ops.sparse_plan.SparsePlan`,
+    the gather kernel). The T-phase runs B2 when every T row is projected
+    onto the simplex and B1 otherwise; the W-phase runs B1."""
     if not supports_sparse(cfg):
         raise ValueError('config not supported by the sparse sweep')
     if backend == 'torch':
         wtx, xtt = _torch_wtx, _torch_xtt
     elif backend == 'mxu':
-        wtx, xtt = _plan_products(SparseMXUPlan)
-    elif backend == 'dma':
-        wtx, xtt = _plan_products(SparseDMAPlan)
+        wtx, xtt = _plan_wtx, _plan_xtt
     else:
-        raise ValueError("backend must be 'torch', 'mxu' or 'dma', got %r"
+        raise ValueError("backend must be 'torch' or 'mxu', got %r"
                          % (backend,))
     return make_dense_phase_sweep(cfg, wtx=wtx, xtt=xtt)
 

@@ -48,8 +48,7 @@ from rri_nmf_tpu_torch.ops.sweep_masked_gram import (
 from rri_nmf_tpu_torch.parallel.masked_sparse_mesh import row_block
 
 
-def partition_masked_gram(X, W_mat, mesh, dtype, backend=None, device=None,
-                          group=8):
+def partition_masked_gram(X, W_mat, mesh, dtype, backend=None, device=None):
     """This rank's :class:`~rri_nmf_tpu_torch.ops.sweep_masked_gram.
     MaskedGramPlan` on a ``(dp, 1)`` ``mesh``, built on the host from its
     own row block (shape ``(n_loc, d)``, local rows) and placed on
@@ -60,7 +59,7 @@ def partition_masked_gram(X, W_mat, mesh, dtype, backend=None, device=None,
     that calls it."""
     device = fit_device(X, device)
     return plan_masked_gram(*row_block(X, W_mat, mesh), dtype,
-                            backend=backend, group=group, device=device)
+                            backend=backend, device=device)
 
 
 def supports_sharded_masked_gram(cfg, mesh):

@@ -55,8 +55,7 @@ import torch.distributed as dist
 
 from rri_nmf_tpu_torch.matrixops import (as_tensor, default_float,
                                          fit_device, is_sparse)
-from rri_nmf_tpu_torch.ops.sparse_plan import (SparseMXUPlan,
-                                               plan_sparse_matrix)
+from rri_nmf_tpu_torch.ops.sparse_plan import SparsePlan, plan_sparse_matrix
 from rri_nmf_tpu_torch.ops.sweep_masked_gram import (MaskedGramPlan,
                                                      plan_masked_gram)
 from rri_nmf_tpu_torch.ops.sweep_masked_sparse import (MaskedCOOPlan,
@@ -290,8 +289,7 @@ def distribute_factors(W_local, T, n, mesh, device=None):
 
 
 def distribute_sparse_coo(X_local, global_shape, mesh, dtype=None,
-                          backend=None, group=8, with_obj_coo=True,
-                          device=None):
+                          backend=None, with_obj_coo=True, device=None):
     """This rank's sparse-X plan from its row slab ``X_local`` (scipy
     sparse, a torch sparse tensor or dense: :func:`process_row_block`'s
     rows, all d columns), the same plan :func:`~rri_nmf_tpu_torch.
@@ -300,9 +298,9 @@ def distribute_sparse_coo(X_local, global_shape, mesh, dtype=None,
 
     ``backend=None`` returns the block as a :class:`~rri_nmf_tpu_torch.
     ops.sweep_sparse.TorchSparseX` (``torch.sparse.mm``); ``'mxu'`` its
-    :class:`~rri_nmf_tpu_torch.ops.sparse_plan.SparseMXUPlan` for the
-    gather kernel (chunks in groups of ``group``), with the COO block as
-    ``plan.obj_coo`` for the objective unless ``with_obj_coo=False``.
+    :class:`~rri_nmf_tpu_torch.ops.sparse_plan.SparsePlan` for the
+    gather kernel, with the COO block as ``plan.obj_coo`` for the
+    objective unless ``with_obj_coo=False``.
     Values in ``dtype`` (default: ``nmf()``'s rule), on ``device``
     (default: a tensor's own, the card for host data). The plan carries
     the rank's ``split`` (its ``n``, ``d`` are the whole problem's);
@@ -323,8 +321,7 @@ def distribute_sparse_coo(X_local, global_shape, mesh, dtype=None,
                                       dtype, device))
     else:
         plan = plan_sparse_matrix(block_coo(X_local, 0, rows, split.c0,
-                                            split.c1), dtype, group=group,
-                                  device=device)
+                                            split.c1), dtype, device=device)
         plan.obj_coo = (block_coo(X_local, 0, rows, split.c0, split.c1,
                                   dtype, device) if with_obj_coo else None)
     plan.split = split
@@ -332,7 +329,7 @@ def distribute_sparse_coo(X_local, global_shape, mesh, dtype=None,
 
 
 def distribute_masked_coo(X_local, W_mat_local, global_shape, mesh,
-                          dtype=None, backend=None, group=8, device=None):
+                          dtype=None, backend=None, device=None):
     """This rank's sparse-mask plan from its row slabs of X (dense or
     sparse) and of the mask ``W_mat_local`` (scipy or torch sparse): the
     plan :func:`~rri_nmf_tpu_torch.parallel.masked_sparse_mesh.
@@ -369,13 +366,13 @@ def distribute_masked_coo(X_local, W_mat_local, global_shape, mesh,
     plan = (plan_masked_coo(X_rows, M_rows, dtype, device=device)
             if backend is None else
             plan_masked_gram(X_rows, M_rows, dtype, backend=backend,
-                             group=group, device=device))
+                             device=device))
     plan.split = split
     return plan
 
 
 # the pre-built plans nmf() takes as X, by the sweep each names
-PLAN_KINDS = ((TorchSparseX, 'coo'), (SparseMXUPlan, 'mxu'),
+PLAN_KINDS = ((TorchSparseX, 'coo'), (SparsePlan, 'mxu'),
               (MaskedCOOPlan, 'masked_coo'), (MaskedGramPlan, 'masked_gram'))
 
 

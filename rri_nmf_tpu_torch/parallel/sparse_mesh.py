@@ -80,18 +80,16 @@ def partition_coo(X, mesh, dtype=None, device=None):
     return TorchSparseX(block_coo(X, s.r0, s.r1, s.c0, s.c1, dtype, device))
 
 
-def partition_mxu(X, mesh, dtype=None, device=None, group=8):
+def partition_mxu(X, mesh, dtype=None, device=None):
     """This rank's block of ``X`` planned for the gather kernel: its
-    :class:`~rri_nmf_tpu_torch.ops.sparse_plan.SparseMXUPlan` (chunks in
-    groups of ``group``), built on the host by
-    :func:`~rri_nmf_tpu_torch.ops.sparse_plan.plan_sparse_matrix` and
-    placed on ``device`` (default: X's device, the card for host data).
-    The counterpart of JAX's ``partition_mxu`` for the rank that calls
-    it."""
+    :class:`~rri_nmf_tpu_torch.ops.sparse_plan.SparsePlan`, built by
+    :func:`~rri_nmf_tpu_torch.ops.sparse_plan.plan_sparse_matrix` on
+    ``device`` (default: X's device, the card for host data). The
+    counterpart of JAX's ``partition_mxu`` for the rank that calls it."""
     device = fit_device(X, device)
     s = mesh.split(*X.shape)
     return plan_sparse_matrix(block_coo(X, s.r0, s.r1, s.c0, s.c1), dtype,
-                              group=group, device=device)
+                              device=device)
 
 
 def supports_sharded_sparse(cfg, mesh):

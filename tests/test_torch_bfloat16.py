@@ -589,7 +589,7 @@ def test_cuda_16_bit_kernels_match_twins(cuda_device, dt):
                 got = call()
                 assert got.dtype == torch.float32
                 assert torch.equal(got, call())
-                lay = spl.column_layout(getattr(plan, dirn))
+                lay = getattr(plan, dirn)
                 want = sk.gather_contract_ref(lay, Ft, k, ncols)
                 assert float((got - want).abs().max()) <= 1e-5 * float(
                     want.abs().max())

@@ -57,8 +57,9 @@ ENTRY_POINTS = {
         *(_state()[key] for key in 'WT'), **kw),
     'plan_sparse_matrix': lambda **kw: spl.plan_sparse_matrix(
         scipy.sparse.csr_matrix(_X()), **kw),
-    'plan_sparse_matrix_dma': lambda **kw: spl.plan_sparse_matrix_dma(
-        scipy.sparse.csr_matrix(_X()), **kw),
+    "nmf, sparse='dma'": lambda **kw: nmf(scipy.sparse.csr_matrix(_X()), 3,
+                                          max_iter=2, random_state=0,
+                                          sparse='dma', **FAST_TM, **kw),
     'NMF_TM_Estimator.fit': lambda **kw: tsk.NMF_TM_Estimator(
         20, 15, 3, max_iter=2, nmf_kwargs=FAST_TM, **kw).fit(_X()),
     'NMF_TM_Estimator.fit_transform, scipy X':

@@ -1,10 +1,10 @@
 """The Gram-phase plan's output-column layouts (``ops/sweep_masked_gram.
-_layouts``), built from the observed COO, against the B5 route they
-replace: each direction's host tile plan of the mask
-(``sparse_plan._plan_direction_np``, bit for bit the JAX package's) and
-the layout :func:`~rri_nmf_tpu_torch.ops.sparse_plan.column_layout`
-derives from it. No JAX: ``tests/test_torch_masked_gram.py`` holds the
-same layouts against the plans JAX itself builds.
+_layouts``, through :func:`~rri_nmf_tpu_torch.ops.sparse_plan.
+coo_layouts`), built from the observed COO, against the B5 route they
+replace: each direction's tile plan of the mask, as the JAX package
+builds it (``tests/tile_plan_oracle.py``), unpacked into a layout.
+``tests/test_torch_masked_gram.py`` holds the same layouts against the
+plans of JAX's own Gram plan.
 
 On the CPU, on uniform and skewed masks, ``n``/``d`` off whole 128-wide
 tiles, a mask under one tile, an empty mask and mask values that round
@@ -19,14 +19,14 @@ tile plan:
 - the gather and Gram contractions (A, C, Γ/Θ whole and in a panel)
   through the new layouts equal those through the oracle's to 1e-12 in
   float64;
-- the route: the Gram plan calls no tile planner and counts two layouts
-  in ``PLAN_BUILDS['layout']``, the segsum plan none; the sparse TM plan
-  still calls the planner once a direction.
+- the route: the Gram plan counts two layouts in
+  ``PLAN_BUILDS['layout']``, the segsum plan none, and the sparse X plan
+  two, from the one layout function.
 
 On the card (``cuda``): the card's layouts equal the CPU's bit for bit
-on a skewed mask of ~3M observations. The file imports no JAX, so
-``python -m pytest --noconftest -m cuda tests/test_torch_gram_layout.py``
-runs it on the card's machine.
+on a skewed mask of ~3M observations. JAX is imported only by the
+oracle, so ``python -m pytest --noconftest -m cuda
+tests/test_torch_gram_layout.py`` runs the file on the card's machine.
 """
 
 import numpy as np
@@ -38,6 +38,7 @@ from rri_nmf_tpu_torch.ops import sparse_kernels as sk
 from rri_nmf_tpu_torch.ops import sparse_plan as spl
 from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg
 from rri_nmf_tpu_torch.ops.sweep_masked_sparse import masked_coo_host_arrays
+from tile_plan_oracle import tile_plan_order
 
 TOL = 1e-12
 
@@ -84,10 +85,11 @@ MASKS = {
 
 
 def oracle(X, M, dtype, group):
-    """``{'t': (plan, layout, M⊙X), 'w': ...}``: the B5 route's tile plan
-    of each direction of the mask (M⊙X in the same slots), the layout
-    :func:`spl.column_layout` derives from it, and M⊙X carried through
-    that derivation's selection (nonzero mask slots) and stable sort."""
+    """``{'t': (layout, M⊙X), 'w': ...}``: each direction's layout as
+    unpacked from the B5 tile plan of the mask (JAX's, with ``group``),
+    the mask's values in it, and M⊙X carried to the same entries. The
+    mask values that are 0 in ``dtype`` are dropped, as the unpacking
+    drops the plan's zero slots."""
     dt = spl.numpy_dtype(dtype)
     rows, cols, x, m, (n, d), nz = masked_coo_host_arrays(X, M, dt)
     rows, cols, m = rows[:nz], cols[:nz], m[:nz]
@@ -95,27 +97,18 @@ def oracle(X, M, dtype, group):
     out = {}
     for side, g, s, n_g, n_s in (('t', rows, cols, n, d),
                                  ('w', cols, rows, d, n)):
-        v, gl, sl, ft, ot, mask, v2 = spl._plan_direction_np(
-            g, s, m, -(-n_g // spl.TILE), -(-n_s // spl.TILE), spl.TILE,
-            group, dt, extra=mx)
-        plan = spl.ContractPlan(-(-n_g // spl.TILE), **{
-            f: torch.from_numpy(np.ascontiguousarray(a)) for f, a in dict(
-                vals=v, gloc=gl, sloc=sl, ftile=ft, otile=ot,
-                mask=mask).items()})
-        out[side] = (plan,) + layout_of(plan, v2)
+        colptr, ids = tile_plan_order(g, s, n_g, n_s, group)
+        live = m[ids] != 0
+        # the column offsets of the entries left
+        col = np.repeat(np.arange(len(colptr) - 1), np.diff(colptr))[live]
+        colptr = np.searchsorted(col, np.arange(len(colptr)))
+        ids = ids[live]
+        gidx = torch.as_tensor(g[ids].astype(np.int32))
+        lay = spl.ColumnLayout(torch.as_tensor(colptr.astype(np.int32)),
+                               gidx, torch.as_tensor(m[ids]),
+                               int(gidx.max()) + 1 if len(ids) else 0)
+        out[side] = (lay, torch.as_tensor(mx[ids]))
     return out
-
-
-def layout_of(plan, vals):
-    """``(layout, vals)``: the :func:`spl.column_layout` of the tile plan
-    ``plan`` and a second value set ``vals`` in the plan's slots (shaped
-    like ``plan.vals``) carried through that derivation's selection (the
-    plan's nonzero slots) and stable sort by output column."""
-    _, s_slot, v_slot = spl._plan_slots(plan)
-    keep = v_slot != 0
-    order = torch.sort(s_slot[keep], stable=True)[1]
-    return (spl.column_layout(plan),
-            torch.as_tensor(np.asarray(vals)).reshape(-1)[keep][order])
 
 
 def entries(layout, mx):
@@ -143,9 +136,8 @@ def test_layouts_hold_the_tile_plans_entries(mask, dtype, group):
     for side in ('t', 'w'):
         lay = plan.m_t if side == 't' else plan.m_w
         mx = plan.mx_layout_values(side)
-        _, wlay, wmx = want[side]
+        wlay, wmx = want[side]
         assert isinstance(lay, spl.ColumnLayout)
-        assert spl.column_layout(lay) is lay
         assert lay.colptr.dtype == lay.gidx.dtype == torch.int32
         assert lay.vals.dtype == mx.dtype == dtype
         assert lay.gidx.shape == lay.vals.shape == mx.shape == (plan.nnz,)
@@ -186,42 +178,36 @@ def test_contractions_through_both_layouts_agree(mask):
          'w': torch.rand(d, k, generator=g, dtype=torch.float64)}
     for side, ncols in (('t', d), ('w', n)):
         lay = plan.m_t if side == 't' else plan.m_w
-        wplan, _, wmx = want[side]
+        wlay, wmx = want[side]
         Ft = F[side]
-        pairs = [(sk.gather_contract(lay, Ft, k, ncols, 'mxu',
+        pairs = [(sk.gather_contract(lay, Ft, k, ncols,
                                      plan.mx_layout_values(side)),
-                  sk.gather_contract(wplan, Ft, k, ncols, 'mxu', wmx)),
-                 (sk.gather_contract(lay, Ft, k, ncols, 'mxu'),
-                  sk.gather_contract(wplan, Ft, k, ncols, 'mxu'))]
+                  sk.gather_contract(wlay, Ft, k, ncols, wmx)),
+                 (sk.gather_contract(lay, Ft, k, ncols),
+                  sk.gather_contract(wlay, Ft, k, ncols))]
         for panel in (None, (1, 3)):
             pairs.append((sk.gram_contract(lay, Ft, k, panel, ncols),
-                          sk.gram_contract(wplan, Ft, k, panel, ncols)))
+                          sk.gram_contract(wlay, Ft, k, panel, ncols)))
         for got, ref in pairs:
             assert got.shape == ref.shape
             assert float((got - ref).abs().max()) <= TOL * max(
                 1.0, float(ref.abs().max()))
 
 
-def test_gram_route_plans_no_tiles(monkeypatch):
-    """The Gram plan builds its two layouts from the COO and calls no tile
-    planner; the sparse TM plan still calls it for each direction."""
-    calls = []
-    real = spl._plan_direction_np
-
-    def spy(*args, **kwargs):
-        calls.append(args[3:5])
-        return real(*args, **kwargs)
-    monkeypatch.setattr(spl, '_plan_direction_np', spy)
-    monkeypatch.setattr(mg, '_plan_direction_np', spy, raising=False)
+def test_gram_route_plans_no_tiles():
+    """The Gram plan builds its two layouts from the COO with the one
+    layout function (the segsum plan builds none), and so does the sparse X
+    plan; the package holds no tile planner."""
     X, M = MASKS['skewed']()
-    before = mg.PLAN_BUILDS['layout']
+    before = spl.PLAN_BUILDS['layout']
     plan = _plan(X, M, torch.float64)
-    assert calls == [] and plan.backend == 'mxu'
-    assert mg.PLAN_BUILDS['layout'] - before == 2
+    assert plan.backend == 'mxu'
+    assert spl.PLAN_BUILDS['layout'] - before == 2
     mg.plan_masked_gram(X, M, torch.float64, backend='segsum', device='cpu')
-    assert mg.PLAN_BUILDS['layout'] - before == 2
-    spl.plan_sparse_matrix(X, device='cpu')
-    assert len(calls) == 2
+    assert spl.PLAN_BUILDS['layout'] - before == 2
+    spl.plan_sparse_matrix(sp.csr_matrix(X), device='cpu')
+    assert spl.PLAN_BUILDS['layout'] - before == 4
+    assert not [name for name in dir(spl) if 'plan_direction' in name]
 
 
 @pytest.fixture
@@ -237,10 +223,10 @@ def test_cuda_layouts_equal_the_cpu_ones(cuda_device, dtype):
     """One stable sort on the card gives the CPU's layouts bit for bit
     (~3M observations, a popular item's column ~5% of them)."""
     X, M = _skewed(4, 60000, 20000, 50)
-    before = mg.PLAN_BUILDS['layout']
+    before = spl.PLAN_BUILDS['layout']
     card = _plan(X, M, dtype, cuda_device)
     host = _plan(X, M, dtype, 'cpu')
-    assert mg.PLAN_BUILDS['layout'] - before == 4
+    assert spl.PLAN_BUILDS['layout'] - before == 4
     assert card.nnz == host.nnz > 2_000_000
     for side in ('t', 'w'):
         a, b = ((p.m_t if side == 't' else p.m_w) for p in (card, host))

@@ -4,8 +4,8 @@ float64.
 
 - The plan: the COO arrays and ``Σ m x²`` equal JAX's bit for bit; the
   port's output-column layouts, built from the COO, hold the entries of
-  the layouts derived from JAX's B5 plans of the mask (JAX's native
-  counting sort off, so it runs the NumPy argsort form), M⊙X included.
+  the layouts unpacked from JAX's B5 plans of the mask
+  (``tests/tile_plan_oracle.py``), M⊙X included.
 - ``make_masked_gram_sweep`` against JAX's at 1e-9, both backends
   (JAX's ``'mxu'`` in interpret mode, the port's through the gather and
   Gram kernels' plain twins): the oracle configurations of
@@ -30,7 +30,6 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-import rri_nmf_tpu.native as jax_native
 import rri_nmf_tpu.ops.sweep_masked_gram as jmg
 from rri_nmf_tpu.nmf import nmf as jax_nmf
 from rri_nmf_tpu.ops.sweep_xla import SweepConfig as JaxSweepConfig
@@ -39,18 +38,13 @@ from rri_nmf_tpu_torch.ops import sparse_kernels as sk
 from rri_nmf_tpu_torch.ops import sparse_plan as spl
 from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg
 from rri_nmf_tpu_torch.ops.sweep import SweepConfig
-from test_torch_gram_layout import entries, layout_of
+from test_torch_gram_layout import entries
 from test_torch_sweep import jax_draws
+from tile_plan_oracle import unpack
 
 torch.set_num_threads(2)
 ATOL_SWEEP = 1e-9
 TOL = 1e-8
-
-
-@pytest.fixture
-def argsort_plans(monkeypatch):
-    """JAX's plan functions on their NumPy argsort path (the port's)."""
-    monkeypatch.setattr(jax_native, 'plan_hist', lambda *a, **k: None)
 
 
 def _problem(seed, n=30, d=24, k=4, density=0.35):
@@ -117,19 +111,12 @@ def _same(want, got, tol=ATOL_SWEEP):
         assert np.allclose(Tp, Tj, rtol=0, atol=tol), np.abs(Tp - Tj).max()
 
 
-def _port_plan(jplan):
-    """A JAX ContractPlan segment as the port's ContractPlan."""
-    arrays = {f: torch.as_tensor(np.array(getattr(jplan, f)))
-              for f in ('vals', 'gloc', 'sloc', 'ftile', 'otile', 'mask')}
-    return spl.ContractPlan(0, **arrays)
-
-
 # ---------------------------------------------------------------------------
 # the plan
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize('group', [1, 8])
-def test_plan_equals_jax(argsort_plans, group):
+def test_plan_equals_jax(group):
     """Observed zeros included (x = 0 where m = 1): the COO and ``Σ m x²``
     bit for bit JAX's; each direction's layout, built from the COO, holds
     the entries of the layout derived from JAX's B5 plan of the mask (the
@@ -140,7 +127,7 @@ def test_plan_equals_jax(argsort_plans, group):
     want = jmg.plan_masked_gram(X, sp.csr_matrix(M), np.float64,
                                 backend='mxu', group=group)
     got = mg.plan_masked_gram(X, sp.csr_matrix(M), torch.float64,
-                              backend='mxu', group=group, device='cpu')
+                              backend='mxu', device='cpu')
     assert got.backend == 'mxu' and got.shape == want.shape
     assert got.nnz == want.nnz == int(M.sum())
     for f in ('rows', 'cols', 'x_vals', 'm_vals'):
@@ -151,7 +138,11 @@ def test_plan_equals_jax(argsort_plans, group):
             ('t', want.m_t, want.mx_t_vals, got.m_t),
             ('w', want.m_w, want.mx_w_vals, got.m_w)):
         assert len(jp) == len(jmx) == 1
-        jlay, jv = layout_of(_port_plan(jp[0]), jmx[0])
+        colptr, gidx, m, mx = unpack(jp[0], jmx[0])
+        jlay = spl.ColumnLayout(torch.as_tensor(colptr.astype(np.int32)),
+                                torch.as_tensor(gidx), torch.as_tensor(m),
+                                int(gidx.max()) + 1)
+        jv = torch.as_tensor(mx)
         assert torch.equal(lay.colptr, jlay.colptr), side
         assert lay.n_rows == jlay.n_rows, side
         v = got.mx_layout_values(side)
@@ -171,13 +162,13 @@ def test_layout_values_contract_to_the_dense_products():
     plan = mg.plan_masked_gram(X, sp.csr_matrix(M), torch.float64,
                                backend='mxu', device='cpu')
     Wt, Tt = torch.as_tensor(W), torch.as_tensor(T)
-    A = sk.gather_contract(plan.m_t, Wt, 4, 140, 'mxu',
+    A = sk.gather_contract(plan.m_t, Wt, 4, 140,
                            plan.mx_layout_values('t'))
-    C = sk.gather_contract(plan.m_w, Tt.T, 4, 260, 'mxu',
+    C = sk.gather_contract(plan.m_w, Tt.T, 4, 260,
                            plan.mx_layout_values('w'))
     assert np.allclose(A.numpy(), W.T @ (M * X), rtol=0, atol=1e-12)
     assert np.allclose(C.numpy(), T @ (M * X).T, rtol=0, atol=1e-12)
-    G = sk.gather_contract(plan.m_t, Wt, 4, 140, 'mxu')
+    G = sk.gather_contract(plan.m_t, Wt, 4, 140)
     assert np.allclose(G.numpy(), W.T @ M, rtol=0, atol=1e-12)
 
 
@@ -455,7 +446,7 @@ def test_cuda_gram_contractions_match_twins(cuda_device, dtype, tol):
     """A, C (M⊙X values) through the gather kernel, Γ/Θ (k(k+1)/2 rows)
     and p·k panels through the Gram kernel, against the twins and (Γ/Θ)
     the gather kernel on the materialized Khatri-Rao rows; repeats give
-    the same bits; one launch each, counted under ``'mxu'`` and
+    the same bits; one launch each, counted under ``'gather'`` and
     ``'gram'``."""
     X, M, W0, T0 = _problem(30, n=700, d=500, k=12, density=0.05)
     plan = mg.plan_masked_gram(X, sp.csr_matrix(M), dtype, backend='mxu',
@@ -478,7 +469,7 @@ def test_cuda_gram_contractions_match_twins(cuda_device, dtype, tol):
             assert torch.equal(g, a)
             scale = w.abs().max().clamp_min(1e-300)
             assert float((g.cpu() - w).abs().max() / scale) <= tol
-    assert sk.LAUNCHES['mxu'] - before['mxu'] == 2 * (1 + 1)
+    assert sk.LAUNCHES['gather'] - before['gather'] == 2 * (1 + 1)
     assert sk.LAUNCHES['gram'] - before['gram'] == 2 * (1 + 1 + 1 + 1)
     # the Gram kernel against the gather kernel on the materialized rows
     k = W.shape[1]
@@ -488,7 +479,7 @@ def test_cuda_gram_contractions_match_twins(cuda_device, dtype, tol):
         for panel in (None, (0, 5), (5, 7)):
             a, b = (x.to(cuda_device) for x in sk.gram_pairs(k, panel))
             want = sk.gather_contract(pl, F[:, a] * F[:, b], a.shape[0],
-                                      ncols, 'mxu')
+                                      ncols)
             got = sk.gram_contract(pl, F, k, panel, ncols)
             scale = want.abs().max().clamp_min(1e-300)
             assert float((got - want).abs().max() / scale) <= tol

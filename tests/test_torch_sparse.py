@@ -1,20 +1,21 @@
-"""The port's sparse plans, contraction kernels and sparse sweep against
-the JAX package.
+"""The port's sparse X layouts, the gather kernel's twin and the sparse
+sweep against the JAX package.
 
-- The host plans (``ops/sparse_plan.py``) against JAX's
-  ``_plan_direction_np``, ``plan_sparse_matrix`` (group 1 and 8) and
-  ``plan_sparse_matrix_dma``, bit for bit on every array, with duplicate
-  coordinates, an empty tile band and the empty matrix. JAX's native
-  counting sort is switched off for the comparison, so both packages run
-  the same NumPy argsort form.
-- The plain twins of B5 and B6 (``mxu_contract_ref``,
-  ``dma_contract_ref``) against the Pallas kernels in interpret mode and
-  against the dense ``F @ X``, at 1e-12.
-- ``make_sparse_sweep`` with each backend (``torch.sparse``, the B5
-  plan, the B6 plan) against JAX's ``make_sparse_sweep(cfg,
-  gs_kernels=True, interpret=True, mxu=True)``, at 1e-9, and
+- The output-column layouts (``ops/sparse_plan.py``) against those
+  unpacked from JAX's tile plans (``tests/tile_plan_oracle.py``: B5 with
+  group 1 and 8, and B6), with duplicate coordinates, an empty tile band
+  and the empty matrix: on a row-major X with sorted columns (a CSR) bit
+  for bit, order included; on an unsorted COO each column's entries as a
+  multiset, the column offsets exactly. A torch COO or CSR X gives the
+  scipy matrix's plan.
+- The gather kernel's plain twin on the layouts against JAX's Pallas
+  kernels B5 and B6 in interpret mode and against the dense ``F @ X``,
+  at 1e-12.
+- ``make_sparse_sweep`` with each backend (``torch.sparse``, the layout
+  plan) against JAX's ``make_sparse_sweep(cfg, gs_kernels=True,
+  interpret=True, mxu=True)`` on its B5 and its B6 plan, at 1e-9, and
   ``make_sparse_objective`` at 1e-10 relative.
-- The wrappers' routing, and on a CUDA machine each kernel against its
+- The wrappers' routing, and on a CUDA machine the kernel against its
   twin (marked ``cuda``, skipped without a card).
 
 float64 on the CPU.
@@ -27,7 +28,6 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-import rri_nmf_tpu.native as jax_native
 from rri_nmf_tpu.ops import sparse_dma as jdma
 from rri_nmf_tpu.ops import sparse_mxu as jmxu
 from rri_nmf_tpu.ops.sweep_sparse import (
@@ -39,16 +39,11 @@ from rri_nmf_tpu_torch.ops import sparse_kernels as sk
 from rri_nmf_tpu_torch.ops import sparse_plan as spl
 from rri_nmf_tpu_torch.ops import sweep_sparse as ss
 from rri_nmf_tpu_torch.ops.sweep import SweepConfig
+from tile_plan_oracle import jax_plans, unpack
 
 torch.set_num_threads(2)
 ATOL_TWIN = 1e-12
 ATOL_SWEEP = 1e-9
-
-
-@pytest.fixture
-def argsort_plans(monkeypatch):
-    """JAX's plan functions on their NumPy argsort path (the port's)."""
-    monkeypatch.setattr(jax_native, 'plan_hist', lambda *a, **k: None)
 
 
 def _matrix(n, d, dens, seed, dup=False, empty_band=None):
@@ -78,105 +73,113 @@ MATRICES = {
 
 
 # ---------------------------------------------------------------------------
-# host plans, bit for bit
+# the layouts against JAX's tile plans
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize('G', [1, 8])
+def _layout_arrays(layout):
+    return tuple(getattr(layout, f).numpy() for f in spl.ColumnLayout._fields)
+
+
+def _column_entries(colptr, gidx, vals):
+    """Each column's (gathered row, value) entries, sorted."""
+    return [sorted(zip(gidx[colptr[c]:colptr[c + 1]].tolist(),
+                       vals[colptr[c]:colptr[c + 1]].tolist()))
+            for c in range(len(colptr) - 1)]
+
+
+@pytest.mark.parametrize('source', ['csr', 'coo'])
+@pytest.mark.parametrize('tile_plan', ['b5 group 8', 'b5 group 1', 'b6'])
 @pytest.mark.parametrize('case', sorted(MATRICES))
-def test_plan_direction_matches_jax(case, G, argsort_plans):
+def test_layouts_match_jax_tile_plans(case, tile_plan, source):
+    """The plan's two layouts against those unpacked from JAX's tile plan
+    of the same matrix: a CSR (row-major, columns sorted) bit for bit,
+    the raw COO (unsorted, duplicates kept) column by column as
+    multisets, its column offsets exactly."""
     X = MATRICES[case]()
-    n, d = X.shape
-    args = (X.col, X.row, X.data, -(-d // 128), -(-n // 128), 128, G,
-            np.float64)
-    for got, want in zip(spl._plan_direction_np(*args),
-                         jmxu._plan_direction_np(*args)):
-        assert got.dtype == want.dtype and np.array_equal(got, want)
-
-
-def _arrays_equal(got, want):
-    got = got.cpu().numpy()
-    want = np.asarray(want)
-    return got.shape == want.shape and np.array_equal(got, want)
-
-
-@pytest.mark.parametrize('group', [1, 8])
-@pytest.mark.parametrize('case', sorted(MATRICES))
-def test_plan_sparse_matrix_matches_jax(case, group, argsort_plans):
-    X = MATRICES[case]()
-    got = spl.plan_sparse_matrix(X, np.float64, group=group, device='cpu')
-    want = jmxu.plan_sparse_matrix(X, np.float64, group=group)
-    assert (got.n, got.d, got.group) == (want.n, want.d, want.group)
-    for g, w in ((got.t_phase, want.t_phase), (got.w_phase, want.w_phase)):
-        for field in ('vals', 'gloc', 'sloc', 'ftile', 'otile', 'mask'):
-            assert _arrays_equal(getattr(g, field), getattr(w, field)), field
-        assert g.gloc.dtype == g.sloc.dtype == torch.uint8
+    if source == 'csr':
+        X = X.tocsr()
+    got = spl.plan_sparse_matrix(X, np.float64, device='cpu')
+    want = jax_plans(X)[tile_plan]
+    assert (got.n, got.d) == (want.n, want.d) == X.shape
+    for lay, direction in ((got.t_phase, want.t_phase),
+                           (got.w_phase, want.w_phase)):
+        assert lay.colptr.dtype == lay.gidx.dtype == torch.int32
+        assert lay.vals.dtype == torch.float64
+        colptr, gidx, vals = unpack(direction)
+        ours = _layout_arrays(lay)
+        assert np.array_equal(ours[0], colptr)
+        assert lay.n_rows == (int(gidx.max()) + 1 if len(gidx) else 0)
+        if source == 'csr':
+            assert np.array_equal(ours[1], gidx)
+            assert np.array_equal(ours[2], vals)
+        else:
+            assert (_column_entries(*ours)
+                    == _column_entries(colptr, gidx, vals))
 
 
 @pytest.mark.parametrize('case', sorted(MATRICES))
-def test_plan_sparse_matrix_dma_matches_jax(case, argsort_plans):
-    X = MATRICES[case]()
-    got = spl.plan_sparse_matrix_dma(X, np.float64, device='cpu')
-    want = jdma.plan_sparse_matrix_dma(X, np.float64)
-    for g, w in ((got.t_phase, want.t_phase), (got.w_phase, want.w_phase)):
-        for field in ('vals', 'idx', 'ftile', 'uotile', 'ostart', 'mask'):
-            assert _arrays_equal(getattr(g, field), getattr(w, field)), field
-        assert g.ftile.shape[0] == int(g.ostart[-1]) + spl.MBLK_MAX
-
-
-def test_torch_sparse_inputs_plan_like_scipy():
-    """A torch COO or CSR tensor holding the scipy matrix's entries in the
-    same order gives the same plan."""
-    X = MATRICES['duplicates and empty band']().tocsr()
-    X.sum_duplicates()
-    want = spl.plan_sparse_matrix(X, np.float64, device='cpu')
-    coo = X.tocoo()
+def test_torch_sparse_inputs_plan_like_scipy(case):
+    """A torch COO tensor holding the scipy COO's entries in the same
+    order (unsorted, duplicates kept) and a torch CSR tensor of its CSR
+    give the scipy matrices' plans, bit for bit."""
+    coo = MATRICES[case]()
+    csr = coo.tocsr()
     Xc = torch.sparse_coo_tensor(np.stack([coo.row, coo.col]), coo.data,
-                                 X.shape)
-    Xr = torch.sparse_csr_tensor(X.indptr, X.indices, X.data, X.shape)
-    for Xt in (Xc, Xr):
-        got = spl.plan_sparse_matrix(Xt)
-        for field in spl.ContractPlan._fields:
-            assert torch.equal(getattr(got.t_phase, field),
-                               getattr(want.t_phase, field))
-            assert torch.equal(getattr(got.w_phase, field),
-                               getattr(want.w_phase, field))
+                                 coo.shape)
+    Xr = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data,
+                                 csr.shape)
+    for Xt, Xs in ((Xc, coo), (Xr, csr)):
+        for dt in (None, torch.float32):
+            got = spl.plan_sparse_matrix(Xt, dt)
+            want = spl.plan_sparse_matrix(Xs, dt, device='cpu')
+            assert got.shape == want.shape == Xs.shape
+            for g, w in ((got.t_phase, want.t_phase),
+                         (got.w_phase, want.w_phase)):
+                assert g.n_rows == w.n_rows
+                for field in spl.ColumnLayout._fields:
+                    assert torch.equal(getattr(g, field),
+                                       getattr(w, field)), field
 
 
 # ---------------------------------------------------------------------------
-# the twins
+# the twin
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize('case', sorted(MATRICES))
-def test_twins_match_pallas_interpret_and_dense(case, argsort_plans):
+def test_twins_match_pallas_interpret_and_dense(case):
+    """The gather twin on the layouts against JAX's B5 (``mxu_contract``)
+    and B6 (``dma_contract``) in interpret mode, each on its own tile
+    plan, and against the dense products."""
     X = MATRICES[case]()
     n, d = X.shape
     Xd = X.toarray()
     rng = np.random.RandomState(3)
     k = 5
     W, T = rng.rand(n, k), rng.rand(k, d)
-    jm = jmxu.plan_sparse_matrix(X, np.float64)
-    jd = jdma.plan_sparse_matrix_dma(X, np.float64)
-    pm = spl.plan_sparse_matrix(X, np.float64, device='cpu')
-    pd = spl.plan_sparse_matrix_dma(X, np.float64, device='cpu')
-    Wt = sk._padded(torch.as_tensor(W.T.copy()), n)
-    # the raw contraction, against the Pallas kernel in interpret mode
-    want = np.asarray(jmxu.mxu_contract(jm.t_phase, jnp.asarray(Wt.numpy()),
-                                        interpret=True, group=jm.group))
-    got = sk.mxu_contract_ref(pm.t_phase, Wt).numpy()
-    assert np.allclose(got, want, rtol=0, atol=ATOL_TWIN)
+    jp = jax_plans(X)
+    plan = spl.plan_sparse_matrix(X, np.float64, device='cpu')
+    lay_t, lay_w = plan.t_phase, plan.w_phase
+    # the raw contractions over the padded widths, against the Pallas
+    # kernels in interpret mode
+    Wt = np.zeros((k, -(-n // 128) * 128))
+    Wt[:, :n] = W.T
+    want = np.asarray(jmxu.mxu_contract(
+        jp['b5 group 8'].t_phase, jnp.asarray(Wt), interpret=True,
+        group=8))
+    got = sk.gather_contract_ref(lay_t, torch.as_tensor(W), k, lay_t.n_cols)
+    assert np.allclose(got.numpy(), want, rtol=0, atol=ATOL_TWIN)
     want = np.asarray(jdma.dma_contract(
-        jd.w_phase, jdma._tile_cols(jnp.asarray(T), d), interpret=True))
-    got = sk.dma_contract_ref(pd.w_phase, sk._tile_cols(
-        torch.as_tensor(T), d)).numpy()
-    assert np.allclose(got, want, rtol=0, atol=ATOL_TWIN)
-    # both directions, both plan types, against dense F @ X
-    for plan in (pm, pd, spl.plan_sparse_matrix(X, np.float64, group=1,
-                                                device='cpu')):
-        wtx = sk.contract_wtx(plan, torch.as_tensor(W)).numpy()
-        xtt = sk.contract_xtt(plan, torch.as_tensor(T)).numpy()
-        assert wtx.shape == (k, d) and xtt.shape == (k, n)
-        assert np.allclose(wtx, W.T @ Xd, rtol=0, atol=ATOL_TWIN)
-        assert np.allclose(xtt, T @ Xd.T, rtol=0, atol=ATOL_TWIN)
+        jp['b6'].w_phase, jdma._tile_cols(jnp.asarray(T), d),
+        interpret=True))
+    got = sk.gather_contract_ref(lay_w, torch.as_tensor(T.T), k,
+                                 lay_w.n_cols)
+    assert np.allclose(got.numpy(), want, rtol=0, atol=ATOL_TWIN)
+    # both directions against dense F @ X
+    wtx = sk.contract_wtx(plan, torch.as_tensor(W)).numpy()
+    xtt = sk.contract_xtt(plan, torch.as_tensor(T)).numpy()
+    assert wtx.shape == (k, d) and xtt.shape == (k, n)
+    assert np.allclose(wtx, W.T @ Xd, rtol=0, atol=ATOL_TWIN)
+    assert np.allclose(xtt, T @ Xd.T, rtol=0, atol=ATOL_TWIN)
 
 
 def test_twins_duplicates_sum_and_unvisited_tiles_are_zero():
@@ -184,24 +187,24 @@ def test_twins_duplicates_sum_and_unvisited_tiles_are_zero():
                        (np.array([5, 5, 9]), np.array([7, 7, 130]))),
                       shape=(200, 400))
     W = torch.as_tensor(np.random.RandomState(0).rand(200, 3))
-    for plan in (spl.plan_sparse_matrix(X, device='cpu'),
-                 spl.plan_sparse_matrix_dma(X, device='cpu')):
-        out = sk.contract_wtx(plan, W).numpy()
-        assert np.allclose(out, W.numpy().T @ X.toarray(), rtol=0,
-                           atol=ATOL_TWIN)
-        assert np.all(out[:, 256:] == 0.0)
+    plan = spl.plan_sparse_matrix(X, device='cpu')
+    out = sk.contract_wtx(plan, W).numpy()
+    assert np.allclose(out, W.numpy().T @ X.toarray(), rtol=0,
+                       atol=ATOL_TWIN)
+    assert np.all(out[:, 256:] == 0.0)
+    # the duplicate coordinates are two entries of column 7
+    assert plan.t_phase.gidx.tolist() == [5, 5, 9]
 
 
 def test_twins_chunk_their_gather(monkeypatch):
-    """A gather budget below one slice still covers every chunk."""
+    """A gather budget below one slice still covers every nonzero."""
     X = MATRICES['dense tiles']()
     W = torch.as_tensor(np.random.RandomState(1).rand(X.shape[0], 4))
     want = W.numpy().T @ X.toarray()
     monkeypatch.setattr(sk, 'GATHER_BUDGET', 1)
-    for plan in (spl.plan_sparse_matrix(X, device='cpu'),
-                 spl.plan_sparse_matrix_dma(X, device='cpu')):
-        assert np.allclose(sk.contract_wtx(plan, W).numpy(), want, rtol=0,
-                           atol=ATOL_TWIN)
+    plan = spl.plan_sparse_matrix(X, device='cpu')
+    assert np.allclose(sk.contract_wtx(plan, W).numpy(), want, rtol=0,
+                       atol=ATOL_TWIN)
 
 
 # ---------------------------------------------------------------------------
@@ -219,17 +222,12 @@ SWEEP_CASES = {
 }
 
 
-def _port_x(X, backend):
-    if backend == 'torch':
-        return ss.TorchSparseX(ss.to_torch_sparse(X))
-    if backend == 'mxu':
-        return spl.plan_sparse_matrix(X, np.float64, device='cpu')
-    return spl.plan_sparse_matrix_dma(X, np.float64, device='cpu')
-
-
 @pytest.mark.parametrize('backend', ['torch', 'mxu', 'dma'])
 @pytest.mark.parametrize('case', sorted(SWEEP_CASES))
-def test_sparse_sweep_matches_jax(case, backend, argsort_plans):
+def test_sparse_sweep_matches_jax(case, backend):
+    """The port's sweep on its layout plan (``torch.sparse`` for
+    ``'torch'``) against JAX's on its B5 plan (``'torch'``, ``'mxu'``)
+    and its B6 plan (``'dma'``)."""
     X = _matrix(301, 267, 0.04, 4).tocsr()
     n, d = X.shape
     k = 4
@@ -241,13 +239,18 @@ def test_sparse_sweep_matches_jax(case, backend, argsort_plans):
         T0 = T0 / T0.sum(1, keepdims=True)
     jsweep = jax_sparse_sweep(JaxSweepConfig(**kw), gs_kernels=True,
                               interpret=True, mxu=True)
-    plan = jmxu.plan_sparse_matrix(X, np.float64)
+    plan = (jdma.plan_sparse_matrix_dma(X, np.float64) if backend == 'dma'
+            else jmxu.plan_sparse_matrix(X, np.float64))
     key = jax.random.PRNGKey(0)
     W, T = jnp.asarray(W0), jnp.asarray(T0)
     for _ in range(3):
         W, T, key, _ = jsweep(plan, W, T, key, jnp.asarray(0), key)
-    sweep = ss.make_sparse_sweep(SweepConfig(**kw), backend)
-    Xp = _port_x(X, backend)
+    if backend == 'torch':
+        sweep = ss.make_sparse_sweep(SweepConfig(**kw), 'torch')
+        Xp = ss.TorchSparseX(ss.to_torch_sparse(X))
+    else:
+        sweep = ss.make_sparse_sweep(SweepConfig(**kw), 'mxu')
+        Xp = spl.plan_sparse_matrix(X, np.float64, device='cpu')
     Wt, Tt = torch.as_tensor(W0), torch.as_tensor(T0)
     for _ in range(3):
         Wt, Tt = sweep(Xp, Wt, Tt)
@@ -259,14 +262,15 @@ def test_sparse_sweep_rejects_wrong_inputs():
     cfg = SweepConfig(k=3, reset_topic_method=None, update_order='phase')
     with pytest.raises(ValueError):
         ss.make_sparse_sweep(SweepConfig(k=3), 'torch')
-    with pytest.raises(ValueError):
-        ss.make_sparse_sweep(cfg, 'bogus')
+    for backend in ('bogus', 'dma'):
+        with pytest.raises(ValueError):
+            ss.make_sparse_sweep(cfg, backend)
     X = _matrix(40, 30, 0.1, 6)
     sweep = ss.make_sparse_sweep(cfg, 'mxu')
     W, T = torch.rand(40, 3, dtype=torch.float64), torch.rand(
         3, 30, dtype=torch.float64)
     with pytest.raises(TypeError):
-        sweep(spl.plan_sparse_matrix_dma(X, device='cpu'), W, T)
+        sweep(ss.TorchSparseX(ss.to_torch_sparse(X)), W, T)
     assert not ss.supports_sparse(SweepConfig(k=3, masked=True,
                                               update_order='phase',
                                               reset_topic_method=None))
@@ -311,31 +315,27 @@ def test_cpu_tensors_take_the_twins_and_launch_nothing():
     X = MATRICES['ragged']()
     W = torch.as_tensor(np.random.RandomState(9).rand(X.shape[0], 3))
     before = dict(sk.LAUNCHES)
-    pm = spl.plan_sparse_matrix(X, device='cpu')
-    pd = spl.plan_sparse_matrix_dma(X, device='cpu')
-    Wt = sk._padded(W.T, X.shape[0])
-    assert torch.equal(sk.mxu_contract(pm.t_phase, Wt),
-                       sk.mxu_contract_ref(pm.t_phase, Wt))
-    F3 = sk._tile_cols(W.T, X.shape[0])
-    assert torch.equal(sk.dma_contract(pd.t_phase, F3),
-                       sk.dma_contract_ref(pd.t_phase, F3))
+    lay = spl.plan_sparse_matrix(X, device='cpu').t_phase
+    assert torch.equal(sk.gather_contract(lay, W, 3, lay.n_cols),
+                       sk.gather_contract_ref(lay, W, 3, lay.n_cols))
     assert sk.LAUNCHES == before
 
 
-def test_non_cuda_devices_raise_and_16_bit_factors_wait_for_A8(
-        argsort_plans):
+def test_non_cuda_devices_raise_and_16_bit_factors_wait_for_A8():
     """Non-CUDA devices raise; 16-bit factors (ROADMAP A.8, ported) meet
     values of their dtype, their exact products summed in float32, as
-    JAX's narrow kernels take them (interpret mode): the same float32
-    output up to summation order."""
+    JAX's narrow kernels take them (interpret mode, B5 for ``WᵀX`` and B6
+    for ``T Xᵀ``): the same float32 output up to summation order."""
     X = MATRICES['ragged']()
-    pm = spl.plan_sparse_matrix(X, device='cpu').to('meta')
-    pd = spl.plan_sparse_matrix_dma(X, device='cpu').to('meta')
-    F = torch.empty(3, 384, dtype=torch.float64, device='meta')
+    cpu = spl.plan_sparse_matrix(X, device='cpu')
+    pm = spl.SparsePlan(*(spl.ColumnLayout(
+        *(getattr(lay, f).to('meta') for f in spl.ColumnLayout._fields),
+        lay.n_rows) for lay in (cpu.t_phase, cpu.w_phase)), *cpu.shape)
+    F = torch.empty(384, 3, dtype=torch.float64, device='meta')
     with pytest.raises(ValueError, match='CUDA'):
-        sk.mxu_contract(pm.t_phase, F)
+        sk.gather_contract(pm.t_phase, F, 3, 128)
     with pytest.raises(ValueError, match='CUDA'):
-        sk.dma_contract(pd.t_phase, F.reshape(3, 3, 128).permute(1, 0, 2))
+        sk.contract_xtt(pm, F.T)
     # duplicate coordinates summed first: JAX rounds the sum of a
     # chunk's duplicates to 16 bits inside its one-hot tile, a rounding
     # that depends on its chunking
@@ -349,11 +349,8 @@ def test_non_cuda_devices_raise_and_16_bit_factors_wait_for_A8(
                             (X.row, X.col)), shape=X.shape).tocsr()
         wtx = (Xq.T @ W16.double().numpy()).T
         xtt = T16.double().numpy() @ Xq.T
-        got = (sk.contract_wtx(spl.plan_sparse_matrix(X, dt, device='cpu'),
-                               W16),
-               sk.contract_xtt(spl.plan_sparse_matrix_dma(X, dt,
-                                                          device='cpu'),
-                               T16))
+        plan = spl.plan_sparse_matrix(X, dt, device='cpu')
+        got = (sk.contract_wtx(plan, W16), sk.contract_xtt(plan, T16))
         want = (jmxu.contract_wtx(jmxu.plan_sparse_matrix(X, np.dtype(jdt)),
                                   jnp.asarray(W16.float().numpy(), jdt),
                                   interpret=True),
@@ -371,15 +368,15 @@ def test_non_cuda_devices_raise_and_16_bit_factors_wait_for_A8(
 
 def test_shared_memory_gate_and_launch_counter_reset():
     # the gather kernel has no shared-memory gate (it runs k in slices, in
-    # ~17 KB a block), and neither do the twins: any k, here 512
+    # ~17 KB a block), and neither does the twin: any k, here 512
     X = MATRICES['ragged']()
     W = torch.as_tensor(np.random.RandomState(9).rand(X.shape[0], 512))
-    got = sk.contract_wtx(spl.plan_sparse_matrix_dma(X, device='cpu'), W)
+    got = sk.contract_wtx(spl.plan_sparse_matrix(X, device='cpu'), W)
     np.testing.assert_allclose(got.numpy(), (X.T @ W.numpy()).T,
                                atol=ATOL_TWIN)
-    sk.LAUNCHES['mxu'] += 2
+    sk.LAUNCHES['gather'] += 2
     sk.reset_launches()
-    assert sk.LAUNCHES == {'mxu': 0, 'dma': 0, 'gram': 0}
+    assert sk.LAUNCHES == {'gather': 0, 'gram': 0}
 
 
 # ---------------------------------------------------------------------------
@@ -398,10 +395,10 @@ def cuda_device():
 @pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-10),
                                        (torch.float32, 1e-4)])
 def test_cuda_kernels_match_twins(cuda_device, dtype, tol, k):
-    """The gather kernel through the sweep's products and through B5's
-    and B6's interfaces, against the CPU twins (the layout's and the
-    plans'); a repeated launch gives the same bits, and so do the two
-    plans' launches."""
+    """The gather kernel through the sweep's products and on a layout's
+    whole padded width, against the CPU twin on the CPU's plan, whose
+    layouts equal the card's; a repeated launch gives the same bits, and
+    so does the plan of a torch CSR X built on the card."""
     X = _matrix(1000, 700, 0.02, 10, dup=True, empty_band=3)
     rng = np.random.RandomState(11)
     W = torch.as_tensor(rng.rand(1000, k), dtype=dtype, device=cuda_device)
@@ -412,11 +409,18 @@ def test_cuda_kernels_match_twins(cuda_device, dtype, tol, k):
         return float(((got.cpu() - want).abs() / scale).max()) <= tol
 
     before = dict(sk.LAUNCHES)
+    csr = X.tocsr()
+    Xr = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data,
+                                 csr.shape, device=cuda_device)
     outs = {}
-    for kind, plan in (
-            ('mxu', spl.plan_sparse_matrix(X, dtype, device=cuda_device)),
-            ('dma', spl.plan_sparse_matrix_dma(X, dtype, device=cuda_device))):
-        cpu = plan.to('cpu')
+    for plan in (spl.plan_sparse_matrix(csr, dtype, device=cuda_device),
+                 spl.plan_sparse_matrix(Xr, dtype)):
+        assert plan.t_phase.gidx.is_cuda
+        cpu = spl.plan_sparse_matrix(csr, dtype, device='cpu')
+        for a, b in ((plan.t_phase, cpu.t_phase), (plan.w_phase, cpu.w_phase)):
+            assert a.n_rows == b.n_rows
+            for f in spl.ColumnLayout._fields:
+                assert torch.equal(getattr(a, f).cpu(), getattr(b, f))
         for fn, F in ((sk.contract_wtx, W), (sk.contract_xtt, T)):
             got = fn(plan, F)
             again = fn(plan, F)
@@ -424,17 +428,12 @@ def test_cuda_kernels_match_twins(cuda_device, dtype, tol, k):
             torch.cuda.synchronize()
             assert close(got, want) and torch.equal(got, again)
             outs.setdefault(fn.__name__, []).append(got)
-        m = X.shape[0]
-        if kind == 'mxu':
-            direct = sk.mxu_contract(plan.t_phase, sk._padded(W.T, m))
-            ref = sk.mxu_contract_ref(cpu.t_phase, sk._padded(W.T.cpu(), m))
-        else:
-            direct = sk.dma_contract(plan.t_phase, sk._tile_cols(W.T, m))
-            ref = sk.dma_contract_ref(cpu.t_phase, sk._tile_cols(W.T.cpu(), m))
+        lay = plan.t_phase
+        whole = sk.gather_contract(lay, W, k, lay.n_cols)
+        ref = sk.gather_contract_ref(cpu.t_phase, W.cpu(), k, lay.n_cols)
         torch.cuda.synchronize()
-        assert close(direct, ref)
-        assert torch.equal(direct[:, :X.shape[1]], outs['contract_wtx'][-1])
+        assert close(whole, ref)
+        assert torch.equal(whole[:, :X.shape[1]], outs['contract_wtx'][-1])
     for got in outs.values():
         assert torch.equal(got[0], got[1])          # the two plans' launches
-    assert sk.LAUNCHES['mxu'] == before['mxu'] + 5
-    assert sk.LAUNCHES['dma'] == before['dma'] + 5
+    assert sk.LAUNCHES['gather'] == before['gather'] + 10

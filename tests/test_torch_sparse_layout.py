@@ -1,15 +1,18 @@
-"""The output-column layout of the sparse plans and the gather kernel's
-plain twin, against the plan-walking twins of B5 and B6.
+"""The output-column layouts of a sparse X and the gather kernel's plain
+twin.
 
-- ``sparse_plan.column_layout`` from the B5 plan (group 8 and 1) and from
-  the B6 plan of one matrix give equal arrays; each column keeps its
-  nonzeros in plan order; the plans' zero-valued slots are dropped; empty
-  columns and the empty plan.
-- ``sparse_kernels.gather_contract_ref`` (the kernel's twin) against
-  ``mxu_contract_ref`` / ``dma_contract_ref`` and the dense product at
-  1e-12, at k = 16, 50 (in float32 a 200-byte row, which the kernel pads
-  to 16 bytes) and 128, ragged shapes, duplicates, an empty 128-column
-  band and a Zipf corpus (a few long columns).
+- ``sparse_plan.plan_sparse_matrix``'s two layouts are X's CSC (for
+  ``WᵀX``) and CSR (for ``T Xᵀ``): each column holds its nonzeros in
+  ascending gather index, duplicate coordinates as separate entries in
+  input order, explicit zeros dropped; empty columns and the empty plan;
+  ``nmf(sparse='mxu')`` and ``nmf(sparse='dma')`` give the same bits.
+- ``sparse_kernels.gather_contract_ref`` (the kernel's twin) on the
+  layouts against JAX's Pallas kernels B5 (``mxu_contract``) and B6
+  (``dma_contract``) in interpret mode, each on its own tile plan, and
+  against the dense product at 1e-12, at k = 16, 50 (in float32 a
+  200-byte row, which the kernel pads to 16 bytes) and 128, ragged
+  shapes, duplicates, an empty 128-column band and a Zipf corpus (a few
+  long columns).
 - The NumPy mirror of ``csrc/sparse.cu``'s decomposition
   (``ops/sparse_mirror``: blocks of ``SG_NC`` columns, ``SG_WARPS`` equal
   runs of nonzeros, pieces of cut columns added in warp order, 32/L
@@ -27,6 +30,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from rri_nmf_tpu_torch.nmf import nmf
 from rri_nmf_tpu_torch.ops import sparse_kernels as sk
 from rri_nmf_tpu_torch.ops import sparse_plan as spl
 from rri_nmf_tpu_torch.ops.sparse_mirror import (kernel_constants,
@@ -88,85 +92,66 @@ def _close(got, want):
         np.all(np.abs(got - want) <= RTOL * scale))
 
 
-def _plans(X):
-    return {'mxu': spl.plan_sparse_matrix(X, np.float64, device='cpu'),
-            'mxu group 1': spl.plan_sparse_matrix(X, np.float64, group=1,
-                                                  device='cpu'),
-            'dma': spl.plan_sparse_matrix_dma(X, np.float64, device='cpu')}
+def _plan(X, dtype=np.float64):
+    return spl.plan_sparse_matrix(X, dtype, device='cpu')
 
 
-def _directions(plan):
-    return (('WtX', plan.t_phase), ('TXt', plan.w_phase))
+def _with_explicit_zeros(X):
+    """``X`` with every fifth entry's value set to 0, kept as an entry."""
+    X = X.copy()
+    X.data[::5] = 0.0
+    return X
 
 
 # ---------------------------------------------------------------------------
 # the layout
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize('direction', ['WtX', 'TXt'])
 @pytest.mark.parametrize('case', sorted(MATRICES))
-def test_layouts_of_the_b5_and_b6_plans_are_equal(case):
-    plans = _plans(MATRICES[case]())
-    for dirn in (0, 1):
-        layouts = [spl.column_layout(_directions(p)[dirn][1])
-                   for p in plans.values()]
-        first = layouts[0]
-        assert first.colptr.dtype == first.gidx.dtype == torch.int32
-        assert first.vals.dtype == torch.float64
-        for other in layouts[1:]:
-            for field in spl.ColumnLayout._fields:
-                assert torch.equal(getattr(other, field),
-                                   getattr(first, field)), field
-            assert other.n_rows == first.n_rows
+def test_layout_is_the_csc_or_csr_with_zeros_dropped(case, direction):
+    """``t_phase`` is X's CSC and ``w_phase`` its CSR: per output column
+    the nonzero entries in ascending gather index, a duplicate coordinate
+    twice in input order, an explicit zero left out; columns padded to
+    whole 128-column tiles; int32 indices."""
+    X = _with_explicit_zeros(MATRICES[case]())
+    plan = _plan(X)
+    lay = plan.t_phase if direction == 'WtX' else plan.w_phase
+    assert lay.colptr.dtype == lay.gidx.dtype == torch.int32
+    assert lay.vals.dtype == torch.float64
+    out, gather = (X.col, X.row) if direction == 'WtX' else (X.row, X.col)
+    width = X.shape[1] if direction == 'WtX' else X.shape[0]
+    assert lay.n_cols == -(-width // 128) * 128
+    keep = X.data != 0
+    # a stable sort on (output column, gather index): the order wanted
+    order = np.lexsort((gather[keep], out[keep]))
+    want_g = gather[keep][order]
+    want_v = X.data[keep][order]
+    colptr = np.searchsorted(out[keep][order], np.arange(lay.n_cols + 1))
+    assert np.array_equal(lay.colptr.numpy(), colptr)
+    assert np.array_equal(lay.gidx.numpy(), want_g)
+    assert np.array_equal(lay.vals.numpy(), want_v)
+    assert np.all(lay.vals.numpy() != 0)
+    assert lay.n_rows == (int(want_g.max()) + 1 if len(want_g) else 0)
 
 
-def _plan_order_columns(direction):
-    """Each output column's (gather row, value) pairs in plan order, from
-    the plan arrays in NumPy: slots with v = 0 left out."""
-    if isinstance(direction, spl.ContractPlan):
-        ft = direction.ftile.numpy()
-        C = direction.vals.shape[1] // len(ft)
-        ot = np.repeat(direction.otile.numpy(), direction.group)
-        gl, sl = direction.gloc[0].numpy(), direction.sloc[0].numpy()
-    else:
-        nch = int(direction.ostart[-1])
-        ft = direction.ftile.numpy()[:nch]
-        C = direction.vals.shape[1] // direction.ftile.shape[0]
-        ot = np.repeat(direction.uotile.numpy(),
-                       np.diff(direction.ostart.numpy()))
-        gl, sl = direction.idx[0].numpy(), direction.idx[1].numpy()
-    v = direction.vals[0].numpy()
-    cols = {}
-    for i in range(len(ft) * C):
-        if v[i] != 0:
-            c = 128 * int(ot[i // C]) + int(sl[i])
-            cols.setdefault(c, []).append((128 * int(ft[i // C])
-                                           + int(gl[i]), v[i]))
-    return cols
-
-
-@pytest.mark.parametrize('kind', ['mxu', 'dma'])
 @pytest.mark.parametrize('case', sorted(MATRICES))
-def test_layout_keeps_plan_order_and_drops_zero_slots(case, kind):
+def test_nmf_mxu_and_dma_fit_the_same_bits(case):
+    """``sparse='mxu'`` and ``sparse='dma'`` build one plan, so their fits
+    are equal bit for bit."""
     X = MATRICES[case]()
-    plan = _plans(X)[kind]
-    for _, direction in _directions(plan):
-        lay = spl.column_layout(direction)
-        assert spl.column_layout(direction) is lay      # cached on the plan
-        colptr = lay.colptr.numpy()
-        gidx, vals = lay.gidx.numpy(), lay.vals.numpy()
-        assert len(gidx) == X.nnz and np.all(vals != 0)
-        assert lay.n_cols == direction.mask.shape[1]
-        want = _plan_order_columns(direction)
-        for c in range(lay.n_cols):
-            got = list(zip(gidx[colptr[c]:colptr[c + 1]],
-                           vals[colptr[c]:colptr[c + 1]]))
-            assert got == want.get(c, []), c
-        assert lay.n_rows == (int(gidx.max()) + 1 if len(gidx) else 0)
+    fits = [nmf(X, 4, max_iter=3, update_order='phase',
+                reset_topic_method=None, sparse=mode, random_state=0,
+                init='random', device='cpu')
+            for mode in ('mxu', 'dma')]
+    for name in ('W', 'T'):
+        assert torch.equal(torch.as_tensor(fits[0][name]),
+                           torch.as_tensor(fits[1][name])), name
 
 
 def test_empty_columns_and_the_empty_plan():
     X = MATRICES['duplicates and empty band']()
-    lay = spl.column_layout(_plans(X)['mxu'].t_phase)
+    lay = _plan(X).t_phase
     counts = np.diff(lay.colptr.numpy())
     assert np.all(counts[256:384] == 0) and counts[:256].sum() > 0
     assert np.all(counts[X.shape[1]:] == 0)            # the padded columns
@@ -174,71 +159,77 @@ def test_empty_columns_and_the_empty_plan():
     empty = sp.coo_matrix((50, 70))
     W = torch.rand(50, 4, dtype=torch.float64)
     T = torch.rand(4, 70, dtype=torch.float64)
-    for plan in _plans(empty).values():
-        for _, direction in _directions(plan):
-            lay = spl.column_layout(direction)
-            assert lay.gidx.numel() == 0 and lay.n_rows == 0
-            assert lay.n_cols == 128
-            assert torch.equal(lay.colptr, torch.zeros(129, dtype=torch.int32))
-        assert torch.equal(sk.contract_wtx(plan, W), torch.zeros(4, 70,
-                                                              dtype=W.dtype))
-        assert torch.equal(sk.contract_xtt(plan, T), torch.zeros(4, 50,
-                                                              dtype=T.dtype))
-    out = sk.gather_contract_ref(spl.column_layout(
-        _plans(empty)['dma'].w_phase), T.T, 4, 128)
+    plan = _plan(empty)
+    for lay in (plan.t_phase, plan.w_phase):
+        assert lay.gidx.numel() == 0 and lay.n_rows == 0
+        assert lay.n_cols == 128
+        assert torch.equal(lay.colptr, torch.zeros(129, dtype=torch.int32))
+    assert torch.equal(sk.contract_wtx(plan, W), torch.zeros(4, 70,
+                                                          dtype=W.dtype))
+    assert torch.equal(sk.contract_xtt(plan, T), torch.zeros(4, 50,
+                                                          dtype=T.dtype))
+    out = sk.gather_contract_ref(plan.w_phase, T.T, 4, 128)
     assert out.shape == (4, 128) and not out.any()
 
 
-def test_layout_is_rebuilt_for_a_moved_plan():
-    plan = _plans(MATRICES['ragged']())['mxu'].t_phase
-    lay = spl.column_layout(plan)
-    moved = plan.to('cpu')
-    assert moved.columns is None
-    again = spl.column_layout(moved)
-    assert again is not lay and torch.equal(again.gidx, lay.gidx)
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+def test_16_bit_values_are_rounded_once_and_zeros_dropped(dtype):
+    """A 16-bit plan's values are X's float64 values rounded once to the
+    dtype, and the entries that round to 0 leave the layout."""
+    X = MATRICES['ragged']().tocsr()
+    X.data[::3] = 1e-50                     # 0 in either 16-bit dtype
+    lay = _plan(X, dtype).w_phase
+    rounded = torch.as_tensor(X.data).to(dtype)
+    keep = (rounded != 0).numpy()
+    assert lay.vals.dtype == dtype and not keep.all()
+    assert torch.equal(lay.vals, rounded[torch.as_tensor(keep)])
+    assert np.array_equal(lay.gidx.numpy(), X.indices[keep])
 
 
 # ---------------------------------------------------------------------------
-# the gather twin against the plan twins
+# the gather twin against JAX's kernels
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize('k', [16, 50, 128])
 @pytest.mark.parametrize('case', sorted(set(MATRICES) - {'empty'}))
 def test_gather_twin_matches_plan_twins(case, k):
+    """The twin on each layout against B5 and B6 in interpret mode (each
+    on JAX's own tile plan of X, over the padded width) and against the
+    dense product."""
+    import jax.numpy as jnp
+    from rri_nmf_tpu.ops import sparse_dma as jdma
+    from rri_nmf_tpu.ops import sparse_mxu as jmxu
+    from tile_plan_oracle import jax_plans
     X = MATRICES[case]()
     n, d = X.shape
     Xd = X.toarray()
     rng = np.random.RandomState(k)
     W = torch.as_tensor(rng.rand(n, k))
     T = torch.as_tensor(rng.rand(k, d))
-    plans = _plans(X)
+    plan = _plan(X)
+    jp = jax_plans(X)
     for dirn, Ft, m, dense in (('WtX', W, n, W.numpy().T @ Xd),
                                ('TXt', T.T, d, T.numpy() @ Xd.T)):
-        F = Ft.T
-        wants = [sk.mxu_contract_ref(plans['mxu'].t_phase if dirn == 'WtX'
-                                     else plans['mxu'].w_phase,
-                                     sk._padded(F, m)),
-                 sk.dma_contract_ref(plans['dma'].t_phase if dirn == 'WtX'
-                                     else plans['dma'].w_phase,
-                                     sk._tile_cols(F, m))]
-        for kind, plan in plans.items():
-            direction = plan.t_phase if dirn == 'WtX' else plan.w_phase
-            lay = spl.column_layout(direction)
-            got = sk.gather_contract_ref(lay, Ft, k, lay.n_cols)
-            for want in wants:
-                assert _close(got, want), (kind, dirn)
-            assert _close(got[:, :dense.shape[1]], dense)
-        # the wrappers of both interfaces give the same product
-        mp = plans['mxu'].t_phase if dirn == 'WtX' else plans['mxu'].w_phase
-        dp = plans['dma'].t_phase if dirn == 'WtX' else plans['dma'].w_phase
-        assert torch.equal(sk.mxu_contract(mp, sk._padded(F, m)),
-                           sk.dma_contract(dp, sk._tile_cols(F, m)))
+        lay = plan.t_phase if dirn == 'WtX' else plan.w_phase
+        F = np.zeros((k, -(-m // 128) * 128))
+        F[:, :m] = Ft.numpy().T
+        b5 = getattr(jp['b5 group 8'], 't_phase' if dirn == 'WtX'
+                     else 'w_phase')
+        b6 = getattr(jp['b6'], 't_phase' if dirn == 'WtX' else 'w_phase')
+        wants = [jmxu.mxu_contract(b5, jnp.asarray(F), interpret=True,
+                                   group=8),
+                 jdma.dma_contract(b6, jdma._tile_cols(jnp.asarray(F[:, :m]),
+                                                       m), interpret=True)]
+        got = sk.gather_contract_ref(lay, Ft, k, lay.n_cols)
+        for want in wants:
+            assert _close(got, np.asarray(want)), dirn
+        assert _close(got[:, :dense.shape[1]], dense)
 
 
 def test_zipf_columns_are_skewed():
     """The Zipf case holds the skew the kernel balances: its longest word
     column has many times the mean column's nonzeros."""
-    lay = spl.column_layout(_plans(MATRICES['zipf']())['dma'].t_phase)
+    lay = _plan(MATRICES['zipf']()).t_phase
     counts = np.diff(lay.colptr.numpy())[:700]
     assert counts.max() > 20 * counts.mean()
 
@@ -285,11 +276,8 @@ def test_kernel_decomposition_matches_twin(case, setup):
     nc, nw = (c['SG_NC'], c['SG_WARPS']) if blocks == 'source' else blocks
     X = MATRICES[case]()
     W = torch.as_tensor(np.random.RandomState(4).rand(X.shape[0], k)).to(dt)
-    if dt == torch.float64:
-        lay = spl.column_layout(_plans(X)['dma'].t_phase)
-    else:
-        lay = spl.column_layout(spl.plan_sparse_matrix_dma(
-            X, dt, device='cpu').t_phase)
+    lay = _plan(X, dt).t_phase
+    if dt != torch.float64:
         groups = slice_groups(k, W.element_size())
     for ncols in (lay.n_cols, X.shape[1]):
         got = kernel_mirror(lay, W, k, ncols, nc, nw, groups,
@@ -316,8 +304,7 @@ def test_kernel_mirror_fails_on_a_wrong_piece_rule(dtype):
     X = MATRICES['zipf']()
     tdt = torch.float64 if dtype == np.float64 else torch.bfloat16
     W = torch.as_tensor(np.random.RandomState(4).rand(X.shape[0], 6)).to(tdt)
-    lay = spl.column_layout(spl.plan_sparse_matrix_dma(
-        X, tdt, device='cpu').t_phase)
+    lay = _plan(X, tdt).t_phase
     groups = slice_groups(6, W.element_size())
     want = sk.gather_contract_ref(lay, W, 6, lay.n_cols).double().numpy()
     right = kernel_mirror(lay, W, 6, lay.n_cols, c['SG_NC'], c['SG_WARPS'],

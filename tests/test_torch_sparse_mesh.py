@@ -16,8 +16,9 @@ cases of ``tests/test_sparse_mxu.py`` and the ``'dma'`` refusal of
 ``test_sparse_mxu.py`` holds at 1e-11 of its ``'mxu'`` fit) rather than
 the Pallas kernel in interpret mode. The plan-group mismatch
 ``ValueError`` of ``test_sharded_mxu_two_groups_no_stale_trace`` has no
-counterpart: the port's sweep takes any plan, so only the two groupings'
-equal results carry over. Also: a mesh whose first ranks hold no nonzero.
+counterpart: the port's plans have no chunk grouping, so its test holds
+the plans of a scipy X and of the same X as a torch CSR tensor through
+one mesh sweep. Also: a mesh whose first ranks hold no nonzero.
 """
 
 import re
@@ -317,8 +318,9 @@ def test_sharded_mxu_inner_reps_and_empty_blocks(pool, empty):
 
 
 def test_sharded_mxu_two_groups(pool):
-    """Plans of two chunk groupings through the same mesh sweep give the
-    same sweep."""
+    """The plans of a scipy X and of the same X as a torch CSR tensor
+    through the same mesh sweep give the same sweep, and the COO blocks'
+    sweep agrees."""
     rng = np.random.RandomState(9)
     Xd = np.abs(rng.rand(300, 260))
     Xd[Xd < 0.8] = 0.0
@@ -327,7 +329,7 @@ def test_sharded_mxu_two_groups(pool):
     W0 = np.abs(rng.rand(300, 5))
     T0 = np.abs(rng.rand(5, 260))
     outs = [pool.run('sparse_sweep', mesh=(2, 2), X=Xs, W=W0, T=T0, cfg=cfg,
-                     backend='mxu', group=g) for g in (8, 4)]
+                     backend='mxu', torch_x=t) for t in (False, True)]
     assert outs[0]['calls']['gather_contract'] == 2
     assert _close(outs[0]['W'], outs[1]['W'])
     assert _close(outs[0]['T'], outs[1]['T'])

@@ -300,11 +300,13 @@ def case_partition(mesh, X, mxu=False):
     return every[:mesh.size]
 
 
-def case_sparse_sweep(mesh, X, W, T, cfg, backend, sweeps=1, group=8):
+def case_sparse_sweep(mesh, X, W, T, cfg, backend, sweeps=1,
+                      torch_x=False):
     """``sweeps`` sweeps of :func:`make_sharded_sparse_sweep`
-    (``backend='torch'``) or :func:`make_sharded_mxu_sweep` (``'mxu'``,
-    the plan's chunks in groups of ``group``) from the sparse X and whole
-    (W, T): the whole factors and this rank's kernel calls."""
+    (``backend='torch'``) or :func:`make_sharded_mxu_sweep` (``'mxu'``)
+    from the sparse X (with ``torch_x``, the scipy CSR X as a torch CSR
+    tensor) and whole (W, T): the whole factors and this rank's kernel
+    calls."""
     import torch
 
     from rri_nmf_tpu_torch.ops.sweep import SweepConfig
@@ -312,8 +314,10 @@ def case_sparse_sweep(mesh, X, W, T, cfg, backend, sweeps=1, group=8):
                                             make_sharded_sparse_sweep,
                                             partition_coo, partition_mxu)
     cfg = SweepConfig(**cfg)
+    if torch_x:
+        X = torch.sparse_csr_tensor(X.indptr, X.indices, X.data, X.shape)
     if backend == 'mxu':
-        Xl = partition_mxu(X, mesh, torch.float64, 'cpu', group=group)
+        Xl = partition_mxu(X, mesh, torch.float64, 'cpu')
         sweep = make_sharded_mxu_sweep(cfg, mesh)
     else:
         Xl = partition_coo(X, mesh, torch.float64, 'cpu')

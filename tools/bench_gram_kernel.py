@@ -52,7 +52,6 @@ sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402
 from rri_nmf_tpu_torch.ops import _build  # noqa: E402
 from rri_nmf_tpu_torch.ops import sparse_kernels as sk  # noqa: E402
-from rri_nmf_tpu_torch.ops import sparse_plan as spl  # noqa: E402
 from rri_nmf_tpu_torch.ops import sweep_masked_gram as mg  # noqa: E402
 
 OUT_DIR = REPO / 'build' / 'bench_gram'
@@ -97,7 +96,7 @@ def build(names, sources):
 
 
 def launcher(lib, dtype):
-    """A variant's ``(plan direction, Ft, k, panel, ncols) -> out``."""
+    """A variant's ``(layout, Ft, k, panel, ncols) -> out``."""
     suffix = _build.SUFFIX[dtype]
     fn = getattr(lib, 'rri_gram_contract_' + suffix)
     fn.argtypes = _build.SIGNATURES['rri_gram_contract_' + suffix]
@@ -105,8 +104,7 @@ def launcher(lib, dtype):
     # rows of 64 bytes: whole tiles of every variant (up to 16 float32)
     ti = 64 // torch.empty(0, dtype=dtype).element_size()
 
-    def call(pl, Ft, k, panel, ncols):
-        lay = spl.column_layout(pl)
+    def call(lay, Ft, k, panel, ncols):
         kp = -(-k // ti) * ti
         rows = Ft
         if not (Ft.is_contiguous() and Ft.shape[1] == kp):
@@ -231,13 +229,13 @@ def kernels(args, dev):
             a, b = (x.to(dev) for x in sk.gram_pairs(kk, pan))
             KR = Ft[:, a] * Ft[:, b]
             rows = KR.shape[1]
-            want = sk.gather_contract(pl, KR, rows, ncols, 'mxu')
+            want = sk.gather_contract(pl, KR, rows, ncols)
             scale = float(want.abs().max())
             S = lib_masks[(side, False)]
             fns = {name: (lambda c=calls[name]: c(pl, Ft, kk, pan, ncols))
                    for name in names}
             fns['gather on the rows'] = lambda: sk.gather_contract(
-                pl, KR, rows, ncols, 'mxu')
+                pl, KR, rows, ncols)
             fns['torch.sparse.mm'] = lambda: torch.sparse.mm(S, KR)
             for name in names:
                 got, again = fns[name](), fns[name]()
@@ -251,7 +249,7 @@ def kernels(args, dev):
                       flush=True)
                 del got, again
             ms = in_turns(fns, dev, args.runs)
-            nnz = spl.column_layout(pl).gidx.shape[0]
+            nnz = pl.gidx.shape[0]
             for name, v in ms.items():
                 print(json.dumps({'case': label, 'dtype': str(dtype),
                                   'rows': rows, 'k': kk, 'nnz': nnz,

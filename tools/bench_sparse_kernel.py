@@ -35,8 +35,9 @@ card) relative to the output's largest entry and the L2 gather rate
 (nnz·k·itemsize bytes over the time); a build's line also says whether
 two launches gave the same bits and whether its output equals the first
 build's (``baseline`` where given) bit for bit. Per case it prints the
-host plan build and the layout's build seconds and megabytes, then one
-summary line. Each build's ``-Xptxas -v`` lines are printed first.
+plan's build seconds (its two layouts, from X's COO on the card) and
+the layouts' megabytes, then one summary line. Each build's
+``-Xptxas -v`` lines are printed first.
 """
 
 import argparse
@@ -194,12 +195,6 @@ def main():
         plan = spl.plan_sparse_matrix(X, dt, device=dev)
         torch.cuda.synchronize()
         plan_s = time.perf_counter() - t0
-        layout_s = {}
-        for dirn, direction in (('WtX', plan.t_phase), ('TXt', plan.w_phase)):
-            t0 = time.perf_counter()
-            spl.column_layout(direction)
-            torch.cuda.synchronize()
-            layout_s[dirn] = time.perf_counter() - t0
         X16 = X.to(dt)
         Xtc = X16.t().to_sparse_csr()
         Tt = T.T.contiguous()
@@ -208,7 +203,7 @@ def main():
                  lambda: torch.sparse.mm(Xtc, W)),
                 ('TXt', T.T, plan.w_phase, lambda: sk.contract_xtt(plan, T),
                  lambda: torch.sparse.mm(X16, Tt))):
-            lay = spl.column_layout(direction)
+            lay = direction
             rows = sk._rows(Ft, k)
             ncols = dd if dirn == 'WtX' else nn
             outs = {name: torch.empty(k, ncols, device=dev)
@@ -256,8 +251,8 @@ def main():
                       flush=True)
             del calls, outs, twin
         print(json.dumps({
-            'case': label, 'plan_build_s': plan_s, 'layout_s': layout_s,
-            'layout_MB': {dirn: spl.column_layout(d).nbytes / 1e6
+            'case': label, 'plan_build_s': plan_s,
+            'layout_MB': {dirn: d.nbytes / 1e6
                           for dirn, d in (('WtX', plan.t_phase),
                                           ('TXt', plan.w_phase))}}),
             flush=True)
