@@ -108,7 +108,13 @@ its users run, one line per phase:
     against the twins and, for Γ/Θ, the gather kernel on the
     materialized rows, each launch repeated and matched bit for bit,
     CUDA-event times beside ``torch.sparse.mm`` of the mask's CSR by the
-    same rows (and the gather kernel's on them), the plan seconds;
+    same rows (and the gather kernel's on them), the plan seconds; then
+    the Gram kernel's chunked columns on a skewed 60,000×60,000 mask
+    (three columns and three rows each observed 48,000 times, empty
+    ones, 2M uniform draws): Γ and Θ whole and in panels, float64 and
+    float32 (k=128 in the ML-25M fit's 4480- and 2944-row panels), the launches counted under ``'gram_split'``, against the
+    float64 twin (float32 at 2.5e-6 of a row's largest entry) and bit
+    for bit on repeat, and no column cut on the recorded uniform mask;
 18. ``nmf()`` on that recorded problem (scipy CSR X and mask, float32 on
     the card): ``update_order='phase'`` (the Gram-phase sweep: 3 gather
     launches (A, C, the objective's C) and 3 Gram launches (Γ, Θ, the
@@ -444,6 +450,23 @@ GRAM_SWEEPS = 5
 INTERLEAVED_MASKED_SWEEPS = 3
 # the gate's panel (rows p·k): p at the MovieLens shape
 GRAM_GATE_PANEL = 4
+# phase 17's skewed mask for the Gram kernel's chunked columns: (n, d,
+# uniform observations, heavy columns and as many heavy rows, the share
+# of the other side each heavy one observes), and the (dtype, k, panels)
+# contractions run on it (None: whole). k=128's panels are the fit's of
+# rs-ml25m.fit-gram: 80 and 48 tiles a column, teams of 80 and 48
+# threads across warps, 3 and 5 teams a block.
+GRAM_SPLIT_MASK = (60_000, 60_000, 2_000_000, 3, 0.8)
+GRAM_SPLIT_RUNS = ((torch.float64, 16, (None, (5, 5))),
+                   (torch.float32, 32, (None, (5, 12))),
+                   (torch.float32, 128, ((35, 35), (105, 23))))
+# float32 Gram kernel on that mask against the float64 twin of the same
+# inputs, relative to a row's largest entry: chunk sums of at most ~2k
+# positive products, then ~30 chunk sums, where the float32 twin adds a
+# 48k-term column one product at a time (index_add_; 1.1-1.3e-5 on an
+# H100); the kernel's 5.2-5.4e-7 there leaves room for rounding and none
+# for a lost or doubled chunk (~4% of a heavy column).
+TOL_GRAM_SPLIT_F32 = 2.5e-6
 # The Gram objective 0.5(Σ m x² − 2·cross + quad) against the
 # observed-entry sum 0.5 Σ m (x − (WT))², relative to Σ m x²: each of
 # the three terms is a float32 sum over up to 25M observations or k²n
@@ -2216,6 +2239,129 @@ def check_masked_gram(dev, sk, mg, cases):
     return plans, gram
 
 
+def gram_split_problem(n, d, q, heavy, share, seed=0):
+    """``(X, M)`` scipy CSR, M binary: ``q`` uniform (row, column)
+    draws, ``heavy`` columns (10, 11, ..) and as many rows observed in
+    ``share`` of the other side, rows and columns 3 and the last empty;
+    values ``rand + 0.5``, duplicates summed."""
+    import scipy.sparse as sp
+    rng = np.random.RandomState(seed)
+    rows, cols = [rng.randint(0, n, q)], [rng.randint(0, d, q)]
+    for h in range(heavy):
+        r = rng.choice(n, int(share * n), replace=False)
+        c = rng.choice(d, int(share * d), replace=False)
+        rows += [r, np.full(c.size, 10 + h)]
+        cols += [np.full(r.size, 10 + h), c]
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    keep = ~(np.isin(rows, (3, n - 1)) | np.isin(cols, (3, d - 1)))
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.rand(rows.size).astype(np.float32) + 0.5
+    X = sp.coo_matrix((vals, (rows, cols)), shape=(n, d)).tocsr()
+    M = X.copy()
+    M.data = np.ones_like(M.data)
+    return X, M
+
+
+def check_gram_split(dev, sk, mg, uniform):
+    """Phase 17, the Gram kernel's chunked columns: on the skewed
+    :data:`GRAM_SPLIT_MASK`, Γ and Θ whole and in panels
+    (:data:`GRAM_SPLIT_RUNS`) cut their heavy columns (each at least 20
+    chunk lengths) into chunks, counted under ``LAUNCHES['gram_split']``;
+    float64 against the twin at :data:`TOL_F64`, float32 against the
+    float64 twin of the same inputs at :data:`TOL_GRAM_SPLIT_F32` and
+    against the float32 twin at :data:`TOL_F32`, two launches bit for
+    bit; each line gives the work list and the kernel's ms. On the
+    uniform ``uniform`` plan (the recorded problem's, k=32 whole and
+    the k=128 panel) no launch cuts a column: ``'gram_split'`` stays."""
+    n, d, q, heavy, share = GRAM_SPLIT_MASK
+    X, M = gram_split_problem(n, d, q, heavy, share)
+    index = (dev.index or 0) if dev.type == 'cuda' else None
+    for dtype, k, panels in GRAM_SPLIT_RUNS:
+        plan = mg.plan_masked_gram(X, M, dtype, backend='mxu', device=dev)
+        rng = np.random.RandomState(3)
+        W = torch.as_tensor(rng.rand(n, k), dtype=dtype, device=dev)
+        Tt = torch.as_tensor(rng.rand(d, k), dtype=dtype, device=dev)
+        for side, lay, Ft, ncols in (('Gamma', plan.m_t, W, d),
+                                     ('Theta', plan.m_w, Tt, n)):
+            for panel in panels:
+                t0, p = panel or (0, 0)
+                longest = int(torch.diff(lay.colptr.long()).max())
+                line = {'case': side, 'dtype': str(dtype), 'k': k,
+                        'panel': panel, 'nnz': plan.nnz,
+                        'longest_column': longest}
+                if index is not None:
+                    L = sk.chunk_length(lay.gidx.shape[0], sk.resident_teams(
+                        dtype, k, t0, p, index))
+                    work = lay.gram_work(L)
+                    line.update(L=L, split_columns=work.n_split,
+                                chunks=work.n_chunks,
+                                longest_item=work.longest)
+                    if work.n_split < heavy or longest < 20 * L \
+                            or work.longest > L:
+                        raise AssertionError('Gram split phase: %r' % line)
+                before = sk.LAUNCHES['gram_split']
+
+                def call():
+                    return sk.gram_contract(lay, Ft, k, panel, ncols)
+                first, again = call(), call()
+                sync(dev)
+                if index is not None and \
+                        sk.LAUNCHES['gram_split'] != before + 2:
+                    raise AssertionError('%s %s: gram_split %d -> %d'
+                                         % (side, dtype, before,
+                                            sk.LAUNCHES['gram_split']))
+                if not torch.equal(first, again):
+                    raise AssertionError('%s %s %s: two launches differ'
+                                         % (side, dtype, panel))
+                want = sk.gram_contract_ref(lay, Ft.double(), k, panel,
+                                            ncols)
+                line['rel_err_f64_twin'] = row_err(first.double(), want)
+                del want
+                tol = TOL_F64
+                if dtype == torch.float32:
+                    tol = TOL_GRAM_SPLIT_F32
+                    line['rel_err_twin'] = row_err(first, sk.gram_contract_ref(
+                        lay, Ft, k, panel, ncols))
+                    if not line['rel_err_twin'] <= TOL_F32:
+                        raise AssertionError('%s float32: %r' % (side, line))
+                if not (line['rel_err_f64_twin'] <= tol
+                        and bool(torch.isfinite(first).all())):
+                    raise AssertionError('%s %s: error %r > %g'
+                                         % (side, dtype, line, tol))
+                if index is not None:
+                    line['ms'] = time_ms(call, dev, runs=5)
+                line['bitwise_repeat'] = True
+                log('kernel gram, chunked columns', **line)
+                del first, again
+        del plan, W, Tt
+    if index is None:
+        return
+    plan = uniform
+    n, d = plan.shape
+    before = sk.LAUNCHES['gram_split']
+    rng = np.random.RandomState(3)
+    for k, panel in ((MASKED_RECORD[3], None),
+                     (MASKED_PANEL_K, (0, mg.auto_panel(MASKED_PANEL_K, n, d,
+                                                        4)))):
+        W = torch.as_tensor(rng.rand(n, k), dtype=torch.float32, device=dev)
+        Tt = torch.as_tensor(rng.rand(d, k), dtype=torch.float32, device=dev)
+        for side, lay, Ft, ncols in (('Gamma', plan.m_t, W, d),
+                                     ('Theta', plan.m_w, Tt, n)):
+            sk.gram_contract(lay, Ft, k, panel, ncols)
+            t0, p = panel or (0, 0)
+            L = sk.chunk_length(lay.gidx.shape[0], sk.resident_teams(
+                torch.float32, k, t0, p, index))
+            log('kernel gram, uniform mask', case=side, k=k, panel=panel,
+                L=L, longest_column=int(torch.diff(
+                    lay.colptr.long()).max()),
+                split_columns=lay.gram_work(L).n_split)
+        del W, Tt
+    sync(dev)
+    if sk.LAUNCHES['gram_split'] != before:
+        raise AssertionError('the uniform mask cut a column: gram_split '
+                             '%d -> %d' % (before, sk.LAUNCHES['gram_split']))
+
+
 def sparse_launches(sk):
     """The sparse kernels' launch counts now: the gather kernel's
     (A and C of a Gram sweep) and the Gram kernel's (Γ, Θ)."""
@@ -3611,6 +3757,10 @@ def run(dev):
     gram_stats = gram_lines[record, 'Gamma (k(k+1)/2 rows)', k]
     del Rs, Ms
     sync(dev)
+    # the Gram kernel's chunked columns on a skewed mask; none on the
+    # recorded (uniform) one
+    check_gram_split(dev, sk, mg, plans[record][0])
+    sync(dev)
 
     # 18-19. the sparse-mask paths, counted from zero: the gather kernel
     # (A, C) and the Gram kernel (Γ, Θ)
@@ -3680,7 +3830,7 @@ def run(dev):
                         ratings, dt)
         sync(dev)
         counts16[dt] = dict(dk.LAUNCHES, **mk.LAUNCHES, **sk.LAUNCHES)
-        if counts16[dt].pop('gram'):
+        if counts16[dt].pop('gram') or counts16[dt].pop('gram_split'):
             raise AssertionError('a 16-bit fit ran the Gram kernel')
         if any(v == 0 for v in counts16[dt].values()):
             raise AssertionError('a 16-bit kernel never ran: %r'

@@ -17,7 +17,8 @@ is not 0. (``rri_gs_fits_*`` and ``rri_tm_proj_fits_*`` launch
 nothing: each answers, through
 :func:`device_fits`, whether its launcher accepts the shape on the device;
 ``rri_tm_proj_scratch_bytes`` says how much scratch B2's grid barrier
-takes.) :func:`check_operands` is the wrappers' common check of device,
+takes, and ``rri_gram_resident_*`` how many teams a Gram launch holds at
+once.) :func:`check_operands` is the wrappers' common check of device,
 dtype, shape and contiguity.
 """
 
@@ -74,9 +75,12 @@ for _name in [n for n in SIGNATURES if n.endswith('_f32')]:
     for _suffix in ('bf16', 'f16'):
         SIGNATURES[_name[:-3] + _suffix] = SIGNATURES[_name]
 # the Gram contraction in float32 and float64 only (Γ/Θ are built in the
-# accumulation dtype): Ft, colptr, gidx, vals, out; k, ldf, t0, p, ncols
+# accumulation dtype): Ft, gidx, vals, out, items, split_ptr, scratch,
+# arrivals; k, ldf, t0, p, ncols, nitems; and the teams a launch holds at
+# once: k, t0, p, device
 for _suffix in ('f32', 'f64'):
-    SIGNATURES['rri_gram_contract_' + _suffix] = [_P] * 5 + [_I] * 6 + [_P]
+    SIGNATURES['rri_gram_contract_' + _suffix] = [_P] * 8 + [_I] * 7 + [_P]
+    SIGNATURES['rri_gram_resident_' + _suffix] = [_I] * 4
 # the SpMV in float32 and float64 only: rowptr, cols, vals, blocks, t, out;
 # nblocks
 for _suffix in ('f32', 'f64'):

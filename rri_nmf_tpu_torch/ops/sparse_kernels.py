@@ -28,20 +28,32 @@ rows ``f_a ⊙ f_b`` of a factor (Γ, Θ). JAX builds those rows and runs
 B5 on them; here ``csrc/gram.cu`` ``gram_kernel`` forms them on chip
 from Fᵀ's rows: :func:`gram_contract` launches it (float32 and float64,
 counted under ``LAUNCHES['gram']``), and :func:`gram_contract_ref`, its
-twin, builds the rows and runs :func:`gather_contract_ref`.
+twin, builds the rows and runs :func:`gather_contract_ref`. A team of
+the kernel walks one item of the layout's work list
+(:meth:`~rri_nmf_tpu_torch.ops.sparse_plan.ColumnLayout.gram_work`):
+a column, or a chunk of at most :func:`chunk_length` nonzeros of a longer
+one, whose sums the launch adds chunk by chunk.
 """
+
+import functools
 
 import torch
 
-from rri_nmf_tpu_torch.ops._build import CTYPES, launch
+from rri_nmf_tpu_torch.ops._build import CTYPES, SUFFIX, launch, load
 from rri_nmf_tpu_torch.ops.quantized import work_dtype
 
 # Kernel launches per kernel since the last reset_launches(). A wrapper
 # adds one right after the kernel launched, and nowhere else.
-LAUNCHES = {'gather': 0, 'gram': 0}
+# 'gram_split': the Gram launches whose work list cut a column into chunks.
+LAUNCHES = {'gather': 0, 'gram': 0, 'gram_split': 0}
 
 # Largest gather temporary of a twin, in bytes.
 GATHER_BUDGET = 2 << 30
+
+# The Gram kernel's chunk length (:func:`chunk_length`): a balanced
+# share of a launch's nonzeros over this, and at least CHUNK_FLOOR.
+CHUNK_SHARE = 8
+CHUNK_FLOOR = 2048
 
 
 def reset_launches():
@@ -126,6 +138,81 @@ def gram_contract_ref(layout, Ft, k, panel, ncols):
     return out
 
 
+def chunk_length(nnz, teams):
+    """The Gram kernel's chunk length L for a launch over ``nnz``
+    nonzeros that holds ``teams`` teams at once: ``max(CHUNK_FLOOR,
+    ceil(nnz / (teams · CHUNK_SHARE)))``, a ``CHUNK_SHARE``-th of a
+    balanced share, and long enough that a chunk still hides its loads'
+    latency."""
+    return max(CHUNK_FLOOR,
+               -(-int(nnz) // (max(int(teams), 1) * CHUNK_SHARE)))
+
+
+def gram_rows(Ft, k):
+    """``Ft`` (m, >= k) as the Gram kernel reads Fᵀ: contiguous rows of
+    whole tiles (8 float32, 4 float64: 32 bytes), 16-byte aligned;
+    ``Ft`` itself when it is so, else a zero-padded copy."""
+    ti = 32 // Ft.element_size()
+    kp = -(-k // ti) * ti
+    if (Ft.is_contiguous() and Ft.shape[1] == kp
+            and Ft.data_ptr() % 16 == 0):
+        return Ft
+    rows = Ft.new_zeros(Ft.shape[0], kp)
+    rows[:, :k] = Ft[:, :k]
+    return rows
+
+
+@functools.lru_cache(maxsize=None)
+def resident_teams(dtype, k, t0, p, index):
+    """The teams a Gram launch at ``(k, t0, p)`` in ``dtype`` holds at
+    once on CUDA device ``index``, per tile group (``csrc/gram.cu``
+    ``rri_gram_resident``: the SMs, the build's occupancy, the teams a
+    block at the launch's tile count)."""
+    got = getattr(load(), 'rri_gram_resident_' + SUFFIX[dtype])(k, t0, p,
+                                                              index)
+    if got < 0:
+        raise RuntimeError('rri_gram_resident failed: CUDA error %d' % -got)
+    return got
+
+
+def gram_tiles(k, t0, p, ti):
+    """The ti×ti tiles a Gram launch computes per output column: the
+    triangle's a-block <= b-block tiles (``p == 0``) or the panel's
+    a-blocks against every b-block."""
+    nbj = -(-k // ti)
+    if p == 0:
+        return nbj * (nbj + 1) // 2
+    return (-(-(t0 + p) // ti) - t0 // ti) * nbj
+
+
+def gram_args(layout, work, Fr, k, t0, p, ncols):
+    """``(out, args, part)``: the Gram kernel's output (rows, ncols), the
+    C entry's arguments after ``Fr`` (Fᵀ's rows of whole tiles) for the
+    work list ``work`` (a :class:`~rri_nmf_tpu_torch.ops.sparse_plan.
+    GramWork`), and the chunk scratch (None where no column is cut),
+    which the caller holds until the kernel is enqueued: its pointer is
+    in ``args``."""
+    rows = p * k if p else k * (k + 1) // 2
+    out = torch.empty(rows, ncols, dtype=Fr.dtype, device=Fr.device)
+    part = None
+    scratch = arrivals = 0
+    if work.n_split:
+        if work.last_split >= ncols:
+            raise ValueError('column %d has nonzeros; %d output columns '
+                             'asked for' % (work.last_split, ncols))
+        ti = 32 // Fr.element_size()
+        ntiles = gram_tiles(k, t0, p, ti)
+        part = torch.empty(work.n_chunks * ntiles * ti * ti, dtype=Fr.dtype,
+                           device=Fr.device)
+        scratch = part.data_ptr()
+        arrivals = work.arrivals(work.n_split * ntiles).data_ptr()
+    return out, (Fr.data_ptr(), layout.gidx.data_ptr(),
+                 layout.vals.data_ptr(), out.data_ptr(),
+                 work.items.data_ptr(), work.split_ptr.data_ptr(), scratch,
+                 arrivals, k, Fr.shape[1], t0, p, ncols,
+                 work.n_items(ncols)), part
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -205,7 +292,9 @@ def gram_contract(layout, Ft, k, panel, ncols):
 
     float32 or float64 (Γ/Θ are built in the accumulation dtype). A CPU
     ``Ft`` runs :func:`gram_contract_ref`; a CUDA ``Ft`` launches
-    ``csrc/gram.cu`` and counts it under ``LAUNCHES['gram']``."""
+    ``csrc/gram.cu`` on the layout's work list at the :func:`chunk_length`
+    of this launch and counts it under ``LAUNCHES['gram']`` (and
+    ``'gram_split'`` where the list cut a column)."""
     if Ft.dtype not in (torch.float32, torch.float64):
         raise ValueError('the Gram contraction takes float32 or float64 '
                          'factors, got %s' % Ft.dtype)
@@ -234,19 +323,15 @@ def gram_contract(layout, Ft, k, panel, ncols):
     if Ft.device.type != 'cuda':
         raise ValueError('the kernels run on CUDA or (plain twin) CPU '
                          'tensors, got %s' % Ft.device)
-    # rows of whole tiles (8 float32, 4 float64: 32 bytes)
-    ti = 32 // Ft.element_size()
-    kp = -(-k // ti) * ti
-    Fr = Ft
-    if not (Ft.is_contiguous() and Ft.shape[1] == kp
-            and Ft.data_ptr() % 16 == 0):
-        Fr = Ft.new_zeros(Ft.shape[0], kp)
-        Fr[:, :k] = Ft[:, :k]
-    out = torch.empty(rows, ncols, dtype=Ft.dtype, device=Ft.device)
-    launch('rri_gram_contract', Fr, Fr.data_ptr(),
-           layout.colptr.data_ptr(), layout.gidx.data_ptr(),
-           layout.vals.data_ptr(), out.data_ptr(), k, kp, t0, p, ncols)
+    Fr = gram_rows(Ft, k)
+    teams = resident_teams(Ft.dtype, k, t0, p, Ft.get_device())
+    work = layout.gram_work(chunk_length(layout.gidx.shape[0], teams))
+    out, args, part = gram_args(layout, work, Fr, k, t0, p, ncols)
+    launch('rri_gram_contract', Fr, *args)
+    del part  # enqueued: the allocator may hand its block on
     LAUNCHES['gram'] += 1
+    if work.n_split:
+        LAUNCHES['gram_split'] += 1
     return out
 
 

@@ -19,6 +19,8 @@ on the COO's own device:
 - :func:`coo_layouts`: the two layouts of a row-major COO (the sparse X
   plan's, and the Gram-phase mask plan's,
   :mod:`rri_nmf_tpu_torch.ops.sweep_masked_gram`);
+- :func:`gram_work`: the Gram kernel's work list of a layout, long
+  columns cut into chunks (:meth:`ColumnLayout.gram_work` keeps it);
 - :func:`plan_sparse_matrix`: a scipy or torch sparse X as its
   :class:`SparsePlan`. The COO goes to the device once (a torch X's own
   indices stay where they are), its values are rounded there once to the
@@ -59,6 +61,7 @@ class ColumnLayout(object):
         self.gidx = gidx
         self.vals = vals
         self.n_rows = int(n_rows)
+        self._work = {}
 
     @property
     def n_cols(self):
@@ -67,6 +70,55 @@ class ColumnLayout(object):
     @property
     def nbytes(self):
         return sum(getattr(self, f).nbytes for f in self._fields)
+
+    def gram_work(self, length):
+        """The :class:`GramWork` of this layout at chunk length
+        ``length``, built on the layout's device at the first call and kept
+        (one per length)."""
+        work = self._work.get(length)
+        if work is None:
+            work = self._work[length] = gram_work(self.colptr, length)
+        return work
+
+
+class GramWork(object):
+    """The Gram kernel's work list of one layout (:func:`gram_work`).
+
+    items: (n_items, 4) int32, an item's (column, start, end, split):
+    nonzeros ``start:end`` of output column ``column``, and ``split`` the
+    index of its split column, or -1 for a whole column. The chunks of
+    the split columns come first (ascending column, chunks in order),
+    then every other column whole, ascending. split_ptr: (n_split + 1,)
+    int32, split column s's chunks are items ``split_ptr[s]:split_ptr[s
+    + 1]``. ``length``: the longest chunk allowed; ``n_split``,
+    ``n_chunks``: the split columns and their chunks; ``longest``: the
+    most nonzeros an item holds; ``last_split``: the largest split
+    column (-1 when none)."""
+
+    def __init__(self, items, split_ptr, length, n_split, n_chunks, longest,
+                 last_split):
+        self.items = items
+        self.split_ptr = split_ptr
+        self.length = int(length)
+        self.n_split = int(n_split)
+        self.n_chunks = int(n_chunks)
+        self.longest = int(longest)
+        self.last_split = int(last_split)
+        self._arrivals = None
+
+    def n_items(self, ncols):
+        """The items of the first ``ncols`` output columns: every chunk,
+        then the whole columns below ``ncols``."""
+        return self.n_chunks + ncols - self.n_split
+
+    def arrivals(self, count):
+        """At least ``count`` int32 zeros on the list's device: the
+        kernel's arrival counters, which each launch leaves at 0; kept, and
+        made anew only when a launch needs more."""
+        if self._arrivals is None or self._arrivals.shape[0] < count:
+            self._arrivals = torch.zeros(count, dtype=torch.int32,
+                                         device=self.items.device)
+        return self._arrivals
 
 
 class SparsePlan(object):
@@ -136,6 +188,40 @@ def coo_layouts(rows, cols, vals, shape, segments, nnz=None):
     w = column_layout(row_ptr, cols[:nz], vals[:nz], n, nz)
     t = column_layout(col_ptr, rows[order], vals[order], d, nz)
     return t, w
+
+
+def gram_work(colptr, length):
+    """The :class:`GramWork` of a layout's ``colptr`` at chunk length
+    ``length`` >= 1, on ``colptr``'s device: each column of more than
+    ``length`` nonzeros cut into ``ceil(nnz_c / length)`` chunks of
+    near-equal length (chunk j of q over nonzeros ``s:s + n`` holds
+    ``s + j·n // q : s + (j + 1)·n // q``), first; then the other
+    columns whole, in ascending id. With no column over ``length`` the
+    items are the columns in order."""
+    ptr = colptr.long()
+    nnz = torch.diff(ptr)
+    chunks = torch.where(nnz > length, -(-nnz // length),
+                         torch.zeros_like(nnz))
+    split = torch.nonzero(chunks).squeeze(1)
+    whole = torch.nonzero(chunks == 0).squeeze(1)
+    q = chunks[split]
+    ends = torch.cumsum(q, 0)
+    n_chunks = int(ends[-1]) if split.numel() else 0
+    sid = torch.arange(split.numel(), device=ptr.device).repeat_interleave(
+        q, output_size=n_chunks)
+    col = split[sid]
+    j = torch.arange(n_chunks, device=ptr.device) - (ends - q)[sid]
+    n, qc = nnz[col], q[sid]
+    items = torch.cat([
+        torch.stack([col, ptr[col] + j * n // qc,
+                     ptr[col] + (j + 1) * n // qc, sid], 1),
+        torch.stack([whole, ptr[whole], ptr[whole + 1],
+                     torch.full_like(whole, -1)], 1)]).int()
+    split_ptr = torch.cat([ends.new_zeros(1), ends]).int()
+    longest = int((items[:, 2] - items[:, 1]).max()) if items.numel() else 0
+    return GramWork(items.contiguous(), split_ptr, length, split.numel(),
+                    n_chunks, longest,
+                    int(split[-1]) if split.numel() else -1)
 
 
 # ---------------------------------------------------------------------------

@@ -376,7 +376,7 @@ def test_shared_memory_gate_and_launch_counter_reset():
                                atol=ATOL_TWIN)
     sk.LAUNCHES['gather'] += 2
     sk.reset_launches()
-    assert sk.LAUNCHES == {'gather': 0, 'gram': 0}
+    assert sk.LAUNCHES == {'gather': 0, 'gram': 0, 'gram_split': 0}
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,22 @@ difference from the gather kernel relative to its largest entry; a
 variant's line also says whether two launches gave the same bits. Each
 variant's ``-Xptxas -v`` lines are printed first.
 
+With ``--cell rs-ml25m`` it times the benchmark cell's own mask instead:
+the configuration ``portbench/configs/rs-ml25m.json`` drawn by its
+generator (``portbench/gen/rs_ratings_half.py``, on the card; nothing is
+downloaded), its Gram plan, and per direction (Γ over the movies, Θ over
+the users) and per panel of the fit's k=128 split, each build in turns:
+every ``--baseline`` source as it is, and the package's at each chunk
+share of ``--shares`` (L = max(``CHUNK_FLOOR``, ⌈nnz / (resident teams ·
+share)⌉), ``sparse_kernels.chunk_length``'s rule at another share; ``0``:
+L past every column, each column whole). It prints the longest column of each layout
+(from its ``colptr``), each panel's work list (L, split columns, chunks,
+longest item), the largest difference from the first build relative to
+its largest entry, and whether two launches gave the same bits.
+
+A source whose ``gram.cu`` has no ``rri_gram_resident`` entry (before the
+work list) is called with its own arguments.
+
 With ``--trees A,B`` it then runs ``chip_smoke.py``'s phase 18 (the
 Gram-phase fit at k=32, the O(nnz) fit and the k=128 panel sweep on the
 same problem, each tree's own code and build) in the trees A, B, B, A,
@@ -95,32 +111,85 @@ def build(names, sources):
     return libs
 
 
-def launcher(lib, dtype):
-    """A variant's ``(layout, Ft, k, panel, ncols) -> out``."""
+# the C entry before the work list: Ft, colptr, gidx, vals, out; k, ldf,
+# t0, p, ncols, device, stream
+OLD_SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def tile_side(variant, dtype):
+    """The tile side of a variant's build in ``dtype``."""
+    if dtype == torch.float64:
+        return 4
+    for flag in VARIANTS[variant]:
+        if flag.startswith('-DGC_TI_F32='):
+            return int(flag.split('=')[1])
+    return 8
+
+
+def launcher(lib, dtype, ti=None, share=sk.CHUNK_SHARE):
+    """A build's ``(layout, Ft, k, panel, ncols) -> out``; ``ti`` its
+    tile side in ``dtype`` (default the package's); a build with a work
+    list cuts at the chunk length of ``share`` (:func:`work_length`).
+    ``sparse_kernels.gram_args`` sizes the chunk scratch for the
+    package's tile side, so a build of another side runs only lists that
+    cut no column."""
     suffix = _build.SUFFIX[dtype]
     fn = getattr(lib, 'rri_gram_contract_' + suffix)
-    fn.argtypes = _build.SIGNATURES['rri_gram_contract_' + suffix]
+    resident = getattr(lib, 'rri_gram_resident_' + suffix, None)
+    if resident is None:
+        fn.argtypes = OLD_SIGNATURE
+    else:
+        fn.argtypes = _build.SIGNATURES['rri_gram_contract_' + suffix]
+        resident.argtypes = _build.SIGNATURES['rri_gram_resident_' + suffix]
+        resident.restype = ctypes.c_int
     fn.restype = ctypes.c_int
     # rows of 64 bytes: whole tiles of every variant (up to 16 float32)
-    ti = 64 // torch.empty(0, dtype=dtype).element_size()
+    w = 64 // torch.empty(0, dtype=dtype).element_size()
+    ti = ti or 32 // torch.empty(0, dtype=dtype).element_size()
 
     def call(lay, Ft, k, panel, ncols):
-        kp = -(-k // ti) * ti
+        kp = -(-k // w) * w
         rows = Ft
         if not (Ft.is_contiguous() and Ft.shape[1] == kp):
             rows = Ft.new_zeros(Ft.shape[0], kp)
             rows[:, :k] = Ft
         t0, p = (0, 0) if panel is None else panel
-        nrows = sk.gram_pairs(k, panel)[0].shape[0]
-        out = torch.empty(nrows, ncols, dtype=dtype, device=Ft.device)
         index = Ft.get_device()
-        err = fn(rows.data_ptr(), lay.colptr.data_ptr(), lay.gidx.data_ptr(),
-                 lay.vals.data_ptr(), out.data_ptr(), k, kp, t0, p, ncols,
-                 index, _build._raw_stream(index))
+        if resident is None:
+            nrows = sk.gram_pairs(k, panel)[0].shape[0]
+            out = torch.empty(nrows, ncols, dtype=dtype, device=Ft.device)
+            args = (rows.data_ptr(), lay.colptr.data_ptr(),
+                    lay.gidx.data_ptr(), lay.vals.data_ptr(),
+                    out.data_ptr(), k, kp, t0, p, ncols)
+        else:
+            work = lay.gram_work(work_length(resident, lay, k, t0, p, index,
+                                             share))
+            if work.n_split and ti != 32 // rows.element_size():
+                raise ValueError('a build of tile side %d on a list that '
+                                 'cuts a column' % ti)
+            out, args, part = sk.gram_args(lay, work, rows, k, t0, p, ncols)
+        err = fn(*args, index, _build._raw_stream(index))
+        if resident is not None:
+            del part  # enqueued
         if err:
             raise RuntimeError('launch failed: CUDA error %d' % err)
         return out
     return call
+
+
+def work_length(resident, lay, k, t0, p, index, share):
+    """The chunk length a build with a work list takes on ``lay``:
+    :func:`chunk_at` the build's resident teams; past every column for
+    ``share`` 0."""
+    if not share:
+        return lay.gidx.shape[0] + 1
+    return chunk_at(lay.gidx.shape[0], resident(k, t0, p, index), share)
+
+
+def chunk_at(nnz, teams, share):
+    """``sparse_kernels.chunk_length``'s rule at a ``share``-th of a
+    balanced share: max(CHUNK_FLOOR, ⌈nnz / (teams · share)⌉)."""
+    return max(sk.CHUNK_FLOOR, -(-int(nnz) // (max(int(teams), 1) * share)))
 
 
 def in_turns(fns, dev, runs):
@@ -180,6 +249,12 @@ def main():
                     help='then phase 18 of chip_smoke.py in the trees A, '
                     'B, B, A')
     ap.add_argument('--skip-kernels', action='store_true')
+    ap.add_argument('--cell', default=None, metavar='CONFIG',
+                    help='time the mask of portbench/configs/CONFIG.json '
+                    '(e.g. rs-ml25m) instead of the recorded problem')
+    ap.add_argument('--shares', default='8', help='with --cell: the '
+                    'chunk shares of the package\'s build, comma-separated '
+                    '(0: no work list)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit('bench_gram_kernel.py: no CUDA device')
@@ -188,7 +263,10 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip()
     print(json.dumps({'card': smi}), flush=True)
-    if not args.skip_kernels:
+    if args.cell:
+        cell_mask(args, dev)
+        torch.cuda.empty_cache()
+    elif not args.skip_kernels:
         kernels(args, dev)
         torch.cuda.empty_cache()
     if args.trees:
@@ -212,7 +290,9 @@ def kernels(args, dev):
                           time.perf_counter() - t0, 'nnz': plan.nnz}),
               flush=True)
         lib_masks = chip_smoke.library_masks(plan)
-        calls = {name: launcher(libs[name], dtype) for name in names}
+        calls = {name: launcher(libs[name], dtype,
+                                tile_side(name.split('/')[1], dtype))
+                 for name in names}
         rng = np.random.RandomState(3)
         kp = chip_smoke.MASKED_PANEL_K
         panel = mg.auto_panel(kp, n, d, 4)
@@ -237,17 +317,23 @@ def kernels(args, dev):
             fns['gather on the rows'] = lambda: sk.gather_contract(
                 pl, KR, rows, ncols)
             fns['torch.sparse.mm'] = lambda: torch.sparse.mm(S, KR)
+            first = None
             for name in names:
                 got, again = fns[name](), fns[name]()
                 torch.cuda.synchronize(dev)
                 err = float((got - want).abs().max()) / scale
+                if first is None:
+                    first = got
                 print(json.dumps({'case': label, 'dtype': str(dtype),
                                   'rows': rows, 'variant': name,
                                   'rel_err_vs_gather': err,
                                   'bitwise_repeat': bool(
-                                      torch.equal(got, again))}),
+                                      torch.equal(got, again)),
+                                  'bitwise_equal_to_' + names[0]: bool(
+                                      torch.equal(got, first))}),
                       flush=True)
                 del got, again
+            del first
             ms = in_turns(fns, dev, args.runs)
             nnz = pl.gidx.shape[0]
             for name, v in ms.items():
@@ -260,6 +346,90 @@ def kernels(args, dev):
                       flush=True)
             del KR, want
         del plan, lib_masks, W, T
+
+
+def cell_mask(args, dev):
+    """Γ and Θ of a benchmark configuration's mask, per panel of its
+    fit's split, each build in turns (``--cell``)."""
+    import scipy.sparse as sp
+    from portbench.core.spec import load_module
+    cfg = json.loads((REPO / 'portbench' / 'configs'
+                      / (args.cell + '.json')).read_text())
+    t0 = time.perf_counter()
+    pairs, stars = load_module('gen', cfg['generator']).make(cfg, 0, dev)
+    n, d, k = int(cfg['n']), int(cfg['d']), int(cfg['k'])
+    X = sp.csr_matrix((stars, (pairs[:, 0], pairs[:, 1])), shape=(n, d))
+    M = X.copy()
+    M.data[:] = 1.0
+    del pairs, stars
+    plan = mg.plan_masked_gram(X, M, torch.float32, backend='mxu',
+                               device=dev)
+    torch.cuda.synchronize(dev)
+    print(json.dumps({'cell mask': args.cell, 'n': n, 'd': d,
+                      'nnz': plan.nnz, 'seconds': time.perf_counter() - t0,
+                      'longest_column': {
+                          side: int(torch.diff((plan.m_t if side == 'Gamma'
+                                                else plan.m_w).colptr.long())
+                                    .max())
+                          for side in ('Gamma', 'Theta')}}), flush=True)
+    del X, M
+    sources = dict((Path(b).name, b) for b in args.baseline)
+    sources['package'] = _build.CSRC_DIR
+    libs = build(['default'], sources)
+    calls = {}
+    for name, lib in libs.items():
+        if name.startswith('package/'):
+            for share in (int(x) for x in args.shares.split(',')):
+                calls['package 1/%d' % share if share else 'package whole'] \
+                    = launcher(lib, torch.float32, share=share)
+        else:
+            calls[name] = launcher(lib, torch.float32)
+    names = list(calls)
+    rng = np.random.RandomState(3)
+    W = torch.as_tensor(rng.rand(n, k), dtype=torch.float32, device=dev)
+    Tt = torch.as_tensor(rng.rand(d, k), dtype=torch.float32, device=dev)
+    step = mg.auto_panel(k, n, d, 4) or k
+    nnz = plan.nnz
+    for label, lay, Ft, ncols in (('Gamma', plan.m_t, W, d),
+                                  ('Theta', plan.m_w, Tt, n)):
+        for t0 in range(0, k, step):
+            panel = (t0, min(step, k - t0))
+            rows = panel[1] * k
+            index = dev.index or 0
+            teams = sk.resident_teams(torch.float32, k, *panel, index)
+            for share in (int(x) for x in args.shares.split(',') if x != '0'):
+                work = lay.gram_work(chunk_at(nnz, teams, share))
+                print(json.dumps({'case': label, 'panel': panel,
+                                  'resident_teams': teams, 'share': share,
+                                  'L': work.length, 'split': work.n_split,
+                                  'chunks': work.n_chunks,
+                                  'longest_item': work.longest}),
+                      flush=True)
+            fns = {name: (lambda c=calls[name]: c(lay, Ft, k, panel, ncols))
+                   for name in names}
+            first = fns[names[0]]()
+            scale = float(first.abs().max())
+            for name in names:
+                got, again = fns[name](), fns[name]()
+                torch.cuda.synchronize(dev)
+                print(json.dumps({
+                    'case': label, 'panel': panel, 'which': name,
+                    'rel_err_vs_' + names[0]:
+                        float((got - first).abs().max()) / scale,
+                    'bitwise_equal_to_' + names[0]: bool(
+                        torch.equal(got, first)),
+                    'bitwise_repeat': bool(torch.equal(got, again))}),
+                    flush=True)
+                del got, again
+            del first
+            ms = in_turns(fns, dev, args.runs)
+            for name, v in ms.items():
+                med = float(np.median(v))
+                print(json.dumps({'case': label, 'panel': panel,
+                                  'rows': rows, 'nnz': nnz, 'which': name,
+                                  'ms': med, 'all_ms': v,
+                                  'bound_share_pct': 100 * 2 * nnz * rows
+                                  / 67e12 / (med / 1e3)}), flush=True)
 
 
 if __name__ == '__main__':
