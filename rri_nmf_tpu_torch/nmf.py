@@ -822,10 +822,11 @@ def nmf(X, k, w_row=None, W_mat=None, fix_W=False, fix_T=False,
         # this rank's block of nonzeros, in local indices
         X_dev = (partition_mxu(X, mesh, dtype, device) if backend == 'mxu'
                  else partition_coo(X, mesh, dtype, device))
+    elif sparse_mode and backend == 'mxu':
+        with span('rri.sparse.plan', device):
+            X_dev = plan_sparse_matrix(X, dtype, device=device)
     elif sparse_mode:
-        X_dev = (plan_sparse_matrix(X, dtype, device=device)
-                 if backend == 'mxu' else
-                 TorchSparseX(to_torch_sparse(X, dtype, device)))
+        X_dev = TorchSparseX(to_torch_sparse(X, dtype, device))
     elif not masked_sparse and not staged and not x_quant \
             and x_store is None:
         X = X.to(dtype).contiguous()

@@ -43,9 +43,11 @@ def trace(logdir):
       normalization;
     - ``rri.nmf`` — one :func:`rri_nmf_tpu_torch.nmf.nmf` call, whose
       stages follow one another: ``rri.nmf.input`` (the arguments, X
-      densified or planned and copied to the device), ``rri.nmf.init``
-      (the initialization), ``rri.nmf.plan`` (the sparse-mask plan, the
-      sweep and the objective set up), one ``rri.nmf.sweep`` a sweep run
+      densified or planned and copied to the device; inside it
+      ``rri.sparse.plan``, a sparse X's gather-kernel layouts built from
+      its COO on the device), ``rri.nmf.init`` (the initialization),
+      ``rri.nmf.plan`` (the sparse-mask plan, the sweep and the objective
+      set up), one ``rri.nmf.sweep`` a sweep run
       (kept, or rolled back by the early stop) with ``rri.nmf.score``
       around the objective inside it, an ``rri.nmf.score`` at the top of
       an iteration for the early-stop score, and ``rri.nmf.finish`` (the
